@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. card — requires ``torch.cuda.is_available()``; prints the card's name and
+   power limit as ``nvidia-smi`` reports them;
+2. build — compiles every kernel of ``src/repro_torch/kernels/**/csrc`` with
+   ``nvcc`` (one process per source) and prints the build time and the
+   compiler's register/spill report;
+3. kernels — each kernel against its plain PyTorch version on the card at
+   the shapes the serving path gives it, in bf16 and fp32 (flash attention:
+   fp32 1e-4, bf16 3e-2, residuals 1e-5; RMSNorm: fp32 1e-5, bf16 2e-2 —
+   the JAX kernel tests' tolerances); then each kernel's median device time,
+   the plain version's, and one PyTorch library call's as a yardstick
+   (``library_ms``; the port never calls it), beside the least time the card
+   could take (``bound_ms``, from this run's inputs);
+4. serve — full-width llama3.2-1b (random weights from a seed) through
+   ``repro_torch.serving.build``: 8 requests of 512 prompt tokens, 32 new
+   tokens each, 8 slots, page 16, prefill chunk 256; launch counters are
+   zeroed just before and read just after, and both kernels must have run;
+   then 8 decode ticks (8 slots) under ``torch.profiler``: device time by
+   kernel group and the device's busy share of the wall-clock window;
+5. parity — a reduced llama3.2-1b served in fp32 with ``impl="kernel"`` and
+   ``impl="ref"`` gives identical greedy tokens; at full width the first
+   prefill chunk's bf16 logits of the two paths differ by at most 3e-2 of
+   the logit scale, and the kernel path is no further than twice the plain
+   bf16 path's own error from the plain path in fp32;
+6. a ``{"kernels": [...]}`` line, then the device line last.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+RESIDUAL_TOL = 1e-5
+RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+INT32_MAX = 2**31 - 1
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------- timing
+
+def device_ms(fn, torch, inner: int = 10, reps: int = 15) -> float:
+    """Median device time of one call of ``fn``.  The launches are queued
+    behind a device-side sleep longer than their enqueue time, so the CUDA
+    events bracket back-to-back device work, not host overhead."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(2.0 * host_s, 2e-4) * 2.0e9)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def bound(bytes_moved: float, flops: float, dtype_name: str) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------- phase 3
+
+def flash_case(torch, gen, *, B, Sq, Sk, H, hd, dtype, q_off=None, kv_len=None,
+               causal=True):
+    """Inputs of one flash-attention call, as the model's dispatch builds them."""
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, H, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, H, hd), generator=gen, device="cuda").to(dtype)
+    q_pos = k_pos = None
+    if q_off is not None:
+        q_pos = (q_off.reshape(-1, 1) + torch.arange(Sq, device="cuda")).to(torch.int32)
+        q_pos = q_pos.expand(B, Sq).contiguous()
+        k_pos = torch.arange(Sk, dtype=torch.int32, device="cuda").expand(B, Sk)
+        k_pos = torch.where(torch.arange(Sk, device="cuda")[None] < kv_len[:, None], k_pos,
+                            torch.full((), INT32_MAX, dtype=torch.int32, device="cuda"))
+        k_pos = k_pos.contiguous()
+    return dict(q=q, k=k, v=v, causal=causal, q_pos=q_pos, k_pos=k_pos)
+
+
+def flash_mask(torch, c):
+    """The boolean (B, 1, Sq, Sk) mask of a case (True = attend)."""
+    B, Sq = c["q"].shape[:2]
+    Sk = c["k"].shape[1]
+    if not c["causal"]:
+        return torch.ones((B, 1, Sq, Sk), dtype=torch.bool, device="cuda")
+    if c["q_pos"] is None:
+        qp = torch.arange(Sq, device="cuda").expand(B, Sq)
+        kp = torch.arange(Sk, device="cuda").expand(B, Sk)
+    else:
+        qp, kp = c["q_pos"].long(), c["k_pos"].long()
+    return (kp[:, None, :] <= qp[:, :, None])[:, None]
+
+
+def flash_bound(torch, c) -> tuple[float, str]:
+    """Bytes: q and out once, positions once, and the K/V rows some row of
+    the batch attends to; operations: 4·hd per unmasked (row, key) pair and
+    head — what this run's data needs."""
+    q = c["q"]
+    B, Sq, H, hd = q.shape
+    e = q.element_size()
+    mask = flash_mask(torch, c)[:, 0]                      # (B, Sq, Sk)
+    keys_needed = int(mask.any(dim=1).sum())
+    pairs = int(mask.sum())
+    nbytes = 2 * B * Sq * H * hd * e + 2 * keys_needed * H * hd * e
+    if c["q_pos"] is not None:
+        nbytes += 4 * (c["q_pos"].numel() + c["k_pos"].numel())
+    flops = 4.0 * hd * H * pairs
+    return bound(nbytes, flops, str(q.dtype).replace("torch.", ""))
+
+
+def check_flash(torch, flash_ops, flash_ref, gen):
+    """Every flash-attention case against the plain version; returns the
+    JSON rows of the main-path shapes (bf16)."""
+    rows = []
+    cases = []
+    kv = torch.tensor([768], device="cuda")
+    lens = torch.randint(1, 1026, (8,), generator=gen, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cases.append((f"prefill chunk B1 Sq256 Sk1280 H32 hd64 {name}", True, flash_case(
+            torch, gen, B=1, Sq=256, Sk=1280, H=32, hd=64, dtype=dtype,
+            q_off=torch.tensor([512], device="cuda"), kv_len=kv)))
+        cases.append((f"decode B8 Sq1 Sk1025 H32 hd64 {name}", True, flash_case(
+            torch, gen, B=8, Sq=1, Sk=1025, H=32, hd=64, dtype=dtype,
+            q_off=lens - 1, kv_len=lens)))
+        cases.append((f"causal B1 S256 H32 hd64 {name}", False, flash_case(
+            torch, gen, B=1, Sq=256, Sk=256, H=32, hd=64, dtype=dtype)))
+        cases.append((f"non-causal B2 Sq200 Sk333 H4 hd128 {name}", False, flash_case(
+            torch, gen, B=2, Sq=200, Sk=333, H=4, hd=128, dtype=dtype, causal=False)))
+    for label, main_path, c in cases:
+        name = str(c["q"].dtype).replace("torch.", "")
+        kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
+        out, m, l = flash_ops.flash_attention_fwd(c["q"], c["k"], c["v"], **kw,
+                                                  return_residuals=True)
+        ref, rm, rl = flash_ref.flash_attention_fwd(c["q"], c["k"], c["v"], **kw,
+                                                    return_residuals=True)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = FLASH_TOL[name]
+        ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
+        res_ok = bool(torch.allclose(m, rm, atol=RESIDUAL_TOL, rtol=RESIDUAL_TOL)
+                      and torch.allclose(l, rl, atol=RESIDUAL_TOL, rtol=RESIDUAL_TOL))
+        log(f"K1 flash_attention_fwd [{label}] max_abs_err {err:.3e} (tol {tol}) "
+            f"residuals {'ok' if res_ok else 'MISMATCH'}")
+        require(ok, f"flash attention disagrees with its plain version: {label}")
+        require(res_ok, f"flash attention residuals disagree: {label}")
+        if not (main_path and name == "bfloat16"):
+            continue
+        q, k, v = c["q"], c["k"], c["v"]
+        ms = device_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, **kw), torch)
+        plain = device_ms(lambda: flash_ref.flash_attention_fwd(q, k, v, **kw), torch)
+        mask = flash_mask(torch, c)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), torch)
+        b_ms, b_by = flash_bound(torch, c)
+        log(f"K1 [{label}] kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"sdpa {lib:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+        rows.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def check_rmsnorm(torch, rms_ops, rms_ref, gen):
+    rows = []
+    shapes = [((8, 2048), True), ((256, 2048), True), ((8192, 64), False), ((7, 333), False)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for shape, main_path in shapes:
+            x = (3.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+            scale = torch.randn(shape[-1:], generator=gen, device="cuda").to(dtype)
+            out = rms_ops.rmsnorm(x, scale, 1e-5)
+            ref = rms_ref.rmsnorm_reference(x, scale, 1e-5)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = RMSNORM_TOL[name]
+            label = f"{shape[0]}x{shape[1]} {name}"
+            log(f"K2 rmsnorm [{label}] max_abs_err {err:.3e} (tol {tol})")
+            require(bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)),
+                    f"rmsnorm disagrees with its plain version: {label}")
+            if not (main_path and name == "bfloat16"):
+                continue
+            ms = device_ms(lambda: rms_ops.rmsnorm(x, scale, 1e-5), torch)
+            plain = device_ms(lambda: rms_ref.rmsnorm_reference(x, scale, 1e-5), torch)
+            lib = device_ms(lambda: torch.nn.functional.rms_norm(
+                x, shape[-1:], weight=scale, eps=1e-5), torch)
+            e = x.element_size()
+            b_ms, b_by = bound(2 * x.numel() * e + scale.numel() * e, 4.0 * x.numel(), name)
+            log(f"K2 [{label}] kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                f"F.rms_norm {lib:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+            rows.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+# ---------------------------------------------------------------- phases 4-5
+
+def serve_full_width(torch, np, serving, flash_ops, rms_ops):
+    config = serving.ServeConfig(
+        arch="llama3.2-1b", reduced=False, device="cuda",
+        cache=serving.CacheConfig(max_context=1024, page_size=16),
+        scheduler=serving.SchedulerConfig(num_slots=8, prefill_chunk=256))
+    finite = []
+
+    def greedy(logits, request, rng):
+        finite.append(bool(np.isfinite(logits).all()))
+        return int(np.argmax(logits))
+
+    t0 = time.perf_counter()
+    session = serving.build(config, sample_fn=greedy)
+    torch.cuda.synchronize()
+    log(f"serve: built full-width {config.model_config().name} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    vocab = config.model_config().vocab_size
+    rng = np.random.default_rng(0)
+    # warm-up request (cuBLAS handles, allocator); not part of the measured run
+    session.submit(serving.Request(prompt=rng.integers(0, vocab, 300, dtype=np.int32),
+                                   max_new=3))
+    session.run_until_drained()
+    prompts = rng.integers(0, vocab, (8, 512), dtype=np.int32)
+
+    flash_ops.flash_attention_fwd.launches = 0
+    rms_ops.rmsnorm.launches = 0
+    finite.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [session.submit(serving.Request(prompt=p, max_new=32)).request for p in prompts]
+    session.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": flash_ops.flash_attention_fwd.launches,
+                "rmsnorm": rms_ops.rmsnorm.launches}
+
+    require(all(len(r.tokens) == 32 for r in reqs), "a request did not return max_new tokens")
+    require(len(finite) == 8 * 32 and all(finite), "non-finite logits in the serve run")
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the path never launched in the serve run: {launches}")
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttft = statistics.median(r.ttft_s for r in reqs)
+    tpot = statistics.median(r.tpot_s for r in reqs)
+    log(f"serve: {tokens} tokens in {wall:.3f} s ({tokens / wall:.1f} tok/s)  "
+        f"ttft p50 {ttft * 1e3:.1f} ms  tpot p50 {tpot * 1e3:.2f} ms  "
+        f"launches {launches}  peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return session, prompts, launches
+
+
+def _kernel_group(name: str) -> str:
+    if "flash_fwd_kernel" in name:
+        return "flash_attention"
+    if "rmsnorm_kernel" in name:
+        return "rmsnorm"
+    low = name.lower()
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "matmul"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def profile_decode(torch, np, serving, session, ticks: int = 8):
+    """Where a full-width decode tick's time goes: 8 slots in the decode
+    phase, ``ticks`` ticks under torch.profiler; device time by kernel group
+    and the device's busy share of the host-clock window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab = session.config.model_config().vocab_size
+    rng = np.random.default_rng(1)
+    reqs = [session.submit(serving.Request(
+        prompt=rng.integers(0, vocab, 512, dtype=np.int32), max_new=2 * 8 + ticks + 8)).request
+        for _ in range(8)]
+    while any(r.state != "decoding" for r in reqs):
+        session.tick()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            session.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    session.run_until_drained()
+    groups: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    by_name: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        g = _kernel_group(ev.name)
+        ms = ev.time_range.elapsed_us() / 1e3
+        groups[g] = groups.get(g, 0.0) + ms
+        counts[g] = counts.get(g, 0) + 1
+        by_name[ev.name[:70]] = by_name.get(ev.name[:70], 0.0) + ms
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("profile: device time not measured (the profiler saw no kernels)")
+        return
+    per = {g: round(t / ticks, 4) for g, t in sorted(groups.items(), key=lambda x: -x[1])}
+    log(f"profile: {ticks} decode ticks x 8 slots: wall {wall * 1e3 / ticks:.3f} ms/tick, "
+        f"device busy {busy / ticks:.3f} ms/tick ({100 * busy / (wall * 1e3):.1f}% of wall); "
+        f"device ms/tick by group {per}; launches/tick "
+        f"{ {g: n // ticks for g, n in counts.items()} }")
+    for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
+        log(f"profile:   {ms / ticks:8.4f} ms/tick  {name}")
+
+
+def parity(torch, np, serving, build_model, session, prompts):
+    from repro_torch.models.common import cast_tree
+
+    # (a) reduced llama3.2-1b, fp32: kernel path and plain path, same tokens
+    config = serving.ServeConfig(
+        arch="llama3.2-1b", reduced=True, device="cuda",
+        cache=serving.CacheConfig(max_context=64, page_size=16),
+        scheduler=serving.SchedulerConfig(num_slots=2, prefill_chunk=16))
+    cfg = config.model_config()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = build_model(cfg, device="cuda").init(gen, torch.float32)
+    rng = np.random.default_rng(3)
+    reduced_prompts = rng.integers(0, cfg.vocab_size, (4, 40), dtype=np.int32)
+    tokens = {}
+    for impl in ("kernel", "ref"):
+        s = serving.build(config, model=build_model(cfg, impl=impl, device="cuda"),
+                          params=params, dtype=torch.float32)
+        reqs = [s.submit(serving.Request(prompt=p, max_new=12)).request
+                for p in reduced_prompts]
+        s.run_until_drained()
+        tokens[impl] = [list(r.tokens) for r in reqs]
+    require(tokens["kernel"] == tokens["ref"],
+            f"fp32 greedy tokens differ: kernel {tokens['kernel']} ref {tokens['ref']}")
+    log(f"parity: reduced fp32 greedy tokens identical over 4 requests x 12 "
+        f"({tokens['kernel'][0][:6]}...)")
+
+    # (b) full width: the first prefill chunk's logits (the scheduler's first
+    # forward_decode call), kernel path vs plain path in bf16, both held
+    # against the plain path in fp32 on the same (bf16-valued) weights
+    model_k = session.model
+    model_r = build_model(model_k.cfg, impl="ref", device="cuda")
+    chunk = torch.from_numpy(prompts[:1, :256].astype(np.int64)).cuda()
+    kv_len = torch.tensor([256], device="cuda")
+    params32 = cast_tree(session.params, torch.float32)
+    out = {}
+    for name, model, params, dtype in (
+            ("kernel", model_k, session.params, torch.bfloat16),
+            ("ref", model_r, session.params, torch.bfloat16),
+            ("ref32", model_r, params32, torch.float32)):
+        cache = model.init_cache(1, 1024 + 256, dtype)
+        logits, _ = model.forward_decode(params, chunk, cache, 0, kv_len=kv_len, dtype=dtype)
+        out[name] = logits
+    torch.cuda.synchronize()
+    err = float((out["kernel"] - out["ref"]).abs().max())
+    scale = float(out["ref32"].abs().max())
+    err_k = float((out["kernel"] - out["ref32"]).abs().max())
+    err_r = float((out["ref"] - out["ref32"]).abs().max())
+    top1 = float((out["kernel"].argmax(-1) == out["ref"].argmax(-1)).float().mean())
+    log(f"parity: full-width first-chunk logits (256 x {out['ref'].shape[-1]}): "
+        f"kernel-vs-plain bf16 max_abs_err {err:.3e} (max |logit| {scale:.3f}); vs fp32 "
+        f"plain: kernel {err_k:.3e}, plain bf16 {err_r:.3e}; top-1 agreement {top1:.4f}")
+    require(err <= 3e-2 * scale,
+            "full-width bf16 logits differ by more than 3e-2 of the logit scale")
+    require(err_k <= 2.0 * err_r,
+            "the kernel path is further from fp32 than the plain bf16 path's own error x2")
+
+
+# ---------------------------------------------------------------- main
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — needs one CUDA GPU",
+              file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from a checkout",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
+    report = (_build.BUILD_DIR / "build.log")
+    if report.is_file():
+        for line in report.read_text().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                log("  " + line.strip())
+
+    # 3. kernels against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flash_rows = check_flash(torch, flash_ops, flash_ref, gen)
+    rms_rows = check_rmsnorm(torch, rms_ops, rms_ref, gen)
+
+    # 4. the main path at full width
+    session, prompts, launches = serve_full_width(torch, np, serving, flash_ops, rms_ops)
+    profile_decode(torch, np, serving, session)
+
+    # 5. kernel path against plain path
+    parity(torch, np, serving, build_model, session, prompts)
+
+    # 6. results
+    kernels = []
+    for rows, name, source, replaces in (
+            (flash_rows, "flash_attention_fwd",
+             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:110"),
+            (rms_rows, "rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm/kernel.py:24")):
+        for r in rows:
+            kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
+                            "source": source, "replaces": replaces,
+                            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                            "ms": r["ms"], "plain_ms": r["plain_ms"],
+                            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                            "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,53 @@
+"""Plain PyTorch version of the flash-attention forward kernel.
+
+Same signature and semantics as ``repro/kernels/flash_attention/kernel.py::
+flash_attention_fwd``: q/k/v (B, S, H, hd) with equal (already GQA-expanded)
+head counts, upcast to fp32 before both products; the causal mask comes from
+the row/column index or, when ``q_pos`` is given, from explicit positions
+(``k_pos <= q_pos``); masked scores take the finite ``NEG_INF``, so a fully
+masked row yields the mean of v; ``return_residuals`` adds the softmax stats
+m (row max) and l (sum of exp(s - m)), both (B, H, Sq) fp32.  Scores are
+materialised in full: this is the CPU path of ``ops.flash_attention_fwd``
+and the oracle the CUDA kernel is held against on the card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+
+
+def _positions(pos, B: int, S: int, device) -> torch.Tensor:
+    """(S,) or (B, S) int positions -> (B, S) int64."""
+    pos = torch.as_tensor(pos, device=device).long()
+    return pos.expand(B, S) if pos.dim() == 1 else pos
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
+                        return_residuals: bool = False):
+    """q (B, Sq, H, hd), k/v (B, Sk, H, hd) -> out (B, Sq, H, hd) in q's
+    dtype, or (out, m, l) with ``return_residuals``."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.einsum("bqhd,bshd->bhqs", qf, kf) * (hd ** -0.5)
+    if causal:
+        if q_pos is not None:
+            if k_pos is None:
+                raise ValueError("q_pos requires k_pos")
+            qp = _positions(q_pos, B, Sq, q.device)
+            kp = _positions(k_pos, B, Sk, q.device)
+        else:
+            qp = torch.arange(Sq, device=q.device).expand(B, Sq)
+            kp = torch.arange(Sk, device=q.device).expand(B, Sk)
+        mask = kp[:, None, None, :] <= qp[:, None, :, None]          # (B,1,Sq,Sk)
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqs,bshd->bqhd", p, vf)
+    out = (o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+    if return_residuals:
+        return out, m, l
+    return out

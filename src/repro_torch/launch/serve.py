@@ -1,0 +1,97 @@
+"""Serving driver: continuous batching over the paged KV cache, on a device.
+
+The run path of ``repro.launch.serve`` for the port: builds a frozen,
+statically validated :class:`repro_torch.serving.ServeConfig`, stands the
+engine up with ``repro_torch.serving.build``, submits a batch of random
+prompts (numpy seed 1) and drains the scheduler, then prints throughput and
+the TTFT/TPOT percentiles.  As in the JAX CLI the model is the arch's
+``.reduced()`` variant (``chip_smoke.py`` serves the published widths).
+``--device`` defaults to ``cuda`` (the CUDA kernels); ``--device cpu`` runs
+the plain versions.
+
+    python -m repro_torch.launch.serve --arch llama3.2-1b --batch 8 \\
+        --prompt-len 512 --max-new 32 --prefill-chunk 256
+
+The ``search`` / ``profile`` subcommands and ``--run-dir`` telemetry wait
+for the planner and ``obs`` slices of the port.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ARCH_IDS
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-3b")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="requests to submit")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--num-slots", type=int, default=0,
+                    help="concurrent decode slots (0: same as --batch)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--max-context", type=int, default=0,
+                    help="per-request cache ceiling (0: prompt+new, padded "
+                         "to a whole page)")
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda: the CUDA kernels; cpu: the "
+                         "plain versions)")
+    args = ap.parse_args(argv)
+
+    from repro_torch import serving
+
+    need = args.prompt_len + args.max_new
+    max_context = args.max_context or -(-need // args.page_size) * args.page_size
+    config = serving.ServeConfig(
+        arch=args.arch, reduced=True, device=args.device,
+        cache=serving.CacheConfig(max_context=max_context,
+                                  page_size=args.page_size),
+        scheduler=serving.SchedulerConfig(
+            num_slots=args.num_slots or args.batch,
+            prefill_chunk=args.prefill_chunk,
+            temperature=args.temperature))
+    engine = serving.build(config)
+    vocab = config.model_config().vocab_size
+    sync = (torch.cuda.synchronize if engine.model.device.type == "cuda"
+            else (lambda: None))
+
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, vocab, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+    sync()
+    t0 = time.perf_counter()
+    streams = [engine.submit(serving.Request(prompt=prompts[b],
+                                             max_new=args.max_new))
+               for b in range(args.batch)]
+    engine.run_until_drained()
+    sync()
+    wall = time.perf_counter() - t0
+
+    reqs = [s.request for s in streams]
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttft = sorted(r.ttft_s for r in reqs)
+    tpot = sorted(r.tpot_s for r in reqs)
+    print(f"arch={config.model_config().name} requests={args.batch} "
+          f"slots={config.scheduler.num_slots} page={args.page_size} "
+          f"max_context={max_context} device={engine.model.device}")
+    print(f"generated {tokens} tokens in {wall * 1e3:.1f} ms "
+          f"({tokens / wall:,.0f} tok/s)")
+    print(f"ttft: p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms  "
+          f"max {ttft[-1] * 1e3:.1f} ms")
+    print(f"tpot: p50 {tpot[len(tpot) // 2] * 1e3:.2f} ms  "
+          f"max {tpot[-1] * 1e3:.2f} ms")
+    print(f"stats: {engine.stats()}")
+    print(f"sample tokens: {reqs[0].tokens[:10]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

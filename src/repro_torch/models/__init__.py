@@ -1,0 +1,15 @@
+"""Model zoo: family dispatch (dense family ported so far)."""
+from __future__ import annotations
+
+from repro_torch.configs.registry import ModelConfig
+
+
+def build_model(cfg: ModelConfig, impl: str = "kernel", device="cuda"):
+    """``impl="kernel"`` (default): the CUDA kernels on CUDA tensors;
+    ``impl="ref"``: plain PyTorch everywhere, for comparisons."""
+    if cfg.family in ("dense",):
+        from repro_torch.models.transformer import DenseTransformerLM
+
+        return DenseTransformerLM(cfg, impl, device)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported to repro_torch yet (dense only)")

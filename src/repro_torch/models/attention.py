@@ -1,0 +1,272 @@
+"""Multi-head attention with GQA, qk-norm, optional bias and a KV cache.
+
+K/V are stored compact (``num_kv_heads``) and expanded to the query-head
+count before the attention math.  The port runs on one device, so query
+heads are never padded for tensor parallelism.
+
+``attention_math`` dispatches:
+  * ``impl="kernel"`` on CUDA tensors -> the flash-attention forward kernel
+    (``kernels/flash_attention``) for every prefill pass, prefill chunk and
+    decode step.  A decode offset and per-slot valid lengths become explicit
+    positions: ``q_pos = q_offset + arange(Sq)`` per slot, ``k_pos =
+    arange(Sk)`` with every key at or beyond ``kv_len[b]`` moved to
+    ``INT32_MAX``, so the kernel's ``k_pos <= q_pos`` mask is exactly
+    ``dense_attention``'s ``(k <= q_offset + i) & (k < kv_len)``.
+  * otherwise (CPU tensors, or ``impl="ref"``) -> ``dense_attention`` up to
+    ``DENSE_MAX_SEQ`` and ``chunked_attention`` beyond, as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.common import ParamDef
+from repro_torch.models.norms import head_rmsnorm
+from repro_torch.models.rotary import apply_rope, rope_angles
+
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+INT32_MAX = int(np.iinfo(np.int32).max)
+DENSE_MAX_SEQ = 2048          # above this, the plain path goes chunked
+CHUNK_Q = 1024
+CHUNK_KV = 1024
+
+
+def attn_defs(cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    # explicit stds: q/k/v contract over d_model and wo over h·hd, which the
+    # fan-in heuristic (shape[-2]) gets wrong for these 3-D projections
+    defs = {
+        "wq": ParamDef((d, h, hd), ("embed", "q_heads", "head_dim"), scale=d ** -0.5),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=d ** -0.5),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=d ** -0.5),
+        "wo": ParamDef((h, hd, d), ("q_heads", "head_dim", "embed"), scale=(h * hd) ** -0.5),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((h, hd), ("q_heads", "head_dim"), init="zeros")
+        defs["bk"] = ParamDef((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+        defs["bv"] = ParamDef((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
+        defs["k_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
+    return defs
+
+
+# --------------------------------------------------------------------------
+# head expansion
+# --------------------------------------------------------------------------
+
+def _kv_expand_index(num_q: int, num_kv: int, padded: int) -> np.ndarray:
+    """Map expanded/padded q-head index -> source kv head (pads map to 0)."""
+    g = num_q // num_kv
+    idx = np.arange(padded) // g
+    idx[num_q:] = 0
+    return np.minimum(idx, num_kv - 1)
+
+
+def expand_and_pad(q, k, v):
+    """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) -> k/v expanded to H heads.  With
+    ``H % KV == 0`` (every config) the gather of ``_kv_expand_index`` is a
+    ``repeat_interleave`` — no index tensor crosses to the device."""
+    H, KV = q.shape[2], k.shape[2]
+    if H == KV:
+        return q, k, v
+    if H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} kv heads")
+    g = H // KV
+    return q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+
+
+# --------------------------------------------------------------------------
+# attention math (heads already expanded: q/k/v all (B,S,H,hd))
+# --------------------------------------------------------------------------
+
+def _q_positions(q_offset, Sq: int, device) -> torch.Tensor:
+    """q_offset (int, 0-d or (B,) tensor) + arange(Sq) -> (Sq,) or (B, Sq)."""
+    ar = torch.arange(Sq, device=device)
+    if isinstance(q_offset, torch.Tensor):
+        return q_offset.to(device).long().reshape(-1, 1) + ar
+    return ar + int(q_offset)
+
+
+def dense_attention(q, k, v, *, causal, q_offset=0, kv_len=None):
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    scale = hd ** -0.5
+    logits = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
+    mask = torch.ones((1, Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = _q_positions(q_offset, Sq, q.device)
+        mask = torch.arange(Sk, device=q.device) <= qpos.reshape(-1, Sq, 1)
+    mask = mask.expand(B, Sq, Sk)[:, None]
+    if kv_len is not None:
+        valid = torch.arange(Sk, device=q.device)[None, :] < kv_len.to(q.device)[:, None]
+        mask = mask & valid[:, None, None, :]
+    logits = torch.where(mask, logits, torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+
+def chunked_attention(q, k, v, *, causal, q_offset=0, kv_len=None,
+                      chunk_q: int = CHUNK_Q, chunk_kv: int = CHUNK_KV):
+    """Flash-style online softmax over (q, kv) blocks; O(chunk_q·chunk_kv)
+    live scores.  The plain path for sequences beyond ``DENSE_MAX_SEQ``."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    cq, ck = min(chunk_q, Sq), min(chunk_kv, Sk)
+    while Sq % cq:
+        cq //= 2
+    while Sk % ck:
+        ck //= 2
+    scale = hd ** -0.5
+    qpos_all = _q_positions(q_offset, Sq, q.device).reshape(-1, Sq)   # (1|B, Sq)
+    neg = torch.full((), NEG_INF, device=q.device)
+    outs = []
+    for i in range(Sq // cq):
+        qi = q[:, i * cq:(i + 1) * cq]
+        qpos = qpos_all[:, i * cq:(i + 1) * cq]
+        o = torch.zeros((B, H, cq, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        for j in range(Sk // ck):
+            kj, vj = k[:, j * ck:(j + 1) * ck], v[:, j * ck:(j + 1) * ck]
+            s = torch.einsum("bqhd,bshd->bhqs", qi, kj).float() * scale
+            kpos = j * ck + torch.arange(ck, device=q.device)
+            mask = torch.ones((1, cq, ck), dtype=torch.bool, device=q.device)
+            if causal:
+                mask = kpos[None, None, :] <= qpos[:, :, None]
+            mask = mask.expand(B, cq, ck)[:, None]
+            if kv_len is not None:
+                mask = mask & (kpos[None, :] < kv_len[:, None])[:, None, None, :]
+            s = torch.where(mask, s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bhqs,bshd->bhqd", p.to(vj.dtype), vj).float()
+            m = m_new
+        outs.append((o / torch.clamp(l[..., None], min=1e-30)).transpose(1, 2))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _flash(q, k, v, *, causal, q_offset, kv_len):
+    """The kernel, with a decode offset / valid lengths as explicit positions."""
+    if kv_len is None and not isinstance(q_offset, torch.Tensor) and q_offset == 0:
+        return flash_ops.flash_attention_fwd(q, k, v, causal=causal)
+    B, Sq = q.shape[:2]
+    Sk = k.shape[1]
+    dev = q.device
+    if causal:
+        q_pos = _q_positions(q_offset, Sq, dev).to(torch.int32)
+        if q_pos.dim() == 2 and q_pos.shape[0] != B:
+            q_pos = q_pos.expand(B, Sq)
+        q_pos = q_pos.contiguous()
+    else:                               # every in-range key is visible
+        q_pos = torch.full((Sq,), INT32_MAX - 1, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(Sk, dtype=torch.int32, device=dev)
+    if kv_len is not None:
+        k_pos = torch.where(k_pos[None, :] < kv_len.to(dev)[:, None], k_pos,
+                            torch.full((), INT32_MAX, dtype=torch.int32, device=dev))
+    return flash_ops.flash_attention_fwd(q, k, v, causal=True, q_pos=q_pos,
+                                         k_pos=k_pos.contiguous())
+
+
+def attention_math(q, k, v, *, causal, q_offset=0, kv_len=None, impl="kernel"):
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "kernel" and q.is_cuda:
+        return _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                      q_offset=q_offset, kv_len=kv_len)
+    if max(q.shape[1], k.shape[1]) <= DENSE_MAX_SEQ:
+        return dense_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+
+# --------------------------------------------------------------------------
+# block-level entry point
+# --------------------------------------------------------------------------
+
+def _project_qkv(params, x, cfg: ModelConfig, impl: str):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    if "q_norm" in params:
+        q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps, impl)
+        k = head_rmsnorm(params["k_norm"], k, cfg.norm_eps, impl)
+    return q, k, v
+
+
+def _out_proj(params, out, x_dtype):
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x_dtype))
+
+
+def write_cache(cache: torch.Tensor, new: torch.Tensor, cache_index) -> None:
+    """Write new (B, Sq, KV, hd) into cache (B, S_max, KV, hd) at
+    ``cache_index`` (int, or (B,) per-slot starts), in place.  Unlike JAX's
+    ``dynamic_update_slice`` nothing is clamped: callers leave room (the
+    scheduler pads its gathered views) and an out-of-range write raises."""
+    B, Sq = new.shape[:2]
+    new = new.to(cache.dtype)
+    if isinstance(cache_index, torch.Tensor):
+        pos = _q_positions(cache_index, Sq, cache.device).reshape(-1, Sq).expand(B, Sq)
+        rows = torch.arange(B, device=cache.device)[:, None]
+        cache[rows, pos] = new
+        return
+    ci = int(cache_index)
+    if ci < 0 or ci + Sq > cache.shape[1]:
+        raise IndexError(f"cache write [{ci}, {ci + Sq}) outside [0, {cache.shape[1]})")
+    cache[:, ci:ci + Sq] = new
+
+
+def attention_block(
+    params: dict,
+    x: torch.Tensor,                # (B, Sq, D)
+    *,
+    cfg: ModelConfig,
+    mode: str,                      # "prefill" | "decode"
+    cache: Optional[dict] = None,   # {"k","v": (B, S_max, KV, hd)}
+    cache_index=None,               # decode write offset: int or (B,) tensor
+    kv_len: Optional[torch.Tensor] = None,
+    impl: str = "kernel",
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """Self-attention of one layer.  In decode mode the new k/v are written
+    into ``cache`` in place and the same dict is returned as the new cache."""
+    B, Sq, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, impl)
+    if mode == "decode":
+        pos_q = _q_positions(cache_index, Sq, x.device)
+    elif mode == "prefill":
+        pos_q = torch.arange(Sq, device=x.device)
+    else:
+        raise ValueError(f"attention mode {mode!r} is not ported yet")
+    cos_q, sin_q = rope_angles(pos_q, cfg.resolved_head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos_q, sin_q)
+    k = apply_rope(k, cos_q, sin_q)
+
+    if mode == "decode":
+        ck, cv = cache["k"], cache["v"]
+        write_cache(ck, k, cache_index)
+        write_cache(cv, v, cache_index)
+        new_cache = cache
+        if kv_len is not None:
+            valid = kv_len
+        elif isinstance(cache_index, torch.Tensor):
+            valid = (cache_index.to(x.device).long() + Sq).expand(B)
+        else:
+            valid = torch.full((B,), int(cache_index) + Sq, device=x.device)
+        q, ke, ve = expand_and_pad(q, ck.to(q.dtype), cv.to(q.dtype))
+        out = attention_math(q, ke, ve, causal=True, q_offset=cache_index,
+                             kv_len=valid, impl=impl)
+    else:
+        new_cache = {"k": k, "v": v}
+        q, ke, ve = expand_and_pad(q, k, v)
+        out = attention_math(q, ke, ve, causal=True, kv_len=kv_len, impl=impl)
+    return _out_proj(params, out, x.dtype), new_cache

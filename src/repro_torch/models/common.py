@@ -1,0 +1,141 @@
+"""Parameter-definition machinery (the port's counterpart of
+``repro.models.common``).
+
+A model declares its parameters as a nested dict of :class:`ParamDef` (shape,
+logical axes, init rule) and consumes the matching nested dict of tensors.
+The tree keys, shapes and stacked ``blocks`` layout are the JAX package's, so
+:func:`params_from_jax` can hand JAX-initialised weights to the port and
+every parity test compares the two packages on the same weights.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+# Logical axis vocabulary (same names as the JAX package).
+LOGICAL_AXES = (
+    "layers", "vocab", "embed", "q_heads", "kv_heads", "head_dim", "ff",
+    "experts", "ssm_inner", "ssm_heads", "ssm_state", "ssm_groups", "conv",
+    "norm", "stages",
+)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when CUDA is asked for and
+    there is none — no entry point quietly moves to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative description of one parameter tensor."""
+
+    shape: tuple[int, ...]
+    logical_axes: tuple[str | None, ...]
+    init: str = "normal"          # normal | zeros | ones | small_normal
+    scale: float | None = None    # stddev override for normal inits
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical_axes):
+            raise ValueError(
+                f"shape {self.shape} vs logical_axes {self.logical_axes} rank mismatch")
+        for ax in self.logical_axes:
+            if ax is not None and ax not in LOGICAL_AXES:
+                raise ValueError(f"unknown logical axis {ax!r}")
+
+    def num_params(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    def std(self) -> float:
+        """The normal init's stddev — the same rule as the JAX ParamDef."""
+        if self.init == "small_normal":
+            return 0.02
+        if self.scale is not None:
+            return self.scale
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else max(self.shape[-1], 1)
+        return 1.0 / math.sqrt(max(fan_in, 1))
+
+    def materialize(self, generator: torch.Generator, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=device)
+        x = torch.randn(self.shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return x.mul_(self.std()).to(dtype)
+
+
+ParamTree = dict  # nested dict[str, ParamDef | ParamTree] / dict[str, Tensor | ...]
+
+
+def tree_paths(defs: ParamTree, prefix: tuple[str, ...] = ()) -> list[tuple[tuple[str, ...], Any]]:
+    """Sorted (path, leaf) pairs of a nested dict."""
+    out = []
+    for k in sorted(defs):
+        v = defs[k]
+        if isinstance(v, Mapping):
+            out.extend(tree_paths(v, prefix + (k,)))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def _build(defs: ParamTree, leaf) -> ParamTree:
+    return {k: (_build(v, leaf) if isinstance(v, Mapping) else leaf(v))
+            for k, v in defs.items()}
+
+
+def init_params(defs: ParamTree, generator: torch.Generator, device,
+                dtype: torch.dtype = torch.float32) -> ParamTree:
+    """Materialise a nested dict of ParamDefs on ``device``, drawing from
+    ``generator`` (which must live on that device) in sorted path order.
+    Each tensor is drawn in fp32 and cast to ``dtype`` one at a time, so a
+    bf16 model never holds its fp32 copy whole."""
+    dev = resolve_device(device)
+    values = {path: d.materialize(generator, dev, dtype)
+              for path, d in tree_paths(defs)}
+
+    def build(sub, prefix):
+        return {k: (build(v, prefix + (k,)) if isinstance(v, Mapping)
+                    else values[prefix + (k,)]) for k, v in sub.items()}
+
+    return build(defs, ())
+
+
+def params_from_jax(tree: Mapping, device, dtype: torch.dtype = torch.float32) -> ParamTree:
+    """The JAX parameter tree (leaves as numpy arrays, any float dtype incl.
+    ml_dtypes bfloat16) -> the port's tree: same keys, same shapes (stacked
+    ``blocks`` with a leading layer dim, ``wq (d,h,hd)``, ``wo (h,hd,d)`` …),
+    on ``device`` in ``dtype``."""
+    dev = resolve_device(device)
+    return _build(tree, lambda a: torch.from_numpy(      # np.array copies: the
+        np.array(a, np.float32)).to(dev, dtype))          # tensor owns its memory
+
+
+def count_params(defs: ParamTree) -> int:
+    return sum(d.num_params() for _, d in tree_paths(defs))
+
+
+def cast_tree(params: ParamTree, dtype: torch.dtype) -> ParamTree:
+    return _build(params, lambda x: x.to(dtype) if x.is_floating_point() else x)
+
+
+def stacked(defs: ParamTree, num: int) -> ParamTree:
+    """Prepend a ``layers`` dim of size ``num`` to every ParamDef."""
+    return _build(defs, lambda v: dataclasses.replace(
+        v, shape=(num,) + v.shape, logical_axes=("layers",) + v.logical_axes))
+
+
+def take_layer(params: ParamTree, idx: int) -> ParamTree:
+    """One layer of a stacked param tree (views, no copy)."""
+    return _build(params, lambda x: x[idx])

@@ -1,0 +1,43 @@
+"""Feed-forward variants: SwiGLU (llama/qwen), squared-ReLU (nemotron), GELU.
+
+Plain matrix products, as the JAX package leaves them to XLA.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.registry import ModelConfig
+from repro_torch.models.common import ParamDef
+
+
+def ffn_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
+    defs = {
+        "w_in": ParamDef((d, f), ("embed", "ff")),
+        "w_out": ParamDef((f, d), ("ff", "embed")),
+    }
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        defs["w_gate"] = ParamDef((d, f), ("embed", "ff"))
+    return defs
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = torch.matmul(x, params["w_in"].to(x.dtype))
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        g = torch.matmul(x, params["w_gate"].to(x.dtype))
+        act = F.silu if cfg.mlp_type == "swiglu" else _gelu
+        h = act(g) * h
+    elif cfg.mlp_type == "relu2":
+        r = F.relu(h)
+        h = r * r
+    elif cfg.mlp_type == "gelu":
+        h = _gelu(h)
+    else:
+        raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
+    return torch.matmul(h, params["w_out"].to(x.dtype))

@@ -1,0 +1,36 @@
+"""Normalization layers (fp32 statistics, output in input dtype).
+
+``impl="kernel"`` (the default) goes through ``kernels/rmsnorm/ops.py``: the
+CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
+``impl="ref"`` is the plain PyTorch math of the JAX ``_rmsnorm`` on any
+device — the comparison path only.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+from repro_torch.models.common import ParamDef
+
+
+def rmsnorm_defs(dim: int) -> dict:
+    return {"scale": ParamDef((dim,), ("norm",), init="ones")}
+
+
+def _rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float, impl: str) -> torch.Tensor:
+    if impl == "ref":
+        return rmsnorm_reference(x, scale, eps)
+    if impl != "kernel":
+        raise ValueError(f"unknown impl {impl!r}")
+    return rmsnorm_ops.rmsnorm(x.contiguous(), scale, eps)
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5, impl: str = "kernel") -> torch.Tensor:
+    return _rmsnorm(params["scale"], x, eps, impl)
+
+
+def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5,
+                 impl: str = "kernel") -> torch.Tensor:
+    """qk-norm: normalize over the trailing head_dim."""
+    return _rmsnorm(scale, x, eps, impl)

@@ -1,0 +1,116 @@
+"""Decoder-only transformer LM, dense family (serving passes).
+
+The parameters are a nested dict of tensors with the JAX package's keys and
+stacked ``blocks`` (leading layer dim); the forward passes take that dict
+explicitly, so weights from JAX (``params_from_jax``) and the port's own
+initialiser are interchangeable.  The JAX ``lax.scan`` over layers is a
+Python loop over the stacked tensors.
+
+``forward_decode`` accepts ``cache_index`` as an int or a ``(B,)`` tensor:
+the per-slot form is the written-out ``vmap`` of the JAX scheduler — each
+slot gets its own rope positions, cache write position and causal offset.
+``forward_train`` waits for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.registry import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import embedding, ffn
+from repro_torch.models.common import init_params, resolve_device, stacked, take_layer
+from repro_torch.models.norms import rmsnorm, rmsnorm_defs
+
+
+class DenseTransformerLM(nn.Module):
+    """``impl="kernel"`` runs the hand-written CUDA kernels on CUDA tensors
+    (their plain versions on CPU tensors); ``impl="ref"`` runs the plain
+    PyTorch math everywhere — the comparison path."""
+
+    def __init__(self, cfg: ModelConfig, impl: str = "kernel", device="cuda"):
+        super().__init__()
+        if impl not in ("kernel", "ref"):
+            raise ValueError(f"unknown impl {impl!r}")
+        self.cfg = cfg
+        self.impl = impl
+        self.device = resolve_device(device)
+
+    # ---------------------------------------------------------- params
+    def block_defs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "ln1": rmsnorm_defs(cfg.d_model),
+            "attn": attn.attn_defs(cfg),
+            "ln2": rmsnorm_defs(cfg.d_model),
+            "mlp": ffn.ffn_defs(cfg),
+        }
+
+    def param_defs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "embed": embedding.embed_defs(cfg),
+            "blocks": stacked(self.block_defs(), cfg.num_layers),
+            "final_norm": rmsnorm_defs(cfg.d_model),
+        }
+
+    def init(self, generator: torch.Generator, dtype: torch.dtype = torch.float32) -> dict:
+        """Fresh parameters on the model's device (``generator`` lives there)."""
+        return init_params(self.param_defs(), generator, self.device, dtype)
+
+    # ---------------------------------------------------------- blocks
+    def block_apply(self, params: dict, x: torch.Tensor, *, mode: str,
+                    cache: Optional[dict] = None, cache_index=None, kv_len=None):
+        cfg = self.cfg
+        h = rmsnorm(params["ln1"], x, cfg.norm_eps, self.impl)
+        a, new_cache = attn.attention_block(
+            params["attn"], h, cfg=cfg, mode=mode, cache=cache,
+            cache_index=cache_index, kv_len=kv_len, impl=self.impl)
+        x = x + a
+        h = rmsnorm(params["ln2"], x, cfg.norm_eps, self.impl)
+        return x + ffn.ffn_apply(params["mlp"], h, cfg), new_cache
+
+    # ------------------------------------------------------------ serving
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    @torch.no_grad()
+    def forward_prefill(self, params: dict, tokens: torch.Tensor, *,
+                        max_len: Optional[int] = None, dtype=torch.bfloat16):
+        """Full-sequence pass that also materialises the KV cache (padded to
+        ``max_len``).  Returns (last-position fp32 logits (B, 1, V), cache
+        {"k","v": (L, B, max_len, KV, hd)})."""
+        cfg = self.cfg
+        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        B, S = tokens.shape
+        max_len = max_len or S
+        ks, vs = [], []
+        for layer in range(cfg.num_layers):
+            x, kv = self.block_apply(take_layer(params["blocks"], layer), x, mode="prefill")
+            pad = (0, 0, 0, 0, 0, max_len - S)
+            ks.append(torch.nn.functional.pad(kv["k"], pad))
+            vs.append(torch.nn.functional.pad(kv["v"], pad))
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps, self.impl)
+        logits = embedding.lm_head(params["embed"], x[:, -1:, :], cfg)
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    @torch.no_grad()
+    def forward_decode(self, params: dict, tokens: torch.Tensor, cache: dict, cache_index, *,
+                       kv_len: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
+        """tokens (B, Sq) at write position ``cache_index`` (int or (B,)),
+        cache {"k","v": (L, B, S_max, KV, hd)}.  The new k/v are written into
+        ``cache`` in place; returns (fp32 logits (B, Sq, V), cache)."""
+        cfg = self.cfg
+        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        for layer in range(cfg.num_layers):
+            layer_cache = {"k": cache["k"][layer], "v": cache["v"][layer]}
+            x, _ = self.block_apply(take_layer(params["blocks"], layer), x, mode="decode",
+                                    cache=layer_cache, cache_index=cache_index,
+                                    kv_len=kv_len)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps, self.impl)
+        return embedding.lm_head(params["embed"], x, cfg), cache
