@@ -8,27 +8,43 @@ Phases (any failure exits non-zero and prints no result line):
 1. card — requires ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. build — compiles every kernel of ``src/repro_torch/kernels/**/csrc`` with
-   ``nvcc`` (one process per source) and prints the build time and the
-   compiler's register/spill report;
+   ``nvcc`` (one process per source, all started together) and prints the
+   build time and the compiler's register/spill report;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it, in bf16 and fp32 (flash attention:
-   fp32 1e-4, bf16 3e-2, residuals 1e-5; RMSNorm: fp32 1e-5, bf16 2e-2 —
-   the JAX kernel tests' tolerances); then each kernel's median device time,
-   the plain version's, and one PyTorch library call's as a yardstick
-   (``library_ms``; the port never calls it), beside the least time the card
-   could take (``bound_ms``, from this run's inputs);
-4. serve — full-width llama3.2-1b (random weights from a seed) through
+   the shapes the serving paths give it (flash attention: fp32 1e-4, bf16
+   3e-2, residuals 1e-5; RMSNorm: fp32 1e-5, bf16 2e-2 — the JAX kernel
+   tests' tolerances; SSD scan: max |err| <= 1e-3 * max(1, max |plain|) for
+   y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
+   the mamba2 prefill shape, a ragged S, G = 2, bf16 inputs and against the
+   step-by-step scan); then each case's median
+   device time, the plain version's, and one PyTorch library call's as a
+   yardstick (``library_ms``; the port never calls it; none computes the
+   SSD scan), beside the least time the card could take (``bound_ms``, from
+   this run's inputs);
+4. llama serve — full-width llama3.2-1b (random weights from a seed) through
    ``repro_torch.serving.build``: 8 requests of 512 prompt tokens, 32 new
    tokens each, 8 slots, page 16, prefill chunk 256; launch counters are
-   zeroed just before and read just after, and both kernels must have run;
+   zeroed just before and read just after, and K1 and K2 must have run;
    then 8 decode ticks (8 slots) under ``torch.profiler``: device time by
    kernel group and the device's busy share of the wall-clock window;
-5. parity — a reduced llama3.2-1b served in fp32 with ``impl="kernel"`` and
-   ``impl="ref"`` gives identical greedy tokens; at full width the first
-   prefill chunk's bf16 logits of the two paths differ by at most 3e-2 of
-   the logit scale, and the kernel path is no further than twice the plain
-   bf16 path's own error from the plain path in fp32;
-6. a ``{"kernels": [...]}`` line, then the device line last.
+5. llama parity — a reduced llama3.2-1b served in fp32 with
+   ``impl="kernel"`` and ``impl="ref"`` gives identical greedy tokens; at
+   full width the first prefill chunk's bf16 logits of the two paths differ
+   by at most 3e-2 of the logit scale, and the kernel path is no further
+   than twice the plain bf16 path's own error from the plain path in fp32;
+6. mamba2 serve — full-width mamba2-2.7b (random bf16 weights from seed 0)
+   through ``serving.step_engine(...).greedy_generate``: 4 prompts of 2048
+   tokens, 32 new tokens; launch counters zeroed just before and read just
+   after: exactly 64 SSD launches (one per layer of the prefill) and 129 x
+   32 RMSNorm launches (129 per forward); TTFT, TPOT and tok/s; then one
+   prefill and 4 decode steps under ``torch.profiler``, device time by
+   kernel group and the busy share;
+7. mamba2 parity — a reduced mamba2 in fp32 gives identical greedy tokens
+   with ``impl="kernel"`` and ``impl="ref"``; the full-width bf16 prefill
+   logits of the kernel path are finite and no further from the plain fp32
+   path than twice the plain bf16 path's own error, and in fp32 the kernel
+   path is within 1e-3 of the logit scale of the plain path;
+8. a ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -47,6 +63,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 RESIDUAL_TOL = 1e-5
 RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SSD_TOL = 1e-3                                  # x max(1, max |plain|)
+SSD_CHUNK = 64
 INT32_MAX = 2**31 - 1
 
 
@@ -196,17 +214,21 @@ def check_flash(torch, flash_ops, flash_ref, gen):
         b_ms, b_by = flash_bound(torch, c)
         log(f"K1 [{label}] kernel {ms:.4f} ms  plain {plain:.4f} ms  "
             f"sdpa {lib:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
-        rows.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+        rows.append(dict(label=label, path="llama", max_abs_err=err, ms=ms, plain_ms=plain,
                          library_ms=lib, bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
 def check_rmsnorm(torch, rms_ops, rms_ref, gen):
+    """RMSNorm cases; the timed bf16 rows carry the path they belong to
+    (llama: decode 8 x 2048, prefill chunk 256 x 2048; mamba2: gate norm at
+    prefill 8192 x 5120, decode 4 x 2560)."""
     rows = []
-    shapes = [((8, 2048), True), ((256, 2048), True), ((8192, 64), False), ((7, 333), False)]
+    shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 5120), "mamba2"),
+              ((4, 2560), "mamba2"), ((8192, 64), None), ((7, 333), None)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        for shape, main_path in shapes:
+        for shape, path in shapes:
             x = (3.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
             scale = torch.randn(shape[-1:], generator=gen, device="cuda").to(dtype)
             out = rms_ops.rmsnorm(x, scale, 1e-5)
@@ -218,7 +240,7 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
             log(f"K2 rmsnorm [{label}] max_abs_err {err:.3e} (tol {tol})")
             require(bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)),
                     f"rmsnorm disagrees with its plain version: {label}")
-            if not (main_path and name == "bfloat16"):
+            if not (path and name == "bfloat16"):
                 continue
             ms = device_ms(lambda: rms_ops.rmsnorm(x, scale, 1e-5), torch)
             plain = device_ms(lambda: rms_ref.rmsnorm_reference(x, scale, 1e-5), torch)
@@ -228,8 +250,75 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
             b_ms, b_by = bound(2 * x.numel() * e + scale.numel() * e, 4.0 * x.numel(), name)
             log(f"K2 [{label}] kernel {ms:.4f} ms  plain {plain:.4f} ms  "
                 f"F.rms_norm {lib:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
-            rows.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+            rows.append(dict(label=label, path=path, max_abs_err=err, ms=ms, plain_ms=plain,
                              library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def ssd_bound(x, dt, A, B) -> tuple[float, str]:
+    """Bytes: x, dt, A, B and C read once, y and the fp32 final state
+    written once.  Operations: per chunk of 64, 2·N per unmasked (i >= j)
+    pair for C·Bᵀ once per group, 2·P per pair per head for M·x, and 4·N·P
+    per position per head for the inter-chunk product and the state update."""
+    Bs, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    e = x.element_size()
+    nbytes = 2 * x.numel() * e + 2 * B.numel() * e + 4 * (dt.numel() + A.numel()) \
+        + 4 * Bs * H * N * P
+    full, rem = divmod(S, SSD_CHUNK)
+    pairs = full * SSD_CHUNK * (SSD_CHUNK + 1) // 2 + rem * (rem + 1) // 2
+    flops = 2.0 * N * pairs * Bs * G + 2.0 * P * pairs * Bs * H + 4.0 * S * N * P * Bs * H
+    return bound(nbytes, flops, str(x.dtype).replace("torch.", ""))
+
+
+def check_ssd(torch, ssd_ops, ssd_ref, gen):
+    """The SSD scan kernel against its plain versions; every case timed."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, B, S, H, P, G, N, dtype, plain)
+        ("mamba2 prefill B4 S2048 H80 P64 G1 N128 float32", 4, 2048, 80, 64, 1, 128, f32,
+         "chunked"),
+        ("ragged B1 S1000 H80 P64 G1 N128 float32", 1, 1000, 80, 64, 1, 128, f32, "chunked"),
+        ("groups B2 S512 H16 P64 G2 N64 float32", 2, 512, 16, 64, 2, 64, f32, "chunked"),
+        ("B2 S1024 H80 P64 G1 N128 bfloat16", 2, 1024, 80, 64, 1, 128, bf16, "chunked"),
+        ("small B2 S200 H4 P32 G1 N16 float32 vs naive", 2, 200, 4, 32, 1, 16, f32, "naive"),
+    ]
+    rows = []
+    for label, Bs, S, H, P, G, N, dtype, plain in cases:
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = rn(Bs, S, H, P).to(dtype)
+        dt = torch.nn.functional.softplus(rn(Bs, S, H))
+        A = -torch.exp(0.3 * rn(H))
+        B = (0.3 * rn(Bs, S, G, N)).to(dtype)
+        C = (0.3 * rn(Bs, S, G, N)).to(dtype)
+        plain_fn = ssd_ref.ssd_chunked if plain == "chunked" else ssd_ref.ssd_naive
+        y, st = ssd_ops.ssd(x, dt, A, B, C)
+        ry, rs = plain_fn(x, dt, A, B, C)
+        torch.cuda.synchronize()
+        err_y = float((y.float() - ry.float()).abs().max())
+        err_s = float((st - rs).abs().max())
+        tol_y = SSD_TOL * max(1.0, float(ry.float().abs().max()))
+        tol_s = SSD_TOL * max(1.0, float(rs.abs().max()))
+        # a bf16 y is one rounding of an fp32 sum on both sides, so the two
+        # may also differ by one bf16 step of the element (2^-7 of |y|)
+        rtol_y = 2.0 ** -7 if dtype == bf16 else 0.0
+        y_ok = bool(((y.float() - ry.float()).abs()
+                     <= tol_y + rtol_y * ry.float().abs()).all())
+        log(f"K3 ssd [{label}] max_abs_err y {err_y:.3e} (tol {tol_y:.3e}"
+            f"{' + 2^-7 |y|' if rtol_y else ''}) state {err_s:.3e} (tol {tol_s:.3e})")
+        require(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+                f"ssd produced non-finite values: {label}")
+        require(y_ok and err_s <= tol_s, f"ssd disagrees with its plain version: {label}")
+        ms = device_ms(lambda: ssd_ops.ssd(x, dt, A, B, C), torch)
+        plain_ms = device_ms(lambda: plain_fn(x, dt, A, B, C), torch,
+                             inner=2 if plain == "naive" else 10, reps=5)
+        b_ms, b_by = ssd_bound(x, dt, A, B)
+        log(f"K3 [{label}] kernel {ms:.4f} ms  plain ({plain}) {plain_ms:.4f} ms  "
+            f"bound {b_ms:.6f} ms ({b_by})")
+        rows.append(dict(label=label, path="mamba2", max_abs_err=max(err_y, err_s), ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del x, dt, A, B, C, y, st, ry, rs
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -289,6 +378,8 @@ def _kernel_group(name: str) -> str:
         return "flash_attention"
     if "rmsnorm_kernel" in name:
         return "rmsnorm"
+    if "ssd_kernel" in name:
+        return "ssd"
     low = name.lower()
     if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "matmul"
@@ -297,11 +388,39 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
+def report_profile(prof, wall: float, steps: int, what: str, unit: str) -> None:
+    """Device time of a profiled window by kernel group, per ``unit`` (one of
+    ``steps``), and the device's busy share of the host-clock window."""
+    from torch.autograd import DeviceType
+
+    groups: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    by_name: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        g = _kernel_group(ev.name)
+        ms = ev.time_range.elapsed_us() / 1e3
+        groups[g] = groups.get(g, 0.0) + ms
+        counts[g] = counts.get(g, 0) + 1
+        by_name[ev.name[:70]] = by_name.get(ev.name[:70], 0.0) + ms
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log(f"profile: {what}: device time not measured (the profiler saw no kernels)")
+        return
+    per = {g: round(t / steps, 4) for g, t in sorted(groups.items(), key=lambda x: -x[1])}
+    log(f"profile: {what}: wall {wall * 1e3 / steps:.3f} ms/{unit}, device busy "
+        f"{busy / steps:.3f} ms/{unit} ({100 * busy / (wall * 1e3):.1f}% of wall); device "
+        f"ms/{unit} by group {per}; launches/{unit} "
+        f"{ {g: n // steps for g, n in counts.items()} }")
+    for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:10]:
+        log(f"profile:   {ms / steps:9.4f} ms/{unit}  {name}")
+
+
 def profile_decode(torch, np, serving, session, ticks: int = 8):
     """Where a full-width decode tick's time goes: 8 slots in the decode
     phase, ``ticks`` ticks under torch.profiler; device time by kernel group
     and the device's busy share of the host-clock window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     vocab = session.config.model_config().vocab_size
@@ -319,28 +438,7 @@ def profile_decode(torch, np, serving, session, ticks: int = 8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     session.run_until_drained()
-    groups: dict[str, float] = {}
-    counts: dict[str, int] = {}
-    by_name: dict[str, float] = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        g = _kernel_group(ev.name)
-        ms = ev.time_range.elapsed_us() / 1e3
-        groups[g] = groups.get(g, 0.0) + ms
-        counts[g] = counts.get(g, 0) + 1
-        by_name[ev.name[:70]] = by_name.get(ev.name[:70], 0.0) + ms
-    busy = sum(groups.values())
-    if busy == 0.0:
-        log("profile: device time not measured (the profiler saw no kernels)")
-        return
-    per = {g: round(t / ticks, 4) for g, t in sorted(groups.items(), key=lambda x: -x[1])}
-    log(f"profile: {ticks} decode ticks x 8 slots: wall {wall * 1e3 / ticks:.3f} ms/tick, "
-        f"device busy {busy / ticks:.3f} ms/tick ({100 * busy / (wall * 1e3):.1f}% of wall); "
-        f"device ms/tick by group {per}; launches/tick "
-        f"{ {g: n // ticks for g, n in counts.items()} }")
-    for name, ms in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
-        log(f"profile:   {ms / ticks:8.4f} ms/tick  {name}")
+    report_profile(prof, wall, ticks, f"{ticks} decode ticks x 8 slots", "tick")
 
 
 def parity(torch, np, serving, build_model, session, prompts):
@@ -400,6 +498,147 @@ def parity(torch, np, serving, build_model, session, prompts):
             "the kernel path is further from fp32 than the plain bf16 path's own error x2")
 
 
+# ---------------------------------------------------------------- phases 6-7
+
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW = 4, 2048, 32
+
+
+def serve_mamba2(torch, np, serving, build_model, get_config, ssd_ops, rms_ops, flash_ops):
+    """Full-width mamba2-2.7b through the step engine; returns (engine,
+    params, prompts, launches)."""
+    cfg = get_config("mamba2-2.7b")
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    engine = serving.step_engine(model, serving.single_device_plan(cfg), batch=MAMBA_BATCH,
+                                 max_len=MAMBA_PROMPT + MAMBA_NEW)
+    torch.cuda.synchronize()
+    log(f"mamba2: built full-width {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}) in {time.perf_counter() - t0:.3f} s")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                (MAMBA_BATCH, MAMBA_PROMPT), dtype=np.int64)
+    # warm-up (cuBLAS handles, allocator); not part of the measured run
+    engine.greedy_generate(params, prompts[:, :96], 3, 128)
+    torch.cuda.synchronize()
+    for k in engine.latencies:
+        engine.latencies[k].clear()
+
+    ssd_ops.ssd.launches = 0
+    rms_ops.rmsnorm.launches = 0
+    flash_ops.flash_attention_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.greedy_generate(params, prompts, MAMBA_NEW, MAMBA_PROMPT + MAMBA_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ssd": ssd_ops.ssd.launches, "rmsnorm": rms_ops.rmsnorm.launches,
+                "flash_attention_fwd": flash_ops.flash_attention_fwd.launches}
+
+    per_forward = 2 * cfg.num_layers + 1
+    require(tuple(out.shape) == (MAMBA_BATCH, MAMBA_NEW), f"mamba2 tokens shape {tuple(out.shape)}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "mamba2 token out of the vocab")
+    require(launches["ssd"] == cfg.num_layers,
+            f"ssd launched {launches['ssd']} times, expected {cfg.num_layers} (one per layer)")
+    require(launches["rmsnorm"] == per_forward * MAMBA_NEW,
+            f"rmsnorm launched {launches['rmsnorm']} times, expected {per_forward} x {MAMBA_NEW}")
+    ttft = engine.latencies["prefill_s"][0]
+    tpot = statistics.median(engine.latencies["decode_s"])
+    tokens = MAMBA_BATCH * MAMBA_NEW
+    log(f"mamba2 serve: {MAMBA_BATCH} x ({MAMBA_PROMPT} + {MAMBA_NEW}) tokens in {wall:.3f} s "
+        f"({tokens / wall:.1f} tok/s)  prefill (ttft) {ttft * 1e3:.1f} ms  "
+        f"decode (tpot) p50 {tpot * 1e3:.2f} ms  launches {launches}  "
+        f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"mamba2 serve: tokens[0][:8] {out[0, :8].tolist()}")
+    return engine, params, prompts, launches
+
+
+def profile_mamba2(torch, engine, params, prompts, steps: int = 4):
+    """Where a full-width mamba2 prefill's and decode step's device time
+    goes: one prefill, then ``steps`` decode steps, each window under
+    torch.profiler; device time by kernel group and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.from_numpy(prompts).cuda()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill_step(params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(bool(torch.isfinite(logits).all()), "non-finite mamba2 prefill logits")
+    report_profile(prof, wall, 1, f"mamba2 prefill {tuple(tokens.shape)}", "prefill")
+    S = tokens.shape[1]
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    engine.decode_step(params, tok, cache, S)                       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = engine.decode_step(params, tok, cache, S + 1 + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(bool(torch.isfinite(logits).all()), "non-finite mamba2 decode logits")
+    report_profile(prof, wall, steps, f"mamba2 {steps} decode steps x {tokens.shape[0]} rows",
+                   "step")
+
+
+def parity_mamba2(torch, np, serving, build_model, get_config, engine, params, prompts):
+    from repro_torch.models.common import cast_tree
+
+    # (a) reduced mamba2, fp32: kernel path and plain path, same tokens
+    cfg = get_config("mamba2-2.7b").reduced()
+    small = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(7), torch.float32)
+    small_prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 100))
+    tokens = {}
+    for impl in ("kernel", "ref"):
+        eng = serving.step_engine(build_model(cfg, impl=impl), serving.single_device_plan(cfg),
+                                  dtype=torch.float32)
+        tokens[impl] = eng.greedy_generate(small, small_prompts, 12, 112).tolist()
+    require(tokens["kernel"] == tokens["ref"],
+            f"mamba2 fp32 greedy tokens differ: kernel {tokens['kernel']} ref {tokens['ref']}")
+    log(f"parity: reduced mamba2 fp32 greedy tokens identical over 4 prompts of 100 x 12 "
+        f"({tokens['kernel'][0][:6]}...)")
+
+    # (b) full width: the prefill's last-position logits, kernel path vs
+    # plain path in bf16 and in fp32, all held against the plain path in
+    # fp32 on the same (bf16-valued) weights
+    model_k = engine.model
+    model_r = build_model(model_k.cfg, impl="ref")
+    toks = torch.from_numpy(prompts).cuda()
+    params32 = cast_tree(params, torch.float32)
+    out = {}
+    for name, model, p, dtype in (("kernel", model_k, params, torch.bfloat16),
+                                  ("ref", model_r, params, torch.bfloat16),
+                                  ("kernel32", model_k, params32, torch.float32),
+                                  ("ref32", model_r, params32, torch.float32)):
+        logits, cache = model.forward_prefill(p, toks, dtype=dtype)
+        out[name] = logits[:, -1]
+        del logits, cache
+        torch.cuda.empty_cache()
+    del params32
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(v).all()) for v in out.values()),
+            "non-finite full-width mamba2 logits")
+    err = float((out["kernel"] - out["ref"]).abs().max())
+    scale = float(out["ref32"].abs().max())
+    err_k = float((out["kernel"] - out["ref32"]).abs().max())
+    err_r = float((out["ref"] - out["ref32"]).abs().max())
+    err_32 = float((out["kernel32"] - out["ref32"]).abs().max())
+    top1 = float((out["kernel"].argmax(-1) == out["ref32"].argmax(-1)).float().mean())
+    log(f"parity: full-width mamba2 prefill logits ({tuple(out['ref'].shape)}): kernel-vs-plain "
+        f"bf16 max_abs_err {err:.3e} (max |logit| {scale:.3f}); vs fp32 plain: kernel bf16 "
+        f"{err_k:.3e}, plain bf16 {err_r:.3e}, kernel fp32 {err_32:.3e}; kernel bf16 top-1 "
+        f"agreement with fp32 {top1:.4f}")
+    require(err_k <= 2.0 * err_r,
+            "the mamba2 kernel path is further from fp32 than the plain bf16 path's error x2")
+    require(err_32 <= SSD_TOL * max(1.0, scale),
+            "the mamba2 kernel path in fp32 differs from the plain path in fp32 by more than "
+            "1e-3 of the logit scale")
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -422,6 +661,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as flash_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.configs.registry import get_config
     from repro_torch.models import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -451,23 +693,37 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rows = check_flash(torch, flash_ops, flash_ref, gen)
     rms_rows = check_rmsnorm(torch, rms_ops, rms_ref, gen)
+    ssd_rows = check_ssd(torch, ssd_ops, ssd_ref, gen)
 
-    # 4. the main path at full width
-    session, prompts, launches = serve_full_width(torch, np, serving, flash_ops, rms_ops)
+    # 4. the llama path at full width
+    session, prompts, llama_launches = serve_full_width(torch, np, serving, flash_ops, rms_ops)
     profile_decode(torch, np, serving, session)
 
-    # 5. kernel path against plain path
+    # 5. llama kernel path against plain path
     parity(torch, np, serving, build_model, session, prompts)
+    del session
+    torch.cuda.empty_cache()
 
-    # 6. results
+    # 6. the mamba2 path at full width
+    engine, params, m_prompts, mamba_launches = serve_mamba2(
+        torch, np, serving, build_model, get_config, ssd_ops, rms_ops, flash_ops)
+    profile_mamba2(torch, engine, params, m_prompts)
+
+    # 7. mamba2 kernel path against plain path
+    parity_mamba2(torch, np, serving, build_model, get_config, engine, params, m_prompts)
+
+    # 8. results
     kernels = []
     for rows, name, source, replaces in (
             (flash_rows, "flash_attention_fwd",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:110"),
             (rms_rows, "rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm/kernel.py:24")):
+             "src/repro/kernels/rmsnorm/kernel.py:24"),
+            (ssd_rows, "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+             "src/repro/kernels/ssd/kernel.py:74")):
         for r in rows:
+            launches = {"llama": llama_launches, "mamba2": mamba_launches}[r["path"]]
             kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": launches[name], "max_abs_err": r["max_abs_err"],

@@ -1,1 +1,2 @@
-"""Hardware description (the port's copy of what it needs from ``repro.core``)."""
+"""Hardware description and execution plans (the port's copies of what it
+needs from ``repro.core``: ``cluster``, ``strategy``)."""

@@ -1,4 +1,4 @@
-"""Model zoo: family dispatch (dense family ported so far)."""
+"""Model zoo: family dispatch (dense and ssm families ported so far)."""
 from __future__ import annotations
 
 from repro_torch.configs.registry import ModelConfig
@@ -7,9 +7,13 @@ from repro_torch.configs.registry import ModelConfig
 def build_model(cfg: ModelConfig, impl: str = "kernel", device="cuda"):
     """``impl="kernel"`` (default): the CUDA kernels on CUDA tensors;
     ``impl="ref"``: plain PyTorch everywhere, for comparisons."""
-    if cfg.family in ("dense",):
+    if cfg.family == "dense":
         from repro_torch.models.transformer import DenseTransformerLM
 
         return DenseTransformerLM(cfg, impl, device)
+    if cfg.family == "ssm":
+        from repro_torch.models.mamba2 import Mamba2LM
+
+        return Mamba2LM(cfg, impl, device)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet (dense only)")
+        f"family {cfg.family!r} is not ported to repro_torch yet (dense and ssm only)")

@@ -1,0 +1,244 @@
+"""Mamba2 (SSD) blocks — attention-free LM, O(1)-state decode (the port of
+``repro.models.mamba2``).
+
+Block: RMSNorm -> {z, x, B, C, dt} projections -> causal depthwise conv on
+(x|B|C) -> SSD scan -> D-skip -> gated RMSNorm(y * silu(z)) -> out-proj.
+The parameter tree, the cast order and the cache layout are the JAX
+package's, so ``params_from_jax`` carries weights across unchanged.
+
+``impl="kernel"`` runs the RMSNorm kernel (K2) and the SSD scan kernel (K3)
+on CUDA tensors and their plain versions on CPU tensors; ``impl="ref"`` runs
+the plain PyTorch math everywhere.  Decode runs ``ssd_step`` in plain torch
+on every device, as the JAX package does (jnp, not a kernel).
+
+Decode state per layer: the conv ring buffer (the last W-1 inputs of each
+conv channel) and the SSD state (B, H, N, P) fp32.  Two departures from the
+JAX model, both on purpose:
+
+- ``forward_prefill`` left-pads the conv buffers with zeros when the prompt
+  is shorter than W-1 (what ``_causal_conv``'s padding means); the JAX model
+  slices ``xv[:, S-(W-1):]``, which for S < W-1 keeps fewer rows and makes
+  the first decode step fail;
+- ``forward_decode`` writes the new state into ``cache`` in place (one
+  buffer at full width rather than a second 0.7 GB stack per step).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.registry import ModelConfig
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import _expand_groups
+from repro_torch.models import embedding
+from repro_torch.models.common import ParamDef, init_params, resolve_device, stacked, take_layer
+from repro_torch.models.norms import rmsnorm, rmsnorm_defs
+
+
+def _dims(cfg: ModelConfig):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    H = d_inner // cfg.ssm_head_dim
+    return d_inner, H, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+
+
+def mamba_block_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    d_inner, H, G, N, P = _dims(cfg)
+    W = cfg.conv_width
+    return {
+        "ln": rmsnorm_defs(d),
+        "w_z": ParamDef((d, d_inner), ("embed", "ssm_inner")),
+        "w_x": ParamDef((d, d_inner), ("embed", "ssm_inner")),
+        "w_B": ParamDef((d, G * N), ("embed", "ssm_groups")),
+        "w_C": ParamDef((d, G * N), ("embed", "ssm_groups")),
+        "w_dt": ParamDef((d, H), ("embed", "ssm_heads")),
+        "conv_x": ParamDef((W, d_inner), ("conv", "ssm_inner"), scale=0.5),
+        "conv_B": ParamDef((W, G * N), ("conv", "ssm_groups"), scale=0.5),
+        "conv_C": ParamDef((W, G * N), ("conv", "ssm_groups"), scale=0.5),
+        "A_log": ParamDef((H,), ("ssm_heads",), init="zeros"),
+        "D": ParamDef((H,), ("ssm_heads",), init="ones"),
+        "dt_bias": ParamDef((H,), ("ssm_heads",), init="zeros"),
+        "gate_norm": rmsnorm_defs(d_inner),
+        "w_out": ParamDef((d_inner, d), ("ssm_inner", "embed")),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, C); w: (W, C)."""
+    W = w.shape[0]
+    pad = F.pad(x, (0, 0, W - 1, 0))                 # F.pad: last dim first
+    out = torch.zeros_like(x)
+    for k in range(W):
+        out = out + pad[:, k:k + x.shape[1], :] * w[W - 1 - k][None, None, :]
+    return out
+
+
+def _conv_step(buf: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor):
+    """buf: (B, W-1, C) past inputs; x_t: (B, C). Returns (new_buf, y_t).
+
+    Tap order mirrors ``_causal_conv``: w[0] multiplies the NEWEST sample,
+    w[W-1] the oldest — the window is oldest->newest, so flip w."""
+    dtype = torch.promote_types(buf.dtype, x_t.dtype)
+    window = torch.cat([buf.to(dtype), x_t[:, None, :].to(dtype)], dim=1)   # (B, W, C)
+    y = torch.einsum("bwc,wc->bc", window, torch.flip(w, [0]).to(dtype))
+    return window[:, 1:, :], y
+
+
+def _projections(params: dict, h: torch.Tensor):
+    dtype = h.dtype
+    return tuple(torch.matmul(h, params[k].to(dtype))
+                 for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+
+
+def _conv_tail(v: torch.Tensor, keep: int) -> torch.Tensor:
+    """The last ``keep`` rows of (B, S, C), left-padded with zeros when S < keep."""
+    v = v[:, max(v.shape[1] - keep, 0):, :]
+    return F.pad(v, (0, 0, keep - v.shape[1], 0))
+
+
+def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                      mode: str = "train", state: Optional[dict] = None,
+                      impl: str = "kernel"):
+    """x: (B, S, D).  ``mode`` train | prefill | decode (S = 1, ``state``
+    {"conv_x","conv_B","conv_C","ssm"} of this layer).  Returns (x + block
+    output, new state or None)."""
+    d_inner, H, G, N, P = _dims(cfg)
+    Bsz, S, _ = x.shape
+    h = rmsnorm(params["ln"], x, cfg.norm_eps, impl)
+    z, xv, Bv, Cv, dt_raw = _projections(params, h)
+
+    A = -torch.exp(params["A_log"].float())
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+
+    new_state = None
+    if mode == "decode":
+        cbx, ox = _conv_step(state["conv_x"], xv[:, 0], params["conv_x"].to(xv.dtype))
+        cbB, oB = _conv_step(state["conv_B"], Bv[:, 0], params["conv_B"].to(xv.dtype))
+        cbC, oC = _conv_step(state["conv_C"], Cv[:, 0], params["conv_C"].to(xv.dtype))
+        ox, oB, oC = F.silu(ox), F.silu(oB), F.silu(oC)
+        xh = ox.reshape(Bsz, H, P).float()
+        Bt = _expand_groups(oB.reshape(Bsz, 1, G, N), H)[:, 0].float()
+        Ct = _expand_groups(oC.reshape(Bsz, 1, G, N), H)[:, 0].float()
+        ssm, y_t = ssd_ops.ssd_step(state["ssm"], xh, dt[:, 0], A, Bt, Ct)
+        y = y_t[:, None].to(x.dtype)                                   # (B,1,H,P)
+        y = y + params["D"].to(x.dtype)[None, None, :, None] * xh[:, None].to(x.dtype)
+        new_state = {"conv_x": cbx, "conv_B": cbB, "conv_C": cbC, "ssm": ssm}
+    elif mode in ("train", "prefill"):
+        ox = F.silu(_causal_conv(xv, params["conv_x"].to(xv.dtype)))
+        oB = F.silu(_causal_conv(Bv, params["conv_B"].to(xv.dtype)))
+        oC = F.silu(_causal_conv(Cv, params["conv_C"].to(xv.dtype)))
+        xh = ox.reshape(Bsz, S, H, P)
+        Bm = oB.reshape(Bsz, S, G, N)
+        Cm = oC.reshape(Bsz, S, G, N)
+        y, final = ssd_ops.ssd(xh.float(), dt, A, Bm.float(), Cm.float(), impl=impl)
+        y = y.to(x.dtype)
+        y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
+        if mode == "prefill":
+            keep = cfg.conv_width - 1
+            new_state = {"conv_x": _conv_tail(xv, keep), "conv_B": _conv_tail(Bv, keep),
+                         "conv_C": _conv_tail(Cv, keep), "ssm": final}
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+
+    y = y.reshape(Bsz, y.shape[1], d_inner)
+    y = rmsnorm(params["gate_norm"], y * F.silu(z[:, : y.shape[1]]), cfg.norm_eps, impl)
+    out = torch.matmul(y, params["w_out"].to(x.dtype))
+    return x + out, new_state
+
+
+class Mamba2LM(nn.Module):
+    """Pure-SSM LM (mamba2-2.7b).  ``impl="kernel"`` runs the hand-written
+    CUDA kernels on CUDA tensors (their plain versions on CPU tensors);
+    ``impl="ref"`` runs the plain PyTorch math everywhere."""
+
+    def __init__(self, cfg: ModelConfig, impl: str = "kernel", device="cuda"):
+        super().__init__()
+        if impl not in ("kernel", "ref"):
+            raise ValueError(f"unknown impl {impl!r}")
+        self.cfg = cfg
+        self.impl = impl
+        self.device = resolve_device(device)
+
+    # ---------------------------------------------------------- params
+    def block_defs(self) -> dict:
+        return mamba_block_defs(self.cfg)
+
+    def param_defs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "embed": embedding.embed_defs(cfg),
+            "blocks": stacked(self.block_defs(), cfg.num_layers),
+            "final_norm": rmsnorm_defs(cfg.d_model),
+        }
+
+    def init(self, generator: torch.Generator, dtype: torch.dtype = torch.float32) -> dict:
+        """Fresh parameters on the model's device (``generator`` lives there)."""
+        return init_params(self.param_defs(), generator, self.device, dtype)
+
+    def _layers(self, params: dict):
+        return (take_layer(params["blocks"], i) for i in range(self.cfg.num_layers))
+
+    # ------------------------------------------------------------ forward
+    @torch.no_grad()
+    def forward_train(self, params: dict, tokens: torch.Tensor, *, dtype=torch.bfloat16):
+        """The training forward (no gradients yet): (fp32 logits (B, S, V),
+        aux loss 0.0 — the JAX runner's extra output, always 0 for mamba2)."""
+        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        for bp in self._layers(params):
+            x, _ = mamba_block_apply(bp, x, self.cfg, mode="train", impl=self.impl)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return embedding.lm_head(params["embed"], x, self.cfg), aux
+
+    # ------------------------------------------------------------ serving
+    def _state_shapes(self, batch: int, dtype: torch.dtype):
+        cfg = self.cfg
+        d_inner, H, G, N, P = _dims(cfg)
+        W, L = cfg.conv_width, cfg.num_layers
+        return {
+            "conv_x": ((L, batch, W - 1, d_inner), dtype),
+            "conv_B": ((L, batch, W - 1, G * N), dtype),
+            "conv_C": ((L, batch, W - 1, G * N), dtype),
+            "ssm": ((L, batch, H, N, P), torch.float32),
+        }
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+        """Zero decode state; constant in ``max_len`` (kept for the uniform
+        interface).  Conv buffers in ``dtype``, the SSD state in fp32."""
+        return {k: torch.zeros(s, dtype=d, device=self.device)
+                for k, (s, d) in self._state_shapes(batch, dtype).items()}
+
+    @torch.no_grad()
+    def forward_prefill(self, params: dict, tokens: torch.Tensor, *,
+                        max_len: Optional[int] = None, dtype=torch.bfloat16):
+        """Full-prompt pass.  Returns (last-position fp32 logits (B, 1, V),
+        cache {"conv_x","conv_B","conv_C": (L, B, W-1, C) in ``dtype``,
+        "ssm": (L, B, H, N, P) fp32}); ``max_len`` is unused (the state is
+        constant in context length)."""
+        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        states = []
+        for bp in self._layers(params):
+            x, st = mamba_block_apply(bp, x, self.cfg, mode="prefill", impl=self.impl)
+            states.append(st)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
+        logits = embedding.lm_head(params["embed"], x[:, -1:, :], self.cfg)
+        return logits, {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+    @torch.no_grad()
+    def forward_decode(self, params: dict, tokens: torch.Tensor, cache: dict, cache_index, *,
+                       kv_len=None, dtype=torch.bfloat16):
+        """One token per row, tokens (B, 1).  The new state is written into
+        ``cache`` in place; ``cache_index`` and ``kv_len`` are unused (the
+        state carries the position).  Returns (fp32 logits (B, 1, V), cache)."""
+        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        for layer, bp in enumerate(self._layers(params)):
+            state = {k: v[layer] for k, v in cache.items()}
+            x, new = mamba_block_apply(bp, x, self.cfg, mode="decode", state=state,
+                                       impl=self.impl)
+            for k, v in new.items():
+                cache[k][layer].copy_(v)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
+        return embedding.lm_head(params["embed"], x, self.cfg), cache

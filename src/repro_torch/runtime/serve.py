@@ -1,0 +1,112 @@
+"""Step-level serving engine on one device (the port of
+``repro.runtime.serve``).
+
+``ServingEngine`` runs a model's ``forward_prefill`` / ``forward_decode``
+under an :class:`ExecutionPlan`, and ``greedy_generate`` serves one static
+batch of equal-length prompts:
+
+- an unsharded dense model goes through the paged KV cache, as the trivial
+  B-requests-at-once case of the continuous-batching scheduler;
+- every other model (mamba2) takes :meth:`greedy_generate_reference`, one
+  ``forward_prefill`` then one ``forward_decode`` per token — the slow,
+  obviously-correct loop that stays the scheduler's oracle.
+
+Only a single device for now: a ``mesh`` raises ``NotImplementedError``
+(the parallel runtime is a later slice), and the telemetry hooks of the JAX
+engine wait for the port of ``repro.obs`` — the reference loop keeps its
+fenced latencies in ``latencies`` instead of histograms.  Construct through
+``repro_torch.serving.step_engine``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.strategy import ExecutionPlan
+
+
+def _fence(t: torch.Tensor) -> None:
+    """Wait for the device work behind ``t`` (the JAX loop's ``fence``)."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+@dataclasses.dataclass
+class ServingEngine:
+    model: Any
+    plan: ExecutionPlan
+    mesh: Any = None
+    batch: int = 0                 # request batch
+    max_len: int = 0               # cache capacity
+    dtype: torch.dtype = torch.bfloat16   # compute dtype of the forward passes
+    latencies: dict = dataclasses.field(
+        default_factory=lambda: {"prefill_s": [], "decode_s": []})
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "ServingEngine: mesh-sharded serving is not ported yet (single device only)")
+
+    @classmethod
+    def for_plan(cls, model: Any, plan: ExecutionPlan, mesh: Any = None, *, batch: int = 0,
+                 max_len: int = 0, dtype: torch.dtype = torch.bfloat16) -> "ServingEngine":
+        return cls(model, plan, mesh, batch=batch, max_len=max_len, dtype=dtype)
+
+    # ------------------------------------------------------------ steps
+    def prefill_step(self, params, tokens):
+        return self.model.forward_prefill(params, tokens, max_len=self.max_len or None,
+                                          dtype=self.dtype)
+
+    def decode_step(self, params, tokens, cache, cache_index, kv_len=None):
+        return self.model.forward_decode(params, tokens, cache, cache_index, kv_len=kv_len,
+                                         dtype=self.dtype)
+
+    # ------------------------------------------------------------ loops
+    def greedy_generate(self, params, prompt_tokens, max_new: int,
+                        max_len: int) -> torch.Tensor:
+        """Greedy generation for one static batch of equal-length prompts
+        (B, S) -> tokens (B, max_new) int32 on the model's device.  A dense
+        model goes through the paged scheduler, every other model through
+        :meth:`greedy_generate_reference`."""
+        if self.model.cfg.family != "dense":
+            return self.greedy_generate_reference(params, prompt_tokens, max_new, max_len)
+        from repro_torch.runtime.kv_cache import PagedCacheConfig
+        from repro_torch.runtime.scheduler import ContinuousBatchingScheduler, Request
+
+        prompts = np.asarray(torch.as_tensor(prompt_tokens).cpu(), np.int32)
+        B, S = prompts.shape
+        cache_cfg = PagedCacheConfig.for_model(
+            self.model.cfg, num_slots=B, page_size=min(16, max(S, 1)), max_context=max_len)
+        sched = ContinuousBatchingScheduler(self.model, params, cache_cfg, dtype=self.dtype)
+        reqs = [sched.submit(Request(prompt=prompts[b], max_new=max_new)).request
+                for b in range(B)]
+        sched.run_until_drained()
+        return torch.tensor(np.stack([r.tokens for r in reqs]), dtype=torch.int32,
+                            device=self.model.device)
+
+    def greedy_generate_reference(self, params, prompt_tokens, max_new: int,
+                                  max_len: int) -> torch.Tensor:
+        """Reference generation loop: one ``forward_prefill``, then one
+        synchronous ``forward_decode`` per token.  Each step's fenced host
+        time is appended to ``latencies["prefill_s"]`` / ``["decode_s"]``."""
+        tokens = torch.as_tensor(prompt_tokens).to(self.model.device, torch.long)
+        B, S = tokens.shape
+        self.max_len = max_len
+        t0 = time.perf_counter()
+        logits, cache = self.prefill_step(params, tokens)
+        _fence(logits)
+        self.latencies["prefill_s"].append(time.perf_counter() - t0)
+        out = [logits[:, -1, :].argmax(dim=-1).to(torch.int32)]
+        kv_len = torch.full((B,), S, dtype=torch.long, device=tokens.device)
+        for i in range(max_new - 1):
+            t0 = time.perf_counter()
+            logits, cache = self.decode_step(params, out[-1][:, None].long(), cache, S + i,
+                                             kv_len=kv_len + i + 1)
+            _fence(logits)
+            self.latencies["decode_s"].append(time.perf_counter() - t0)
+            out.append(logits[:, -1, :].argmax(dim=-1).to(torch.int32))
+        return torch.stack(out, dim=1)

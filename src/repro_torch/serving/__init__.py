@@ -17,9 +17,19 @@ the device, statically validated against the GALV08x checks in
         ...
 
 ``build`` returns a :class:`ServeSession` wrapping the continuous-batching
-scheduler (``repro_torch.runtime.scheduler``) over the paged KV cache.  The
-default cluster is one H100 card.  Execution plans, telemetry sinks and the
-step-level engine of the JAX package are not ported yet.
+scheduler (``repro_torch.runtime.scheduler``) over the paged KV cache (dense
+models).  The default cluster is one H100 card.
+
+``step_engine(model, single_device_plan(cfg))`` is the step-level engine
+(``repro_torch.runtime.serve.ServingEngine``): ``greedy_generate`` serves a
+static batch, through the paged scheduler for a dense model and through
+``forward_prefill`` + ``forward_decode`` for every other family (mamba2)::
+
+    model = build_model(get_config("mamba2-2.7b"))          # on "cuda"
+    engine = serving.step_engine(model, serving.single_device_plan(model.cfg))
+    tokens = engine.greedy_generate(params, prompts, max_new=32, max_len=2080)
+
+Mesh-sharded engines and telemetry sinks are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import torch
 from repro_torch.analysis import plan_check as pc
 from repro_torch.configs.registry import ModelConfig, get_config
 from repro_torch.core.cluster import H100_1, ClusterSpec
+from repro_torch.core.strategy import ExecutionPlan, LayerStrategy
 from repro_torch.models.common import resolve_device
 from repro_torch.runtime.kv_cache import CacheOOM, PagedCacheConfig
 from repro_torch.runtime.scheduler import (ContinuousBatchingScheduler, Request,
@@ -39,6 +50,7 @@ from repro_torch.runtime.scheduler import (ContinuousBatchingScheduler, Request,
 __all__ = [
     "CacheConfig", "SchedulerConfig", "SLOConfig", "ServeConfig",
     "ServeSession", "Request", "TokenStream", "CacheOOM", "build",
+    "single_device_plan", "step_engine",
 ]
 
 
@@ -69,6 +81,15 @@ class SLOConfig:
     ttft_s: Optional[float] = None
     tpot_s: Optional[float] = None
     request_rate: Optional[float] = None
+
+
+def single_device_plan(cfg: ModelConfig, shape: str = "serve") -> ExecutionPlan:
+    """The trivial 1-device plan of a single-card serving path."""
+    strat = LayerStrategy()
+    return ExecutionPlan(arch=cfg.name, shape=shape, mesh_axes=("data",),
+                         mesh_shape=(1,),
+                         layer_strategies=[strat] * cfg.num_layers,
+                         default_strategy=strat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,3 +205,21 @@ def build(config: ServeConfig, *, model: Any = None, params: Any = None,
         prefill_chunk=config.scheduler.prefill_chunk, dtype=dtype,
         sample_fn=sample_fn, **kw)
     return ServeSession(config, scheduler, model, params)
+
+
+def step_engine(model: Any, plan: ExecutionPlan, mesh=None, *, batch: int = 0,
+                max_len: int = 0, dtype: torch.dtype = torch.bfloat16,
+                device: str = "cuda"):
+    """The sanctioned constructor of the step-level ``ServingEngine``.
+
+    ``device`` (the card by default; raises without a GPU) must be the
+    model's; ``dtype`` is the forward passes' compute dtype (bf16, the
+    serving dtype; fp32 for exact comparisons).  A ``mesh`` raises: only the
+    single-device engine is ported."""
+    from repro_torch.runtime.serve import ServingEngine
+
+    dev = resolve_device(device)
+    if model.device.type != dev.type:
+        raise ValueError(f"step_engine: the model lives on {model.device}, not {dev}")
+    return ServingEngine.for_plan(model, plan, mesh, batch=batch, max_len=max_len,
+                                  dtype=dtype)

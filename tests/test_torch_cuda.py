@@ -1,6 +1,6 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
-version, the wrappers' input checks, and the serving path with
-``impl="kernel"`` against ``impl="ref"``.
+version, the wrappers' input checks, and the serving paths (paged dense,
+step-engine mamba2) with ``impl="kernel"`` against ``impl="ref"``.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -14,7 +14,10 @@ import torch
 from repro_torch import serving
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import attention as t_attn
+from repro_torch.configs.registry import get_config
 from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
@@ -91,4 +94,78 @@ def test_cuda_serving_kernel_path_matches_ref_path(cuda_device):
         if impl == "kernel":
             after = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
             assert all(a > c for a, c in zip(after, counts))
+    assert tokens["kernel"] == tokens["ref"]
+
+
+def _ssd_inputs(g, dev, Bs, S, H, P, G, N, dtype=torch.float32):
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x = rn(Bs, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(Bs, S, H))
+    A = -torch.exp(0.3 * rn(H))
+    return x, dt, A, (0.3 * rn(Bs, S, G, N)).to(dtype), (0.3 * rn(Bs, S, G, N)).to(dtype)
+
+
+@pytest.mark.parametrize("Bs,S,H,P,G,N,dtype", [
+    (2, 128, 4, 32, 1, 16, torch.float32),
+    (1, 256, 4, 64, 2, 32, torch.float32),
+    (1, 100, 4, 64, 2, 64, torch.float32),           # ragged S: no chunk halving
+    (2, 1, 8, 32, 1, 16, torch.float32),             # one position
+    (1, 300, 8, 64, 1, 128, torch.bfloat16),         # ragged, bf16 x/B/C
+])
+def test_cuda_ssd_matches_plain_versions(cuda_device, Bs, S, H, P, G, N, dtype):
+    """K3 against ``ssd_chunked`` (and ``ssd_naive``) at 1e-3 of the plain
+    version's scale, the JAX SSD tests' tolerance, for y and the final state;
+    a bf16 y may also differ by one bf16 step of the element (both sides
+    round an fp32 sum once)."""
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    x, dt, A, B, C = _ssd_inputs(g, cuda_device, Bs, S, H, P, G, N, dtype)
+    n = ssd_ops.ssd.launches
+    y, st = ssd_ops.ssd(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == n + 1
+    assert y.dtype == dtype and st.dtype == torch.float32 and st.shape == (Bs, H, N, P)
+    plain = [ssd_ref.ssd_chunked(x, dt, A, B, C)]
+    if S <= 128:
+        plain.append(ssd_ref.ssd_naive(x.float(), dt, A, B.float(), C.float()))
+    rtol_y = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for ry, rs in plain:
+        for a, b, rtol in ((y.float(), ry.float(), rtol_y), (st, rs, 0.0)):
+            tol = 1e-3 * max(1.0, float(b.abs().max()))
+            assert bool(((a - b).abs() <= tol + rtol * b.abs()).all())
+
+
+def test_cuda_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x, dt, A, B, C = _ssd_inputs(g, cuda_device, 1, 64, 4, 32, 1, 16)
+    with pytest.raises(ValueError):                     # the kernel starts from zero
+        ssd_ops.ssd(x, dt, A, B, C, initial_state=torch.zeros((1, 4, 16, 32), device=cuda_device))
+    with pytest.raises(TypeError):                      # dt must be fp32
+        ssd_ops.ssd(x, dt.bfloat16(), A, B, C)
+    with pytest.raises(TypeError):                      # mixed x/B dtypes
+        ssd_ops.ssd(x, dt, A, B.bfloat16(), C)
+    with pytest.raises(ValueError):                     # N not a multiple of 4
+        ssd_ops.ssd(x, dt, A, B[..., :6].contiguous(), C[..., :6].contiguous())
+    with pytest.raises(ValueError):                     # mixed devices
+        ssd_ops.ssd(x, dt.cpu(), A, B, C)
+
+
+def test_cuda_mamba2_step_engine_kernel_path_matches_ref_path(cuda_device):
+    """Reduced mamba2 in fp32 through ``step_engine(...).greedy_generate``:
+    the kernel path emits the plain path's greedy tokens; K2 and K3 ran."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(6))
+    prompts = torch.from_numpy(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 77))).to(cuda_device)
+    tokens = {}
+    counts = (ssd_ops.ssd.launches, rms_ops.rmsnorm.launches)
+    for impl in ("kernel", "ref"):
+        model = build_model(cfg, impl=impl, device=cuda_device)
+        engine = serving.step_engine(model, serving.single_device_plan(cfg),
+                                     dtype=torch.float32)
+        tokens[impl] = engine.greedy_generate(params, prompts, 10, 96).tolist()
+        if impl == "kernel":
+            assert ssd_ops.ssd.launches == counts[0] + cfg.num_layers
+            assert rms_ops.rmsnorm.launches == counts[1] + 10 * (2 * cfg.num_layers + 1)
     assert tokens["kernel"] == tokens["ref"]

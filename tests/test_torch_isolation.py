@@ -80,11 +80,33 @@ def test_entry_points_refuse_cuda_without_a_gpu(no_gpu):
         serve_cli.main(["--arch", "llama3.2-1b", "--batch", "1"])
 
 
-def test_entry_points_default_to_cuda():
+def test_mamba2_entry_points_refuse_cuda_without_a_gpu(no_gpu):
+    """``build_model`` on an ssm config and ``step_engine`` default to the
+    card and raise without one, even for a model built on the CPU."""
     from repro_torch import serving
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg, impl="ref")
+    cpu_model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        serving.step_engine(cpu_model, serving.single_device_plan(cfg))
+
+
+def test_entry_points_default_to_cuda():
+    import inspect
+
+    from repro_torch import serving
+    from repro_torch.models import build_model
 
     assert serving.ServeConfig(arch="llama3.2-1b").device == "cuda"
     assert serving.ServeConfig(arch="llama3.2-1b").resolved_cluster().chips == 1
+    for fn in (serving.step_engine, build_model):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("alone", [False, True])
