@@ -11,8 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvcc`` (one process per source, all started together) and prints the
    build time and the compiler's register/spill report;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the shapes the serving paths give it (flash attention: fp32 1e-4, bf16
-   3e-2, residuals 1e-5; RMSNorm: fp32 1e-5, bf16 2e-2 — the JAX kernel
+   the shapes the serving paths give it (flash attention on compact GQA K/V
+   — KV 8 at the llama shapes, g = 5, hd 112, fully masked rows, kv_len at
+   and around a 64-key tile edge, Sk not a multiple of 64, an 8192-key
+   decode split over blocks: fp32 1e-4, bf16 3e-2, residuals 1e-5; its
+   yardstick is the faster of SDPA with ``enable_gqa`` on the compact heads
+   and SDPA on expanded heads; RMSNorm: fp32 1e-5, bf16 2e-2 — the JAX kernel
    tests' tolerances; SSD scan: max |err| <= 1e-3 * max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
    the mamba2 prefill shape, a ragged S, G = 2, bf16 inputs and against the
@@ -118,12 +122,17 @@ def bound(bytes_moved: float, flops: float, dtype_name: str) -> tuple[float, str
 
 # ---------------------------------------------------------------- phase 3
 
-def flash_case(torch, gen, *, B, Sq, Sk, H, hd, dtype, q_off=None, kv_len=None,
-               causal=True):
-    """Inputs of one flash-attention call, as the model's dispatch builds them."""
+def flash_case(torch, gen, *, B, Sq, Sk, H, hd, dtype, KV=None, q_off=None, kv_len=None,
+               causal=True, k_shift=None):
+    """Inputs of one flash-attention call, as the model's dispatch builds
+    them: compact k/v with ``KV`` heads (default H); with ``q_off``/``kv_len``
+    the decode positions (``q_pos = q_off + arange(Sq)``, keys at or past
+    ``kv_len`` at INT32_MAX); with ``k_shift`` index positions whose keys sit
+    ``k_shift`` later, so the first ``k_shift`` rows see no key."""
+    KV = KV or H
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, Sk, H, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, Sk, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
     q_pos = k_pos = None
     if q_off is not None:
         q_pos = (q_off.reshape(-1, 1) + torch.arange(Sq, device="cuda")).to(torch.int32)
@@ -132,6 +141,9 @@ def flash_case(torch, gen, *, B, Sq, Sk, H, hd, dtype, q_off=None, kv_len=None,
         k_pos = torch.where(torch.arange(Sk, device="cuda")[None] < kv_len[:, None], k_pos,
                             torch.full((), INT32_MAX, dtype=torch.int32, device="cuda"))
         k_pos = k_pos.contiguous()
+    elif k_shift is not None:
+        q_pos = torch.arange(Sq, dtype=torch.int32, device="cuda")
+        k_pos = torch.arange(Sk, dtype=torch.int32, device="cuda") + k_shift
     return dict(q=q, k=k, v=v, causal=causal, q_pos=q_pos, k_pos=k_pos)
 
 
@@ -145,21 +157,24 @@ def flash_mask(torch, c):
         qp = torch.arange(Sq, device="cuda").expand(B, Sq)
         kp = torch.arange(Sk, device="cuda").expand(B, Sk)
     else:
-        qp, kp = c["q_pos"].long(), c["k_pos"].long()
+        qp = c["q_pos"].long().expand(B, Sq)
+        kp = c["k_pos"].long().expand(B, Sk)
     return (kp[:, None, :] <= qp[:, :, None])[:, None]
 
 
 def flash_bound(torch, c) -> tuple[float, str]:
-    """Bytes: q and out once, positions once, and the K/V rows some row of
-    the batch attends to; operations: 4·hd per unmasked (row, key) pair and
-    head — what this run's data needs."""
+    """Bytes: q and out once, positions once, and the compact K/V rows (KV
+    heads, as the kernel is given them) that some row of the batch attends
+    to; operations: 4·hd per unmasked (row, key) pair and query head — what
+    this run's data needs."""
     q = c["q"]
     B, Sq, H, hd = q.shape
+    KV = c["k"].shape[2]
     e = q.element_size()
     mask = flash_mask(torch, c)[:, 0]                      # (B, Sq, Sk)
     keys_needed = int(mask.any(dim=1).sum())
     pairs = int(mask.sum())
-    nbytes = 2 * B * Sq * H * hd * e + 2 * keys_needed * H * hd * e
+    nbytes = 2 * B * Sq * H * hd * e + 2 * keys_needed * KV * hd * e
     if c["q_pos"] is not None:
         nbytes += 4 * (c["q_pos"].numel() + c["k_pos"].numel())
     flops = 4.0 * hd * H * pairs
@@ -168,24 +183,49 @@ def flash_bound(torch, c) -> tuple[float, str]:
 
 def check_flash(torch, flash_ops, flash_ref, gen):
     """Every flash-attention case against the plain version; returns the
-    JSON rows of the main-path shapes (bf16)."""
+    JSON rows of the timed bf16 cases: the two llama serving shapes (compact
+    KV = 8) and the g = 5 / hd 112 check shapes."""
     rows = []
     cases = []
     kv = torch.tensor([768], device="cuda")
     lens = torch.randint(1, 1026, (8,), generator=gen, device="cuda")
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
-        cases.append((f"prefill chunk B1 Sq256 Sk1280 H32 hd64 {name}", True, flash_case(
-            torch, gen, B=1, Sq=256, Sk=1280, H=32, hd=64, dtype=dtype,
-            q_off=torch.tensor([512], device="cuda"), kv_len=kv)))
-        cases.append((f"decode B8 Sq1 Sk1025 H32 hd64 {name}", True, flash_case(
-            torch, gen, B=8, Sq=1, Sk=1025, H=32, hd=64, dtype=dtype,
-            q_off=lens - 1, kv_len=lens)))
-        cases.append((f"causal B1 S256 H32 hd64 {name}", False, flash_case(
-            torch, gen, B=1, Sq=256, Sk=256, H=32, hd=64, dtype=dtype)))
+        cases.append((f"prefill chunk B1 Sq256 Sk1280 H32 KV8 hd64 {name}", True,
+                      flash_case(torch, gen, B=1, Sq=256, Sk=1280, H=32, KV=8, hd=64,
+                                 dtype=dtype, q_off=torch.tensor([512], device="cuda"),
+                                 kv_len=kv)))
+        cases.append((f"decode B8 Sq1 Sk1025 H32 KV8 hd64 {name}", True, flash_case(
+            torch, gen, B=8, Sq=1, Sk=1025, H=32, KV=8, hd=64, dtype=dtype, q_off=lens - 1,
+            kv_len=lens)))
+        cases.append((f"causal B1 S256 H32 KV8 hd64 {name}", False, flash_case(
+            torch, gen, B=1, Sq=256, Sk=256, H=32, KV=8, hd=64, dtype=dtype)))
         cases.append((f"non-causal B2 Sq200 Sk333 H4 hd128 {name}", False, flash_case(
             torch, gen, B=2, Sq=200, Sk=333, H=4, hd=128, dtype=dtype, causal=False)))
-    for label, main_path, c in cases:
+        # g = 5 (qwen3-14b heads) and hd 112 (zamba2-7b's shared attention)
+        g5 = torch.randint(1, 1026, (8,), generator=gen, device="cuda")
+        cases.append((f"g5 decode B8 Sq1 Sk1025 H40 KV8 hd128 {name}", True, flash_case(
+            torch, gen, B=8, Sq=1, Sk=1025, H=40, KV=8, hd=128, dtype=dtype, q_off=g5 - 1,
+            kv_len=g5)))
+        cases.append((f"hd112 causal B1 S512 H32 KV32 {name}", True, flash_case(
+            torch, gen, B=1, Sq=512, Sk=512, H=32, hd=112, dtype=dtype)))
+        # edges: fully masked rows, kv_len 1 and a 64-key tile edge +-1, Sk % 64 != 0,
+        # and a long decode whose keys split over many blocks
+        cases.append((f"masked rows B2 Sq16 Sk90 H8 KV2 hd32 {name}", False, flash_case(
+            torch, gen, B=2, Sq=16, Sk=90, H=8, KV=2, hd=32, dtype=dtype, k_shift=5)))
+        edge = torch.tensor([1, 63, 64, 65, 127, 128, 129, 0], device="cuda")
+        cases.append((f"kv_len 1/63/64/65/127/128/129/0 B8 Sq1 Sk130 H32 KV8 hd64 {name}",
+                      False, flash_case(torch, gen, B=8, Sq=1, Sk=130, H=32, KV=8, hd=64,
+                                       dtype=dtype, q_off=edge - 1, kv_len=edge)))
+        cases.append((f"ragged causal B2 Sq37 Sk100 H40 KV8 hd128 {name}", False, flash_case(
+            torch, gen, B=2, Sq=37, Sk=100, H=40, KV=8, hd=128, dtype=dtype,
+            q_off=torch.tensor([63, 10], device="cuda"),
+            kv_len=torch.tensor([100, 47], device="cuda"))))
+        long_len = torch.tensor([5000], device="cuda")
+        cases.append((f"split-K decode B1 Sq1 Sk8192 H32 KV8 hd64 kv_len 5000 {name}", False,
+                      flash_case(torch, gen, B=1, Sq=1, Sk=8192, H=32, KV=8, hd=64, dtype=dtype,
+                                 q_off=long_len - 1, kv_len=long_len)))
+    for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
         out, m, l = flash_ops.flash_attention_fwd(c["q"], c["k"], c["v"], **kw,
@@ -202,20 +242,25 @@ def check_flash(torch, flash_ops, flash_ref, gen):
             f"residuals {'ok' if res_ok else 'MISMATCH'}")
         require(ok, f"flash attention disagrees with its plain version: {label}")
         require(res_ok, f"flash attention residuals disagree: {label}")
-        if not (main_path and name == "bfloat16"):
+        if not (timed and name == "bfloat16"):
             continue
         q, k, v = c["q"], c["k"], c["v"]
         ms = device_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, **kw), torch)
         plain = device_ms(lambda: flash_ref.flash_attention_fwd(q, k, v, **kw), torch)
         mask = flash_mask(torch, c)
+        g = q.shape[2] // k.shape[2]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), torch)
+        ke, ve = (t.repeat_interleave(g, dim=2).transpose(1, 2) for t in (k, v))
+        lib_gqa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), torch)
+        lib_exp = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, ke, ve, attn_mask=mask), torch)
         b_ms, b_by = flash_bound(torch, c)
-        log(f"K1 [{label}] kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"sdpa {lib:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+        log(f"K1 [{label}] kernel {ms:.5f} ms  plain {plain:.4f} ms  sdpa (compact, "
+            f"enable_gqa) {lib_gqa:.5f} ms  sdpa (expanded heads) {lib_exp:.5f} ms  "
+            f"bound {b_ms:.6f} ms ({b_by})")
         rows.append(dict(label=label, path="llama", max_abs_err=err, ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+                         library_ms=min(lib_gqa, lib_exp), bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -374,7 +419,7 @@ def serve_full_width(torch, np, serving, flash_ops, rms_ops):
 
 
 def _kernel_group(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd" in name:
         return "flash_attention"
     if "rmsnorm_kernel" in name:
         return "rmsnorm"

@@ -3,65 +3,72 @@
 // Replaces the Pallas TPU kernel
 // repro/kernels/flash_attention/kernel.py::flash_attention_fwd (body
 // _flash_fwd_kernel).  Same function: softmax(q k^T * hd^-1/2 + mask) v with
-// q/k/v upcast to fp32, an fp32 online-softmax state (acc, m, l) carried
-// across key tiles, a causal mask from row/column indices or from explicit
+// fp32 scores and an fp32 online-softmax state (acc, m, l) carried across
+// key tiles, a causal mask from row/column indices or from explicit
 // q_pos/k_pos (k_pos <= q_pos), the finite NEG_INF = -0.7 * f32max for masked
-// scores (a fully masked row yields the mean of v), l clamped at 1e-30, and
-// optional (m, l) residuals.
+// scores (a fully masked row yields the mean of v), keys past Sk weighing
+// exactly 0, l clamped at 1e-30, and optional (m, l) residuals.
 //
-// Layout: q (B, Sq, H, HD), k/v (B, Sk, H, HD) contiguous with equal head
-// counts, out like q; positions (Sq,)/(Sk,) or (B, S) int32; m/l (B, H, Sq).
+// Layout: q (B, Sq, H, HD), k/v (B, Sk, KV, HD) with H % KV == 0 (query
+// head h reads kv head h / (H / KV)), all contiguous; out like q;
+// positions (Sq,)/(Sk,) or (B, S) int32; m/l (B, H, Sq) fp32.
 //
-// Design.  The TPU kernel's sequential kv grid dimension becomes a loop
-// inside the block.  One block (4 warps) per (batch*head, tile of q rows);
-// key/value tiles of 128 rows are staged in shared memory in the input
-// dtype (K with a padded pitch so the per-lane key reads hit distinct
-// banks).  Each lane scores whole keys against its warp's rows with fp32
-// FMAs (no tensor cores, so fp32 inputs stay true fp32), the warp reduces
-// the tile's max and sum with shuffles, and each lane accumulates its
-// head_dim/32 output columns.  Two shapes of block:
-//   * prefill (Sq > 4): every warp owns 4 q rows and all keys of a tile
-//     (16 rows per block, the K/V tile reused by 16 rows);
-//   * decode (Sq <= 4): one q row per block, the 4 warps split each key tile
-//     and merge their (m, l, acc) through shared memory at the end.
-// Keys beyond Sk score -inf (and read zeros), so they contribute exactly 0;
-// no block-size halving is needed for ragged Sq/Sk.
-//
-// Bound on the card: bytes, on paper, at both serving shapes — at decode
-// (Sq = 1) the expanded K/V is read once for ~4 flops per byte, and a
-// 256-row prefill chunk is still below the bf16 ridge.  This first kernel
-// does its products with fp32 CUDA-core FMAs (far below the tensor-core
-// rate the bound assumes) and no cp.async/TMA pipelining; wgmma, TMA,
-// reading compact GQA heads and skipping fully masked key tiles are later
-// work.
+// What bounds it on the H100, at the llama serving shapes (hd 64, 32 q / 8
+// kv heads): a decode step (one q row per slot against its cached keys) is
+// bytes-bound — each K/V byte feeds 4 query heads' worth of ~1 flop; a
+// 256-row prefill chunk is operations-bound (1024 packed rows per kv head
+// against 768 visible keys).  The design:
+//   * Packed rows.  A block owns one (batch, kv head) and a tile of packed
+//     rows, a packed row being one (q position, query head of the group)
+//     pair.  The H/KV heads that share a kv head share every K/V tile the
+//     block loads, so compact K/V is read once per block, not once per head.
+//   * bf16 on tensor cores.  S = Q K^T and O += P V are
+//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate) fed by ldmatrix (V with
+//     .trans).  S stays in registers, the online softmax runs on the
+//     accumulator fragments (row max and sum across each quad), and P is
+//     rounded to bf16 in registers as the A operand of P V, as in
+//     FlashAttention-2.  l sums the fp32 probabilities.  mma.sync, not
+//     wgmma: these calls are small and latency-bound, and wgmma's 64-row
+//     minimum would leave 60 of 64 rows empty at decode.  fp32 inputs run
+//     the same loop with CUDA-core FMAs on the same fragment layout (no
+//     TF32), so fp32 stays true fp32.
+//   * K/V tiles of 64 keys stream through a ring of 2-4 shared-memory
+//     stages with cp.async (16 bytes a thread), as many as leave room for
+//     two blocks on an SM; rows padded by 16 bytes so ldmatrix hits 8
+//     distinct bank groups.  Keys past Sk are zero-filled.
+//   * Masked tiles are skipped, exactly.  A tile whose smallest k_pos
+//     exceeds the largest q_pos of the block's rows (the INT32_MAX keys at or
+//     past kv_len included) is never loaded.  That is exact only if every
+//     row of the block sees some key, so the block first checks that no row's
+//     q_pos lies below the smallest k_pos of its batch row; if one does (a
+//     fully masked row, which must come out as the mean of v), the block runs
+//     every tile.  A tile every row sees in full (all its k_pos at most the
+//     smallest q_pos of the block, none past Sk) skips the mask arithmetic.
+//   * Split-K at decode.  With <= 16 packed rows per (batch, kv head) a block
+//     is 16 rows, its 4 warps split each tile's keys and merge in shared
+//     memory, and the key range is split over blocks besides (B * KV pairs
+//     alone are fewer than the 132 SMs); flash_fwd_split_merge then merges
+//     the splits' (m, l, acc) with the online-softmax rule.  Larger row
+//     counts use 64-row blocks and split only past 256 tiles of keys: 4
+//     warps of 16 rows, or, where that leaves SMs with fewer than ~1.5
+//     blocks (the 256-row prefill chunk: 128 blocks), 8 warps, two per 16
+//     rows on half of each tile's keys each, merged as at decode.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileK = 128;
+constexpr int kMergeWarps = 4;             // the split merge: a warp per row
+constexpr int kTileK = 64;                 // keys per K/V tile
+constexpr int kMaxTiles = 256;             // tiles one block may walk; longer ranges split
 // the JAX package's NEG_INF: the double -0.7 * f32max rounded to float
 constexpr float kNegInf = static_cast<float>(-0.7 * 3.4028234663852886e38);
+constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// two consecutive head_dim elements of a shared-memory K row, as floats
-__device__ __forceinline__ float2 load2(const float* p) { return make_float2(p[0], p[1]); }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
+constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 
 struct Params {
   const void* q;
@@ -74,270 +81,687 @@ struct Params {
   long long kpos_bstride;
   float* m_out;               // null: no residuals
   float* l_out;
-  int B, H, Sq, Sk;
+  float* part_o;              // split partials (nsplit > 1): (nsplit, B*H*Sq, HD)
+  float* part_m;              // (nsplit, B*H*Sq)
+  float* part_l;
+  int B, H, KV, G, Sq, Sk;
   int causal;
+  int nsplit, tiles_per_split;
   float scale;
 };
 
-template <typename T, int HD, int RPW, int KS>
-struct Smem {
-  static constexpr int kRows = (kWarps / KS) * RPW;
-  static constexpr int kKeysPerWarp = kTileK / KS;
-  static constexpr int kPitch = HD + (sizeof(T) == 4 ? 1 : 2);
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = align16(k_off + sizeof(T) * kTileK * kPitch);
-  static constexpr size_t q_off = align16(v_off + sizeof(T) * kTileK * HD);
-  static constexpr size_t p_off = align16(q_off + sizeof(float) * kRows * HD);
-  static constexpr size_t kp_off = align16(p_off + sizeof(float) * kWarps * RPW * kKeysPerWarp);
-  static constexpr size_t m_off = align16(kp_off + sizeof(int) * kTileK);
-  static constexpr size_t total =
-      align16(m_off + (KS > 1 ? sizeof(float) * kWarps * RPW * (HD + 2) : 0));
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// ------------------------------------------------------------ layout
+
+// WR warps along rows (16 rows each) x WK warps along the keys of a tile.
+template <typename T, int HD, int WR, int WK>
+struct Layout {
+  static constexpr int kWarps = WR * WK;
+  static constexpr int kRows = 16 * WR;
+  static constexpr int kKW = kTileK / WK;                 // keys of a tile per warp
+  static constexpr int kPitch = HD + 16 / sizeof(T);      // +16 bytes a row
+  static constexpr int kPPitch = kKW + 4;                 // fp32 P rows (fp32 path)
+  static constexpr size_t tile_bytes = sizeof(T) * kTileK * kPitch;
+  static constexpr size_t q_bytes = align16(sizeof(T) * kRows * kPitch);
+  static constexpr size_t p_bytes = sizeof(T) == 4 ? sizeof(float) * kWarps * 16 * kPPitch : 0;
+  // the warps' (acc, m, l) fragments when WK > 1, over the K/V stages after the loop
+  static constexpr int kMergeRegs = HD / 2 + 4;
+  static constexpr size_t merge_bytes = WK > 1 ? sizeof(float) * kWarps * kMergeRegs * 32 : 0;
+  static constexpr int kRed = 4 * kWarps + 4;             // ints of block reductions
+  static constexpr size_t bytes(int stages) {
+    return align16(q_bytes + 2 * stages * tile_bytes +
+                   align16(sizeof(int) * (stages * kTileK + kMaxTiles + kRed)) + p_bytes);
+  }
+  // K/V tiles in flight: as many (at most 4) as leave room for two blocks per SM
+  static constexpr size_t kTwoPerSM = 113 * 1024;
+  static constexpr int kStages = bytes(4) <= kTwoPerSM ? 4 : bytes(3) <= kTwoPerSM ? 3 : 2;
+  static constexpr size_t q_off = 0;
+  static constexpr size_t kv_off = q_bytes;
+  // K stage 0, V stage 0, K stage 1, V stage 1, ...
+  static constexpr size_t kp_off = kv_off + 2 * kStages * tile_bytes;
+  static constexpr size_t list_off = kp_off + sizeof(int) * kStages * kTileK;
+  static constexpr size_t red_off = list_off + sizeof(int) * kMaxTiles;
+  static constexpr size_t p_off = align16(red_off + sizeof(int) * kRed);
+  static constexpr size_t total = bytes(kStages);
+  static_assert(p_off + p_bytes <= total, "layout");
+  static_assert(merge_bytes <= 2 * kStages * tile_bytes, "merge buffer overlaps positions");
 };
 
-// RPW: q rows per warp; KS: warps that split one key tile (1 or 4).
-template <typename T, int HD, int RPW, int KS>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  using L = Smem<T, HD, RPW, KS>;
-  constexpr int kRows = L::kRows;
-  constexpr int kKeysPerWarp = L::kKeysPerWarp;
-  constexpr int kKPL = kKeysPerWarp / 32;            // keys per lane per tile
-  constexpr int kPitch = L::kPitch;
-  constexpr int kDPL = HD / 32;                      // output columns per lane
-  constexpr int kVec = 16 / sizeof(T);               // elements per 16-byte load
-  constexpr int kChunks = HD / kVec;
+// ------------------------------------------------------------ products
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* Vs = reinterpret_cast<T*>(smem + L::v_off);
-  float* Qs = reinterpret_cast<float*>(smem + L::q_off);
-  float* Ps = reinterpret_cast<float*>(smem + L::p_off);
-  int* KPs = reinterpret_cast<int*>(smem + L::kp_off);
-
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.y * kRows;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int rg = warp / KS;                          // row group of this warp
-  const int ks = warp % KS;                          // key split of this warp
-  const long long seq_stride = static_cast<long long>(p.H) * HD;
-  const T* qb = static_cast<const T*>(p.q) + (static_cast<long long>(b) * p.Sq * p.H + h) * HD;
-  const T* kb = static_cast<const T*>(p.k) + (static_cast<long long>(b) * p.Sk * p.H + h) * HD;
-  const T* vb = static_cast<const T*>(p.v) + (static_cast<long long>(b) * p.Sk * p.H + h) * HD;
-
-  for (int i = tid; i < kRows * HD; i += kThreads) {
-    const int qi = q0 + i / HD;
-    Qs[i] = qi < p.Sq ? to_f(qb[qi * seq_stride + i % HD]) : 0.f;
-  }
-  int qp[RPW];
-  float m[RPW], l[RPW], acc[RPW][kDPL];
+// S (16 rows x kKW keys of this warp) from Q and a K tile, in the mma
+// accumulator layout: s[n][0..1] row lane/4, s[n][2..3] row lane/4 + 8,
+// keys n*8 + 2*(lane%4) + {0, 1}.
+template <int HD, int kNT, int kPitch>
+__device__ __forceinline__ void scores(float (&s)[kNT][4], const uint32_t (&qf)[HD / 16][4],
+                                       const __nv_bfloat16* ks, const __nv_bfloat16*, int lane) {
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int qi = q0 + rg * RPW + r;
-    qp[r] = qi < p.Sq ? (p.qpos ? p.qpos[b * p.qpos_bstride + qi] : qi) : 0;
-    m[r] = kNegInf;
-    l[r] = 0.f;
+  for (int kk = 0; kk < HD / 16; ++kk) {
 #pragma unroll
-    for (int dd = 0; dd < kDPL; ++dd) acc[r][dd] = 0.f;
-  }
-
-  const float* Qw = Qs + rg * RPW * HD;
-  float* Pw = Ps + warp * RPW * kKeysPerWarp;
-  const int key0 = ks * kKeysPerWarp;                // this warp's first key in a tile
-
-  for (int kt = 0; kt < p.Sk; kt += kTileK) {
-    __syncthreads();                                 // previous tile fully consumed
-    for (int i = tid; i < kTileK * kChunks; i += kThreads) {
-      const int jj = i / kChunks;
-      const int c = i % kChunks;
-      const int j = kt + jj;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (j < p.Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + j * seq_stride + c * kVec);
-        vv = *reinterpret_cast<const uint4*>(vb + j * seq_stride + c * kVec);
-      }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(Ks + jj * kPitch + c * kVec);
-      kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-      *reinterpret_cast<uint4*>(Vs + jj * HD + c * kVec) = vv;
-    }
-    if (tid < kTileK) {
-      const int j = kt + tid;
-      KPs[tid] = j < p.Sk ? (p.kpos ? p.kpos[b * p.kpos_bstride + j] : j) : 0;
-    }
-    __syncthreads();
-
-    // scores of this lane's keys against the warp's rows
-    float s[RPW][kKPL];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r)
-#pragma unroll
-      for (int i = 0; i < kKPL; ++i) s[r][i] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; d += 2) {
-      float2 qv[RPW];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) qv[r] = *reinterpret_cast<const float2*>(Qw + r * HD + d);
-#pragma unroll
-      for (int i = 0; i < kKPL; ++i) {
-        const float2 kv2 = load2(Ks + (key0 + i * 32 + lane) * kPitch + d);
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-          s[r][i] = fmaf(qv[r].x, kv2.x, s[r][i]);
-          s[r][i] = fmaf(qv[r].y, kv2.y, s[r][i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kKPL; ++i) {
-      const int jj = key0 + i * 32 + lane;
-      const bool in_range = kt + jj < p.Sk;
-      const int kp = KPs[jj];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        float x = s[r][i] * p.scale;
-        if (!in_range) x = -__int_as_float(0x7f800000);  // -inf: absent key weighs exactly 0
-        else if (p.causal && kp > qp[r]) x = kNegInf;
-        s[r][i] = x;
-      }
-    }
-
-    // online softmax over this tile
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      float mx = s[r][0];
-#pragma unroll
-      for (int i = 1; i < kKPL; ++i) mx = fmaxf(mx, s[r][i]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[r], mx);
-      const float corr = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < kKPL; ++i) {
-        const float e = expf(s[r][i] - m_new);
-        Pw[r * kKeysPerWarp + i * 32 + lane] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[r] = l[r] * corr + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int dd = 0; dd < kDPL; ++dd) acc[r][dd] *= corr;
-    }
-    __syncwarp();
-
-    const T* Vw = Vs + key0 * HD;
-#pragma unroll 4
-    for (int kk = 0; kk < kKeysPerWarp; ++kk) {
-      float pr[RPW];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) pr[r] = Pw[r * kKeysPerWarp + kk];
-#pragma unroll
-      for (int dd = 0; dd < kDPL; ++dd) {
-        const float vd = to_f(Vw[kk * HD + lane + 32 * dd]);
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) acc[r][dd] = fmaf(pr[r], vd, acc[r][dd]);
-      }
-    }
-  }
-
-  if (KS > 1) {
-    // merge the key splits' partial (m, l, acc) of each row
-    float* Ms = reinterpret_cast<float*>(smem + L::m_off);
-    float* Mw = Ms + warp * RPW * (HD + 2);
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      if (lane == 0) {
-        Mw[r * (HD + 2)] = m[r];
-        Mw[r * (HD + 2) + 1] = l[r];
-      }
-#pragma unroll
-      for (int dd = 0; dd < kDPL; ++dd) Mw[r * (HD + 2) + 2 + lane + 32 * dd] = acc[r][dd];
-    }
-    __syncthreads();
-    if (ks != 0) return;
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      float M = kNegInf;
-      for (int w = 0; w < KS; ++w) M = fmaxf(M, Ms[((rg * KS + w) * RPW + r) * (HD + 2)]);
-      float Lsum = 0.f;
-      float A[kDPL];
-#pragma unroll
-      for (int dd = 0; dd < kDPL; ++dd) A[dd] = 0.f;
-      for (int w = 0; w < KS; ++w) {
-        const float* src = Ms + ((rg * KS + w) * RPW + r) * (HD + 2);
-        const float c = expf(src[0] - M);
-        Lsum += src[1] * c;
-#pragma unroll
-        for (int dd = 0; dd < kDPL; ++dd) A[dd] += src[2 + lane + 32 * dd] * c;
-      }
-      m[r] = M;
-      l[r] = Lsum;
-#pragma unroll
-      for (int dd = 0; dd < kDPL; ++dd) acc[r][dd] = A[dd];
-    }
-  }
-
-  T* ob = static_cast<T*>(p.out) + (static_cast<long long>(b) * p.Sq * p.H + h) * HD;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int qi = q0 + rg * RPW + r;
-    if (qi >= p.Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int dd = 0; dd < kDPL; ++dd) {
-      ob[qi * seq_stride + lane + 32 * dd] = from_f<T>(acc[r][dd] / denom);
-    }
-    if (p.m_out != nullptr && lane == 0) {
-      const long long idx = (static_cast<long long>(b) * p.H + h) * p.Sq + qi;
-      p.m_out[idx] = m[r];
-      p.l_out[idx] = l[r];
+    for (int n = 0; n < kNT; n += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, ks + (n * 8 + (lane / 16) * 8 + (lane % 8)) * kPitch + kk * 16 +
+                         ((lane / 8) % 2) * 8);
+      mma_bf16(s[n], qf[kk], b[0], b[1]);
+      mma_bf16(s[n + 1], qf[kk], b[2], b[3]);
     }
   }
 }
 
-template <typename T, int HD, int RPW, int KS>
+template <int HD, int kNT, int kPitch>
+__device__ __forceinline__ void scores(float (&s)[kNT][4], const uint32_t (&)[HD / 16][4],
+                                       const float* ks, const float* qw, int lane) {
+  const float* qa = qw + (lane / 4) * kPitch;
+  const float* qb = qa + 8 * kPitch;
+  const float* kc = ks + 2 * (lane % 4) * kPitch;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(qa + d);
+    const float4 bq = *reinterpret_cast<const float4*>(qb + d);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const float4 k0 = *reinterpret_cast<const float4*>(kc + n * 8 * kPitch + d);
+      const float4 k1 = *reinterpret_cast<const float4*>(kc + (n * 8 + 1) * kPitch + d);
+      s[n][0] = fmaf(a.w, k0.w, fmaf(a.z, k0.z, fmaf(a.y, k0.y, fmaf(a.x, k0.x, s[n][0]))));
+      s[n][1] = fmaf(a.w, k1.w, fmaf(a.z, k1.z, fmaf(a.y, k1.y, fmaf(a.x, k1.x, s[n][1]))));
+      s[n][2] = fmaf(bq.w, k0.w, fmaf(bq.z, k0.z, fmaf(bq.y, k0.y, fmaf(bq.x, k0.x, s[n][2]))));
+      s[n][3] = fmaf(bq.w, k1.w, fmaf(bq.z, k1.z, fmaf(bq.y, k1.y, fmaf(bq.x, k1.x, s[n][3]))));
+    }
+  }
+}
+
+// o (16 rows x HD, accumulator layout) += P (probabilities in s) * V tile
+template <int HD, int kNT, int kPitch, int kPPitch>
+__device__ __forceinline__ void accumulate(float (&o)[HD / 8][4], const float (&s)[kNT][4],
+                                           const __nv_bfloat16* vs, float*, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kNT / 2; ++kk) {
+    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int d = 0; d < HD / 8; d += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vs + (kk * 16 + ((lane / 8) % 2) * 8 + (lane % 8)) * kPitch + d * 8 +
+                               (lane / 16) * 8);
+      mma_bf16(o[d], a, b[0], b[1]);
+      mma_bf16(o[d + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int HD, int kNT, int kPitch, int kPPitch>
+__device__ __forceinline__ void accumulate(float (&o)[HD / 8][4], const float (&s)[kNT][4],
+                                           const float* vs, float* pw, int lane) {
+  const int ra = lane / 4;
+  const int c = 2 * (lane % 4);
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    store2(pw + ra * kPPitch + n * 8 + c, s[n][0], s[n][1]);
+    store2(pw + (ra + 8) * kPPitch + n * 8 + c, s[n][2], s[n][3]);
+  }
+  __syncwarp();
+#pragma unroll 4
+  for (int j = 0; j < kNT * 8; ++j) {
+    const float pa = pw[ra * kPPitch + j];
+    const float pb = pw[(ra + 8) * kPPitch + j];
+    const float* vr = vs + j * kPitch + c;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) {
+      const float2 vv = *reinterpret_cast<const float2*>(vr + d * 8);
+      o[d][0] = fmaf(pa, vv.x, o[d][0]);
+      o[d][1] = fmaf(pa, vv.y, o[d][1]);
+      o[d][2] = fmaf(pb, vv.x, o[d][2]);
+      o[d][3] = fmaf(pb, vv.y, o[d][3]);
+    }
+  }
+  __syncwarp();                                      // P read before the next tile writes it
+}
+
+// ------------------------------------------------------------ the kernel
+
+template <typename T, int HD, int WR, int WK>
+__global__ void __launch_bounds__(32 * WR * WK) flash_fwd_kernel(const Params p) {
+  using L = Layout<T, HD, WR, WK>;
+  constexpr int kWarps = L::kWarps;
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kRows = L::kRows;
+  constexpr int kKW = L::kKW;
+  constexpr int kNT = kKW / 8;                       // 8-key column tiles of S per warp
+  constexpr int kDT = HD / 8;                        // 8-column tiles of O
+  constexpr int kPitch = L::kPitch;
+  constexpr int kChunk = 16 / sizeof(T);             // elements per 16-byte copy
+  constexpr int kCPR = HD / kChunk;                  // copies per row
+  constexpr bool kBf16 = sizeof(T) == 2;
+  static_assert(kNT % 2 == 0 && kDT % 2 == 0 && HD % 16 == 0, "tile shapes");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::q_off);
+  int* KPs = reinterpret_cast<int*>(smem + L::kp_off);
+  int* tiles = reinterpret_cast<int*>(smem + L::list_off);
+  int* red = reinterpret_cast<int*>(smem + L::red_off);
+  auto k_tile = [&](int stage) { return reinterpret_cast<T*>(smem + L::kv_off + 2 * stage * L::tile_bytes); };
+  auto v_tile = [&](int stage) { return reinterpret_cast<T*>(smem + L::kv_off + (2 * stage + 1) * L::tile_bytes); };
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wr = warp / WK;
+  const int wk = warp % WK;
+  const int b = blockIdx.y / p.KV;
+  const int kvh = blockIdx.y % p.KV;
+  const int split = blockIdx.z;
+  const int nrows = p.G * p.Sq;                      // packed rows of this (b, kv head)
+  const int r0 = blockIdx.x * kRows;
+  const int ntiles = (p.Sk + kTileK - 1) / kTileK;
+  const int t_begin = split * p.tiles_per_split;
+  const int t_end = min(ntiles, t_begin + p.tiles_per_split);
+  const long long key_stride = static_cast<long long>(p.KV) * HD;
+  const T* kb = static_cast<const T*>(p.k) + (static_cast<long long>(b) * p.Sk * p.KV + kvh) * HD;
+  const T* vb = static_cast<const T*>(p.v) + (static_cast<long long>(b) * p.Sk * p.KV + kvh) * HD;
+  const int* kpos = p.kpos ? p.kpos + b * p.kpos_bstride : nullptr;
+  auto q_position = [&](int pr) {
+    const int qi = pr / p.G;
+    return p.qpos ? p.qpos[b * p.qpos_bstride + qi] : qi;
+  };
+  auto k_position = [&](int j) { return kpos ? kpos[j] : j; };
+
+  // 1. the block's Q rows (zero past the last packed row)
+  for (int i = tid; i < kRows * kCPR; i += kThreads) {
+    const int r = i / kCPR;
+    const int c = i % kCPR;
+    const int pr = r0 + r;
+    const bool ok = pr < nrows;
+    const int qi = ok ? pr / p.G : 0;
+    const int h = kvh * p.G + (ok ? pr % p.G : 0);
+    cp_async16(Qs + r * kPitch + c * kChunk,
+               static_cast<const T*>(p.q) +
+                   ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * HD + c * kChunk,
+               ok ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // 2. which tiles of [t_begin, t_end) can hold a key that a row sees
+  int qlo = INT_MAX, qhi = INT_MIN;
+  for (int pr = r0 + tid; pr < min(r0 + kRows, nrows); pr += kThreads) {
+    const int qp = q_position(pr);
+    qlo = min(qlo, qp);
+    qhi = max(qhi, qp);
+  }
+  int kfirst = INT_MAX;                              // smallest k_pos of the first tile
+  if (tid < min(kTileK, p.Sk)) kfirst = k_position(tid);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    qlo = min(qlo, __shfl_xor_sync(0xffffffffu, qlo, o));
+    qhi = max(qhi, __shfl_xor_sync(0xffffffffu, qhi, o));
+    kfirst = min(kfirst, __shfl_xor_sync(0xffffffffu, kfirst, o));
+  }
+  if (lane == 0) {
+    red[3 * warp] = qlo;
+    red[3 * warp + 1] = qhi;
+    red[3 * warp + 2] = kfirst;
+  }
+  __syncthreads();
+  qlo = INT_MAX;
+  qhi = INT_MIN;
+  int kmin = INT_MAX;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    qlo = min(qlo, red[3 * w]);
+    qhi = max(qhi, red[3 * w + 1]);
+    kmin = min(kmin, red[3 * w + 2]);
+  }
+  if (p.causal && qlo < kmin) {
+    // some row may see no key of the first tile: the smallest k_pos of the batch row decides
+    int km = INT_MAX;
+#pragma unroll 8
+    for (int j = kTileK + tid; j < p.Sk; j += kThreads) km = min(km, k_position(j));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) km = min(km, __shfl_xor_sync(0xffffffffu, km, o));
+    if (lane == 0) red[3 * kWarps + warp] = km;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) kmin = min(kmin, red[3 * kWarps + w]);
+  }
+  // Skipping is exact only if every row of the block sees some key.  Each
+  // tile gets two flags: kNeeded (some key a row of the block may see) and
+  // kMasked (some key a row may not see, or past Sk); tiles without kMasked
+  // skip the mask arithmetic.
+  constexpr int kNeeded = 1, kMasked = 2;
+  const bool skip = p.causal && qlo >= kmin;
+  const int n_range = max(0, t_end - t_begin);
+  for (int i = tid; i < n_range; i += kThreads) {
+    tiles[i] = (skip ? 0 : kNeeded) | (p.causal && !skip ? kMasked : 0);
+  }
+  if (skip) {
+    __syncthreads();                                 // flags cleared before any is set
+    const int j_begin = t_begin * kTileK;
+    const int j_end = min(t_end * kTileK, p.Sk);
+    constexpr int kBatch = 8;                        // loads in flight per thread
+    for (int base = j_begin; base < j_end; base += kBatch * kThreads) {
+      int kp[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = base + u * kThreads + tid;
+        kp[u] = j < j_end ? k_position(j) : INT_MAX;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        // a warp's 32 keys lie in one tile (j_begin is a tile boundary)
+        const int j = base + u * kThreads + tid;
+        const unsigned seen = __ballot_sync(0xffffffffu, j < j_end && kp[u] <= qhi);
+        const unsigned hidden = __ballot_sync(0xffffffffu, j < j_end && kp[u] > qlo);
+        if (lane == 0 && (seen | hidden) != 0u) {
+          atomicOr(&tiles[(j - tid + warp * 32) / kTileK - t_begin],
+                   (seen ? kNeeded : 0) | (hidden ? kMasked : 0));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {                                   // compact into a list of 2 t + masked, in place
+    int cnt = 0;
+    for (int base = 0; base < n_range; base += 32) {
+      const int i = base + lane;
+      const int f = i < n_range ? tiles[i] : 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, (f & kNeeded) != 0);
+      if (f & kNeeded) {
+        const int t = t_begin + i;
+        const bool masked = (f & kMasked) || (t + 1) * kTileK > p.Sk;
+        tiles[cnt + __popc(bal & ((1u << lane) - 1u))] = 2 * t + masked;
+      }
+      cnt += __popc(bal);
+    }
+    if (lane == 0) red[4 * kWarps] = cnt;
+  }
+  __syncthreads();
+  const int n_tiles = red[4 * kWarps];
+
+  // 3. this thread's rows (accumulator layout) and their q positions
+  const int ra = wr * 16 + lane / 4;                 // rows ra and ra + 8 of the block
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pr = r0 + ra + 8 * i;
+    qp[i] = pr < nrows ? q_position(pr) : 0;
+  }
+
+  auto load_tile = [&](int t, int stage) {
+    T* ks = k_tile(stage);
+    T* vs = v_tile(stage);
+    for (int i = tid; i < kTileK * kCPR; i += kThreads) {
+      const int jj = i / kCPR;
+      const int c = i % kCPR;
+      const int j = t * kTileK + jj;
+      const bool ok = j < p.Sk;
+      const long long off = static_cast<long long>(ok ? j : 0) * key_stride + c * kChunk;
+      cp_async16(ks + jj * kPitch + c * kChunk, kb + off, ok ? 16 : 0);
+      cp_async16(vs + jj * kPitch + c * kChunk, vb + off, ok ? 16 : 0);
+    }
+    if (kpos != nullptr && tid < kTileK) {
+      const int j = t * kTileK + tid;
+      cp_async4(KPs + stage * kTileK + tid, kpos + min(j, p.Sk - 1), j < p.Sk ? 4 : 0);
+    }
+  };
+
+  float o[kDT][4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int d = 0; d < kDT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  uint32_t qf[HD / 16][4];
+
+  // kStages - 1 tiles ahead; every step commits one group (empty past the
+  // last tile), so waiting for all but kStages - 1 groups means this tile
+  constexpr int kStages = L::kStages;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_tile(tiles[i] >> 1, i);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();                      // Q has landed
+  __syncthreads();
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldmatrix_x4(qf[kk], Qs + (wr * 16 + lane % 16) * kPitch + kk * 16 + (lane / 16) * 8);
+  }
+  float* pw = reinterpret_cast<float*>(smem + L::p_off) + warp * 16 * L::kPPitch;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % kStages;
+    const int t = tiles[it] >> 1;
+    const bool masked = tiles[it] & 1;
+    const int ahead = it + kStages - 1;
+    if (ahead < n_tiles) load_tile(tiles[ahead] >> 1, ahead % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+
+    const T* ks = k_tile(stage) + wk * kKW * kPitch;
+    const T* vs = v_tile(stage) + wk * kKW * kPitch;
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    scores<HD, kNT, kPitch>(s, qf, ks, Qs + wr * 16 * kPitch, lane);
+
+    // scale, and mask a tile that holds a key some row may not see
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= p.scale;
+    if (masked) {
+      const int key0 = t * kTileK + wk * kKW + 2 * (lane % 4);
+      const int* kp_tile = KPs + stage * kTileK + wk * kKW + 2 * (lane % 4);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = key0 + n * 8 + (e & 1);
+          if (j >= p.Sk) {
+            s[n][e] = -__int_as_float(0x7f800000);   // -inf: an absent key weighs exactly 0
+          } else if (p.causal && (kpos ? kp_tile[n * 8 + (e & 1)] : j) > qp[e >> 1]) {
+            s[n][e] = kNegInf;
+          }
+        }
+      }
+    }
+
+    // online softmax on the fragments; a row's 4 lanes form a quad
+    float mx[2] = {-__int_as_float(0x7f800000), -__int_as_float(0x7f800000)};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // differences first: NEG_INF * log2(e) would overflow to -inf, and -inf - -inf is NaN
+      corr[i] = exp2f((m[i] - m_new) * kLog2e);
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f((s[n][e] - m[e >> 1]) * kLog2e);
+        l[e >> 1] += s[n][e];
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < kDT; ++d) {
+      o[d][0] *= corr[0];
+      o[d][1] *= corr[0];
+      o[d][2] *= corr[1];
+      o[d][3] *= corr[1];
+    }
+    accumulate<HD, kNT, kPitch, L::kPPitch>(o, s, vs, pw, lane);
+    __syncthreads();                                 // this stage may be refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+
+  if constexpr (WK > 1) {
+    // merge the key-splitting warps of each row group (the K/V stages are free)
+    constexpr int kR = L::kMergeRegs;
+    float* mb = reinterpret_cast<float*>(smem + L::kv_off);
+#pragma unroll
+    for (int d = 0; d < kDT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mb[(warp * kR + 4 * d + e) * 32 + lane] = o[d][e];
+    mb[(warp * kR + 4 * kDT) * 32 + lane] = m[0];
+    mb[(warp * kR + 4 * kDT + 1) * 32 + lane] = m[1];
+    mb[(warp * kR + 4 * kDT + 2) * 32 + lane] = l[0];
+    mb[(warp * kR + 4 * kDT + 3) * 32 + lane] = l[1];
+    __syncthreads();
+    if (wk != 0) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float M = kNegInf;
+#pragma unroll
+      for (int w = 0; w < WK; ++w) M = fmaxf(M, mb[((wr * WK + w) * kR + 4 * kDT + i) * 32 + lane]);
+      float c[WK];
+      float lsum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WK; ++w) {
+        const int base = (wr * WK + w) * kR;
+        c[w] = exp2f((mb[(base + 4 * kDT + i) * 32 + lane] - M) * kLog2e);
+        lsum += mb[(base + 4 * kDT + 2 + i) * 32 + lane] * c[w];
+      }
+#pragma unroll
+      for (int d = 0; d < kDT; ++d) {
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          float acc = 0.f;
+#pragma unroll
+          for (int w = 0; w < WK; ++w) acc += mb[((wr * WK + w) * kR + 4 * d + e) * 32 + lane] * c[w];
+          o[d][e] = acc;
+        }
+      }
+      m[i] = M;
+      l[i] = lsum;
+    }
+  }
+
+  if (n_tiles == 0) {                                // an empty split weighs exactly 0 in the merge
+    m[0] = m[1] = -__int_as_float(0x7f800000);
+  }
+  const long long bhs = static_cast<long long>(p.B) * p.H * p.Sq;
+  const int c = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pr = r0 + ra + 8 * i;
+    if (pr >= nrows) continue;
+    const int qi = pr / p.G;
+    const int h = kvh * p.G + pr % p.G;
+    const long long row = (static_cast<long long>(b) * p.H + h) * p.Sq + qi;
+    if (p.nsplit == 1) {
+      const float denom = fmaxf(l[i], 1e-30f);
+      T* ob = static_cast<T*>(p.out) + ((static_cast<long long>(b) * p.Sq + qi) * p.H + h) * HD + c;
+#pragma unroll
+      for (int d = 0; d < kDT; ++d) store2(ob + d * 8, o[d][2 * i] / denom, o[d][2 * i + 1] / denom);
+      if (p.m_out != nullptr && lane % 4 == 0) {
+        p.m_out[row] = m[i];
+        p.l_out[row] = l[i];
+      }
+    } else {
+      const long long prow = split * bhs + row;
+      float* po = p.part_o + prow * HD + c;
+#pragma unroll
+      for (int d = 0; d < kDT; ++d) store2(po + d * 8, o[d][2 * i], o[d][2 * i + 1]);
+      if (lane % 4 == 0) {
+        p.part_m[prow] = m[i];
+        p.part_l[prow] = l[i];
+      }
+    }
+  }
+}
+
+// Merges the key splits of each (b, h, q) row: one warp per row.
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kMergeWarps) flash_fwd_split_merge(const Params p) {
+  constexpr int kPer = (HD + 31) / 32;
+  const long long bhs = static_cast<long long>(p.B) * p.H * p.Sq;
+  const long long row = static_cast<long long>(blockIdx.x) * kMergeWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= bhs) return;
+  float M = -__int_as_float(0x7f800000);
+  for (int s = 0; s < p.nsplit; ++s) M = fmaxf(M, p.part_m[s * bhs + row]);
+  float lsum = 0.f;
+  float acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+  for (int s = 0; s < p.nsplit; ++s) {
+    const float w = exp2f((p.part_m[s * bhs + row] - M) * kLog2e);
+    if (w == 0.f) continue;
+    lsum += p.part_l[s * bhs + row] * w;
+    const float* po = p.part_o + (s * bhs + row) * HD;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int d = lane + 32 * i;
+      if (d < HD) acc[i] += po[d] * w;
+    }
+  }
+  const int qi = static_cast<int>(row % p.Sq);
+  const long long bh = row / p.Sq;
+  const int h = static_cast<int>(bh % p.H);
+  const long long b = bh / p.H;
+  T* ob = static_cast<T*>(p.out) + ((b * p.Sq + qi) * p.H + h) * HD;
+  const float denom = fmaxf(lsum, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int d = lane + 32 * i;
+    if (d < HD) ob[d] = from_f<T>(acc[i] / denom);
+  }
+  if (p.m_out != nullptr && lane == 0) {
+    p.m_out[row] = M;
+    p.l_out[row] = lsum;
+  }
+}
+
+template <typename T, int HD, int WR, int WK>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  using L = Smem<T, HD, RPW, KS>;
-  auto kernel = flash_fwd_kernel<T, HD, RPW, KS>;
+  using L = Layout<T, HD, WR, WK>;
+  auto kernel = flash_fwd_kernel<T, HD, WR, WK>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::total));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Sq + L::kRows - 1) / L::kRows);
-  kernel<<<grid, kThreads, L::total, stream>>>(p);
+  const int rows = p.G * p.Sq;
+  const dim3 grid((rows + L::kRows - 1) / L::kRows, p.B * p.KV, p.nsplit);
+  kernel<<<grid, 32 * L::kWarps, L::total, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.nsplit == 1) return err;
+  const long long bhs = static_cast<long long>(p.B) * p.H * p.Sq;
+  flash_fwd_split_merge<T, HD><<<static_cast<unsigned>((bhs + kMergeWarps - 1) / kMergeWarps),
+                                 32 * kMergeWarps, 0,
+                                 stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-cudaError_t dispatch_shape(const Params& p, cudaStream_t stream) {
-  if (p.Sq <= 4) return launch<T, HD, 1, 4>(p, stream);   // decode: split keys over warps
-  return launch<T, HD, 4, 1>(p, stream);                  // prefill: 16 q rows per block
+cudaError_t dispatch_shape(const Params& p, int sms, cudaStream_t stream) {
+  const int rows = p.G * p.Sq;
+  if (rows <= 16) return launch<T, HD, 1, 4>(p, stream);   // decode: 16 rows, warps split keys
+  // 64-row blocks, a warp per 16 rows; where they would leave SMs with fewer
+  // than ~1.5 blocks, 8 warps instead of 4, two per 16 rows, each on half
+  // of a tile's keys
+  const long long blocks = static_cast<long long>((rows + 63) / 64) * p.B * p.KV * p.nsplit;
+  if (2 * blocks < 3LL * sms) return launch<T, HD, 4, 2>(p, stream);
+  return launch<T, HD, 4, 1>(p, stream);
 }
 
 template <typename T>
-cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
+cudaError_t dispatch_hd(const Params& p, int hd, int sms, cudaStream_t stream) {
   switch (hd) {
-    case 32: return dispatch_shape<T, 32>(p, stream);
-    case 64: return dispatch_shape<T, 64>(p, stream);
-    case 128: return dispatch_shape<T, 128>(p, stream);
+    case 32: return dispatch_shape<T, 32>(p, sms, stream);
+    case 64: return dispatch_shape<T, 64>(p, sms, stream);
+    case 112: return dispatch_shape<T, 112>(p, sms, stream);
+    case 128: return dispatch_shape<T, 128>(p, sms, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16.
+// dtype codes: 0 float32, 1 bfloat16.  nsplit > 1 needs the partial buffers
+// part_o (nsplit * B*H*Sq * hd fp32), part_m and part_l (nsplit * B*H*Sq).
+// sms: the card's SM count, which picks the block shape.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, const void* qpos, const void* kpos,
-    long long qpos_bstride, long long kpos_bstride, void* m_out, void* l_out, int B, int H,
-    int Sq, int Sk, int hd, int causal, float scale, int dtype, void* stream) {
+    long long qpos_bstride, long long kpos_bstride, void* m_out, void* l_out, void* part_o,
+    void* part_m, void* part_l, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
+    float scale, int nsplit, int sms, int dtype, void* stream) {
   cudaGetLastError();                                // report only this launch's error
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || (qpos == nullptr) != (kpos == nullptr) ||
-      (m_out == nullptr) != (l_out == nullptr) || Sq > 65535 * 16) {
+  const int ntiles = Sk > 0 ? (Sk + kTileK - 1) / kTileK : 0;
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
+      (qpos == nullptr) != (kpos == nullptr) || (m_out == nullptr) != (l_out == nullptr) ||
+      static_cast<long long>(B) * KV > 65535 || nsplit < 1 || nsplit > ntiles || nsplit > 65535 ||
+      sms < 1 ||
+      (nsplit > 1 && (part_o == nullptr || part_m == nullptr || part_l == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int per = (ntiles + nsplit - 1) / nsplit;
+  if (per > kMaxTiles || (ntiles + per - 1) / per != nsplit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -351,16 +775,23 @@ extern "C" int repro_flash_attention_fwd(
   p.kpos_bstride = kpos_bstride;
   p.m_out = static_cast<float*>(m_out);
   p.l_out = static_cast<float*>(l_out);
+  p.part_o = static_cast<float*>(part_o);
+  p.part_m = static_cast<float*>(part_m);
+  p.part_l = static_cast<float*>(part_l);
   p.B = B;
   p.H = H;
+  p.KV = KV;
+  p.G = H / KV;
   p.Sq = Sq;
   p.Sk = Sk;
   p.causal = causal;
+  p.nsplit = nsplit;
+  p.tiles_per_split = per;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(dispatch_hd<float>(p, hd, s));
-    case 1: return static_cast<int>(dispatch_hd<__nv_bfloat16>(p, hd, s));
+    case 0: return static_cast<int>(dispatch_hd<float>(p, hd, sms, s));
+    case 1: return static_cast<int>(dispatch_hd<__nv_bfloat16>(p, hd, sms, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,22 +3,23 @@ plain version on CPU tensors.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py::
 flash_attention_fwd`` (body ``_flash_fwd_kernel``) with
-``csrc/flash_attention.cu``.  What bounds it on the H100: at decode (one q
-row per slot against the whole gathered cache view) bytes — each K/V element
-is read once for ~4 flops; at a prefill chunk the arithmetic grows with the
-chunk length.  The design stages K/V tiles in shared memory once per block
-and reuses each tile for every q row of the block (16 rows at prefill); at
-decode, where a block has a single row, its four warps split each tile's
-keys instead so the loads are spread over more threads.  It computes with
-fp32 FMAs on CUDA cores — tensor cores (``wgmma``), TMA pipelining and
-reading compact GQA heads are later work.
+``csrc/flash_attention.cu``.  What bounds it on the H100: a decode step is
+bytes-bound (each compact K/V byte feeds the query heads of its group for
+~1 flop each), a prefill chunk operations-bound.  The kernel reads compact
+GQA K/V once per (batch, kv head) block, with the group's query heads packed
+as rows; its bf16 products run on tensor cores (``mma.sync``), fp32 on CUDA
+cores; K/V tiles stream through a ring of ``cp.async`` stages; tiles that no
+row of a block sees are skipped, and tiles that every row sees in full skip
+the mask; a decode-sized call splits its keys over blocks, merged by a
+second small kernel (see the source's head).
 
-``flash_attention_fwd.launches`` counts kernel launches (plain-version calls
-on the CPU do not count).
+``flash_attention_fwd.launches`` counts calls that launch the kernel, one
+per call (plain-version calls on the CPU do not count).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,11 +27,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref as _ref
 
 NEG_INF = _ref.NEG_INF
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
+TILE_K = 64                     # keys per K/V tile of the kernel
+MAX_TILES = 256                 # tiles one block may walk (the kernel's kMaxTiles)
+DECODE_ROWS = 16                # packed rows (query heads x Sq) of a decode block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong, ctypes.c_longlong) \
-    + (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 6 + (ctypes.c_float, ctypes.c_int,
-                                                       ctypes.c_void_p)
+    + (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_float,) \
+    + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def _check_positions(pos, B: int, S: int, device, name: str) -> tuple[torch.Tensor, int]:
@@ -45,10 +49,28 @@ def _check_positions(pos, B: int, S: int, device, name: str) -> tuple[torch.Tens
     raise ValueError(f"{name}: shape {tuple(pos.shape)}, expected ({S},) or ({B}, {S})")
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def num_splits(B: int, KV: int, rows: int, Sk: int, sms: int) -> int:
+    """Blocks the kernel splits each (batch, kv head)'s keys over.  A block
+    walks at most ``MAX_TILES`` tiles; a decode-sized call (``rows`` packed
+    rows <= 16) also splits until there are about two blocks per SM."""
+    tiles = -(-Sk // TILE_K)
+    n = -(-tiles // MAX_TILES)
+    if rows <= DECODE_ROWS:
+        n = max(n, min(tiles, -(-2 * sms // (B * KV))))
+    per = -(-tiles // n)
+    return -(-tiles // per)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
                         return_residuals: bool = False):
-    """q (B, Sq, H, hd), k/v (B, Sk, H, hd) with equal head counts ->
-    out (B, Sq, H, hd) in q's dtype, or (out, m, l) with m/l (B, H, Sq) fp32.
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) with ``H % KV == 0`` (query
+    head h reads kv head h // (H // KV)) -> out (B, Sq, H, hd) in q's dtype,
+    or (out, m, l) with m/l (B, H, Sq) fp32.
 
     ``q_pos``/``k_pos`` ((S,) or (B, S) int32) replace the row/column index
     in the causal mask (``k_pos <= q_pos``); they are ignored when
@@ -68,10 +90,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
         raise ValueError(f"flash_attention_fwd: bad shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, hd = q.shape
-    Sk = k.shape[1]
-    if k.shape[0] != B or k.shape[2:] != (H, hd):
+    Sk, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or KV < 1 or H % KV:
         raise ValueError(f"flash_attention_fwd: k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)} (expand GQA heads first)")
+                         f"{tuple(q.shape)} (kv heads must divide the query heads)")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd: head_dim {hd} not in {HEAD_DIMS}")
     if min(B, Sq, Sk, H) < 1:
@@ -92,10 +114,18 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
     if return_residuals:
         m = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
         l = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    sms = _sm_count(dev.index or 0)
+    nsplit = num_splits(B, KV, (H // KV) * Sq, Sk, sms)
+    part_o = part_m = part_l = None
+    if nsplit > 1:
+        rows = B * H * Sq
+        part = torch.empty(nsplit * rows * (hd + 2), dtype=torch.float32, device=dev)
+        part_o, part_m, part_l = part.split([nsplit * rows * hd, nsplit * rows, nsplit * rows])
     fn = _build.function("repro_flash_attention_fwd", _ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(qp), ptr(kp),
-            qs, ks, ptr(m), ptr(l), B, H, Sq, Sk, hd, int(causal), float(hd ** -0.5),
+            qs, ks, ptr(m), ptr(l), ptr(part_o), ptr(part_m), ptr(part_l),
+            B, H, KV, Sq, Sk, hd, int(causal), float(hd ** -0.5), nsplit, sms,
             _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1

@@ -1,14 +1,17 @@
 """Plain PyTorch version of the flash-attention forward kernel.
 
-Same signature and semantics as ``repro/kernels/flash_attention/kernel.py::
-flash_attention_fwd``: q/k/v (B, S, H, hd) with equal (already GQA-expanded)
-head counts, upcast to fp32 before both products; the causal mask comes from
-the row/column index or, when ``q_pos`` is given, from explicit positions
-(``k_pos <= q_pos``); masked scores take the finite ``NEG_INF``, so a fully
-masked row yields the mean of v; ``return_residuals`` adds the softmax stats
-m (row max) and l (sum of exp(s - m)), both (B, H, Sq) fp32.  Scores are
-materialised in full: this is the CPU path of ``ops.flash_attention_fwd``
-and the oracle the CUDA kernel is held against on the card.
+Same semantics as ``repro/kernels/flash_attention/kernel.py::
+flash_attention_fwd``: q (B, Sq, H, hd), k/v (B, Sk, KV, hd) with
+``H % KV == 0`` (compact GQA heads, expanded here as ``repeat_interleave``
+does: query head h reads kv head h // (H // KV); KV == H is the JAX
+kernel's own case), upcast to fp32 before both products; the causal mask
+comes from the row/column index or, when ``q_pos`` is given, from explicit
+positions (``k_pos <= q_pos``); masked scores take the finite ``NEG_INF``,
+so a fully masked row yields the mean of v; ``return_residuals`` adds the
+softmax stats m (row max) and l (sum of exp(s - m)), both (B, H, Sq) fp32.
+Scores are materialised in full: this is the CPU path of
+``ops.flash_attention_fwd`` and the oracle the CUDA kernel is held against
+on the card.
 """
 from __future__ import annotations
 
@@ -24,12 +27,25 @@ def _positions(pos, B: int, S: int, device) -> torch.Tensor:
     return pos.expand(B, S) if pos.dim() == 1 else pos
 
 
+def expand_heads(k, v, num_heads: int):
+    """k/v (B, S, KV, hd) -> (B, S, num_heads, hd), each kv head repeated
+    num_heads // KV times in place."""
+    KV = k.shape[2]
+    if num_heads % KV:
+        raise ValueError(f"{num_heads} query heads are not a multiple of {KV} kv heads")
+    if KV == num_heads:
+        return k, v
+    g = num_heads // KV
+    return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
                         return_residuals: bool = False):
-    """q (B, Sq, H, hd), k/v (B, Sk, H, hd) -> out (B, Sq, H, hd) in q's
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> out (B, Sq, H, hd) in q's
     dtype, or (out, m, l) with ``return_residuals``."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
+    k, v = expand_heads(k, v, H)
     qf, kf, vf = q.float(), k.float(), v.float()
     s = torch.einsum("bqhd,bshd->bhqs", qf, kf) * (hd ** -0.5)
     if causal:

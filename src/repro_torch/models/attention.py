@@ -1,19 +1,23 @@
 """Multi-head attention with GQA, qk-norm, optional bias and a KV cache.
 
-K/V are stored compact (``num_kv_heads``) and expanded to the query-head
-count before the attention math.  The port runs on one device, so query
-heads are never padded for tensor parallelism.
+K/V are stored compact (``num_kv_heads``).  The port runs on one device, so
+query heads are never padded for tensor parallelism.
 
-``attention_math`` dispatches:
+``attention_block`` dispatches:
   * ``impl="kernel"`` on CUDA tensors -> the flash-attention forward kernel
     (``kernels/flash_attention``) for every prefill pass, prefill chunk and
-    decode step.  A decode offset and per-slot valid lengths become explicit
-    positions: ``q_pos = q_offset + arange(Sq)`` per slot, ``k_pos =
-    arange(Sk)`` with every key at or beyond ``kv_len[b]`` moved to
-    ``INT32_MAX``, so the kernel's ``k_pos <= q_pos`` mask is exactly
-    ``dense_attention``'s ``(k <= q_offset + i) & (k < kv_len)``.
-  * otherwise (CPU tensors, or ``impl="ref"``) -> ``dense_attention`` up to
-    ``DENSE_MAX_SEQ`` and ``chunked_attention`` beyond, as in the JAX package.
+    decode step, on the compact K/V: the kernel maps query head h to kv head
+    h // (H // KV) itself, so no head expansion runs.  A decode offset and
+    per-slot valid lengths become explicit positions (``flash_positions``,
+    built once per forward by ``forward_decode``): ``q_pos = q_offset +
+    arange(Sq)`` per slot, ``k_pos = arange(Sk)`` with every key at or
+    beyond ``kv_len[b]`` moved to ``INT32_MAX``, so the kernel's ``k_pos <=
+    q_pos`` mask is exactly ``dense_attention``'s ``(k <= q_offset + i) &
+    (k < kv_len)``.  A full prefill (offset 0, no ``kv_len``) keeps the
+    index mask and needs no positions.
+  * otherwise (CPU tensors, or ``impl="ref"``) -> ``expand_and_pad`` to the
+    query-head count, then ``dense_attention`` up to ``DENSE_MAX_SEQ`` and
+    ``chunked_attention`` beyond, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models.common import ParamDef
 from repro_torch.models.norms import head_rmsnorm
 from repro_torch.models.rotary import apply_rope, rope_angles
@@ -70,18 +75,13 @@ def _kv_expand_index(num_q: int, num_kv: int, padded: int) -> np.ndarray:
 def expand_and_pad(q, k, v):
     """q (B,Sq,H,hd), k/v (B,Sk,KV,hd) -> k/v expanded to H heads.  With
     ``H % KV == 0`` (every config) the gather of ``_kv_expand_index`` is a
-    ``repeat_interleave`` — no index tensor crosses to the device."""
-    H, KV = q.shape[2], k.shape[2]
-    if H == KV:
-        return q, k, v
-    if H % KV:
-        raise ValueError(f"{H} query heads are not a multiple of {KV} kv heads")
-    g = H // KV
-    return q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    ``repeat_interleave``, as the kernel's plain version expands — no index
+    tensor crosses to the device."""
+    return (q, *flash_ref.expand_heads(k, v, q.shape[2]))
 
 
 # --------------------------------------------------------------------------
-# attention math (heads already expanded: q/k/v all (B,S,H,hd))
+# attention math (plain paths: heads already expanded, q/k/v all (B,S,H,hd))
 # --------------------------------------------------------------------------
 
 def _q_positions(q_offset, Sq: int, device) -> torch.Tensor:
@@ -153,34 +153,61 @@ def chunked_attention(q, k, v, *, causal, q_offset=0, kv_len=None,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _flash(q, k, v, *, causal, q_offset, kv_len):
-    """The kernel, with a decode offset / valid lengths as explicit positions."""
+def uses_kernel(impl: str, x: torch.Tensor) -> bool:
+    """Whether attention goes to the flash kernel: ``impl="kernel"`` on a
+    CUDA tensor."""
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl == "kernel" and x.is_cuda
+
+
+def valid_lengths(cache_index, Sq: int, B: int, kv_len, device) -> torch.Tensor:
+    """Per-slot valid cache lengths of a decode step: ``kv_len`` if given,
+    else ``cache_index + Sq``."""
+    if kv_len is not None:
+        return kv_len
+    if isinstance(cache_index, torch.Tensor):
+        return (cache_index.to(device).long() + Sq).expand(B)
+    return torch.full((B,), int(cache_index) + Sq, device=device)
+
+
+def flash_positions(q_offset, Sq: int, Sk: int, kv_len, B: int, device, *,
+                    causal: bool = True):
+    """The kernel's explicit ``(q_pos, k_pos)`` int32 for a query offset and
+    valid lengths, or None where the plain index mask is already exact
+    (offset 0, no ``kv_len``).  Non-causal calls with ``kv_len`` see every
+    in-range key: their ``q_pos`` is ``INT32_MAX - 1``."""
     if kv_len is None and not isinstance(q_offset, torch.Tensor) and q_offset == 0:
-        return flash_ops.flash_attention_fwd(q, k, v, causal=causal)
-    B, Sq = q.shape[:2]
-    Sk = k.shape[1]
-    dev = q.device
+        return None
     if causal:
-        q_pos = _q_positions(q_offset, Sq, dev).to(torch.int32)
+        q_pos = _q_positions(q_offset, Sq, device).to(torch.int32)
         if q_pos.dim() == 2 and q_pos.shape[0] != B:
             q_pos = q_pos.expand(B, Sq)
         q_pos = q_pos.contiguous()
-    else:                               # every in-range key is visible
-        q_pos = torch.full((Sq,), INT32_MAX - 1, dtype=torch.int32, device=dev)
-    k_pos = torch.arange(Sk, dtype=torch.int32, device=dev)
+    else:
+        q_pos = torch.full((Sq,), INT32_MAX - 1, dtype=torch.int32, device=device)
+    k_pos = torch.arange(Sk, dtype=torch.int32, device=device)
     if kv_len is not None:
-        k_pos = torch.where(k_pos[None, :] < kv_len.to(dev)[:, None], k_pos,
-                            torch.full((), INT32_MAX, dtype=torch.int32, device=dev))
-    return flash_ops.flash_attention_fwd(q, k, v, causal=True, q_pos=q_pos,
-                                         k_pos=k_pos.contiguous())
+        k_pos = torch.where(k_pos[None, :] < kv_len.to(device)[:, None], k_pos, INT32_MAX)
+    return q_pos, k_pos.contiguous()
 
 
-def attention_math(q, k, v, *, causal, q_offset=0, kv_len=None, impl="kernel"):
-    if impl not in ("kernel", "ref"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "kernel" and q.is_cuda:
-        return _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-                      q_offset=q_offset, kv_len=kv_len)
+def _flash(q, k, v, *, causal, q_offset=0, kv_len=None, positions=None):
+    """The kernel on q (B, Sq, H, hd) and compact or expanded k/v (B, Sk,
+    KV, hd), with a decode offset / valid lengths as explicit positions
+    (``positions`` from ``flash_positions``, or built here)."""
+    if positions is None:
+        positions = flash_positions(q_offset, q.shape[1], k.shape[1], kv_len, q.shape[0],
+                                    q.device, causal=causal)
+    if positions is None:
+        return flash_ops.flash_attention_fwd(q, k, v, causal=causal)
+    q_pos, k_pos = positions
+    return flash_ops.flash_attention_fwd(q, k, v, causal=True, q_pos=q_pos, k_pos=k_pos)
+
+
+def attention_math(q, k, v, *, causal, q_offset=0, kv_len=None):
+    """The plain path on expanded heads: dense up to ``DENSE_MAX_SEQ``,
+    chunked beyond."""
     if max(q.shape[1], k.shape[1]) <= DENSE_MAX_SEQ:
         return dense_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
     return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
@@ -236,9 +263,13 @@ def attention_block(
     cache_index=None,               # decode write offset: int or (B,) tensor
     kv_len: Optional[torch.Tensor] = None,
     impl: str = "kernel",
+    positions=None,                 # the kernel's (q_pos, k_pos) of a decode step
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Self-attention of one layer.  In decode mode the new k/v are written
-    into ``cache`` in place and the same dict is returned as the new cache."""
+    into ``cache`` in place and the same dict is returned as the new cache.
+    ``positions`` (``flash_positions`` of this step, shared by every layer)
+    is read only on the kernel path; without it the positions are built
+    here."""
     B, Sq, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, impl)
     if mode == "decode":
@@ -251,22 +282,29 @@ def attention_block(
     q = apply_rope(q, cos_q, sin_q)
     k = apply_rope(k, cos_q, sin_q)
 
+    kernel = uses_kernel(impl, q)
     if mode == "decode":
         ck, cv = cache["k"], cache["v"]
         write_cache(ck, k, cache_index)
         write_cache(cv, v, cache_index)
         new_cache = cache
-        if kv_len is not None:
-            valid = kv_len
-        elif isinstance(cache_index, torch.Tensor):
-            valid = (cache_index.to(x.device).long() + Sq).expand(B)
+        if kernel:
+            if positions is None:
+                positions = flash_positions(cache_index, Sq, ck.shape[1],
+                                            valid_lengths(cache_index, Sq, B, kv_len, x.device),
+                                            B, x.device)
+            out = _flash(q.contiguous(), ck.to(q.dtype).contiguous(),
+                         cv.to(q.dtype).contiguous(), causal=True, positions=positions)
         else:
-            valid = torch.full((B,), int(cache_index) + Sq, device=x.device)
-        q, ke, ve = expand_and_pad(q, ck.to(q.dtype), cv.to(q.dtype))
-        out = attention_math(q, ke, ve, causal=True, q_offset=cache_index,
-                             kv_len=valid, impl=impl)
+            valid = valid_lengths(cache_index, Sq, B, kv_len, x.device)
+            q, ke, ve = expand_and_pad(q, ck.to(q.dtype), cv.to(q.dtype))
+            out = attention_math(q, ke, ve, causal=True, q_offset=cache_index, kv_len=valid)
     else:
         new_cache = {"k": k, "v": v}
-        q, ke, ve = expand_and_pad(q, k, v)
-        out = attention_math(q, ke, ve, causal=True, kv_len=kv_len, impl=impl)
+        if kernel:
+            out = _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                         kv_len=kv_len)
+        else:
+            q, ke, ve = expand_and_pad(q, k, v)
+            out = attention_math(q, ke, ve, causal=True, kv_len=kv_len)
     return _out_proj(params, out, x.dtype), new_cache

@@ -62,12 +62,13 @@ class DenseTransformerLM(nn.Module):
 
     # ---------------------------------------------------------- blocks
     def block_apply(self, params: dict, x: torch.Tensor, *, mode: str,
-                    cache: Optional[dict] = None, cache_index=None, kv_len=None):
+                    cache: Optional[dict] = None, cache_index=None, kv_len=None,
+                    positions=None):
         cfg = self.cfg
         h = rmsnorm(params["ln1"], x, cfg.norm_eps, self.impl)
         a, new_cache = attn.attention_block(
             params["attn"], h, cfg=cfg, mode=mode, cache=cache,
-            cache_index=cache_index, kv_len=kv_len, impl=self.impl)
+            cache_index=cache_index, kv_len=kv_len, impl=self.impl, positions=positions)
         x = x + a
         h = rmsnorm(params["ln2"], x, cfg.norm_eps, self.impl)
         return x + ffn.ffn_apply(params["mlp"], h, cfg), new_cache
@@ -104,13 +105,21 @@ class DenseTransformerLM(nn.Module):
                        kv_len: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
         """tokens (B, Sq) at write position ``cache_index`` (int or (B,)),
         cache {"k","v": (L, B, S_max, KV, hd)}.  The new k/v are written into
-        ``cache`` in place; returns (fp32 logits (B, Sq, V), cache)."""
+        ``cache`` in place; returns (fp32 logits (B, Sq, V), cache).  On the
+        kernel path the attention kernel's positions are built once here and
+        shared by every layer."""
         cfg = self.cfg
         x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        positions = None
+        if attn.uses_kernel(self.impl, x):
+            B, Sq = tokens.shape
+            positions = attn.flash_positions(
+                cache_index, Sq, cache["k"].shape[2],
+                attn.valid_lengths(cache_index, Sq, B, kv_len, x.device), B, x.device)
         for layer in range(cfg.num_layers):
             layer_cache = {"k": cache["k"][layer], "v": cache["v"][layer]}
             x, _ = self.block_apply(take_layer(params["blocks"], layer), x, mode="decode",
                                     cache=layer_cache, cache_index=cache_index,
-                                    kv_len=kv_len)
+                                    kv_len=kv_len, positions=positions)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps, self.impl)
         return embedding.lm_head(params["embed"], x, cfg), cache

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import serving
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
@@ -57,7 +58,7 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.randn((1, 4, 2, 64), device=cuda_device)
     with pytest.raises(TypeError):
         flash_ops.flash_attention_fwd(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError):                     # head_dim not 32/64/128
+    with pytest.raises(ValueError):                     # head_dim 48 is not taken
         flash_ops.flash_attention_fwd(q[..., :48].contiguous(), q[..., :48].contiguous(),
                                       q[..., :48].contiguous())
     with pytest.raises(ValueError):                     # not contiguous
@@ -68,8 +69,73 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         flash_ops.flash_attention_fwd(q, q, q, q_pos=pos, k_pos=pos)
     with pytest.raises(ValueError):                     # mixed devices
         flash_ops.flash_attention_fwd(q, q.cpu(), q)
+    with pytest.raises(ValueError):                     # H % KV != 0: 6 query heads, 4 kv
+        q6 = torch.randn((1, 4, 6, 64), device=cuda_device)
+        kv4 = torch.randn((1, 4, 4, 64), device=cuda_device)
+        flash_ops.flash_attention_fwd(q6, kv4, kv4)
     with pytest.raises(ValueError):
         rms_ops.rmsnorm(torch.randn((2, 64), device=cuda_device), torch.ones(32, device=cuda_device))
+
+
+INT32_MAX = 2**31 - 1
+
+
+def _kv_len_positions(off, kv_len, Sq, Sk, dev):
+    """The dispatch's decode positions: q_pos = off + arange(Sq), k_pos =
+    arange(Sk) with keys at or past kv_len moved to INT32_MAX."""
+    q_pos = (off.reshape(-1, 1) + torch.arange(Sq, device=dev)).to(torch.int32).contiguous()
+    ar = torch.arange(Sk, device=dev)
+    k_pos = torch.where(ar[None] < kv_len[:, None], ar[None],
+                        torch.full((), INT32_MAX, device=dev)).to(torch.int32).contiguous()
+    return q_pos, k_pos
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KV, hd, kind, kv_lens)
+    (8, 1, 1025, 32, 8, 64, "decode", None),          # llama decode, GQA g = 4
+    (1, 256, 1280, 32, 8, 64, "chunk", (768,)),       # llama prefill chunk, g = 4
+    (2, 1, 300, 40, 8, 128, "decode", None),          # g = 5, hd 128
+    (2, 37, 100, 40, 8, 128, "causal", None),         # g = 5, index mask, Sk % 64 != 0
+    (2, 50, 77, 4, 4, 112, "causal", None),           # hd 112, H = KV
+    (1, 3, 200, 4, 4, 112, "noncausal", None),        # hd 112, non-causal
+    (4, 1, 130, 32, 8, 64, "decode", (1, 63, 64, 65)),    # kv_len 1 and a tile edge +-1
+    (3, 1, 200, 32, 8, 64, "decode", (127, 128, 129)),
+    (1, 1, 8192, 32, 8, 64, "decode", (8192,)),       # long decode: many key splits
+    (1, 1, 8192, 32, 8, 64, "decode", (5000,)),
+    (2, 16, 90, 8, 2, 32, "masked", None),            # fully masked rows
+    (2, 1, 300, 8, 2, 64, "decode", (0, 150)),        # kv_len 0: a fully masked decode row
+], ids=lambda c: f"B{c[0]}-Sq{c[1]}-Sk{c[2]}-H{c[3]}-KV{c[4]}-hd{c[5]}-{c[6]}")
+def test_cuda_flash_compact_heads_match_plain_version(cuda_device, case):
+    """K1 on compact GQA K/V against its plain version (which expands the
+    heads): fp32 1e-4, bf16 3e-2, residuals 1e-5; one launch counted per
+    call, including calls that split keys and merge in a second kernel."""
+    B, Sq, Sk, H, KV, hd, kind, lens = case
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(Sk + H + hd)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        kw = dict(causal=kind != "noncausal")
+        if kind in ("decode", "chunk"):
+            kv_len = (torch.tensor(lens, device=dev) if lens is not None
+                      else torch.randint(1, Sk + 1, (B,), generator=g, device=dev))
+            kw["q_pos"], kw["k_pos"] = _kv_len_positions(kv_len - Sq, kv_len, Sq, Sk, dev)
+        elif kind == "masked":          # rows 0..4 of each batch see no key
+            kw["q_pos"] = torch.arange(Sq, dtype=torch.int32, device=dev)
+            kw["k_pos"] = (torch.arange(Sk, dtype=torch.int32, device=dev) + 5).contiguous()
+        n = flash_ops.flash_attention_fwd.launches
+        out, m, l = flash_ops.flash_attention_fwd(q, k, v, return_residuals=True, **kw)
+        torch.cuda.synchronize()
+        assert flash_ops.flash_attention_fwd.launches == n + 1
+        ref, rm, rl = flash_ref.flash_attention_fwd(q, k, v, return_residuals=True, **kw)
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
+        if kind == "masked":            # a fully masked row is the mean of v
+            mean = flash_ref.expand_heads(k, v, H)[1].float().mean(dim=1)
+            torch.testing.assert_close(out[:, 0].float(), mean, atol=tol, rtol=tol)
 
 
 def test_cuda_serving_kernel_path_matches_ref_path(cuda_device):

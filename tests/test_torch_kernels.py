@@ -99,35 +99,55 @@ def test_plain_flash_batched_positions_and_half_kv_residuals():
 def test_dispatch_positions_match_dense_attention(B, Sq, Sk, offsets):
     """``q_pos = offset + arange(Sq)`` and ``k_pos = arange(Sk)`` with keys
     at or beyond kv_len moved to INT32_MAX reproduce ``dense_attention``'s
-    ``(k <= q_offset + i) & (k < kv_len)`` mask, row for row."""
+    ``(k <= q_offset + i) & (k < kv_len)`` mask, row for row — with equal
+    head counts, and with compact GQA k/v (g = 4) and the positions built
+    once by ``flash_positions``, as ``forward_decode`` hands them to every
+    layer."""
     (jq, jk, jv), (tq, tk, tv) = _qkv(8, (B, Sq, 4, 32), "float32", sk=Sk)
     off = np.asarray(offsets, np.int32)
     kv_len = off + Sq
     out = t_attn._flash(tq, tk, tv, causal=True, q_offset=torch.from_numpy(off),
                         kv_len=torch.from_numpy(kv_len))
+    # GQA: one compact kv head shared by the 4 query heads
+    tkc, tvc = tk[:, :, :1].contiguous(), tv[:, :, :1].contiguous()
+    jkc, jvc = (jnp.repeat(a[:, :, :1], 4, axis=2) for a in (jk, jv))
+    positions = t_attn.flash_positions(torch.from_numpy(off), Sq, Sk,
+                                       torch.from_numpy(kv_len), B, tq.device)
+    out_gqa = t_attn._flash(tq, tkc, tvc, causal=True, positions=positions)
     for b in range(B):           # JAX takes one scalar offset per call (vmap lane)
-        ref = jax_attn.dense_attention(jq[b:b + 1], jk[b:b + 1], jv[b:b + 1], causal=True,
-                                       q_offset=int(off[b]),
-                                       kv_len=jnp.asarray(kv_len[b:b + 1]))
-        np.testing.assert_allclose(_f32(out[b:b + 1]), _f32(ref), atol=1e-5, rtol=1e-5)
+        for o, k_, v_ in ((out, jk, jv), (out_gqa, jkc, jvc)):
+            ref = jax_attn.dense_attention(jq[b:b + 1], k_[b:b + 1], v_[b:b + 1], causal=True,
+                                           q_offset=int(off[b]),
+                                           kv_len=jnp.asarray(kv_len[b:b + 1]))
+            np.testing.assert_allclose(_f32(o[b:b + 1]), _f32(ref), atol=1e-5, rtol=1e-5)
 
 
 def test_dispatch_noncausal_kv_len_and_fully_masked_rows():
     """Non-causal with valid lengths, and a row with no valid key (the mean
-    of v, from the finite NEG_INF) — both as dense_attention."""
+    of v, from the finite NEG_INF) — both as dense_attention, with equal
+    head counts and with compact GQA k/v (g = 4) on positions from
+    ``flash_positions``."""
     B, Sq, Sk = 2, 3, 9
-    (jq, jk, jv), (tq, tk, tv) = _qkv(11, (B, Sq, 2, 32), "float32", sk=Sk)
+    (jq, jk, jv), (tq, tk, tv) = _qkv(11, (B, Sq, 8, 32), "float32", sk=Sk)
     kv_len = np.asarray([4, 9], np.int32)
-    out = t_attn._flash(tq, tk, tv, causal=False, q_offset=0,
-                        kv_len=torch.from_numpy(kv_len))
-    ref = jax_attn.dense_attention(jq, jk, jv, causal=False, kv_len=jnp.asarray(kv_len))
-    np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-5, rtol=1e-5)
-    masked = t_attn._flash(tq, tk, tv, causal=True, q_offset=0,
-                           kv_len=torch.zeros(B, dtype=torch.int32))
-    ref = jax_attn.dense_attention(jq, jk, jv, causal=True,
-                                   kv_len=jnp.zeros((B,), jnp.int32))
-    np.testing.assert_allclose(_f32(masked), _f32(ref), atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(_f32(masked[:, 0]), _f32(tv.mean(dim=1)), atol=1e-5)
+    tkc, tvc = tk[:, :, ::4].contiguous(), tv[:, :, ::4].contiguous()      # KV = 2
+    jkc, jvc = (jnp.repeat(a[:, :, ::4], 4, axis=2) for a in (jk, jv))
+    for k_, v_, jk_, jv_ in ((tk, tv, jk, jv), (tkc, tvc, jkc, jvc)):
+        out = t_attn._flash(tq, k_, v_, causal=False, q_offset=0,
+                            kv_len=torch.from_numpy(kv_len))
+        pos = t_attn.flash_positions(0, Sq, Sk, torch.from_numpy(kv_len), B, tq.device,
+                                     causal=False)
+        out_pos = t_attn._flash(tq, k_, v_, causal=False, positions=pos)
+        ref = jax_attn.dense_attention(jq, jk_, jv_, causal=False, kv_len=jnp.asarray(kv_len))
+        np.testing.assert_allclose(_f32(out), _f32(ref), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_f32(out_pos), _f32(ref), atol=1e-5, rtol=1e-5)
+        masked = t_attn._flash(tq, k_, v_, causal=True, q_offset=0,
+                               kv_len=torch.zeros(B, dtype=torch.int32))
+        ref = jax_attn.dense_attention(jq, jk_, jv_, causal=True,
+                                       kv_len=jnp.zeros((B,), jnp.int32))
+        np.testing.assert_allclose(_f32(masked), _f32(ref), atol=1e-5, rtol=1e-5)
+        mean = np.repeat(_f32(v_).mean(axis=1), 8 // v_.shape[2], axis=1)
+        np.testing.assert_allclose(_f32(masked[:, 0]), mean, atol=1e-5)
 
 
 @pytest.mark.parametrize("Sq,Sk", [(16, 16), (8, 40)])
