@@ -19,8 +19,10 @@ Phases (any failure exits non-zero and prints no result line):
    and SDPA on expanded heads; RMSNorm: fp32 1e-5, bf16 2e-2 — the JAX kernel
    tests' tolerances; SSD scan: max |err| <= 1e-3 * max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
-   the mamba2 prefill shape, a ragged S, G = 2, bf16 inputs and against the
-   step-by-step scan); then each case's median
+   the mamba2 prefill shape, a ragged S and G = 2, each in fp32 and in bf16
+   (the dtype the model passes; the tensor-core template), and against the
+   step-by-step scan; each template's shared memory per block and blocks
+   per SM at N 128, P 64 are logged); then each case's median
    device time, the plain version's, and one PyTorch library call's as a
    yardstick (``library_ms``; the port never calls it; none computes the
    SSD scan), beside the least time the card could take (``bound_ms``, from
@@ -324,9 +326,20 @@ def check_ssd(torch, ssd_ops, ssd_ref, gen):
          "chunked"),
         ("ragged B1 S1000 H80 P64 G1 N128 float32", 1, 1000, 80, 64, 1, 128, f32, "chunked"),
         ("groups B2 S512 H16 P64 G2 N64 float32", 2, 512, 16, 64, 2, 64, f32, "chunked"),
+        ("mamba2 prefill B4 S2048 H80 P64 G1 N128 bfloat16", 4, 2048, 80, 64, 1, 128, bf16,
+         "chunked"),
+        ("ragged B1 S1000 H80 P64 G1 N128 bfloat16", 1, 1000, 80, 64, 1, 128, bf16, "chunked"),
+        ("groups B2 S512 H16 P64 G2 N64 bfloat16", 2, 512, 16, 64, 2, 64, bf16, "chunked"),
         ("B2 S1024 H80 P64 G1 N128 bfloat16", 2, 1024, 80, 64, 1, 128, bf16, "chunked"),
         ("small B2 S200 H4 P32 G1 N16 float32 vs naive", 2, 200, 4, 32, 1, 16, f32, "naive"),
     ]
+    for dtype in (f32, bf16):
+        smem, blocks = ssd_ops.occupancy(dtype, 128, 64)
+        log(f"K3 ssd {str(dtype).replace('torch.', '')} at N 128, P 64: {smem} bytes of "
+            f"shared memory per block, {blocks} blocks per SM")
+        require(blocks >= 1, "the ssd kernel fits no block on an SM")
+        require(smem == ssd_ops._smem_bytes(128, 64, dtype),
+                f"ssd_ops._smem_bytes disagrees with the kernel's {smem} bytes")
     rows = []
     for label, Bs, S, H, P, G, N, dtype, plain in cases:
         def rn(*shape):

@@ -2,14 +2,23 @@
 on CPU tensors.
 
 Replaces the TPU kernel ``repro/kernels/ssd/kernel.py::ssd_pallas`` (body
-``_ssd_kernel``) with ``csrc/ssd.cu``.  What bounds it on the H100:
-operations — per (batch, head) the inter-chunk product and the state update
-are 2·S·N·P FMAs each against one read of x and one write of y (at the
-serving shape ~24 GFLOP for ~357 MB).  The design keeps the (N, P) fp32
-state of one (batch, head) in shared memory across a loop over chunks of
-64, stages each chunk's x, dt and B/C group there, and forms every product
-from 4×4 register tiles of fp32 FMAs.  Tensor cores, one C·Bᵀ per group
-shared by its heads, and splitting chunks across blocks are later work.
+``_ssd_kernel``) with ``csrc/ssd.cu``, which holds two templates.  Both keep
+the (N, P) fp32 state of one (batch, head) in shared memory across a loop
+over chunks of 64 and stage each chunk's x, dt and B/C group there.
+
+- bfloat16 x/B/C (what the Mamba2 model passes): the four products run on
+  the tensor cores (``mma.sync`` m16n8k16, bf16 in, fp32 accumulate); an
+  fp32 operand (the intra-chunk matrix M, the state, w∘x) is split into two
+  bf16 terms (hi + lo, residual ≤ 2⁻¹⁸|v|), so the result stays fp32-class.
+  Bound by bytes at the serving shape (~185 MB against ~24 GFLOP), it runs
+  latency-bound at ~12× that (one block walks its chunks in order); ~96 KB
+  of shared memory at N 128, P 64, two blocks per SM.  N and P must be
+  multiples of 16.
+- float32 x/B/C: fp32 FMAs on CUDA cores (no TF32), bound by operations;
+  N and P multiples of 4.
+
+One C·Bᵀ per group shared by its heads, splitting chunks across blocks and
+``wgmma``/TMA are later work.
 
 ``impl``:
   - ``"kernel"`` (default): the CUDA kernel on CUDA tensors, ``ssd_chunked``
@@ -32,13 +41,45 @@ from repro_torch.kernels.ssd import ref as _ref
 CHUNK = 64                                  # the kernel's chunk length (kQ)
 SMEM_LIMIT = 232_448                        # dynamic shared memory a block may use
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SHAPE_MULTIPLE = {torch.float32: 4, torch.bfloat16: 16}   # of N and P
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 
 
-def _smem_bytes(N: int, P: int) -> int:
+def _smem_bytes(N: int, P: int, dtype: torch.dtype) -> int:
     """Shared memory of one block (mirrors ``smem_bytes`` in ``ssd.cu``)."""
+    if dtype == torch.bfloat16:
+        # fp32 state (N rows of P + 4); bf16 x, B, C and the hi/lo terms of
+        # M (Q x Q), later of w∘x (Q x P), rows padded by 8; dt, cum,
+        # exp(cum) and w
+        mp = max(CHUNK, P) + 8
+        return 4 * N * (P + 4) + 2 * CHUNK * ((P + 8) + 2 * (N + 8) + 2 * mp) + 16 * CHUNK
     qs = CHUNK + 4
     return 4 * (N * P + CHUNK * P + 2 * N * qs + CHUNK * qs + 4 * CHUNK)
+
+
+def check_shape(dtype: torch.dtype, N: int, P: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes state size N and head
+    dim P in ``dtype``: positive multiples of 16 in bfloat16 (the tensor-core
+    tiles), of 4 in float32, within one block's shared memory."""
+    m = _SHAPE_MULTIPLE[dtype]
+    if min(N, P) < 1 or N % m or P % m:
+        raise ValueError(f"ssd: in {str(dtype).replace('torch.', '')} the kernel takes N and P "
+                         f"that are positive multiples of {m}, got N {N}, P {P}")
+    if _smem_bytes(N, P, dtype) > SMEM_LIMIT:
+        raise ValueError(f"ssd: N {N} x P {P} needs {_smem_bytes(N, P, dtype)} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+
+
+def occupancy(dtype: torch.dtype, N: int, P: int) -> tuple[int, int]:
+    """(shared memory per block in bytes, blocks per SM) of the kernel for
+    (dtype, N, P) on the current CUDA device, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    check_shape(dtype, N, P)
+    smem, blocks = ctypes.c_longlong(), ctypes.c_int()
+    fn = _build.function("repro_ssd_occupancy", (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2)
+    _build.check(fn(N, P, _DTYPE_CODES[dtype], ctypes.addressof(smem),
+                    ctypes.addressof(blocks)), "ssd occupancy")
+    return smem.value, blocks.value
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = CHUNK, impl: str = "kernel",
@@ -81,14 +122,14 @@ def _ssd_kernel(x, dt, A, B, C, *, chunk, initial_state):
             or G < 1 or H % G):
         raise ValueError(f"ssd: shapes do not agree: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B/C {tuple(B.shape)}")
-    if min(Bs, S, H, P, N) < 1 or P % 4 or N % 4:
-        raise ValueError(f"ssd: the kernel takes P and N that are positive multiples "
-                         f"of 4, got P {P}, N {N}")
-    if _smem_bytes(N, P) > SMEM_LIMIT:
-        raise ValueError(f"ssd: N {N} x P {P} needs {_smem_bytes(N, P)} bytes of shared "
-                         f"memory, more than {SMEM_LIMIT}")
+    if min(Bs, S, H) < 1:
+        raise ValueError(f"ssd: empty input x {tuple(x.shape)}")
+    check_shape(x.dtype, N, P)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd: the kernel takes contiguous inputs")
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd: the bf16 kernel copies x, B and C in 16-byte pieces; their "
+                         "data must start on a 16-byte boundary")
     y = torch.empty_like(x)
     final = torch.empty((Bs, H, N, P), dtype=torch.float32, device=dev)
     fn = _build.function("repro_ssd_fwd", _ARGTYPES)

@@ -4,7 +4,12 @@
 Block: RMSNorm -> {z, x, B, C, dt} projections -> causal depthwise conv on
 (x|B|C) -> SSD scan -> D-skip -> gated RMSNorm(y * silu(z)) -> out-proj.
 The parameter tree, the cast order and the cache layout are the JAX
-package's, so ``params_from_jax`` carries weights across unchanged.
+package's, so ``params_from_jax`` carries weights across unchanged, with one
+move: the JAX model casts x, B and C to fp32 before the SSD scan and y back
+after it; here the scan takes them in the working dtype and upcasts inside
+(the kernel and ``ssd_chunked`` alike), returning y in that dtype.  A bf16 ->
+fp32 cast is exact and y is rounded once either way, so the function is the
+same; a bf16 model skips four casts per layer.
 
 ``impl="kernel"`` runs the RMSNorm kernel (K2) and the SSD scan kernel (K3)
 on CUDA tensors and their plain versions on CPU tensors; ``impl="ref"`` runs
@@ -133,8 +138,7 @@ def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         xh = ox.reshape(Bsz, S, H, P)
         Bm = oB.reshape(Bsz, S, G, N)
         Cm = oC.reshape(Bsz, S, G, N)
-        y, final = ssd_ops.ssd(xh.float(), dt, A, Bm.float(), Cm.float(), impl=impl)
-        y = y.to(x.dtype)
+        y, final = ssd_ops.ssd(xh, dt, A, Bm, Cm, impl=impl)        # y in xh's dtype
         y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
         if mode == "prefill":
             keep = cfg.conv_width - 1

@@ -178,6 +178,12 @@ def _ssd_inputs(g, dev, Bs, S, H, P, G, N, dtype=torch.float32):
     (1, 100, 4, 64, 2, 64, torch.float32),           # ragged S: no chunk halving
     (2, 1, 8, 32, 1, 16, torch.float32),             # one position
     (1, 300, 8, 64, 1, 128, torch.bfloat16),         # ragged, bf16 x/B/C
+    # the bf16 template (tensor cores)
+    (2, 128, 4, 32, 1, 16, torch.bfloat16),
+    (1, 256, 4, 64, 2, 32, torch.bfloat16),
+    (1, 100, 4, 64, 2, 64, torch.bfloat16),          # ragged S
+    (2, 1, 8, 32, 1, 16, torch.bfloat16),            # one position
+    (1, 2048, 80, 64, 1, 128, torch.bfloat16),       # mamba2-2.7b heads, one row
 ])
 def test_cuda_ssd_matches_plain_versions(cuda_device, Bs, S, H, P, G, N, dtype):
     """K3 against ``ssd_chunked`` (and ``ssd_naive``) at 1e-3 of the plain
@@ -212,6 +218,11 @@ def test_cuda_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         ssd_ops.ssd(x, dt, A, B.bfloat16(), C)
     with pytest.raises(ValueError):                     # N not a multiple of 4
         ssd_ops.ssd(x, dt, A, B[..., :6].contiguous(), C[..., :6].contiguous())
+    xb, _, _, Bb, Cb = _ssd_inputs(g, cuda_device, 1, 64, 4, 32, 1, 24, torch.bfloat16)
+    n = ssd_ops.ssd.launches
+    with pytest.raises(ValueError, match="multiples of 16"):   # bf16 N 24
+        ssd_ops.ssd(xb, dt, A, Bb, Cb)
+    assert ssd_ops.ssd.launches == n
     with pytest.raises(ValueError):                     # mixed devices
         ssd_ops.ssd(x, dt.cpu(), A, B, C)
 

@@ -8,6 +8,8 @@ same weights (JAX ``model.init`` -> numpy, zero and one inits perturbed ->
 * prefill + one decode step equals the full pass, for prompts of 1 and 2
   tokens too (the JAX model cannot decode after them: its conv buffer keeps
   fewer than W-1 rows);
+* the scan fed bf16 x/B/C (no fp32 casts around it) gives bitwise the
+  block output of the old cast sequence, and the bf16 prefill matches JAX's;
 * ``step_engine(...).greedy_generate`` in fp32 against a JAX greedy loop;
 * the step engine's paged route against its reference loop on dense
   llama3.2-1b, and its plan against the JAX ``single_device_plan``.
@@ -28,6 +30,9 @@ from repro_torch import serving
 from repro_torch.configs.registry import get_config
 from repro_torch.models import build_model
 from repro_torch.models.common import count_params, params_from_jax, tree_paths
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.models import mamba2 as t_mamba2
+from repro_torch.models.common import cast_tree, take_layer
 from repro_torch.models.mamba2 import Mamba2LM
 
 ARCH = "mamba2-2.7b"
@@ -170,6 +175,54 @@ def test_prefill_then_decode_equals_full_pass(pair, prompt_len):
     ld, _ = tm.forward_decode(tp, toks[:, -1:], cache, prompt_len, dtype=torch.float32)
     _close(lp[:, 0], full[:, -2].numpy())
     _close(ld[:, 0], full[:, -1].numpy())
+
+
+@pytest.mark.parametrize("impl", ["kernel", "ref"])
+@pytest.mark.parametrize("mode", ["train", "prefill"])
+def test_bf16_scan_without_casts_is_bitwise_the_old_sequence(pair, monkeypatch, impl, mode):
+    """The block hands the scan bf16 x/B/C and takes its bf16 y.  The old
+    sequence (``ssd(x.float(), .., B.float(), C.float())`` then
+    ``y.to(bf16)``) gives bitwise the same block output and final state on
+    the plain route: a bf16 -> fp32 cast is exact and both round y once."""
+    cfg = pair["cfg"]
+    layer = take_layer(cast_tree(pair["tp"], torch.bfloat16)["blocks"], 0)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 70, cfg.d_model)).astype(np.float32)).bfloat16()
+    new, new_state = t_mamba2.mamba_block_apply(layer, x, cfg, mode=mode, impl=impl)
+    scan = ssd_ops.ssd
+    seen = []
+
+    def old_sequence(xh, dt, A, Bm, Cm, impl):
+        seen.append((xh.dtype, Bm.dtype, Cm.dtype))
+        y, final = scan(xh.float(), dt, A, Bm.float(), Cm.float(), impl=impl)
+        return y.to(xh.dtype), final
+
+    monkeypatch.setattr(ssd_ops, "ssd", old_sequence)
+    old, old_state = t_mamba2.mamba_block_apply(layer, x, cfg, mode=mode, impl=impl)
+    assert seen == [(torch.bfloat16,) * 3]
+    assert new.dtype == torch.bfloat16 and torch.equal(new, old)
+    if mode == "prefill":
+        assert torch.equal(new_state["ssm"], old_state["ssm"])
+
+
+def test_bf16_prefill_logits_match_jax(pair):
+    """``forward_prefill`` in bf16 (fp32 master weights cast per block, as
+    in JAX) against JAX's bf16 ``forward_prefill``: within 3e-2 of the logit
+    scale, the bf16 bound the K1 tests use — the two frameworks round the
+    bf16 matmuls, conv and norms at different places, and the scan now
+    takes bf16 inputs where JAX casts them to fp32 first (exact)."""
+    toks = _tokens(9, (2, 77), pair["cfg"].vocab_size)
+    jl, jc = pair["jm"].forward_prefill(pair["jp"], jnp.asarray(toks), dtype=jnp.bfloat16)
+    tl, tc = pair["tm"].forward_prefill(pair["tp"], _t(toks), dtype=torch.bfloat16)
+    jl = np.asarray(jl, np.float32)
+    assert tl.dtype == torch.float32 and tl.shape == jl.shape
+    assert tc["ssm"].dtype == torch.float32 and tc["conv_x"].dtype == torch.bfloat16
+    scale = float(np.abs(jl).max())
+    assert float(np.abs(tl.numpy() - jl).max()) <= 3e-2 * scale
+    for k in CACHE_KEYS:
+        ref = np.asarray(jc[k], np.float32)
+        assert float(np.abs(tc[k].float().numpy() - ref).max()) <= 3e-2 * max(
+            1.0, float(np.abs(ref).max())), k
 
 
 # ------------------------------------------------------------- the step engine

@@ -137,3 +137,30 @@ def test_ssd_wrapper_rejects_an_unknown_impl():
     with pytest.raises(ValueError, match="impl"):
         ops.ssd(*arrs, impl="pallas")
     assert ops.ssd.launches == 0            # CPU tensors never launch the kernel
+
+
+def test_bf16_kernel_leaves_room_for_two_blocks_per_sm():
+    """The bf16 template's shared memory at the serving shape (N 128, P 64)
+    is at most half of what an SM gives blocks, so two blocks share an SM;
+    the fp32 template's stays as it was (one block per SM)."""
+    assert ops._smem_bytes(128, 64, torch.bfloat16) <= ops.SMEM_LIMIT // 2
+    assert ops._smem_bytes(128, 64, torch.float32) == 137_216 > ops.SMEM_LIMIT // 2
+    for N, P in ((128, 64), (64, 64), (16, 32)):      # mamba2, zamba2, reduced
+        ops.check_shape(torch.bfloat16, N, P)
+    ops.check_shape(torch.float32, 24, 64)            # fp32 keeps multiples of 4
+
+
+@pytest.mark.parametrize("dtype,N,P", [
+    (torch.bfloat16, 24, 64),          # N not a multiple of 16
+    (torch.bfloat16, 128, 40),         # P not a multiple of 16
+    (torch.bfloat16, 8, 16),
+    (torch.float32, 6, 64),            # fp32 keeps multiples of 4
+    (torch.float32, 0, 64),
+    (torch.bfloat16, 1024, 64),        # beyond one block's shared memory
+])
+def test_kernel_shape_rule_rejects_before_any_launch(dtype, N, P):
+    """``check_shape`` is the rule the wrapper applies before it launches:
+    N and P positive multiples of 16 in bf16 (the tensor-core tiles), of 4
+    in fp32, and a block's shared memory within the SM's limit."""
+    with pytest.raises(ValueError, match="multiples of|shared memory"):
+        ops.check_shape(dtype, N, P)
