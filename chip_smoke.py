@@ -14,9 +14,18 @@ Phases (any failure exits non-zero and prints no result line):
    the shapes the serving paths give it (flash attention on compact GQA K/V
    — KV 8 at the llama shapes, g = 5, hd 112, fully masked rows, kv_len at
    and around a 64-key tile edge, Sk not a multiple of 64, an 8192-key
-   decode split over blocks: fp32 1e-4, bf16 3e-2, residuals 1e-5; its
-   yardstick is the faster of SDPA with ``enable_gqa`` on the compact heads
-   and SDPA on expanded heads; RMSNorm: fp32 1e-5, bf16 2e-2 — the JAX kernel
+   decode split over blocks, and the many-row split path — 64 or 256 query
+   rows over 20 000 keys, causal, at a q offset and non-causal: fp32 1e-4,
+   bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
+   version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
+   holds rows over thousands of keys, whose values are ~1e-2; the llama
+   training shape q 2x4096x32x64,
+   k/v 2x4096x8x64 causal bf16, timed; its yardstick is the faster of SDPA
+   with ``enable_gqa`` on the compact heads and SDPA on expanded heads (the
+   case's boolean mask; ``is_causal`` at the training shape); the autograd
+   ``flash_attention`` on the split path (S 20 000, fp32) against autograd
+   through the plain version, 2e-3 of scale; RMSNorm: fp32 1e-5, bf16 2e-2,
+   the training shape 8192 x 2048 bf16 timed — the JAX kernel
    tests' tolerances; SSD scan: max |err| <= 1e-3 * max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
    the mamba2 prefill shape, a ragged S and G = 2, each in fp32 and in bf16
@@ -50,7 +59,20 @@ Phases (any failure exits non-zero and prints no result line):
    logits of the kernel path are finite and no further from the plain fp32
    path than twice the plain bf16 path's own error, and in fp32 the kernel
    path is within 1e-3 of the logit scale of the plain path;
-8. a ``{"kernels": [...]}`` line, then the device line last.
+8. train — full-width llama3.2-1b (16 layers, random fp32 master weights
+   from seed 0) through ``construct_hybrid_parallel_model(model, plan)
+   .train_step``: 3 steps of 8 x 4096 tokens in 4 microbatches under each
+   remat policy (selective, full, none), fresh state each; losses (finite,
+   the first within 1 of ln V), grad norms, median step time, tokens/s,
+   peak memory and MFU against the model FLOPs the script reckons; K1/K2
+   launches per step pinned (``TRAIN_LAUNCHES``); one selective step under
+   ``torch.profiler`` by group (K1, K2, the attention backward's recompute,
+   matmuls, elementwise, the optimizer, copies); CUDA-event times of one
+   attention backward and one AdamW update; kernel path against plain path
+   at full width with 2 layers, 2 x 1024 tokens: fp32 loss 1e-4, grads and
+   updated params 2e-3 of scale; bf16 loss 3e-2, the kernel path's grads
+   no further from fp32 than twice the plain bf16 path's;
+9. a ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
@@ -67,6 +89,11 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# per (b, s, h) row of K1's output: the largest error against the fp32 plain
+# version over the row's head_dim, relative to that row's largest |value| —
+# 2 bf16 epsilons (2^-7 each) in bf16, so the rule scales with rows of many
+# keys, whose outputs are ~1e-2
+FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 RESIDUAL_TOL = 1e-5
 RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SSD_TOL = 1e-3                                  # x max(1, max |plain|)
@@ -125,7 +152,7 @@ def bound(bytes_moved: float, flops: float, dtype_name: str) -> tuple[float, str
 # ---------------------------------------------------------------- phase 3
 
 def flash_case(torch, gen, *, B, Sq, Sk, H, hd, dtype, KV=None, q_off=None, kv_len=None,
-               causal=True, k_shift=None):
+               causal=True, k_shift=None, path="llama"):
     """Inputs of one flash-attention call, as the model's dispatch builds
     them: compact k/v with ``KV`` heads (default H); with ``q_off``/``kv_len``
     the decode positions (``q_pos = q_off + arange(Sq)``, keys at or past
@@ -146,7 +173,7 @@ def flash_case(torch, gen, *, B, Sq, Sk, H, hd, dtype, KV=None, q_off=None, kv_l
     elif k_shift is not None:
         q_pos = torch.arange(Sq, dtype=torch.int32, device="cuda")
         k_pos = torch.arange(Sk, dtype=torch.int32, device="cuda") + k_shift
-    return dict(q=q, k=k, v=v, causal=causal, q_pos=q_pos, k_pos=k_pos)
+    return dict(q=q, k=k, v=v, causal=causal, q_pos=q_pos, k_pos=k_pos, path=path)
 
 
 def flash_mask(torch, c):
@@ -183,12 +210,35 @@ def flash_bound(torch, c) -> tuple[float, str]:
     return bound(nbytes, flops, str(q.dtype).replace("torch.", ""))
 
 
+def flash_row_err(out, ref32) -> float:
+    """The largest per-row error of ``out`` against ``ref32`` (both
+    (B, S, H, hd)), each row's error over the row's largest |ref32|."""
+    err = (out.float() - ref32).abs().amax(dim=-1)
+    return float((err / ref32.abs().amax(dim=-1).clamp_min(1e-30)).max())
+
+
 def check_flash(torch, flash_ops, flash_ref, gen):
     """Every flash-attention case against the plain version; returns the
     JSON rows of the timed bf16 cases: the two llama serving shapes (compact
-    KV = 8) and the g = 5 / hd 112 check shapes."""
+    KV = 8), the g = 5 / hd 112 check shapes and the llama training shape."""
     rows = []
-    cases = []
+    cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
+        torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
+        path="train"))]
+    # the many-row split path: past 256 key tiles, blocks of 64 rows split too
+    long_kv = torch.tensor([20000], device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for Sq in (64, 256):
+            cases.append((f"many-row split causal B1 Sq{Sq} Sk20000 H32 KV8 hd64 {name}", False,
+                          flash_case(torch, gen, B=1, Sq=Sq, Sk=20000, H=32, KV=8, hd=64,
+                                     dtype=dtype)))
+        cases.append((f"many-row split q offset 19744 B1 Sq256 Sk20000 H32 KV8 hd64 {name}",
+                      False, flash_case(torch, gen, B=1, Sq=256, Sk=20000, H=32, KV=8, hd=64,
+                                        dtype=dtype, q_off=long_kv - 256, kv_len=long_kv)))
+        cases.append((f"many-row split non-causal B1 Sq64 Sk20000 H32 KV8 hd64 {name}", False,
+                      flash_case(torch, gen, B=1, Sq=64, Sk=20000, H=32, KV=8, hd=64,
+                                 dtype=dtype, causal=False)))
     kv = torch.tensor([768], device="cuda")
     lens = torch.randint(1, 1026, (8,), generator=gen, device="cuda")
     for dtype in (torch.bfloat16, torch.float32):
@@ -234,45 +284,86 @@ def check_flash(torch, flash_ops, flash_ref, gen):
                                                   return_residuals=True)
         ref, rm, rl = flash_ref.flash_attention_fwd(c["q"], c["k"], c["v"], **kw,
                                                     return_residuals=True)
+        ref32 = ref.float() if name == "float32" else flash_ref.flash_attention_fwd(
+            c["q"].float(), c["k"].float(), c["v"].float(), **kw)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = FLASH_TOL[name]
         ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
+        row_err = flash_row_err(out, ref32)
         res_ok = bool(torch.allclose(m, rm, atol=RESIDUAL_TOL, rtol=RESIDUAL_TOL)
                       and torch.allclose(l, rl, atol=RESIDUAL_TOL, rtol=RESIDUAL_TOL))
         log(f"K1 flash_attention_fwd [{label}] max_abs_err {err:.3e} (tol {tol}) "
-            f"residuals {'ok' if res_ok else 'MISMATCH'}")
+            f"row err vs fp32 plain {row_err:.3e} of the row's max (tol "
+            f"{FLASH_ROW_TOL[name]:.3e}) residuals {'ok' if res_ok else 'MISMATCH'}")
         require(ok, f"flash attention disagrees with its plain version: {label}")
+        require(row_err <= FLASH_ROW_TOL[name],
+                f"flash attention rows disagree with the fp32 plain version: {label}")
         require(res_ok, f"flash attention residuals disagree: {label}")
+        del ref32
         if not (timed and name == "bfloat16"):
             continue
         q, k, v = c["q"], c["k"], c["v"]
         ms = device_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, **kw), torch)
         plain = device_ms(lambda: flash_ref.flash_attention_fwd(q, k, v, **kw), torch)
-        mask = flash_mask(torch, c)
+        # the training shape's library call is SDPA's own causal mask (its
+        # flash backend); the other rows pass the case's boolean mask
+        sdpa_kw = dict(is_causal=True) if c["path"] == "train" else \
+            dict(attn_mask=flash_mask(torch, c))
         g = q.shape[2] // k.shape[2]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ke, ve = (t.repeat_interleave(g, dim=2).transpose(1, 2) for t in (k, v))
         lib_gqa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), torch)
+            qt, kt, vt, enable_gqa=True, **sdpa_kw), torch)
         lib_exp = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, ke, ve, attn_mask=mask), torch)
+            qt, ke, ve, **sdpa_kw), torch)
         b_ms, b_by = flash_bound(torch, c)
         log(f"K1 [{label}] kernel {ms:.5f} ms  plain {plain:.4f} ms  sdpa (compact, "
             f"enable_gqa) {lib_gqa:.5f} ms  sdpa (expanded heads) {lib_exp:.5f} ms  "
             f"bound {b_ms:.6f} ms ({b_by})")
-        rows.append(dict(label=label, path="llama", max_abs_err=err, ms=ms, plain_ms=plain,
+        rows.append(dict(label=label, path=c["path"], max_abs_err=err, ms=ms, plain_ms=plain,
                          library_ms=min(lib_gqa, lib_exp), bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, qt, kt, vt, ke, ve
+    cases.clear()
+    torch.cuda.empty_cache()
     return rows
+
+
+def check_flash_autograd(torch, flash_ops, flash_ref, gen):
+    """``flash_attention`` under autograd (K1 forward, block-by-block
+    recompute backward) against autograd through K1's plain version, on the
+    many-row split path (S 20 000, fp32): out, dq, dk, dv within 2e-3 of
+    their scale."""
+    S, H, KV = 20000, 2, 1
+    q, k, v = (torch.randn((1, S, n, 64), generator=gen, device="cuda") for n in (H, KV, KV))
+    cot = torch.randn((1, S, H, 64), generator=gen, device="cuda")
+    results = []
+    for fn in (flash_ops.flash_attention, flash_ref.flash_attention_fwd):
+        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(tq, tk, tv, causal=True)
+        results.append((out, *torch.autograd.grad(out, (tq, tk, tv), cot)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), *results):
+        a, b = a.detach(), b.detach()
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        log(f"K1 flash_attention autograd [split path B1 S{S} H{H} KV{KV} hd64 float32] "
+            f"{name} max_abs_err {err:.3e} (tol 2e-3 x {scale:.3e})")
+        require(err <= 2e-3 * scale, f"autograd flash_attention {name} disagrees with the "
+                "plain version")
+    del results, q, k, v, cot
+    torch.cuda.empty_cache()
 
 
 def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     """RMSNorm cases; the timed bf16 rows carry the path they belong to
     (llama: decode 8 x 2048, prefill chunk 256 x 2048; mamba2: gate norm at
-    prefill 8192 x 5120, decode 4 x 2560)."""
+    prefill 8192 x 5120, decode 4 x 2560; train: a microbatch of 2 x 4096
+    rows x 2048)."""
     rows = []
     shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 5120), "mamba2"),
-              ((4, 2560), "mamba2"), ((8192, 64), None), ((7, 333), None)]
+              ((4, 2560), "mamba2"), ((8192, 2048), "train"), ((8192, 64), None),
+              ((7, 333), None)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         for shape, path in shapes:
@@ -697,6 +788,260 @@ def parity_mamba2(torch, np, serving, build_model, get_config, engine, params, p
             "1e-3 of the logit scale")
 
 
+# ---------------------------------------------------------------- phase 8
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 4, 3
+TRAIN_POLICIES = ("selective", "full", "none")
+#: K1 and K2 launches per step (4 microbatches of a 16-layer model).  A
+#: forward launches K1 once per layer and K2 twice per layer plus once for
+#: the final norm (16, 33); a recomputing policy reruns each layer's forward
+#: in its backward up to the FFN's last matmul, both norms and the attention
+#: included (16, 32 more).  Neither backward launches a kernel.
+TRAIN_LAUNCHES = {"none": (16 * 4, 33 * 4), "selective": (32 * 4, 65 * 4),
+                  "full": (32 * 4, 65 * 4)}
+#: profiler spans of the training step, innermost first
+TRAIN_SPANS = {"attention_vjp": "attention backward (recompute)", "optimizer": "optimizer"}
+
+
+def train_flops(cfg, batch: int, seq: int) -> tuple[int, float, float]:
+    """(matmul parameters, their FLOPs, attention FLOPs) of one step: 6 x
+    the parameters of the matrix products (q/k/v/out projections, FFN, LM
+    head; not the embedding gather or the norms) x tokens, plus causal
+    attention at 3 (forward, and twice that backward) x layers x
+    4·B·H·S²·hd / 2."""
+    L, d, H, KV, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.resolved_head_dim)
+    n_ffn = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+    matmul_params = L * (d * (H + 2 * KV) * hd + H * hd * d + n_ffn * d * cfg.d_ff) \
+        + cfg.vocab_size * d
+    dense = 6.0 * matmul_params * batch * seq
+    attn = 3.0 * L * 4.0 * batch * cfg.num_heads * seq * seq * hd / 2.0
+    return matmul_params, dense, attn
+
+
+def _train_bundle(torch, cfg, policy: str, *, impl: str = "kernel", seed: int = 0):
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models import build_model
+    from repro_torch.runtime import train as train_rt
+
+    plan = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
+                        LayerStrategy(remat=policy), grad_accum=TRAIN_ACCUM)
+    hp = train_rt.construct_hybrid_parallel_model(build_model(cfg, impl=impl), plan)
+    params = hp.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    return hp, params
+
+
+def train_policy(torch, flash_ops, rms_ops, policy: str, steps: int, flops: float):
+    """``steps`` train steps of full-width llama3.2-1b under ``policy`` from
+    fresh state; returns the record of the run and (hp, params, opt) for
+    the profile."""
+    import math
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime.data import SyntheticDataset
+
+    cfg = get_config(TRAIN_ARCH)
+    hp, params = _train_bundle(torch, cfg, policy)
+    opt = hp.init_opt_state(params)
+    ds = SyntheticDataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batches = [ds.batch(i) for i in range(steps)]
+    step_fn = hp.jit_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.flash_attention_fwd.launches = 0
+    rms_ops.rmsnorm.launches = 0
+    times, losses, gnorms = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = flops / (step_s * PEAK_FLOPS["bfloat16"])
+    log(f"train [{policy}]: {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"(grad_accum {TRAIN_ACCUM}): losses {[round(x, 5) for x in losses]}  grad_norm "
+        f"{[round(x, 5) for x in gnorms]}  step times {[round(t, 4) for t in times]} s, "
+        f"median {step_s:.4f} s  {tokens / step_s:.1f} tokens/s  peak mem {peak / 1e9:.2f} GB  "
+        f"MFU {100 * mfu:.2f} %  launches per step K1 {launches[0] / steps:g}, "
+        f"K2 {launches[1] / steps:g}")
+    require(all(math.isfinite(x) for x in losses + gnorms), f"non-finite train metrics: "
+            f"{policy} {losses} {gnorms}")
+    require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+            f"first loss {losses[0]} is not near ln(vocab) {math.log(cfg.vocab_size):.3f}")
+    expected = tuple(n * steps for n in TRAIN_LAUNCHES[policy])
+    require(launches == expected, f"train [{policy}] launched K1/K2 {launches} times, "
+            f"expected {expected}")
+    record = dict(policy=policy, losses=losses, grad_norms=gnorms, step_s=step_s,
+                  tokens_per_s=tokens / step_s, peak_bytes=peak, mfu=mfu,
+                  launches=launches)
+    return record, (hp, params, opt, ds)
+
+
+def profile_train_step(torch, hp, params, opt, batch) -> None:
+    """One train step under torch.profiler: device time by group — K1, K2,
+    the attention backward's recompute and the optimizer (kernels inside the
+    ``attention_vjp`` / ``optimizer`` spans on the device timeline), then
+    matmuls, elementwise and copies by kernel name — and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = hp.train_step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(all(bool(torch.isfinite(v).all()) for v in out[2].values()),
+            "non-finite metrics in the profiled train step")
+    del out
+    dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    spans = {n: sorted((ev.time_range.start, ev.time_range.end) for ev in dev if ev.name == n)
+             for n in TRAIN_SPANS}
+    if not all(spans.values()):
+        log("profile: train step: the device timeline shows no attention_vjp/optimizer "
+            "spans; their kernels fall into the name groups (see the timed components)")
+    groups: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for ev in dev:
+        if ev.name in TRAIN_SPANS:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        g = next((label for n, label in TRAIN_SPANS.items()
+                  if any(s <= start and end <= e for s, e in spans[n])), None)
+        if g is None:
+            g = {"flash_attention": "K1 flash_attention_fwd", "rmsnorm": "K2 rmsnorm",
+                 "other": "elementwise"}.get(_kernel_group(ev.name), _kernel_group(ev.name))
+        groups[g] = groups.get(g, 0.0) + ev.time_range.elapsed_us() / 1e3
+        counts[g] = counts.get(g, 0) + 1
+    busy = sum(groups.values())
+    if busy == 0.0:
+        log("profile: train step: device time not measured (the profiler saw no kernels)")
+        return
+    per = {g: round(t, 4) for g, t in sorted(groups.items(), key=lambda x: -x[1])}
+    share = {g: round(100 * t / busy, 1) for g, t in per.items()}
+    log(f"profile: train step [selective] ({TRAIN_BATCH} x {TRAIN_SEQ} tokens): wall "
+        f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% "
+        f"of wall); device ms by group {per}; % of busy {share}; launches {counts}")
+
+
+def time_train_components(torch, cfg, params, opt) -> None:
+    """CUDA-event times of the step's two plain-torch components at full
+    width: one layer's attention backward (the recompute through
+    ``chunked_attention``, 16 x 4 per step) and one AdamW update of the
+    whole fp32 state (the params stand in for the grads)."""
+    from repro_torch.models.attention import chunked_attention_vjp
+    from repro_torch.runtime import optimizer as opt_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, S = TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, g = (torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16() for _ in "qg")
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device="cuda").bfloat16() for _ in "kv")
+    vjp_ms = device_ms(lambda: chunked_attention_vjp(q, k, v, g, causal=True), torch,
+                       inner=1, reps=3)
+    calls = cfg.num_layers * TRAIN_ACCUM
+    cfg = opt_lib.AdamWConfig()
+    adam_ms = device_ms(lambda: opt_lib.adamw_update(params, params, opt, cfg), torch,
+                        inner=1, reps=3)
+    log(f"train components: attention backward recompute {vjp_ms:.3f} ms per layer call "
+        f"(B{B} S{S} H{H} KV{KV} hd{hd} bf16) x {calls} per step = {vjp_ms * calls:.1f} ms; "
+        f"AdamW update of the full fp32 state {adam_ms:.3f} ms per step")
+    del q, g, k, v
+
+
+def parity_train(torch) -> None:
+    """Kernel path against plain path at full width, 2 layers, seq 1024,
+    batch 2, same weights.  fp32: loss within 1e-4 relative, every grad and
+    every parameter after one AdamW step within 2e-3 of its leaf's largest
+    magnitude.  bf16: loss within 3e-2 relative, and the kernel path's grads
+    no further from the fp32 plain path than twice the bf16 plain path's."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import optimizer as opt_lib
+    from repro_torch.runtime.data import SyntheticDataset
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
+    batch = SyntheticDataset(cfg, seq_len=1024, global_batch=2, seed=1).batch(0)
+    out = {}
+    for name, impl, dtype in (("kernel32", "kernel", torch.float32),
+                              ("ref32", "ref", torch.float32),
+                              ("kernel", "kernel", torch.bfloat16),
+                              ("ref", "ref", torch.bfloat16)):
+        hp, params = _train_bundle(torch, cfg, "selective", impl=impl, seed=1)
+        loss, _, grads = hp.value_and_grad(params, batch, dtype)
+        new = None
+        if dtype == torch.float32:
+            new, _, _ = opt_lib.adamw_update(params, grads, hp.init_opt_state(params),
+                                             hp.opt_cfg)
+        out[name] = (float(loss), tree_leaves(grads), new and tree_leaves(new))
+        del hp, params, grads, new
+    torch.cuda.synchronize()
+
+    def rel_err(a_leaves, b_leaves):
+        return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(a_leaves, b_leaves))
+
+    l32, g32, p32 = out["ref32"]
+    lk32, gk32, pk32 = out["kernel32"]
+    gerr32, perr32 = rel_err(gk32, g32), rel_err(pk32, p32)
+    lerr32 = abs(lk32 - l32) / abs(l32)
+    lerr = abs(out["kernel"][0] - out["ref"][0]) / abs(out["ref"][0])
+    err_k, err_r = rel_err(out["kernel"][1], g32), rel_err(out["ref"][1], g32)
+    log(f"parity: train, full width x 2 layers, 2 x 1024 tokens: fp32 loss {lk32:.6f} vs "
+        f"{l32:.6f} (rel {lerr32:.2e}, tol 1e-4); grads max err / leaf scale {gerr32:.2e}, "
+        f"params after AdamW {perr32:.2e} (tol 2e-3); bf16 loss rel {lerr:.2e} (tol 3e-2); "
+        f"bf16 grads vs fp32 plain (err / leaf scale): kernel {err_k:.3e}, plain {err_r:.3e}")
+    require(lerr32 <= 1e-4, "fp32 train loss: kernel path differs from the plain path")
+    require(gerr32 <= 2e-3 and perr32 <= 2e-3,
+            "fp32 grads or updated params: kernel path differs from the plain path")
+    require(lerr <= 3e-2, "bf16 train loss: kernel path differs from the plain path")
+    require(err_k <= 2.0 * err_r,
+            "bf16 grads: the kernel path is further from fp32 than the plain bf16 path x2")
+    del out
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, flash_ops, rms_ops) -> dict:
+    """Phase 8: the three remat policies at full width, the selective step's
+    profile and components, and kernel-vs-plain parity.  Returns the
+    selective run's launches (the train path's counts)."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    n_params, dense, attn = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    flops = dense + attn
+    log(f"train: {cfg.name} full width ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.resolved_head_dim}, ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, tied); model FLOPs per step = 6 x {n_params} matmul params "
+        f"x {TRAIN_BATCH * TRAIN_SEQ} tokens ({dense:.4e}) + 3 x {cfg.num_layers} layers x "
+        f"4·B·H·S²·hd/2 causal attention ({attn:.4e}) = {flops:.4e}; bound at the bf16 peak "
+        f"{flops / PEAK_FLOPS['bfloat16']:.4f} s")
+    launches = None
+    for policy in TRAIN_POLICIES:
+        record, (hp, params, opt, ds) = train_policy(torch, flash_ops, rms_ops, policy,
+                                                     TRAIN_STEPS, flops)
+        if policy == "selective":
+            launches = {"flash_attention_fwd": record["launches"][0],
+                        "rmsnorm": record["launches"][1]}
+            profile_train_step(torch, hp, params, opt, ds.batch(TRAIN_STEPS))
+            time_train_components(torch, cfg, params, opt)
+        del hp, params, opt, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+    parity_train(torch)
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -750,6 +1095,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rows = check_flash(torch, flash_ops, flash_ref, gen)
+    check_flash_autograd(torch, flash_ops, flash_ref, gen)
     rms_rows = check_rmsnorm(torch, rms_ops, rms_ref, gen)
     ssd_rows = check_ssd(torch, ssd_ops, ssd_ref, gen)
 
@@ -769,8 +1115,13 @@ def main() -> int:
 
     # 7. mamba2 kernel path against plain path
     parity_mamba2(torch, np, serving, build_model, get_config, engine, params, m_prompts)
+    del engine, params
+    torch.cuda.empty_cache()
 
-    # 8. results
+    # 8. the dense training step at full width
+    train_launches = train_phase(torch, flash_ops, rms_ops)
+
+    # 9. results
     kernels = []
     for rows, name, source, replaces in (
             (flash_rows, "flash_attention_fwd",
@@ -781,7 +1132,8 @@ def main() -> int:
             (ssd_rows, "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/kernel.py:74")):
         for r in rows:
-            launches = {"llama": llama_launches, "mamba2": mamba_launches}[r["path"]]
+            launches = {"llama": llama_launches, "mamba2": mamba_launches,
+                        "train": train_launches}[r["path"]]
             kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": launches[name], "max_abs_err": r["max_abs_err"],

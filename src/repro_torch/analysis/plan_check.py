@@ -8,7 +8,8 @@ CODE      SLUG                              SEVERITY
 
 ``check_serve`` verifies a paged-cache serving geometry before any device
 memory is touched.  Weight bytes come from the port's own parameter
-definitions (``models.common.count_params``).
+definitions (``models.common.count_params``), counted by the JAX check's
+rule (no final norm).
 """
 from __future__ import annotations
 
@@ -127,14 +128,18 @@ class ServeSpec:
 
 
 def weight_params(cfg: ModelConfig) -> int:
-    """Parameter count from the port's own model definitions."""
+    """Parameter count from the port's own model definitions, by the JAX
+    check's rule (``profile_model(cfg, ...).total_params()``): the embedding
+    and head, and each layer's weights with its two norm scales, but not the
+    final norm's scale."""
     from repro_torch.models.common import count_params
     from repro_torch.models.transformer import DenseTransformerLM
 
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet (dense only)")
-    return count_params(DenseTransformerLM(cfg, device="cpu").param_defs())
+    defs = DenseTransformerLM(cfg, device="cpu").param_defs()
+    return count_params({k: v for k, v in defs.items() if k != "final_norm"})
 
 
 def check_serve(spec: ServeSpec, cluster: ClusterSpec,

@@ -1,5 +1,5 @@
-"""Flash-attention forward entry point: the CUDA kernel on CUDA tensors, the
-plain version on CPU tensors.
+"""Flash-attention entry points: the CUDA kernel on CUDA tensors, the plain
+version on CPU tensors.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py::
 flash_attention_fwd`` (body ``_flash_fwd_kernel``) with
@@ -12,6 +12,10 @@ cores; K/V tiles stream through a ring of ``cp.async`` stages; tiles that no
 row of a block sees are skipped, and tiles that every row sees in full skip
 the mask; a decode-sized call splits its keys over blocks, merged by a
 second small kernel (see the source's head).
+
+``flash_attention`` is the forward under autograd, for training: its
+backward recomputes through the plain chunked attention, one query block at
+a time (no backward kernel yet).
 
 ``flash_attention_fwd.launches`` counts calls that launch the kernel, one
 per call (plain-version calls on the CPU do not count).
@@ -135,3 +139,33 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
 
 
 flash_attention_fwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 under autograd (the port of ``repro/kernels/flash_attention/ops.py
+    ::flash_attention``'s custom VJP).  The forward is the kernel on CUDA
+    tensors (its plain version on CPU tensors) and saves only q, k, v; the
+    backward recomputes through the port's ``chunked_attention`` one query
+    block at a time (``models.attention.chunked_attention_vjp``), as the
+    JAX VJP recomputes through jnp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention_fwd(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.models.attention import chunked_attention_vjp
+
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = chunked_attention_vjp(q, k, v, g, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q (B, S, H, hd), compact k/v (B, S, KV, hd) -> out (B, S, H, hd),
+    differentiable: dq in q's dtype, dk/dv summed over each kv head's query
+    heads."""
+    return _FlashAttention.apply(q, k, v, causal)

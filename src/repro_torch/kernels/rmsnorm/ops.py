@@ -54,3 +54,38 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
 
 
 rmsnorm.launches = 0
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``rmsnorm`` under autograd.  The forward is the kernel (its plain
+    version on CPU tensors) and saves only x and scale; the backward
+    recomputes the fp32 statistics in plain torch ops — the counterpart of
+    the JAX package's no-save ``jax.checkpoint`` around its jnp body, whose
+    backward is compiled jnp, not a Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf = x.float()
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + ctx.eps)
+        xhat = xf * r
+        gs = g.float() * scale.float()
+        dx = r * (gs - xhat * torch.mean(gs * xhat, dim=-1, keepdim=True))
+        dscale = (g.float() * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+def rmsnorm_autograd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``rmsnorm`` with a recomputing backward: dx in x's dtype, dscale in
+    scale's (fp32 for the fp32 master weights).  With nothing to
+    differentiate (serving under ``no_grad``) it calls ``rmsnorm`` directly
+    and spends no host time on the autograd function."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return rmsnorm(x, scale, eps)

@@ -5,8 +5,10 @@ query heads are never padded for tensor parallelism.
 
 ``attention_block`` dispatches:
   * ``impl="kernel"`` on CUDA tensors -> the flash-attention forward kernel
-    (``kernels/flash_attention``) for every prefill pass, prefill chunk and
-    decode step, on the compact K/V: the kernel maps query head h to kv head
+    (``kernels/flash_attention``) for every training pass (through its
+    autograd function, whose backward recomputes through
+    ``chunked_attention_vjp``), prefill pass, prefill chunk and decode step,
+    on the compact K/V: the kernel maps query head h to kv head
     h // (H // KV) itself, so no head expansion runs.  A decode offset and
     per-slot valid lengths become explicit positions (``flash_positions``,
     built once per forward by ``forward_decode``): ``q_pos = q_offset +
@@ -17,7 +19,13 @@ query heads are never padded for tensor parallelism.
     index mask and needs no positions.
   * otherwise (CPU tensors, or ``impl="ref"``) -> ``expand_and_pad`` to the
     query-head count, then ``dense_attention`` up to ``DENSE_MAX_SEQ`` and
-    ``chunked_attention`` beyond, as in the JAX package.
+    ``chunked_attention`` beyond, as in the JAX package; the chunked form's
+    backward recomputes it one query block at a time, as JAX recomputes it
+    under ``jax.checkpoint``.
+
+The q/k/v and output projections are 2-D matmuls on reshaped weights, so
+they reach ``aten.mm`` (what the selective remat policy saves) while the
+attention products stay batched ``bmm``.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -153,6 +162,60 @@ def chunked_attention(q, k, v, *, causal, q_offset=0, kv_len=None,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def chunked_attention_vjp(q, k, v, g, *, causal, q_offset=0, kv_len=None,
+                          block_q: int = CHUNK_Q):
+    """(dq, dk, dv) of ``chunked_attention(q, k, v)`` at cotangent ``g``,
+    with k/v compact (KV heads dividing H, expanded here as the kernel maps
+    them) or already expanded.  Recomputed one query block of ``block_q``
+    rows at a time under ``torch.enable_grad()``, so only one block's graph
+    of fp32 scores is live; dk/dv accumulate in fp32 over the blocks.  A
+    causal block at an int offset sees no key past its last row, so those
+    keys (which weigh exactly 0) are left out of its recompute.  Runs inside
+    the profiler span ``attention_vjp``."""
+    Sq, H = q.shape[1], q.shape[2]
+    Sk = k.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    with record_function("attention_vjp"):
+        for start in range(0, Sq, block_q):
+            stop = min(start + block_q, Sq)
+            end = Sk
+            if causal and not isinstance(q_offset, torch.Tensor):
+                end = min(Sk, int(q_offset) + stop)
+            with torch.enable_grad():
+                qi = q[:, start:stop].detach().requires_grad_()
+                ki = k[:, :end].detach().requires_grad_()
+                vi = v[:, :end].detach().requires_grad_()
+                ke, ve = flash_ref.expand_heads(ki, vi, H)
+                out = chunked_attention(qi, ke, ve, causal=causal, q_offset=q_offset + start,
+                                        kv_len=kv_len)
+                gq, gk, gv = torch.autograd.grad(out, (qi, ki, vi), g[:, start:stop])
+            dq[:, start:stop] = gq
+            dk[:, :end] += gk
+            dv[:, :end] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """``chunked_attention`` whose backward recomputes it block by block
+    (``chunked_attention_vjp``) from the saved q, k, v: the counterpart of
+    the JAX package's ``jax.checkpoint`` (nothing saveable) around it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, q_offset, kv_len)
+        return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, q_offset, kv_len = ctx.args
+        dq, dk, dv = chunked_attention_vjp(*ctx.saved_tensors, g, causal=causal,
+                                           q_offset=q_offset, kv_len=kv_len)
+        return dq, dk, dv, None, None, None
+
+
 def uses_kernel(impl: str, x: torch.Tensor) -> bool:
     """Whether attention goes to the flash kernel: ``impl="kernel"`` on a
     CUDA tensor."""
@@ -207,20 +270,27 @@ def _flash(q, k, v, *, causal, q_offset=0, kv_len=None, positions=None):
 
 def attention_math(q, k, v, *, causal, q_offset=0, kv_len=None):
     """The plain path on expanded heads: dense up to ``DENSE_MAX_SEQ``,
-    chunked beyond."""
+    chunked beyond (differentiable with a block-by-block recompute)."""
     if max(q.shape[1], k.shape[1]) <= DENSE_MAX_SEQ:
         return dense_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
-    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    return _ChunkedAttention.apply(q, k, v, causal, q_offset, kv_len)
 
 
 # --------------------------------------------------------------------------
 # block-level entry point
 # --------------------------------------------------------------------------
 
+def _project(x, w):
+    """x (B, S, D) @ w (D, H, hd) -> (B, S, H, hd), as one 2-D matrix product
+    (``aten.mm``, which the selective remat policy saves)."""
+    D, H, hd = w.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(D, H * hd)).view(*x.shape[:-1], H, hd)
+
+
 def _project_qkv(params, x, cfg: ModelConfig, impl: str):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -232,7 +302,9 @@ def _project_qkv(params, x, cfg: ModelConfig, impl: str):
 
 
 def _out_proj(params, out, x_dtype):
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x_dtype))
+    H, hd, D = params["wo"].shape
+    return torch.matmul(out.reshape(*out.shape[:-2], H * hd),
+                        params["wo"].to(x_dtype).reshape(H * hd, D))
 
 
 def write_cache(cache: torch.Tensor, new: torch.Tensor, cache_index) -> None:
@@ -258,7 +330,7 @@ def attention_block(
     x: torch.Tensor,                # (B, Sq, D)
     *,
     cfg: ModelConfig,
-    mode: str,                      # "prefill" | "decode"
+    mode: str,                      # "train" | "prefill" | "decode"
     cache: Optional[dict] = None,   # {"k","v": (B, S_max, KV, hd)}
     cache_index=None,               # decode write offset: int or (B,) tensor
     kv_len: Optional[torch.Tensor] = None,
@@ -266,7 +338,8 @@ def attention_block(
     positions=None,                 # the kernel's (q_pos, k_pos) of a decode step
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Self-attention of one layer.  In decode mode the new k/v are written
-    into ``cache`` in place and the same dict is returned as the new cache.
+    into ``cache`` in place and the same dict is returned as the new cache;
+    train mode is causal with no cache (returns None) and differentiable.
     ``positions`` (``flash_positions`` of this step, shared by every layer)
     is read only on the kernel path; without it the positions are built
     here."""
@@ -274,7 +347,7 @@ def attention_block(
     q, k, v = _project_qkv(params, x, cfg, impl)
     if mode == "decode":
         pos_q = _q_positions(cache_index, Sq, x.device)
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         pos_q = torch.arange(Sq, device=x.device)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported yet")
@@ -299,6 +372,14 @@ def attention_block(
             valid = valid_lengths(cache_index, Sq, B, kv_len, x.device)
             q, ke, ve = expand_and_pad(q, ck.to(q.dtype), cv.to(q.dtype))
             out = attention_math(q, ke, ve, causal=True, q_offset=cache_index, kv_len=valid)
+    elif mode == "train":
+        new_cache = None
+        if kernel:
+            out = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            causal=True)
+        else:
+            q, ke, ve = expand_and_pad(q, k, v)
+            out = attention_math(q, ke, ve, causal=True)
     else:
         new_cache = {"k": k, "v": v}
         if kernel:

@@ -90,9 +90,16 @@ def tree_paths(defs: ParamTree, prefix: tuple[str, ...] = ()) -> list[tuple[tupl
     return out
 
 
-def _build(defs: ParamTree, leaf) -> ParamTree:
-    return {k: (_build(v, leaf) if isinstance(v, Mapping) else leaf(v))
-            for k, v in defs.items()}
+def tree_leaves(tree: ParamTree) -> list:
+    """The leaves of a nested dict, in sorted path order."""
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_map(fn, *trees: ParamTree) -> ParamTree:
+    """``fn`` over the leaves of nested dicts of one structure."""
+    first = trees[0]
+    return {k: (tree_map(fn, *(t[k] for t in trees)) if isinstance(first[k], Mapping)
+                else fn(*(t[k] for t in trees))) for k in first}
 
 
 def init_params(defs: ParamTree, generator: torch.Generator, device,
@@ -118,8 +125,8 @@ def params_from_jax(tree: Mapping, device, dtype: torch.dtype = torch.float32) -
     ``blocks`` with a leading layer dim, ``wq (d,h,hd)``, ``wo (h,hd,d)`` …),
     on ``device`` in ``dtype``."""
     dev = resolve_device(device)
-    return _build(tree, lambda a: torch.from_numpy(      # np.array copies: the
-        np.array(a, np.float32)).to(dev, dtype))          # tensor owns its memory
+    return tree_map(lambda a: torch.from_numpy(          # np.array copies: the
+        np.array(a, np.float32)).to(dev, dtype), tree)    # tensor owns its memory
 
 
 def count_params(defs: ParamTree) -> int:
@@ -127,15 +134,25 @@ def count_params(defs: ParamTree) -> int:
 
 
 def cast_tree(params: ParamTree, dtype: torch.dtype) -> ParamTree:
-    return _build(params, lambda x: x.to(dtype) if x.is_floating_point() else x)
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
 
 
 def stacked(defs: ParamTree, num: int) -> ParamTree:
     """Prepend a ``layers`` dim of size ``num`` to every ParamDef."""
-    return _build(defs, lambda v: dataclasses.replace(
-        v, shape=(num,) + v.shape, logical_axes=("layers",) + v.logical_axes))
+    return tree_map(lambda v: dataclasses.replace(
+        v, shape=(num,) + v.shape, logical_axes=("layers",) + v.logical_axes), defs)
 
 
 def take_layer(params: ParamTree, idx: int) -> ParamTree:
     """One layer of a stacked param tree (views, no copy)."""
-    return _build(params, lambda x: x[idx])
+    return tree_map(lambda x: x[idx], params)
+
+
+def unstack_layers(params: ParamTree) -> list[ParamTree]:
+    """Every layer of a stacked param tree (views, no copy), by one
+    ``torch.unbind`` per leaf: its backward stacks the per-layer grads into
+    one stacked grad, where indexing layer by layer would add up one
+    zero-filled stacked grad per layer."""
+    parts = {id(x): torch.unbind(x, 0) for x in tree_leaves(params)}
+    num = len(next(iter(parts.values())))
+    return [tree_map(lambda x: parts[id(x)][i], params) for i in range(num)]

@@ -198,22 +198,23 @@ class Mamba2LM(nn.Module):
         return embedding.lm_head(params["embed"], x, self.cfg), aux
 
     # ------------------------------------------------------------ serving
-    def _state_shapes(self, batch: int, dtype: torch.dtype):
+    def _state_shapes(self, batch: int):
         cfg = self.cfg
         d_inner, H, G, N, P = _dims(cfg)
         W, L = cfg.conv_width, cfg.num_layers
         return {
-            "conv_x": ((L, batch, W - 1, d_inner), dtype),
-            "conv_B": ((L, batch, W - 1, G * N), dtype),
-            "conv_C": ((L, batch, W - 1, G * N), dtype),
+            "conv_x": ((L, batch, W - 1, d_inner), torch.bfloat16),
+            "conv_B": ((L, batch, W - 1, G * N), torch.bfloat16),
+            "conv_C": ((L, batch, W - 1, G * N), torch.bfloat16),
             "ssm": ((L, batch, H, N, P), torch.float32),
         }
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
-        """Zero decode state; constant in ``max_len`` (kept for the uniform
-        interface).  Conv buffers in ``dtype``, the SSD state in fp32."""
+        """Zero decode state, as the JAX model makes it: conv buffers bf16
+        and the SSD state fp32 whatever ``dtype`` says; ``max_len`` and
+        ``dtype`` are kept for the uniform interface."""
         return {k: torch.zeros(s, dtype=d, device=self.device)
-                for k, (s, d) in self._state_shapes(batch, dtype).items()}
+                for k, (s, d) in self._state_shapes(batch).items()}
 
     @torch.no_grad()
     def forward_prefill(self, params: dict, tokens: torch.Tensor, *,

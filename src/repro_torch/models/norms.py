@@ -1,7 +1,10 @@
 """Normalization layers (fp32 statistics, output in input dtype).
 
-``impl="kernel"`` (the default) goes through ``kernels/rmsnorm/ops.py``: the
-CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
+``impl="kernel"`` (the default) goes through ``kernels/rmsnorm/ops.py``'s
+``rmsnorm_autograd``: the CUDA kernel on a CUDA tensor, its plain version on
+a CPU tensor, and, when a grad is wanted, a backward that recomputes the
+fp32 statistics from the saved input (the JAX package's no-save
+``jax.checkpoint`` around its norm).
 ``impl="ref"`` is the plain PyTorch math of the JAX ``_rmsnorm`` on any
 device — the comparison path only.
 """
@@ -23,7 +26,7 @@ def _rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float, impl: str) -> tor
         return rmsnorm_reference(x, scale, eps)
     if impl != "kernel":
         raise ValueError(f"unknown impl {impl!r}")
-    return rmsnorm_ops.rmsnorm(x.contiguous(), scale, eps)
+    return rmsnorm_ops.rmsnorm_autograd(x.contiguous(), scale, eps)
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5, impl: str = "kernel") -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family (serving passes).
+"""Decoder-only transformer LM, dense family (training and serving passes).
 
 The parameters are a nested dict of tensors with the JAX package's keys and
 stacked ``blocks`` (leading layer dim); the forward passes take that dict
@@ -9,7 +9,12 @@ Python loop over the stacked tensors.
 ``forward_decode`` accepts ``cache_index`` as an int or a ``(B,)`` tensor:
 the per-slot form is the written-out ``vmap`` of the JAX scheduler — each
 slot gets its own rope positions, cache write position and causal offset.
-``forward_train`` waits for the training slice.
+
+``forward_train`` is differentiable: gradients reach the fp32 master leaves
+through the ``.to(dtype)`` casts, and the tied ``embed.tok`` from both the
+gather and the head.  Its layer loop is a ``layer_runner`` (the runtime's
+applies each layer's remat policy); ``default_layer_runner`` is the plain
+loop in place of JAX's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -21,8 +26,19 @@ from torch import nn
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import embedding, ffn
-from repro_torch.models.common import init_params, resolve_device, stacked, take_layer
+from repro_torch.models.common import (init_params, resolve_device, stacked, take_layer,
+                                       unstack_layers)
 from repro_torch.models.norms import rmsnorm, rmsnorm_defs
+
+
+def default_layer_runner(stacked_params: dict, x: torch.Tensor, apply_block):
+    """``apply_block(layer_params, h) -> (h, extra)`` over the stacked
+    layers; extra (fp32 scalar, e.g. an MoE aux loss) adds up."""
+    extra = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer_params in unstack_layers(stacked_params):
+        x, e = apply_block(layer_params, x)
+        extra = extra + e
+    return x, extra
 
 
 class DenseTransformerLM(nn.Module):
@@ -72,6 +88,22 @@ class DenseTransformerLM(nn.Module):
         x = x + a
         h = rmsnorm(params["ln2"], x, cfg.norm_eps, self.impl)
         return x + ffn.ffn_apply(params["mlp"], h, cfg), new_cache
+
+    # ---------------------------------------------------------- training
+    def forward_train(self, params: dict, tokens: torch.Tensor, *, layer_runner=None,
+                      dtype=torch.bfloat16):
+        """tokens (B, S) -> (fp32 logits (B, S, V), extra fp32 scalar)."""
+        runner = layer_runner or default_layer_runner
+        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def apply_block(bp, h):
+            out, _ = self.block_apply(bp, h, mode="train")
+            return out, zero
+
+        x, extra = runner(params["blocks"], x, apply_block)
+        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
+        return embedding.lm_head(params["embed"], x, self.cfg), extra
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:

@@ -1,6 +1,7 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
-version, the wrappers' input checks, and the serving paths (paged dense,
-step-engine mamba2) with ``impl="kernel"`` against ``impl="ref"``.
+version (K1 and K2 also under autograd), the wrappers' input checks, and
+the serving paths (paged dense, step-engine mamba2) and the dense training
+step under each remat policy with ``impl="kernel"`` against ``impl="ref"``.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -109,8 +110,29 @@ def test_cuda_flash_compact_heads_match_plain_version(cuda_device, case):
     """K1 on compact GQA K/V against its plain version (which expands the
     heads): fp32 1e-4, bf16 3e-2, residuals 1e-5; one launch counted per
     call, including calls that split keys and merge in a second kernel."""
+    _check_flash_case(cuda_device, case)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KV, hd, kind, kv_lens): 64-row blocks, keys split
+    (1, 64, 20000, 32, 8, 64, "causal", None),        # index mask: late splits see no key
+    (1, 256, 20000, 32, 8, 64, "causal", None),
+    (1, 256, 20000, 32, 8, 64, "chunk", (20000,)),    # q offset 19744: rows see ~all keys
+    (1, 64, 20000, 32, 8, 64, "noncausal", None),
+], ids=lambda c: f"B{c[0]}-Sq{c[1]}-Sk{c[2]}-{c[6]}")
+def test_cuda_flash_many_row_split_path_matches_plain_version(cuda_device, case):
+    """Past 256 key tiles (16 384 keys) K1 splits the keys of blocks of
+    more than 16 packed rows too, and merges the splits in a second kernel:
+    that path against the plain version at the same tolerances."""
+    B, Sq, Sk, H, KV = case[:5]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (H // KV) * Sq > flash_ops.DECODE_ROWS
+    assert flash_ops.num_splits(B, KV, (H // KV) * Sq, Sk, sms) > 1
+    _check_flash_case(cuda_device, case)
+
+
+def _check_flash_case(dev, case):
     B, Sq, Sk, H, KV, hd, kind, lens = case
-    dev = cuda_device
     g = torch.Generator(device=dev).manual_seed(Sk + H + hd)
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
         q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
@@ -131,11 +153,110 @@ def test_cuda_flash_compact_heads_match_plain_version(cuda_device, case):
         ref, rm, rl = flash_ref.flash_attention_fwd(q, k, v, return_residuals=True, **kw)
         assert out.dtype == dtype and out.shape == q.shape
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        # per (b, s, h) row against the fp32 plain version, relative to the
+        # row's largest |value| (rows over many keys hold values ~1e-2):
+        # 1e-4 in fp32, 2 bf16 epsilons in bf16
+        ref32 = ref.float() if dtype == torch.float32 else flash_ref.flash_attention_fwd(
+            q.float(), k.float(), v.float(), **kw)
+        row_err = (out.float() - ref32).abs().amax(-1) / ref32.abs().amax(-1).clamp_min(1e-30)
+        assert float(row_err.max()) <= (1e-4 if dtype == torch.float32 else 2.0 ** -6)
         torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
         if kind == "masked":            # a fully masked row is the mean of v
             mean = flash_ref.expand_heads(k, v, H)[1].float().mean(dim=1)
             torch.testing.assert_close(out[:, 0].float(), mean, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("S,H,KV,dtype", [
+    (1024, 32, 8, torch.float32),
+    (20000, 2, 1, torch.float32),      # the many-row split path
+    (1024, 32, 8, torch.bfloat16),
+])
+def test_cuda_flash_attention_autograd_matches_plain_version(cuda_device, S, H, KV, dtype):
+    """``flash_attention`` (K1 forward, block-by-block recompute backward)
+    against autograd through K1's plain version: out and dq/dk/dv within
+    2e-3 of their scale in fp32, 3e-2 in bf16; one K1 launch per call."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + H)
+    q, k, v = (torch.randn((1, S, n, 64), generator=g, device=cuda_device).to(dtype)
+               for n in (H, KV, KV))
+    cot = torch.randn((1, S, H, 64), generator=g, device=cuda_device).to(dtype)
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    results = []
+    for fn in (flash_ops.flash_attention, flash_ref.flash_attention_fwd):
+        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+        n = flash_ops.flash_attention_fwd.launches
+        out = fn(tq, tk, tv, causal=True)
+        results.append((out, *torch.autograd.grad(out, (tq, tk, tv), cot)))
+        assert flash_ops.flash_attention_fwd.launches == n + (fn is flash_ops.flash_attention)
+    for a, b in zip(*results):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        a, b = a.detach().float(), b.detach().float()
+        err = float((a - b).abs().max())
+        assert err <= tol * float(b.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_cuda_rmsnorm_autograd_matches_plain_version(cuda_device, dtype, tol):
+    """K2 forward with the recomputing backward against autograd through
+    the plain version: y, dx (x's dtype) and dscale (fp32)."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = (3 * torch.randn((512, 2048), generator=g, device=cuda_device)).to(dtype)
+    scale = 1 + 0.1 * torch.randn((2048,), generator=g, device=cuda_device)
+    cot = torch.randn((512, 2048), generator=g, device=cuda_device).to(dtype)
+    results = []
+    for fn in (rms_ops.rmsnorm_autograd, rms_ops.rmsnorm_reference):
+        tx, ts = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        n = rms_ops.rmsnorm.launches
+        y = fn(tx, ts, 1e-5)
+        results.append((y, *torch.autograd.grad(y, (tx, ts), cot)))
+        assert rms_ops.rmsnorm.launches == n + (fn is rms_ops.rmsnorm_autograd)
+    for a, b in zip(*results):
+        assert a.dtype == b.dtype
+        a, b = a.detach().float(), b.detach().float()
+        err = float((a - b).abs().max())
+        assert err <= tol * max(1.0, float(b.abs().max())), err
+
+
+@pytest.mark.parametrize("policy", ["none", "selective", "full"])
+def test_cuda_train_kernel_path_matches_ref_path(cuda_device, policy):
+    """Reduced llama3.2-1b on the card under each remat policy: the kernel
+    path's fp32 loss and grads are the plain path's (grads within 2e-3 of
+    each leaf's scale); K1 launches once per layer and K2 2L + 1 times per
+    forward, and a recomputing policy relaunches both in the backward; a bf16
+    train step with grad accumulation runs and gives finite numbers."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.runtime import train as ttrain
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.models.common import tree_leaves as leaves
+
+    cfg = get_config("llama3.2-1b").reduced()
+    L = cfg.num_layers
+    plan = uniform_plan(cfg.name, "train_4k", (1,), ("data",), L,
+                        LayerStrategy(remat=policy), grad_accum=2)
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(8))
+    batch = SyntheticDataset(cfg, 256, 4, seed=8).batch(0)
+    out = {}
+    for impl in ("kernel", "ref"):
+        hp = ttrain.construct_hybrid_parallel_model(build_model(cfg, impl=impl), plan)
+        counts = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+        out[impl] = hp.value_and_grad(params, batch, torch.float32)
+        torch.cuda.synchronize()
+        launched = (flash_ops.flash_attention_fwd.launches - counts[0],
+                    rms_ops.rmsnorm.launches - counts[1])
+        if impl == "kernel":
+            again = policy != "none"
+            assert launched == (L * (1 + again), 2 * L + 1 + 2 * L * again), launched
+        else:
+            assert launched == (0, 0)
+    (lk, _, gk), (lr, _, gr) = out["kernel"], out["ref"]
+    assert abs(float(lk) - float(lr)) <= 1e-5 * abs(float(lr))
+    for a, b in zip(leaves(gk), leaves(gr)):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+    hp = ttrain.construct_hybrid_parallel_model(build_model(cfg), plan)
+    p, s, m = hp.train_step(params, hp.init_opt_state(params), batch)
+    assert all(bool(torch.isfinite(x).all()) for x in leaves(p))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
 
 
 def test_cuda_serving_kernel_path_matches_ref_path(cuda_device):

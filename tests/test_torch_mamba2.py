@@ -104,6 +104,20 @@ def test_init_zeros_and_ones_match_jax(pair):
             np.testing.assert_array_equal(tp[path].numpy(), jp[path])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_init_cache_dtypes_and_shapes_match_jax(pair, dtype):
+    """Conv buffers bf16 and the SSD state fp32, whatever dtype is asked
+    for, as the JAX model makes them."""
+    jc = pair["jm"].init_cache(3, 64, dtype=jnp.float32 if dtype == torch.float32 else
+                               jnp.bfloat16)
+    tc = pair["tm"].init_cache(3, 64, dtype=dtype)
+    assert tc.keys() == jc.keys() == set(CACHE_KEYS)
+    for k in CACHE_KEYS:
+        assert tuple(tc[k].shape) == jc[k].shape, k
+        assert str(tc[k].dtype).replace("torch.", "") == str(jc[k].dtype), k
+        assert float(tc[k].float().abs().sum()) == 0.0
+
+
 def test_full_width_param_count_matches_jax():
     n = count_params(build_model(get_config(ARCH), device="cpu").param_defs())
     assert n == jax_count_params(jax_build_model(jax_get_config(ARCH)).param_defs())

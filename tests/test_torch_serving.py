@@ -4,7 +4,8 @@ numpy inputs:
 
 * the parameter tree, counts and init distributions;
 * ``forward_prefill`` / ``forward_decode`` logits and caches in fp32 at 1e-4
-  (reduced llama3.2-1b, qwen2.5-3b with qkv bias, qwen3-14b with qk-norm),
+  (reduced llama3.2-1b, qwen2.5-3b with qkv bias, qwen3-14b with qk-norm,
+  nemotron-4-15b with the relu2 FFN),
   including a batched decode with a different ``cache_index`` per slot;
 * the continuous-batching scheduler against JAX's, teacher-forced in bf16
   (every recorded logits row at 3e-2), and greedy in fp32 against a JAX
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from tests._prop import given, settings, st
+from tests._torch_params import perturbed
 
 from repro import serving as jserving
 from repro.configs.registry import get_config as jax_get_config
@@ -33,32 +35,16 @@ from repro_torch.models.common import count_params, params_from_jax, tree_paths
 from repro_torch.runtime.kv_cache import CacheOOM, PagedCacheConfig, PagedKVCache
 from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
 
-ARCHS = ["llama3.2-1b", "qwen2.5-3b", "qwen3-14b"]
+ARCHS = ["llama3.2-1b", "qwen2.5-3b", "qwen3-14b", "nemotron-4-15b"]
 TOL32 = 1e-4
 TOL_BF16 = 3e-2
-
-
-def _perturbed(tree, rng):
-    """Numpy param tree with the zero biases and unit norm scales of a fresh
-    init perturbed, so the bias and qk-norm paths are really compared."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = _perturbed(v, rng)
-        elif k in ("bq", "bk", "bv"):
-            out[k] = (v + 0.1 * rng.standard_normal(v.shape)).astype(np.float32)
-        elif k in ("scale", "q_norm", "k_norm"):
-            out[k] = (v * (1 + 0.1 * rng.standard_normal(v.shape))).astype(np.float32)
-        else:
-            out[k] = np.asarray(v, np.float32)
-    return out
 
 
 def _pair(arch, seed=0):
     jcfg, tcfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     jm, tm = jax_build_model(jcfg), build_model(tcfg, device="cpu")
-    np_params = _perturbed(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed))),
+    np_params = perturbed(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed))),
                            np.random.default_rng(seed))
     return dict(cfg=tcfg, jm=jm, tm=tm, np=np_params,
                 jp=jax.tree.map(jnp.asarray, np_params),
@@ -96,6 +82,21 @@ def test_full_width_param_count_matches_jax(arch):
     jcfg, tcfg = jax_get_config(arch), get_config(arch)
     assert count_params(build_model(tcfg, device="cpu").param_defs()) == \
         jax_count_params(jax_build_model(jcfg).param_defs())
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3.2-1b-long", "qwen2.5-3b",
+                                  "qwen3-14b", "nemotron-4-15b"])
+def test_galv081_weight_count_is_jaxs(arch):
+    """GALV081's weight count at full width is the JAX check's
+    ``profile_model(cfg, ...).total_params()``: the model's parameters less
+    the final norm's d_model scale."""
+    from repro.core.profiler_model import profile_model
+    from repro_torch.analysis.plan_check import weight_params
+
+    tcfg = get_config(arch)
+    n = weight_params(tcfg)
+    assert n == profile_model(jax_get_config(arch), 4096).total_params()
+    assert n == count_params(build_model(tcfg, device="cpu").param_defs()) - tcfg.d_model
 
 
 def test_init_distributions_match_jax():
