@@ -72,10 +72,25 @@ Phases (any failure exits non-zero and prints no result line):
    at full width with 2 layers, 2 x 1024 tokens: fp32 loss 1e-4, grads and
    updated params 2e-3 of scale; bf16 loss 3e-2, the kernel path's grads
    no further from fp32 than twice the plain bf16 path's;
-9. a ``{"kernels": [...]}`` line, then the device line last.
+9. planner — Galvatron's loop on the card through the port's entry points:
+   ``launch.profile`` measures two full-width llama3.2-1b blocks (S 1024 and
+   4096, microbatch 2, bf16; forward, backward and full-remat overhead
+   through K1 and K2, whose launches it counts) into a fresh profile cache,
+   and a second call measures nothing; one cell again with a random input in
+   place of zeros; the fitted calibration; ``SearchEngine(cfg,
+   cluster=H100_1)`` at S 4096 and global batch 8 with the analytic and the
+   calibrated coefficients (plan, predicted step and memory, ``check_plan``);
+   3 full-width steps of the calibrated plan (median step, tokens/s, MFU,
+   peak memory, K1/K2 launches per step, GALV070 against both predictions);
+   then ``python -m repro_torch.launch.train`` (selective, grad_accum 4, the
+   measured cache) as a subprocess, whose median step must be within 5 % of
+   phase 8's selective median (or of the spread of phase 8's own selective
+   steps, when the host makes that wider);
+10. a ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -820,29 +835,33 @@ def train_flops(cfg, batch: int, seq: int) -> tuple[int, float, float]:
     return matmul_params, dense, attn
 
 
-def _train_bundle(torch, cfg, policy: str, *, impl: str = "kernel", seed: int = 0):
+def _uniform_plan(cfg, policy: str):
     from repro_torch.core.strategy import LayerStrategy, uniform_plan
+
+    return uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
+                        LayerStrategy(remat=policy), grad_accum=TRAIN_ACCUM)
+
+
+def _train_bundle(torch, cfg, plan, *, impl: str = "kernel", seed: int = 0):
     from repro_torch.models import build_model
     from repro_torch.runtime import train as train_rt
 
-    plan = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
-                        LayerStrategy(remat=policy), grad_accum=TRAIN_ACCUM)
     hp = train_rt.construct_hybrid_parallel_model(build_model(cfg, impl=impl), plan)
     params = hp.init_params(torch.Generator(device="cuda").manual_seed(seed))
     return hp, params
 
 
-def train_policy(torch, flash_ops, rms_ops, policy: str, steps: int, flops: float):
-    """``steps`` train steps of full-width llama3.2-1b under ``policy`` from
-    fresh state; returns the record of the run and (hp, params, opt) for
-    the profile."""
+def train_plan(torch, flash_ops, rms_ops, label: str, plan, steps: int, flops: float):
+    """``steps`` train steps of full-width llama3.2-1b under ``plan`` from
+    fresh state; returns the record of the run and (hp, params, opt, ds)
+    for the profile."""
     import math
 
     from repro_torch.configs.registry import get_config
     from repro_torch.runtime.data import SyntheticDataset
 
     cfg = get_config(TRAIN_ARCH)
-    hp, params = _train_bundle(torch, cfg, policy)
+    hp, params = _train_bundle(torch, cfg, plan)
     opt = hp.init_opt_state(params)
     ds = SyntheticDataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
     batches = [ds.batch(i) for i in range(steps)]
@@ -864,23 +883,33 @@ def train_policy(torch, flash_ops, rms_ops, policy: str, steps: int, flops: floa
     step_s = statistics.median(times)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     mfu = flops / (step_s * PEAK_FLOPS["bfloat16"])
-    log(f"train [{policy}]: {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
-        f"(grad_accum {TRAIN_ACCUM}): losses {[round(x, 5) for x in losses]}  grad_norm "
+    log(f"train [{label}]: {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"(grad_accum {plan.grad_accum}): losses {[round(x, 5) for x in losses]}  grad_norm "
         f"{[round(x, 5) for x in gnorms]}  step times {[round(t, 4) for t in times]} s, "
         f"median {step_s:.4f} s  {tokens / step_s:.1f} tokens/s  peak mem {peak / 1e9:.2f} GB  "
         f"MFU {100 * mfu:.2f} %  launches per step K1 {launches[0] / steps:g}, "
         f"K2 {launches[1] / steps:g}")
     require(all(math.isfinite(x) for x in losses + gnorms), f"non-finite train metrics: "
-            f"{policy} {losses} {gnorms}")
+            f"{label} {losses} {gnorms}")
     require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
             f"first loss {losses[0]} is not near ln(vocab) {math.log(cfg.vocab_size):.3f}")
-    expected = tuple(n * steps for n in TRAIN_LAUNCHES[policy])
-    require(launches == expected, f"train [{policy}] launched K1/K2 {launches} times, "
-            f"expected {expected}")
-    record = dict(policy=policy, losses=losses, grad_norms=gnorms, step_s=step_s,
+    record = dict(label=label, losses=losses, grad_norms=gnorms, times=times, step_s=step_s,
                   tokens_per_s=tokens / step_s, peak_bytes=peak, mfu=mfu,
                   launches=launches)
     return record, (hp, params, opt, ds)
+
+
+def train_policy(torch, flash_ops, rms_ops, policy: str, steps: int, flops: float):
+    """``train_plan`` under one remat policy at grad_accum 4, its K1/K2
+    launches per step pinned (``TRAIN_LAUNCHES``)."""
+    from repro_torch.configs.registry import get_config
+
+    plan = _uniform_plan(get_config(TRAIN_ARCH), policy)
+    record, bundle = train_plan(torch, flash_ops, rms_ops, policy, plan, steps, flops)
+    expected = tuple(n * steps for n in TRAIN_LAUNCHES[policy])
+    require(record["launches"] == expected, f"train [{policy}] launched K1/K2 "
+            f"{record['launches']} times, expected {expected}")
+    return record, bundle
 
 
 def profile_train_step(torch, hp, params, opt, batch) -> None:
@@ -975,7 +1004,8 @@ def parity_train(torch) -> None:
                               ("ref32", "ref", torch.float32),
                               ("kernel", "kernel", torch.bfloat16),
                               ("ref", "ref", torch.bfloat16)):
-        hp, params = _train_bundle(torch, cfg, "selective", impl=impl, seed=1)
+        hp, params = _train_bundle(torch, cfg, _uniform_plan(cfg, "selective"), impl=impl,
+                                   seed=1)
         loss, _, grads = hp.value_and_grad(params, batch, dtype)
         new = None
         if dtype == torch.float32:
@@ -1009,10 +1039,10 @@ def parity_train(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(torch, flash_ops, rms_ops) -> dict:
+def train_phase(torch, flash_ops, rms_ops) -> tuple[dict, float]:
     """Phase 8: the three remat policies at full width, the selective step's
     profile and components, and kernel-vs-plain parity.  Returns the
-    selective run's launches (the train path's counts)."""
+    selective run's launches (the train path's counts) and step times."""
     import gc
 
     from repro_torch.configs.registry import get_config
@@ -1026,20 +1056,216 @@ def train_phase(torch, flash_ops, rms_ops) -> dict:
         f"x {TRAIN_BATCH * TRAIN_SEQ} tokens ({dense:.4e}) + 3 x {cfg.num_layers} layers x "
         f"4·B·H·S²·hd/2 causal attention ({attn:.4e}) = {flops:.4e}; bound at the bf16 peak "
         f"{flops / PEAK_FLOPS['bfloat16']:.4f} s")
-    launches = None
+    launches = selective = None
     for policy in TRAIN_POLICIES:
         record, (hp, params, opt, ds) = train_policy(torch, flash_ops, rms_ops, policy,
                                                      TRAIN_STEPS, flops)
         if policy == "selective":
             launches = {"flash_attention_fwd": record["launches"][0],
                         "rmsnorm": record["launches"][1]}
+            selective = record["times"]
             profile_train_step(torch, hp, params, opt, ds.batch(TRAIN_STEPS))
             time_train_components(torch, cfg, params, opt)
         del hp, params, opt, ds
         gc.collect()
         torch.cuda.empty_cache()
     parity_train(torch)
-    return launches
+    return launches, selective
+
+
+# ---------------------------------------------------------------- phase 9
+
+PLAN_PROFILE_ARGS = ["--arch", TRAIN_ARCH, "--full", "--seq", "1024,4096", "--dtype", "bf16",
+                     "--microbatch", "2"]
+LAUNCHER_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                 "--grad-accum", str(TRAIN_ACCUM), "--remat", "selective",
+                 "--steps", str(TRAIN_STEPS)]
+#: the launcher's median step against phase 8's selective median: 5 %, or
+#: the spread of phase 8's own selective steps (max / min - 1) when the
+#: card's host makes that wider — a difference inside it is not resolved
+LAUNCHER_STEP_TOL = 0.05
+
+
+def _run_captured(fn, argv) -> tuple[int, str]:
+    """``fn(argv)``'s return code and standard output (also logged)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    return rc, out
+
+
+def plan_cost(cfg, plan, calibration) -> tuple[float, float]:
+    """(step seconds, bytes per device) the cost and memory models predict
+    for ``plan`` on one H100 under ``calibration``: the search's own sum
+    over layers plus the head (one device: no transitions, no pipeline)."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.cluster import H100_1
+    from repro_torch.core.profiler_model import profile_model
+
+    profile = profile_model(cfg, TRAIN_SEQ, causal_frac=0.5)
+    env = cm.CostEnv(cluster=H100_1, devices=1, pp=1, micro_batch=TRAIN_BATCH // plan.grad_accum,
+                     grad_accum=plan.grad_accum, calibration=calibration)
+    t = sum(cm.layer_step_time(lp, s, env)
+            for lp, s in zip(profile.layers, plan.layer_strategies))
+    t += cm.head_time(profile, plan.default_strategy, env)
+    mem = mm.plan_memory(profile, list(plan.layer_strategies), env,
+                         fixed_strategy=plan.default_strategy)
+    return t, mem
+
+
+def _plan_summary(plan) -> str:
+    policies = sorted({s.remat for s in plan.layer_strategies})
+    zeros = sorted({s.zero for s in plan.layer_strategies})
+    return (f"grad_accum {plan.grad_accum}, remat {policies} over {len(plan.layer_strategies)} "
+            f"layers, zero {zeros}, strategies {[s.short() for s in dict.fromkeys(plan.layer_strategies)]}")
+
+
+def planner_phase(torch, flash_ops, rms_ops, selective: list) -> None:
+    """Phase 9: profile two dense blocks on the card into a fresh cache,
+    calibrate, search the one-H100 plan analytically and calibrated, train
+    the calibrated plan for 3 full-width steps, and run the train launcher
+    as a user would."""
+    import dataclasses
+    import gc
+    import os
+    import re
+    import tempfile
+
+    from repro_torch.analysis import plan_check
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import profile_cache as pcache
+    from repro_torch.core.cluster import H100_1
+    from repro_torch.core.profiler_model import measure_block, profile_model
+    from repro_torch.core.search import SearchEngine
+    from repro_torch.launch import profile as profile_cli
+
+    cfg = get_config(TRAIN_ARCH)
+    _, dense, attn = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_path = os.path.join(tmp, "cuda.json")
+        argv = PLAN_PROFILE_ARGS + ["--cache", cache_path]
+
+        # 1. profile
+        flash_ops.flash_attention_fwd.launches = 0
+        rms_ops.rmsnorm.launches = 0
+        rc, out = _run_captured(profile_cli.main, argv)
+        launches = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+        require(rc == 0 and "profile: 2 cell(s) measured" in out,
+                "the profile launcher did not measure its 2 cells")
+        require(all(n > 0 for n in launches),
+                f"profiling did not run through K1 and K2: launches {launches}")
+        log(f"planner: profiling launched K1 {launches[0]} and K2 {launches[1]} times")
+        cache = pcache.ProfileCache.load(cache_path)
+        for e in sorted(cache.entries.values(), key=lambda e: e.key.seq):
+            log(f"planner: cell {e.key.id()}: fwd {e.fwd_time_s * 1e3:.4f} ms  bwd "
+                f"{e.bwd_time_s * 1e3:.4f} ms  remat extra {e.remat_extra_s * 1e3:.4f} ms  "
+                f"peak {e.peak_bytes / 1e9:.4f} GB  (analytic fwd FLOPs {e.flops_fwd:.4e}, "
+                f"{e.flops_fwd / e.fwd_time_s / 1e12:.1f} TFLOP/s; predicted activations "
+                f"{e.act_bytes_pred / 1e9:.4f} GB, peak / predicted "
+                f"{e.peak_bytes / e.act_bytes_pred:.3f})")
+            require(e.fwd_time_s > 0 and e.bwd_time_s > 0 and e.peak_bytes > 0,
+                    f"a measured cell is not positive: {e.key.id()}")
+        rc, out = _run_captured(profile_cli.main, argv)
+        require(rc == 0 and "profile: 0 cell(s) measured" in out,
+                "the second profiling pass measured again")
+        zeros = next(e for e in cache.entries.values() if e.key.seq == TRAIN_SEQ)
+        rnd = measure_block(cfg, TRAIN_SEQ, batch=2, input_seed=0)
+        log(f"planner: the s{TRAIN_SEQ} mb2 cell with x ~ N(0, 1) in place of zeros: fwd "
+            f"{rnd.fwd_time_s * 1e3:.4f} ms (zeros {zeros.fwd_time_s * 1e3:.4f})  bwd "
+            f"{rnd.bwd_time_s * 1e3:.4f} ms (zeros {zeros.bwd_time_s * 1e3:.4f})  remat extra "
+            f"{rnd.remat_extra_s * 1e3:.4f} ms (zeros {zeros.remat_extra_s * 1e3:.4f})")
+        calibration = cal.load_calibration(cache_path)
+        require(calibration.source == "measured" and calibration.throughput.get("bf16", 0) > 0,
+                "the calibration fitted no bf16 throughput")
+        log("planner: calibration\n" + calibration.format_table())
+        del cache, rnd
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. search, analytic and calibrated
+        profile = profile_model(cfg, TRAIN_SEQ, causal_frac=0.5)
+        plans = {}
+        for name, c in (("analytic", cal.DEFAULT_CALIBRATION), ("calibrated", calibration)):
+            res = SearchEngine(cfg, cluster=H100_1, calibration=c).search(
+                TRAIN_SEQ, TRAIN_BATCH, arch=cfg.name, shape_name="train_4k")
+            require(res.feasible, f"the {name} search found no feasible plan")
+            plan = res.plan
+            step_pred, mem_pred = plan_cost(cfg, plan, c)
+            require(abs(step_pred - plan.predicted_step_time) <= 1e-9 * step_pred,
+                    f"the {name} plan's cost ({step_pred}) is not its prediction "
+                    f"({plan.predicted_step_time})")
+            report = plan_check.check_plan(plan, H100_1, cfg, seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH, profile=profile,
+                                           calibration=c)
+            log(f"planner: {name} search ({res.evaluated} combos, {res.search_seconds:.3f} s, "
+                f"rejections {res.rejections}): {_plan_summary(plan)}; predicted step "
+                f"{plan.predicted_step_time:.6f} s, memory {mem_pred / 1e9:.4f} GB "
+                f"(memory_model.plan_memory); check_plan: {report.codes() or 'no diagnostics'}")
+            require(report.ok(), f"the {name} plan fails check_plan: {report.error_codes()}")
+            plans[name] = plan
+
+        # 3. train the calibrated plan (an out-of-memory error is not caught)
+        plan = plans["calibrated"]
+        record, bundle = train_plan(torch, flash_ops, rms_ops, "calibrated plan", plan,
+                                    TRAIN_STEPS, dense + attn)
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+        require(all(n > 0 for n in record["launches"]),
+                f"the calibrated plan's steps did not run K1 and K2: {record['launches']}")
+        for name, c in (("analytic", cal.DEFAULT_CALIBRATION), ("calibrated", calibration)):
+            step_pred, mem_pred = plan_cost(cfg, plan, c)
+            timed = dataclasses.replace(plan, predicted_step_time=step_pred)
+            drift = plan_check.check_plan(timed, H100_1, cfg, seq_len=TRAIN_SEQ,
+                                          measured_step_time=record["step_s"])
+            log(f"planner: calibrated plan, {name} prediction: step {step_pred:.6f} s vs "
+                f"measured {record['step_s']:.6f} s (x{record['step_s'] / step_pred:.3f}); "
+                f"memory {mem_pred / 1e9:.4f} GB vs peak {record['peak_bytes'] / 1e9:.4f} GB "
+                f"(x{record['peak_bytes'] / mem_pred:.3f}); GALV070: "
+                + ("; ".join(map(str, drift.diagnostics)) or "within the band"))
+        log(f"planner: calibrated plan: median step {record['step_s']:.4f} s, "
+            f"{record['tokens_per_s']:.1f} tokens/s, MFU {100 * record['mfu']:.2f} %, peak "
+            f"{record['peak_bytes'] / 1e9:.2f} GB, launches per step K1 "
+            f"{record['launches'][0] / TRAIN_STEPS:g}, K2 {record['launches'][1] / TRAIN_STEPS:g}")
+
+        # 4. the train launcher, as a user runs it
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCHER_ARGS,
+               "--log-every", "1", "--profile-cache", cache_path]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  | {line}")
+        require(proc.returncode == 0, f"the train launcher exited {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        times = [float(x) / 1e3 for x in
+                 re.findall(r"^step \d+ loss \S+ grad_norm \S+ step_time (\S+) ms",
+                            proc.stdout, re.MULTILINE)]
+        require(len(times) == TRAIN_STEPS, f"the launcher logged {len(times)} steps")
+        median = statistics.median(times)
+        selective_s = statistics.median(selective)
+        gap = median / selective_s - 1.0
+        tol = max(LAUNCHER_STEP_TOL, max(selective) / min(selective) - 1.0)
+        log(f"planner: launcher ({wall:.1f} s of wall) steps {[round(x, 4) for x in times]} s, "
+            f"median {median:.4f} s vs phase 8's selective {selective_s:.4f} s (steps "
+            f"{[round(x, 4) for x in selective]}): {100 * gap:+.2f} %, tol {100 * tol:.2f} % "
+            f"(5 % or phase 8's own spread)")
+        require(abs(gap) <= tol, "the launcher's step differs from phase 8's selective step "
+                "by more than the tolerance")
+        for prefix in ("plan[", "predicted (", "GALV070:"):
+            require(any(line.startswith(prefix) for line in proc.stdout.splitlines()),
+                    f"the launcher printed no {prefix!r} line")
 
 
 # ---------------------------------------------------------------- main
@@ -1119,9 +1345,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. the dense training step at full width
-    train_launches = train_phase(torch, flash_ops, rms_ops)
+    train_launches, selective = train_phase(torch, flash_ops, rms_ops)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 9. results
+    # 9. the planner: profile, calibrate, search, train the plan, the launcher
+    planner_phase(torch, flash_ops, rms_ops, selective)
+
+    # 10. results
     kernels = []
     for rows, name, source, replaces in (
             (flash_rows, "flash_attention_fwd",

@@ -1,1 +1,2 @@
-"""Static checks (the serving subset of ``repro.analysis.plan_check``)."""
+"""Static checks: the plan verifier (``plan_check``, GALV001–082) and the
+shared divisibility predicates (``invariants``)."""

@@ -1,8 +1,10 @@
-"""Cluster hardware description (the port's copy of ``repro.core.cluster``).
+"""Cluster hardware description consumed by the profiler/cost model (the
+port's copy of ``repro.core.cluster``).
 
-Only the pieces the serving slice reads: ``ClusterSpec``, the 16-chip H100
-preset the planner uses, and the 1-chip spec that sizes a single-card
-serving deployment (GALV081 checks the pool plus weights against its HBM).
+The GPU presets of the Fig.-3 clusters, plus ``H100_1``: one H100 SXM card,
+the default cluster of the port's search engine and of a single-card serving
+deployment.  The port carries no TPU preset; a test that compares the two
+packages on a TPU spec builds a ``ClusterSpec`` from its fields.
 """
 from __future__ import annotations
 
@@ -32,9 +34,19 @@ class ClusterSpec:
         return self.intra_latency if group_size <= self.intra_size else self.inter_latency
 
 
+# --- GPU presets for the paper-reproduction benchmark (Fig. 3 clusters) ----
+A100_NODE8 = ClusterSpec(
+    name="a100-16", chips=16, peak_flops=312e12, hbm_bytes=80e9, hbm_bw=2039e9,
+    intra_bw=300e9, inter_bw=25e9, intra_size=8)
 H100_NODE8 = ClusterSpec(
     name="h100-16", chips=16, peak_flops=989e12, hbm_bytes=80e9, hbm_bw=3350e9,
     intra_bw=450e9, inter_bw=50e9, intra_size=8)
+RTX4090_NODE8 = ClusterSpec(
+    name="4090-16", chips=16, peak_flops=165e12, hbm_bytes=24e9, hbm_bw=1008e9,
+    intra_bw=32e9, inter_bw=1.25e9, intra_size=8)
 
-# one H100 SXM card: the default cluster of a serving deployment in the port
-H100_1 = dataclasses.replace(H100_NODE8, name="h100-1", chips=1)
+# one H100 SXM card: the port's default cluster.  Its fast domain is the card
+# itself (intra_size 1): the serve search caps tp by intra_size, not chips.
+H100_1 = dataclasses.replace(H100_NODE8, name="h100-1", chips=1, intra_size=1)
+
+CLUSTERS = {c.name: c for c in (A100_NODE8, H100_NODE8, RTX4090_NODE8, H100_1)}

@@ -12,8 +12,13 @@ the plain versions.
     python -m repro_torch.launch.serve --arch llama3.2-1b --batch 8 \\
         --prompt-len 512 --max-new 32 --prefill-chunk 256
 
-The ``search`` / ``profile`` subcommands and ``--run-dir`` telemetry wait
-for the planner and ``obs`` slices of the port.
+``serve.py search ...`` runs the serve objective instead: the port's
+``SearchEngine.search_serve`` picks (tp, num_slots, page_size) for one H100
+and a context window under an SLO and prints the roofline's predictions
+without touching any device memory.  ``serve.py profile ...`` is the
+``profile`` subcommand.  ``--run-dir`` telemetry waits for the ``obs`` slice.
+
+    python -m repro_torch.launch.serve search --arch qwen3-14b --max-context 4096
 """
 from __future__ import annotations
 
@@ -26,7 +31,50 @@ import torch
 from repro_torch.configs.registry import ARCH_IDS
 
 
+def _search_main(argv) -> int:
+    from repro_torch import serving
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.search import SearchEngine
+
+    ap = argparse.ArgumentParser(prog="serve.py search")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-14b")
+    ap.add_argument("--max-context", type=int, default=4096)
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--ttft", type=float, default=None, help="SLO p50 TTFT, s")
+    ap.add_argument("--tpot", type=float, default=None, help="SLO p50 TPOT, s")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="offered load, requests/s")
+    args = ap.parse_args(argv)
+
+    slo = serving.SLOConfig(ttft_s=args.ttft, tpot_s=args.tpot,
+                            request_rate=args.rate)
+    engine = SearchEngine(get_config(args.arch))
+    result = engine.search_serve(
+        max_context=args.max_context, prompt_len=args.prompt_len, slo=slo)
+    print(f"cluster {engine.cluster.name}: evaluated {result.evaluated} geometries in "
+          f"{result.search_seconds * 1e3:.0f} ms; rejections: "
+          f"{result.rejections}")
+    if result.choice is None:
+        print("no feasible serving deployment under this SLO")
+        return 1
+    c = result.choice
+    print(f"tp={c.tp} num_slots={c.num_slots} page_size={c.page_size} "
+          f"num_pages={c.num_pages} ({c.pool_gb:.2f} GB pool/chip)")
+    print(f"predicted: ttft {c.ttft_s * 1e3:.1f} ms, tpot "
+          f"{c.tpot_s * 1e3:.2f} ms, {c.tokens_per_s:,.0f} tok/s "
+          f"({c.tokens_per_s_per_chip:,.0f}/chip), {c.bound}-bound")
+    return 0
+
+
 def main(argv=None):
+    import sys
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "profile":
+        from repro_torch.launch import profile as profile_cli
+        return profile_cli.main(argv[1:])
+    if argv and argv[0] == "search":
+        return _search_main(argv[1:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-3b")
     ap.add_argument("--batch", type=int, default=4,

@@ -1,0 +1,202 @@
+"""Training launcher on one device: plan -> check -> construct -> train.
+
+The single-device path of ``repro.launch.train``: the plan is uniform, built
+from ``--remat`` and ``--grad-accum`` exactly as the JAX launcher builds it
+on one device (it does not search there, and neither does this one).  The
+cost model prices that plan on one H100 (``H100_1``), calibrated from
+``--profile-cache`` when given (see the ``profile`` subcommand); it
+prints the plan, the predicted breakdown, then trains through
+``construct_hybrid_parallel_model(model, plan).train_step`` on
+``SyntheticDataset`` batches and ends with GALV070: the median step time
+against the plan's prediction.  ``--device`` defaults to ``cuda`` (the CUDA
+kernels); ``--device cpu`` runs the plain versions.
+
+    python -m repro_torch.launch.train --arch llama3.2-1b --seq 4096 \\
+        --batch 8 --grad-accum 4 --remat selective --steps 3
+    python -m repro_torch.launch.train profile --full --seq 1024,4096 --dtype bf16
+
+A mesh, pipeline and context parallelism, checkpoints, resume, elastic
+resize, the compiled-step audit and run sinks wait for later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import statistics
+import sys
+import time
+
+import torch
+
+from repro_torch.analysis import plan_check
+from repro_torch.configs.registry import ARCH_IDS, ModelConfig, get_config
+from repro_torch.core import calibrate
+from repro_torch.core import cost_model as cm
+from repro_torch.core import profile_cache as pcache_lib
+from repro_torch.core.cluster import H100_1
+from repro_torch.core.profiler_model import profile_model
+from repro_torch.core.search import evaluate_uniform
+from repro_torch.core.strategy import ExecutionPlan, LayerStrategy, uniform_plan
+from repro_torch.models import build_model
+from repro_torch.models.common import tree_leaves
+from repro_torch.obs.drift import DRIFT_RATIO_THRESHOLD
+from repro_torch.runtime.data import SyntheticDataset
+from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+PRESET_100M = ModelConfig(
+    name="llama-100m", family="dense", num_layers=12, d_model=640,
+    num_heads=10, num_kv_heads=10, d_ff=2560, vocab_size=32_000,
+    head_dim=64, mlp_type="swiglu", rope_theta=10_000.0)
+
+
+def resolve_cfg(args) -> ModelConfig:
+    if args.preset == "100m":
+        return PRESET_100M
+    cfg = get_config(args.arch)
+    return cfg.reduced() if args.reduced else cfg
+
+
+def _predicted_breakdown(plan: ExecutionPlan, cfg: ModelConfig, seq_len: int,
+                         global_batch: int, calibration) -> dict:
+    """Cost-model comm-vs-compute split for ``plan`` on one H100 (seconds
+    per step), beside the plan's predicted step time and memory."""
+    profile = profile_model(cfg, seq_len)
+    micro = max(global_batch // max(plan.grad_accum, 1), 1)
+    env = cm.CostEnv(cluster=H100_1,
+                     devices=plan.num_devices // max(plan.pp, 1),
+                     pp=plan.pp, micro_batch=micro,
+                     grad_accum=plan.grad_accum,
+                     pp_schedule=plan.pp_schedule,
+                     pp_interleave=plan.pp_interleave,
+                     calibration=calibration)
+    if len(plan.layer_strategies) == len(profile.layers):
+        strategies = list(plan.layer_strategies)
+    else:
+        strategies = [plan.default_strategy] * len(profile.layers)
+    M = env.microbatches()
+    compute = comm = 0.0
+    for lp, s in zip(profile.layers, strategies):
+        compute += M * cm.compute_time(lp, s, env)
+        comm += M * (cm.tp_comm_time(lp, s, env)
+                     + cm.cp_comm_time(lp, s, env)
+                     + cm.ep_comm_time(lp, s, env))
+        comm += cm.dp_comm_time(lp, s, env)
+    return {"compute_s": compute, "comm_s": comm,
+            "predicted_step_time_s": plan.predicted_step_time,
+            "predicted_memory_bytes": plan.predicted_memory}
+
+
+def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "profile":
+        from repro_torch.launch import profile as profile_cli
+        return profile_cli.main(argv[1:])
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3.2-1b")
+    ap.add_argument("--preset", choices=["100m"], default=None)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", "--seq-len", dest="seq", type=int, default=128,
+                    help="sequence length (--seq-len is an alias)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--grad-accum", type=int, default=0,
+                    help="microbatches per step (0 = 1 on one device)")
+    ap.add_argument("--remat", default=None, choices=["none", "selective", "full"])
+    ap.add_argument("--validate-only", action="store_true",
+                    help="statically verify the plan (repro_torch.analysis."
+                         "plan_check) and print the GALV diagnostic table — "
+                         "no params are initialized; exit 1 on any error")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--profile-cache", default="",
+                    help="path to a measured profile cache (see the `profile` "
+                         "subcommand); calibrates the cost model's prediction "
+                         "— analytic defaults when unset")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (cuda: the CUDA kernels; cpu: the "
+                         "plain versions)")
+    args = ap.parse_args(argv)
+
+    calibration = calibrate.DEFAULT_CALIBRATION
+    if args.profile_cache:
+        try:
+            calibration = calibrate.load_calibration(args.profile_cache)
+        except FileNotFoundError:
+            raise SystemExit(f"--profile-cache {args.profile_cache}: no such "
+                             "file — run the `profile` subcommand first")
+        except (pcache_lib.CorruptProfileCacheError,
+                pcache_lib.StaleProfileCacheError) as e:
+            raise SystemExit(f"--profile-cache: {e}")
+        print(f"calibration: {calibration.source} ({args.profile_cache})")
+
+    cfg = resolve_cfg(args)
+    model = build_model(cfg, device=args.device)
+    # the JAX launcher's plan on one device: one strategy for every layer
+    plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
+                        LayerStrategy(remat=args.remat or "none"),
+                        grad_accum=max(args.grad_accum, 1))
+    step_s, mem, _ = evaluate_uniform(cfg, H100_1, args.seq, args.batch, 1,
+                                      plan.default_strategy,
+                                      grad_accum=plan.grad_accum,
+                                      calibration=calibration)
+    plan = dataclasses.replace(plan, predicted_step_time=step_s, predicted_memory=mem)
+    # the JAX launcher's plan line; nothing is searched on one device
+    print(f"plan[uniform]: {plan.default_strategy.short()} ga={plan.grad_accum} "
+          f"mesh={plan.mesh_shape} groups={len(plan.groups())}")
+    b = _predicted_breakdown(plan, cfg, args.seq, args.batch, calibration)
+    print(f"predicted ({H100_1.name}, {calibration.source} calibration): compute "
+          f"{b['compute_s']:.6g} s, comm {b['comm_s']:.6g} s per step; plan step "
+          f"{b['predicted_step_time_s']:.6g} s, memory "
+          f"{b['predicted_memory_bytes'] / 1e9:.6g} GB")
+
+    if args.validate_only:
+        report = plan_check.check_plan(
+            plan, H100_1, cfg, seq_len=args.seq, global_batch=args.batch,
+            profile=profile_model(cfg, args.seq), calibration=calibration)
+        print(report.format_table())
+        return 0 if report.ok() else 1
+
+    hp = construct_hybrid_parallel_model(model, plan)
+    dev = model.device
+    params = hp.init_params(torch.Generator(device=dev).manual_seed(0))
+    opt = hp.init_opt_state(params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"model: {cfg.name} {n_params / 1e6:.1f}M params on {dev}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    ds = SyntheticDataset(cfg, seq_len=args.seq, global_batch=args.batch)
+    step_fn = hp.jit_train_step(donate=False)
+    tokens = args.batch * args.seq
+    times = []
+    for step in range(args.steps):
+        batch = ds.batch(step)
+        sync()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step} loss {float(metrics['loss']):.6f} grad_norm "
+                  f"{float(metrics['grad_norm']):.6f} step_time "
+                  f"{times[-1] * 1e3:.1f} ms tok/s {tokens / times[-1]:,.1f}")
+    if dev.type == "cuda":
+        print(f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+    median = statistics.median(times)
+    report = plan_check.check_plan(plan, H100_1, cfg, seq_len=args.seq,
+                                   measured_step_time=median)
+    drift = [d for d in report.diagnostics if d.code == "GALV070"]
+    print(f"GALV070: median step {median * 1e3:.1f} ms vs predicted "
+          f"{plan.predicted_step_time * 1e3:.1f} ms (ratio "
+          f"{median / plan.predicted_step_time:.3f}, band "
+          f"{DRIFT_RATIO_THRESHOLD}x either way): "
+          + (str(drift[0]) if drift else "within the band"))
+    print("done")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

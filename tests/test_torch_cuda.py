@@ -1,7 +1,8 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
 version (K1 and K2 also under autograd), the wrappers' input checks, and
 the serving paths (paged dense, step-engine mamba2) and the dense training
-step under each remat policy with ``impl="kernel"`` against ``impl="ref"``.
+step under each remat policy with ``impl="kernel"`` against ``impl="ref"``;
+the planner's block measurement and a calibration fitted from it.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -367,3 +368,39 @@ def test_cuda_mamba2_step_engine_kernel_path_matches_ref_path(cuda_device):
             assert ssd_ops.ssd.launches == counts[0] + cfg.num_layers
             assert rms_ops.rmsnorm.launches == counts[1] + 10 * (2 * cfg.num_layers + 1)
     assert tokens["kernel"] == tokens["ref"]
+
+
+def test_cuda_measure_block_times_the_block_on_the_kernels(cuda_device):
+    """``measure_block`` at reduced width on the card: finite, positive
+    forward and backward times, a peak above the parameters' bytes; K1 and
+    K2 launched during it."""
+    import math
+
+    from repro_torch.core import profiler_model as pm
+
+    cfg = get_config("llama3.2-1b").reduced()
+    counts = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+    m = pm.measure_block(cfg, 256, batch=2, iters=3)
+    for t in (m.fwd_time_s, m.bwd_time_s):
+        assert math.isfinite(t) and t > 0.0
+    assert math.isfinite(m.remat_extra_s) and m.remat_extra_s >= 0.0
+    param_bytes = 2.0 * pm.profile_model(cfg, 256).layers[0].param_count     # bf16
+    assert m.peak_bytes > param_bytes
+    assert flash_ops.flash_attention_fwd.launches > counts[0]
+    assert rms_ops.rmsnorm.launches > counts[1]
+
+
+def test_cuda_profile_cells_calibrate_a_measured_throughput(cuda_device, tmp_path):
+    """``run_profile_cells`` on the card into a fresh cache, then
+    ``calibrate``: a measured calibration with a positive bf16 throughput."""
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import profile_cache as pcache
+
+    cfg = get_config("llama3.2-1b").reduced()
+    cells = [(cfg, pcache.ProfileKey("cuda", pcache.model_key(cfg), "bf16", 1, 1, seq, 2))
+             for seq in (128, 256)]
+    cache = pcache.ProfileCache.load_or_create(tmp_path / "cuda.json")
+    assert cal.run_profile_cells(cells, cache) == (2, 0)
+    calibration = cal.calibrate(cache)
+    assert calibration.source == "measured"
+    assert calibration.throughput["bf16"] > 0.0

@@ -87,14 +87,14 @@ def test_full_width_param_count_matches_jax(arch):
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3.2-1b-long", "qwen2.5-3b",
                                   "qwen3-14b", "nemotron-4-15b"])
 def test_galv081_weight_count_is_jaxs(arch):
-    """GALV081's weight count at full width is the JAX check's
-    ``profile_model(cfg, ...).total_params()``: the model's parameters less
-    the final norm's d_model scale."""
+    """GALV081's weight count at full width is ``profile_model(cfg,
+    ...).total_params()`` in both packages: the model's parameters less the
+    final norm's d_model scale."""
     from repro.core.profiler_model import profile_model
-    from repro_torch.analysis.plan_check import weight_params
+    from repro_torch.core.profiler_model import profile_model as torch_profile_model
 
     tcfg = get_config(arch)
-    n = weight_params(tcfg)
+    n = torch_profile_model(tcfg, 4096).total_params()
     assert n == profile_model(jax_get_config(arch), 4096).total_params()
     assert n == count_params(build_model(tcfg, device="cpu").param_defs()) - tcfg.d_model
 
