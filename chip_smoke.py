@@ -15,20 +15,26 @@ Phases (any failure exits non-zero and prints no result line):
    — KV 8 at the llama shapes, g = 5, hd 112, fully masked rows, kv_len at
    and around a 64-key tile edge, Sk not a multiple of 64, an 8192-key
    decode split over blocks, and the many-row split path — 64 or 256 query
-   rows over 20 000 keys, causal, at a q offset and non-causal: fp32 1e-4,
+   rows over 20 000 keys, causal, at a q offset and non-causal; zamba2's
+   shared attention, hd 112 with one query head per KV head: a decode step
+   B4 over 2080 keys with kv_len 2048/2049/2079/2080 and a causal prefill
+   B4 S2048: fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
    holds rows over thousands of keys, whose values are ~1e-2; the llama
    training shape q 2x4096x32x64,
    k/v 2x4096x8x64 causal bf16, timed; its yardstick is the faster of SDPA
    with ``enable_gqa`` on the compact heads and SDPA on expanded heads (the
-   case's boolean mask; ``is_causal`` at the training shape); the autograd
+   case's boolean mask; ``is_causal`` where that mask is the plain causal
+   one); the autograd
    ``flash_attention`` on the split path (S 20 000, fp32) against autograd
    through the plain version, 2e-3 of scale; RMSNorm: fp32 1e-5, bf16 2e-2,
-   the training shape 8192 x 2048 bf16 timed — the JAX kernel
+   the training shape 8192 x 2048 and zamba2's widths 8192 x 3584 and
+   8192 x 7168 bf16 timed — the JAX kernel
    tests' tolerances; SSD scan: max |err| <= 1e-3 * max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
-   the mamba2 prefill shape, a ragged S and G = 2, each in fp32 and in bf16
+   the mamba2 prefill shape, a ragged S, G = 2 and zamba2's prefill (112
+   heads over G 2, N 64), each in fp32 and in bf16
    (the dtype the model passes; the tensor-core template), and against the
    step-by-step scan; each template's shared memory per block and blocks
    per SM at N 128, P 64 are logged); then each case's median
@@ -50,16 +56,22 @@ Phases (any failure exits non-zero and prints no result line):
 6. mamba2 serve — full-width mamba2-2.7b (random bf16 weights from seed 0)
    through ``serving.step_engine(...).greedy_generate``: 4 prompts of 2048
    tokens, 32 new tokens; launch counters zeroed just before and read just
-   after: exactly 64 SSD launches (one per layer of the prefill) and 129 x
-   32 RMSNorm launches (129 per forward); TTFT, TPOT and tok/s; then one
-   prefill and 4 decode steps under ``torch.profiler``, device time by
+   after, each pinned (``step_engine_launches``): exactly 64 SSD launches
+   (one per layer of the prefill), 129 x 32 RMSNorm launches (129 per
+   forward) and no flash attention; TTFT, TPOT, tok/s and peak memory; then
+   one prefill and 4 decode steps under ``torch.profiler``, device time by
    kernel group and the busy share;
 7. mamba2 parity — a reduced mamba2 in fp32 gives identical greedy tokens
    with ``impl="kernel"`` and ``impl="ref"``; the full-width bf16 prefill
    logits of the kernel path are finite and no further from the plain fp32
    path than twice the plain bf16 path's own error, and in fp32 the kernel
    path is within 1e-3 of the logit scale of the plain path;
-8. train — full-width llama3.2-1b (16 layers, random fp32 master weights
+8. zamba2 serve — phase 6 at full-width zamba2-7b (81 Mamba layers, d 3584,
+   the shared attention block at 13 sites, hd 112, H = KV = 32): exactly 81
+   SSD, 13 x 32 = 416 flash attention and 189 x 32 = 6048 RMSNorm launches;
+9. zamba2 parity — phase 7 for zamba2, its reduced model with 7 layers (3
+   sites and a trailing Mamba layer);
+10. train — full-width llama3.2-1b (16 layers, random fp32 master weights
    from seed 0) through ``construct_hybrid_parallel_model(model, plan)
    .train_step``: 3 steps of 8 x 4096 tokens in 4 microbatches under each
    remat policy (selective, full, none), fresh state each; losses (finite,
@@ -72,7 +84,7 @@ Phases (any failure exits non-zero and prints no result line):
    at full width with 2 layers, 2 x 1024 tokens: fp32 loss 1e-4, grads and
    updated params 2e-3 of scale; bf16 loss 3e-2, the kernel path's grads
    no further from fp32 than twice the plain bf16 path's;
-9. planner — Galvatron's loop on the card through the port's entry points:
+11. planner — Galvatron's loop on the card through the port's entry points:
    ``launch.profile`` measures two full-width llama3.2-1b blocks (S 1024 and
    4096, microbatch 2, bf16; forward, backward and full-remat overhead
    through K1 and K2, whose launches it counts) into a fresh profile cache,
@@ -84,12 +96,13 @@ Phases (any failure exits non-zero and prints no result line):
    peak memory, K1/K2 launches per step, GALV070 against both predictions);
    then ``python -m repro_torch.launch.train`` (selective, grad_accum 4, the
    measured cache) as a subprocess, whose median step must be within 5 % of
-   phase 8's selective median (or of the spread of phase 8's own selective
+   phase 10's selective median (or of the spread of phase 10's own selective
    steps, when the host makes that wider);
-10. a ``{"kernels": [...]}`` line, then the device line last.
+12. a ``{"kernels": [...]}`` line, then the device line last.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import pathlib
@@ -292,6 +305,17 @@ def check_flash(torch, flash_ops, flash_ref, gen):
         cases.append((f"split-K decode B1 Sq1 Sk8192 H32 KV8 hd64 kv_len 5000 {name}", False,
                       flash_case(torch, gen, B=1, Sq=1, Sk=8192, H=32, KV=8, hd=64, dtype=dtype,
                                  q_off=long_len - 1, kv_len=long_len)))
+    # zamba2-7b's shared attention: hd 112, one query head per KV head; the
+    # decode rows' kv_len at and around the 2048-key tile edge
+    z_len = torch.tensor([2048, 2049, 2079, 2080], device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cases.append((f"zamba2 decode B4 Sq1 Sk2080 H32 KV32 hd112 kv_len 2048/2049/2079/2080 "
+                      f"{name}", True, flash_case(torch, gen, B=4, Sq=1, Sk=2080, H=32, hd=112,
+                                                  dtype=dtype, q_off=z_len - 1, kv_len=z_len,
+                                                  path="zamba2")))
+        cases.append((f"zamba2 prefill causal B4 S2048 H32 KV32 hd112 {name}", True, flash_case(
+            torch, gen, B=4, Sq=2048, Sk=2048, H=32, hd=112, dtype=dtype, path="zamba2")))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -321,10 +345,11 @@ def check_flash(torch, flash_ops, flash_ref, gen):
         q, k, v = c["q"], c["k"], c["v"]
         ms = device_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, **kw), torch)
         plain = device_ms(lambda: flash_ref.flash_attention_fwd(q, k, v, **kw), torch)
-        # the training shape's library call is SDPA's own causal mask (its
-        # flash backend); the other rows pass the case's boolean mask
-        sdpa_kw = dict(is_causal=True) if c["path"] == "train" else \
-            dict(attn_mask=flash_mask(torch, c))
+        # a plain causal mask (the training shape, a full prefill) is SDPA's
+        # own ``is_causal`` (its flash backend); the other rows pass the
+        # case's boolean mask
+        plain_causal = c["causal"] and c["q_pos"] is None and q.shape[1] == k.shape[1]
+        sdpa_kw = dict(is_causal=True) if plain_causal else dict(attn_mask=flash_mask(torch, c))
         g = q.shape[2] // k.shape[2]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ke, ve = (t.repeat_interleave(g, dim=2).transpose(1, 2) for t in (k, v))
@@ -374,11 +399,12 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     """RMSNorm cases; the timed bf16 rows carry the path they belong to
     (llama: decode 8 x 2048, prefill chunk 256 x 2048; mamba2: gate norm at
     prefill 8192 x 5120, decode 4 x 2560; train: a microbatch of 2 x 4096
-    rows x 2048)."""
+    rows x 2048; zamba2: the prefill's layer norms 8192 x 3584 and gate
+    norm 8192 x 7168)."""
     rows = []
     shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 5120), "mamba2"),
-              ((4, 2560), "mamba2"), ((8192, 2048), "train"), ((8192, 64), None),
-              ((7, 333), None)]
+              ((4, 2560), "mamba2"), ((8192, 2048), "train"), ((8192, 3584), "zamba2"),
+              ((8192, 7168), "zamba2"), ((8192, 64), None), ((7, 333), None)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         for shape, path in shapes:
@@ -427,17 +453,28 @@ def ssd_bound(x, dt, A, B) -> tuple[float, str]:
 def check_ssd(torch, ssd_ops, ssd_ref, gen):
     """The SSD scan kernel against its plain versions; every case timed."""
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # (label, B, S, H, P, G, N, dtype, plain)
+    cases = [  # (label, B, S, H, P, G, N, dtype, plain, path)
         ("mamba2 prefill B4 S2048 H80 P64 G1 N128 float32", 4, 2048, 80, 64, 1, 128, f32,
-         "chunked"),
-        ("ragged B1 S1000 H80 P64 G1 N128 float32", 1, 1000, 80, 64, 1, 128, f32, "chunked"),
-        ("groups B2 S512 H16 P64 G2 N64 float32", 2, 512, 16, 64, 2, 64, f32, "chunked"),
+         "chunked", "mamba2"),
+        ("ragged B1 S1000 H80 P64 G1 N128 float32", 1, 1000, 80, 64, 1, 128, f32, "chunked",
+         "mamba2"),
+        ("groups B2 S512 H16 P64 G2 N64 float32", 2, 512, 16, 64, 2, 64, f32, "chunked",
+         "mamba2"),
         ("mamba2 prefill B4 S2048 H80 P64 G1 N128 bfloat16", 4, 2048, 80, 64, 1, 128, bf16,
-         "chunked"),
-        ("ragged B1 S1000 H80 P64 G1 N128 bfloat16", 1, 1000, 80, 64, 1, 128, bf16, "chunked"),
-        ("groups B2 S512 H16 P64 G2 N64 bfloat16", 2, 512, 16, 64, 2, 64, bf16, "chunked"),
-        ("B2 S1024 H80 P64 G1 N128 bfloat16", 2, 1024, 80, 64, 1, 128, bf16, "chunked"),
-        ("small B2 S200 H4 P32 G1 N16 float32 vs naive", 2, 200, 4, 32, 1, 16, f32, "naive"),
+         "chunked", "mamba2"),
+        ("ragged B1 S1000 H80 P64 G1 N128 bfloat16", 1, 1000, 80, 64, 1, 128, bf16, "chunked",
+         "mamba2"),
+        ("groups B2 S512 H16 P64 G2 N64 bfloat16", 2, 512, 16, 64, 2, 64, bf16, "chunked",
+         "mamba2"),
+        ("B2 S1024 H80 P64 G1 N128 bfloat16", 2, 1024, 80, 64, 1, 128, bf16, "chunked",
+         "mamba2"),
+        ("small B2 S200 H4 P32 G1 N16 float32 vs naive", 2, 200, 4, 32, 1, 16, f32, "naive",
+         "mamba2"),
+        # zamba2-7b: 112 heads over 2 groups (56 heads read each group's B/C)
+        ("zamba2 prefill B4 S2048 H112 P64 G2 N64 bfloat16", 4, 2048, 112, 64, 2, 64, bf16,
+         "chunked", "zamba2"),
+        ("zamba2 prefill B4 S2048 H112 P64 G2 N64 float32", 4, 2048, 112, 64, 2, 64, f32,
+         "chunked", "zamba2"),
     ]
     for dtype in (f32, bf16):
         smem, blocks = ssd_ops.occupancy(dtype, 128, 64)
@@ -447,7 +484,7 @@ def check_ssd(torch, ssd_ops, ssd_ref, gen):
         require(smem == ssd_ops._smem_bytes(128, 64, dtype),
                 f"ssd_ops._smem_bytes disagrees with the kernel's {smem} bytes")
     rows = []
-    for label, Bs, S, H, P, G, N, dtype, plain in cases:
+    for label, Bs, S, H, P, G, N, dtype, plain, path in cases:
         def rn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
         x = rn(Bs, S, H, P).to(dtype)
@@ -479,7 +516,7 @@ def check_ssd(torch, ssd_ops, ssd_ref, gen):
         b_ms, b_by = ssd_bound(x, dt, A, B)
         log(f"K3 [{label}] kernel {ms:.4f} ms  plain ({plain}) {plain_ms:.4f} ms  "
             f"bound {b_ms:.6f} ms ({b_by})")
-        rows.append(dict(label=label, path="mamba2", max_abs_err=max(err_y, err_s), ms=ms,
+        rows.append(dict(label=label, path=path, max_abs_err=max(err_y, err_s), ms=ms,
                          plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
         del x, dt, A, B, C, y, st, ry, rs
     torch.cuda.empty_cache()
@@ -662,67 +699,80 @@ def parity(torch, np, serving, build_model, session, prompts):
             "the kernel path is further from fp32 than the plain bf16 path's own error x2")
 
 
-# ---------------------------------------------------------------- phases 6-7
+# ---------------------------------------------------------------- phases 6-9
 
-MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW = 4, 2048, 32
+STATIC_BATCH, STATIC_PROMPT, STATIC_NEW = 4, 2048, 32
 
 
-def serve_mamba2(torch, np, serving, build_model, get_config, ssd_ops, rms_ops, flash_ops):
-    """Full-width mamba2-2.7b through the step engine; returns (engine,
-    params, prompts, launches)."""
-    cfg = get_config("mamba2-2.7b")
+def step_engine_launches(model, new: int) -> dict:
+    """The kernel launches of one static batch through the step engine: K3
+    once per Mamba layer of the prefill; per forward (the prefill and
+    ``new - 1`` decode steps) K2 twice per Mamba layer, twice per site of
+    the shared attention block and once for the final norm, and K1 once per
+    site (a hybrid's ``n_apps``; none in mamba2)."""
+    layers, sites = model.cfg.num_layers, getattr(model, "n_apps", 0)
+    return {"ssd": layers, "rmsnorm": (2 * layers + 2 * sites + 1) * new,
+            "flash_attention_fwd": sites * new}
+
+
+def serve_step_engine(torch, np, serving, build_model, get_config, counters, arch: str):
+    """Full-width ``arch`` (random bf16 weights from seed 0) through the step
+    engine: STATIC_BATCH prompts of STATIC_PROMPT tokens, STATIC_NEW new
+    tokens each, after a warm-up; every kernel's launches pinned
+    (``step_engine_launches``).  Returns (engine, params, prompts, launches)."""
+    cfg = get_config(arch)
+    label = cfg.name.split("-")[0]
     t0 = time.perf_counter()
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
-    engine = serving.step_engine(model, serving.single_device_plan(cfg), batch=MAMBA_BATCH,
-                                 max_len=MAMBA_PROMPT + MAMBA_NEW)
+    engine = serving.step_engine(model, serving.single_device_plan(cfg), batch=STATIC_BATCH,
+                                 max_len=STATIC_PROMPT + STATIC_NEW)
     torch.cuda.synchronize()
-    log(f"mamba2: built full-width {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
-        f"vocab {cfg.vocab_size}) in {time.perf_counter() - t0:.3f} s")
+    sites = getattr(model, "n_apps", 0)
+    log(f"{label}: built full-width {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{sites} shared-attention sites, vocab {cfg.vocab_size}) in "
+        f"{time.perf_counter() - t0:.3f} s")
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                                (MAMBA_BATCH, MAMBA_PROMPT), dtype=np.int64)
+                                                (STATIC_BATCH, STATIC_PROMPT), dtype=np.int64)
     # warm-up (cuBLAS handles, allocator); not part of the measured run
     engine.greedy_generate(params, prompts[:, :96], 3, 128)
     torch.cuda.synchronize()
     for k in engine.latencies:
         engine.latencies[k].clear()
 
-    ssd_ops.ssd.launches = 0
-    rms_ops.rmsnorm.launches = 0
-    flash_ops.flash_attention_fwd.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.greedy_generate(params, prompts, MAMBA_NEW, MAMBA_PROMPT + MAMBA_NEW)
+    out = engine.greedy_generate(params, prompts, STATIC_NEW, STATIC_PROMPT + STATIC_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"ssd": ssd_ops.ssd.launches, "rmsnorm": rms_ops.rmsnorm.launches,
-                "flash_attention_fwd": flash_ops.flash_attention_fwd.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
 
-    per_forward = 2 * cfg.num_layers + 1
-    require(tuple(out.shape) == (MAMBA_BATCH, MAMBA_NEW), f"mamba2 tokens shape {tuple(out.shape)}")
-    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "mamba2 token out of the vocab")
-    require(launches["ssd"] == cfg.num_layers,
-            f"ssd launched {launches['ssd']} times, expected {cfg.num_layers} (one per layer)")
-    require(launches["rmsnorm"] == per_forward * MAMBA_NEW,
-            f"rmsnorm launched {launches['rmsnorm']} times, expected {per_forward} x {MAMBA_NEW}")
+    require(tuple(out.shape) == (STATIC_BATCH, STATIC_NEW),
+            f"{label} tokens shape {tuple(out.shape)}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{label} token out of the vocab")
+    expected = step_engine_launches(model, STATIC_NEW)
+    require(launches == expected, f"{label} launched {launches}, expected {expected}")
     ttft = engine.latencies["prefill_s"][0]
     tpot = statistics.median(engine.latencies["decode_s"])
-    tokens = MAMBA_BATCH * MAMBA_NEW
-    log(f"mamba2 serve: {MAMBA_BATCH} x ({MAMBA_PROMPT} + {MAMBA_NEW}) tokens in {wall:.3f} s "
-        f"({tokens / wall:.1f} tok/s)  prefill (ttft) {ttft * 1e3:.1f} ms  "
+    tokens = STATIC_BATCH * STATIC_NEW
+    log(f"{label} serve: {STATIC_BATCH} x ({STATIC_PROMPT} + {STATIC_NEW}) tokens in {wall:.3f} "
+        f"s ({tokens / wall:.1f} tok/s)  prefill (ttft) {ttft * 1e3:.1f} ms  "
         f"decode (tpot) p50 {tpot * 1e3:.2f} ms  launches {launches}  "
         f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    log(f"mamba2 serve: tokens[0][:8] {out[0, :8].tolist()}")
+    log(f"{label} serve: tokens[0][:8] {out[0, :8].tolist()}")
     return engine, params, prompts, launches
 
 
-def profile_mamba2(torch, engine, params, prompts, steps: int = 4):
-    """Where a full-width mamba2 prefill's and decode step's device time
-    goes: one prefill, then ``steps`` decode steps, each window under
-    torch.profiler; device time by kernel group and busy share."""
+def profile_step_engine(torch, engine, params, prompts, steps: int = 4):
+    """Where a full-width prefill's and decode step's device time goes: one
+    prefill, then ``steps`` decode steps, each window under torch.profiler;
+    device time by kernel group and busy share."""
     from torch.profiler import ProfilerActivity, profile
 
+    label = engine.model.cfg.name.split("-")[0]
     tokens = torch.from_numpy(prompts).cuda()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -730,8 +780,8 @@ def profile_mamba2(torch, engine, params, prompts, steps: int = 4):
         logits, cache = engine.prefill_step(params, tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    require(bool(torch.isfinite(logits).all()), "non-finite mamba2 prefill logits")
-    report_profile(prof, wall, 1, f"mamba2 prefill {tuple(tokens.shape)}", "prefill")
+    require(bool(torch.isfinite(logits).all()), f"non-finite {label} prefill logits")
+    report_profile(prof, wall, 1, f"{label} prefill {tuple(tokens.shape)}", "prefill")
     S = tokens.shape[1]
     tok = logits[:, -1].argmax(-1, keepdim=True)
     engine.decode_step(params, tok, cache, S)                       # warm
@@ -743,31 +793,33 @@ def profile_mamba2(torch, engine, params, prompts, steps: int = 4):
             tok = logits[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    require(bool(torch.isfinite(logits).all()), "non-finite mamba2 decode logits")
-    report_profile(prof, wall, steps, f"mamba2 {steps} decode steps x {tokens.shape[0]} rows",
+    require(bool(torch.isfinite(logits).all()), f"non-finite {label} decode logits")
+    report_profile(prof, wall, steps, f"{label} {steps} decode steps x {tokens.shape[0]} rows",
                    "step")
 
 
-def parity_mamba2(torch, np, serving, build_model, get_config, engine, params, prompts):
+def parity_step_engine(torch, np, serving, build_model, small_cfg, engine, params, prompts):
+    """(a) ``small_cfg`` (a reduced model of the engine's family) in fp32
+    gives identical greedy tokens with ``impl="kernel"`` and ``impl="ref"``;
+    (b) at full width, the prefill's last-position logits of the kernel path
+    and the plain path in bf16 and in fp32, all held against the plain path
+    in fp32 on the same (bf16-valued) weights."""
     from repro_torch.models.common import cast_tree
 
-    # (a) reduced mamba2, fp32: kernel path and plain path, same tokens
-    cfg = get_config("mamba2-2.7b").reduced()
-    small = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(7), torch.float32)
-    small_prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 100))
+    label = engine.model.cfg.name.split("-")[0]
+    small = build_model(small_cfg).init(torch.Generator(device="cuda").manual_seed(7),
+                                        torch.float32)
+    small_prompts = np.random.default_rng(3).integers(0, small_cfg.vocab_size, (4, 100))
     tokens = {}
     for impl in ("kernel", "ref"):
-        eng = serving.step_engine(build_model(cfg, impl=impl), serving.single_device_plan(cfg),
-                                  dtype=torch.float32)
+        eng = serving.step_engine(build_model(small_cfg, impl=impl),
+                                  serving.single_device_plan(small_cfg), dtype=torch.float32)
         tokens[impl] = eng.greedy_generate(small, small_prompts, 12, 112).tolist()
     require(tokens["kernel"] == tokens["ref"],
-            f"mamba2 fp32 greedy tokens differ: kernel {tokens['kernel']} ref {tokens['ref']}")
-    log(f"parity: reduced mamba2 fp32 greedy tokens identical over 4 prompts of 100 x 12 "
-        f"({tokens['kernel'][0][:6]}...)")
+            f"{label} fp32 greedy tokens differ: kernel {tokens['kernel']} ref {tokens['ref']}")
+    log(f"parity: reduced {label} ({small_cfg.num_layers} layers) fp32 greedy tokens identical "
+        f"over 4 prompts of 100 x 12 ({tokens['kernel'][0][:6]}...)")
 
-    # (b) full width: the prefill's last-position logits, kernel path vs
-    # plain path in bf16 and in fp32, all held against the plain path in
-    # fp32 on the same (bf16-valued) weights
     model_k = engine.model
     model_r = build_model(model_k.cfg, impl="ref")
     toks = torch.from_numpy(prompts).cuda()
@@ -785,25 +837,25 @@ def parity_mamba2(torch, np, serving, build_model, get_config, engine, params, p
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     require(all(bool(torch.isfinite(v).all()) for v in out.values()),
-            "non-finite full-width mamba2 logits")
+            f"non-finite full-width {label} logits")
     err = float((out["kernel"] - out["ref"]).abs().max())
     scale = float(out["ref32"].abs().max())
     err_k = float((out["kernel"] - out["ref32"]).abs().max())
     err_r = float((out["ref"] - out["ref32"]).abs().max())
     err_32 = float((out["kernel32"] - out["ref32"]).abs().max())
     top1 = float((out["kernel"].argmax(-1) == out["ref32"].argmax(-1)).float().mean())
-    log(f"parity: full-width mamba2 prefill logits ({tuple(out['ref'].shape)}): kernel-vs-plain "
+    log(f"parity: full-width {label} prefill logits ({tuple(out['ref'].shape)}): kernel-vs-plain "
         f"bf16 max_abs_err {err:.3e} (max |logit| {scale:.3f}); vs fp32 plain: kernel bf16 "
         f"{err_k:.3e}, plain bf16 {err_r:.3e}, kernel fp32 {err_32:.3e}; kernel bf16 top-1 "
         f"agreement with fp32 {top1:.4f}")
     require(err_k <= 2.0 * err_r,
-            "the mamba2 kernel path is further from fp32 than the plain bf16 path's error x2")
+            f"the {label} kernel path is further from fp32 than the plain bf16 path's error x2")
     require(err_32 <= SSD_TOL * max(1.0, scale),
-            "the mamba2 kernel path in fp32 differs from the plain path in fp32 by more than "
+            f"the {label} kernel path in fp32 differs from the plain path in fp32 by more than "
             "1e-3 of the logit scale")
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 10
 
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 4, 3
@@ -990,8 +1042,6 @@ def parity_train(torch) -> None:
     every parameter after one AdamW step within 2e-3 of its leaf's largest
     magnitude.  bf16: loss within 3e-2 relative, and the kernel path's grads
     no further from the fp32 plain path than twice the bf16 plain path's."""
-    import dataclasses
-
     from repro_torch.configs.registry import get_config
     from repro_torch.models.common import tree_leaves
     from repro_torch.runtime import optimizer as opt_lib
@@ -1040,7 +1090,7 @@ def parity_train(torch) -> None:
 
 
 def train_phase(torch, flash_ops, rms_ops) -> tuple[dict, float]:
-    """Phase 8: the three remat policies at full width, the selective step's
+    """Phase 10: the three remat policies at full width, the selective step's
     profile and components, and kernel-vs-plain parity.  Returns the
     selective run's launches (the train path's counts) and step times."""
     import gc
@@ -1073,15 +1123,15 @@ def train_phase(torch, flash_ops, rms_ops) -> tuple[dict, float]:
     return launches, selective
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 11
 
 PLAN_PROFILE_ARGS = ["--arch", TRAIN_ARCH, "--full", "--seq", "1024,4096", "--dtype", "bf16",
                      "--microbatch", "2"]
 LAUNCHER_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
                  "--grad-accum", str(TRAIN_ACCUM), "--remat", "selective",
                  "--steps", str(TRAIN_STEPS)]
-#: the launcher's median step against phase 8's selective median: 5 %, or
-#: the spread of phase 8's own selective steps (max / min - 1) when the
+#: the launcher's median step against phase 10's selective median: 5 %, or
+#: the spread of phase 10's own selective steps (max / min - 1) when the
 #: card's host makes that wider — a difference inside it is not resolved
 LAUNCHER_STEP_TOL = 0.05
 
@@ -1128,11 +1178,10 @@ def _plan_summary(plan) -> str:
 
 
 def planner_phase(torch, flash_ops, rms_ops, selective: list) -> None:
-    """Phase 9: profile two dense blocks on the card into a fresh cache,
+    """Phase 11: profile two dense blocks on the card into a fresh cache,
     calibrate, search the one-H100 plan analytically and calibrated, train
     the calibrated plan for 3 full-width steps, and run the train launcher
     as a user would."""
-    import dataclasses
     import gc
     import os
     import re
@@ -1258,10 +1307,10 @@ def planner_phase(torch, flash_ops, rms_ops, selective: list) -> None:
         gap = median / selective_s - 1.0
         tol = max(LAUNCHER_STEP_TOL, max(selective) / min(selective) - 1.0)
         log(f"planner: launcher ({wall:.1f} s of wall) steps {[round(x, 4) for x in times]} s, "
-            f"median {median:.4f} s vs phase 8's selective {selective_s:.4f} s (steps "
+            f"median {median:.4f} s vs phase 10's selective {selective_s:.4f} s (steps "
             f"{[round(x, 4) for x in selective]}): {100 * gap:+.2f} %, tol {100 * tol:.2f} % "
-            f"(5 % or phase 8's own spread)")
-        require(abs(gap) <= tol, "the launcher's step differs from phase 8's selective step "
+            f"(5 % or phase 10's own spread)")
+        require(abs(gap) <= tol, "the launcher's step differs from phase 10's selective step "
                 "by more than the tolerance")
         for prefix in ("plan[", "predicted (", "GALV070:"):
             require(any(line.startswith(prefix) for line in proc.stdout.splitlines()),
@@ -1334,25 +1383,33 @@ def main() -> int:
     del session
     torch.cuda.empty_cache()
 
-    # 6. the mamba2 path at full width
-    engine, params, m_prompts, mamba_launches = serve_mamba2(
-        torch, np, serving, build_model, get_config, ssd_ops, rms_ops, flash_ops)
-    profile_mamba2(torch, engine, params, m_prompts)
+    # 6-9. the mamba2 and zamba2 paths at full width through the step
+    # engine, each followed by its kernel path against its plain path
+    counters = {"ssd": ssd_ops.ssd, "rmsnorm": rms_ops.rmsnorm,
+                "flash_attention_fwd": flash_ops.flash_attention_fwd}
+    static_launches = {}
+    for arch, small_cfg in (
+            ("mamba2-2.7b", get_config("mamba2-2.7b").reduced()),
+            # a remainder: 3 sites of the shared block, then 1 trailing layer
+            ("zamba2-7b", dataclasses.replace(get_config("zamba2-7b").reduced(), num_layers=7))):
+        engine, params, s_prompts, launches = serve_step_engine(
+            torch, np, serving, build_model, get_config, counters, arch)
+        static_launches[arch.split("-")[0]] = launches
+        profile_step_engine(torch, engine, params, s_prompts)
+        parity_step_engine(torch, np, serving, build_model, small_cfg, engine, params, s_prompts)
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # 7. mamba2 kernel path against plain path
-    parity_mamba2(torch, np, serving, build_model, get_config, engine, params, m_prompts)
-    del engine, params
-    torch.cuda.empty_cache()
-
-    # 8. the dense training step at full width
+    # 10. the dense training step at full width
     train_launches, selective = train_phase(torch, flash_ops, rms_ops)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 9. the planner: profile, calibrate, search, train the plan, the launcher
+    # 11. the planner: profile, calibrate, search, train the plan, the launcher
     planner_phase(torch, flash_ops, rms_ops, selective)
 
-    # 10. results
+    # 12. results
     kernels = []
     for rows, name, source, replaces in (
             (flash_rows, "flash_attention_fwd",
@@ -1363,8 +1420,8 @@ def main() -> int:
             (ssd_rows, "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/kernel.py:74")):
         for r in rows:
-            launches = {"llama": llama_launches, "mamba2": mamba_launches,
-                        "train": train_launches}[r["path"]]
+            launches = {"llama": llama_launches, "train": train_launches,
+                        **static_launches}[r["path"]]
             kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": launches[name], "max_abs_err": r["max_abs_err"],

@@ -1,4 +1,4 @@
-"""Model zoo: family dispatch (dense and ssm families ported so far)."""
+"""Model zoo: family dispatch (dense, ssm and hybrid families ported so far)."""
 from __future__ import annotations
 
 from repro_torch.configs.registry import ModelConfig
@@ -15,5 +15,9 @@ def build_model(cfg: ModelConfig, impl: str = "kernel", device="cuda"):
         from repro_torch.models.mamba2 import Mamba2LM
 
         return Mamba2LM(cfg, impl, device)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import HybridLM
+
+        return HybridLM(cfg, impl, device)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet (dense and ssm only)")
+        f"family {cfg.family!r} is not ported to repro_torch yet (dense, ssm and hybrid only)")

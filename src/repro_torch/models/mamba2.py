@@ -153,6 +153,11 @@ def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return x + out, new_state
 
 
+def stack_states(states: list[dict]) -> dict:
+    """Per-layer prefill states -> one (L, ...) tensor per key."""
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+
 class Mamba2LM(nn.Module):
     """Pure-SSM LM (mamba2-2.7b).  ``impl="kernel"`` runs the hand-written
     CUDA kernels on CUDA tensors (their plain versions on CPU tensors);
@@ -184,6 +189,15 @@ class Mamba2LM(nn.Module):
 
     def _layers(self, params: dict):
         return (take_layer(params["blocks"], i) for i in range(self.cfg.num_layers))
+
+    def _decode_layer(self, bp: dict, x: torch.Tensor, cache: dict, layer: int):
+        """Mamba layer ``layer`` on one token per row; its new state is
+        written into the stacked ``cache`` in place."""
+        state = {k: v[layer] for k, v in cache.items()}
+        x, new = mamba_block_apply(bp, x, self.cfg, mode="decode", state=state, impl=self.impl)
+        for k, v in new.items():
+            cache[k][layer].copy_(v)
+        return x
 
     # ------------------------------------------------------------ forward
     @torch.no_grad()
@@ -230,7 +244,7 @@ class Mamba2LM(nn.Module):
             states.append(st)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
         logits = embedding.lm_head(params["embed"], x[:, -1:, :], self.cfg)
-        return logits, {k: torch.stack([s[k] for s in states]) for k in states[0]}
+        return logits, stack_states(states)
 
     @torch.no_grad()
     def forward_decode(self, params: dict, tokens: torch.Tensor, cache: dict, cache_index, *,
@@ -240,10 +254,6 @@ class Mamba2LM(nn.Module):
         state carries the position).  Returns (fp32 logits (B, 1, V), cache)."""
         x = embedding.embed_tokens(params["embed"], tokens, dtype)
         for layer, bp in enumerate(self._layers(params)):
-            state = {k: v[layer] for k, v in cache.items()}
-            x, new = mamba_block_apply(bp, x, self.cfg, mode="decode", state=state,
-                                       impl=self.impl)
-            for k, v in new.items():
-                cache[k][layer].copy_(v)
+            x = self._decode_layer(bp, x, cache, layer)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
         return embedding.lm_head(params["embed"], x, self.cfg), cache

@@ -41,6 +41,31 @@ def default_layer_runner(stacked_params: dict, x: torch.Tensor, apply_block):
     return x, extra
 
 
+def decoder_block_defs(cfg: ModelConfig) -> dict:
+    """One pre-norm decoder block: RMSNorm -> attention -> RMSNorm -> FFN."""
+    return {
+        "ln1": rmsnorm_defs(cfg.d_model),
+        "attn": attn.attn_defs(cfg),
+        "ln2": rmsnorm_defs(cfg.d_model),
+        "mlp": ffn.ffn_defs(cfg),
+    }
+
+
+def decoder_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, impl: str, *,
+                        mode: str, cache: Optional[dict] = None, cache_index=None,
+                        kv_len=None, positions=None):
+    """``decoder_block_defs``' block on x (B, S, D): ln1 -> attention ->
+    residual -> ln2 -> FFN -> residual.  Returns (x, the attention's new
+    cache; see ``attention.attention_block``)."""
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps, impl)
+    a, new_cache = attn.attention_block(
+        params["attn"], h, cfg=cfg, mode=mode, cache=cache,
+        cache_index=cache_index, kv_len=kv_len, impl=impl, positions=positions)
+    x = x + a
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps, impl)
+    return x + ffn.ffn_apply(params["mlp"], h, cfg), new_cache
+
+
 class DenseTransformerLM(nn.Module):
     """``impl="kernel"`` runs the hand-written CUDA kernels on CUDA tensors
     (their plain versions on CPU tensors); ``impl="ref"`` runs the plain
@@ -56,13 +81,7 @@ class DenseTransformerLM(nn.Module):
 
     # ---------------------------------------------------------- params
     def block_defs(self) -> dict:
-        cfg = self.cfg
-        return {
-            "ln1": rmsnorm_defs(cfg.d_model),
-            "attn": attn.attn_defs(cfg),
-            "ln2": rmsnorm_defs(cfg.d_model),
-            "mlp": ffn.ffn_defs(cfg),
-        }
+        return decoder_block_defs(self.cfg)
 
     def param_defs(self) -> dict:
         cfg = self.cfg
@@ -80,14 +99,9 @@ class DenseTransformerLM(nn.Module):
     def block_apply(self, params: dict, x: torch.Tensor, *, mode: str,
                     cache: Optional[dict] = None, cache_index=None, kv_len=None,
                     positions=None):
-        cfg = self.cfg
-        h = rmsnorm(params["ln1"], x, cfg.norm_eps, self.impl)
-        a, new_cache = attn.attention_block(
-            params["attn"], h, cfg=cfg, mode=mode, cache=cache,
-            cache_index=cache_index, kv_len=kv_len, impl=self.impl, positions=positions)
-        x = x + a
-        h = rmsnorm(params["ln2"], x, cfg.norm_eps, self.impl)
-        return x + ffn.ffn_apply(params["mlp"], h, cfg), new_cache
+        return decoder_block_apply(params, x, self.cfg, self.impl, mode=mode, cache=cache,
+                                   cache_index=cache_index, kv_len=kv_len,
+                                   positions=positions)
 
     # ---------------------------------------------------------- training
     def forward_train(self, params: dict, tokens: torch.Tensor, *, layer_runner=None,

@@ -1,7 +1,8 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
 version (K1 and K2 also under autograd), the wrappers' input checks, and
-the serving paths (paged dense, step-engine mamba2) and the dense training
-step under each remat policy with ``impl="kernel"`` against ``impl="ref"``;
+the serving paths (paged dense, step-engine mamba2 and zamba2) and the
+dense training step under each remat policy with ``impl="kernel"`` against
+``impl="ref"``;
 the planner's block measurement and a calibration fitted from it.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
@@ -9,6 +10,8 @@ This file imports no JAX, so on a GPU machine without JAX it runs with::
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -54,6 +57,21 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
                                    atol=tol, rtol=tol)
     assert flash_ops.flash_attention_fwd.launches > n_flash
     assert rms_ops.rmsnorm.launches > n_rms
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("width", [3584, 7168])
+def test_cuda_rmsnorm_at_zamba2_widths(cuda_device, width, dtype, tol):
+    """K2 at zamba2-7b's prefill rows: 8192 x d_model 3584 (the layer and
+    shared-block norms) and 8192 x d_inner 7168 (the gate norm)."""
+    g = torch.Generator(device=cuda_device).manual_seed(width)
+    x = (3.0 * torch.randn((8192, width), generator=g, device=cuda_device)).to(dtype)
+    s = torch.randn((width,), generator=g, device=cuda_device).to(dtype)
+    n = rms_ops.rmsnorm.launches
+    out = rms_ops.rmsnorm(x, s, 1e-5)
+    assert rms_ops.rmsnorm.launches == n + 1
+    torch.testing.assert_close(out.float(), rms_ops.rmsnorm_reference(x, s, 1e-5).float(),
+                               atol=tol, rtol=tol)
 
 
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
@@ -106,6 +124,10 @@ def _kv_len_positions(off, kv_len, Sq, Sk, dev):
     (1, 1, 8192, 32, 8, 64, "decode", (5000,)),
     (2, 16, 90, 8, 2, 32, "masked", None),            # fully masked rows
     (2, 1, 300, 8, 2, 64, "decode", (0, 150)),        # kv_len 0: a fully masked decode row
+    # zamba2-7b's shared attention (hd 112, one query head per KV head): a
+    # decode step with kv_len at and around the 2048-key tile edge, a prefill
+    (4, 1, 2080, 32, 32, 112, "decode", (2048, 2049, 2079, 2080)),
+    (4, 2048, 2048, 32, 32, 112, "causal", None),
 ], ids=lambda c: f"B{c[0]}-Sq{c[1]}-Sk{c[2]}-H{c[3]}-KV{c[4]}-hd{c[5]}-{c[6]}")
 def test_cuda_flash_compact_heads_match_plain_version(cuda_device, case):
     """K1 on compact GQA K/V against its plain version (which expands the
@@ -306,6 +328,8 @@ def _ssd_inputs(g, dev, Bs, S, H, P, G, N, dtype=torch.float32):
     (1, 100, 4, 64, 2, 64, torch.bfloat16),          # ragged S
     (2, 1, 8, 32, 1, 16, torch.bfloat16),            # one position
     (1, 2048, 80, 64, 1, 128, torch.bfloat16),       # mamba2-2.7b heads, one row
+    (4, 2048, 112, 64, 2, 64, torch.bfloat16),       # zamba2-7b prefill: 56 heads a group
+    (4, 2048, 112, 64, 2, 64, torch.float32),
 ])
 def test_cuda_ssd_matches_plain_versions(cuda_device, Bs, S, H, P, G, N, dtype):
     """K3 against ``ssd_chunked`` (and ``ssd_naive``) at 1e-3 of the plain
@@ -404,3 +428,31 @@ def test_cuda_profile_cells_calibrate_a_measured_throughput(cuda_device, tmp_pat
     calibration = cal.calibrate(cache)
     assert calibration.source == "measured"
     assert calibration.throughput["bf16"] > 0.0
+
+
+def test_cuda_hybrid_step_engine_kernel_path_matches_ref_path(cuda_device):
+    """A reduced zamba2 with a trailing Mamba layer (7 layers: 3 sites of
+    the shared attention block, then 1) in fp32 through
+    ``step_engine(...).greedy_generate``: the kernel path emits the plain
+    path's greedy tokens, with K3 once per layer, K1 once per site and
+    forward, K2 twice per layer and site plus once per forward."""
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), num_layers=7)
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(9))
+    prompts = torch.from_numpy(
+        np.random.default_rng(9).integers(0, cfg.vocab_size, (3, 77))).to(cuda_device)
+    tokens = {}
+    counts = (ssd_ops.ssd.launches, flash_ops.flash_attention_fwd.launches,
+              rms_ops.rmsnorm.launches)
+    for impl in ("kernel", "ref"):
+        model = build_model(cfg, impl=impl, device=cuda_device)
+        engine = serving.step_engine(model, serving.single_device_plan(cfg),
+                                     dtype=torch.float32)
+        tokens[impl] = engine.greedy_generate(params, prompts, 10, 96).tolist()
+        if impl == "kernel":
+            assert model.n_apps == 3 and model.remainder == 1
+            assert ssd_ops.ssd.launches == counts[0] + cfg.num_layers
+            assert flash_ops.flash_attention_fwd.launches == counts[1] + 10 * model.n_apps
+            assert rms_ops.rmsnorm.launches == \
+                counts[2] + 10 * (2 * cfg.num_layers + 2 * model.n_apps + 1)
+    assert tokens["kernel"] == tokens["ref"]
