@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
    power limit as ``nvidia-smi`` reports them;
 2. build — compiles every kernel of ``src/repro_torch/kernels/**/csrc`` with
    ``nvcc`` (one process per source, all started together) and prints the
-   build time and the compiler's register/spill report;
+   build time and, per source, the compiler's report: kernels, the most
+   registers a thread, and each kernel that spills (a K2 kernel that spills
+   fails the run);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes the serving paths give it (flash attention on compact GQA K/V
    — KV 8 at the llama shapes, g = 5, hd 112, fully masked rows, kv_len at
@@ -28,10 +30,21 @@ Phases (any failure exits non-zero and prints no result line):
    case's boolean mask; ``is_causal`` where that mask is the plain causal
    one); the autograd
    ``flash_attention`` on the split path (S 20 000, fp32) against autograd
-   through the plain version, 2e-3 of scale; RMSNorm: fp32 1e-5, bf16 2e-2,
-   the training shape 8192 x 2048 and zamba2's widths 8192 x 3584 and
-   8192 x 7168 bf16 timed — the JAX kernel
-   tests' tolerances; SSD scan: max |err| <= 1e-3 * max(1, max |plain|) for
+   through the plain version, 2e-3 of scale; RMSNorm (K2; fp32 1e-5, bf16
+   2e-2 — the JAX kernel tests' tolerances): the forward at every template
+   (1 to 8 packs of 16 bytes a thread, the two-pass loop, the scalar
+   template on an odd width and on misaligned views; each case logs its
+   template), the decode rows, the training shape 8192 x 2048 and the
+   layer norms of mamba2 (8192 x 2560) and zamba2 (8192 x 3584) in bf16
+   timed; the gated forward ``rmsnorm(x * silu(z))`` in bf16 and fp32 at
+   8192 and 4 rows of 5120 and 7168, an odd width and a misaligned gate,
+   the bf16 rows timed beside the unfused composition (no library call
+   computes the gate); the backward kernel (dx at the forward's
+   tolerances, an fp32 dscale at 1e-4 of its scale, bitwise equal over two
+   calls) at 8192 x 2048 (bf16 x with fp32 scale, and fp32), 8192 x 3584,
+   32768 x 128, an odd width and a misaligned view, timed against the plain
+   backward and ``F.rms_norm``'s backward; SSD scan: max |err| <= 1e-3 *
+   max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
    the mamba2 prefill shape, a ragged S, G = 2 and zamba2's prefill (112
    heads over G 2, N 64), each in fp32 and in bf16
@@ -58,7 +71,8 @@ Phases (any failure exits non-zero and prints no result line):
    tokens, 32 new tokens; launch counters zeroed just before and read just
    after, each pinned (``step_engine_launches``): exactly 64 SSD launches
    (one per layer of the prefill), 129 x 32 RMSNorm launches (129 per
-   forward) and no flash attention; TTFT, TPOT, tok/s and peak memory; then
+   forward), of them 64 x 32 gated (the gate norm), no K2 backward and no
+   flash attention; TTFT, TPOT, tok/s and peak memory; then
    one prefill and 4 decode steps under ``torch.profiler``, device time by
    kernel group and the busy share;
 7. mamba2 parity — a reduced mamba2 in fp32 gives identical greedy tokens
@@ -68,7 +82,8 @@ Phases (any failure exits non-zero and prints no result line):
    path is within 1e-3 of the logit scale of the plain path;
 8. zamba2 serve — phase 6 at full-width zamba2-7b (81 Mamba layers, d 3584,
    the shared attention block at 13 sites, hd 112, H = KV = 32): exactly 81
-   SSD, 13 x 32 = 416 flash attention and 189 x 32 = 6048 RMSNorm launches;
+   SSD, 13 x 32 = 416 flash attention and 189 x 32 = 6048 RMSNorm launches,
+   81 x 32 = 2592 of them gated;
 9. zamba2 parity — phase 7 for zamba2, its reduced model with 7 layers (3
    sites and a trailing Mamba layer);
 10. train — full-width llama3.2-1b (16 layers, random fp32 master weights
@@ -76,10 +91,12 @@ Phases (any failure exits non-zero and prints no result line):
    .train_step``: 3 steps of 8 x 4096 tokens in 4 microbatches under each
    remat policy (selective, full, none), fresh state each; losses (finite,
    the first within 1 of ln V), grad norms, median step time, tokens/s,
-   peak memory and MFU against the model FLOPs the script reckons; K1/K2
-   launches per step pinned (``TRAIN_LAUNCHES``); one selective step under
-   ``torch.profiler`` by group (K1, K2, the attention backward's recompute,
-   matmuls, elementwise, the optimizer, copies); CUDA-event times of one
+   peak memory and MFU against the model FLOPs the script reckons; K1, K2
+   and K2-backward launches per step pinned (``TRAIN_LAUNCHES``: the
+   backward 33 x 4 under every policy); one selective step under
+   ``torch.profiler`` by group (K1, K2, K2's backward, the attention
+   backward's recompute, matmuls, elementwise, the optimizer, copies);
+   CUDA-event times of one
    attention backward and one AdamW update; kernel path against plain path
    at full width with 2 layers, 2 x 1024 tokens: fp32 loss 1e-4, grads and
    updated params 2e-3 of scale; bf16 loss 3e-2, the kernel path's grads
@@ -87,18 +104,21 @@ Phases (any failure exits non-zero and prints no result line):
 11. planner — Galvatron's loop on the card through the port's entry points:
    ``launch.profile`` measures two full-width llama3.2-1b blocks (S 1024 and
    4096, microbatch 2, bf16; forward, backward and full-remat overhead
-   through K1 and K2, whose launches it counts) into a fresh profile cache,
+   through K1, K2 and K2's backward, whose launches it counts) into a fresh
+   profile cache,
    and a second call measures nothing; one cell again with a random input in
    place of zeros; the fitted calibration; ``SearchEngine(cfg,
    cluster=H100_1)`` at S 4096 and global batch 8 with the analytic and the
    calibrated coefficients (plan, predicted step and memory, ``check_plan``);
    3 full-width steps of the calibrated plan (median step, tokens/s, MFU,
-   peak memory, K1/K2 launches per step, GALV070 against both predictions);
+   peak memory, K1/K2 launches per step, K2's backward pinned at 33 per
+   microbatch, GALV070 against both predictions);
    then ``python -m repro_torch.launch.train`` (selective, grad_accum 4, the
    measured cache) as a subprocess, whose median step must be within 5 % of
    phase 10's selective median (or of the spread of phase 10's own selective
    steps, when the host makes that wider);
-12. a ``{"kernels": [...]}`` line, then the device line last.
+12. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
+   ``rmsnorm_bwd`` rows for K2), then the device line last.
 """
 from __future__ import annotations
 
@@ -140,6 +160,60 @@ def require(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def launch_counters(flash_ops, rms_ops, ssd_ops) -> dict:
+    """Each kernel's launch counter: name -> (the wrapper holding it, its
+    attribute).  A gated K2 call counts on ``rmsnorm`` and ``rmsnorm_gated``;
+    a K2 backward call (two launches: rows, column sums) on ``rmsnorm_bwd``."""
+    return {"flash_attention_fwd": (flash_ops.flash_attention_fwd, "launches"),
+            "rmsnorm": (rms_ops.rmsnorm, "launches"),
+            "rmsnorm_gated": (rms_ops.rmsnorm, "gated_launches"),
+            "rmsnorm_bwd": (rms_ops.rmsnorm, "backward_launches"),
+            "ssd": (ssd_ops.ssd, "launches")}
+
+
+def zero_counts(counters: dict) -> None:
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: getattr(obj, attr) for name, (obj, attr) in counters.items()}
+
+
+def build_report(text: str) -> tuple[list[str], list[str]]:
+    """The compiler's report (``-Xptxas -v``) per source: kernels compiled,
+    the most registers one uses, and every kernel that spills.  Returns the
+    summary lines and the spilling kernels of K2's sources."""
+    import re
+
+    per: dict[str, list] = {}
+    src = fn = None
+    for line in text.splitlines():
+        if line.startswith("== "):
+            src = line[3:].split(" (rc")[0]
+            per[src] = [0, 0, []]
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m and src:
+            fn = m.group(1)
+            per[src][0] += 1
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and src and fn and (int(m.group(1)) or int(m.group(2))):
+            per[src][2].append(f"{fn}: {m.group(0)}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and src:
+            per[src][1] = max(per[src][1], int(m.group(1)))
+    lines, k2_spills = [], []
+    for src, (n, regs, spills) in per.items():
+        lines.append(f"{src}: {n} kernels, at most {regs} registers a thread, "
+                     f"{len(spills)} spilling")
+        lines += [f"  spills: {x}" for x in spills]
+        if "rmsnorm" in src:
+            k2_spills += spills
+    return lines, k2_spills
 
 
 # ---------------------------------------------------------------- timing
@@ -395,30 +469,59 @@ def check_flash_autograd(torch, flash_ops, flash_ref, gen):
     torch.cuda.empty_cache()
 
 
+def misaligned_view(torch, t):
+    """``t``'s values in a view one element past a 16-byte boundary (the
+    layout ``x.flatten()[1:]`` gives): K2 takes its scalar template."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
+def _rms_template(rms_ops, x, scale, *more, **kw) -> str:
+    """The K2 template a call takes (a fresh output is 16-byte aligned)."""
+    return rms_ops._template(x.shape[-1], x.dtype, x.data_ptr(), scale.data_ptr(),
+                             *(t.data_ptr() for t in more), **kw).describe()
+
+
+def _rms_close(torch, out, ref, tol) -> tuple[float, bool]:
+    err = float((out.float() - ref.float()).abs().max())
+    return err, bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
+
+
 def check_rmsnorm(torch, rms_ops, rms_ref, gen):
-    """RMSNorm cases; the timed bf16 rows carry the path they belong to
-    (llama: decode 8 x 2048, prefill chunk 256 x 2048; mamba2: gate norm at
-    prefill 8192 x 5120, decode 4 x 2560; train: a microbatch of 2 x 4096
-    rows x 2048; zamba2: the prefill's layer norms 8192 x 3584 and gate
-    norm 8192 x 7168)."""
+    """K2's forward at every template — vector packs from 1 to 8 a thread,
+    rows per warp to rows over warps, the two-pass loop, the scalar template
+    on an odd width and on misaligned views — against its plain version; the
+    timed bf16 rows carry the path they belong to (llama: decode 8 x 2048,
+    prefill chunk 256 x 2048; mamba2: the layer norms at prefill 8192 x 2560
+    and decode 4 x 2560; train: a microbatch of 2 x 4096 rows x 2048;
+    zamba2: the prefill's layer norms 8192 x 3584); "check" rows are timed
+    and logged but belong to no path (the gate norms' widths 5120 and 7168,
+    which the models now run gated)."""
     rows = []
-    shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 5120), "mamba2"),
+    shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 2560), "mamba2"),
               ((4, 2560), "mamba2"), ((8192, 2048), "train"), ((8192, 3584), "zamba2"),
-              ((8192, 7168), "zamba2"), ((8192, 64), None), ((7, 333), None)]
+              ((8192, 5120), "check"), ((8192, 7168), "check"), ((8192, 64), None),
+              ((32768, 128), None), ((64, 14336), None), ((6, 40000), None), ((7, 333), None),
+              ((8192, 3584, "misaligned"), None), ((300, 1000, "misaligned"), None)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         for shape, path in shapes:
+            mis = shape[-1] == "misaligned"
+            shape = shape[:2]
             x = (3.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
             scale = torch.randn(shape[-1:], generator=gen, device="cuda").to(dtype)
+            if mis:
+                x = misaligned_view(torch, x)
             out = rms_ops.rmsnorm(x, scale, 1e-5)
             ref = rms_ref.rmsnorm_reference(x, scale, 1e-5)
             torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
             tol = RMSNORM_TOL[name]
-            label = f"{shape[0]}x{shape[1]} {name}"
-            log(f"K2 rmsnorm [{label}] max_abs_err {err:.3e} (tol {tol})")
-            require(bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)),
-                    f"rmsnorm disagrees with its plain version: {label}")
+            err, ok = _rms_close(torch, out, ref, tol)
+            label = f"{shape[0]}x{shape[1]} {name}{' misaligned view' if mis else ''}"
+            log(f"K2 rmsnorm [{label}] template {_rms_template(rms_ops, x, scale)} "
+                f"max_abs_err {err:.3e} (tol {tol})")
+            require(ok, f"rmsnorm disagrees with its plain version: {label}")
             if not (path and name == "bfloat16"):
                 continue
             ms = device_ms(lambda: rms_ops.rmsnorm(x, scale, 1e-5), torch)
@@ -427,10 +530,129 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
                 x, shape[-1:], weight=scale, eps=1e-5), torch)
             e = x.element_size()
             b_ms, b_by = bound(2 * x.numel() * e + scale.numel() * e, 4.0 * x.numel(), name)
-            log(f"K2 [{label}] kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                f"F.rms_norm {lib:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+            log(f"K2 [{label}] kernel {ms:.5f} ms  plain {plain:.4f} ms  "
+                f"F.rms_norm {lib:.5f} ms  bound {b_ms:.6f} ms ({b_by}, {100 * b_ms / ms:.1f} %)")
+            if path == "check":
+                continue
             rows.append(dict(label=label, path=path, max_abs_err=err, ms=ms, plain_ms=plain,
                              library_ms=lib, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def check_rmsnorm_gated(torch, rms_ops, rms_ref, gen):
+    """K2's gated forward ``rmsnorm(x * silu(z))`` against
+    ``gated_rmsnorm_reference`` in bf16 and fp32 at the Mamba2 gate norm's
+    shapes (mamba2 d_inner 5120, zamba2 7168; prefill 8192 rows, decode 4),
+    an odd width and a misaligned gate.  Timed bf16 rows: no single PyTorch
+    call computes the gate (``library_ms`` null); the unfused composition
+    the model ran before (``F.silu``, the product, K2: three launches) is
+    timed beside them."""
+    F = torch.nn.functional
+    rows = []
+    shapes = [((8192, 5120), "mamba2"), ((8192, 7168), "zamba2"), ((4, 5120), "mamba2"),
+              ((4, 7168), "zamba2"), ((7, 333), None), ((4096, 5120, "misaligned"), None)]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for shape, path in shapes:
+            mis = shape[-1] == "misaligned"
+            shape = shape[:2]
+            x = (2.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+            z = (2.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+            scale = (1 + 0.3 * torch.randn(shape[-1:], generator=gen, device="cuda")).to(dtype)
+            if mis:
+                z = misaligned_view(torch, z)
+            out = rms_ops.rmsnorm(x, scale, 1e-5, gate=z)
+            ref = rms_ref.gated_rmsnorm_reference(x, z, scale, 1e-5)
+            torch.cuda.synchronize()
+            tol = RMSNORM_TOL[name]
+            err, ok = _rms_close(torch, out, ref, tol)
+            label = f"{shape[0]}x{shape[1]} {name}{' misaligned gate' if mis else ''}"
+            log(f"K2 rmsnorm gated [{label}] template "
+                f"{_rms_template(rms_ops, x, scale, z, gated=True)} max_abs_err {err:.3e} "
+                f"(tol {tol})")
+            require(ok, f"gated rmsnorm disagrees with its plain version: {label}")
+            if not (path and name == "bfloat16"):
+                continue
+            ms = device_ms(lambda: rms_ops.rmsnorm(x, scale, 1e-5, gate=z), torch)
+            plain = device_ms(lambda: rms_ref.gated_rmsnorm_reference(x, z, scale, 1e-5), torch)
+            unfused = device_ms(lambda: rms_ops.rmsnorm(x * F.silu(z), scale, 1e-5), torch)
+            e = x.element_size()
+            b_ms, b_by = bound(3 * x.numel() * e + scale.numel() * e, 9.0 * x.numel(), name)
+            log(f"K2 gated [{label}] kernel {ms:.5f} ms  plain {plain:.4f} ms  unfused "
+                f"(F.silu, product, K2) {unfused:.5f} ms  bound {b_ms:.6f} ms ({b_by}, "
+                f"{100 * b_ms / ms:.1f} %)")
+            rows.append(dict(label=label, path=path, max_abs_err=err, ms=ms, plain_ms=plain,
+                             library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
+    """K2's backward kernel against ``rmsnorm_backward_reference`` on the
+    same inputs: dx at the forward's tolerances of its scale, an fp32 dscale
+    within 1e-4 of its scale, dscale and dx bitwise equal over two calls.
+    Cases: the training shape 8192 x 2048 (bf16 x, fp32 master scale; and
+    fp32), 8192 x 3584, qk-norm rows 32768 x 128, an odd width, a
+    misaligned view (the scalar two-pass template).  Timed rows: the plain
+    backward (``plain_ms``) and, as ``library_ms``, the backward of
+    ``F.rms_norm`` on the same inputs through ``torch.autograd.grad``."""
+    F = torch.nn.functional
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    cases = [((8192, 2048), bf16, f32, False, True), ((8192, 3584), bf16, f32, False, True),
+             ((32768, 128), bf16, f32, False, True), ((8192, 2048), f32, f32, False, False),
+             ((300, 333), f32, f32, False, False), ((8192, 2048), bf16, f32, True, False)]
+    for shape, dtype, sdtype, mis, timed in cases:
+        name = str(dtype).replace("torch.", "")
+        x = (3.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+        scale = (1 + 0.3 * torch.randn(shape[-1:], generator=gen, device="cuda")).to(sdtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if mis:
+            x, g = misaligned_view(torch, x), misaligned_view(torch, g)
+        dx, ds = rms_ops.rmsnorm_backward(x, scale, g, 1e-5)
+        dx2, ds2 = rms_ops.rmsnorm_backward(x, scale, g, 1e-5)
+        rdx, rds = rms_ref.rmsnorm_backward_reference(x, scale, g, 1e-5)
+        torch.cuda.synchronize()
+        err_dx = float((dx.float() - rdx.float()).abs().max())
+        err_ds = float((ds.float() - rds.float()).abs().max())
+        tol_dx = RMSNORM_TOL[name] * max(1.0, float(rdx.float().abs().max()))
+        tol_ds = 1e-4 * float(rds.float().abs().max())
+        same = bool(torch.equal(ds, ds2) and torch.equal(dx, dx2))
+        label = (f"{shape[0]}x{shape[1]} x {name} scale {str(sdtype).replace('torch.', '')}"
+                 f"{' misaligned view' if mis else ''}")
+        tpl = rms_ops._template(shape[-1], dtype, x.data_ptr(), scale.data_ptr(), g.data_ptr(),
+                                backward=True)
+        grid = rms_ops._bwd_grid(x.device.index, shape[0], shape[-1],
+                                 rms_ops._DTYPE_CODES[dtype], rms_ops._DTYPE_CODES[sdtype], tpl)
+        log(f"K2 rmsnorm backward [{label}] template {tpl.describe()}, {grid} blocks "
+            f"(dscale partial rows): dx max_abs_err {err_dx:.3e} (tol {tol_dx:.3e}) dscale "
+            f"{err_ds:.3e} (tol {tol_ds:.3e}); two calls bitwise equal: {same}")
+        require(err_dx <= tol_dx and err_ds <= tol_ds,
+                f"rmsnorm backward disagrees with its plain version: {label}")
+        require(same, f"rmsnorm backward is not deterministic: {label}")
+        if not timed:
+            continue
+        ms = device_ms(lambda: rms_ops.rmsnorm_backward(x, scale, g, 1e-5), torch)
+        plain = device_ms(lambda: rms_ref.rmsnorm_backward_reference(x, scale, g, 1e-5), torch,
+                          inner=3, reps=7)
+        libs = {}
+        for wname, w in (("same inputs", scale), ("weight in x's dtype", scale.to(dtype))):
+            xr, wr = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+            y = F.rms_norm(xr, shape[-1:], weight=wr, eps=1e-5)
+            libs[wname] = device_ms(lambda: torch.autograd.grad(y, (xr, wr), g,
+                                                                retain_graph=True),
+                                    torch, inner=3, reps=7)
+            del xr, wr, y
+        e, es = x.element_size(), scale.element_size()
+        b_ms, b_by = bound(3 * x.numel() * e + 2 * scale.numel() * es, 10.0 * x.numel(), name)
+        lib, fused = libs["same inputs"], libs["weight in x's dtype"]
+        log(f"K2 backward [{label}] kernel {ms:.5f} ms  plain {plain:.4f} ms  F.rms_norm "
+            f"backward {lib:.5f} ms (weight in x's dtype, fused: {fused:.5f} ms)  bound "
+            f"{b_ms:.6f} ms ({b_by}, {100 * b_ms / ms:.1f} %)")
+        rows.append(dict(label=label, path="train", max_abs_err=max(err_dx, err_ds), ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by))
+        del x, g, dx, dx2, rdx
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -525,7 +747,7 @@ def check_ssd(torch, ssd_ops, ssd_ref, gen):
 
 # ---------------------------------------------------------------- phases 4-5
 
-def serve_full_width(torch, np, serving, flash_ops, rms_ops):
+def serve_full_width(torch, np, serving, counters):
     config = serving.ServeConfig(
         arch="llama3.2-1b", reduced=False, device="cuda",
         cache=serving.CacheConfig(max_context=1024, page_size=16),
@@ -549,8 +771,7 @@ def serve_full_width(torch, np, serving, flash_ops, rms_ops):
     session.run_until_drained()
     prompts = rng.integers(0, vocab, (8, 512), dtype=np.int32)
 
-    flash_ops.flash_attention_fwd.launches = 0
-    rms_ops.rmsnorm.launches = 0
+    zero_counts(counters)
     finite.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -558,12 +779,11 @@ def serve_full_width(torch, np, serving, flash_ops, rms_ops):
     session.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": flash_ops.flash_attention_fwd.launches,
-                "rmsnorm": rms_ops.rmsnorm.launches}
+    launches = read_counts(counters)
 
     require(all(len(r.tokens) == 32 for r in reqs), "a request did not return max_new tokens")
     require(len(finite) == 8 * 32 and all(finite), "non-finite logits in the serve run")
-    require(all(n > 0 for n in launches.values()),
+    require(launches["flash_attention_fwd"] > 0 and launches["rmsnorm"] > 0,
             f"a kernel of the path never launched in the serve run: {launches}")
     tokens = sum(len(r.tokens) for r in reqs)
     ttft = statistics.median(r.ttft_s for r in reqs)
@@ -577,8 +797,10 @@ def serve_full_width(torch, np, serving, flash_ops, rms_ops):
 def _kernel_group(name: str) -> str:
     if "flash_fwd" in name:
         return "flash_attention"
-    if "rmsnorm_kernel" in name:
-        return "rmsnorm"
+    if "rmsnorm_bwd_kernel" in name or "rmsnorm_colsum_kernel" in name:
+        return "rmsnorm_bwd"
+    if "rmsnorm_kernel" in name:        # the gated template's last argument is true
+        return "rmsnorm_gated" if ", true>" in name else "rmsnorm"
     if "ssd_kernel" in name:
         return "ssd"
     low = name.lower()
@@ -707,11 +929,14 @@ STATIC_BATCH, STATIC_PROMPT, STATIC_NEW = 4, 2048, 32
 def step_engine_launches(model, new: int) -> dict:
     """The kernel launches of one static batch through the step engine: K3
     once per Mamba layer of the prefill; per forward (the prefill and
-    ``new - 1`` decode steps) K2 twice per Mamba layer, twice per site of
-    the shared attention block and once for the final norm, and K1 once per
-    site (a hybrid's ``n_apps``; none in mamba2)."""
+    ``new - 1`` decode steps) K2 twice per Mamba layer (the layer norm, and
+    the gate norm — gated, one launch that also counts on
+    ``rmsnorm_gated``), twice per site of the shared attention block and
+    once for the final norm, and K1 once per site (a hybrid's ``n_apps``;
+    none in mamba2); no K2 backward."""
     layers, sites = model.cfg.num_layers, getattr(model, "n_apps", 0)
     return {"ssd": layers, "rmsnorm": (2 * layers + 2 * sites + 1) * new,
+            "rmsnorm_gated": layers * new, "rmsnorm_bwd": 0,
             "flash_attention_fwd": sites * new}
 
 
@@ -740,15 +965,14 @@ def serve_step_engine(torch, np, serving, build_model, get_config, counters, arc
     for k in engine.latencies:
         engine.latencies[k].clear()
 
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = engine.greedy_generate(params, prompts, STATIC_NEW, STATIC_PROMPT + STATIC_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
 
     require(tuple(out.shape) == (STATIC_BATCH, STATIC_NEW),
             f"{label} tokens shape {tuple(out.shape)}")
@@ -860,13 +1084,17 @@ def parity_step_engine(torch, np, serving, build_model, small_cfg, engine, param
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 4, 3
 TRAIN_POLICIES = ("selective", "full", "none")
-#: K1 and K2 launches per step (4 microbatches of a 16-layer model).  A
+#: Kernel launches per step (4 microbatches of a 16-layer model).  A
 #: forward launches K1 once per layer and K2 twice per layer plus once for
 #: the final norm (16, 33); a recomputing policy reruns each layer's forward
 #: in its backward up to the FFN's last matmul, both norms and the attention
-#: included (16, 32 more).  Neither backward launches a kernel.
-TRAIN_LAUNCHES = {"none": (16 * 4, 33 * 4), "selective": (32 * 4, 65 * 4),
-                  "full": (32 * 4, 65 * 4)}
+#: included (16, 32 more).  The backward runs K2's backward kernel once per
+#: norm (33; the non-reentrant recompute reruns forwards, not backwards) under
+#: every policy; K1's backward is plain torch.  No gated K2, no K3.
+TRAIN_LAUNCHES = {
+    policy: {"flash_attention_fwd": k1 * 4, "rmsnorm": k2 * 4, "rmsnorm_gated": 0,
+             "rmsnorm_bwd": 33 * 4, "ssd": 0}
+    for policy, (k1, k2) in (("none", (16, 33)), ("selective", (32, 65)), ("full", (32, 65)))}
 #: profiler spans of the training step, innermost first
 TRAIN_SPANS = {"attention_vjp": "attention backward (recompute)", "optimizer": "optimizer"}
 
@@ -903,7 +1131,7 @@ def _train_bundle(torch, cfg, plan, *, impl: str = "kernel", seed: int = 0):
     return hp, params
 
 
-def train_plan(torch, flash_ops, rms_ops, label: str, plan, steps: int, flops: float):
+def train_plan(torch, counters, label: str, plan, steps: int, flops: float):
     """``steps`` train steps of full-width llama3.2-1b under ``plan`` from
     fresh state; returns the record of the run and (hp, params, opt, ds)
     for the profile."""
@@ -920,8 +1148,7 @@ def train_plan(torch, flash_ops, rms_ops, label: str, plan, steps: int, flops: f
     step_fn = hp.jit_train_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_ops.flash_attention_fwd.launches = 0
-    rms_ops.rmsnorm.launches = 0
+    zero_counts(counters)
     times, losses, gnorms = [], [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -930,7 +1157,7 @@ def train_plan(torch, flash_ops, rms_ops, label: str, plan, steps: int, flops: f
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
-    launches = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(times)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -939,8 +1166,8 @@ def train_plan(torch, flash_ops, rms_ops, label: str, plan, steps: int, flops: f
         f"(grad_accum {plan.grad_accum}): losses {[round(x, 5) for x in losses]}  grad_norm "
         f"{[round(x, 5) for x in gnorms]}  step times {[round(t, 4) for t in times]} s, "
         f"median {step_s:.4f} s  {tokens / step_s:.1f} tokens/s  peak mem {peak / 1e9:.2f} GB  "
-        f"MFU {100 * mfu:.2f} %  launches per step K1 {launches[0] / steps:g}, "
-        f"K2 {launches[1] / steps:g}")
+        f"MFU {100 * mfu:.2f} %  launches per step K1 {launches['flash_attention_fwd'] / steps:g}, "
+        f"K2 {launches['rmsnorm'] / steps:g}, K2 backward {launches['rmsnorm_bwd'] / steps:g}")
     require(all(math.isfinite(x) for x in losses + gnorms), f"non-finite train metrics: "
             f"{label} {losses} {gnorms}")
     require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
@@ -951,22 +1178,22 @@ def train_plan(torch, flash_ops, rms_ops, label: str, plan, steps: int, flops: f
     return record, (hp, params, opt, ds)
 
 
-def train_policy(torch, flash_ops, rms_ops, policy: str, steps: int, flops: float):
-    """``train_plan`` under one remat policy at grad_accum 4, its K1/K2
+def train_policy(torch, counters, policy: str, steps: int, flops: float):
+    """``train_plan`` under one remat policy at grad_accum 4, its kernel
     launches per step pinned (``TRAIN_LAUNCHES``)."""
     from repro_torch.configs.registry import get_config
 
     plan = _uniform_plan(get_config(TRAIN_ARCH), policy)
-    record, bundle = train_plan(torch, flash_ops, rms_ops, policy, plan, steps, flops)
-    expected = tuple(n * steps for n in TRAIN_LAUNCHES[policy])
-    require(record["launches"] == expected, f"train [{policy}] launched K1/K2 "
-            f"{record['launches']} times, expected {expected}")
+    record, bundle = train_plan(torch, counters, policy, plan, steps, flops)
+    expected = {name: n * steps for name, n in TRAIN_LAUNCHES[policy].items()}
+    require(record["launches"] == expected, f"train [{policy}] launched "
+            f"{record['launches']}, expected {expected}")
     return record, bundle
 
 
 def profile_train_step(torch, hp, params, opt, batch) -> None:
     """One train step under torch.profiler: device time by group — K1, K2,
-    the attention backward's recompute and the optimizer (kernels inside the
+    K2's backward, the attention backward's recompute and the optimizer (kernels inside the
     ``attention_vjp`` / ``optimizer`` spans on the device timeline), then
     matmuls, elementwise and copies by kernel name — and the busy share."""
     from torch.autograd import DeviceType
@@ -997,6 +1224,7 @@ def profile_train_step(torch, hp, params, opt, batch) -> None:
                   if any(s <= start and end <= e for s, e in spans[n])), None)
         if g is None:
             g = {"flash_attention": "K1 flash_attention_fwd", "rmsnorm": "K2 rmsnorm",
+                 "rmsnorm_bwd": "K2 rmsnorm backward",
                  "other": "elementwise"}.get(_kernel_group(ev.name), _kernel_group(ev.name))
         groups[g] = groups.get(g, 0.0) + ev.time_range.elapsed_us() / 1e3
         counts[g] = counts.get(g, 0) + 1
@@ -1089,7 +1317,7 @@ def parity_train(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def train_phase(torch, flash_ops, rms_ops) -> tuple[dict, float]:
+def train_phase(torch, counters) -> tuple[dict, float]:
     """Phase 10: the three remat policies at full width, the selective step's
     profile and components, and kernel-vs-plain parity.  Returns the
     selective run's launches (the train path's counts) and step times."""
@@ -1108,11 +1336,10 @@ def train_phase(torch, flash_ops, rms_ops) -> tuple[dict, float]:
         f"{flops / PEAK_FLOPS['bfloat16']:.4f} s")
     launches = selective = None
     for policy in TRAIN_POLICIES:
-        record, (hp, params, opt, ds) = train_policy(torch, flash_ops, rms_ops, policy,
-                                                     TRAIN_STEPS, flops)
+        record, (hp, params, opt, ds) = train_policy(torch, counters, policy, TRAIN_STEPS,
+                                                     flops)
         if policy == "selective":
-            launches = {"flash_attention_fwd": record["launches"][0],
-                        "rmsnorm": record["launches"][1]}
+            launches = record["launches"]
             selective = record["times"]
             profile_train_step(torch, hp, params, opt, ds.batch(TRAIN_STEPS))
             time_train_components(torch, cfg, params, opt)
@@ -1177,7 +1404,7 @@ def _plan_summary(plan) -> str:
             f"layers, zero {zeros}, strategies {[s.short() for s in dict.fromkeys(plan.layer_strategies)]}")
 
 
-def planner_phase(torch, flash_ops, rms_ops, selective: list) -> None:
+def planner_phase(torch, counters, selective: list) -> None:
     """Phase 11: profile two dense blocks on the card into a fresh cache,
     calibrate, search the one-H100 plan analytically and calibrated, train
     the calibrated plan for 3 full-width steps, and run the train launcher
@@ -1203,15 +1430,15 @@ def planner_phase(torch, flash_ops, rms_ops, selective: list) -> None:
         argv = PLAN_PROFILE_ARGS + ["--cache", cache_path]
 
         # 1. profile
-        flash_ops.flash_attention_fwd.launches = 0
-        rms_ops.rmsnorm.launches = 0
+        zero_counts(counters)
         rc, out = _run_captured(profile_cli.main, argv)
-        launches = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+        launches = read_counts(counters)
         require(rc == 0 and "profile: 2 cell(s) measured" in out,
                 "the profile launcher did not measure its 2 cells")
-        require(all(n > 0 for n in launches),
-                f"profiling did not run through K1 and K2: launches {launches}")
-        log(f"planner: profiling launched K1 {launches[0]} and K2 {launches[1]} times")
+        require(all(launches[k] > 0 for k in ("flash_attention_fwd", "rmsnorm", "rmsnorm_bwd")),
+                f"profiling did not run through K1, K2 and K2's backward: launches {launches}")
+        log(f"planner: profiling launched K1 {launches['flash_attention_fwd']}, K2 "
+            f"{launches['rmsnorm']} and K2's backward {launches['rmsnorm_bwd']} times")
         cache = pcache.ProfileCache.load(cache_path)
         for e in sorted(cache.entries.values(), key=lambda e: e.key.seq):
             log(f"planner: cell {e.key.id()}: fwd {e.fwd_time_s * 1e3:.4f} ms  bwd "
@@ -1263,13 +1490,18 @@ def planner_phase(torch, flash_ops, rms_ops, selective: list) -> None:
 
         # 3. train the calibrated plan (an out-of-memory error is not caught)
         plan = plans["calibrated"]
-        record, bundle = train_plan(torch, flash_ops, rms_ops, "calibrated plan", plan,
-                                    TRAIN_STEPS, dense + attn)
+        record, bundle = train_plan(torch, counters, "calibrated plan", plan, TRAIN_STEPS,
+                                    dense + attn)
         del bundle
         gc.collect()
         torch.cuda.empty_cache()
-        require(all(n > 0 for n in record["launches"]),
-                f"the calibrated plan's steps did not run K1 and K2: {record['launches']}")
+        launches = record["launches"]
+        norms = 2 * cfg.num_layers + 1
+        require(launches["flash_attention_fwd"] > 0 and launches["rmsnorm"] > 0,
+                f"the calibrated plan's steps did not run K1 and K2: {launches}")
+        require(launches["rmsnorm_bwd"] == norms * plan.grad_accum * TRAIN_STEPS,
+                f"the calibrated plan ran K2's backward {launches['rmsnorm_bwd']} times, "
+                f"expected {norms} per microbatch")
         for name, c in (("analytic", cal.DEFAULT_CALIBRATION), ("calibrated", calibration)):
             step_pred, mem_pred = plan_cost(cfg, plan, c)
             timed = dataclasses.replace(plan, predicted_step_time=step_pred)
@@ -1283,7 +1515,9 @@ def planner_phase(torch, flash_ops, rms_ops, selective: list) -> None:
         log(f"planner: calibrated plan: median step {record['step_s']:.4f} s, "
             f"{record['tokens_per_s']:.1f} tokens/s, MFU {100 * record['mfu']:.2f} %, peak "
             f"{record['peak_bytes'] / 1e9:.2f} GB, launches per step K1 "
-            f"{record['launches'][0] / TRAIN_STEPS:g}, K2 {record['launches'][1] / TRAIN_STEPS:g}")
+            f"{launches['flash_attention_fwd'] / TRAIN_STEPS:g}, K2 "
+            f"{launches['rmsnorm'] / TRAIN_STEPS:g}, K2 backward "
+            f"{launches['rmsnorm_bwd'] / TRAIN_STEPS:g}")
 
         # 4. the train launcher, as a user runs it
         cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCHER_ARGS,
@@ -1361,21 +1595,25 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    report = (_build.BUILD_DIR / "build.log")
-    if report.is_file():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
-                log("  " + line.strip())
+    report = _build.BUILD_DIR / "build.log"
+    if report.is_file():        # absent when an earlier call built the library
+        lines, k2_spills = build_report(report.read_text())
+        for line in lines:
+            log("  " + line)
+        require(not k2_spills, f"a K2 kernel spills registers: {k2_spills}")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rows = check_flash(torch, flash_ops, flash_ref, gen)
     check_flash_autograd(torch, flash_ops, flash_ref, gen)
     rms_rows = check_rmsnorm(torch, rms_ops, rms_ref, gen)
+    gated_rows = check_rmsnorm_gated(torch, rms_ops, rms_ref, gen)
+    bwd_rows = check_rmsnorm_backward(torch, rms_ops, rms_ref, gen)
     ssd_rows = check_ssd(torch, ssd_ops, ssd_ref, gen)
 
     # 4. the llama path at full width
-    session, prompts, llama_launches = serve_full_width(torch, np, serving, flash_ops, rms_ops)
+    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    session, prompts, llama_launches = serve_full_width(torch, np, serving, counters)
     profile_decode(torch, np, serving, session)
 
     # 5. llama kernel path against plain path
@@ -1385,8 +1623,6 @@ def main() -> int:
 
     # 6-9. the mamba2 and zamba2 paths at full width through the step
     # engine, each followed by its kernel path against its plain path
-    counters = {"ssd": ssd_ops.ssd, "rmsnorm": rms_ops.rmsnorm,
-                "flash_attention_fwd": flash_ops.flash_attention_fwd}
     static_launches = {}
     for arch, small_cfg in (
             ("mamba2-2.7b", get_config("mamba2-2.7b").reduced()),
@@ -1402,12 +1638,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 10. the dense training step at full width
-    train_launches, selective = train_phase(torch, flash_ops, rms_ops)
+    train_launches, selective = train_phase(torch, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
     # 11. the planner: profile, calibrate, search, train the plan, the launcher
-    planner_phase(torch, flash_ops, rms_ops, selective)
+    planner_phase(torch, counters, selective)
 
     # 12. results
     kernels = []
@@ -1417,6 +1653,10 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:110"),
             (rms_rows, "rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm/kernel.py:24"),
+            (gated_rows, "rmsnorm_gated", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm/kernel.py:24"),
+            (bwd_rows, "rmsnorm_bwd", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+             "src/repro/models/norms.py:24"),
             (ssd_rows, "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/kernel.py:74")):
         for r in rows:

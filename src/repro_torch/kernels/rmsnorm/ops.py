@@ -1,67 +1,199 @@
-"""RMSNorm entry point: the CUDA kernel on a CUDA tensor, the plain version
-on a CPU tensor.
+"""RMSNorm entry points: the CUDA kernels on CUDA tensors, the plain versions
+on CPU tensors.
 
 Replaces the TPU kernel ``repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas``
-(body ``_rmsnorm_kernel``) with ``csrc/rmsnorm.cu``.  What bounds it on the
-H100: bytes — one read and one write of every element at 3.35 TB/s, a few
-flops each.  The design reads each row with coalesced strided loads, reduces
-the fp32 sum of squares in registers and warp shuffles (one shared-memory
-step for 256-thread rows), and re-reads the row from cache for the output,
-so device memory sees one read and one write.
+(body ``_rmsnorm_kernel``) with ``csrc/rmsnorm.cu``, and gives it a backward,
+``csrc/rmsnorm_bwd.cu`` (the counterpart of XLA's compiled backward of the
+JAX norm).  What bounds both on the H100: bytes — one read and one write of
+every element at 3.35 TB/s, a few flops each.  Three entry points:
 
-``rmsnorm.launches`` counts kernel launches (plain-version calls on the CPU
-do not count).
+- ``rmsnorm(x, scale, eps)``: one read of each row in 16-byte packs kept in
+  registers, the fp32 sum of squares reduced over the row's threads, one
+  write;
+- ``rmsnorm(x, scale, eps, gate=z)``: Mamba2's gate norm ``rmsnorm(x *
+  silu(z))`` in the same pass (reads x and z, writes the output), rounding
+  where the plain composition rounds;
+- ``rmsnorm_backward(x, scale, g, eps)``, the backward of ``_RMSNorm``:
+  dx and a deterministic dscale (fp32 partial rows per block, then a
+  column sum; no atomics).
+
+The layout of a call — 16-byte packs or scalars, packs per thread, threads
+per row — is the pure function ``_template``.  Counters (kernel launches on
+CUDA tensors; plain-version calls on the CPU do not count):
+``rmsnorm.launches`` (every forward, gated or not), ``rmsnorm.gated_launches``
+(the gated forwards) and ``rmsnorm.backward_launches`` (backward calls, each
+two launches: the rows, then the column sums).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+from repro_torch.kernels.rmsnorm.ref import (gated_rmsnorm_reference, rmsnorm_backward_reference,
+                                             rmsnorm_reference)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_FWD_ARGTYPES = (_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _P)
+_GRID_ARGTYPES = (_LL, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I))
+_BWD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _I, _P)
+
+PACK_BYTES = 16        # one vector access
+MAX_TPR = 512          # threads per row, forward (csrc/rmsnorm.cuh: kMaxThreads)
+BWD_MAX_TPR = 256      # and backward (csrc/rmsnorm_bwd.cu: kBlock)
+MAX_NV = 8             # packs a thread keeps in registers: forward, vector template
+PAIR_NV = 2            # scalar template, gated forward, backward
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., D); scale: (D,).  Output in x's dtype."""
-    if x.device.type == "cpu" and scale.device.type == "cpu":
-        return rmsnorm_reference(x, scale, eps)
-    if x.device.type != "cuda" or scale.device != x.device:
-        raise ValueError(f"rmsnorm: x on {x.device}, scale on {scale.device}; "
-                         "the kernel takes both on one CUDA device")
+class Template(NamedTuple):
+    """The layout of one call: ``vec`` elements per access (16 bytes' worth,
+    or 1 — the scalar template), ``nv`` packs kept in registers per thread
+    (0: the two-pass loop over rows wider than the registers hold), ``tpr``
+    threads per row (a power of two up to 32, else a multiple of 32)."""
+    vec: int
+    nv: int
+    tpr: int
+
+    def describe(self) -> str:
+        kind = "scalar" if self.vec == 1 else f"vec{self.vec}"
+        return f"{kind} {'two-pass' if self.nv == 0 else f'nv{self.nv}'} tpr{self.tpr}"
+
+
+def _template(D: int, dtype: torch.dtype, *ptrs: int, backward: bool = False,
+              gated: bool = False) -> Template:
+    """The template a row of ``D`` elements of ``dtype`` runs, given the data
+    pointers of the call: 16-byte packs when every pointer is 16-byte aligned
+    and D is a multiple of the pack, else the scalar template.  One or two
+    packs a thread and as few lanes as hold the row (several rows a warp);
+    wider rows over as many warps as hold them at two packs a thread (on the
+    H100 two packs ran ahead of four and eight at the configs' widths), at
+    four or eight only where 512 threads of two would not hold the row; past
+    that, the two-pass loop.  The scalar template, the gated forward and the
+    backward keep to two packs (the registers of x and z, or x, g and the
+    next row's); the backward to 256 threads a row."""
+    vec = PACK_BYTES // dtype.itemsize
+    if D % vec or any(p % PACK_BYTES for p in ptrs):
+        vec = 1
+    nvec = D // vec
+    choices = (2,) if vec == 1 else (1, 2) if backward or gated else (1, 2, 4, 8)
+    for nv in choices[:2]:
+        lanes = -(-nvec // nv)
+        if lanes <= 32:
+            return Template(vec, nv, 1 << (lanes - 1).bit_length())
+    max_tpr = BWD_MAX_TPR if backward else MAX_TPR
+    for nv in choices:
+        tpr = 32 * -(-nvec // (32 * nv))
+        if nv >= 2 and tpr <= max_tpr:
+            return Template(vec, nv, tpr)
+    return Template(vec, 0, max_tpr)
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check(name: str, x: torch.Tensor, scale: torch.Tensor, *like_x: torch.Tensor) -> int:
+    """The kernels' input rules; returns D.  ``like_x``: tensors that must
+    match x (the gate, the output grad)."""
+    tensors = (x, scale, *like_x)
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}; the kernel "
+                         "takes them all on one CUDA device")
     if x.dtype not in _DTYPE_CODES or scale.dtype not in _DTYPE_CODES:
-        raise TypeError(f"rmsnorm: unsupported dtypes x={x.dtype} scale={scale.dtype}")
+        raise TypeError(f"{name}: unsupported dtypes x={x.dtype} scale={scale.dtype}")
     D = x.shape[-1]
     if scale.shape != (D,):
-        raise ValueError(f"rmsnorm: scale shape {tuple(scale.shape)} != ({D},)")
-    if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("rmsnorm: the kernel takes contiguous x and scale")
+        raise ValueError(f"{name}: scale shape {tuple(scale.shape)} != ({D},)")
+    for t in like_x:
+        if t.shape != x.shape or t.dtype != x.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} does not match x "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    return D
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+            gate: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (..., D); scale: (D,); ``gate``: None, or z of x's shape and dtype,
+    and then the norm of ``x * silu(z)``.  Output in x's dtype."""
+    extra = () if gate is None else (gate,)
+    if _on_cpu(x, scale, *extra):
+        if gate is None:
+            return rmsnorm_reference(x, scale, eps)
+        return gated_rmsnorm_reference(x, gate, scale, eps)
+    D = _check("rmsnorm", x, scale, *extra)
     out = torch.empty_like(x)
     rows = x.numel() // D if D else 0
     if rows == 0:
         return out
-    fn = _build.function("repro_rmsnorm_fwd", _ARGTYPES)
-    rc = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, float(eps),
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
+    ptrs = [t.data_ptr() for t in (x, scale, out, *extra)]
+    tpl = _template(D, x.dtype, *ptrs, gated=gate is not None)
+    fn = _build.function("repro_rmsnorm_fwd", _FWD_ARGTYPES)
+    rc = fn(x.data_ptr(), gate.data_ptr() if gate is not None else None, scale.data_ptr(),
+            out.data_ptr(), rows, D, float(eps), _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[scale.dtype], tpl.vec, tpl.nv, tpl.tpr,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "rmsnorm")
     rmsnorm.launches += 1
+    if gate is not None:
+        rmsnorm.gated_launches += 1
     return out
 
 
 rmsnorm.launches = 0
+rmsnorm.gated_launches = 0
+rmsnorm.backward_launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_grid(device: int, rows: int, D: int, x_code: int, s_code: int, tpl: Template) -> int:
+    """Blocks (= dscale partial rows) of one backward launch: the kernel's
+    occupancy on ``device`` times its SMs, at most one per row group."""
+    grid = ctypes.c_int(0)
+    fn = _build.function("repro_rmsnorm_bwd_grid", _GRID_ARGTYPES)
+    with torch.cuda.device(device):
+        rc = fn(rows, D, x_code, s_code, tpl.vec, tpl.nv, tpl.tpr, ctypes.byref(grid))
+    _build.check(rc, "rmsnorm backward grid")
+    return grid.value
+
+
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale) of ``rmsnorm(x, scale, eps)`` for its output grad ``g``
+    (x's shape and dtype): dx in x's dtype, dscale in scale's, both from
+    fp32 statistics recomputed from x."""
+    if _on_cpu(x, scale, g):
+        return rmsnorm_backward_reference(x, scale, g, eps)
+    D = _check("rmsnorm backward", x, scale, g)
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return dx, dscale.zero_()
+    x_code, s_code = _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype]
+    tpl = _template(D, x.dtype, *(t.data_ptr() for t in (x, scale, g, dx)), backward=True)
+    grid = _bwd_grid(x.device.index, rows, D, x_code, s_code, tpl)
+    partial = torch.empty((grid, D), dtype=torch.float32, device=x.device)
+    fn = _build.function("repro_rmsnorm_bwd", _BWD_ARGTYPES)
+    rc = fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+            dscale.data_ptr(), rows, D, float(eps), x_code, s_code, tpl.vec, tpl.nv, tpl.tpr,
+            grid, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "rmsnorm backward")
+    rmsnorm.backward_launches += 1
+    return dx, dscale
 
 
 class _RMSNorm(torch.autograd.Function):
     """``rmsnorm`` under autograd.  The forward is the kernel (its plain
-    version on CPU tensors) and saves only x and scale; the backward
-    recomputes the fp32 statistics in plain torch ops — the counterpart of
-    the JAX package's no-save ``jax.checkpoint`` around its jnp body, whose
-    backward is compiled jnp, not a Pallas kernel."""
+    version on CPU tensors) and saves only x and scale; the backward is
+    ``rmsnorm_backward``, which recomputes the fp32 statistics from them —
+    the counterpart of the JAX package's no-save ``jax.checkpoint`` around
+    its jnp body."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
@@ -72,13 +204,8 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, scale = ctx.saved_tensors
-        xf = x.float()
-        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + ctx.eps)
-        xhat = xf * r
-        gs = g.float() * scale.float()
-        dx = r * (gs - xhat * torch.mean(gs * xhat, dim=-1, keepdim=True))
-        dscale = (g.float() * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
-        return dx.to(x.dtype), dscale.to(scale.dtype), None
+        dx, dscale = rmsnorm_backward(x, scale, g.contiguous(), ctx.eps)
+        return dx, dscale, None
 
 
 def rmsnorm_autograd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

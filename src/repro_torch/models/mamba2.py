@@ -11,9 +11,10 @@ after it; here the scan takes them in the working dtype and upcasts inside
 fp32 cast is exact and y is rounded once either way, so the function is the
 same; a bf16 model skips four casts per layer.
 
-``impl="kernel"`` runs the RMSNorm kernel (K2) and the SSD scan kernel (K3)
-on CUDA tensors and their plain versions on CPU tensors; ``impl="ref"`` runs
-the plain PyTorch math everywhere.  Decode runs ``ssd_step`` in plain torch
+``impl="kernel"`` runs the RMSNorm kernel (K2; the gate norm as its gated
+form, one pass over y and z) and the SSD scan kernel (K3) on CUDA tensors
+and their plain versions on CPU tensors; ``impl="ref"`` runs the plain
+PyTorch math everywhere.  Decode runs ``ssd_step`` in plain torch
 on every device, as the JAX package does (jnp, not a kernel).
 
 Decode state per layer: the conv ring buffer (the last W-1 inputs of each
@@ -40,7 +41,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import _expand_groups
 from repro_torch.models import embedding
 from repro_torch.models.common import ParamDef, init_params, resolve_device, stacked, take_layer
-from repro_torch.models.norms import rmsnorm, rmsnorm_defs
+from repro_torch.models.norms import gated_rmsnorm, rmsnorm, rmsnorm_defs
 
 
 def _dims(cfg: ModelConfig):
@@ -148,7 +149,7 @@ def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"unknown mode {mode!r}")
 
     y = y.reshape(Bsz, y.shape[1], d_inner)
-    y = rmsnorm(params["gate_norm"], y * F.silu(z[:, : y.shape[1]]), cfg.norm_eps, impl)
+    y = gated_rmsnorm(params["gate_norm"], y, z[:, : y.shape[1]], cfg.norm_eps, impl)
     out = torch.matmul(y, params["w_out"].to(x.dtype))
     return x + out, new_state
 

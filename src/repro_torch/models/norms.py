@@ -7,13 +7,19 @@ fp32 statistics from the saved input (the JAX package's no-save
 ``jax.checkpoint`` around its norm).
 ``impl="ref"`` is the plain PyTorch math of the JAX ``_rmsnorm`` on any
 device — the comparison path only.
+
+``gated_rmsnorm`` is Mamba2's gate norm ``rmsnorm(y * silu(z))``: with
+nothing to differentiate (serving) it is one call of the gated kernel, which
+reads y and z and writes the output; with a grad to take it is the
+composition through ``rmsnorm_autograd``, so K2 still runs under autograd.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_reference, rmsnorm_reference
 from repro_torch.models.common import ParamDef
 
 
@@ -31,6 +37,20 @@ def _rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float, impl: str) -> tor
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5, impl: str = "kernel") -> torch.Tensor:
     return _rmsnorm(params["scale"], x, eps, impl)
+
+
+def gated_rmsnorm(params: dict, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-5,
+                  impl: str = "kernel") -> torch.Tensor:
+    """``rmsnorm(y * silu(z))``, z of y's shape and dtype (JAX:
+    ``rmsnorm(params, y * jax.nn.silu(z), eps)``)."""
+    scale = params["scale"]
+    if impl == "ref":
+        return gated_rmsnorm_reference(y, z, scale, eps)
+    if impl != "kernel":
+        raise ValueError(f"unknown impl {impl!r}")
+    if torch.is_grad_enabled() and (y.requires_grad or z.requires_grad or scale.requires_grad):
+        return rmsnorm_ops.rmsnorm_autograd((y * F.silu(z)).contiguous(), scale, eps)
+    return rmsnorm_ops.rmsnorm(y.contiguous(), scale, eps, gate=z.contiguous())
 
 
 def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5,

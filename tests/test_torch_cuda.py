@@ -74,6 +74,132 @@ def test_cuda_rmsnorm_at_zamba2_widths(cuda_device, width, dtype, tol):
                                atol=tol, rtol=tol)
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
+# (rows, D, dtype, misaligned, the template's description) — every layout K2 has
+RMS_TEMPLATE_CASES = [
+    (4096, 64, torch.bfloat16, False, "vec8 nv1 tpr8"),          # qk-norm, 4 rows a warp
+    (4096, 64, torch.float32, False, "vec4 nv1 tpr16"),
+    (4096, 128, torch.bfloat16, False, "vec8 nv1 tpr16"),
+    (300, 512, torch.bfloat16, False, "vec8 nv2 tpr32"),
+    (300, 1024, torch.float32, False, "vec4 nv2 tpr128"),
+    (8, 2048, torch.bfloat16, False, "vec8 nv2 tpr128"),          # llama decode
+    (4, 2560, torch.bfloat16, False, "vec8 nv2 tpr160"),          # mamba2 decode
+    (512, 3584, torch.bfloat16, False, "vec8 nv2 tpr224"),
+    (512, 7168, torch.float32, False, "vec4 nv4 tpr448"),
+    (64, 14336, torch.float32, False, "vec4 nv8 tpr448"),
+    (6, 40000, torch.bfloat16, False, "vec8 two-pass tpr512"),
+    (7, 333, torch.float32, False, "scalar nv2 tpr192"),
+    (300, 1000, torch.float32, True, "scalar nv2 tpr512"),
+    (512, 3584, torch.bfloat16, True, "scalar two-pass tpr512"),
+]
+
+
+@pytest.mark.parametrize("rows,D,dtype,misaligned,template", RMS_TEMPLATE_CASES)
+def test_cuda_rmsnorm_every_template_matches_plain_version(cuda_device, rows, D, dtype,
+                                                           misaligned, template):
+    """K2's forward at each of its templates (vector packs, scalar, two-pass;
+    rows per warp to rows over warps), aligned and misaligned views: fp32
+    1e-5, bf16 2e-2; one launch per call."""
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    x = (3.0 * torch.randn((rows, D), generator=g, device=cuda_device)).to(dtype)
+    s = torch.randn((D,), generator=g, device=cuda_device).to(dtype)
+    if misaligned:
+        x = _misaligned(x)
+    out_ptr = 0                                  # a fresh allocation is aligned
+    assert rms_ops._template(D, dtype, x.data_ptr(), s.data_ptr(), out_ptr).describe() \
+        == template
+    n = rms_ops.rmsnorm.launches
+    out = rms_ops.rmsnorm(x, s, 1e-5)
+    assert rms_ops.rmsnorm.launches == n + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), rms_ops.rmsnorm_reference(x, s, 1e-5).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,D,misaligned", [(8192, 5120, False), (4, 7168, False),
+                                               (1024, 7168, False), (7, 333, False),
+                                               (256, 5120, True)])
+def test_cuda_gated_rmsnorm_matches_plain_version(cuda_device, rows, D, misaligned, dtype,
+                                                  tol):
+    """The gated forward ``rmsnorm(x * silu(z))`` against
+    ``gated_rmsnorm_reference`` at the Mamba2 gate norm's widths (mamba2 5120,
+    zamba2 7168; prefill and decode rows), an odd width and a misaligned
+    gate; it counts on ``launches`` and ``gated_launches``."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + D)
+    x = (2.0 * torch.randn((rows, D), generator=g, device=cuda_device)).to(dtype)
+    z = (2.0 * torch.randn((rows, D), generator=g, device=cuda_device)).to(dtype)
+    s = (1 + 0.3 * torch.randn((D,), generator=g, device=cuda_device)).to(dtype)
+    if misaligned:
+        z = _misaligned(z)
+    n = (rms_ops.rmsnorm.launches, rms_ops.rmsnorm.gated_launches)
+    out = rms_ops.rmsnorm(x, s, 1e-5, gate=z)
+    assert (rms_ops.rmsnorm.launches, rms_ops.rmsnorm.gated_launches) == (n[0] + 1, n[1] + 1)
+    ref = rms_ops.gated_rmsnorm_reference(x, z, s, 1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+RMS_BWD_CASES = [  # rows, D, x dtype, scale dtype, misaligned
+    (8192, 2048, torch.bfloat16, torch.float32, False),     # the training shape
+    (2048, 2048, torch.float32, torch.float32, False),
+    (4096, 3584, torch.bfloat16, torch.float32, False),
+    (20000, 128, torch.bfloat16, torch.float32, False),     # qk-norm rows
+    (300, 333, torch.float32, torch.float32, False),        # odd width: scalar
+    (1000, 2048, torch.bfloat16, torch.float32, True),      # scalar two-pass
+    (64, 6000, torch.float32, torch.float32, False),        # vector two-pass
+    (512, 2048, torch.bfloat16, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("rows,D,dtype,sdtype,misaligned", RMS_BWD_CASES)
+def test_cuda_rmsnorm_backward_matches_plain_version(cuda_device, rows, D, dtype, sdtype,
+                                                     misaligned):
+    """The backward kernel against ``rmsnorm_backward_reference`` on the same
+    inputs: dx at the forward's tolerances (fp32 1e-5, bf16 2e-2) of its
+    scale; an fp32 dscale within 1e-4 of its scale (a bf16 one 2e-2); dscale
+    bitwise equal over two calls (no atomics); one count per call."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows * 7 + D)
+    x = (3.0 * torch.randn((rows, D), generator=g, device=cuda_device)).to(dtype)
+    s = (1 + 0.3 * torch.randn((D,), generator=g, device=cuda_device)).to(sdtype)
+    gy = torch.randn((rows, D), generator=g, device=cuda_device).to(dtype)
+    if misaligned:
+        x, gy = _misaligned(x), _misaligned(gy)
+    n = rms_ops.rmsnorm.backward_launches
+    dx, ds = rms_ops.rmsnorm_backward(x, s, gy, 1e-5)
+    dx2, ds2 = rms_ops.rmsnorm_backward(x, s, gy, 1e-5)
+    assert rms_ops.rmsnorm.backward_launches == n + 2
+    assert dx.dtype == dtype and ds.dtype == sdtype
+    rdx, rds = rms_ops.rmsnorm_backward_reference(x, s, gy, 1e-5)
+    dx_tol = 1e-5 if dtype == torch.float32 else 2e-2
+    ds_tol = 1e-4 if sdtype == torch.float32 else 2e-2
+    err_dx = float((dx.float() - rdx.float()).abs().max())
+    err_ds = float((ds.float() - rds.float()).abs().max())
+    assert err_dx <= dx_tol * max(1.0, float(rdx.float().abs().max())), err_dx
+    assert err_ds <= ds_tol * float(rds.float().abs().max()), err_ds
+    assert torch.equal(ds, ds2) and torch.equal(dx, dx2)
+
+
+def test_cuda_rmsnorm_autograd_runs_the_backward_kernel(cuda_device):
+    """Under autograd the forward launches K2 once and the backward runs the
+    backward kernel once; the plain version launches neither."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.randn((64, 2048), generator=g, device=cuda_device).bfloat16().requires_grad_()
+    s = torch.ones(2048, device=cuda_device, requires_grad=True)
+    n = (rms_ops.rmsnorm.launches, rms_ops.rmsnorm.backward_launches)
+    y = rms_ops.rmsnorm_autograd(x, s, 1e-5)
+    torch.autograd.grad(y, (x, s), torch.ones_like(y))
+    assert (rms_ops.rmsnorm.launches, rms_ops.rmsnorm.backward_launches) == (n[0] + 1, n[1] + 1)
+    y = rms_ops.rmsnorm_reference(x, s, 1e-5)
+    torch.autograd.grad(y, (x, s), torch.ones_like(y))
+    assert (rms_ops.rmsnorm.launches, rms_ops.rmsnorm.backward_launches) == (n[0] + 1, n[1] + 1)
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.randn((1, 4, 2, 64), device=cuda_device)
     with pytest.raises(TypeError):
