@@ -20,7 +20,9 @@ Phases (any failure exits non-zero and prints no result line):
    rows over 20 000 keys, causal, at a q offset and non-causal; zamba2's
    shared attention, hd 112 with one query head per KV head: a decode step
    B4 over 2080 keys with kv_len 2048/2049/2079/2080 and a causal prefill
-   B4 S2048: fp32 1e-4,
+   B4 S2048; moonshot-v1-16b-a3b's attention, hd 128 with one query head
+   per KV head (H 16): the same decode step and prefill, and its training
+   shape, causal B2 S4096 in bf16: fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
    holds rows over thousands of keys, whose values are ~1e-2; the llama
@@ -117,7 +119,29 @@ Phases (any failure exits non-zero and prints no result line):
    measured cache) as a subprocess, whose median step must be within 5 % of
    phase 10's selective median (or of the spread of phase 10's own selective
    steps, when the host makes that wider);
-12. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
+12. moonshot serve — phase 6 at full-width, full-depth moonshot-v1-16b-a3b
+   (48 layers, d 2048, 16 = KV heads at hd 128, 64 experts of ff 1408,
+   top-6, capacity factor 1.25, a shared expert of ff 2816, untied vocab
+   163 840; 28.89 G parameters, 57.8 GB in bf16, drawn piece by piece):
+   exactly 48 x 32 = 1536 flash attention and 97 x 32 = 3104 RMSNorm
+   launches, none gated, no K3; the profiled prefill and decode steps group
+   the MoE FFN's kernels by its profiler spans (routing, dispatch gather,
+   expert products, combine gather);
+13. moonshot parity — (a) the reduced moonshot in fp32: identical greedy
+   tokens with ``impl="kernel"`` and ``impl="ref"``; (b) full depth in
+   bf16: the two paths' last-position logits, their top-1 agreement, the
+   share of (token, layer, choice) routing decisions on which they agree,
+   and the prefill's capacity-drop share, logged; (c) full width cut to 4
+   layers (the served weights' first 4; fp32 at full depth would be
+   115 GB) under phase 7's rules, the routing agreement logged in each
+   dtype;
+14. moonshot train — full width cut to 2 layers (fp32 masters, grads and
+   AdamW state for 48 would be ~462 GB): 3 steps of 8 x 4096 tokens in 4
+   microbatches under ``selective`` from fresh state; losses, aux (finite
+   and positive), step time, tokens/s, peak memory and MFU; K1 16, K2 36
+   and K2-backward 20 launches a step pinned; phase 10's kernel-vs-plain
+   parity on one microbatch of 2 x 4096, the routing agreement logged;
+15. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
    ``rmsnorm_bwd`` rows for K2), then the device line last.
 """
 from __future__ import annotations
@@ -125,6 +149,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -322,7 +347,8 @@ def flash_row_err(out, ref32) -> float:
 def check_flash(torch, flash_ops, flash_ref, gen):
     """Every flash-attention case against the plain version; returns the
     JSON rows of the timed bf16 cases: the two llama serving shapes (compact
-    KV = 8), the g = 5 / hd 112 check shapes and the llama training shape."""
+    KV = 8), the g = 5 / hd 112 check shapes, the llama training shape, and
+    zamba2's and moonshot's serving shapes and moonshot's training shape."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -390,6 +416,20 @@ def check_flash(torch, flash_ops, flash_ref, gen):
                                                   path="zamba2")))
         cases.append((f"zamba2 prefill causal B4 S2048 H32 KV32 hd112 {name}", True, flash_case(
             torch, gen, B=4, Sq=2048, Sk=2048, H=32, hd=112, dtype=dtype, path="zamba2")))
+    # moonshot-v1-16b-a3b: hd 128 with one query head per KV head, its decode
+    # (kv_len at and around the 2048-key tile edge), prefill and training shapes
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cases.append((f"moonshot decode B4 Sq1 Sk2080 H16 KV16 hd128 kv_len 2048/2049/2079/2080 "
+                      f"{name}", True, flash_case(torch, gen, B=4, Sq=1, Sk=2080, H=16, hd=128,
+                                                  dtype=dtype, q_off=z_len - 1, kv_len=z_len,
+                                                  path="moonshot")))
+        cases.append((f"moonshot prefill causal B4 S2048 H16 KV16 hd128 {name}", True,
+                      flash_case(torch, gen, B=4, Sq=2048, Sk=2048, H=16, hd=128, dtype=dtype,
+                                 path="moonshot")))
+    cases.append(("moonshot train causal B2 S4096 H16 KV16 hd128 bfloat16", True, flash_case(
+        torch, gen, B=2, Sq=4096, Sk=4096, H=16, hd=128, dtype=torch.bfloat16,
+        path="moonshot_train")))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -811,22 +851,51 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def report_profile(prof, wall: float, steps: int, what: str, unit: str) -> None:
-    """Device time of a profiled window by kernel group, per ``unit`` (one of
-    ``steps``), and the device's busy share of the host-clock window."""
+def device_groups(prof, spans: dict, name_group=_kernel_group):
+    """Device time (ms) and launches by group over a profiled window: a
+    kernel inside the device-timeline range of one of ``spans`` (profiler
+    span name -> group label) takes that label, any other
+    ``name_group(its name)``.  Returns (ms by group, launches by group, ms
+    by kernel name, whether every span showed on the device timeline)."""
+    import bisect
+
     from torch.autograd import DeviceType
+
+    dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    ranges = {n: sorted((ev.time_range.start, ev.time_range.end) for ev in dev if ev.name == n)
+              for n in spans}
+    starts = {n: [r[0] for r in rs] for n, rs in ranges.items()}
+
+    def span_of(start, end):
+        for n, label in spans.items():
+            i = bisect.bisect_right(starts[n], start) - 1
+            if i >= 0 and end <= ranges[n][i][1]:
+                return label
+        return None
 
     groups: dict[str, float] = {}
     counts: dict[str, int] = {}
     by_name: dict[str, float] = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in dev:
+        if ev.name in spans:
             continue
-        g = _kernel_group(ev.name)
+        g = span_of(ev.time_range.start, ev.time_range.end) or name_group(ev.name)
         ms = ev.time_range.elapsed_us() / 1e3
         groups[g] = groups.get(g, 0.0) + ms
         counts[g] = counts.get(g, 0) + 1
         by_name[ev.name[:70]] = by_name.get(ev.name[:70], 0.0) + ms
+    return groups, counts, by_name, all(ranges.values())
+
+
+def report_profile(prof, wall: float, steps: int, what: str, unit: str,
+                   spans: dict | None = None) -> None:
+    """Device time of a profiled window by group (``device_groups``: the
+    kernels inside ``spans``, then by kernel name), per ``unit`` (one of
+    ``steps``), and the device's busy share of the host-clock window."""
+    groups, counts, by_name, seen = device_groups(prof, spans or {})
+    if spans and not seen:
+        log(f"profile: {what}: the device timeline shows none of the spans {sorted(spans)}; "
+            "their kernels fall into the name groups")
     busy = sum(groups.values())
     if busy == 0.0:
         log(f"profile: {what}: device time not measured (the profiler saw no kernels)")
@@ -931,13 +1000,29 @@ def step_engine_launches(model, new: int) -> dict:
     once per Mamba layer of the prefill; per forward (the prefill and
     ``new - 1`` decode steps) K2 twice per Mamba layer (the layer norm, and
     the gate norm — gated, one launch that also counts on
-    ``rmsnorm_gated``), twice per site of the shared attention block and
-    once for the final norm, and K1 once per site (a hybrid's ``n_apps``;
-    none in mamba2); no K2 backward."""
-    layers, sites = model.cfg.num_layers, getattr(model, "n_apps", 0)
-    return {"ssd": layers, "rmsnorm": (2 * layers + 2 * sites + 1) * new,
-            "rmsnorm_gated": layers * new, "rmsnorm_bwd": 0,
-            "flash_attention_fwd": sites * new}
+    ``rmsnorm_gated``), twice per attention block and once for the final
+    norm, and K1 once per attention block: a hybrid's ``n_apps`` sites, none
+    in mamba2, every layer of an MoE decoder; no K2 backward."""
+    cfg = model.cfg
+    mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = cfg.num_layers if cfg.family == "moe" else getattr(model, "n_apps", 0)
+    return {"ssd": mamba, "rmsnorm": (2 * mamba + 2 * attn + 1) * new,
+            "rmsnorm_gated": mamba * new, "rmsnorm_bwd": 0,
+            "flash_attention_fwd": attn * new}
+
+
+def describe(model) -> str:
+    """The full-width model's shape, for the log."""
+    cfg = model.cfg
+    parts = [f"{cfg.num_layers} layers", f"d {cfg.d_model}"]
+    if getattr(model, "n_apps", 0):
+        parts.append(f"{model.n_apps} shared-attention sites")
+    if cfg.family == "moe":
+        parts += [f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.resolved_head_dim}",
+                  f"{cfg.num_experts} experts of ff {cfg.d_ff}, top-{cfg.experts_per_token}, "
+                  f"capacity factor {cfg.moe_capacity_factor}",
+                  f"shared expert ff {cfg.shared_expert_ff}"]
+    return ", ".join(parts + [f"vocab {cfg.vocab_size}"])
 
 
 def serve_step_engine(torch, np, serving, build_model, get_config, counters, arch: str):
@@ -945,6 +1030,8 @@ def serve_step_engine(torch, np, serving, build_model, get_config, counters, arc
     engine: STATIC_BATCH prompts of STATIC_PROMPT tokens, STATIC_NEW new
     tokens each, after a warm-up; every kernel's launches pinned
     (``step_engine_launches``).  Returns (engine, params, prompts, launches)."""
+    from repro_torch.models.common import tree_leaves
+
     cfg = get_config(arch)
     label = cfg.name.split("-")[0]
     t0 = time.perf_counter()
@@ -953,10 +1040,9 @@ def serve_step_engine(torch, np, serving, build_model, get_config, counters, arc
     engine = serving.step_engine(model, serving.single_device_plan(cfg), batch=STATIC_BATCH,
                                  max_len=STATIC_PROMPT + STATIC_NEW)
     torch.cuda.synchronize()
-    sites = getattr(model, "n_apps", 0)
-    log(f"{label}: built full-width {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{sites} shared-attention sites, vocab {cfg.vocab_size}) in "
-        f"{time.perf_counter() - t0:.3f} s")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"{label}: built full-width {cfg.name} ({describe(model)}; {n_params} parameters, "
+        f"{n_params * 2 / 1e9:.2f} GB in bf16) in {time.perf_counter() - t0:.3f} s")
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                 (STATIC_BATCH, STATIC_PROMPT), dtype=np.int64)
     # warm-up (cuBLAS handles, allocator); not part of the measured run
@@ -990,13 +1076,23 @@ def serve_step_engine(torch, np, serving, build_model, get_config, counters, arc
     return engine, params, prompts, launches
 
 
+#: the MoE FFN's profiler spans (``models/moe.py``) -> profile groups
+MOE_SPANS = {"moe_route": "MoE routing (router product, softmax, top-k, slot cumsum, "
+                          "scatter-min)",
+             "moe_dispatch": "MoE dispatch gather",
+             "moe_experts": "MoE expert products (bmm) and SwiGLU",
+             "moe_combine": "MoE combine gather and gate sum"}
+
+
 def profile_step_engine(torch, engine, params, prompts, steps: int = 4):
     """Where a full-width prefill's and decode step's device time goes: one
     prefill, then ``steps`` decode steps, each window under torch.profiler;
-    device time by kernel group and busy share."""
+    device time by group (an MoE model's FFN by its spans, ``MOE_SPANS``)
+    and busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     label = engine.model.cfg.name.split("-")[0]
+    spans = MOE_SPANS if engine.model.cfg.family == "moe" else None
     tokens = torch.from_numpy(prompts).cuda()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1005,7 +1101,7 @@ def profile_step_engine(torch, engine, params, prompts, steps: int = 4):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     require(bool(torch.isfinite(logits).all()), f"non-finite {label} prefill logits")
-    report_profile(prof, wall, 1, f"{label} prefill {tuple(tokens.shape)}", "prefill")
+    report_profile(prof, wall, 1, f"{label} prefill {tuple(tokens.shape)}", "prefill", spans)
     S = tokens.shape[1]
     tok = logits[:, -1].argmax(-1, keepdim=True)
     engine.decode_step(params, tok, cache, S)                       # warm
@@ -1019,18 +1115,54 @@ def profile_step_engine(torch, engine, params, prompts, steps: int = 4):
         wall = time.perf_counter() - t0
     require(bool(torch.isfinite(logits).all()), f"non-finite {label} decode logits")
     report_profile(prof, wall, steps, f"{label} {steps} decode steps x {tokens.shape[0]} rows",
-                   "step")
+                   "step", spans)
 
 
-def parity_step_engine(torch, np, serving, build_model, small_cfg, engine, params, prompts):
-    """(a) ``small_cfg`` (a reduced model of the engine's family) in fp32
-    gives identical greedy tokens with ``impl="kernel"`` and ``impl="ref"``;
-    (b) at full width, the prefill's last-position logits of the kernel path
-    and the plain path in bf16 and in fp32, all held against the plain path
-    in fp32 on the same (bf16-valued) weights."""
-    from repro_torch.models.common import cast_tree
+class RoutingLog:
+    """While active, records every MoE layer's routing: the expert indices
+    of ``route`` (T, k) and the kept choices of ``assign_slots`` (T, k), by
+    wrapping the two functions of ``repro_torch.models.moe``, which
+    ``moe_ffn_apply`` looks up at each call.  A model without MoE layers
+    records nothing."""
 
-    label = engine.model.cfg.name.split("-")[0]
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.idx, self.keep = moe, [], []
+        self.saved = route, assign = moe.route, moe.assign_slots
+
+        def rec_route(logits, cfg):
+            out = route(logits, cfg)
+            self.idx.append(out[1])
+            return out
+
+        def rec_assign(idx, E, C):
+            out = assign(idx, E, C)
+            self.keep.append(out[1])
+            return out
+
+        moe.route, moe.assign_slots = rec_route, rec_assign
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.assign_slots = self.saved
+
+    def agreement(self, other: "RoutingLog") -> float:
+        """The share of (token, layer, choice) routing decisions equal in
+        both logs."""
+        same = sum(int((a == b).sum()) for a, b in zip(self.idx, other.idx))
+        return same / max(sum(a.numel() for a in self.idx), 1)
+
+    def drop_share(self) -> float:
+        """The share of (token, layer, choice) choices past capacity."""
+        kept = sum(int(k.sum()) for k in self.keep)
+        return 1.0 - kept / max(sum(k.numel() for k in self.keep), 1)
+
+
+def parity_reduced(torch, np, serving, build_model, small_cfg, label: str) -> None:
+    """``small_cfg`` (a reduced model of a family) in fp32 gives identical
+    greedy tokens with ``impl="kernel"`` and ``impl="ref"`` through the step
+    engine."""
     small = build_model(small_cfg).init(torch.Generator(device="cuda").manual_seed(7),
                                         torch.float32)
     small_prompts = np.random.default_rng(3).integers(0, small_cfg.vocab_size, (4, 100))
@@ -1044,16 +1176,24 @@ def parity_step_engine(torch, np, serving, build_model, small_cfg, engine, param
     log(f"parity: reduced {label} ({small_cfg.num_layers} layers) fp32 greedy tokens identical "
         f"over 4 prompts of 100 x 12 ({tokens['kernel'][0][:6]}...)")
 
-    model_k = engine.model
-    model_r = build_model(model_k.cfg, impl="ref")
-    toks = torch.from_numpy(prompts).cuda()
+
+def parity_prefill(torch, label: str, model_k, model_r, params, toks, what: str) -> None:
+    """The prefill's last-position logits of the kernel path and the plain
+    path in bf16 and in fp32 (``params`` cast), all held against the plain
+    path in fp32 on the same (bf16-valued) weights: the kernel bf16 path no
+    further from it than twice the plain bf16 path, the kernel fp32 path
+    within 1e-3 of the logit scale.  An MoE model also logs the share of
+    routing decisions on which the two paths agree, in each dtype."""
+    from repro_torch.models.common import cast_tree
+
     params32 = cast_tree(params, torch.float32)
-    out = {}
+    out, routes = {}, {}
     for name, model, p, dtype in (("kernel", model_k, params, torch.bfloat16),
                                   ("ref", model_r, params, torch.bfloat16),
                                   ("kernel32", model_k, params32, torch.float32),
                                   ("ref32", model_r, params32, torch.float32)):
-        logits, cache = model.forward_prefill(p, toks, dtype=dtype)
+        with RoutingLog() as routes[name]:
+            logits, cache = model.forward_prefill(p, toks, dtype=dtype)
         out[name] = logits[:, -1]
         del logits, cache
         torch.cuda.empty_cache()
@@ -1061,17 +1201,24 @@ def parity_step_engine(torch, np, serving, build_model, small_cfg, engine, param
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     require(all(bool(torch.isfinite(v).all()) for v in out.values()),
-            f"non-finite full-width {label} logits")
+            f"non-finite {what} {label} logits")
     err = float((out["kernel"] - out["ref"]).abs().max())
     scale = float(out["ref32"].abs().max())
     err_k = float((out["kernel"] - out["ref32"]).abs().max())
     err_r = float((out["ref"] - out["ref32"]).abs().max())
     err_32 = float((out["kernel32"] - out["ref32"]).abs().max())
     top1 = float((out["kernel"].argmax(-1) == out["ref32"].argmax(-1)).float().mean())
-    log(f"parity: full-width {label} prefill logits ({tuple(out['ref'].shape)}): kernel-vs-plain "
+    routing = ""
+    if routes["kernel"].idx:
+        routing = (f"; routing agreement kernel vs plain: bf16 "
+                   f"{routes['kernel'].agreement(routes['ref']):.6f}, fp32 "
+                   f"{routes['kernel32'].agreement(routes['ref32']):.6f} of "
+                   f"{sum(a.numel() for a in routes['kernel'].idx)} (token, layer, choice) "
+                   f"decisions; dropped past capacity: {routes['kernel32'].drop_share():.4f}")
+    log(f"parity: {what} {label} prefill logits ({tuple(out['ref'].shape)}): kernel-vs-plain "
         f"bf16 max_abs_err {err:.3e} (max |logit| {scale:.3f}); vs fp32 plain: kernel bf16 "
         f"{err_k:.3e}, plain bf16 {err_r:.3e}, kernel fp32 {err_32:.3e}; kernel bf16 top-1 "
-        f"agreement with fp32 {top1:.4f}")
+        f"agreement with fp32 {top1:.4f}{routing}")
     require(err_k <= 2.0 * err_r,
             f"the {label} kernel path is further from fp32 than the plain bf16 path's error x2")
     require(err_32 <= SSD_TOL * max(1.0, scale),
@@ -1079,37 +1226,60 @@ def parity_step_engine(torch, np, serving, build_model, small_cfg, engine, param
             "1e-3 of the logit scale")
 
 
+def parity_step_engine(torch, np, serving, build_model, small_cfg, engine, params, prompts):
+    """(a) ``parity_reduced`` on ``small_cfg``; (b) ``parity_prefill`` at
+    full width on the served weights and prompts."""
+    label = engine.model.cfg.name.split("-")[0]
+    parity_reduced(torch, np, serving, build_model, small_cfg, label)
+    model_r = build_model(engine.model.cfg, impl="ref")
+    parity_prefill(torch, label, engine.model, model_r, params,
+                   torch.from_numpy(prompts).cuda(), "full-width")
+
+
 # ---------------------------------------------------------------- phase 10
 
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 4, 3
 TRAIN_POLICIES = ("selective", "full", "none")
-#: Kernel launches per step (4 microbatches of a 16-layer model).  A
-#: forward launches K1 once per layer and K2 twice per layer plus once for
-#: the final norm (16, 33); a recomputing policy reruns each layer's forward
-#: in its backward up to the FFN's last matmul, both norms and the attention
-#: included (16, 32 more).  The backward runs K2's backward kernel once per
-#: norm (33; the non-reentrant recompute reruns forwards, not backwards) under
-#: every policy; K1's backward is plain torch.  No gated K2, no K3.
-TRAIN_LAUNCHES = {
-    policy: {"flash_attention_fwd": k1 * 4, "rmsnorm": k2 * 4, "rmsnorm_gated": 0,
-             "rmsnorm_bwd": 33 * 4, "ssd": 0}
-    for policy, (k1, k2) in (("none", (16, 33)), ("selective", (32, 65)), ("full", (32, 65)))}
+
+
+def train_launches(layers: int, policy: str, accum: int = TRAIN_ACCUM) -> dict:
+    """Kernel launches per step of a decoder of ``layers`` layers (dense or
+    MoE FFN) in ``accum`` microbatches.  A forward launches K1 once per
+    layer and K2 twice per layer plus once for the final norm (16, 33 at 16
+    layers); a recomputing policy reruns each layer's forward in its
+    backward up to the FFN's last product, both norms and the attention
+    included (16, 32 more).  The backward runs K2's backward kernel once per
+    norm (33; the non-reentrant recompute reruns forwards, not backwards)
+    under every policy; K1's backward is plain torch.  No gated K2, no K3."""
+    again = policy != "none"
+    return {"flash_attention_fwd": layers * (1 + again) * accum,
+            "rmsnorm": (2 * layers + 1 + 2 * layers * again) * accum, "rmsnorm_gated": 0,
+            "rmsnorm_bwd": (2 * layers + 1) * accum, "ssd": 0}
+
+
+#: llama3.2-1b's (16 layers): per step K1 64 / 128, K2 132 / 260, K2's backward 132
+TRAIN_LAUNCHES = {policy: train_launches(16, policy) for policy in TRAIN_POLICIES}
 #: profiler spans of the training step, innermost first
 TRAIN_SPANS = {"attention_vjp": "attention backward (recompute)", "optimizer": "optimizer"}
 
 
 def train_flops(cfg, batch: int, seq: int) -> tuple[int, float, float]:
     """(matmul parameters, their FLOPs, attention FLOPs) of one step: 6 x
-    the parameters of the matrix products (q/k/v/out projections, FFN, LM
-    head; not the embedding gather or the norms) x tokens, plus causal
-    attention at 3 (forward, and twice that backward) x layers x
-    4·B·H·S²·hd / 2."""
+    the parameters of the matrix products a token goes through (q/k/v/out
+    projections, FFN — for an MoE FFN the router, its top-k experts and the
+    shared expert —, LM head; not the embedding gather or the norms) x
+    tokens, plus causal attention at 3 (forward, and twice that backward) x
+    layers x 4·B·H·S²·hd / 2.  The capacity slots an MoE layer computes
+    empty or past its tokens are not model FLOPs."""
     L, d, H, KV, hd = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                        cfg.resolved_head_dim)
     n_ffn = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
-    matmul_params = L * (d * (H + 2 * KV) * hd + H * hd * d + n_ffn * d * cfg.d_ff) \
-        + cfg.vocab_size * d
+    ffn = n_ffn * d * cfg.d_ff
+    if cfg.num_experts:
+        ffn = d * cfg.num_experts + cfg.experts_per_token * ffn \
+            + n_ffn * d * cfg.shared_expert_ff
+    matmul_params = L * (d * (H + 2 * KV) * hd + H * hd * d + ffn) + cfg.vocab_size * d
     dense = 6.0 * matmul_params * batch * seq
     attn = 3.0 * L * 4.0 * batch * cfg.num_heads * seq * seq * hd / 2.0
     return matmul_params, dense, attn
@@ -1131,16 +1301,16 @@ def _train_bundle(torch, cfg, plan, *, impl: str = "kernel", seed: int = 0):
     return hp, params
 
 
-def train_plan(torch, counters, label: str, plan, steps: int, flops: float):
-    """``steps`` train steps of full-width llama3.2-1b under ``plan`` from
-    fresh state; returns the record of the run and (hp, params, opt, ds)
-    for the profile."""
+def train_plan(torch, counters, label: str, plan, steps: int, flops: float, cfg=None):
+    """``steps`` train steps of ``cfg`` (full-width llama3.2-1b by default)
+    under ``plan`` from fresh state; returns the record of the run and (hp,
+    params, opt, ds) for the profile."""
     import math
 
     from repro_torch.configs.registry import get_config
     from repro_torch.runtime.data import SyntheticDataset
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = cfg or get_config(TRAIN_ARCH)
     hp, params = _train_bundle(torch, cfg, plan)
     opt = hp.init_opt_state(params)
     ds = SyntheticDataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
@@ -1149,7 +1319,7 @@ def train_plan(torch, counters, label: str, plan, steps: int, flops: float):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
-    times, losses, gnorms = [], [], []
+    times, losses, gnorms, auxes = [], [], [], []
     for batch in batches:
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batch)
@@ -1157,6 +1327,7 @@ def train_plan(torch, counters, label: str, plan, steps: int, flops: float):
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
+        auxes.append(float(m["aux"]))
     launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(times)
@@ -1164,7 +1335,8 @@ def train_plan(torch, counters, label: str, plan, steps: int, flops: float):
     mfu = flops / (step_s * PEAK_FLOPS["bfloat16"])
     log(f"train [{label}]: {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
         f"(grad_accum {plan.grad_accum}): losses {[round(x, 5) for x in losses]}  grad_norm "
-        f"{[round(x, 5) for x in gnorms]}  step times {[round(t, 4) for t in times]} s, "
+        f"{[round(x, 5) for x in gnorms]}  aux (last microbatch) {[round(x, 5) for x in auxes]}  "
+        f"step times {[round(t, 4) for t in times]} s, "
         f"median {step_s:.4f} s  {tokens / step_s:.1f} tokens/s  peak mem {peak / 1e9:.2f} GB  "
         f"MFU {100 * mfu:.2f} %  launches per step K1 {launches['flash_attention_fwd'] / steps:g}, "
         f"K2 {launches['rmsnorm'] / steps:g}, K2 backward {launches['rmsnorm_bwd'] / steps:g}")
@@ -1172,8 +1344,8 @@ def train_plan(torch, counters, label: str, plan, steps: int, flops: float):
             f"{label} {losses} {gnorms}")
     require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
             f"first loss {losses[0]} is not near ln(vocab) {math.log(cfg.vocab_size):.3f}")
-    record = dict(label=label, losses=losses, grad_norms=gnorms, times=times, step_s=step_s,
-                  tokens_per_s=tokens / step_s, peak_bytes=peak, mfu=mfu,
+    record = dict(label=label, losses=losses, grad_norms=gnorms, auxes=auxes, times=times,
+                  step_s=step_s, tokens_per_s=tokens / step_s, peak_bytes=peak, mfu=mfu,
                   launches=launches)
     return record, (hp, params, opt, ds)
 
@@ -1196,7 +1368,6 @@ def profile_train_step(torch, hp, params, opt, batch) -> None:
     K2's backward, the attention backward's recompute and the optimizer (kernels inside the
     ``attention_vjp`` / ``optimizer`` spans on the device timeline), then
     matmuls, elementwise and copies by kernel name — and the busy share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1208,26 +1379,13 @@ def profile_train_step(torch, hp, params, opt, batch) -> None:
     require(all(bool(torch.isfinite(v).all()) for v in out[2].values()),
             "non-finite metrics in the profiled train step")
     del out
-    dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    spans = {n: sorted((ev.time_range.start, ev.time_range.end) for ev in dev if ev.name == n)
-             for n in TRAIN_SPANS}
-    if not all(spans.values()):
+    rename = {"flash_attention": "K1 flash_attention_fwd", "rmsnorm": "K2 rmsnorm",
+              "rmsnorm_bwd": "K2 rmsnorm backward", "other": "elementwise"}
+    groups, counts, _, seen = device_groups(
+        prof, TRAIN_SPANS, lambda name: rename.get(_kernel_group(name), _kernel_group(name)))
+    if not seen:
         log("profile: train step: the device timeline shows no attention_vjp/optimizer "
             "spans; their kernels fall into the name groups (see the timed components)")
-    groups: dict[str, float] = {}
-    counts: dict[str, int] = {}
-    for ev in dev:
-        if ev.name in TRAIN_SPANS:
-            continue
-        start, end = ev.time_range.start, ev.time_range.end
-        g = next((label for n, label in TRAIN_SPANS.items()
-                  if any(s <= start and end <= e for s, e in spans[n])), None)
-        if g is None:
-            g = {"flash_attention": "K1 flash_attention_fwd", "rmsnorm": "K2 rmsnorm",
-                 "rmsnorm_bwd": "K2 rmsnorm backward",
-                 "other": "elementwise"}.get(_kernel_group(ev.name), _kernel_group(ev.name))
-        groups[g] = groups.get(g, 0.0) + ev.time_range.elapsed_us() / 1e3
-        counts[g] = counts.get(g, 0) + 1
     busy = sum(groups.values())
     if busy == 0.0:
         log("profile: train step: device time not measured (the profiler saw no kernels)")
@@ -1264,56 +1422,78 @@ def time_train_components(torch, cfg, params, opt) -> None:
     del q, g, k, v
 
 
-def parity_train(torch) -> None:
-    """Kernel path against plain path at full width, 2 layers, seq 1024,
-    batch 2, same weights.  fp32: loss within 1e-4 relative, every grad and
-    every parameter after one AdamW step within 2e-3 of its leaf's largest
-    magnitude.  bf16: loss within 3e-2 relative, and the kernel path's grads
-    no further from the fp32 plain path than twice the bf16 plain path's."""
+def parity_train(torch, cfg=None, seq: int = 1024, batch: int = 2) -> None:
+    """Kernel path against plain path on ``cfg`` (full-width llama3.2-1b
+    cut to 2 layers by default), ``batch`` x ``seq`` tokens, same weights.
+    fp32: loss within 1e-4 relative, every grad and every parameter after
+    one AdamW step within 2e-3 of its leaf's largest magnitude.  bf16: loss
+    within 3e-2 relative, and the kernel path's grads no further from the
+    fp32 plain path than twice the bf16 plain path's.  An MoE model also
+    logs the share of routing decisions on which the paths agree."""
+    import gc
+
     from repro_torch.configs.registry import get_config
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_leaves, tree_paths
     from repro_torch.runtime import optimizer as opt_lib
     from repro_torch.runtime.data import SyntheticDataset
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
-    batch = SyntheticDataset(cfg, seq_len=1024, global_batch=2, seed=1).batch(0)
-    out = {}
-    for name, impl, dtype in (("kernel32", "kernel", torch.float32),
-                              ("ref32", "ref", torch.float32),
+    cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
+    data = SyntheticDataset(cfg, seq_len=seq, global_batch=batch, seed=1).batch(0)
+    paths = None
+
+    def rel_err(a_leaves, b_leaves):
+        """The largest error / leaf scale, and its leaf's path."""
+        errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(a_leaves, b_leaves)]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return errs[i], "/".join(paths[i])
+
+    out, ref = {}, None
+    for name, impl, dtype in (("ref32", "ref", torch.float32),
+                              ("kernel32", "kernel", torch.float32),
                               ("kernel", "kernel", torch.bfloat16),
                               ("ref", "ref", torch.bfloat16)):
         hp, params = _train_bundle(torch, cfg, _uniform_plan(cfg, "selective"), impl=impl,
                                    seed=1)
-        loss, _, grads = hp.value_and_grad(params, batch, dtype)
+        with RoutingLog() as routes:
+            loss, _, grads = hp.value_and_grad(params, data, dtype)
         new = None
         if dtype == torch.float32:
             new, _, _ = opt_lib.adamw_update(params, grads, hp.init_opt_state(params),
                                              hp.opt_cfg)
-        out[name] = (float(loss), tree_leaves(grads), new and tree_leaves(new))
-        del hp, params, grads, new
+        routes.idx = routes.idx[:cfg.num_layers]       # the forward's, not the recompute's
+        paths = paths or [p for p, _ in tree_paths(grads)]
+        if ref is None:
+            ref = (float(loss), tree_leaves(grads), tree_leaves(new), routes)
+        else:
+            out[name] = (float(loss), rel_err(tree_leaves(grads), ref[1]),
+                         new and rel_err(tree_leaves(new), ref[2]), routes.agreement(ref[3]))
+        del hp, params, grads, new, routes
+        gc.collect()
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
-
-    def rel_err(a_leaves, b_leaves):
-        return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                   for a, b in zip(a_leaves, b_leaves))
-
-    l32, g32, p32 = out["ref32"]
-    lk32, gk32, pk32 = out["kernel32"]
-    gerr32, perr32 = rel_err(gk32, g32), rel_err(pk32, p32)
+    l32 = ref[0]
+    lk32, (gerr32, gpath), (perr32, ppath), agree32 = out["kernel32"]
     lerr32 = abs(lk32 - l32) / abs(l32)
     lerr = abs(out["kernel"][0] - out["ref"][0]) / abs(out["ref"][0])
-    err_k, err_r = rel_err(out["kernel"][1], g32), rel_err(out["ref"][1], g32)
-    log(f"parity: train, full width x 2 layers, 2 x 1024 tokens: fp32 loss {lk32:.6f} vs "
-        f"{l32:.6f} (rel {lerr32:.2e}, tol 1e-4); grads max err / leaf scale {gerr32:.2e}, "
-        f"params after AdamW {perr32:.2e} (tol 2e-3); bf16 loss rel {lerr:.2e} (tol 3e-2); "
-        f"bf16 grads vs fp32 plain (err / leaf scale): kernel {err_k:.3e}, plain {err_r:.3e}")
+    (err_k, kpath), (err_r, rpath) = out["kernel"][1], out["ref"][1]
+    routing = ""
+    if ref[3].idx:
+        routing = (f"; routing agreement with the fp32 plain path: kernel fp32 {agree32:.6f}, "
+                   f"kernel bf16 {out['kernel'][3]:.6f}, plain bf16 {out['ref'][3]:.6f} of "
+                   f"{sum(a.numel() for a in ref[3].idx)} (token, layer, choice) decisions")
+    log(f"parity: train, {cfg.name} full width x {cfg.num_layers} layers, {batch} x {seq} "
+        f"tokens: fp32 loss {lk32:.6f} vs {l32:.6f} (rel {lerr32:.2e}, tol 1e-4); grads max "
+        f"err / leaf scale {gerr32:.2e} ({gpath}), params after AdamW {perr32:.2e} ({ppath}) "
+        f"(tol 2e-3); bf16 loss rel {lerr:.2e} (tol 3e-2); bf16 grads vs fp32 plain (err / "
+        f"leaf scale): kernel {err_k:.3e} ({kpath}), plain {err_r:.3e} ({rpath}){routing}")
     require(lerr32 <= 1e-4, "fp32 train loss: kernel path differs from the plain path")
     require(gerr32 <= 2e-3 and perr32 <= 2e-3,
             "fp32 grads or updated params: kernel path differs from the plain path")
     require(lerr <= 3e-2, "bf16 train loss: kernel path differs from the plain path")
     require(err_k <= 2.0 * err_r,
             "bf16 grads: the kernel path is further from fp32 than the plain bf16 path x2")
-    del out
+    del out, ref
     torch.cuda.empty_cache()
 
 
@@ -1551,9 +1731,138 @@ def planner_phase(torch, counters, selective: list) -> None:
                     f"the launcher printed no {prefix!r} line")
 
 
+# ---------------------------------------------------------------- phases 12-14
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+#: full width cut in depth where the full model does not fit the card: the
+#: fp32 parity (115 GB at 48 layers) and training (fp32 masters, grads and
+#: AdamW state: ~462 GB at 48 layers)
+MOE_PARITY_LAYERS, MOE_TRAIN_LAYERS = 4, 2
+
+
+def moe_serve_phase(torch, np, serving, build_model, get_config, counters) -> dict:
+    """Phases 12-13: full-width, full-depth moonshot served through the step
+    engine (``serve_step_engine``: K1 48 and K2 97 launches per forward
+    pinned), profiled, then ``parity_moe``; frees its weights.  Returns the
+    serve run's launches."""
+    import gc
+
+    engine, params, prompts, launches = serve_step_engine(
+        torch, np, serving, build_model, get_config, counters, MOE_ARCH)
+    profile_step_engine(torch, engine, params, prompts)
+    parity_moe(torch, np, serving, build_model, get_config(MOE_ARCH).reduced(), engine, params,
+               prompts)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train_phase(torch, counters) -> dict:
+    """Phase 14: moonshot at full width cut to ``MOE_TRAIN_LAYERS`` layers
+    trained ``TRAIN_STEPS`` steps of 8 x 4096 tokens (grad_accum 4,
+    ``selective``) from fresh state: losses, aux (finite, > 0), step time,
+    tokens/s, peak memory, MFU; K1/K2/K2-backward launches per step pinned
+    (``train_launches``); then ``parity_train`` on one microbatch (2 x
+    4096).  Returns the run's launches."""
+    import gc
+    import math
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    n_params, dense, attn = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    log(f"train: {cfg.name} full width cut to {cfg.num_layers} layers (cuts: depth 48 -> "
+        f"{cfg.num_layers}, global batch 8 x {TRAIN_SEQ}); model FLOPs per step = 6 x {n_params} "
+        f"active matmul params x {TRAIN_BATCH * TRAIN_SEQ} tokens ({dense:.4e}) + causal "
+        f"attention ({attn:.4e}); bound at the bf16 peak "
+        f"{(dense + attn) / PEAK_FLOPS['bfloat16']:.4f} s; the card holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    plan = _uniform_plan(cfg, "selective")
+    record, bundle = train_plan(torch, counters, f"{cfg.name.split('-')[0]} selective", plan,
+                                TRAIN_STEPS, dense + attn, cfg)
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    expected = {name: n * TRAIN_STEPS
+                for name, n in train_launches(cfg.num_layers, "selective").items()}
+    require(record["launches"] == expected,
+            f"moonshot train launched {record['launches']}, expected {expected}")
+    require(all(math.isfinite(a) and a > 0.0 for a in record["auxes"]),
+            f"moonshot aux loss not finite and positive: {record['auxes']}")
+    parity_train(torch, cfg, seq=TRAIN_SEQ, batch=TRAIN_BATCH // TRAIN_ACCUM)
+    return record["launches"]
+
+
+def parity_moe(torch, np, serving, build_model, small_cfg, engine, params, prompts) -> None:
+    """(a) the reduced moonshot in fp32: identical greedy tokens on both
+    paths; (b) full width and depth in bf16: the kernel path's and the plain
+    path's last-position logits, their top-1 agreement, the share of routing
+    decisions on which they agree and the prefill's capacity-drop share; (c)
+    full width cut to ``MOE_PARITY_LAYERS`` layers (the served weights'
+    first layers: fp32 at full depth would be 115 GB) under
+    ``parity_prefill``'s rules.  Frees the served weights before (c)."""
+    import gc
+
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.moe import _capacity
+
+    cfg = engine.model.cfg
+    parity_reduced(torch, np, serving, build_model, small_cfg, "moonshot")
+    model_k = engine.model
+    model_r = build_model(cfg, impl="ref")
+    toks = torch.from_numpy(prompts).cuda()
+    out, routes = {}, {}
+    for name, model in (("kernel", model_k), ("ref", model_r)):
+        with RoutingLog() as routes[name]:
+            logits, cache = model.forward_prefill(params, toks, dtype=torch.bfloat16)
+        out[name] = logits[:, -1]
+        del logits, cache
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(v).all()) for v in out.values()),
+            "non-finite full-depth moonshot logits")
+    require(len(routes["kernel"].idx) == cfg.num_layers, "a MoE layer was not routed")
+    err = float((out["kernel"] - out["ref"]).abs().max())
+    scale = float(out["ref"].abs().max())
+    top1 = float((out["kernel"].argmax(-1) == out["ref"].argmax(-1)).float().mean())
+    per_layer = [float((a == b).float().mean())
+                 for a, b in zip(routes["kernel"].idx, routes["ref"].idx)]
+    log(f"parity: full-depth moonshot bf16 prefill logits {tuple(out['ref'].shape)}: "
+        f"kernel-vs-plain max_abs_err {err:.3e} (max |logit| {scale:.3f}), top-1 agreement "
+        f"{top1:.4f}; routing agreement {routes['kernel'].agreement(routes['ref']):.6f} of "
+        f"{sum(a.numel() for a in routes['kernel'].idx)} (token, layer, choice) decisions "
+        f"(first layer {per_layer[0]:.6f}, last {per_layer[-1]:.6f}); dropped past capacity "
+        f"(C {_capacity(cfg, toks.numel())} slots an expert): kernel "
+        f"{routes['kernel'].drop_share():.4f}, plain "
+        f"{routes['ref'].drop_share():.4f}")
+    del out, routes
+
+    # (c) the first layers' weights, cloned so the rest can go
+    L = MOE_PARITY_LAYERS
+    cut = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "blocks": tree_map(lambda x: x[:L].clone(), params["blocks"])}
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_cut = dataclasses.replace(cfg, num_layers=L)
+    parity_prefill(torch, "moonshot", build_model(cfg_cut), build_model(cfg_cut, impl="ref"),
+                   cut, toks, f"full-width {L}-layer")
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
+    # growable segments, for every phase: the phases free and reallocate
+    # tens of GB (the moonshot weights, then its training state), and with
+    # fixed-size cached segments the moonshot train phase runs out of memory
+    # with ~35 GiB reserved but unallocated; which tensors split the
+    # segments is not yet known
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1644,8 +1953,16 @@ def main() -> int:
 
     # 11. the planner: profile, calibrate, search, train the plan, the launcher
     planner_phase(torch, counters, selective)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 12. results
+    # 12-13. the MoE family: moonshot served at full width and depth, its parity
+    moe_launches = moe_serve_phase(torch, np, serving, build_model, get_config, counters)
+
+    # 14. moonshot trained at full width, cut to 2 layers
+    moe_train_launches = moe_train_phase(torch, counters)
+
+    # 15. results
     kernels = []
     for rows, name, source, replaces in (
             (flash_rows, "flash_attention_fwd",
@@ -1661,6 +1978,7 @@ def main() -> int:
              "src/repro/kernels/ssd/kernel.py:74")):
         for r in rows:
             launches = {"llama": llama_launches, "train": train_launches,
+                        "moonshot": moe_launches, "moonshot_train": moe_train_launches,
                         **static_launches}[r["path"]]
             kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
                             "source": source, "replaces": replaces,

@@ -1,4 +1,4 @@
-"""Model zoo: family dispatch (dense, ssm and hybrid families ported so far)."""
+"""Model zoo: family dispatch (dense, moe, ssm and hybrid families ported so far)."""
 from __future__ import annotations
 
 from repro_torch.configs.registry import ModelConfig
@@ -11,6 +11,10 @@ def build_model(cfg: ModelConfig, impl: str = "kernel", device="cuda"):
         from repro_torch.models.transformer import DenseTransformerLM
 
         return DenseTransformerLM(cfg, impl, device)
+    if cfg.family == "moe":
+        from repro_torch.models.moe import MoETransformerLM
+
+        return MoETransformerLM(cfg, impl, device)
     if cfg.family == "ssm":
         from repro_torch.models.mamba2 import Mamba2LM
 
@@ -20,4 +24,5 @@ def build_model(cfg: ModelConfig, impl: str = "kernel", device="cuda"):
 
         return HybridLM(cfg, impl, device)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet (dense, ssm and hybrid only)")
+        f"family {cfg.family!r} is not ported to repro_torch yet (dense, moe, ssm and "
+        "hybrid only)")

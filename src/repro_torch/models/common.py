@@ -35,6 +35,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+#: The most elements of one fp32 draw (1 GiB); a larger leaf is drawn in pieces.
+DRAW_ELEMENTS = 1 << 28
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     """Declarative description of one parameter tensor."""
@@ -66,13 +70,25 @@ class ParamDef:
 
     def materialize(self, generator: torch.Generator, device: torch.device,
                     dtype: torch.dtype) -> torch.Tensor:
+        """The leaf in ``dtype``, drawn in fp32 into a preallocated tensor of
+        ``dtype`` in pieces of at most ``DRAW_ELEMENTS`` (its flat layout, in
+        order), each cast as it lands, so the fp32 draw never exists whole:
+        moonshot's stacked ``w_out`` alone would be a 35 GB fp32 draw beside
+        the bf16 model.  A leaf of one piece gets the values of a draw of
+        its own shape."""
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dtype, device=device)
-        x = torch.randn(self.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return x.mul_(self.std()).to(dtype)
+        std = self.std()
+        n = self.num_params()
+        out = torch.empty(self.shape, dtype=dtype, device=device)
+        flat = out.view(-1)
+        for start in range(0, n, DRAW_ELEMENTS):
+            piece = torch.randn((min(DRAW_ELEMENTS, n - start),), generator=generator,
+                                device=device, dtype=torch.float32)
+            flat[start:start + piece.numel()].copy_(piece.mul_(std))
+        return out
 
 
 ParamTree = dict  # nested dict[str, ParamDef | ParamTree] / dict[str, Tensor | ...]
@@ -106,8 +122,9 @@ def init_params(defs: ParamTree, generator: torch.Generator, device,
                 dtype: torch.dtype = torch.float32) -> ParamTree:
     """Materialise a nested dict of ParamDefs on ``device``, drawing from
     ``generator`` (which must live on that device) in sorted path order.
-    Each tensor is drawn in fp32 and cast to ``dtype`` one at a time, so a
-    bf16 model never holds its fp32 copy whole."""
+    Each tensor is drawn in fp32 and cast to ``dtype`` one at a time, a
+    large one piece by piece (``ParamDef.materialize``), so a bf16 model's
+    peak is the bf16 model plus one piece of at most 1 GiB."""
     dev = resolve_device(device)
     values = {path: d.materialize(generator, dev, dtype)
               for path, d in tree_paths(defs)}

@@ -70,8 +70,10 @@ class HybridLM(Mamba2LM):
         return (layer + 1) // every - 1 if (layer + 1) % every == 0 else None
 
     def _shared_apply(self, params: dict, x: torch.Tensor, *, mode: str, **kw):
-        return decoder_block_apply(params["shared_attn"], x, self.cfg, self.impl,
-                                   mode=mode, **kw)
+        """The shared block at one site: (x, the attention's new cache)."""
+        x, new_cache, _ = decoder_block_apply(params["shared_attn"], x, self.cfg, self.impl,
+                                              mode=mode, **kw)
+        return x, new_cache
 
     def _head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)

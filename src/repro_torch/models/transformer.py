@@ -1,4 +1,6 @@
-"""Decoder-only transformer LM, dense family (training and serving passes).
+"""Decoder-only transformer LM: the dense family, and the base class of the
+MoE family (``models/moe.py``), which swaps the FFN through the
+``ffn_defs``/``ffn_apply`` hook as JAX's does (training and serving passes).
 
 The parameters are a nested dict of tensors with the JAX package's keys and
 stacked ``blocks`` (leading layer dim); the forward passes take that dict
@@ -14,7 +16,9 @@ slot gets its own rope positions, cache write position and causal offset.
 through the ``.to(dtype)`` casts, and the tied ``embed.tok`` from both the
 gather and the head.  Its layer loop is a ``layer_runner`` (the runtime's
 applies each layer's remat policy); ``default_layer_runner`` is the plain
-loop in place of JAX's ``lax.scan``.
+loop in place of JAX's ``lax.scan``.  Each block returns the FFN's fp32
+side loss (``extra``: the MoE router's aux loss, 0.0 for the dense FFN);
+``forward_train`` sums it over the layers, the serving passes drop it.
 """
 from __future__ import annotations
 
@@ -51,19 +55,30 @@ def decoder_block_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def dense_ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The dense FFN as an FFN hook: (y, 0.0), having no side loss."""
+    return ffn.ffn_apply(params, x, cfg), 0.0
+
+
 def decoder_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, impl: str, *,
                         mode: str, cache: Optional[dict] = None, cache_index=None,
-                        kv_len=None, positions=None):
+                        kv_len=None, positions=None, ffn_apply=None):
     """``decoder_block_defs``' block on x (B, S, D): ln1 -> attention ->
-    residual -> ln2 -> FFN -> residual.  Returns (x, the attention's new
-    cache; see ``attention.attention_block``)."""
+    residual -> ln2 -> FFN -> residual.  ``ffn_apply(params["mlp"], h) ->
+    (y, extra)`` replaces the dense FFN (the MoE family's hook).  Returns
+    (x, the attention's new cache (see ``attention.attention_block``), the
+    FFN's fp32 side loss: 0.0 for the dense FFN)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps, impl)
     a, new_cache = attn.attention_block(
         params["attn"], h, cfg=cfg, mode=mode, cache=cache,
         cache_index=cache_index, kv_len=kv_len, impl=impl, positions=positions)
     x = x + a
     h = rmsnorm(params["ln2"], x, cfg.norm_eps, impl)
-    return x + ffn.ffn_apply(params["mlp"], h, cfg), new_cache
+    if ffn_apply is None:
+        y, extra = dense_ffn_apply(params["mlp"], h, cfg)
+    else:
+        y, extra = ffn_apply(params["mlp"], h)
+    return x + y, new_cache, extra
 
 
 class DenseTransformerLM(nn.Module):
@@ -81,7 +96,10 @@ class DenseTransformerLM(nn.Module):
 
     # ---------------------------------------------------------- params
     def block_defs(self) -> dict:
-        return decoder_block_defs(self.cfg)
+        return {**decoder_block_defs(self.cfg), "mlp": self.ffn_defs()}
+
+    def ffn_defs(self) -> dict:
+        return ffn.ffn_defs(self.cfg)
 
     def param_defs(self) -> dict:
         cfg = self.cfg
@@ -96,12 +114,17 @@ class DenseTransformerLM(nn.Module):
         return init_params(self.param_defs(), generator, self.device, dtype)
 
     # ---------------------------------------------------------- blocks
+    def ffn_apply(self, params: dict, x: torch.Tensor):
+        """(y, extra): the FFN's output and its fp32 side loss (0.0 here)."""
+        return dense_ffn_apply(params, x, self.cfg)
+
     def block_apply(self, params: dict, x: torch.Tensor, *, mode: str,
                     cache: Optional[dict] = None, cache_index=None, kv_len=None,
                     positions=None):
+        """(x, new cache, extra); see ``decoder_block_apply``."""
         return decoder_block_apply(params, x, self.cfg, self.impl, mode=mode, cache=cache,
                                    cache_index=cache_index, kv_len=kv_len,
-                                   positions=positions)
+                                   positions=positions, ffn_apply=self.ffn_apply)
 
     # ---------------------------------------------------------- training
     def forward_train(self, params: dict, tokens: torch.Tensor, *, layer_runner=None,
@@ -109,11 +132,10 @@ class DenseTransformerLM(nn.Module):
         """tokens (B, S) -> (fp32 logits (B, S, V), extra fp32 scalar)."""
         runner = layer_runner or default_layer_runner
         x = embedding.embed_tokens(params["embed"], tokens, dtype)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def apply_block(bp, h):
-            out, _ = self.block_apply(bp, h, mode="train")
-            return out, zero
+            out, _, extra = self.block_apply(bp, h, mode="train")
+            return out, extra
 
         x, extra = runner(params["blocks"], x, apply_block)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
@@ -138,7 +160,8 @@ class DenseTransformerLM(nn.Module):
         max_len = max_len or S
         ks, vs = [], []
         for layer in range(cfg.num_layers):
-            x, kv = self.block_apply(take_layer(params["blocks"], layer), x, mode="prefill")
+            x, kv, _ = self.block_apply(take_layer(params["blocks"], layer), x,
+                                        mode="prefill")
             pad = (0, 0, 0, 0, 0, max_len - S)
             ks.append(torch.nn.functional.pad(kv["k"], pad))
             vs.append(torch.nn.functional.pad(kv["v"], pad))
@@ -164,8 +187,9 @@ class DenseTransformerLM(nn.Module):
                 attn.valid_lengths(cache_index, Sq, B, kv_len, x.device), B, x.device)
         for layer in range(cfg.num_layers):
             layer_cache = {"k": cache["k"][layer], "v": cache["v"][layer]}
-            x, _ = self.block_apply(take_layer(params["blocks"], layer), x, mode="decode",
-                                    cache=layer_cache, cache_index=cache_index,
-                                    kv_len=kv_len, positions=positions)
+            x, _, _ = self.block_apply(take_layer(params["blocks"], layer), x,
+                                       mode="decode", cache=layer_cache,
+                                       cache_index=cache_index, kv_len=kv_len,
+                                       positions=positions)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps, self.impl)
         return embedding.lm_head(params["embed"], x, cfg), cache

@@ -7,10 +7,10 @@ batch of equal-length prompts:
 
 - an unsharded dense model goes through the paged KV cache, as the trivial
   B-requests-at-once case of the continuous-batching scheduler;
-- every other model (the ssm and hybrid families: mamba2, zamba2) takes
-  :meth:`greedy_generate_reference`, one ``forward_prefill`` then one
-  ``forward_decode`` per token — the slow, obviously-correct loop that
-  stays the scheduler's oracle.
+- every other model (the moe, ssm and hybrid families: moonshot, grok,
+  mamba2, zamba2) takes :meth:`greedy_generate_reference`, one
+  ``forward_prefill`` then one ``forward_decode`` per token — the slow,
+  obviously-correct loop that stays the scheduler's oracle.
 
 Only a single device for now: a ``mesh`` raises ``NotImplementedError``
 (the parallel runtime is a later slice), and the telemetry hooks of the JAX

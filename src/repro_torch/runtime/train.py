@@ -185,9 +185,12 @@ def construct_hybrid_parallel_model(
     opt_cfg: Optional[opt_lib.AdamWConfig] = None,
 ) -> HybridParallelModel:
     """The paper's runtime entry point (Fig. 2 line 13), on one device: the
-    model's (``"cuda"`` unless it was built with ``device="cpu"``)."""
+    model's (``"cuda"`` unless it was built with ``device="cpu"``).  Trains
+    the decoder families, dense and MoE; ``loss_fn`` adds the MoE router's
+    aux loss at ``AUX_LOSS_WEIGHT``."""
     _single_device(plan, mesh)
-    if model.cfg.family != "dense":
+    if model.cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"training the {model.cfg.family!r} family is not ported yet (dense only)")
+            f"training the {model.cfg.family!r} family is not ported yet (dense only, "
+            "with the dense or the MoE FFN)")
     return HybridParallelModel(model=model, plan=plan, opt_cfg=opt_cfg or opt_lib.AdamWConfig())

@@ -1,7 +1,7 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
 version (K1 and K2 also under autograd), the wrappers' input checks, and
-the serving paths (paged dense, step-engine mamba2 and zamba2) and the
-dense training step under each remat policy with ``impl="kernel"`` against
+the serving paths (paged dense, step-engine mamba2, zamba2 and the MoE
+family) and the dense and MoE training steps with ``impl="kernel"`` against
 ``impl="ref"``;
 the planner's block measurement and a calibration fitted from it.
 
@@ -254,6 +254,10 @@ def _kv_len_positions(off, kv_len, Sq, Sk, dev):
     # decode step with kv_len at and around the 2048-key tile edge, a prefill
     (4, 1, 2080, 32, 32, 112, "decode", (2048, 2049, 2079, 2080)),
     (4, 2048, 2048, 32, 32, 112, "causal", None),
+    # moonshot-v1-16b-a3b (hd 128, one query head per KV head): its decode
+    # step over 2080 keys and its causal prefill
+    (4, 1, 2080, 16, 16, 128, "decode", (2048, 2049, 2079, 2080)),
+    (4, 2048, 2048, 16, 16, 128, "causal", None),
 ], ids=lambda c: f"B{c[0]}-Sq{c[1]}-Sk{c[2]}-H{c[3]}-KV{c[4]}-hd{c[5]}-{c[6]}")
 def test_cuda_flash_compact_heads_match_plain_version(cuda_device, case):
     """K1 on compact GQA K/V against its plain version (which expands the
@@ -582,3 +586,121 @@ def test_cuda_hybrid_step_engine_kernel_path_matches_ref_path(cuda_device):
             assert rms_ops.rmsnorm.launches == \
                 counts[2] + 10 * (2 * cfg.num_layers + 2 * model.n_apps + 1)
     assert tokens["kernel"] == tokens["ref"]
+
+
+def _moe_cfg():
+    """Reduced moonshot with 8 experts at capacity factor 0.5: the capacity
+    floor of 8 slots drops choices in a prefill or a microbatch."""
+    return dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(), num_experts=8,
+                               moe_capacity_factor=0.5)
+
+
+def test_cuda_moe_prefill_and_decode_kernel_path_match_ref_path(cuda_device):
+    """The reduced MoE model in fp32 on the card: prefill logits and K/V and
+    two decode steps (a per-row cache_index) of the kernel path within 1e-4
+    of the plain path's; K1 once per layer and K2 2L + 1 times per forward."""
+    cfg = _moe_cfg()
+    L = cfg.num_layers
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(10))
+    prompts = torch.from_numpy(
+        np.random.default_rng(10).integers(0, cfg.vocab_size, (3, 61))).to(cuda_device)
+    out = {}
+    for impl in ("kernel", "ref"):
+        model = build_model(cfg, impl=impl, device=cuda_device)
+        counts = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+        logits, cache = model.forward_prefill(params, prompts, max_len=72,
+                                              dtype=torch.float32)
+        steps = [logits]
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        for i in range(2):
+            ci = torch.tensor([61 + i, 60 + i, 59 + i], device=cuda_device)
+            logits, cache = model.forward_decode(params, tok, cache, ci, kv_len=ci + 1,
+                                                 dtype=torch.float32)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        launched = (flash_ops.flash_attention_fwd.launches - counts[0],
+                    rms_ops.rmsnorm.launches - counts[1])
+        assert launched == ((3 * L, 3 * (2 * L + 1)) if impl == "kernel" else (0, 0))
+        out[impl] = steps + [cache["k"], cache["v"]]
+    for a, b in zip(out["kernel"], out["ref"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_moe_step_engine_kernel_path_matches_ref_path(cuda_device):
+    """The reduced MoE model in fp32 through ``step_engine(...)
+    .greedy_generate``: the kernel path emits the plain path's greedy
+    tokens, with K1 L and K2 2L + 1 launches per forward."""
+    cfg = _moe_cfg()
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(11))
+    prompts = torch.from_numpy(
+        np.random.default_rng(11).integers(0, cfg.vocab_size, (4, 77))).to(cuda_device)
+    tokens = {}
+    counts = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+    for impl in ("kernel", "ref"):
+        engine = serving.step_engine(build_model(cfg, impl=impl, device=cuda_device),
+                                     serving.single_device_plan(cfg), dtype=torch.float32)
+        tokens[impl] = engine.greedy_generate(params, prompts, 10, 96).tolist()
+        if impl == "kernel":
+            assert flash_ops.flash_attention_fwd.launches == counts[0] + 10 * cfg.num_layers
+            assert rms_ops.rmsnorm.launches == counts[1] + 10 * (2 * cfg.num_layers + 1)
+    assert tokens["kernel"] == tokens["ref"]
+
+
+def test_cuda_moe_train_kernel_path_matches_ref_path(cuda_device):
+    """The reduced MoE model's training on the card under ``selective``: the
+    kernel path's fp32 loss, aux and grads are the plain path's (grads
+    within 2e-3 of each leaf's scale, the router's included); K1 2L, K2
+    4L + 1 and K2's backward 2L + 1 launches per microbatch; a bf16 step with
+    grad accumulation gives a finite loss and a positive aux."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models.common import tree_leaves as leaves
+    from repro_torch.runtime import train as ttrain
+    from repro_torch.runtime.data import SyntheticDataset
+
+    cfg = _moe_cfg()
+    L = cfg.num_layers
+    plan = uniform_plan(cfg.name, "train_4k", (1,), ("data",), L,
+                        LayerStrategy(remat="selective"), grad_accum=2)
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(12))
+    batch = SyntheticDataset(cfg, 256, 4, seed=12).batch(0)
+    out = {}
+    for impl in ("kernel", "ref"):
+        hp = ttrain.construct_hybrid_parallel_model(build_model(cfg, impl=impl), plan)
+        counts = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches,
+                  rms_ops.rmsnorm.backward_launches)
+        out[impl] = hp.value_and_grad(params, batch, torch.float32)
+        torch.cuda.synchronize()
+        launched = (flash_ops.flash_attention_fwd.launches - counts[0],
+                    rms_ops.rmsnorm.launches - counts[1],
+                    rms_ops.rmsnorm.backward_launches - counts[2])
+        assert launched == ((2 * L, 4 * L + 1, 2 * L + 1) if impl == "kernel" else (0, 0, 0))
+    (lk, mk, gk), (lr, mr, gr) = out["kernel"], out["ref"]
+    assert abs(float(lk) - float(lr)) <= 1e-5 * abs(float(lr))
+    assert abs(float(mk["aux"]) - float(mr["aux"])) <= 1e-5 * abs(float(mr["aux"]))
+    for a, b in zip(leaves(gk), leaves(gr)):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+    hp = ttrain.construct_hybrid_parallel_model(build_model(cfg), plan)
+    p, _, m = hp.train_step(params, hp.init_opt_state(params), batch)
+    assert all(bool(torch.isfinite(x).all()) for x in leaves(p))
+    assert np.isfinite(float(m["loss"])) and float(m["aux"]) > 0.0
+
+
+def test_cuda_init_draws_a_leaf_of_one_piece_as_a_whole_draw(cuda_device, monkeypatch):
+    """On the card too, a leaf that fits one piece keeps, bit for bit, the
+    values of a whole draw of its shape; a leaf in pieces draws the same
+    values for the same seed twice."""
+    from repro_torch.models import common
+
+    d = common.ParamDef((16, 2048, 96), ("layers", "embed", "ff"))
+    whole = torch.randn(d.shape, generator=torch.Generator(device=cuda_device).manual_seed(5),
+                        device=cuda_device, dtype=torch.float32).mul_(d.std())
+    for dtype in (torch.float32, torch.bfloat16):
+        x = d.materialize(torch.Generator(device=cuda_device).manual_seed(5), cuda_device, dtype)
+        assert x.dtype == dtype and torch.equal(x, whole.to(dtype)), dtype
+    monkeypatch.setattr(common, "DRAW_ELEMENTS", 1 << 20)      # 3 145 728 elements: 3 pieces
+    a, b = (d.materialize(torch.Generator(device=cuda_device).manual_seed(5), cuda_device,
+                          torch.bfloat16) for _ in range(2))
+    assert torch.equal(a, b) and abs(float(a.float().std()) - d.std()) < 0.01 * d.std()
