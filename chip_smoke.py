@@ -22,7 +22,11 @@ Phases (any failure exits non-zero and prints no result line):
    B4 over 2080 keys with kv_len 2048/2049/2079/2080 and a causal prefill
    B4 S2048; moonshot-v1-16b-a3b's attention, hd 128 with one query head
    per KV head (H 16): the same decode step and prefill, and its training
-   shape, causal B2 S4096 in bf16: fp32 1e-4,
+   shape, causal B2 S4096 in bf16; whisper-tiny's (H = KV 6, hd 64): the
+   encoder's non-causal B16 S1500, the cross-attention's non-causal prefill
+   B16 Sq4 Sk1500, training shape B32 Sq448 Sk1500 and split-K decode B16
+   Sq1 Sk1500, and the decoder's self decode B16 Sq1 Sk448 at per-slot
+   kv_len: fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
    holds rows over thousands of keys, whose values are ~1e-2; the llama
@@ -30,21 +34,23 @@ Phases (any failure exits non-zero and prints no result line):
    k/v 2x4096x8x64 causal bf16, timed; its yardstick is the faster of SDPA
    with ``enable_gqa`` on the compact heads and SDPA on expanded heads (the
    case's boolean mask; ``is_causal`` where that mask is the plain causal
-   one); the autograd
-   ``flash_attention`` on the split path (S 20 000, fp32) against autograd
-   through the plain version, 2e-3 of scale; RMSNorm (K2; fp32 1e-5, bf16
+   one, no mask where the case is non-causal); the autograd
+   ``flash_attention`` on the split path (S 20 000, fp32) and non-causal at
+   whisper's cross training shape against autograd through the plain
+   version, 2e-3 of scale; RMSNorm (K2; fp32 1e-5, bf16
    2e-2 — the JAX kernel tests' tolerances): the forward at every template
    (1 to 8 packs of 16 bytes a thread, the two-pass loop, the scalar
    template on an odd width and on misaligned views; each case logs its
-   template), the decode rows, the training shape 8192 x 2048 and the
-   layer norms of mamba2 (8192 x 2560) and zamba2 (8192 x 3584) in bf16
+   template), the decode rows, the training shape 8192 x 2048, the
+   layer norms of mamba2 (8192 x 2560) and zamba2 (8192 x 3584) and
+   whisper's at width 384 (24 000 and 16 rows serving, 48 000 training) in bf16
    timed; the gated forward ``rmsnorm(x * silu(z))`` in bf16 and fp32 at
    8192 and 4 rows of 5120 and 7168, an odd width and a misaligned gate,
    the bf16 rows timed beside the unfused composition (no library call
    computes the gate); the backward kernel (dx at the forward's
    tolerances, an fp32 dscale at 1e-4 of its scale, bitwise equal over two
    calls) at 8192 x 2048 (bf16 x with fp32 scale, and fp32), 8192 x 3584,
-   32768 x 128, an odd width and a misaligned view, timed against the plain
+   32768 x 128, 48 000 x 384, an odd width and a misaligned view, timed against the plain
    backward and ``F.rms_norm``'s backward; SSD scan: max |err| <= 1e-3 *
    max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
@@ -141,7 +147,30 @@ Phases (any failure exits non-zero and prints no result line):
    and positive), step time, tokens/s, peak memory and MFU; K1 16, K2 36
    and K2-backward 20 launches a step pinned; phase 10's kernel-vs-plain
    parity on one microbatch of 2 x 4096, the routing agreement logged;
-15. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
+   after phase 13 the caching allocator is reported (``allocator_report``:
+   what stays reserved once the phases' objects are gone, and which active
+   blocks keep segments);
+15. whisper serve — full-width, full-depth whisper-tiny (4 encoder and 4
+   decoder layers, d 384, 6 = KV heads at hd 64, gelu ff 1536, 1500
+   frames, untied vocab 51 865; random bf16 weights from seed 0): 16
+   windows of standard normal bf16 frames from a seeded generator on the
+   card, a 4-token prompt and 224 new tokens in a 448-token cache, through
+   the engine's own steps, ``prefill_step(params, tokens, {"frames": f})``
+   then ``decode_step``; TTFT (the encoder included), TPOT, tok/s, peak
+   memory; K1 12 and K2 22 launches a prefill, 8 and 13 a decode step,
+   pinned; one prefill and 4 decode steps profiled;
+16. whisper parity — at full width and depth on the served weights: fp32
+   (weights and frames cast) on 4 windows, the kernel path's prefill logits
+   within 1e-3 of the plain path's scale and its greedy tokens over 32
+   steps identical; phase 7's bf16 rule on the served batch;
+17. whisper train — full width and depth, 3 steps of 256 windows x (448
+   tokens + 1500 frames) in 8 microbatches (the family applies no remat
+   policy) from fresh state: losses (the first within 1 of ln V), median
+   step, decoder tokens/s and frames/s, peak memory, MFU against
+   ``whisper_train_flops``; K1 12, K2 22 and K2-backward 22 launches a
+   microbatch pinned; one step profiled; phase 10's kernel-vs-plain parity
+   on 2 windows;
+18. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
    ``rmsnorm_bwd`` rows for K2), then the device line last.
 """
 from __future__ import annotations
@@ -430,6 +459,26 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     cases.append(("moonshot train causal B2 S4096 H16 KV16 hd128 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=16, hd=128, dtype=torch.bfloat16,
         path="moonshot_train")))
+    # whisper-tiny (H = KV 6, hd 64) at its serving and training shapes: the
+    # encoder's non-causal self-attention over 1 500 frames (23 key tiles and
+    # a ragged 28), the cross-attention (Sq != Sk, no mask) at prefill, in
+    # training and at decode (split-K, no positions), and the decoder's self
+    # decode over a 448-key cache at per-slot kv_len
+    w_len = torch.randint(5, 229, (WHISPER_BATCH,), generator=gen, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for label, B, Sq, Sk, path in (("encoder", WHISPER_BATCH, 1500, 1500, "whisper"),
+                                       ("cross prefill", WHISPER_BATCH, 4, 1500, "whisper"),
+                                       ("cross train", WHISPER_MICRO, 448, 1500,
+                                        "whisper_train"),
+                                       ("cross decode", WHISPER_BATCH, 1, 1500, "whisper")):
+            cases.append((f"whisper {label} non-causal B{B} Sq{Sq} Sk{Sk} H6 KV6 hd64 {name}",
+                          True, flash_case(torch, gen, B=B, Sq=Sq, Sk=Sk, H=6, hd=64,
+                                           dtype=dtype, causal=False, path=path)))
+        cases.append((f"whisper self decode B{WHISPER_BATCH} Sq1 Sk448 H6 KV6 hd64 per-slot "
+                      f"kv_len {name}", True, flash_case(
+                          torch, gen, B=WHISPER_BATCH, Sq=1, Sk=WHISPER_CTX, H=6, hd=64,
+                          dtype=dtype, q_off=w_len - 1, kv_len=w_len, path="whisper")))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -460,10 +509,11 @@ def check_flash(torch, flash_ops, flash_ref, gen):
         ms = device_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, **kw), torch)
         plain = device_ms(lambda: flash_ref.flash_attention_fwd(q, k, v, **kw), torch)
         # a plain causal mask (the training shape, a full prefill) is SDPA's
-        # own ``is_causal`` (its flash backend); the other rows pass the
-        # case's boolean mask
+        # own ``is_causal`` and a non-causal case takes no mask (both reach
+        # its flash backend); the other rows pass the case's boolean mask
         plain_causal = c["causal"] and c["q_pos"] is None and q.shape[1] == k.shape[1]
-        sdpa_kw = dict(is_causal=True) if plain_causal else dict(attn_mask=flash_mask(torch, c))
+        sdpa_kw = (dict(is_causal=True) if plain_causal else
+                   dict(attn_mask=flash_mask(torch, c)) if c["causal"] else {})
         g = q.shape[2] // k.shape[2]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ke, ve = (t.repeat_interleave(g, dim=2).transpose(1, 2) for t in (k, v))
@@ -485,28 +535,33 @@ def check_flash(torch, flash_ops, flash_ref, gen):
 
 def check_flash_autograd(torch, flash_ops, flash_ref, gen):
     """``flash_attention`` under autograd (K1 forward, block-by-block
-    recompute backward) against autograd through K1's plain version, on the
-    many-row split path (S 20 000, fp32): out, dq, dk, dv within 2e-3 of
-    their scale."""
-    S, H, KV = 20000, 2, 1
-    q, k, v = (torch.randn((1, S, n, 64), generator=gen, device="cuda") for n in (H, KV, KV))
-    cot = torch.randn((1, S, H, 64), generator=gen, device="cuda")
-    results = []
-    for fn in (flash_ops.flash_attention, flash_ref.flash_attention_fwd):
-        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
-        out = fn(tq, tk, tv, causal=True)
-        results.append((out, *torch.autograd.grad(out, (tq, tk, tv), cot)))
-    torch.cuda.synchronize()
-    for name, a, b in zip(("out", "dq", "dk", "dv"), *results):
-        a, b = a.detach(), b.detach()
-        err = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        log(f"K1 flash_attention autograd [split path B1 S{S} H{H} KV{KV} hd64 float32] "
-            f"{name} max_abs_err {err:.3e} (tol 2e-3 x {scale:.3e})")
-        require(err <= 2e-3 * scale, f"autograd flash_attention {name} disagrees with the "
-                "plain version")
-    del results, q, k, v, cot
-    torch.cuda.empty_cache()
+    recompute backward) against autograd through K1's plain version, in
+    fp32: out, dq, dk, dv within 2e-3 of their scale.  Two cases: the
+    many-row split path (causal, S 20 000), and whisper's cross-attention
+    at its training shape (non-causal, Sq 448 over Sk 1 500, whose
+    recompute walks two key blocks, the second ragged)."""
+    for label, B, Sq, Sk, H, KV, causal in (
+            ("split path causal", 1, 20000, 20000, 2, 1, True),
+            ("whisper cross train non-causal", WHISPER_MICRO, 448, 1500, 6, 6, False)):
+        q = torch.randn((B, Sq, H, 64), generator=gen, device="cuda")
+        k, v = (torch.randn((B, Sk, KV, 64), generator=gen, device="cuda") for _ in "kv")
+        cot = torch.randn((B, Sq, H, 64), generator=gen, device="cuda")
+        results = []
+        for fn in (flash_ops.flash_attention, flash_ref.flash_attention_fwd):
+            tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+            out = fn(tq, tk, tv, causal=causal)
+            results.append((out, *torch.autograd.grad(out, (tq, tk, tv), cot)))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("out", "dq", "dk", "dv"), *results):
+            a, b = a.detach(), b.detach()
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            log(f"K1 flash_attention autograd [{label} B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd64 "
+                f"float32] {name} max_abs_err {err:.3e} (tol 2e-3 x {scale:.3e})")
+            require(err <= 2e-3 * scale, f"autograd flash_attention {name} disagrees with the "
+                    f"plain version: {label}")
+        del results, q, k, v, cot
+        torch.cuda.empty_cache()
 
 
 def misaligned_view(torch, t):
@@ -535,12 +590,16 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     timed bf16 rows carry the path they belong to (llama: decode 8 x 2048,
     prefill chunk 256 x 2048; mamba2: the layer norms at prefill 8192 x 2560
     and decode 4 x 2560; train: a microbatch of 2 x 4096 rows x 2048;
-    zamba2: the prefill's layer norms 8192 x 3584); "check" rows are timed
+    zamba2: the prefill's layer norms 8192 x 3584; whisper: the encoder's
+    norms at prefill, 16 windows x 1500 frames x 384, and a decode step's
+    16 x 384; whisper_train: a microbatch's encoder norms, 32 x 1500 rows
+    x 384); "check" rows are timed
     and logged but belong to no path (the gate norms' widths 5120 and 7168,
     which the models now run gated)."""
     rows = []
     shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 2560), "mamba2"),
               ((4, 2560), "mamba2"), ((8192, 2048), "train"), ((8192, 3584), "zamba2"),
+              ((24000, 384), "whisper"), ((16, 384), "whisper"), ((48000, 384), "whisper_train"),
               ((8192, 5120), "check"), ((8192, 7168), "check"), ((8192, 64), None),
               ((32768, 128), None), ((64, 14336), None), ((6, 40000), None), ((7, 333), None),
               ((8192, 3584, "misaligned"), None), ((300, 1000, "misaligned"), None)]
@@ -631,17 +690,20 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     same inputs: dx at the forward's tolerances of its scale, an fp32 dscale
     within 1e-4 of its scale, dscale and dx bitwise equal over two calls.
     Cases: the training shape 8192 x 2048 (bf16 x, fp32 master scale; and
-    fp32), 8192 x 3584, qk-norm rows 32768 x 128, an odd width, a
-    misaligned view (the scalar two-pass template).  Timed rows: the plain
+    fp32), 8192 x 3584, qk-norm rows 32768 x 128, whisper's encoder rows of
+    a microbatch 48000 x 384, an odd width, a misaligned view (the scalar
+    two-pass template).  Timed rows (each with its path): the plain
     backward (``plain_ms``) and, as ``library_ms``, the backward of
     ``F.rms_norm`` on the same inputs through ``torch.autograd.grad``."""
     F = torch.nn.functional
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    cases = [((8192, 2048), bf16, f32, False, True), ((8192, 3584), bf16, f32, False, True),
-             ((32768, 128), bf16, f32, False, True), ((8192, 2048), f32, f32, False, False),
-             ((300, 333), f32, f32, False, False), ((8192, 2048), bf16, f32, True, False)]
-    for shape, dtype, sdtype, mis, timed in cases:
+    cases = [((8192, 2048), bf16, f32, False, "train"),
+             ((8192, 3584), bf16, f32, False, "train"), ((32768, 128), bf16, f32, False, "train"),
+             ((48000, 384), bf16, f32, False, "whisper_train"),
+             ((8192, 2048), f32, f32, False, None), ((300, 333), f32, f32, False, None),
+             ((8192, 2048), bf16, f32, True, None)]
+    for shape, dtype, sdtype, mis, path in cases:
         name = str(dtype).replace("torch.", "")
         x = (3.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
         scale = (1 + 0.3 * torch.randn(shape[-1:], generator=gen, device="cuda")).to(sdtype)
@@ -669,7 +731,7 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
         require(err_dx <= tol_dx and err_ds <= tol_ds,
                 f"rmsnorm backward disagrees with its plain version: {label}")
         require(same, f"rmsnorm backward is not deterministic: {label}")
-        if not timed:
+        if path is None:
             continue
         ms = device_ms(lambda: rms_ops.rmsnorm_backward(x, scale, g, 1e-5), torch)
         plain = device_ms(lambda: rms_ref.rmsnorm_backward_reference(x, scale, g, 1e-5), torch,
@@ -688,7 +750,7 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
         log(f"K2 backward [{label}] kernel {ms:.5f} ms  plain {plain:.4f} ms  F.rms_norm "
             f"backward {lib:.5f} ms (weight in x's dtype, fused: {fused:.5f} ms)  bound "
             f"{b_ms:.6f} ms ({b_by}, {100 * b_ms / ms:.1f} %)")
-        rows.append(dict(label=label, path="train", max_abs_err=max(err_dx, err_ds), ms=ms,
+        rows.append(dict(label=label, path=path, max_abs_err=max(err_dx, err_ds), ms=ms,
                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                          bound_by=b_by))
         del x, g, dx, dx2, rdx
@@ -1084,11 +1146,11 @@ MOE_SPANS = {"moe_route": "MoE routing (router product, softmax, top-k, slot cum
              "moe_combine": "MoE combine gather and gate sum"}
 
 
-def profile_step_engine(torch, engine, params, prompts, steps: int = 4):
+def profile_step_engine(torch, engine, params, prompts, steps: int = 4, extras=None):
     """Where a full-width prefill's and decode step's device time goes: one
-    prefill, then ``steps`` decode steps, each window under torch.profiler;
-    device time by group (an MoE model's FFN by its spans, ``MOE_SPANS``)
-    and busy share."""
+    prefill (given ``extras``, the encoder-decoder's frames), then ``steps``
+    decode steps, each window under torch.profiler; device time by group (an
+    MoE model's FFN by its spans, ``MOE_SPANS``) and busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     label = engine.model.cfg.name.split("-")[0]
@@ -1097,7 +1159,7 @@ def profile_step_engine(torch, engine, params, prompts, steps: int = 4):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        logits, cache = engine.prefill_step(params, tokens)
+        logits, cache = engine.prefill_step(params, tokens, extras)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     require(bool(torch.isfinite(logits).all()), f"non-finite {label} prefill logits")
@@ -1177,13 +1239,16 @@ def parity_reduced(torch, np, serving, build_model, small_cfg, label: str) -> No
         f"over 4 prompts of 100 x 12 ({tokens['kernel'][0][:6]}...)")
 
 
-def parity_prefill(torch, label: str, model_k, model_r, params, toks, what: str) -> None:
+def parity_prefill(torch, label: str, model_k, model_r, params, toks, what: str,
+                   extras=None) -> None:
     """The prefill's last-position logits of the kernel path and the plain
     path in bf16 and in fp32 (``params`` cast), all held against the plain
     path in fp32 on the same (bf16-valued) weights: the kernel bf16 path no
     further from it than twice the plain bf16 path, the kernel fp32 path
-    within 1e-3 of the logit scale.  An MoE model also logs the share of
-    routing decisions on which the two paths agree, in each dtype."""
+    within 1e-3 of the logit scale.  ``extras`` (the encoder-decoder's
+    frames) go to every pass; the model casts them to the pass's dtype.  An
+    MoE model also logs the share of routing decisions on which the two
+    paths agree, in each dtype."""
     from repro_torch.models.common import cast_tree
 
     params32 = cast_tree(params, torch.float32)
@@ -1193,7 +1258,7 @@ def parity_prefill(torch, label: str, model_k, model_r, params, toks, what: str)
                                   ("kernel32", model_k, params32, torch.float32),
                                   ("ref32", model_r, params32, torch.float32)):
         with RoutingLog() as routes[name]:
-            logits, cache = model.forward_prefill(p, toks, dtype=dtype)
+            logits, cache = model.forward_prefill(p, toks, dtype=dtype, **(extras or {}))
         out[name] = logits[:, -1]
         del logits, cache
         torch.cuda.empty_cache()
@@ -1301,10 +1366,12 @@ def _train_bundle(torch, cfg, plan, *, impl: str = "kernel", seed: int = 0):
     return hp, params
 
 
-def train_plan(torch, counters, label: str, plan, steps: int, flops: float, cfg=None):
+def train_plan(torch, counters, label: str, plan, steps: int, flops: float, cfg=None, *,
+               seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
     """``steps`` train steps of ``cfg`` (full-width llama3.2-1b by default)
-    under ``plan`` from fresh state; returns the record of the run and (hp,
-    params, opt, ds) for the profile."""
+    under ``plan`` from fresh state, ``batch`` x ``seq`` tokens a step;
+    returns the record of the run and (hp, params, opt, ds) for the
+    profile."""
     import math
 
     from repro_torch.configs.registry import get_config
@@ -1313,16 +1380,16 @@ def train_plan(torch, counters, label: str, plan, steps: int, flops: float, cfg=
     cfg = cfg or get_config(TRAIN_ARCH)
     hp, params = _train_bundle(torch, cfg, plan)
     opt = hp.init_opt_state(params)
-    ds = SyntheticDataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    ds = SyntheticDataset(cfg, seq_len=seq, global_batch=batch, seed=0)
     batches = [ds.batch(i) for i in range(steps)]
     step_fn = hp.jit_train_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
     times, losses, gnorms, auxes = [], [], [], []
-    for batch in batches:
+    for data in batches:
         t0 = time.perf_counter()
-        params, opt, m = step_fn(params, opt, batch)
+        params, opt, m = step_fn(params, opt, data)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
@@ -1331,9 +1398,9 @@ def train_plan(torch, counters, label: str, plan, steps: int, flops: float, cfg=
     launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(times)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     mfu = flops / (step_s * PEAK_FLOPS["bfloat16"])
-    log(f"train [{label}]: {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+    log(f"train [{label}]: {steps} steps of {batch} x {seq} tokens "
         f"(grad_accum {plan.grad_accum}): losses {[round(x, 5) for x in losses]}  grad_norm "
         f"{[round(x, 5) for x in gnorms]}  aux (last microbatch) {[round(x, 5) for x in auxes]}  "
         f"step times {[round(t, 4) for t in times]} s, "
@@ -1363,7 +1430,8 @@ def train_policy(torch, counters, policy: str, steps: int, flops: float):
     return record, bundle
 
 
-def profile_train_step(torch, hp, params, opt, batch) -> None:
+def profile_train_step(torch, hp, params, opt, batch,
+                       what: str = f"[selective] ({TRAIN_BATCH} x {TRAIN_SEQ} tokens)") -> None:
     """One train step under torch.profiler: device time by group — K1, K2,
     K2's backward, the attention backward's recompute and the optimizer (kernels inside the
     ``attention_vjp`` / ``optimizer`` spans on the device timeline), then
@@ -1392,7 +1460,7 @@ def profile_train_step(torch, hp, params, opt, batch) -> None:
         return
     per = {g: round(t, 4) for g, t in sorted(groups.items(), key=lambda x: -x[1])}
     share = {g: round(100 * t / busy, 1) for g, t in per.items()}
-    log(f"profile: train step [selective] ({TRAIN_BATCH} x {TRAIN_SEQ} tokens): wall "
+    log(f"profile: train step {what}: wall "
         f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}% "
         f"of wall); device ms by group {per}; % of busy {share}; launches {counts}")
 
@@ -1854,14 +1922,249 @@ def parity_moe(torch, np, serving, build_model, small_cfg, engine, params, promp
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phases 15-17
+
+WHISPER_ARCH = "whisper-tiny"
+#: serving: 16 windows of 1 500 frames (30 s of audio each), a 4-token
+#: prompt and Whisper's default sample length, n_text_ctx // 2 = 224 new
+#: tokens, in a cache of its decoder context n_text_ctx = 448
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW, WHISPER_CTX = 16, 4, 224, 448
+#: training: Whisper's published batch of 256 segments x 448 decoder tokens
+#: (+ 1 500 frames each), in 8 microbatches of 32
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_ACCUM = 256, 8
+WHISPER_MICRO = WHISPER_TRAIN_BATCH // WHISPER_TRAIN_ACCUM
+#: the fp32 parity's windows and greedy steps
+WHISPER_PARITY_BATCH, WHISPER_PARITY_NEW = 4, 32
+
+
+def whisper_launches(cfg, new: int) -> dict:
+    """The kernel launches of one prefill and ``new - 1`` decode steps of the
+    encoder-decoder: a prefill launches K1 once per encoder layer and twice
+    per decoder layer (self and cross: 12 for whisper-tiny) and K2 twice per
+    encoder layer, once for ``enc_norm``, three times per decoder layer and
+    once for ``final_norm`` (22); a decode step K1 twice and K2 three times
+    per decoder layer, plus ``final_norm`` (8 and 13)."""
+    E, L = cfg.enc_layers, cfg.num_layers
+    return {"flash_attention_fwd": E + 2 * L + (new - 1) * 2 * L,
+            "rmsnorm": 2 * E + 3 * L + 2 + (new - 1) * (3 * L + 1), "rmsnorm_gated": 0,
+            "rmsnorm_bwd": 0, "ssd": 0}
+
+
+def whisper_train_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """(matmul FLOPs, attention FLOPs) of one encoder-decoder train step: 6
+    x the weights each position goes through x positions — an encoder
+    frame through q/k/v/out and the FFN of each encoder layer, a decoder
+    token through self q/k/v/out, cross q/out, the FFN and the head, and a
+    frame once more through each decoder layer's cross k/v — plus attention
+    at 3 x (forward) 4·H·hd per (row, key) pair: the encoder's F² per layer,
+    the decoder's causal S²/2 and cross S·F per layer."""
+    E, L, d, H, KV, hd = (cfg.enc_layers, cfg.num_layers, cfg.d_model, cfg.num_heads,
+                          cfg.num_kv_heads, cfg.resolved_head_dim)
+    F = cfg.enc_frames
+    n_ffn = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+    ffn = n_ffn * d * cfg.d_ff
+    self_attn = d * (H + 2 * KV) * hd + H * hd * d
+    enc = F * E * (self_attn + ffn)
+    dec = seq * (L * (self_attn + 2 * H * hd * d + ffn) + cfg.vocab_size * d)
+    cross_kv = F * L * 2 * d * KV * hd
+    dense = 6.0 * batch * (enc + dec + cross_kv)
+    pairs = E * F * F + L * (seq * seq / 2.0 + seq * F)
+    return dense, 3.0 * 4.0 * H * hd * batch * pairs
+
+
+def whisper_frames(torch, cfg, batch: int, seed: int):
+    """``batch`` windows of stub frame embeddings, standard normal from a
+    seeded generator on the card, in bf16 (``SyntheticDataset``'s dtype)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((batch, cfg.enc_frames, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def generate_with_frames(torch, engine, params, prompts, frames, new: int):
+    """Greedy serving of real frames through the engine's own steps:
+    ``prefill_step(params, prompts, {"frames": frames})``, then ``new - 1``
+    ``decode_step`` calls, each fenced.  Returns (tokens (B, new), the
+    prefill's last-position logits, its fenced seconds, each decode step's)."""
+    B, S = prompts.shape
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill_step(params, prompts, {"frames": frames})
+    first = logits[:, -1]
+    out = [first.argmax(-1)]
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    steps = []
+    for i in range(new - 1):
+        t0 = time.perf_counter()
+        logits, cache = engine.decode_step(params, out[-1][:, None], cache, S + i)
+        out.append(logits[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    return torch.stack(out, dim=1), first, ttft, steps
+
+
+def whisper_serve_phase(torch, np, serving, build_model, get_config, counters):
+    """Phase 15: full-width, full-depth whisper-tiny (random bf16 weights
+    from seed 0) serving ``WHISPER_BATCH`` windows of real frames through
+    ``generate_with_frames`` after a warm-up; launches pinned
+    (``whisper_launches``).  Returns (engine, params, frames, prompts,
+    launches)."""
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    engine = serving.step_engine(model, serving.single_device_plan(cfg), batch=WHISPER_BATCH,
+                                 max_len=WHISPER_CTX)
+    frames = whisper_frames(torch, cfg, WHISPER_BATCH, 1)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                (WHISPER_BATCH, WHISPER_PROMPT))
+    tokens = torch.from_numpy(prompts).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"whisper: built full-width {cfg.name} ({cfg.enc_layers} encoder + {cfg.num_layers} "
+        f"decoder layers, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+        f"{cfg.resolved_head_dim}, gelu ff {cfg.d_ff}, {cfg.enc_frames} frames, vocab "
+        f"{cfg.vocab_size}, untied; {n_params} parameters, {n_params * 2 / 1e9:.3f} GB in bf16) "
+        f"in {time.perf_counter() - t0:.3f} s")
+    generate_with_frames(torch, engine, params, tokens, frames, 3)         # warm-up
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _, ttft, steps = generate_with_frames(torch, engine, params, tokens, frames,
+                                               WHISPER_NEW)
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    require(tuple(out.shape) == (WHISPER_BATCH, WHISPER_NEW), f"whisper tokens shape "
+            f"{tuple(out.shape)}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "whisper token out of the vocab")
+    expected = whisper_launches(cfg, WHISPER_NEW)
+    require(launches == expected, f"whisper launched {launches}, expected {expected}")
+    tpot = statistics.median(steps)
+    n_tok = WHISPER_BATCH * WHISPER_NEW
+    log(f"whisper serve: {WHISPER_BATCH} windows x {cfg.enc_frames} frames, ({WHISPER_PROMPT} + "
+        f"{WHISPER_NEW}) tokens in {wall:.3f} s ({n_tok / wall:.1f} tok/s)  prefill (ttft, the "
+        f"encoder included) {ttft * 1e3:.2f} ms  decode (tpot) p50 {tpot * 1e3:.3f} ms  "
+        f"launches {launches} (K1 {cfg.enc_layers + 2 * cfg.num_layers} a prefill, "
+        f"{2 * cfg.num_layers} a decode step; K2 {2 * cfg.enc_layers + 3 * cfg.num_layers + 2} "
+        f"a prefill, {3 * cfg.num_layers + 1} a decode step)  peak mem "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    log(f"whisper serve: tokens[0][:8] {out[0, :8].tolist()}")
+    return engine, params, frames, prompts, launches
+
+
+def parity_whisper(torch, serving, build_model, engine, params, frames, prompts) -> None:
+    """Phase 16, at full width and depth on the served weights: (a) in fp32
+    (the weights and frames cast) on ``WHISPER_PARITY_BATCH`` windows, the
+    kernel path's prefill logits within 1e-3 of the plain path's scale and
+    its greedy tokens over ``WHISPER_PARITY_NEW`` steps identical; (b)
+    ``parity_prefill`` on the served batch with its frames: the bf16 kernel
+    path no further from fp32 than twice the plain bf16 path."""
+    from repro_torch.models.common import cast_tree
+
+    cfg = engine.model.cfg
+    n = WHISPER_PARITY_BATCH
+    params32 = cast_tree(params, torch.float32)
+    toks = torch.from_numpy(prompts[:n]).cuda()
+    f32 = frames[:n].float()
+    out = {}
+    for impl in ("kernel", "ref"):
+        eng = serving.step_engine(build_model(cfg, impl=impl), serving.single_device_plan(cfg),
+                                  batch=n, max_len=WHISPER_PROMPT + WHISPER_PARITY_NEW,
+                                  dtype=torch.float32)
+        out[impl] = generate_with_frames(torch, eng, params32, toks, f32, WHISPER_PARITY_NEW)[:2]
+    del params32
+    torch.cuda.empty_cache()
+    (tk, lk), (tr, lr) = out["kernel"], out["ref"]
+    err = float((lk - lr).abs().max())
+    scale = float(lr.abs().max())
+    same = tk.tolist() == tr.tolist()
+    log(f"parity: full-width whisper fp32, {n} windows: prefill logits kernel-vs-plain "
+        f"max_abs_err {err:.3e} (tol 1e-3 x {scale:.3f}); greedy tokens over "
+        f"{WHISPER_PARITY_NEW} steps {'identical' if same else 'DIFFER'} "
+        f"({tk[0, :6].tolist()}...)")
+    require(bool(torch.isfinite(lk).all()), "non-finite whisper fp32 logits")
+    require(err <= 1e-3 * scale, "whisper fp32 logits: kernel path differs from the plain path")
+    require(same, f"whisper fp32 greedy tokens differ: kernel {tk.tolist()} ref {tr.tolist()}")
+    parity_prefill(torch, "whisper", engine.model, build_model(cfg, impl="ref"), params,
+                   torch.from_numpy(prompts).cuda(), "full-width", extras={"frames": frames})
+
+
+def whisper_train_phase(torch, counters) -> dict:
+    """Phase 17: full-width, full-depth whisper-tiny trained ``TRAIN_STEPS``
+    steps of ``WHISPER_TRAIN_BATCH`` windows x 448 tokens (grad_accum 8;
+    the family applies no remat policy) from fresh state: losses, median
+    step, decoder tokens/s and frames/s, peak memory, MFU; K1/K2/K2-backward
+    launches per step pinned; one step profiled; then ``parity_train`` on 2
+    windows.  Returns the run's launches."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+
+    cfg = get_config(WHISPER_ARCH)
+    B, S, F = WHISPER_TRAIN_BATCH, WHISPER_CTX, cfg.enc_frames
+    dense, attn = whisper_train_flops(cfg, B, S)
+    log(f"train: {cfg.name} full width and depth, {B} windows x ({S} tokens + {F} frames) a "
+        f"step in {WHISPER_TRAIN_ACCUM} microbatches; model FLOPs per step: matmuls "
+        f"{dense:.4e} + attention {attn:.4e} = {dense + attn:.4e}; bound at the bf16 peak "
+        f"{(dense + attn) / PEAK_FLOPS['bfloat16']:.4f} s")
+    plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
+                        LayerStrategy(remat="none"), grad_accum=WHISPER_TRAIN_ACCUM)
+    record, (hp, params, opt, ds) = train_plan(torch, counters, "whisper", plan, TRAIN_STEPS,
+                                               dense + attn, cfg, seq=S, batch=B)
+    E, L = cfg.enc_layers, cfg.num_layers
+    norms = 2 * E + 3 * L + 2
+    expected = {"flash_attention_fwd": (E + 2 * L) * WHISPER_TRAIN_ACCUM * TRAIN_STEPS,
+                "rmsnorm": norms * WHISPER_TRAIN_ACCUM * TRAIN_STEPS, "rmsnorm_gated": 0,
+                "rmsnorm_bwd": norms * WHISPER_TRAIN_ACCUM * TRAIN_STEPS, "ssd": 0}
+    require(record["launches"] == expected,
+            f"whisper train launched {record['launches']}, expected {expected}")
+    step_s = record["step_s"]
+    log(f"train [whisper]: median step {step_s:.4f} s, {B * S / step_s:.1f} decoder tokens/s, "
+        f"{B * F / step_s:.1f} frames/s, peak mem {record['peak_bytes'] / 1e9:.2f} GB, MFU "
+        f"{100 * record['mfu']:.2f} %; launches per step K1 {E + 2 * L} x {WHISPER_TRAIN_ACCUM}, "
+        f"K2 and K2 backward {norms} x {WHISPER_TRAIN_ACCUM}")
+    profile_train_step(torch, hp, params, opt, ds.batch(TRAIN_STEPS),
+                       what=f"[whisper] ({B} x ({S} tokens + {F} frames))")
+    del hp, params, opt, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity_train(torch, cfg, seq=S, batch=2)
+    return record["launches"]
+
+
 # ---------------------------------------------------------------- main
 
+def allocator_report(torch, label: str) -> None:
+    """The caching allocator once a phase's objects are gone and its cache
+    emptied: what stays allocated and reserved, and each segment that an
+    active block keeps from being released (its size, the bytes active in
+    it, the sizes of its largest active blocks)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    segments = torch.cuda.memory_snapshot()
+    kept = sorted(((s["total_size"], s["allocated_size"],
+                    sorted((b["size"] for b in s["blocks"] if b["state"] == "active_allocated"),
+                           reverse=True)) for s in segments), reverse=True)
+    reserved = sum(t for t, _, _ in kept)
+    allocated = sum(a for _, a, _ in kept)
+    log(f"allocator after {label}: {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved in {len(kept)} segments "
+        f"({(reserved - allocated) / 2**20:.1f} MiB of them free but kept by active blocks); "
+        f"allocator settings {os.environ.get('PYTORCH_CUDA_ALLOC_CONF', '')!r}")
+    for total, active, blocks in kept[:8]:
+        log(f"allocator:   segment {total / 2**20:.1f} MiB, {active / 2**20:.3f} MiB active in "
+            f"{len(blocks)} blocks (largest {[round(b / 2**20, 3) for b in blocks[:4]]} MiB)")
+
+
 def main() -> int:
-    # growable segments, for every phase: the phases free and reallocate
-    # tens of GB (the moonshot weights, then its training state), and with
-    # fixed-size cached segments the moonshot train phase runs out of memory
-    # with ~35 GiB reserved but unallocated; which tensors split the
-    # segments is not yet known
+    # growable segments, for every phase: moonshot's training (phase 14)
+    # runs out of memory without them, asking for its 5 GiB of fp32 logits
+    # in the first backward with 38.8 GiB allocated and 35.1 GiB cached in
+    # split segments; the phases before it leave 64 MiB allocated (two
+    # 32 MiB workspaces), so the fragments are the training step's own
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
@@ -1958,11 +2261,27 @@ def main() -> int:
 
     # 12-13. the MoE family: moonshot served at full width and depth, its parity
     moe_launches = moe_serve_phase(torch, np, serving, build_model, get_config, counters)
+    allocator_report(torch, "the moonshot serve and parity phases")
 
     # 14. moonshot trained at full width, cut to 2 layers
     moe_train_launches = moe_train_phase(torch, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 15. results
+    # 15-16. the encoder-decoder: whisper served at full width and depth with
+    # real frames, profiled, and its kernel path against its plain path
+    engine, w_params, w_frames, w_prompts, whisper_serve_launches = whisper_serve_phase(
+        torch, np, serving, build_model, get_config, counters)
+    profile_step_engine(torch, engine, w_params, w_prompts, extras={"frames": w_frames})
+    parity_whisper(torch, serving, build_model, engine, w_params, w_frames, w_prompts)
+    del engine, w_params, w_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17. whisper trained at full width and depth
+    whisper_train_launches = whisper_train_phase(torch, counters)
+
+    # 18. results
     kernels = []
     for rows, name, source, replaces in (
             (flash_rows, "flash_attention_fwd",
@@ -1979,7 +2298,8 @@ def main() -> int:
         for r in rows:
             launches = {"llama": llama_launches, "train": train_launches,
                         "moonshot": moe_launches, "moonshot_train": moe_train_launches,
-                        **static_launches}[r["path"]]
+                        "whisper": whisper_serve_launches,
+                        "whisper_train": whisper_train_launches, **static_launches}[r["path"]]
             kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": launches[name], "max_abs_err": r["max_abs_err"],

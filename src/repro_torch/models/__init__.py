@@ -1,4 +1,4 @@
-"""Model zoo: family dispatch (dense, moe, ssm and hybrid families ported so far)."""
+"""Model zoo: family dispatch (dense, moe, ssm, hybrid and audio families ported so far)."""
 from __future__ import annotations
 
 from repro_torch.configs.registry import ModelConfig
@@ -23,6 +23,10 @@ def build_model(cfg: ModelConfig, impl: str = "kernel", device="cuda"):
         from repro_torch.models.hybrid import HybridLM
 
         return HybridLM(cfg, impl, device)
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg, impl, device)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet (dense, moe, ssm and "
-        "hybrid only)")
+        f"family {cfg.family!r} is not ported to repro_torch yet (dense, moe, ssm, hybrid "
+        "and audio only)")

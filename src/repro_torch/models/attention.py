@@ -1,22 +1,28 @@
-"""Multi-head attention with GQA, qk-norm, optional bias and a KV cache.
+"""Multi-head attention with GQA, qk-norm, optional bias, a KV cache and
+cross-attention.
 
 K/V are stored compact (``num_kv_heads``).  The port runs on one device, so
 query heads are never padded for tensor parallelism.
 
-``attention_block`` dispatches:
+``attention_block`` takes JAX's modes: ``"train"``, ``"prefill"`` and
+``"decode"`` (causal self-attention), ``"encoder"`` (non-causal
+self-attention, no cache) and, with ``kv_source`` or ``cross=True``,
+cross-attention (q from x, k/v from the encoder output, no RoPE,
+non-causal; at decode the k/v come from the cache prefill filled).  It
+dispatches:
   * ``impl="kernel"`` on CUDA tensors -> the flash-attention forward kernel
-    (``kernels/flash_attention``) for every training pass (through its
+    (``kernels/flash_attention``) for every pass, on the compact K/V: the
+    kernel maps query head h to kv head h // (H // KV) itself, so no head
+    expansion runs.  Where a grad is wanted the kernel runs under its
     autograd function, whose backward recomputes through
-    ``chunked_attention_vjp``), prefill pass, prefill chunk and decode step,
-    on the compact K/V: the kernel maps query head h to kv head
-    h // (H // KV) itself, so no head expansion runs.  A decode offset and
-    per-slot valid lengths become explicit positions (``flash_positions``,
-    built once per forward by ``forward_decode``): ``q_pos = q_offset +
-    arange(Sq)`` per slot, ``k_pos = arange(Sk)`` with every key at or
-    beyond ``kv_len[b]`` moved to ``INT32_MAX``, so the kernel's ``k_pos <=
-    q_pos`` mask is exactly ``dense_attention``'s ``(k <= q_offset + i) &
-    (k < kv_len)``.  A full prefill (offset 0, no ``kv_len``) keeps the
-    index mask and needs no positions.
+    ``chunked_attention_vjp``.  A decode offset and per-slot valid lengths
+    become explicit positions (``flash_positions``, built once per forward
+    by ``forward_decode``): ``q_pos = q_offset + arange(Sq)`` per slot,
+    ``k_pos = arange(Sk)`` with every key at or beyond ``kv_len[b]`` moved
+    to ``INT32_MAX``, so the kernel's ``k_pos <= q_pos`` mask is exactly
+    ``dense_attention``'s ``(k <= q_offset + i) & (k < kv_len)``.  A full
+    pass (offset 0, no ``kv_len``) keeps the index mask, or none when it is
+    non-causal, and needs no positions.
   * otherwise (CPU tensors, or ``impl="ref"``) -> ``expand_and_pad`` to the
     query-head count, then ``dense_attention`` up to ``DENSE_MAX_SEQ`` and
     ``chunked_attention`` beyond, as in the JAX package; the chunked form's
@@ -49,7 +55,9 @@ CHUNK_Q = 1024
 CHUNK_KV = 1024
 
 
-def attn_defs(cfg: ModelConfig) -> dict:
+def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """A cross-attention block (``cross=True``) has no qkv bias and no
+    qk-norm, as in JAX."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     # explicit stds: q/k/v contract over d_model and wo over h·hd, which the
     # fan-in heuristic (shape[-2]) gets wrong for these 3-D projections
@@ -59,11 +67,11 @@ def attn_defs(cfg: ModelConfig) -> dict:
         "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=d ** -0.5),
         "wo": ParamDef((h, hd, d), ("q_heads", "head_dim", "embed"), scale=(h * hd) ** -0.5),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs["bq"] = ParamDef((h, hd), ("q_heads", "head_dim"), init="zeros")
         defs["bk"] = ParamDef((kv, hd), ("kv_heads", "head_dim"), init="zeros")
         defs["bv"] = ParamDef((kv, hd), ("kv_heads", "head_dim"), init="zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         defs["q_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
         defs["k_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
     return defs
@@ -119,31 +127,37 @@ def dense_attention(q, k, v, *, causal, q_offset=0, kv_len=None):
     return torch.einsum("bhqs,bshd->bqhd", probs, v)
 
 
+def blocks(n: int, size: int) -> list[tuple[int, int]]:
+    """``[start, stop)`` of the ``ceil(n / size)`` blocks of ``size`` that
+    cover ``range(n)``, the last one ragged."""
+    return [(start, min(start + size, n)) for start in range(0, n, size)]
+
+
 def chunked_attention(q, k, v, *, causal, q_offset=0, kv_len=None,
                       chunk_q: int = CHUNK_Q, chunk_kv: int = CHUNK_KV):
     """Flash-style online softmax over (q, kv) blocks; O(chunk_q·chunk_kv)
-    live scores.  The plain path for sequences beyond ``DENSE_MAX_SEQ``."""
+    live scores.  The plain path for sequences beyond ``DENSE_MAX_SEQ``, and
+    the recompute of K1's backward.  It walks ``ceil(S / chunk)`` blocks of
+    each side, the last one shorter, where JAX's halves the chunk until it
+    divides S (an Sk of 1 500 would walk 375 blocks of 4 keys)."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    cq, ck = min(chunk_q, Sq), min(chunk_kv, Sk)
-    while Sq % cq:
-        cq //= 2
-    while Sk % ck:
-        ck //= 2
     scale = hd ** -0.5
     qpos_all = _q_positions(q_offset, Sq, q.device).reshape(-1, Sq)   # (1|B, Sq)
     neg = torch.full((), NEG_INF, device=q.device)
     outs = []
-    for i in range(Sq // cq):
-        qi = q[:, i * cq:(i + 1) * cq]
-        qpos = qpos_all[:, i * cq:(i + 1) * cq]
+    for q0, q1 in blocks(Sq, chunk_q):
+        cq = q1 - q0
+        qi = q[:, q0:q1]
+        qpos = qpos_all[:, q0:q1]
         o = torch.zeros((B, H, cq, hd), dtype=torch.float32, device=q.device)
         m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
-        for j in range(Sk // ck):
-            kj, vj = k[:, j * ck:(j + 1) * ck], v[:, j * ck:(j + 1) * ck]
+        for k0, k1 in blocks(Sk, chunk_kv):
+            ck = k1 - k0
+            kj, vj = k[:, k0:k1], v[:, k0:k1]
             s = torch.einsum("bqhd,bshd->bhqs", qi, kj).float() * scale
-            kpos = j * ck + torch.arange(ck, device=q.device)
+            kpos = torch.arange(k0, k1, device=q.device)
             mask = torch.ones((1, cq, ck), dtype=torch.bool, device=q.device)
             if causal:
                 mask = kpos[None, None, :] <= qpos[:, :, None]
@@ -178,8 +192,7 @@ def chunked_attention_vjp(q, k, v, g, *, causal, q_offset=0, kv_len=None,
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     with record_function("attention_vjp"):
-        for start in range(0, Sq, block_q):
-            stop = min(start + block_q, Sq)
+        for start, stop in blocks(Sq, block_q):
             end = Sk
             if causal and not isinstance(q_offset, torch.Tensor):
                 end = min(Sk, int(q_offset) + stop)
@@ -287,10 +300,12 @@ def _project(x, w):
     return torch.matmul(x, w.to(x.dtype).reshape(D, H * hd)).view(*x.shape[:-1], H, hd)
 
 
-def _project_qkv(params, x, cfg: ModelConfig, impl: str):
+def _project_qkv(params, x, kv_x, cfg: ModelConfig, impl: str):
+    """q from x, k/v from ``kv_x`` (x itself, or the encoder output of a
+    cross-attention block)."""
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    k = _project(kv_x, params["wk"])
+    v = _project(kv_x, params["wv"])
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -325,37 +340,67 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, cache_index) -> None:
     cache[:, ci:ci + Sq] = new
 
 
+def _flash_full(q, k, v, *, causal, kv_len=None):
+    """K1 on a full pass (offset 0): under its autograd function where a grad
+    is wanted, else the forward alone (with ``kv_len`` as positions)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if kv_len is not None:
+            raise NotImplementedError("K1 under autograd takes no kv_len")
+        return flash_ops.flash_attention(q, k, v, causal=causal)
+    return _flash(q, k, v, causal=causal, kv_len=kv_len)
+
+
 def attention_block(
     params: dict,
     x: torch.Tensor,                # (B, Sq, D)
     *,
     cfg: ModelConfig,
-    mode: str,                      # "train" | "prefill" | "decode"
+    mode: str,                      # "train" | "prefill" | "decode" | "encoder"
     cache: Optional[dict] = None,   # {"k","v": (B, S_max, KV, hd)}
     cache_index=None,               # decode write offset: int or (B,) tensor
     kv_len: Optional[torch.Tensor] = None,
+    kv_source: Optional[torch.Tensor] = None,   # encoder output for cross-attention
+    cross: bool = False,
     impl: str = "kernel",
     positions=None,                 # the kernel's (q_pos, k_pos) of a decode step
 ) -> tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention of one layer.  In decode mode the new k/v are written
-    into ``cache`` in place and the same dict is returned as the new cache;
-    train mode is causal with no cache (returns None) and differentiable.
+    """One attention layer.  Self-attention: in decode mode the new k/v are
+    written into ``cache`` in place and the same dict is returned as the
+    new cache; prefill returns the pass's {"k", "v"}; train and encoder
+    modes return None and are differentiable (train causal, encoder not).
+    Cross-attention (``kv_source`` given, or ``cross``): no RoPE and no
+    mask; prefill returns the encoder output's {"k", "v"}, and decode
+    projects q alone, reads k/v from ``cache`` and returns it unchanged.
     ``positions`` (``flash_positions`` of this step, shared by every layer)
-    is read only on the kernel path; without it the positions are built
-    here."""
+    is read only on the kernel path of a self-attention decode step;
+    without it the positions are built here."""
     B, Sq, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, impl)
-    if mode == "decode":
-        pos_q = _q_positions(cache_index, Sq, x.device)
-    elif mode in ("prefill", "train"):
-        pos_q = torch.arange(Sq, device=x.device)
-    else:
-        raise ValueError(f"attention mode {mode!r} is not ported yet")
-    cos_q, sin_q = rope_angles(pos_q, cfg.resolved_head_dim, cfg.rope_theta)
-    q = apply_rope(q, cos_q, sin_q)
-    k = apply_rope(k, cos_q, sin_q)
+    if mode not in ("train", "prefill", "decode", "encoder"):
+        raise ValueError(f"unknown attention mode {mode!r}")
+    cross = cross or kv_source is not None
+    kernel = uses_kernel(impl, x)
+    if mode == "decode" and cross:
+        q = _project(x, params["wq"])
+        if "q_norm" in params:
+            q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps, impl)
+        ck, cv = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+        if kernel:
+            out = _flash(q.contiguous(), ck.contiguous(), cv.contiguous(), causal=False,
+                         kv_len=kv_len)
+        else:
+            q, ke, ve = expand_and_pad(q, ck, cv)
+            out = attention_math(q, ke, ve, causal=False, kv_len=kv_len)
+        return _out_proj(params, out, x.dtype), cache
 
-    kernel = uses_kernel(impl, q)
+    q, k, v = _project_qkv(params, x, kv_source if cross else x, cfg, impl)
+    if not cross:                   # RoPE on self-attention only
+        pos_q = (_q_positions(cache_index, Sq, x.device) if mode == "decode"
+                 else torch.arange(Sq, device=x.device))
+        cos_q, sin_q = rope_angles(pos_q, cfg.resolved_head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos_q, sin_q)
+        k = apply_rope(k, cos_q, sin_q)
+
     if mode == "decode":
         ck, cv = cache["k"], cache["v"]
         write_cache(ck, k, cache_index)
@@ -372,20 +417,12 @@ def attention_block(
             valid = valid_lengths(cache_index, Sq, B, kv_len, x.device)
             q, ke, ve = expand_and_pad(q, ck.to(q.dtype), cv.to(q.dtype))
             out = attention_math(q, ke, ve, causal=True, q_offset=cache_index, kv_len=valid)
-    elif mode == "train":
-        new_cache = None
-        if kernel:
-            out = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                            causal=True)
-        else:
-            q, ke, ve = expand_and_pad(q, k, v)
-            out = attention_math(q, ke, ve, causal=True)
     else:
-        new_cache = {"k": k, "v": v}
+        causal = mode != "encoder" and not cross
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
         if kernel:
-            out = _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-                         kv_len=kv_len)
+            out = _flash_full(q, k, v, causal=causal, kv_len=kv_len)
         else:
             q, ke, ve = expand_and_pad(q, k, v)
-            out = attention_math(q, ke, ve, causal=True, kv_len=kv_len)
+            out = attention_math(q, ke, ve, causal=causal, kv_len=kv_len)
     return _out_proj(params, out, x.dtype), new_cache

@@ -193,3 +193,7 @@ class DenseTransformerLM(nn.Module):
                                        positions=positions)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps, self.impl)
         return embedding.lm_head(params["embed"], x, cfg), cache
+
+    def text_offset(self) -> int:
+        """Positions before the text in ``forward_train``'s logits: none."""
+        return 0

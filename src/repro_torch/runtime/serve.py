@@ -7,10 +7,13 @@ batch of equal-length prompts:
 
 - an unsharded dense model goes through the paged KV cache, as the trivial
   B-requests-at-once case of the continuous-batching scheduler;
-- every other model (the moe, ssm and hybrid families: moonshot, grok,
-  mamba2, zamba2) takes :meth:`greedy_generate_reference`, one
-  ``forward_prefill`` then one ``forward_decode`` per token — the slow,
-  obviously-correct loop that stays the scheduler's oracle.
+- every other model (the moe, ssm, hybrid and audio families: moonshot,
+  grok, mamba2, zamba2, whisper) takes :meth:`greedy_generate_reference`,
+  one ``forward_prefill`` then one ``forward_decode`` per token — the slow,
+  obviously-correct loop that stays the scheduler's oracle.  As in JAX it
+  passes no ``extras``, so the encoder-decoder encodes zero frames there;
+  real frames go through ``prefill_step(params, tokens, {"frames": f})``
+  and ``decode_step``.
 
 Only a single device for now: a ``mesh`` raises ``NotImplementedError``
 (the parallel runtime is a later slice), and the telemetry hooks of the JAX
@@ -58,9 +61,11 @@ class ServingEngine:
         return cls(model, plan, mesh, batch=batch, max_len=max_len, dtype=dtype)
 
     # ------------------------------------------------------------ steps
-    def prefill_step(self, params, tokens):
+    def prefill_step(self, params, tokens, extras=None):
+        """``extras``: an optional dict of side inputs to ``forward_prefill``
+        (``frames`` of the encoder-decoder), as in JAX."""
         return self.model.forward_prefill(params, tokens, max_len=self.max_len or None,
-                                          dtype=self.dtype)
+                                          dtype=self.dtype, **(extras or {}))
 
     def decode_step(self, params, tokens, cache, cache_index, kv_len=None):
         return self.model.forward_decode(params, tokens, cache, cache_index, kv_len=kv_len,

@@ -120,8 +120,13 @@ class HybridParallelModel:
         """(loss, metrics) of one batch, the forward computed in ``dtype``
         over the fp32 master weights (bf16 in ``train_step``; the parity
         checks also run fp32)."""
+        side = {k: batch[k] for k in ("vis_embeds", "frames") if k in batch}
         logits, extra = self.model.forward_train(
-            params, batch["tokens"], layer_runner=make_layer_runner(self.plan), dtype=dtype)
+            params, batch["tokens"], layer_runner=make_layer_runner(self.plan), dtype=dtype,
+            **side)
+        off = self.model.text_offset()
+        if off:
+            logits = logits[:, off:, :]
         loss, metrics = softmax_xent(logits, batch["labels"])
         metrics["aux"] = extra
         return loss + AUX_LOSS_WEIGHT * extra, metrics
@@ -186,11 +191,12 @@ def construct_hybrid_parallel_model(
 ) -> HybridParallelModel:
     """The paper's runtime entry point (Fig. 2 line 13), on one device: the
     model's (``"cuda"`` unless it was built with ``device="cpu"``).  Trains
-    the decoder families, dense and MoE; ``loss_fn`` adds the MoE router's
-    aux loss at ``AUX_LOSS_WEIGHT``."""
+    the decoder families, dense and MoE, and the encoder-decoder (audio,
+    whose batches carry ``frames``); ``loss_fn`` adds the MoE router's aux
+    loss at ``AUX_LOSS_WEIGHT``."""
     _single_device(plan, mesh)
-    if model.cfg.family not in ("dense", "moe"):
+    if model.cfg.family not in ("dense", "moe", "audio"):
         raise NotImplementedError(
             f"training the {model.cfg.family!r} family is not ported yet (dense only, "
-            "with the dense or the MoE FFN)")
+            "with the dense or the MoE FFN, and the audio encoder-decoder)")
     return HybridParallelModel(model=model, plan=plan, opt_cfg=opt_cfg or opt_lib.AdamWConfig())

@@ -193,7 +193,7 @@ def build(config: ServeConfig, *, model: Any = None, params: Any = None,
     if cfg.family not in ("dense",):
         raise NotImplementedError(
             f"paged serving supports the dense cache layout; family "
-            f"{cfg.family!r} is not ported")
+            f"{cfg.family!r} goes through step_engine()")
     if model is None:
         model = build_model(cfg, device=device)
     if params is None:

@@ -704,3 +704,131 @@ def test_cuda_init_draws_a_leaf_of_one_piece_as_a_whole_draw(cuda_device, monkey
     a, b = (d.materialize(torch.Generator(device=cuda_device).manual_seed(5), cuda_device,
                           torch.bfloat16) for _ in range(2))
     assert torch.equal(a, b) and abs(float(a.float().std()) - d.std()) < 0.01 * d.std()
+
+
+# ------------------------------------------------------------------ whisper (audio)
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Sk, H, KV, hd, kind, kv_lens) at whisper-tiny's heads (H = KV 6, hd 64)
+    (2, 300, 300, 6, 6, 64, "noncausal", None),       # encoder self, 4 tiles + a ragged 44
+    (4, 4, 1500, 6, 6, 64, "noncausal", None),        # cross prefill, Sq != Sk
+    (2, 96, 1500, 6, 6, 64, "noncausal", None),       # cross training shape, reduced
+    (4, 1, 1500, 6, 6, 64, "noncausal", None),        # cross decode: split-K, no positions
+    (4, 1, 448, 6, 6, 64, "decode", (5, 64, 65, 228)),    # self decode, per-slot kv_len
+], ids=lambda c: f"B{c[0]}-Sq{c[1]}-Sk{c[2]}-{c[6]}")
+def test_cuda_flash_at_whisper_shapes_matches_plain_version(cuda_device, case):
+    """K1 on the encoder-decoder's paths against its plain version, at the
+    tolerances of the other K1 cases."""
+    _check_flash_case(cuda_device, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_autograd_non_causal_cross(cuda_device, dtype):
+    """``flash_attention(..., causal=False)`` with Sq 96 != Sk 1500 (the
+    cross-attention under autograd) against autograd through K1's plain
+    version: 2e-3 of scale in fp32, 3e-2 in bf16; one launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(96)
+    q = torch.randn((2, 96, 6, 64), generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn((2, 1500, 6, 64), generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    cot = torch.randn(q.shape, generator=g, device=cuda_device).to(dtype)
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    results = []
+    for fn in (flash_ops.flash_attention, flash_ref.flash_attention_fwd):
+        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+        n = flash_ops.flash_attention_fwd.launches
+        out = fn(tq, tk, tv, causal=False)
+        results.append((out, *torch.autograd.grad(out, (tq, tk, tv), cot)))
+        assert flash_ops.flash_attention_fwd.launches == n + (fn is flash_ops.flash_attention)
+    for a, b in zip(*results):
+        a, b = a.detach().float(), b.detach().float()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _whisper_cfg():
+    """Reduced whisper-tiny with 100 frames (not a multiple of 64)."""
+    return dataclasses.replace(get_config("whisper-tiny").reduced(), enc_frames=100)
+
+
+def _whisper_greedy(model, params, prompts, frames, max_new):
+    """``prefill_step(params, tokens, {"frames": f})`` then ``decode_step``
+    per token, in fp32 (the engine's calls for real frames)."""
+    cfg = model.cfg
+    S = prompts.shape[1]
+    engine = serving.step_engine(model, serving.single_device_plan(cfg),
+                                 max_len=S + max_new, dtype=torch.float32)
+    logits, cache = engine.prefill_step(params, prompts, {"frames": frames})
+    out = [logits[:, -1].argmax(-1)]
+    for i in range(max_new - 1):
+        logits, cache = engine.decode_step(params, out[-1][:, None], cache, S + i)
+        out.append(logits[:, -1].argmax(-1))
+    return torch.stack(out, dim=1).tolist()
+
+
+def test_cuda_whisper_kernel_path_matches_ref_path(cuda_device):
+    """The reduced whisper in fp32 on the card with non-zero frames: the
+    kernel path's greedy tokens are the plain path's, with K1 E + 2L and K2
+    (2E + 1) + (3L + 1) launches a prefill and K1 2L, K2 3L + 1 a decode
+    step; ``greedy_generate`` (zero frames, as in JAX) agrees too."""
+    cfg = _whisper_cfg()
+    E, L = cfg.enc_layers, cfg.num_layers
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(13))
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    frames = torch.randn((3, cfg.enc_frames, cfg.d_model), generator=g, device=cuda_device)
+    prompts = torch.from_numpy(
+        np.random.default_rng(13).integers(0, cfg.vocab_size, (3, 5))).to(cuda_device)
+    tokens, plain = {}, {}
+    for impl in ("kernel", "ref"):
+        model = build_model(cfg, impl=impl, device=cuda_device)
+        counts = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+        tokens[impl] = _whisper_greedy(model, params, prompts, frames, 12)
+        launched = (flash_ops.flash_attention_fwd.launches - counts[0],
+                    rms_ops.rmsnorm.launches - counts[1])
+        if impl == "kernel":
+            assert launched == (E + 2 * L + 11 * 2 * L, 2 * E + 1 + 3 * L + 1 + 11 * (3 * L + 1))
+        else:
+            assert launched == (0, 0)
+        engine = serving.step_engine(model, serving.single_device_plan(cfg),
+                                     dtype=torch.float32)
+        plain[impl] = engine.greedy_generate(params, prompts, 8, 13).tolist()
+    assert tokens["kernel"] == tokens["ref"]
+    assert plain["kernel"] == plain["ref"]
+
+
+def test_cuda_whisper_train_kernel_path_matches_ref_path(cuda_device):
+    """The reduced whisper's fp32 loss and grads on the card, kernel path
+    against plain path (grads within 2e-3 of each leaf's scale); K1 E + 2L,
+    K2 2E + 3L + 2 and K2's backward as many launches per microbatch."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models.common import tree_leaves as leaves
+    from repro_torch.runtime import train as ttrain
+    from repro_torch.runtime.data import SyntheticDataset
+
+    cfg = _whisper_cfg()
+    E, L = cfg.enc_layers, cfg.num_layers
+    plan = uniform_plan(cfg.name, "train_4k", (1,), ("data",), L, LayerStrategy(),
+                        grad_accum=2)
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(15))
+    batch = SyntheticDataset(cfg, 64, 4, seed=15).batch(0)
+    out = {}
+    for impl in ("kernel", "ref"):
+        hp = ttrain.construct_hybrid_parallel_model(build_model(cfg, impl=impl), plan)
+        counts = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches,
+                  rms_ops.rmsnorm.backward_launches)
+        out[impl] = hp.value_and_grad(params, batch, torch.float32)
+        torch.cuda.synchronize()
+        launched = (flash_ops.flash_attention_fwd.launches - counts[0],
+                    rms_ops.rmsnorm.launches - counts[1],
+                    rms_ops.rmsnorm.backward_launches - counts[2])
+        norms = 2 * E + 3 * L + 2
+        assert launched == ((E + 2 * L, norms, norms) if impl == "kernel" else (0, 0, 0))
+    (lk, _, gk), (lr, _, gr) = out["kernel"], out["ref"]
+    assert abs(float(lk) - float(lr)) <= 1e-5 * abs(float(lr))
+    for a, b in zip(leaves(gk), leaves(gr)):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+    hp = ttrain.construct_hybrid_parallel_model(build_model(cfg), plan)
+    p, _, m = hp.train_step(params, hp.init_opt_state(params), batch)
+    assert all(bool(torch.isfinite(x).all()) for x in leaves(p))
+    assert np.isfinite(float(m["loss"]))

@@ -309,4 +309,4 @@ def test_step_engine_rejects_a_mesh_and_a_foreign_device(pair):
     with pytest.raises(ValueError, match="step_engine"):
         serving.step_engine(meta, plan, device="cpu")
     with pytest.raises(NotImplementedError, match="family"):
-        build_model(get_config("whisper-tiny").reduced(), device="cpu")
+        build_model(get_config("internvl2-26b").reduced(), device="cpu")
