@@ -26,7 +26,10 @@ Phases (any failure exits non-zero and prints no result line):
    encoder's non-causal B16 S1500, the cross-attention's non-causal prefill
    B16 Sq4 Sk1500, training shape B32 Sq448 Sk1500 and split-K decode B16
    Sq1 Sk1500, and the decoder's self decode B16 Sq1 Sk448 at per-slot
-   kv_len: fp32 1e-4,
+   kv_len; internvl2-26b's (H 48 over KV 8, g = 6, hd 128): the prefill
+   B8 S1280, a decode step B8 Sq1 Sk1344 at per-slot kv_len and the
+   training shape B2 S4096; zamba2's training shape B2 S2048 at hd 112:
+   fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
    holds rows over thousands of keys, whose values are ~1e-2; the llama
@@ -35,22 +38,26 @@ Phases (any failure exits non-zero and prints no result line):
    with ``enable_gqa`` on the compact heads and SDPA on expanded heads (the
    case's boolean mask; ``is_causal`` where that mask is the plain causal
    one, no mask where the case is non-causal); the autograd
-   ``flash_attention`` on the split path (S 20 000, fp32) and non-causal at
-   whisper's cross training shape against autograd through the plain
+   ``flash_attention`` on the split path (S 20 000, fp32), non-causal at
+   whisper's cross training shape, at zamba2's training shape (hd 112) and
+   at internvl2's heads (g = 6) against autograd through the plain
    version, 2e-3 of scale; RMSNorm (K2; fp32 1e-5, bf16
    2e-2 — the JAX kernel tests' tolerances): the forward at every template
    (1 to 8 packs of 16 bytes a thread, the two-pass loop, the scalar
    template on an odd width and on misaligned views; each case logs its
    template), the decode rows, the training shape 8192 x 2048, the
-   layer norms of mamba2 (8192 x 2560) and zamba2 (8192 x 3584) and
-   whisper's at width 384 (24 000 and 16 rows serving, 48 000 training) in bf16
-   timed; the gated forward ``rmsnorm(x * silu(z))`` in bf16 and fp32 at
+   layer norms of mamba2 (8192 x 2560) and zamba2 (8192 x 3584),
+   whisper's at width 384 (24 000 and 16 rows serving, 48 000 training),
+   internvl2's at width 6144 (10 240 rows serving, 8192 training) and the
+   Mamba2 training microbatch's 4096 rows at widths 2560, 5120, 3584 and
+   7168 in bf16 timed; the gated forward ``rmsnorm(x * silu(z))`` in bf16 and fp32 at
    8192 and 4 rows of 5120 and 7168, an odd width and a misaligned gate,
    the bf16 rows timed beside the unfused composition (no library call
    computes the gate); the backward kernel (dx at the forward's
    tolerances, an fp32 dscale at 1e-4 of its scale, bitwise equal over two
    calls) at 8192 x 2048 (bf16 x with fp32 scale, and fp32), 8192 x 3584,
-   32768 x 128, 48 000 x 384, an odd width and a misaligned view, timed against the plain
+   32768 x 128, 48 000 x 384, 8192 x 6144, 4096 x 5120, 4096 x 7168, an odd
+   width and a misaligned view, timed against the plain
    backward and ``F.rms_norm``'s backward; SSD scan: max |err| <= 1e-3 *
    max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
@@ -58,7 +65,12 @@ Phases (any failure exits non-zero and prints no result line):
    heads over G 2, N 64), each in fp32 and in bf16
    (the dtype the model passes; the tensor-core template), and against the
    step-by-step scan; each template's shared memory per block and blocks
-   per SM at N 128, P 64 are logged); then each case's median
+   per SM at N 128, P 64 are logged); the scan under autograd
+   (``ssd_autograd``: K3 forward, fp32 recompute backward) at mamba2's and
+   zamba2's training shapes (B2 S2048) and a ragged S 1 000: y and the five
+   grads against autograd through ``ssd_chunked``, 1e-3 * max(1, max
+   |plain|) in fp32, no further from fp32 than twice the plain route's in
+   bf16, the forward and backward timed; then each case's median
    device time, the plain version's, and one PyTorch library call's as a
    yardstick (``library_ms``; the port never calls it; none computes the
    SSD scan), beside the least time the card could take (``bound_ms``, from
@@ -170,8 +182,38 @@ Phases (any failure exits non-zero and prints no result line):
    ``whisper_train_flops``; K1 12, K2 22 and K2-backward 22 launches a
    microbatch pinned; one step profiled; phase 10's kernel-vs-plain parity
    on 2 windows;
-18. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
-   ``rmsnorm_bwd`` rows for K2), then the device line last.
+18. internvl2 serve — full-width, full-depth internvl2-26b (48 layers, d
+   6144, 48/8 heads at hd 128, swiglu ff 16 384, untied vocab 92 553; the
+   InternLM2 backbone, 19.86 G parameters, 39.7 GB in bf16; random weights
+   from seed 0): 8 turns of one image tile (256 seeded standard normal bf16
+   patch embeddings) and 1 024 text tokens, 64 new tokens in a 1 344-row
+   cache, through ``prefill_step(params, tokens, {"vis_embeds": v})`` then
+   ``decode_step`` at ``cache_index = 256 + 1024 + i``; TTFT, TPOT, tok/s,
+   peak memory; K1 48 and K2 97 launches a forward pinned; one prefill and
+   4 decode steps profiled;
+19. internvl2 parity — full width cut to 4 layers (the served weights'
+   first 4; fp32 at full depth would be 79 GB), the served prefix: fp32
+   logits within 1e-3 of the plain path's scale, 32 greedy tokens
+   identical; phase 7's bf16 rule;
+20. internvl2 train — full width cut to 2 layers (~318 GB of fp32 state at
+   48), 3 steps of 8 x (256 + 3 840) positions in 4 microbatches under
+   ``selective``, the state donated (updated in place); K1 16, K2 36 and
+   K2-backward 20 launches a step pinned; phase 10's kernel-vs-plain
+   parity on one microbatch with seeded non-zero patch embeddings;
+21. mamba2 train — full-width, full-depth mamba2-2.7b (2.83 G parameters),
+   3 steps of 8 x 2048 tokens in 4 microbatches under ``selective``, the
+   state donated (two copies of its 45 GB of fp32 state would not fit): K3
+   under autograd (512 launches a step: the forward and the selective
+   recompute), K2 1028 and K2-backward 516 pinned; MFU with the scan's
+   FLOPs (``ssm_train_flops``); one step profiled with the ``ssd_vjp`` and
+   ``optimizer`` spans; phase 10's kernel-vs-plain parity at 2 layers;
+22. zamba2 train — full width cut to 13 layers (two shared-block sites and
+   a trailing Mamba layer), the mamba2 traffic, no remat policy (the
+   hybrid takes none, as in JAX), the state donated: K3 52, K1 8, K2 and
+   K2-backward 124 launches a step pinned;
+23. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
+   ``rmsnorm_bwd`` rows for K2, ``ssd`` and ``ssd_autograd`` for K3), then
+   the device line last.
 """
 from __future__ import annotations
 
@@ -219,12 +261,15 @@ def log(msg: str) -> None:
 def launch_counters(flash_ops, rms_ops, ssd_ops) -> dict:
     """Each kernel's launch counter: name -> (the wrapper holding it, its
     attribute).  A gated K2 call counts on ``rmsnorm`` and ``rmsnorm_gated``;
-    a K2 backward call (two launches: rows, column sums) on ``rmsnorm_bwd``."""
+    a K2 backward call (two launches: rows, column sums) on ``rmsnorm_bwd``;
+    a K3 launch of ``ssd_autograd``'s forward on ``ssd`` and
+    ``ssd_autograd``."""
     return {"flash_attention_fwd": (flash_ops.flash_attention_fwd, "launches"),
             "rmsnorm": (rms_ops.rmsnorm, "launches"),
             "rmsnorm_gated": (rms_ops.rmsnorm, "gated_launches"),
             "rmsnorm_bwd": (rms_ops.rmsnorm, "backward_launches"),
-            "ssd": (ssd_ops.ssd, "launches")}
+            "ssd": (ssd_ops.ssd, "launches"),
+            "ssd_autograd": (ssd_ops.ssd_autograd, "launches")}
 
 
 def zero_counts(counters: dict) -> None:
@@ -376,8 +421,10 @@ def flash_row_err(out, ref32) -> float:
 def check_flash(torch, flash_ops, flash_ref, gen):
     """Every flash-attention case against the plain version; returns the
     JSON rows of the timed bf16 cases: the two llama serving shapes (compact
-    KV = 8), the g = 5 / hd 112 check shapes, the llama training shape, and
-    zamba2's and moonshot's serving shapes and moonshot's training shape."""
+    KV = 8), the g = 5 / hd 112 check shapes, the llama training shape,
+    zamba2's and moonshot's serving shapes and moonshot's training shape,
+    whisper's, and internvl2's (g = 6) serving and training shapes and
+    zamba2's training shape."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -479,6 +526,29 @@ def check_flash(torch, flash_ops, flash_ref, gen):
                       f"kv_len {name}", True, flash_case(
                           torch, gen, B=WHISPER_BATCH, Sq=1, Sk=WHISPER_CTX, H=6, hd=64,
                           dtype=dtype, q_off=w_len - 1, kv_len=w_len, path="whisper")))
+    # internvl2-26b (48 query heads over 8 KV heads, g = 6, hd 128): the
+    # prefill of 8 turns of 256 prefix + 1 024 text positions (a 64-row tile
+    # spans 10 2/3 positions), a decode step over the 1 344-row cache at the
+    # serve run's per-slot kv_len, and the training shape; zamba2's training
+    # shape (hd 112, one query head per KV head)
+    v_len = torch.randint(VLM_PREFIX + VLM_TEXT + 1, VLM_CTX + 1, (VLM_BATCH,), generator=gen,
+                          device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        S = VLM_PREFIX + VLM_TEXT
+        cases.append((f"internvl2 prefill causal B{VLM_BATCH} S{S} H48 KV8 hd128 {name}", True,
+                      flash_case(torch, gen, B=VLM_BATCH, Sq=S, Sk=S, H=48, KV=8, hd=128,
+                                 dtype=dtype, path="internvl2")))
+        cases.append((f"internvl2 decode B{VLM_BATCH} Sq1 Sk{VLM_CTX} H48 KV8 hd128 per-slot "
+                      f"kv_len {name}", True, flash_case(
+                          torch, gen, B=VLM_BATCH, Sq=1, Sk=VLM_CTX, H=48, KV=8, hd=128,
+                          dtype=dtype, q_off=v_len - 1, kv_len=v_len, path="internvl2")))
+    cases.append((f"internvl2 train causal B2 S{TRAIN_SEQ} H48 KV8 hd128 bfloat16", True,
+                  flash_case(torch, gen, B=2, Sq=TRAIN_SEQ, Sk=TRAIN_SEQ, H=48, KV=8, hd=128,
+                             dtype=torch.bfloat16, path="internvl2_train")))
+    cases.append((f"zamba2 train causal B2 S{SSM_TRAIN_SEQ} H32 KV32 hd112 bfloat16", True,
+                  flash_case(torch, gen, B=2, Sq=SSM_TRAIN_SEQ, Sk=SSM_TRAIN_SEQ, H=32, hd=112,
+                             dtype=torch.bfloat16, path="zamba2_train")))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -536,16 +606,19 @@ def check_flash(torch, flash_ops, flash_ref, gen):
 def check_flash_autograd(torch, flash_ops, flash_ref, gen):
     """``flash_attention`` under autograd (K1 forward, block-by-block
     recompute backward) against autograd through K1's plain version, in
-    fp32: out, dq, dk, dv within 2e-3 of their scale.  Two cases: the
-    many-row split path (causal, S 20 000), and whisper's cross-attention
-    at its training shape (non-causal, Sq 448 over Sk 1 500, whose
-    recompute walks two key blocks, the second ragged)."""
-    for label, B, Sq, Sk, H, KV, causal in (
-            ("split path causal", 1, 20000, 20000, 2, 1, True),
-            ("whisper cross train non-causal", WHISPER_MICRO, 448, 1500, 6, 6, False)):
-        q = torch.randn((B, Sq, H, 64), generator=gen, device="cuda")
-        k, v = (torch.randn((B, Sk, KV, 64), generator=gen, device="cuda") for _ in "kv")
-        cot = torch.randn((B, Sq, H, 64), generator=gen, device="cuda")
+    fp32: out, dq, dk, dv within 2e-3 of their scale.  Cases: the many-row
+    split path (causal, S 20 000), whisper's cross-attention at its
+    training shape (non-causal, Sq 448 over Sk 1 500, whose recompute walks
+    two key blocks, the second ragged), zamba2's shared block at its
+    training shape (hd 112) and internvl2's heads (g = 6, hd 128)."""
+    for label, B, Sq, Sk, H, KV, hd, causal in (
+            ("split path causal", 1, 20000, 20000, 2, 1, 64, True),
+            ("whisper cross train non-causal", WHISPER_MICRO, 448, 1500, 6, 6, 64, False),
+            ("zamba2 train causal", 2, SSM_TRAIN_SEQ, SSM_TRAIN_SEQ, 32, 32, 112, True),
+            ("internvl2 heads causal", 1, 1024, 1024, 48, 8, 128, True)):
+        q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda")
+        k, v = (torch.randn((B, Sk, KV, hd), generator=gen, device="cuda") for _ in "kv")
+        cot = torch.randn((B, Sq, H, hd), generator=gen, device="cuda")
         results = []
         for fn in (flash_ops.flash_attention, flash_ref.flash_attention_fwd):
             tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -556,7 +629,7 @@ def check_flash_autograd(torch, flash_ops, flash_ref, gen):
             a, b = a.detach(), b.detach()
             err = float((a - b).abs().max())
             scale = float(b.abs().max())
-            log(f"K1 flash_attention autograd [{label} B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd64 "
+            log(f"K1 flash_attention autograd [{label} B{B} Sq{Sq} Sk{Sk} H{H} KV{KV} hd{hd} "
                 f"float32] {name} max_abs_err {err:.3e} (tol 2e-3 x {scale:.3e})")
             require(err <= 2e-3 * scale, f"autograd flash_attention {name} disagrees with the "
                     f"plain version: {label}")
@@ -593,13 +666,20 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     zamba2: the prefill's layer norms 8192 x 3584; whisper: the encoder's
     norms at prefill, 16 windows x 1500 frames x 384, and a decode step's
     16 x 384; whisper_train: a microbatch's encoder norms, 32 x 1500 rows
-    x 384); "check" rows are timed
+    x 384; internvl2: its norms at prefill, 8 x 1 280 rows x 6 144;
+    internvl2_train: a microbatch of 2 x 4 096 rows x 6 144; mamba2_train
+    and zamba2_train: a microbatch's 2 x 2 048 rows at the layer norm's
+    width and at the gate norm's, which training runs ungated, composed
+    under autograd); "check" rows are timed
     and logged but belong to no path (the gate norms' widths 5120 and 7168,
     which the models now run gated)."""
     rows = []
     shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 2560), "mamba2"),
               ((4, 2560), "mamba2"), ((8192, 2048), "train"), ((8192, 3584), "zamba2"),
               ((24000, 384), "whisper"), ((16, 384), "whisper"), ((48000, 384), "whisper_train"),
+              ((10240, 6144), "internvl2"), ((8192, 6144), "internvl2_train"),
+              ((4096, 2560), "mamba2_train"), ((4096, 5120), "mamba2_train"),
+              ((4096, 3584), "zamba2_train"), ((4096, 7168), "zamba2_train"),
               ((8192, 5120), "check"), ((8192, 7168), "check"), ((8192, 64), None),
               ((32768, 128), None), ((64, 14336), None), ((6, 40000), None), ((7, 333), None),
               ((8192, 3584, "misaligned"), None), ((300, 1000, "misaligned"), None)]
@@ -691,7 +771,9 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     within 1e-4 of its scale, dscale and dx bitwise equal over two calls.
     Cases: the training shape 8192 x 2048 (bf16 x, fp32 master scale; and
     fp32), 8192 x 3584, qk-norm rows 32768 x 128, whisper's encoder rows of
-    a microbatch 48000 x 384, an odd width, a misaligned view (the scalar
+    a microbatch 48000 x 384, internvl2's 8192 x 6144, the Mamba2 gate
+    norms of a training microbatch (4096 x 5120 and 4096 x 7168), an odd
+    width, a misaligned view (the scalar
     two-pass template).  Timed rows (each with its path): the plain
     backward (``plain_ms``) and, as ``library_ms``, the backward of
     ``F.rms_norm`` on the same inputs through ``torch.autograd.grad``."""
@@ -701,6 +783,9 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     cases = [((8192, 2048), bf16, f32, False, "train"),
              ((8192, 3584), bf16, f32, False, "train"), ((32768, 128), bf16, f32, False, "train"),
              ((48000, 384), bf16, f32, False, "whisper_train"),
+             ((8192, 6144), bf16, f32, False, "internvl2_train"),
+             ((4096, 5120), bf16, f32, False, "mamba2_train"),
+             ((4096, 7168), bf16, f32, False, "zamba2_train"),
              ((8192, 2048), f32, f32, False, None), ((300, 333), f32, f32, False, None),
              ((8192, 2048), bf16, f32, True, None)]
     for shape, dtype, sdtype, mis, path in cases:
@@ -847,6 +932,96 @@ def check_ssd(torch, ssd_ops, ssd_ref, gen):
     return rows
 
 
+def check_ssd_autograd(torch, ssd_ops, ssd_ref, gen):
+    """K3 under autograd (``ssd_autograd``: the kernel forward, the fp32
+    recompute backward through ``ssd_chunked``) against
+    ``torch.autograd.grad`` through the plain ``ssd_chunked`` on the same
+    inputs and cotangent, at the training shapes (mamba2 B2 S2048 H80 P64
+    G1 N128, zamba2 B2 S2048 H112 P64 G2 N64) and a ragged S 1 000.  fp32
+    inputs: y, dx, ddt, dA, dB, dC within 1e-3 · max(1, max |plain|); bf16
+    x/B/C (the fp32 inputs rounded): each no further from the fp32 plain
+    grads than twice the plain bf16 route's.  Timed (bf16): the forward
+    plus backward beside the plain autograd's."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    names = ("y", "dx", "ddt", "dA", "dB", "dC")
+    rows = []
+    for label, Bs, S, H, P, G, N, path in (
+            ("mamba2 train B2 S2048 H80 P64 G1 N128", 2, SSM_TRAIN_SEQ, 80, 64, 1, 128,
+             "mamba2_train"),
+            ("zamba2 train B2 S2048 H112 P64 G2 N64", 2, SSM_TRAIN_SEQ, 112, 64, 2, 64,
+             "zamba2_train"),
+            ("ragged B1 S1000 H80 P64 G1 N128", 1, 1000, 80, 64, 1, 128, None)):
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = rn(Bs, S, H, P)
+        dt = torch.nn.functional.softplus(rn(Bs, S, H))
+        A = -torch.exp(0.3 * rn(H))
+        B, C = 0.3 * rn(Bs, S, G, N), 0.3 * rn(Bs, S, G, N)
+        dy = rn(Bs, S, H, P)
+
+        def leaves(dtype):             # x, B, C in ``dtype``; dt and A fp32
+            return [t.detach().to(dtype if i in (0, 3, 4) else f32).requires_grad_()
+                    for i, t in enumerate((x, dt, A, B, C))]
+
+        def run(fn, ins):
+            y, _ = fn(*ins)
+            return [y.detach()] + list(torch.autograd.grad(y, ins, dy.to(y.dtype)))
+
+        k32, r32 = run(ssd_ops.ssd_autograd, leaves(f32)), run(ssd_ref.ssd_chunked, leaves(f32))
+        kbf = run(ssd_ops.ssd_autograd, leaves(bf16))
+        rbf = run(ssd_ref.ssd_chunked, leaves(bf16))
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b, kb, rb in zip(names, k32, r32, kbf, rbf):
+            scale = max(1.0, float(b.abs().max()))
+            err = float((a - b).abs().max())
+            err_k = float((kb.float() - b).abs().max())
+            err_r = float((rb.float() - b).abs().max())
+            log(f"K3 ssd_autograd [{label}] {name}: fp32 max_abs_err {err:.3e} (tol 1e-3 x "
+                f"{scale:.3e}); bf16 vs fp32 plain: kernel route {err_k:.3e}, plain route "
+                f"{err_r:.3e} (rule: <= 2x); dtype {kb.dtype}")
+            require(bool(torch.isfinite(a).all() and torch.isfinite(kb).all()),
+                    f"ssd_autograd produced non-finite {name}: {label}")
+            require(err <= SSD_TOL * scale, f"ssd_autograd {name} in fp32 disagrees with "
+                    f"autograd through the plain version: {label}")
+            require(err_k <= 2.0 * err_r, f"ssd_autograd {name} in bf16 is further from fp32 "
+                    f"than twice the plain bf16 route's: {label}")
+            errs.append(err)
+        if path is None:
+            continue
+        ins_k, ins_r = leaves(bf16), leaves(bf16)
+        dyb = dy.to(bf16)
+        fwd_bwd = lambda fn, ins: torch.autograd.grad(fn(*ins)[0], ins, dyb)
+        ms = device_ms(lambda: fwd_bwd(ssd_ops.ssd_autograd, ins_k), torch, inner=2, reps=5)
+        plain_ms = device_ms(lambda: fwd_bwd(ssd_ref.ssd_chunked, ins_r), torch, inner=2, reps=5)
+        b_ms, b_by = ssd_vjp_bound(*ins_k[:4])
+        log(f"K3 ssd_autograd [{label} bfloat16] forward + backward {ms:.4f} ms  plain autograd "
+            f"{plain_ms:.4f} ms  bound {b_ms:.6f} ms ({b_by})")
+        rows.append(dict(label=f"{label} bfloat16 forward + backward", path=path,
+                         max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by))
+        del ins_k, ins_r, k32, r32, kbf, rbf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_vjp_bound(x, dt, A, B) -> tuple[float, str]:
+    """The forward and backward of the scan: x, dt, A, B, C and the
+    cotangent of y read once, y and the five grads (each its input's size
+    and dtype) written once; operations 3x the forward's (``ssd_bound``)."""
+    Bs, S, H, P = x.shape
+    N = B.shape[3]
+    e = x.element_size()
+    inputs = x.numel() * e + 2 * B.numel() * e + 4 * (dt.numel() + A.numel())
+    nbytes = 2 * inputs + 2 * x.numel() * e
+    full, rem = divmod(S, SSD_CHUNK)
+    pairs = full * SSD_CHUNK * (SSD_CHUNK + 1) // 2 + rem * (rem + 1) // 2
+    G = B.shape[2]
+    flops = 3.0 * (2.0 * N * pairs * Bs * G + 2.0 * P * pairs * Bs * H
+                   + 4.0 * S * N * P * Bs * H)
+    return bound(nbytes, flops, str(x.dtype).replace("torch.", ""))
+
+
 # ---------------------------------------------------------------- phases 4-5
 
 def serve_full_width(torch, np, serving, counters):
@@ -876,6 +1051,7 @@ def serve_full_width(torch, np, serving, counters):
     zero_counts(counters)
     finite.clear()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()        # the serve run's own peak, not phase 3's
     t0 = time.perf_counter()
     reqs = [session.submit(serving.Request(prompt=p, max_new=32)).request for p in prompts]
     session.run_until_drained()
@@ -1064,13 +1240,13 @@ def step_engine_launches(model, new: int) -> dict:
     the gate norm — gated, one launch that also counts on
     ``rmsnorm_gated``), twice per attention block and once for the final
     norm, and K1 once per attention block: a hybrid's ``n_apps`` sites, none
-    in mamba2, every layer of an MoE decoder; no K2 backward."""
+    in mamba2, every layer of an MoE or VLM decoder; no K2 backward."""
     cfg = model.cfg
     mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
-    attn = cfg.num_layers if cfg.family == "moe" else getattr(model, "n_apps", 0)
+    attn = cfg.num_layers if cfg.family in ("moe", "vlm") else getattr(model, "n_apps", 0)
     return {"ssd": mamba, "rmsnorm": (2 * mamba + 2 * attn + 1) * new,
             "rmsnorm_gated": mamba * new, "rmsnorm_bwd": 0,
-            "flash_attention_fwd": attn * new}
+            "flash_attention_fwd": attn * new, "ssd_autograd": 0}
 
 
 def describe(model) -> str:
@@ -1146,11 +1322,14 @@ MOE_SPANS = {"moe_route": "MoE routing (router product, softmax, top-k, slot cum
              "moe_combine": "MoE combine gather and gate sum"}
 
 
-def profile_step_engine(torch, engine, params, prompts, steps: int = 4, extras=None):
+def profile_step_engine(torch, engine, params, prompts, steps: int = 4, extras=None,
+                        prefix: int = 0):
     """Where a full-width prefill's and decode step's device time goes: one
-    prefill (given ``extras``, the encoder-decoder's frames), then ``steps``
-    decode steps, each window under torch.profiler; device time by group (an
-    MoE model's FFN by its spans, ``MOE_SPANS``) and busy share."""
+    prefill (given ``extras``, the encoder-decoder's frames or the VLM's
+    patch embeddings, whose ``prefix`` positions precede the prompt in the
+    cache), then ``steps`` decode steps, each window under torch.profiler;
+    device time by group (an MoE model's FFN by its spans, ``MOE_SPANS``)
+    and busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     label = engine.model.cfg.name.split("-")[0]
@@ -1164,7 +1343,7 @@ def profile_step_engine(torch, engine, params, prompts, steps: int = 4, extras=N
         wall = time.perf_counter() - t0
     require(bool(torch.isfinite(logits).all()), f"non-finite {label} prefill logits")
     report_profile(prof, wall, 1, f"{label} prefill {tuple(tokens.shape)}", "prefill", spans)
-    S = tokens.shape[1]
+    S = prefix + tokens.shape[1]
     tok = logits[:, -1].argmax(-1, keepdim=True)
     engine.decode_step(params, tok, cache, S)                       # warm
     torch.cuda.synchronize()
@@ -1320,13 +1499,15 @@ def train_launches(layers: int, policy: str, accum: int = TRAIN_ACCUM) -> dict:
     again = policy != "none"
     return {"flash_attention_fwd": layers * (1 + again) * accum,
             "rmsnorm": (2 * layers + 1 + 2 * layers * again) * accum, "rmsnorm_gated": 0,
-            "rmsnorm_bwd": (2 * layers + 1) * accum, "ssd": 0}
+            "rmsnorm_bwd": (2 * layers + 1) * accum, "ssd": 0, "ssd_autograd": 0}
 
 
 #: llama3.2-1b's (16 layers): per step K1 64 / 128, K2 132 / 260, K2's backward 132
 TRAIN_LAUNCHES = {policy: train_launches(16, policy) for policy in TRAIN_POLICIES}
 #: profiler spans of the training step, innermost first
 TRAIN_SPANS = {"attention_vjp": "attention backward (recompute)", "optimizer": "optimizer"}
+#: the Mamba2 family's: K3's backward recompute in place of attention's
+SSM_TRAIN_SPANS = {"ssd_vjp": "SSD backward (recompute)", "optimizer": "optimizer"}
 
 
 def train_flops(cfg, batch: int, seq: int) -> tuple[int, float, float]:
@@ -1367,11 +1548,13 @@ def _train_bundle(torch, cfg, plan, *, impl: str = "kernel", seed: int = 0):
 
 
 def train_plan(torch, counters, label: str, plan, steps: int, flops: float, cfg=None, *,
-               seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
+               seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, donate: bool = False):
     """``steps`` train steps of ``cfg`` (full-width llama3.2-1b by default)
     under ``plan`` from fresh state, ``batch`` x ``seq`` tokens a step;
-    returns the record of the run and (hp, params, opt, ds) for the
-    profile."""
+    ``donate`` updates the state in place (``train_step(..., donate=True)``:
+    one copy of the fp32 state, not two); returns the record of the run and
+    (hp, params, opt, ds) for the profile."""
+    import functools
     import math
 
     from repro_torch.configs.registry import get_config
@@ -1382,7 +1565,7 @@ def train_plan(torch, counters, label: str, plan, steps: int, flops: float, cfg=
     opt = hp.init_opt_state(params)
     ds = SyntheticDataset(cfg, seq_len=seq, global_batch=batch, seed=0)
     batches = [ds.batch(i) for i in range(steps)]
-    step_fn = hp.jit_train_step()
+    step_fn = functools.partial(hp.train_step, donate=True) if donate else hp.jit_train_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
@@ -1431,29 +1614,32 @@ def train_policy(torch, counters, policy: str, steps: int, flops: float):
 
 
 def profile_train_step(torch, hp, params, opt, batch,
-                       what: str = f"[selective] ({TRAIN_BATCH} x {TRAIN_SEQ} tokens)") -> None:
-    """One train step under torch.profiler: device time by group — K1, K2,
-    K2's backward, the attention backward's recompute and the optimizer (kernels inside the
-    ``attention_vjp`` / ``optimizer`` spans on the device timeline), then
-    matmuls, elementwise and copies by kernel name — and the busy share."""
+                       what: str = f"[selective] ({TRAIN_BATCH} x {TRAIN_SEQ} tokens)",
+                       donate: bool = False, spans: dict = TRAIN_SPANS) -> None:
+    """One train step under torch.profiler (``donate``: the state updated in
+    place): device time by group — K1, K2, K2's backward, K3, the attention
+    backward's (or, with ``SSM_TRAIN_SPANS``, the SSD backward's) recompute
+    and the optimizer (kernels inside ``spans`` on the device timeline),
+    then matmuls, elementwise and copies by kernel name — and the busy
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = hp.train_step(params, opt, batch)
+        out = hp.train_step(params, opt, batch, donate=donate)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     require(all(bool(torch.isfinite(v).all()) for v in out[2].values()),
             "non-finite metrics in the profiled train step")
     del out
     rename = {"flash_attention": "K1 flash_attention_fwd", "rmsnorm": "K2 rmsnorm",
-              "rmsnorm_bwd": "K2 rmsnorm backward", "other": "elementwise"}
+              "rmsnorm_bwd": "K2 rmsnorm backward", "ssd": "K3 ssd", "other": "elementwise"}
     groups, counts, _, seen = device_groups(
-        prof, TRAIN_SPANS, lambda name: rename.get(_kernel_group(name), _kernel_group(name)))
+        prof, spans, lambda name: rename.get(_kernel_group(name), _kernel_group(name)))
     if not seen:
-        log("profile: train step: the device timeline shows no attention_vjp/optimizer "
-            "spans; their kernels fall into the name groups (see the timed components)")
+        log(f"profile: train step: the device timeline lacks one of the spans {sorted(spans)}; "
+            "its kernels fall into the name groups (see the timed components)")
     busy = sum(groups.values())
     if busy == 0.0:
         log("profile: train step: device time not measured (the profiler saw no kernels)")
@@ -1497,7 +1683,9 @@ def parity_train(torch, cfg=None, seq: int = 1024, batch: int = 2) -> None:
     one AdamW step within 2e-3 of its leaf's largest magnitude.  bf16: loss
     within 3e-2 relative, and the kernel path's grads no further from the
     fp32 plain path than twice the bf16 plain path's.  An MoE model also
-    logs the share of routing decisions on which the paths agree."""
+    logs the share of routing decisions on which the paths agree; a VLM's
+    batch gets seeded standard normal patch embeddings in place of the
+    dataset's zeros."""
     import gc
 
     from repro_torch.configs.registry import get_config
@@ -1507,6 +1695,10 @@ def parity_train(torch, cfg=None, seq: int = 1024, batch: int = 2) -> None:
 
     cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
     data = SyntheticDataset(cfg, seq_len=seq, global_batch=batch, seed=1).batch(0)
+    if "vis_embeds" in data:    # the dataset's prefix is zeros, as JAX's: compare a real one
+        gen = torch.Generator().manual_seed(2)
+        data["vis_embeds"] = torch.randn(data["vis_embeds"].shape, generator=gen).to(
+            data["vis_embeds"].dtype)
     paths = None
 
     def rel_err(a_leaves, b_leaves):
@@ -1947,7 +2139,7 @@ def whisper_launches(cfg, new: int) -> dict:
     E, L = cfg.enc_layers, cfg.num_layers
     return {"flash_attention_fwd": E + 2 * L + (new - 1) * 2 * L,
             "rmsnorm": 2 * E + 3 * L + 2 + (new - 1) * (3 * L + 1), "rmsnorm_gated": 0,
-            "rmsnorm_bwd": 0, "ssd": 0}
+            "rmsnorm_bwd": 0, "ssd": 0, "ssd_autograd": 0}
 
 
 def whisper_train_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
@@ -1972,22 +2164,27 @@ def whisper_train_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
     return dense, 3.0 * 4.0 * H * hd * batch * pairs
 
 
-def whisper_frames(torch, cfg, batch: int, seed: int):
-    """``batch`` windows of stub frame embeddings, standard normal from a
-    seeded generator on the card, in bf16 (``SyntheticDataset``'s dtype)."""
+def stub_embeds(torch, batch: int, rows: int, width: int, seed: int):
+    """``batch`` x ``rows`` stub embeddings of ``width`` (whisper's frames,
+    internvl2's patch embeddings), standard normal from a seeded generator
+    on the card, in bf16 (``SyntheticDataset``'s dtype)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randn((batch, cfg.enc_frames, cfg.d_model), generator=gen,
-                       device="cuda").to(torch.bfloat16)
+    return torch.randn((batch, rows, width), generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def generate_with_frames(torch, engine, params, prompts, frames, new: int):
-    """Greedy serving of real frames through the engine's own steps:
-    ``prefill_step(params, prompts, {"frames": frames})``, then ``new - 1``
-    ``decode_step`` calls, each fenced.  Returns (tokens (B, new), the
-    prefill's last-position logits, its fenced seconds, each decode step's)."""
+def generate_with_extras(torch, engine, params, prompts, extras: dict, new: int,
+                         prefix: int = 0):
+    """Greedy serving of side inputs through the engine's own steps:
+    ``prefill_step(params, prompts, extras)``, then ``new - 1``
+    ``decode_step`` calls, each fenced.  ``prefix`` positions (a VLM's patch
+    embeddings) precede the prompt in the cache: step i writes at ``prefix
+    + S + i`` with ``kv_len`` one past it, as JAX's loop passes it; frames
+    take no decoder positions (``prefix`` 0, no ``kv_len``).  Returns
+    (tokens (B, new), the prefill's last-position logits, its fenced
+    seconds, each decode step's)."""
     B, S = prompts.shape
     t0 = time.perf_counter()
-    logits, cache = engine.prefill_step(params, prompts, {"frames": frames})
+    logits, cache = engine.prefill_step(params, prompts, extras)
     first = logits[:, -1]
     out = [first.argmax(-1)]
     torch.cuda.synchronize()
@@ -1995,7 +2192,9 @@ def generate_with_frames(torch, engine, params, prompts, frames, new: int):
     steps = []
     for i in range(new - 1):
         t0 = time.perf_counter()
-        logits, cache = engine.decode_step(params, out[-1][:, None], cache, S + i)
+        pos = prefix + S + i
+        kv_len = torch.full((B,), pos + 1, device=prompts.device) if prefix else None
+        logits, cache = engine.decode_step(params, out[-1][:, None], cache, pos, kv_len)
         out.append(logits[:, -1].argmax(-1))
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
@@ -2005,7 +2204,7 @@ def generate_with_frames(torch, engine, params, prompts, frames, new: int):
 def whisper_serve_phase(torch, np, serving, build_model, get_config, counters):
     """Phase 15: full-width, full-depth whisper-tiny (random bf16 weights
     from seed 0) serving ``WHISPER_BATCH`` windows of real frames through
-    ``generate_with_frames`` after a warm-up; launches pinned
+    ``generate_with_extras`` after a warm-up; launches pinned
     (``whisper_launches``).  Returns (engine, params, frames, prompts,
     launches)."""
     from repro_torch.models.common import tree_leaves
@@ -2016,7 +2215,7 @@ def whisper_serve_phase(torch, np, serving, build_model, get_config, counters):
     params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
     engine = serving.step_engine(model, serving.single_device_plan(cfg), batch=WHISPER_BATCH,
                                  max_len=WHISPER_CTX)
-    frames = whisper_frames(torch, cfg, WHISPER_BATCH, 1)
+    frames = stub_embeds(torch, WHISPER_BATCH, cfg.enc_frames, cfg.d_model, 1)
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                 (WHISPER_BATCH, WHISPER_PROMPT))
     tokens = torch.from_numpy(prompts).cuda()
@@ -2027,13 +2226,13 @@ def whisper_serve_phase(torch, np, serving, build_model, get_config, counters):
         f"{cfg.resolved_head_dim}, gelu ff {cfg.d_ff}, {cfg.enc_frames} frames, vocab "
         f"{cfg.vocab_size}, untied; {n_params} parameters, {n_params * 2 / 1e9:.3f} GB in bf16) "
         f"in {time.perf_counter() - t0:.3f} s")
-    generate_with_frames(torch, engine, params, tokens, frames, 3)         # warm-up
+    generate_with_extras(torch, engine, params, tokens, {"frames": frames}, 3)         # warm-up
     zero_counts(counters)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, _, ttft, steps = generate_with_frames(torch, engine, params, tokens, frames,
-                                               WHISPER_NEW)
+    out, _, ttft, steps = generate_with_extras(torch, engine, params, tokens,
+                                               {"frames": frames}, WHISPER_NEW)
     wall = time.perf_counter() - t0
     launches = read_counts(counters)
     require(tuple(out.shape) == (WHISPER_BATCH, WHISPER_NEW), f"whisper tokens shape "
@@ -2073,7 +2272,8 @@ def parity_whisper(torch, serving, build_model, engine, params, frames, prompts)
         eng = serving.step_engine(build_model(cfg, impl=impl), serving.single_device_plan(cfg),
                                   batch=n, max_len=WHISPER_PROMPT + WHISPER_PARITY_NEW,
                                   dtype=torch.float32)
-        out[impl] = generate_with_frames(torch, eng, params32, toks, f32, WHISPER_PARITY_NEW)[:2]
+        out[impl] = generate_with_extras(torch, eng, params32, toks, {"frames": f32},
+                                         WHISPER_PARITY_NEW)[:2]
     del params32
     torch.cuda.empty_cache()
     (tk, lk), (tr, lr) = out["kernel"], out["ref"]
@@ -2118,7 +2318,8 @@ def whisper_train_phase(torch, counters) -> dict:
     norms = 2 * E + 3 * L + 2
     expected = {"flash_attention_fwd": (E + 2 * L) * WHISPER_TRAIN_ACCUM * TRAIN_STEPS,
                 "rmsnorm": norms * WHISPER_TRAIN_ACCUM * TRAIN_STEPS, "rmsnorm_gated": 0,
-                "rmsnorm_bwd": norms * WHISPER_TRAIN_ACCUM * TRAIN_STEPS, "ssd": 0}
+                "rmsnorm_bwd": norms * WHISPER_TRAIN_ACCUM * TRAIN_STEPS, "ssd": 0,
+                "ssd_autograd": 0}
     require(record["launches"] == expected,
             f"whisper train launched {record['launches']}, expected {expected}")
     step_s = record["step_s"]
@@ -2132,6 +2333,265 @@ def whisper_train_phase(torch, counters) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     parity_train(torch, cfg, seq=S, batch=2)
+    return record["launches"]
+
+
+# ---------------------------------------------------------------- phases 18-20
+
+VLM_ARCH = "internvl2-26b"
+#: serving: 8 image-grounded chat turns, each one image tile (the config's
+#: 256 stub patch embeddings) + 1 024 text tokens, 64 new tokens, in a cache
+#: of prefix + text + new rows (the prefix takes decoder positions)
+VLM_BATCH, VLM_PREFIX, VLM_TEXT, VLM_NEW = 8, 256, 1024, 64
+VLM_CTX = VLM_PREFIX + VLM_TEXT + VLM_NEW
+#: full width cut in depth where the full model does not fit the card: the
+#: fp32 parity (79 GB at 48 layers) and training (fp32 masters, grads and
+#: AdamW state: ~318 GB at 48 layers); the fp32 parity's greedy steps
+VLM_PARITY_LAYERS, VLM_TRAIN_LAYERS, VLM_PARITY_NEW = 4, 2, 32
+
+
+def vlm_serve_phase(torch, np, serving, build_model, get_config, counters):
+    """Phase 18: full-width, full-depth internvl2-26b (random bf16 weights
+    from seed 0) serving ``VLM_BATCH`` turns of one image tile (seeded
+    standard normal patch embeddings) and ``VLM_TEXT`` tokens through
+    ``generate_with_extras`` after a warm-up; K1 48 and K2 97 launches a
+    forward pinned (``step_engine_launches``).  Returns (engine, params,
+    vis_embeds, prompts, launches)."""
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(VLM_ARCH)
+    require(cfg.vis_tokens == VLM_PREFIX, f"{cfg.name} has {cfg.vis_tokens} prefix positions")
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    engine = serving.step_engine(model, serving.single_device_plan(cfg), batch=VLM_BATCH,
+                                 max_len=VLM_CTX)
+    vis = stub_embeds(torch, VLM_BATCH, VLM_PREFIX, cfg.d_model, 1)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (VLM_BATCH, VLM_TEXT))
+    tokens = torch.from_numpy(prompts).cuda()
+    extras = {"vis_embeds": vis}
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"internvl2: built full-width {cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.resolved_head_dim}, {cfg.mlp_type} "
+        f"ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied, {cfg.vis_tokens} prefix positions; "
+        f"{n_params} parameters, {n_params * 2 / 1e9:.2f} GB in bf16) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    generate_with_extras(torch, engine, params, tokens, extras, 3, prefix=VLM_PREFIX)  # warm-up
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _, ttft, steps = generate_with_extras(torch, engine, params, tokens, extras, VLM_NEW,
+                                               prefix=VLM_PREFIX)
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    require(tuple(out.shape) == (VLM_BATCH, VLM_NEW), f"internvl2 tokens shape "
+            f"{tuple(out.shape)}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "internvl2 token out of the vocab")
+    expected = step_engine_launches(model, VLM_NEW)
+    require(launches == expected, f"internvl2 launched {launches}, expected {expected}")
+    tpot = statistics.median(steps)
+    n_tok = VLM_BATCH * VLM_NEW
+    log(f"internvl2 serve: {VLM_BATCH} x ({VLM_PREFIX} patch embeddings + {VLM_TEXT} + "
+        f"{VLM_NEW}) in {wall:.3f} s ({n_tok / wall:.1f} tok/s)  prefill (ttft) "
+        f"{ttft * 1e3:.2f} ms  decode (tpot) p50 {tpot * 1e3:.3f} ms  launches {launches} "
+        f"(K1 {cfg.num_layers}, K2 {2 * cfg.num_layers + 1} a forward)  peak mem "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"internvl2 serve: tokens[0][:8] {out[0, :8].tolist()}")
+    return engine, params, vis, prompts, launches
+
+
+def parity_vlm(torch, serving, build_model, engine, params, vis, prompts) -> None:
+    """Phase 19, at full width cut to ``VLM_PARITY_LAYERS`` layers (the
+    served weights' first layers, cloned; the rest freed: fp32 at full
+    depth would be 79 GB), with the served batch's patch embeddings: (a) in
+    fp32, the kernel path's prefill logits within 1e-3 of the plain path's
+    scale and its greedy tokens over ``VLM_PARITY_NEW`` steps identical;
+    (b) ``parity_prefill``: the bf16 kernel path no further from fp32 than
+    twice the plain bf16 path."""
+    import gc
+
+    from repro_torch.models.common import cast_tree, tree_map
+
+    L = VLM_PARITY_LAYERS
+    cut = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "blocks": tree_map(lambda x: x[:L].clone(), params["blocks"])}
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(engine.model.cfg, num_layers=L)
+    toks = torch.from_numpy(prompts).cuda()
+    params32 = cast_tree(cut, torch.float32)
+    out = {}
+    for impl in ("kernel", "ref"):
+        eng = serving.step_engine(build_model(cfg, impl=impl), serving.single_device_plan(cfg),
+                                  batch=VLM_BATCH, max_len=VLM_PREFIX + VLM_TEXT + VLM_PARITY_NEW,
+                                  dtype=torch.float32)
+        out[impl] = generate_with_extras(torch, eng, params32, toks,
+                                         {"vis_embeds": vis.float()}, VLM_PARITY_NEW,
+                                         prefix=VLM_PREFIX)[:2]
+        torch.cuda.empty_cache()
+    del params32
+    torch.cuda.empty_cache()
+    (tk, lk), (tr, lr) = out["kernel"], out["ref"]
+    err = float((lk - lr).abs().max())
+    scale = float(lr.abs().max())
+    same = tk.tolist() == tr.tolist()
+    log(f"parity: internvl2 full width x {L} layers fp32, {VLM_BATCH} turns of {VLM_PREFIX} + "
+        f"{VLM_TEXT}: prefill logits kernel-vs-plain max_abs_err {err:.3e} (tol 1e-3 x "
+        f"{scale:.3f}); greedy tokens over {VLM_PARITY_NEW} steps "
+        f"{'identical' if same else 'DIFFER'} ({tk[0, :6].tolist()}...)")
+    require(bool(torch.isfinite(lk).all()), "non-finite internvl2 fp32 logits")
+    require(err <= 1e-3 * scale, "internvl2 fp32 logits: kernel path differs from the plain path")
+    require(same, f"internvl2 fp32 greedy tokens differ: kernel {tk.tolist()} ref {tr.tolist()}")
+    parity_prefill(torch, "internvl2", build_model(cfg), build_model(cfg, impl="ref"), cut, toks,
+                   f"full-width {L}-layer", extras={"vis_embeds": vis})
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vlm_train_phase(torch, counters) -> dict:
+    """Phase 20: internvl2 at full width cut to ``VLM_TRAIN_LAYERS`` layers
+    trained ``TRAIN_STEPS`` steps of 8 x 4 096 positions (256 prefix + 3 840
+    text; grad_accum 4, ``selective``; the state donated) from fresh state:
+    losses, step time, text tokens/s, peak memory, MFU (the prefix positions
+    counted through the layers and the head, as ``forward_train`` computes
+    them); K1/K2/K2-backward launches per step pinned; then
+    ``parity_train`` on one microbatch with seeded non-zero patch
+    embeddings.  Returns the run's launches."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_TRAIN_LAYERS)
+    n_params, dense, attn = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    text = TRAIN_SEQ - cfg.vis_tokens
+    log(f"train: {cfg.name} full width cut to {cfg.num_layers} layers (cuts: depth 48 -> "
+        f"{cfg.num_layers}, global batch 8 x {TRAIN_SEQ} positions = {cfg.vis_tokens} prefix + "
+        f"{text} text); model FLOPs per step = 6 x {n_params} matmul params x "
+        f"{TRAIN_BATCH * TRAIN_SEQ} positions ({dense:.4e}) + causal attention ({attn:.4e}); "
+        f"bound at the bf16 peak {(dense + attn) / PEAK_FLOPS['bfloat16']:.4f} s")
+    plan = _uniform_plan(cfg, "selective")
+    record, bundle = train_plan(torch, counters, "internvl2 selective", plan, TRAIN_STEPS,
+                                dense + attn, cfg, donate=True)
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    expected = {name: n * TRAIN_STEPS
+                for name, n in train_launches(cfg.num_layers, "selective").items()}
+    require(record["launches"] == expected,
+            f"internvl2 train launched {record['launches']}, expected {expected}")
+    log(f"train [internvl2]: median step {record['step_s']:.4f} s, "
+        f"{TRAIN_BATCH * text / record['step_s']:.1f} text tokens/s, peak mem "
+        f"{record['peak_bytes'] / 1e9:.2f} GB, MFU {100 * record['mfu']:.2f} %")
+    parity_train(torch, cfg, seq=TRAIN_SEQ, batch=TRAIN_BATCH // TRAIN_ACCUM)
+    return record["launches"]
+
+
+# ---------------------------------------------------------------- phases 21-22
+
+#: the Mamba2 paper's training context; the step of 8 sequences in 4
+#: microbatches, as the llama train traffic
+SSM_TRAIN_SEQ = 2048
+#: zamba2 at full width cut to 13 layers (two shared-block sites and one
+#: trailing Mamba layer): 81 layers' fp32 state would be ~109 GB
+ZAMBA2_TRAIN_LAYERS = 13
+#: mamba2's kernel-vs-plain training parity: full width cut to 2 layers
+SSM_PARITY_LAYERS = 2
+
+
+def ssm_train_flops(cfg, batch: int, seq: int) -> tuple[int, float, float, float]:
+    """(matmul parameters, their FLOPs, SSD FLOPs, attention FLOPs) of one
+    Mamba2-family train step.  Matmuls: 6 x the parameters of the products a
+    token goes through (each Mamba layer's z, x, B, C, dt and out
+    projections; the shared block's q/k/v/out and FFN at each site; the
+    head) x tokens.  SSD: the chunked scan's products, 3 x (forward) per
+    position and head 2·Q·N (C·Bᵀ) + 2·Q·P (the masked quadratic form times
+    x) + 2·N·P (the chunk's state) + 2·N·P (C times the carried state), Q
+    the chunk of 64.  Attention: ``train_flops``' causal term at the sites."""
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    H, G, N, P = d_inner // cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    mamba = 2 * d * d_inner + 2 * d * G * N + d * H + d_inner * d
+    sites = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    shared, attn = 0, 0.0
+    if sites:
+        shared, _, attn = train_flops(dataclasses.replace(cfg, num_layers=sites, vocab_size=0),
+                                      batch, seq)
+    n_params = cfg.num_layers * mamba + shared + cfg.vocab_size * d
+    ssd = 3.0 * cfg.num_layers * batch * seq * H * (2 * SSD_CHUNK * (N + P) + 4 * N * P)
+    return n_params, 6.0 * n_params * batch * seq, ssd, attn
+
+
+def ssm_train_launches(cfg, policy: str, accum: int = TRAIN_ACCUM) -> dict:
+    """Kernel launches per step of a Mamba2-family model in ``accum``
+    microbatches.  A forward launches K3 (under ``ssd_autograd``) once per
+    Mamba layer, K2 twice per Mamba layer (the layer norm and the gate norm,
+    composed under autograd: not the gated template) and twice per shared
+    block site, plus the final norm, and K1 once per site; a recomputing
+    policy reruns each Mamba layer's forward in its backward (K3 and both
+    norms; mamba2 only: the hybrid takes no runner, as in JAX); the
+    backward runs K2's backward once per norm."""
+    L = cfg.num_layers
+    sites = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    again = int(policy != "none" and cfg.family == "ssm")
+    norms = 2 * L + 2 * sites + 1
+    return {"flash_attention_fwd": sites * accum, "rmsnorm": (norms + 2 * L * again) * accum,
+            "rmsnorm_gated": 0, "rmsnorm_bwd": norms * accum,
+            "ssd": L * (1 + again) * accum, "ssd_autograd": L * (1 + again) * accum}
+
+
+def ssm_train_phase(torch, counters, arch: str, policy: str, layers=None,
+                    profile: bool = False) -> dict:
+    """Phases 21-22: ``arch`` at full width (cut to ``layers`` when given)
+    trained ``TRAIN_STEPS`` steps of 8 x ``SSM_TRAIN_SEQ`` tokens
+    (grad_accum 4, ``policy``; the state donated: mamba2's two copies of the
+    fp32 state would not fit) from fresh state: losses (the first within 1
+    of ln V), median step, tokens/s, peak memory, MFU; every launch per
+    step pinned (``ssm_train_launches``); with ``profile``, one step
+    profiled by group (the ``ssd_vjp`` span among them) and
+    ``parity_train`` at ``SSM_PARITY_LAYERS`` layers.  Returns the run's
+    launches."""
+    import gc
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    full = cfg.num_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    n_params, dense, ssd, attn = ssm_train_flops(cfg, TRAIN_BATCH, SSM_TRAIN_SEQ)
+    flops = dense + ssd + attn
+    label = cfg.name.split("-")[0]
+    cut = f"cut to {cfg.num_layers} of {full} layers" if layers else "full depth"
+    log(f"train: {cfg.name} full width, {cut}, {TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens a step "
+        f"in {TRAIN_ACCUM} microbatches, {policy}; model FLOPs per step = 6 x {n_params} "
+        f"matmul params x {TRAIN_BATCH * SSM_TRAIN_SEQ} tokens ({dense:.4e}) + SSD ({ssd:.4e})"
+        f" + attention ({attn:.4e}) = {flops:.4e}; bound at the bf16 peak "
+        f"{flops / PEAK_FLOPS['bfloat16']:.4f} s")
+    plan = _uniform_plan(cfg, policy)
+    record, (hp, params, opt, ds) = train_plan(
+        torch, counters, f"{label} {policy}", plan, TRAIN_STEPS, flops, cfg, seq=SSM_TRAIN_SEQ,
+        donate=True)
+    expected = {name: n * TRAIN_STEPS for name, n in ssm_train_launches(cfg, policy).items()}
+    require(record["launches"] == expected,
+            f"{label} train launched {record['launches']}, expected {expected}")
+    log(f"train [{label}]: median step {record['step_s']:.4f} s, "
+        f"{record['tokens_per_s']:.1f} tokens/s, peak mem {record['peak_bytes'] / 1e9:.2f} GB, "
+        f"MFU {100 * record['mfu']:.2f} %; launches per step "
+        f"{ {k: v // TRAIN_STEPS for k, v in record['launches'].items()} }")
+    if profile:
+        profile_train_step(torch, hp, params, opt, ds.batch(TRAIN_STEPS),
+                           what=f"[{label} {policy}] ({TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens)",
+                           donate=True, spans=SSM_TRAIN_SPANS)
+    del hp, params, opt, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    if profile:
+        parity_train(torch, dataclasses.replace(cfg, num_layers=SSM_PARITY_LAYERS),
+                     seq=SSM_TRAIN_SEQ, batch=TRAIN_BATCH // TRAIN_ACCUM)
     return record["launches"]
 
 
@@ -2222,6 +2682,7 @@ def main() -> int:
     gated_rows = check_rmsnorm_gated(torch, rms_ops, rms_ref, gen)
     bwd_rows = check_rmsnorm_backward(torch, rms_ops, rms_ref, gen)
     ssd_rows = check_ssd(torch, ssd_ops, ssd_ref, gen)
+    ssd_grad_rows = check_ssd_autograd(torch, ssd_ops, ssd_ref, gen)
 
     # 4. the llama path at full width
     counters = launch_counters(flash_ops, rms_ops, ssd_ops)
@@ -2280,8 +2741,36 @@ def main() -> int:
 
     # 17. whisper trained at full width and depth
     whisper_train_launches = whisper_train_phase(torch, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 18. results
+    # 18-19. the VLM: internvl2 served at full width and depth with an image
+    # prefix, profiled, and its kernel path against its plain path at 4 layers
+    engine, v_params, v_vis, v_prompts, vlm_launches = vlm_serve_phase(
+        torch, np, serving, build_model, get_config, counters)
+    profile_step_engine(torch, engine, v_params, v_prompts, extras={"vis_embeds": v_vis},
+                        prefix=VLM_PREFIX)
+    parity_vlm(torch, serving, build_model, engine, v_params, v_vis, v_prompts)
+    del engine, v_params, v_vis
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20. internvl2 trained at full width, cut to 2 layers
+    vlm_train_launches = vlm_train_phase(torch, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21. mamba2 trained at full width and depth through K3 under autograd
+    mamba2_train_launches = ssm_train_phase(torch, counters, "mamba2-2.7b", "selective",
+                                            profile=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 22. zamba2 trained at full width, cut to 13 layers
+    zamba2_train_launches = ssm_train_phase(torch, counters, "zamba2-7b", "none",
+                                            layers=ZAMBA2_TRAIN_LAYERS)
+
+    # 23. results
     kernels = []
     for rows, name, source, replaces in (
             (flash_rows, "flash_attention_fwd",
@@ -2294,12 +2783,17 @@ def main() -> int:
             (bwd_rows, "rmsnorm_bwd", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
              "src/repro/models/norms.py:24"),
             (ssd_rows, "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+             "src/repro/kernels/ssd/kernel.py:74"),
+            (ssd_grad_rows, "ssd_autograd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/kernel.py:74")):
         for r in rows:
             launches = {"llama": llama_launches, "train": train_launches,
                         "moonshot": moe_launches, "moonshot_train": moe_train_launches,
                         "whisper": whisper_serve_launches,
-                        "whisper_train": whisper_train_launches, **static_launches}[r["path"]]
+                        "whisper_train": whisper_train_launches, "internvl2": vlm_launches,
+                        "internvl2_train": vlm_train_launches,
+                        "mamba2_train": mamba2_train_launches,
+                        "zamba2_train": zamba2_train_launches, **static_launches}[r["path"]]
             kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": launches[name], "max_abs_err": r["max_abs_err"],

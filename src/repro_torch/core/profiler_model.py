@@ -3,7 +3,7 @@
 The paper's model profiler measures per-layer forward time and memory on the
 target device.  The search reads profiles derived *analytically* from the
 architecture config (exact FLOP/byte counting); :func:`measure_block` is the
-measured path — one dense block's forward and backward timed on the card —
+measured path — one block's forward and backward timed on the card —
 whose cells :mod:`repro_torch.core.calibrate` fits the cost model's
 coefficients from.
 
@@ -285,23 +285,33 @@ _DTYPES = {"fp32": "float32", "bf16": "bfloat16"}
 
 
 def _block_apply_fn(cfg: ModelConfig, device="cuda", dtype: str = "bf16"):
-    """(params, apply) for one dense transformer block on ``device``, its
-    parameters from ``init_params`` (seed 0) in ``dtype``; ``apply(p, x) ->
-    y`` is the block's training forward on the kernel path (K1 and K2 on the
-    card, their plain versions on the CPU)."""
+    """(params, apply) for one block on ``device``, its parameters from
+    ``init_params`` (seed 0) in ``dtype``; ``apply(p, x) -> y`` is the
+    block's training forward on the kernel path (K1, K2 and K3 on the card,
+    their plain versions on the CPU).  As in JAX, the ssm and hybrid
+    families measure a Mamba2 block, the dense and vlm families a decoder
+    block; the moe and audio blocks are not measured yet (ROADMAP Queue 1
+    item 3)."""
     import torch
 
-    from repro_torch.models.common import init_params
+    from repro_torch.models.common import init_params, resolve_device
+
+    tdt = getattr(torch, _DTYPES[dtype])
+    gen = lambda dev: torch.Generator(device=dev).manual_seed(0)
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models.mamba2 import mamba_block_apply, mamba_block_defs
+
+        dev = resolve_device(device)
+        params = init_params(mamba_block_defs(cfg), gen(dev), dev, tdt)
+        return params, lambda p, x: mamba_block_apply(p, x, cfg, impl="kernel")[0]
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"measuring a {cfg.family!r} block is not ported yet (ROADMAP Queue 1 item 3); "
+            "the port measures dense, vlm, ssm and hybrid blocks")
     from repro_torch.models.transformer import DenseTransformerLM
 
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"measuring a {cfg.family!r} block waits for that family's training "
-            "slice (ROADMAP Queue 1 item 3); the port measures dense blocks")
     model = DenseTransformerLM(cfg, impl="kernel", device=device)
-    gen = torch.Generator(device=model.device).manual_seed(0)
-    params = init_params(model.block_defs(), gen, model.device,
-                         getattr(torch, _DTYPES[dtype]))
+    params = init_params(model.block_defs(), gen(model.device), model.device, tdt)
     return params, lambda p, x: model.block_apply(p, x, mode="train")[0]
 
 

@@ -20,13 +20,23 @@ over chunks of 64 and stage each chunk's x, dt and B/C group there.
 One C·Bᵀ per group shared by its heads, splitting chunks across blocks and
 ``wgmma``/TMA are later work.
 
+``ssd_autograd`` is the scan under autograd, for training: its forward is
+the kernel on CUDA tensors (``ssd_chunked`` on CPU tensors), and its
+backward recomputes through the plain ``ssd_chunked`` in fp32 and
+differentiates that (no backward kernel yet).  JAX's SSD has no VJP: JAX
+trains through its jnp ``ssd_chunked`` on fp32 casts of x, B and C, which
+is the function this backward differentiates.  ``ssd`` takes this route
+when a grad is wanted.
+
 ``impl``:
   - ``"kernel"`` (default): the CUDA kernel on CUDA tensors, ``ssd_chunked``
     on CPU tensors;
   - ``"ref"``: ``ssd_chunked`` (the blocked plain version) on any device;
   - ``"naive"``: ``ssd_naive`` (step by step) on any device.
 
-``ssd.launches`` counts kernel launches (plain-version calls do not count).
+``ssd.launches`` counts kernel launches (plain-version calls do not count);
+``ssd_autograd.launches`` counts those made by ``ssd_autograd``'s forward,
+which count on ``ssd.launches`` too.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd import ref as _ref
@@ -85,7 +96,9 @@ def occupancy(dtype: torch.dtype, N: int, P: int) -> tuple[int, int]:
 def ssd(x, dt, A, B, C, *, chunk: int = CHUNK, impl: str = "kernel",
         initial_state: Optional[torch.Tensor] = None):
     """x: (B,S,H,P); dt: (B,S,H); A: (H,); B/C: (B,S,G,N) -> (y (B,S,H,P) in
-    x's dtype, final_state (B,H,N,P) fp32)."""
+    x's dtype, final_state (B,H,N,P) fp32).  On the kernel route a call
+    that needs a grad (grad mode on, an input requiring one) goes through
+    ``ssd_autograd``."""
     if impl == "naive":
         return _ref.ssd_naive(x, dt, A, B, C, initial_state=initial_state)
     if impl == "ref":
@@ -93,6 +106,9 @@ def ssd(x, dt, A, B, C, *, chunk: int = CHUNK, impl: str = "kernel",
     if impl != "kernel":
         raise ValueError(f"unknown ssd impl {impl!r}")
     tensors = (x, dt, A, B, C)
+    if (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+            and initial_state is None and chunk == CHUNK):
+        return ssd_autograd(x, dt, A, B, C)
     if all(t.device.type == "cpu" for t in tensors):
         return _ref.ssd_chunked(x, dt, A, B, C, chunk=chunk, initial_state=initial_state)
     return _ssd_kernel(x, dt, A, B, C, chunk=chunk, initial_state=initial_state)
@@ -142,6 +158,49 @@ def _ssd_kernel(x, dt, A, B, C, *, chunk, initial_state):
 
 
 ssd.launches = 0
+
+
+class _SSD(torch.autograd.Function):
+    """K3 under autograd.  The forward saves x, dt, A, B, C and runs the
+    kernel on CUDA tensors (``ssd_chunked`` on CPU tensors); the backward
+    recomputes ``ssd_chunked`` on fp32 copies of them under the profiler
+    span ``ssd_vjp`` and differentiates it, as K1's backward recomputes
+    through ``chunked_attention`` under ``attention_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.set_materialize_grads(False)
+        if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
+            return _ref.ssd_chunked(x, dt, A, B, C, chunk=CHUNK)
+        out = _ssd_kernel(x, dt, A, B, C, chunk=CHUNK, initial_state=None)
+        ssd_autograd.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        saved = ctx.saved_tensors
+        with record_function("ssd_vjp"), torch.enable_grad():
+            ins = [t.detach().float().requires_grad_() for t in saved]
+            y, final = _ref.ssd_chunked(*ins, chunk=CHUNK)
+            outs, cots = [], []
+            for out, cot in ((y, dy), (final, dfinal)):
+                if cot is not None:
+                    outs.append(out)
+                    cots.append(cot.float())
+            grads = torch.autograd.grad(outs, ins, cots)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved))
+
+
+def ssd_autograd(x, dt, A, B, C):
+    """``ssd`` (zero initial state, chunk ``CHUNK``) under autograd: (y in
+    x's dtype, final_state fp32); dx, dB, dC come back in their inputs'
+    dtype, ddt and dA in fp32.  The final state's grad may be None (unused)
+    or a tensor."""
+    return _SSD.apply(x, dt, A, B, C)
+
+
+ssd_autograd.launches = 0
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t):

@@ -1,4 +1,4 @@
-"""Model zoo: family dispatch (dense, moe, ssm, hybrid and audio families ported so far)."""
+"""Model zoo: family dispatch."""
 from __future__ import annotations
 
 from repro_torch.configs.registry import ModelConfig
@@ -11,6 +11,10 @@ def build_model(cfg: ModelConfig, impl: str = "kernel", device="cuda"):
         from repro_torch.models.transformer import DenseTransformerLM
 
         return DenseTransformerLM(cfg, impl, device)
+    if cfg.family == "vlm":
+        from repro_torch.models.transformer import VLMTransformerLM
+
+        return VLMTransformerLM(cfg, impl, device)
     if cfg.family == "moe":
         from repro_torch.models.moe import MoETransformerLM
 
@@ -27,6 +31,4 @@ def build_model(cfg: ModelConfig, impl: str = "kernel", device="cuda"):
         from repro_torch.models.encdec import EncDecLM
 
         return EncDecLM(cfg, impl, device)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet (dense, moe, ssm, hybrid "
-        "and audio only)")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -80,10 +80,13 @@ class HybridLM(Mamba2LM):
         return embedding.lm_head(params["embed"], x, self.cfg)
 
     # ------------------------------------------------------------ forward
-    @torch.no_grad()
-    def forward_train(self, params: dict, tokens: torch.Tensor, *, dtype=torch.bfloat16):
-        """The training forward (no gradients yet): (fp32 logits (B, S, V),
-        aux loss 0.0)."""
+    def forward_train(self, params: dict, tokens: torch.Tensor, *, vis_embeds=None,
+                      layer_runner=None, dtype=torch.bfloat16):
+        """tokens (B, S) -> (fp32 logits (B, S, V), aux 0.0), differentiable.
+        ``layer_runner`` is accepted and not used: JAX scans the Mamba
+        segments and the shared block itself and takes no runner, so no
+        remat policy applies to this family in either package.
+        ``vis_embeds`` is unused, as in JAX."""
         x = embedding.embed_tokens(params["embed"], tokens, dtype)
         for layer, bp in enumerate(self._layers(params)):
             x, _ = mamba_block_apply(bp, x, self.cfg, mode="train", impl=self.impl)

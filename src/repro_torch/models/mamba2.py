@@ -17,6 +17,11 @@ and their plain versions on CPU tensors; ``impl="ref"`` runs the plain
 PyTorch math everywhere.  Decode runs ``ssd_step`` in plain torch
 on every device, as the JAX package does (jnp, not a kernel).
 
+``forward_train`` is differentiable, as JAX's: its layer loop is a
+``layer_runner`` (the runtime's applies each layer's remat policy), K3 runs
+under ``ssd_autograd`` (backward: a plain fp32 recompute) and the gate norm
+as ``rmsnorm(y * silu(z))`` through K2's autograd function.
+
 Decode state per layer: the conv ring buffer (the last W-1 inputs of each
 conv channel) and the SSD state (B, H, N, P) fp32.  Two departures from the
 JAX model, both on purpose:
@@ -40,8 +45,10 @@ from repro_torch.configs.registry import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import _expand_groups
 from repro_torch.models import embedding
-from repro_torch.models.common import ParamDef, init_params, resolve_device, stacked, take_layer
+from repro_torch.models.common import (ParamDef, init_params, resolve_device, stacked,
+                                       unstack_layers)
 from repro_torch.models.norms import gated_rmsnorm, rmsnorm, rmsnorm_defs
+from repro_torch.models.transformer import default_layer_runner
 
 
 def _dims(cfg: ModelConfig):
@@ -188,8 +195,10 @@ class Mamba2LM(nn.Module):
         """Fresh parameters on the model's device (``generator`` lives there)."""
         return init_params(self.param_defs(), generator, self.device, dtype)
 
-    def _layers(self, params: dict):
-        return (take_layer(params["blocks"], i) for i in range(self.cfg.num_layers))
+    def _layers(self, params: dict) -> list[dict]:
+        """Each layer's params: views of the stacked ``blocks`` (one unbind
+        per leaf, so a backward stacks the layer grads once)."""
+        return unstack_layers(params["blocks"])
 
     def _decode_layer(self, bp: dict, x: torch.Tensor, cache: dict, layer: int):
         """Mamba layer ``layer`` on one token per row; its new state is
@@ -201,16 +210,21 @@ class Mamba2LM(nn.Module):
         return x
 
     # ------------------------------------------------------------ forward
-    @torch.no_grad()
-    def forward_train(self, params: dict, tokens: torch.Tensor, *, dtype=torch.bfloat16):
-        """The training forward (no gradients yet): (fp32 logits (B, S, V),
-        aux loss 0.0 — the JAX runner's extra output, always 0 for mamba2)."""
+    def forward_train(self, params: dict, tokens: torch.Tensor, *, vis_embeds=None,
+                      layer_runner=None, dtype=torch.bfloat16):
+        """tokens (B, S) -> (fp32 logits (B, S, V), the runner's extra: fp32
+        0.0, as JAX's).  ``layer_runner`` walks the stacked blocks, as in
+        JAX; ``vis_embeds`` is accepted and unused, as in JAX."""
+        runner = layer_runner or default_layer_runner
         x = embedding.embed_tokens(params["embed"], tokens, dtype)
-        for bp in self._layers(params):
-            x, _ = mamba_block_apply(bp, x, self.cfg, mode="train", impl=self.impl)
+
+        def apply_block(bp, h):
+            out, _ = mamba_block_apply(bp, h, self.cfg, mode="train", impl=self.impl)
+            return out, 0.0
+
+        x, extra = runner(params["blocks"], x, apply_block)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return embedding.lm_head(params["embed"], x, self.cfg), aux
+        return embedding.lm_head(params["embed"], x, self.cfg), extra
 
     # ------------------------------------------------------------ serving
     def _state_shapes(self, batch: int):
@@ -258,3 +272,7 @@ class Mamba2LM(nn.Module):
             x = self._decode_layer(bp, x, cache, layer)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
         return embedding.lm_head(params["embed"], x, self.cfg), cache
+
+    def text_offset(self) -> int:
+        """Positions before the text in ``forward_train``'s logits: none."""
+        return 0

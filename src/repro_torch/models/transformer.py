@@ -1,6 +1,9 @@
-"""Decoder-only transformer LM: the dense family, and the base class of the
+"""Decoder-only transformer LM: the dense family, the base class of the
 MoE family (``models/moe.py``), which swaps the FFN through the
-``ffn_defs``/``ffn_apply`` hook as JAX's does (training and serving passes).
+``ffn_defs``/``ffn_apply`` hook as JAX's does (training and serving passes),
+and the VLM family (``VLMTransformerLM``: the same tree, with stub patch
+embeddings ``vis_embeds`` (B, Sv, D) prepended to the token embeddings in
+``forward_train`` and ``forward_prefill``; decode embeds tokens only).
 
 The parameters are a nested dict of tensors with the JAX package's keys and
 stacked ``blocks`` (leading layer dim); the forward passes take that dict
@@ -127,11 +130,22 @@ class DenseTransformerLM(nn.Module):
                                    positions=positions, ffn_apply=self.ffn_apply)
 
     # ---------------------------------------------------------- training
-    def forward_train(self, params: dict, tokens: torch.Tensor, *, layer_runner=None,
-                      dtype=torch.bfloat16):
-        """tokens (B, S) -> (fp32 logits (B, S, V), extra fp32 scalar)."""
-        runner = layer_runner or default_layer_runner
+    def _embed_inputs(self, params: dict, tokens: torch.Tensor,
+                      vis_embeds: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
+        """Token embeddings (B, S, D), with ``vis_embeds`` (B, Sv, D) cast to
+        ``dtype`` and prepended along the sequence when given."""
         x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        if vis_embeds is not None:
+            x = torch.cat([vis_embeds.to(dtype), x], dim=1)
+        return x
+
+    def forward_train(self, params: dict, tokens: torch.Tensor, *,
+                      vis_embeds: Optional[torch.Tensor] = None, layer_runner=None,
+                      dtype=torch.bfloat16):
+        """tokens (B, S) -> (fp32 logits (B, Sv + S, V), extra fp32 scalar);
+        Sv = 0 without ``vis_embeds``."""
+        runner = layer_runner or default_layer_runner
+        x = self._embed_inputs(params, tokens, vis_embeds, dtype)
 
         def apply_block(bp, h):
             out, _, extra = self.block_apply(bp, h, mode="train")
@@ -150,13 +164,16 @@ class DenseTransformerLM(nn.Module):
 
     @torch.no_grad()
     def forward_prefill(self, params: dict, tokens: torch.Tensor, *,
-                        max_len: Optional[int] = None, dtype=torch.bfloat16):
+                        max_len: Optional[int] = None,
+                        vis_embeds: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
         """Full-sequence pass that also materialises the KV cache (padded to
-        ``max_len``).  Returns (last-position fp32 logits (B, 1, V), cache
-        {"k","v": (L, B, max_len, KV, hd)})."""
+        ``max_len``).  ``vis_embeds`` (B, Sv, D) takes the first Sv
+        positions, so the cache must hold Sv + S + the tokens to decode.
+        Returns (last-position fp32 logits (B, 1, V), cache {"k","v": (L, B,
+        max_len, KV, hd)})."""
         cfg = self.cfg
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
-        B, S = tokens.shape
+        x = self._embed_inputs(params, tokens, vis_embeds, dtype)
+        S = x.shape[1]
         max_len = max_len or S
         ks, vs = [], []
         for layer in range(cfg.num_layers):
@@ -197,3 +214,13 @@ class DenseTransformerLM(nn.Module):
     def text_offset(self) -> int:
         """Positions before the text in ``forward_train``'s logits: none."""
         return 0
+
+
+class VLMTransformerLM(DenseTransformerLM):
+    """InternVL2-style: the LM backbone reading stub patch embeddings
+    (``vis_embeds``, ``cfg.vis_tokens`` positions) as a prefix; the
+    parameter tree is the dense one."""
+
+    def text_offset(self) -> int:
+        """The prefix positions ``loss_fn`` slices off the train logits."""
+        return self.cfg.vis_tokens

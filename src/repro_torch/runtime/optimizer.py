@@ -2,7 +2,9 @@
 ``repro.runtime.optimizer``).
 
 The update is functional, as in the JAX package: ``adamw_update`` returns
-new parameter and state trees and leaves its inputs untouched.  Global-norm
+new parameter and state trees and leaves its inputs untouched;
+``adamw_update_`` writes the same values into its inputs (a donated
+step).  Global-norm
 clipping at ``grad_clip``, bias corrections computed as fp32 tensors
 (``b1 ** t`` with t fp32), ``eps`` outside the bias-corrected square root,
 and weight decay on every leaf of rank >= 2.  The rank rule is the JAX
@@ -52,8 +54,9 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig):
-    """Returns (new_params, new_state, stats)."""
+def _leaf_update(grads, state: AdamWState, cfg: AdamWConfig):
+    """(new step, ``upd(p, g, m, v) -> (new_p, new_m, new_v)`` for one leaf,
+    the grads' global norm)."""
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0) if cfg.grad_clip
              else 1.0)
@@ -75,6 +78,24 @@ def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig):
         new_p = (p32 - cfg.lr * u).to(p.dtype)
         return new_p, m32.to(cfg.m_dtype), v32.to(cfg.v_dtype)
 
+    return step, upd, gnorm
+
+
+def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig):
+    """Returns (new_params, new_state, stats)."""
+    step, upd, gnorm = _leaf_update(grads, state, cfg)
     flat = tree_map(upd, params, grads, state.m, state.v)
     pick = lambda i: tree_map(lambda t3: t3[i], flat)
     return pick(0), AdamWState(step, pick(1), pick(2)), {"grad_norm": gnorm}
+
+
+def adamw_update_(params, grads, state: AdamWState, cfg: AdamWConfig):
+    """``adamw_update`` with its results written into ``params``, ``state.m``
+    and ``state.v`` in place, leaf by leaf (the same numbers): only one
+    leaf's temporaries are live at a time, never a second tree.  Returns
+    (params, the new state over the same m/v tensors, stats)."""
+    step, upd, gnorm = _leaf_update(grads, state, cfg)
+    for p, g, m, v in zip(*map(tree_leaves, (params, grads, state.m, state.v))):
+        for dst, new in zip((p, m, v), upd(p, g, m, v)):
+            dst.copy_(new)
+    return params, AdamWState(step, state.m, state.v), {"grad_norm": gnorm}

@@ -7,13 +7,16 @@ batch of equal-length prompts:
 
 - an unsharded dense model goes through the paged KV cache, as the trivial
   B-requests-at-once case of the continuous-batching scheduler;
-- every other model (the moe, ssm, hybrid and audio families: moonshot,
-  grok, mamba2, zamba2, whisper) takes :meth:`greedy_generate_reference`,
-  one ``forward_prefill`` then one ``forward_decode`` per token — the slow,
-  obviously-correct loop that stays the scheduler's oracle.  As in JAX it
-  passes no ``extras``, so the encoder-decoder encodes zero frames there;
-  real frames go through ``prefill_step(params, tokens, {"frames": f})``
-  and ``decode_step``.
+- every other model (the vlm, moe, ssm, hybrid and audio families:
+  internvl2, moonshot, grok, mamba2, zamba2, whisper) takes
+  :meth:`greedy_generate_reference`, one ``forward_prefill`` then one
+  ``forward_decode`` per token — the slow, obviously-correct loop that
+  stays the scheduler's oracle.  As in JAX it passes no ``extras``, so the
+  encoder-decoder encodes zero frames there and the VLM serves no image
+  prefix; real frames or patch embeddings go through
+  ``prefill_step(params, tokens, {"frames": f})`` (or ``{"vis_embeds":
+  v}``) and ``decode_step``, whose positions then count the Sv prefix rows
+  (``cache_index = Sv + S + i``).
 
 Only a single device for now: a ``mesh`` raises ``NotImplementedError``
 (the parallel runtime is a later slice), and the telemetry hooks of the JAX
@@ -63,7 +66,8 @@ class ServingEngine:
     # ------------------------------------------------------------ steps
     def prefill_step(self, params, tokens, extras=None):
         """``extras``: an optional dict of side inputs to ``forward_prefill``
-        (``frames`` of the encoder-decoder), as in JAX."""
+        (``frames`` of the encoder-decoder, ``vis_embeds`` of the VLM), as
+        in JAX."""
         return self.model.forward_prefill(params, tokens, max_len=self.max_len or None,
                                           dtype=self.dtype, **(extras or {}))
 

@@ -144,12 +144,17 @@ class HybridParallelModel:
         return loss.detach(), metrics, tree_map(lambda p: grads[id(p)], live)
 
     def train_step(self, params, opt_state: opt_lib.AdamWState, batch: dict,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, *, donate: bool = False):
         """One optimizer step over the global batch: the mean loss and grads
         of ``plan.grad_accum`` microbatches (grads summed in fp32), then
         AdamW inside the profiler span ``optimizer``, as the JAX step's named
         scope marks it.  ``dtype`` is the forward's compute dtype (bf16, as
-        in the JAX step; the parity checks also run fp32)."""
+        in the JAX step; the parity checks also run fp32).
+
+        ``donate=True`` writes the update into ``params`` and ``opt_state``
+        in place (``adamw_update_``: the same numbers), so no second copy of
+        the fp32 state is held, as JAX's donated buffers let XLA reuse
+        them; the caller must not read the old trees."""
         batch = {k: _to_device(v, self.device) for k, v in batch.items()}
         k = max(self.plan.grad_accum, 1)
         B = batch["tokens"].shape[0]
@@ -171,8 +176,8 @@ class HybridParallelModel:
             grads = tree_map(lambda g: g.div_(k), grads)
         loss = loss / k
         with record_function("optimizer"):
-            new_params, new_opt, stats = opt_lib.adamw_update(params, grads, opt_state,
-                                                              self.opt_cfg)
+            update = opt_lib.adamw_update_ if donate else opt_lib.adamw_update
+            new_params, new_opt, stats = update(params, grads, opt_state, self.opt_cfg)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics.update(stats)
@@ -191,12 +196,9 @@ def construct_hybrid_parallel_model(
 ) -> HybridParallelModel:
     """The paper's runtime entry point (Fig. 2 line 13), on one device: the
     model's (``"cuda"`` unless it was built with ``device="cpu"``).  Trains
-    the decoder families, dense and MoE, and the encoder-decoder (audio,
-    whose batches carry ``frames``); ``loss_fn`` adds the MoE router's aux
+    every family: the decoders (dense, MoE, and the VLM, whose batches
+    carry ``vis_embeds``), Mamba2 and the hybrid, and the encoder-decoder
+    (whose batches carry ``frames``); ``loss_fn`` adds the MoE router's aux
     loss at ``AUX_LOSS_WEIGHT``."""
     _single_device(plan, mesh)
-    if model.cfg.family not in ("dense", "moe", "audio"):
-        raise NotImplementedError(
-            f"training the {model.cfg.family!r} family is not ported yet (dense only, "
-            "with the dense or the MoE FFN, and the audio encoder-decoder)")
     return HybridParallelModel(model=model, plan=plan, opt_cfg=opt_cfg or opt_lib.AdamWConfig())

@@ -23,8 +23,9 @@ models).  The default cluster is one H100 card.
 ``step_engine(model, single_device_plan(cfg))`` is the step-level engine
 (``repro_torch.runtime.serve.ServingEngine``): ``greedy_generate`` serves a
 static batch, through the paged scheduler for a dense model and through
-``forward_prefill`` + ``forward_decode`` for every other family (the moe,
-ssm and hybrid families: moonshot, grok, mamba2, zamba2)::
+``forward_prefill`` + ``forward_decode`` for every other family (the vlm,
+moe, ssm, hybrid and audio families: internvl2, moonshot, grok, mamba2,
+zamba2, whisper)::
 
     model = build_model(get_config("mamba2-2.7b"))          # on "cuda"
     engine = serving.step_engine(model, serving.single_device_plan(model.cfg))

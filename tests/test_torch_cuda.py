@@ -1,8 +1,8 @@
 """The port on a CUDA GPU: each hand-written kernel against its plain
-version (K1 and K2 also under autograd), the wrappers' input checks, and
-the serving paths (paged dense, step-engine mamba2, zamba2 and the MoE
-family) and the dense and MoE training steps with ``impl="kernel"`` against
-``impl="ref"``;
+version (K1, K2 and K3 also under autograd), the wrappers' input checks,
+and the serving paths (paged dense, step-engine mamba2, zamba2, the MoE
+family, whisper and the VLM) and the training steps of every family with
+``impl="kernel"`` against ``impl="ref"``;
 the planner's block measurement and a calibration fitted from it.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
@@ -258,6 +258,11 @@ def _kv_len_positions(off, kv_len, Sq, Sk, dev):
     # step over 2080 keys and its causal prefill
     (4, 1, 2080, 16, 16, 128, "decode", (2048, 2049, 2079, 2080)),
     (4, 2048, 2048, 16, 16, 128, "causal", None),
+    # internvl2-26b (48 query heads over 8 KV heads, g = 6, hd 128): its
+    # prefill of 256 prefix + 1 024 text positions and a decode step over
+    # its 1 344-row cache
+    (2, 1280, 1280, 48, 8, 128, "causal", None),
+    (8, 1, 1344, 48, 8, 128, "decode", (1281, 1300, 1343, 1344, 1282, 1290, 1310, 1330)),
 ], ids=lambda c: f"B{c[0]}-Sq{c[1]}-Sk{c[2]}-H{c[3]}-KV{c[4]}-hd{c[5]}-{c[6]}")
 def test_cuda_flash_compact_heads_match_plain_version(cuda_device, case):
     """K1 on compact GQA K/V against its plain version (which expands the
@@ -832,3 +837,182 @@ def test_cuda_whisper_train_kernel_path_matches_ref_path(cuda_device):
     p, _, m = hp.train_step(params, hp.init_opt_state(params), batch)
     assert all(bool(torch.isfinite(x).all()) for x in leaves(p))
     assert np.isfinite(float(m["loss"]))
+
+
+# ------------------------------------------------------------------ VLM, SSM and hybrid training
+
+def _train_pair(cfg, policy, seed, seq, extra=None):
+    """The reduced model's fp32 loss and grads on one batch, kernel path and
+    plain path, with each path's launches (K1, K2, K2 backward, K3, K3 under
+    autograd)."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.runtime import train as ttrain
+    from repro_torch.runtime.data import SyntheticDataset
+
+    plan = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
+                        LayerStrategy(remat=policy), grad_accum=2)
+    params = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(seed))
+    batch = SyntheticDataset(cfg, seq, 4, seed=seed).batch(0)
+    batch.update(extra or {})
+    out, launched = {}, {}
+    counters = lambda: (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches,
+                        rms_ops.rmsnorm.backward_launches, ssd_ops.ssd.launches,
+                        ssd_ops.ssd_autograd.launches)
+    for impl in ("kernel", "ref"):
+        hp = ttrain.construct_hybrid_parallel_model(build_model(cfg, impl=impl), plan)
+        before = counters()
+        out[impl] = hp.value_and_grad(params, batch, torch.float32)
+        torch.cuda.synchronize()
+        launched[impl] = tuple(a - b for a, b in zip(counters(), before))
+    hp = ttrain.construct_hybrid_parallel_model(build_model(cfg), plan)
+    step = hp.train_step(params, hp.init_opt_state(params), batch, donate=True)
+    return out, launched, step
+
+
+def _assert_same_grads(out):
+    from repro_torch.models.common import tree_leaves as leaves
+
+    (lk, _, gk), (lr, _, gr) = out["kernel"], out["ref"]
+    assert abs(float(lk) - float(lr)) <= 1e-5 * abs(float(lr))
+    for a, b in zip(leaves(gk), leaves(gr)):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("Bs,S,H,P,G,N", [
+    (2, 2048, 80, 64, 1, 128),         # mamba2-2.7b's training microbatch
+    (2, 2048, 112, 64, 2, 64),         # zamba2-7b's
+    (1, 1000, 80, 64, 1, 128),         # ragged S
+])
+def test_cuda_ssd_autograd_matches_autograd_through_the_plain_version(cuda_device, Bs, S, H,
+                                                                       P, G, N):
+    """``ssd_autograd`` (K3 forward, fp32 recompute backward) against
+    ``torch.autograd.grad`` through ``ssd_chunked``: y and dx, ddt, dA, dB,
+    dC within 1e-3 · max(1, max |plain|) on fp32 inputs; on bf16 x/B/C each
+    no further from the fp32 plain grads than twice the plain bf16 route's,
+    in the inputs' dtypes; one launch counted on ``ssd`` and on
+    ``ssd_autograd`` per forward."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + H)
+    x, dt, A, B, C = _ssd_inputs(g, cuda_device, Bs, S, H, P, G, N)
+    dy = torch.randn((Bs, S, H, P), generator=g, device=cuda_device)
+
+    def run(fn, dtype):
+        ins = [t.detach().to(dtype if i in (0, 3, 4) else torch.float32).requires_grad_()
+               for i, t in enumerate((x, dt, A, B, C))]
+        y, _ = fn(*ins)
+        grads = torch.autograd.grad(y, ins, dy.to(y.dtype))
+        return [y.detach()] + list(grads), ins
+
+    n = (ssd_ops.ssd.launches, ssd_ops.ssd_autograd.launches)
+    (k32, _), (r32, _) = run(ssd_ops.ssd_autograd, torch.float32), run(ssd_ref.ssd_chunked,
+                                                                       torch.float32)
+    (kbf, ins), (rbf, _) = run(ssd_ops.ssd_autograd, torch.bfloat16), run(ssd_ref.ssd_chunked,
+                                                                          torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (ssd_ops.ssd.launches - n[0], ssd_ops.ssd_autograd.launches - n[1]) == (2, 2)
+    for i, (a, b, kb, rb) in enumerate(zip(k32, r32, kbf, rbf)):
+        assert float((a - b).abs().max()) <= 1e-3 * max(1.0, float(b.abs().max())), i
+        err_k = float((kb.float() - b).abs().max())
+        assert err_k <= 2.0 * float((rb.float() - b).abs().max()), i
+    assert [t.dtype for t in kbf[1:]] == [t.dtype for t in ins]
+
+
+@pytest.mark.parametrize("policy", ["none", "selective", "full"])
+def test_cuda_mamba2_train_kernel_path_matches_ref_path(cuda_device, policy):
+    """Reduced mamba2's training on the card under each remat policy: the
+    kernel path's fp32 loss and grads are the plain path's (2e-3 of each
+    leaf's scale); per microbatch K3 under autograd once per layer (twice
+    under a recomputing policy), K2 2L + 1 (+ 2L recomputed) and its
+    backward 2L + 1; no gated K2, no K1; a donated bf16 step is finite."""
+    from repro_torch.models.common import tree_leaves as leaves
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    L, again = cfg.num_layers, int(policy != "none")
+    out, launched, (p, _, m) = _train_pair(cfg, policy, 16, 192)
+    assert launched["kernel"] == (0, 2 * L + 1 + 2 * L * again, 2 * L + 1, L * (1 + again),
+                                  L * (1 + again))
+    assert launched["ref"] == (0, 0, 0, 0, 0)
+    _assert_same_grads(out)
+    assert all(bool(torch.isfinite(x).all()) for x in leaves(p))
+    assert np.isfinite(float(m["loss"]))
+
+
+def test_cuda_hybrid_train_kernel_path_matches_ref_path(cuda_device):
+    """Reduced zamba2 with a trailing Mamba layer (7 layers, 3 sites): fp32
+    grads of the kernel path are the plain path's; per microbatch K1 once
+    per site (under autograd), K3 once per layer, K2 and its backward 2L +
+    2·sites + 1 (no remat: the family takes no runner, as in JAX)."""
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), num_layers=7)
+    L, sites = cfg.num_layers, 3
+    out, launched, (_, _, m) = _train_pair(cfg, "selective", 17, 160)
+    norms = 2 * L + 2 * sites + 1
+    assert launched["kernel"] == (sites, norms, norms, L, L)
+    assert launched["ref"] == (0, 0, 0, 0, 0)
+    _assert_same_grads(out)
+    assert np.isfinite(float(m["loss"]))
+
+
+def test_cuda_vlm_kernel_path_matches_ref_path(cuda_device):
+    """The reduced internvl2 in fp32 on the card with a non-zero prefix:
+    ``prefill_step(params, tokens, {"vis_embeds": v})`` then ``decode_step``
+    at ``cache_index = Sv + S + i``: the kernel path's greedy tokens are the
+    plain path's, with K1 L and K2 2L + 1 launches a forward."""
+    cfg = get_config("internvl2-26b").reduced()
+    Sv, S, new = cfg.vis_tokens, 40, 10
+    params = build_model(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(18))
+    vis = torch.randn((3, Sv, cfg.d_model), generator=torch.Generator(
+        device=cuda_device).manual_seed(19), device=cuda_device)
+    prompts = torch.from_numpy(
+        np.random.default_rng(18).integers(0, cfg.vocab_size, (3, S))).to(cuda_device)
+    tokens = {}
+    for impl in ("kernel", "ref"):
+        model = build_model(cfg, impl=impl, device=cuda_device)
+        engine = serving.step_engine(model, serving.single_device_plan(cfg), max_len=Sv + S + new,
+                                     dtype=torch.float32)
+        counts = (flash_ops.flash_attention_fwd.launches, rms_ops.rmsnorm.launches)
+        logits, cache = engine.prefill_step(params, prompts, {"vis_embeds": vis})
+        out = [logits[:, -1].argmax(-1)]
+        for i in range(new - 1):
+            kv_len = torch.full((3,), Sv + S + i + 1, device=cuda_device)
+            logits, cache = engine.decode_step(params, out[-1][:, None], cache, Sv + S + i, kv_len)
+            out.append(logits[:, -1].argmax(-1))
+        tokens[impl] = torch.stack(out, dim=1).tolist()
+        launched = (flash_ops.flash_attention_fwd.launches - counts[0],
+                    rms_ops.rmsnorm.launches - counts[1])
+        L = cfg.num_layers
+        assert launched == ((new * L, new * (2 * L + 1)) if impl == "kernel" else (0, 0))
+    assert tokens["kernel"] == tokens["ref"]
+
+
+def test_cuda_vlm_train_kernel_path_matches_ref_path(cuda_device):
+    """The reduced internvl2's fp32 loss and grads on the card under
+    ``selective`` with seeded non-zero patch embeddings, kernel path against
+    plain path; K1 2L, K2 4L + 1 and its backward 2L + 1 per microbatch."""
+    cfg = get_config("internvl2-26b").reduced()
+    L = cfg.num_layers
+    vis = torch.randn((4, cfg.vis_tokens, cfg.d_model),
+                      generator=torch.Generator().manual_seed(20)).bfloat16()
+    out, launched, (_, _, m) = _train_pair(cfg, "selective", 20, cfg.vis_tokens + 128,
+                                           {"vis_embeds": vis})
+    assert launched["kernel"] == (2 * L, 4 * L + 1, 2 * L + 1, 0, 0)
+    assert launched["ref"] == (0, 0, 0, 0, 0)
+    _assert_same_grads(out)
+    assert np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.parametrize("arch", ["internvl2-26b", "mamba2-2.7b", "zamba2-7b"])
+def test_cuda_measure_block_times_vlm_ssm_and_hybrid_blocks(cuda_device, arch):
+    """``measure_block`` on the card for the families JAX measures through
+    ``_block_apply_fn``'s other branches: finite, positive times and a peak
+    above the block's bf16 parameters; K3 runs for a Mamba2 block."""
+    import math
+
+    from repro_torch.core import profiler_model as pm
+
+    cfg = get_config(arch).reduced()
+    n = ssd_ops.ssd.launches
+    m = pm.measure_block(cfg, 256, batch=2, iters=3)
+    for t in (m.fwd_time_s, m.bwd_time_s):
+        assert math.isfinite(t) and t > 0.0
+    assert m.peak_bytes > 2.0 * pm.profile_model(cfg, 256).layers[0].param_count
+    assert (ssd_ops.ssd.launches > n) == (cfg.family != "vlm")

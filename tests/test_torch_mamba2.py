@@ -308,5 +308,6 @@ def test_step_engine_rejects_a_mesh_and_a_foreign_device(pair):
     meta = Mamba2LM(pair["cfg"], device="meta")
     with pytest.raises(ValueError, match="step_engine"):
         serving.step_engine(meta, plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="family"):
-        build_model(get_config("internvl2-26b").reduced(), device="cpu")
+    unknown = dataclasses.replace(get_config("internvl2-26b").reduced(), family="speech")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(unknown, device="cpu")

@@ -2,7 +2,8 @@
 width (``device="cpu"``: the kernels' plain versions):
 
 * ``measure_block`` returns positive times and, off the card, no peak
-  memory; a family other than dense raises;
+  memory, for dense, vlm, mamba2 and zamba2 blocks with JAX's FLOP bases;
+  the moe and audio families raise;
 * a profile cache written by either package loads in the other and fits an
   equal calibration (1e-12); a second profiling pass measures nothing and a
   stale schema is reset;
@@ -64,8 +65,21 @@ def test_measure_block_on_cpu_times_the_block_and_reads_no_peak():
     assert tpm.measure_block_time(cfg, 32, iters=2, device="cpu") > 0.0
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b", "moonshot-v1-16b-a3b",
-                                  "whisper-tiny", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["internvl2-26b", "mamba2-2.7b", "zamba2-7b"])
+def test_measure_block_times_the_vlm_ssm_and_hybrid_blocks(arch):
+    """JAX's branches: a vlm model measures its decoder block, mamba2 and
+    zamba2 a Mamba2 block (K3 and the gate norm under autograd in the
+    grad); the FLOP and activation bases are JAX's first profiled layer."""
+    cfg = get_config(arch).reduced()
+    m = tpm.measure_block(cfg, 32, batch=2, iters=1, device="cpu")
+    assert m.fwd_time_s > 0.0 and m.bwd_time_s >= 0.0 and m.remat_extra_s >= 0.0
+    assert m.peak_bytes == 0.0
+    lp = jpm.profile_model(jget(arch).reduced(), 32, causal_frac=1.0).layers[0]
+    assert m.flops_fwd == lp.flops * 2
+    assert m.act_bytes_pred == (lp.act_inner + lp.act_boundary) * 2
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "whisper-tiny"])
 def test_measure_block_takes_dense_blocks_only(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         tpm.measure_block(get_config(arch).reduced(), 32, device="cpu")

@@ -328,9 +328,9 @@ def test_entry_points_refuse_what_one_device_cannot_run(pair):
     z3 = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
                       LayerStrategy(zero=3))
     assert ttrain.construct_hybrid_parallel_model(pair["tm"], z3).plan is z3
-    ssm = get_config("mamba2-2.7b").reduced()
-    with pytest.raises(NotImplementedError, match="dense only"):
-        ttrain.construct_hybrid_parallel_model(build_model(ssm, device="cpu"), plan)
+    for arch in ("mamba2-2.7b", "zamba2-7b", "internvl2-26b"):     # every family trains
+        other = build_model(get_config(arch).reduced(), device="cpu")
+        assert ttrain.construct_hybrid_parallel_model(other, plan).model is other
 
 
 def test_softmax_xent_masks_labels_as_jax_does():
