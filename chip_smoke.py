@@ -76,11 +76,18 @@ Phases (any failure exits non-zero and prints no result line):
    SSD scan), beside the least time the card could take (``bound_ms``, from
    this run's inputs);
 4. llama serve — full-width llama3.2-1b (random weights from a seed) through
-   ``repro_torch.serving.build``: 8 requests of 512 prompt tokens, 32 new
-   tokens each, 8 slots, page 16, prefill chunk 256; launch counters are
-   zeroed just before and read just after, and K1 and K2 must have run;
-   then 8 decode ticks (8 slots) under ``torch.profiler``: device time by
-   kernel group and the device's busy share of the wall-clock window;
+   ``repro_torch.serving.build``, whose scheduler replays CUDA graphs of its
+   decode step (all 8 lanes) and prefill step (one chunk), K1 and K2
+   launched inside them: 8 requests of 512 prompt tokens, 32 new tokens
+   each, 8 slots, page 16, prefill chunk 256; launch counters are zeroed
+   just before and read just after, and K1 and K2 must have run; the same
+   traffic through the eager scheduler (``compiled=False``, the same
+   weights) gives identical greedy bf16 tokens and equal launches over equal
+   ticks; TTFT, TPOT and tok/s of both, the graphs' capture time and pool
+   bytes; then 8 graphed and 8 eager decode ticks (8 slots) under
+   ``torch.profiler``: device time by kernel group and the device's busy
+   share of the wall-clock window, and the decode graph's replay timed with
+   CUDA events;
 5. llama parity — a reduced llama3.2-1b served in fp32 with
    ``impl="kernel"`` and ``impl="ref"`` gives identical greedy tokens; at
    full width the first prefill chunk's bf16 logits of the two paths differ
@@ -94,12 +101,20 @@ Phases (any failure exits non-zero and prints no result line):
    forward), of them 64 x 32 gated (the gate norm), no K2 backward and no
    flash attention; TTFT, TPOT, tok/s and peak memory; then
    one prefill and 4 decode steps under ``torch.profiler``, device time by
-   kernel group and the busy share;
+   kernel group and the busy share; 6b. the same traffic with its 31 decode
+   steps through ``jit_decode_step(donate=True)`` (a CUDA graph; the prefill
+   eager), after a warm-up run that captures it: launches pinned as above,
+   tokens identical to the eager run's, TTFT and TPOT beside the eager
+   run's, capture time and pool bytes, 4 graphed steps profiled and the
+   graph's replay timed with CUDA events (``graphed_serve``);
 7. mamba2 parity — a reduced mamba2 in fp32 gives identical greedy tokens
    with ``impl="kernel"`` and ``impl="ref"``; the full-width bf16 prefill
    logits of the kernel path are finite and no further from the plain fp32
    path than twice the plain bf16 path's own error, and in fp32 the kernel
-   path is within 1e-3 of the logit scale of the plain path;
+   path is within 1e-3 of the logit scale of the plain path; 7b. the reduced
+   mamba2's ``jit_prefill_step()`` — K3 captured in the graph — bitwise (or
+   within 1e-6 of scale) the eager prefill in bf16 on two batches of ragged
+   prompts, K3 launched once per layer a replay;
 8. zamba2 serve — phase 6 at full-width zamba2-7b (81 Mamba layers, d 3584,
    the shared attention block at 13 sites, hd 112, H = KV = 32): exactly 81
    SSD, 13 x 32 = 416 flash attention and 189 x 32 = 6048 RMSNorm launches,
@@ -190,7 +205,10 @@ Phases (any failure exits non-zero and prints no result line):
    cache, through ``prefill_step(params, tokens, {"vis_embeds": v})`` then
    ``decode_step`` at ``cache_index = 256 + 1024 + i``; TTFT, TPOT, tok/s,
    peak memory; K1 48 and K2 97 launches a forward pinned; one prefill and
-   4 decode steps profiled;
+   4 decode steps profiled; 18b. the same traffic through
+   ``jit_prefill_step()`` and 63 ``jit_decode_step(donate=True)`` calls
+   (CUDA graphs of the full-width prefill and decode, K1 at g = 6 and K2
+   inside them), as phase 6b;
 19. internvl2 parity — full width cut to 4 layers (the served weights'
    first 4; fp32 at full depth would be 79 GB), the served prefix: fp32
    logits within 1e-3 of the plain path's scale, 32 greedy tokens
@@ -1025,6 +1043,12 @@ def ssd_vjp_bound(x, dt, A, B) -> tuple[float, str]:
 # ---------------------------------------------------------------- phases 4-5
 
 def serve_full_width(torch, np, serving, counters):
+    """Phase 4: the same traffic through the graphed scheduler
+    (``serving.build``: CUDA graphs of the decode and prefill steps) and the
+    eager one (``compiled=False``), each after a warm-up request (which
+    captures the graphs); tokens identical, launches equal."""
+    from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
+
     config = serving.ServeConfig(
         arch="llama3.2-1b", reduced=False, device="cuda",
         cache=serving.CacheConfig(max_context=1024, page_size=16),
@@ -1040,36 +1064,75 @@ def serve_full_width(torch, np, serving, counters):
     torch.cuda.synchronize()
     log(f"serve: built full-width {config.model_config().name} in "
         f"{time.perf_counter() - t0:.3f} s")
+    eager = serving.ServeSession(config, ContinuousBatchingScheduler(
+        session.model, session.params, config.cache_config(),
+        prefill_chunk=config.scheduler.prefill_chunk, dtype=torch.bfloat16, sample_fn=greedy,
+        compiled=False), session.model, session.params)
     vocab = config.model_config().vocab_size
     rng = np.random.default_rng(0)
-    # warm-up request (cuBLAS handles, allocator); not part of the measured run
-    session.submit(serving.Request(prompt=rng.integers(0, vocab, 300, dtype=np.int32),
-                                   max_new=3))
-    session.run_until_drained()
+    warm = rng.integers(0, vocab, 300, dtype=np.int32)
     prompts = rng.integers(0, vocab, (8, 512), dtype=np.int32)
+    runs = {}
+    for mode, s in (("graphed", session), ("eager", eager)):
+        # warm-up request (graph captures, cuBLAS handles, allocator); not measured
+        t0 = time.perf_counter()
+        s.submit(serving.Request(prompt=warm, max_new=3))
+        s.run_until_drained()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        zero_counts(counters)
+        finite.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()        # the serve run's own peak, not phase 3's
+        t0 = time.perf_counter()
+        reqs = [s.submit(serving.Request(prompt=p, max_new=32)).request for p in prompts]
+        ticks = 0
+        while not all(r.done for r in reqs):
+            s.tick()
+            ticks += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+        require(all(len(r.tokens) == 32 for r in reqs),
+                f"{mode}: a request did not return max_new tokens")
+        require(len(finite) == 8 * 32 and all(finite), f"{mode}: non-finite logits in the serve run")
+        require(launches["flash_attention_fwd"] > 0 and launches["rmsnorm"] > 0,
+                f"{mode}: a kernel of the path never launched in the serve run: {launches}")
+        tokens = sum(len(r.tokens) for r in reqs)
+        ttft = statistics.median(r.ttft_s for r in reqs)
+        tpot = statistics.median(r.tpot_s for r in reqs)
+        log(f"serve ({mode}): {tokens} tokens in {wall:.3f} s ({tokens / wall:.1f} tok/s)  "
+            f"ttft p50 {ttft * 1e3:.1f} ms  tpot p50 {tpot * 1e3:.2f} ms  {ticks} ticks  "
+            f"launches {launches} (K1 {launches['flash_attention_fwd'] / ticks:.2f}, K2 "
+            f"{launches['rmsnorm'] / ticks:.2f} a tick)  warm-up request {warm_s:.3f} s  "
+            f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        runs[mode] = ([list(r.tokens) for r in reqs], launches, ticks)
+    sched = session.scheduler
+    log(f"serve (graphed): capture (2 warm-up calls + capture) decode step "
+        f"{sched._decode_fn.capture_s:.3f} s, prefill step {sched._prefill_fn.capture_s:.3f} s; "
+        f"graph pool {(sched._decode_fn.pool_bytes + sched._prefill_fn.pool_bytes) / 2**20:.1f} "
+        f"MiB (decode {sched._decode_fn.pool_bytes / 2**20:.1f}, prefill "
+        f"{sched._prefill_fn.pool_bytes / 2**20:.1f})")
+    require(runs["graphed"][0] == runs["eager"][0],
+            "the graphed scheduler's greedy bf16 tokens differ from the eager scheduler's")
+    require(runs["graphed"][1:] == runs["eager"][1:],
+            f"launches per tick differ: graphed {runs['graphed'][1:]}, eager {runs['eager'][1:]}")
+    log("serve: graphed and eager schedulers: greedy bf16 tokens identical (8 x 32), equal "
+        "launches over equal ticks")
+    return session, eager, prompts, runs["graphed"][1]
 
-    zero_counts(counters)
-    finite.clear()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()        # the serve run's own peak, not phase 3's
-    t0 = time.perf_counter()
-    reqs = [session.submit(serving.Request(prompt=p, max_new=32)).request for p in prompts]
-    session.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts(counters)
 
-    require(all(len(r.tokens) == 32 for r in reqs), "a request did not return max_new tokens")
-    require(len(finite) == 8 * 32 and all(finite), "non-finite logits in the serve run")
-    require(launches["flash_attention_fwd"] > 0 and launches["rmsnorm"] > 0,
-            f"a kernel of the path never launched in the serve run: {launches}")
-    tokens = sum(len(r.tokens) for r in reqs)
-    ttft = statistics.median(r.ttft_s for r in reqs)
-    tpot = statistics.median(r.tpot_s for r in reqs)
-    log(f"serve: {tokens} tokens in {wall:.3f} s ({tokens / wall:.1f} tok/s)  "
-        f"ttft p50 {ttft * 1e3:.1f} ms  tpot p50 {tpot * 1e3:.2f} ms  "
-        f"launches {launches}  peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return session, prompts, launches
+def graph_vs_eager(torch, got, want, what: str) -> str:
+    """A graph replay's output against the eager call's: bitwise, or (if
+    cuBLAS picked another algorithm under capture) within 1e-6 of the eager
+    values' scale.  Returns which."""
+    if torch.equal(got, want):
+        return "bitwise equal"
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    require(err <= 1e-6 * scale, f"{what}: graph replay {err:.3e} from eager on a scale of "
+            f"{scale:.3e}")
+    return f"not bitwise, max |diff| {err:.3e} on a scale of {scale:.3e}"
 
 
 def _kernel_group(name: str) -> str:
@@ -1150,9 +1213,12 @@ def report_profile(prof, wall: float, steps: int, what: str, unit: str,
 def profile_decode(torch, np, serving, session, ticks: int = 8):
     """Where a full-width decode tick's time goes: 8 slots in the decode
     phase, ``ticks`` ticks under torch.profiler; device time by kernel group
-    and the device's busy share of the host-clock window."""
+    and the device's busy share of the host-clock window.  On the graphed
+    scheduler the decode graph's replay is also timed with CUDA events (it
+    rewrites the last tick's k/v, the same values, at the same positions)."""
     from torch.profiler import ProfilerActivity, profile
 
+    mode = "graphed" if session.scheduler.compiled else "eager"
     vocab = session.config.model_config().vocab_size
     rng = np.random.default_rng(1)
     reqs = [session.submit(serving.Request(
@@ -1167,8 +1233,14 @@ def profile_decode(torch, np, serving, session, ticks: int = 8):
             session.tick()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    report_profile(prof, wall, ticks, f"{ticks} {mode} decode ticks x 8 slots", "tick")
+    if session.scheduler.compiled:
+        entry = next(iter(session.scheduler._decode_fn.entries.values()))
+        graph_ms = device_ms(entry.graph.replay, torch)
+        log(f"profile: the decode graph's replay: {graph_ms:.4f} ms of device time (CUDA "
+            f"events), {100 * graph_ms / (wall * 1e3 / ticks):.1f}% of the profiled tick's "
+            f"{wall * 1e3 / ticks:.3f} ms wall")
     session.run_until_drained()
-    report_profile(prof, wall, ticks, f"{ticks} decode ticks x 8 slots", "tick")
 
 
 def parity(torch, np, serving, build_model, session, prompts):
@@ -1267,7 +1339,8 @@ def serve_step_engine(torch, np, serving, build_model, get_config, counters, arc
     """Full-width ``arch`` (random bf16 weights from seed 0) through the step
     engine: STATIC_BATCH prompts of STATIC_PROMPT tokens, STATIC_NEW new
     tokens each, after a warm-up; every kernel's launches pinned
-    (``step_engine_launches``).  Returns (engine, params, prompts, launches)."""
+    (``step_engine_launches``).  Returns (engine, params, prompts, launches,
+    (tokens, TTFT s, the decode steps' s))."""
     from repro_torch.models.common import tree_leaves
 
     cfg = get_config(arch)
@@ -1311,7 +1384,8 @@ def serve_step_engine(torch, np, serving, build_model, get_config, counters, arc
         f"decode (tpot) p50 {tpot * 1e3:.2f} ms  launches {launches}  "
         f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(f"{label} serve: tokens[0][:8] {out[0, :8].tolist()}")
-    return engine, params, prompts, launches
+    return (engine, params, prompts, launches,
+            (out, ttft, list(engine.latencies["decode_s"])))
 
 
 #: the MoE FFN's profiler spans (``models/moe.py``) -> profile groups
@@ -1357,6 +1431,105 @@ def profile_step_engine(torch, engine, params, prompts, steps: int = 4, extras=N
     require(bool(torch.isfinite(logits).all()), f"non-finite {label} decode logits")
     report_profile(prof, wall, steps, f"{label} {steps} decode steps x {tokens.shape[0]} rows",
                    "step", spans)
+
+
+def graphed_serve(torch, engine, params, prompts, extras, new: int, eager, counters, *,
+                  prefix: int = 0, prefill_graph: bool = False, profile_steps: int = 4) -> dict:
+    """Phases 6b and 18b: the step engine's compiled steps on the served
+    weights and traffic.  The prefill (``jit_prefill_step()`` where
+    ``prefill_graph``, else the eager ``prefill_step``), then ``new - 1``
+    ``jit_decode_step(donate=True)`` calls, after a 3-token warm-up run that
+    captures the graphs; launches pinned as the eager run's
+    (``step_engine_launches``) and the tokens held to the eager run's
+    (``eager``: tokens, TTFT s, decode step seconds) token for token.  Logs
+    TTFT, TPOT, the capture time and the pool bytes beside the eager run's,
+    then ``profile_steps`` graphed decode steps under torch.profiler
+    (rewriting the first positions; kv_len masks the rest) and the decode
+    graph's replay timed with CUDA events (device time over the graphed
+    TPOT: the busy share).  Returns the graphed run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = engine.model
+    label = model.cfg.name.split("-")[0]
+    decode = engine.jit_decode_step(donate=True)
+    prefill = engine.jit_prefill_step() if prefill_graph else engine.prefill_step
+    tokens = torch.from_numpy(prompts).cuda()
+    B, S = tokens.shape
+    t0 = time.perf_counter()
+    generate_with_extras(torch, engine, params, tokens, extras, 3, prefix, prefill=prefill,
+                         decode=decode)                                       # captures
+    warm_s = time.perf_counter() - t0
+    steps_c = [decode.compiled] + (list(prefill.compiled.values()) if prefill_graph else [])
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _, ttft, steps, cache = generate_with_extras(torch, engine, params, tokens, extras, new,
+                                                      prefix, prefill=prefill, decode=decode)
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    expected = step_engine_launches(model, new)
+    require(launches == expected, f"{label} graphed: launched {launches}, expected {expected}")
+    eager_tokens, eager_ttft, eager_steps = eager
+    same = out.tolist() == eager_tokens.tolist()
+    require(same, f"{label}: graphed tokens differ from the eager run's: {out[:, :8].tolist()} "
+            f"vs {eager_tokens[:, :8].tolist()}")
+    tpot, eager_tpot = statistics.median(steps), statistics.median(eager_steps)
+    n_tok = B * new
+    log(f"{label} graphed serve: {B} x ({prefix + S} + {new}) in {wall:.3f} s "
+        f"({n_tok / wall:.1f} tok/s)  prefill (ttft, "
+        f"{'graphed' if prefill_graph else 'eager'}) {ttft * 1e3:.2f} ms [eager "
+        f"{eager_ttft * 1e3:.2f}]  decode (tpot) p50 {tpot * 1e3:.3f} ms [eager "
+        f"{eager_tpot * 1e3:.3f}]; tokens identical to the eager run's ({new} x {B}); launches "
+        f"{launches} (pinned as eager); warm-up run {warm_s:.3f} s, of it capture "
+        f"(2 warm-up calls + capture) {sum(c.capture_s for c in steps_c):.3f} s; graph pool "
+        f"{sum(c.pool_bytes for c in steps_c) / 2**20:.1f} MiB (decode "
+        f"{decode.compiled.pool_bytes / 2**20:.1f}); peak mem "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(profile_steps):
+            pos = prefix + S + i
+            kv_len = torch.full((B,), pos + 1, device="cuda") if prefix else None
+            logits, cache = decode(params, out[:, i:i + 1], cache, pos, kv_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(bool(torch.isfinite(logits).all()), f"non-finite {label} graphed decode logits")
+    report_profile(prof, wall, profile_steps,
+                   f"{label} {profile_steps} graphed decode steps x {B} rows", "step")
+    graph_ms = device_ms(next(iter(decode.compiled.entries.values())).graph.replay, torch)
+    log(f"profile: {label} decode graph's replay: {graph_ms:.4f} ms of device time (CUDA "
+        f"events), {100 * graph_ms / (tpot * 1e3):.1f}% of the graphed tpot, "
+        f"{100 * graph_ms / (eager_tpot * 1e3):.1f}% of the eager tpot")
+    return launches
+
+
+def graphed_prefill_check(torch, np, serving, build_model, small_cfg, counters) -> None:
+    """Phase 7b: a reduced mamba2's ``jit_prefill_step()`` — K3 inside the
+    graph — against the eager ``prefill_step`` in bf16 on two batches of 4
+    ragged prompts (S 1000): logits and every cache leaf bitwise (or within
+    1e-6 of scale), and each replay launches K3 once per layer."""
+    model = build_model(small_cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(7), torch.bfloat16)
+    engine = serving.step_engine(model, serving.single_device_plan(small_cfg), batch=4)
+    prefill = engine.jit_prefill_step()
+    rng = np.random.default_rng(11)
+    for i in range(2):
+        toks = torch.from_numpy(rng.integers(0, small_cfg.vocab_size, (4, 1000))).cuda()
+        want, want_cache = engine.prefill_step(params, toks)
+        zero_counts(counters)
+        got, got_cache = prefill(params, toks)
+        launches = read_counts(counters)
+        runs = 1 if i else 3                  # the first call: 2 warm-up calls and the replay
+        require(launches["ssd"] == runs * small_cfg.num_layers,
+                f"reduced mamba2 prefill graph: {launches['ssd']} K3 launches")
+        seen = [graph_vs_eager(torch, got, want, "reduced mamba2 prefill logits")]
+        seen += [graph_vs_eager(torch, got_cache[k], want_cache[k], f"reduced mamba2 cache {k}")
+                 for k in want_cache]
+        log(f"graphed prefill: reduced mamba2 ({small_cfg.num_layers} layers) bf16, 4 x 1000 "
+            f"(call {i + 1}): logits and cache {sorted(set(seen))}; K3 {launches['ssd']} "
+            f"launches")
 
 
 class RoutingLog:
@@ -2007,7 +2180,7 @@ def moe_serve_phase(torch, np, serving, build_model, get_config, counters) -> di
     serve run's launches."""
     import gc
 
-    engine, params, prompts, launches = serve_step_engine(
+    engine, params, prompts, launches, _ = serve_step_engine(
         torch, np, serving, build_model, get_config, counters, MOE_ARCH)
     profile_step_engine(torch, engine, params, prompts)
     parity_moe(torch, np, serving, build_model, get_config(MOE_ARCH).reduced(), engine, params,
@@ -2173,18 +2346,21 @@ def stub_embeds(torch, batch: int, rows: int, width: int, seed: int):
 
 
 def generate_with_extras(torch, engine, params, prompts, extras: dict, new: int,
-                         prefix: int = 0):
+                         prefix: int = 0, prefill=None, decode=None):
     """Greedy serving of side inputs through the engine's own steps:
     ``prefill_step(params, prompts, extras)``, then ``new - 1``
     ``decode_step`` calls, each fenced.  ``prefix`` positions (a VLM's patch
     embeddings) precede the prompt in the cache: step i writes at ``prefix
     + S + i`` with ``kv_len`` one past it, as JAX's loop passes it; frames
-    take no decoder positions (``prefix`` 0, no ``kv_len``).  Returns
-    (tokens (B, new), the prefill's last-position logits, its fenced
-    seconds, each decode step's)."""
+    take no decoder positions (``prefix`` 0, no ``kv_len``).  ``prefill``
+    and ``decode`` replace the engine's steps (its ``jit_*`` steps).
+    Returns (tokens (B, new), the prefill's last-position logits, its fenced
+    seconds, each decode step's, the last cache)."""
     B, S = prompts.shape
+    prefill = prefill or engine.prefill_step
+    decode = decode or engine.decode_step
     t0 = time.perf_counter()
-    logits, cache = engine.prefill_step(params, prompts, extras)
+    logits, cache = prefill(params, prompts, extras)
     first = logits[:, -1]
     out = [first.argmax(-1)]
     torch.cuda.synchronize()
@@ -2194,11 +2370,11 @@ def generate_with_extras(torch, engine, params, prompts, extras: dict, new: int,
         t0 = time.perf_counter()
         pos = prefix + S + i
         kv_len = torch.full((B,), pos + 1, device=prompts.device) if prefix else None
-        logits, cache = engine.decode_step(params, out[-1][:, None], cache, pos, kv_len)
+        logits, cache = decode(params, out[-1][:, None], cache, pos, kv_len)
         out.append(logits[:, -1].argmax(-1))
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
-    return torch.stack(out, dim=1), first, ttft, steps
+    return torch.stack(out, dim=1), first, ttft, steps, cache
 
 
 def whisper_serve_phase(torch, np, serving, build_model, get_config, counters):
@@ -2231,8 +2407,8 @@ def whisper_serve_phase(torch, np, serving, build_model, get_config, counters):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, _, ttft, steps = generate_with_extras(torch, engine, params, tokens,
-                                               {"frames": frames}, WHISPER_NEW)
+    out, _, ttft, steps, _ = generate_with_extras(torch, engine, params, tokens,
+                                                  {"frames": frames}, WHISPER_NEW)
     wall = time.perf_counter() - t0
     launches = read_counts(counters)
     require(tuple(out.shape) == (WHISPER_BATCH, WHISPER_NEW), f"whisper tokens shape "
@@ -2356,7 +2532,7 @@ def vlm_serve_phase(torch, np, serving, build_model, get_config, counters):
     standard normal patch embeddings) and ``VLM_TEXT`` tokens through
     ``generate_with_extras`` after a warm-up; K1 48 and K2 97 launches a
     forward pinned (``step_engine_launches``).  Returns (engine, params,
-    vis_embeds, prompts, launches)."""
+    vis_embeds, prompts, launches, (tokens, TTFT s, the decode steps' s))."""
     from repro_torch.models.common import tree_leaves
 
     cfg = get_config(VLM_ARCH)
@@ -2382,8 +2558,8 @@ def vlm_serve_phase(torch, np, serving, build_model, get_config, counters):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, _, ttft, steps = generate_with_extras(torch, engine, params, tokens, extras, VLM_NEW,
-                                               prefix=VLM_PREFIX)
+    out, _, ttft, steps, _ = generate_with_extras(torch, engine, params, tokens, extras,
+                                                  VLM_NEW, prefix=VLM_PREFIX)
     wall = time.perf_counter() - t0
     launches = read_counts(counters)
     require(tuple(out.shape) == (VLM_BATCH, VLM_NEW), f"internvl2 tokens shape "
@@ -2399,7 +2575,7 @@ def vlm_serve_phase(torch, np, serving, build_model, get_config, counters):
         f"(K1 {cfg.num_layers}, K2 {2 * cfg.num_layers + 1} a forward)  peak mem "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(f"internvl2 serve: tokens[0][:8] {out[0, :8].tolist()}")
-    return engine, params, vis, prompts, launches
+    return engine, params, vis, prompts, launches, (out, ttft, steps)
 
 
 def parity_vlm(torch, serving, build_model, engine, params, vis, prompts) -> None:
@@ -2686,8 +2862,11 @@ def main() -> int:
 
     # 4. the llama path at full width
     counters = launch_counters(flash_ops, rms_ops, ssd_ops)
-    session, prompts, llama_launches = serve_full_width(torch, np, serving, counters)
+    session, eager_session, prompts, llama_launches = serve_full_width(torch, np, serving,
+                                                                       counters)
     profile_decode(torch, np, serving, session)
+    profile_decode(torch, np, serving, eager_session)
+    del eager_session
 
     # 5. llama kernel path against plain path
     parity(torch, np, serving, build_model, session, prompts)
@@ -2701,11 +2880,15 @@ def main() -> int:
             ("mamba2-2.7b", get_config("mamba2-2.7b").reduced()),
             # a remainder: 3 sites of the shared block, then 1 trailing layer
             ("zamba2-7b", dataclasses.replace(get_config("zamba2-7b").reduced(), num_layers=7))):
-        engine, params, s_prompts, launches = serve_step_engine(
+        engine, params, s_prompts, launches, eager = serve_step_engine(
             torch, np, serving, build_model, get_config, counters, arch)
         static_launches[arch.split("-")[0]] = launches
         profile_step_engine(torch, engine, params, s_prompts)
+        if arch == "mamba2-2.7b":                   # 6b. its decode steps graphed
+            graphed_serve(torch, engine, params, s_prompts, None, STATIC_NEW, eager, counters)
         parity_step_engine(torch, np, serving, build_model, small_cfg, engine, params, s_prompts)
+        if arch == "mamba2-2.7b":                   # 7b. K3 inside a prefill graph
+            graphed_prefill_check(torch, np, serving, build_model, small_cfg, counters)
         del engine, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2746,10 +2929,16 @@ def main() -> int:
 
     # 18-19. the VLM: internvl2 served at full width and depth with an image
     # prefix, profiled, and its kernel path against its plain path at 4 layers
-    engine, v_params, v_vis, v_prompts, vlm_launches = vlm_serve_phase(
+    engine, v_params, v_vis, v_prompts, vlm_launches, eager = vlm_serve_phase(
         torch, np, serving, build_model, get_config, counters)
     profile_step_engine(torch, engine, v_params, v_prompts, extras={"vis_embeds": v_vis},
                         prefix=VLM_PREFIX)
+    # 18b. the same traffic through the compiled prefill and decode steps
+    graphed_serve(torch, engine, v_params, v_prompts, {"vis_embeds": v_vis}, VLM_NEW, eager,
+                  counters, prefix=VLM_PREFIX, prefill_graph=True)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
     parity_vlm(torch, serving, build_model, engine, v_params, v_vis, v_prompts)
     del engine, v_params, v_vis
     gc.collect()

@@ -18,7 +18,12 @@ backward recomputes through the plain chunked attention, one query block at
 a time (no backward kernel yet).
 
 ``flash_attention_fwd.launches`` counts calls that launch the kernel, one
-per call (plain-version calls on the CPU do not count).
+per call (plain-version calls on the CPU do not count).  ``COUNTERS`` lists
+it for ``runtime/compiled.py``, which adds a captured graph's launches at
+each replay, so under a CUDA graph it still counts device launches.  The C
+entry point sets the kernel's dynamic shared memory
+(``cudaFuncSetAttribute``) at every launch; that call is no stream work and
+is legal while a stream is captured.
 """
 from __future__ import annotations
 
@@ -139,6 +144,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
 
 
 flash_attention_fwd.launches = 0
+COUNTERS = ((flash_attention_fwd, "launches"),)
 
 
 class _FlashAttention(torch.autograd.Function):

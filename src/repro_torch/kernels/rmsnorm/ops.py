@@ -22,7 +22,9 @@ per row — is the pure function ``_template``.  Counters (kernel launches on
 CUDA tensors; plain-version calls on the CPU do not count):
 ``rmsnorm.launches`` (every forward, gated or not), ``rmsnorm.gated_launches``
 (the gated forwards) and ``rmsnorm.backward_launches`` (backward calls, each
-two launches: the rows, then the column sums).
+two launches: the rows, then the column sums).  ``COUNTERS`` lists them for
+``runtime/compiled.py``, which adds a captured graph's launches at each
+replay, so under a CUDA graph they still count device launches.
 """
 from __future__ import annotations
 
@@ -148,6 +150,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
 rmsnorm.launches = 0
 rmsnorm.gated_launches = 0
 rmsnorm.backward_launches = 0
+COUNTERS = ((rmsnorm, "launches"), (rmsnorm, "gated_launches"), (rmsnorm, "backward_launches"))
 
 
 @functools.lru_cache(maxsize=256)

@@ -36,7 +36,12 @@ when a grad is wanted.
 
 ``ssd.launches`` counts kernel launches (plain-version calls do not count);
 ``ssd_autograd.launches`` counts those made by ``ssd_autograd``'s forward,
-which count on ``ssd.launches`` too.
+which count on ``ssd.launches`` too.  ``COUNTERS`` lists both for
+``runtime/compiled.py``, which adds a captured graph's launches at each
+replay, so under a CUDA graph they still count device launches.  The C
+entry point sets the kernel's shared memory and carveout
+(``cudaFuncSetAttribute``) at every launch, which is legal while a stream is
+captured.
 """
 from __future__ import annotations
 
@@ -201,6 +206,7 @@ def ssd_autograd(x, dt, A, B, C):
 
 
 ssd_autograd.launches = 0
+COUNTERS = ((ssd, "launches"), (ssd_autograd, "launches"))
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t):

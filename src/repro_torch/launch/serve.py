@@ -6,8 +6,9 @@ engine up with ``repro_torch.serving.build``, submits a batch of random
 prompts (numpy seed 1) and drains the scheduler, then prints throughput and
 the TTFT/TPOT percentiles.  As in the JAX CLI the model is the arch's
 ``.reduced()`` variant (``chip_smoke.py`` serves the published widths).
-``--device`` defaults to ``cuda`` (the CUDA kernels); ``--device cpu`` runs
-the plain versions.
+``--device`` defaults to ``cuda`` (the CUDA kernels, the scheduler's decode
+and prefill steps replayed as captured CUDA graphs, as JAX jits them);
+``--device cpu`` runs the plain versions, eagerly.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --batch 8 \\
         --prompt-len 512 --max-new 32 --prefill-chunk 256

@@ -239,7 +239,8 @@ def uses_kernel(impl: str, x: torch.Tensor) -> bool:
 
 def valid_lengths(cache_index, Sq: int, B: int, kv_len, device) -> torch.Tensor:
     """Per-slot valid cache lengths of a decode step: ``kv_len`` if given,
-    else ``cache_index + Sq``."""
+    else ``cache_index + Sq`` (an int, or a 0-d or (B,) device tensor, never
+    read on the host)."""
     if kv_len is not None:
         return kv_len
     if isinstance(cache_index, torch.Tensor):
@@ -324,9 +325,12 @@ def _out_proj(params, out, x_dtype):
 
 def write_cache(cache: torch.Tensor, new: torch.Tensor, cache_index) -> None:
     """Write new (B, Sq, KV, hd) into cache (B, S_max, KV, hd) at
-    ``cache_index`` (int, or (B,) per-slot starts), in place.  Unlike JAX's
-    ``dynamic_update_slice`` nothing is clamped: callers leave room (the
-    scheduler pads its gathered views) and an out-of-range write raises."""
+    ``cache_index`` (int, or a 0-d or (B,) per-slot start tensor), in place.
+    Unlike JAX's ``dynamic_update_slice`` nothing is clamped: callers leave
+    room (the scheduler pads its gathered views).  An int write out of range
+    raises; a tensor start is never read on the host (a CUDA graph captures
+    the write), so it goes through index tensors and is checked by the
+    indexing itself."""
     B, Sq = new.shape[:2]
     new = new.to(cache.dtype)
     if isinstance(cache_index, torch.Tensor):
@@ -358,7 +362,7 @@ def attention_block(
     cfg: ModelConfig,
     mode: str,                      # "train" | "prefill" | "decode" | "encoder"
     cache: Optional[dict] = None,   # {"k","v": (B, S_max, KV, hd)}
-    cache_index=None,               # decode write offset: int or (B,) tensor
+    cache_index=None,               # decode write offset: int, 0-d or (B,) tensor
     kv_len: Optional[torch.Tensor] = None,
     kv_source: Optional[torch.Tensor] = None,   # encoder output for cross-attention
     cross: bool = False,

@@ -32,6 +32,11 @@ JAX model, both on purpose:
   the first decode step fail;
 - ``forward_decode`` writes the new state into ``cache`` in place (one
   buffer at full width rather than a second 0.7 GB stack per step).
+
+Decode reads nothing on the host (``_conv_step`` and ``ssd_step`` are tensor
+ops and ``cache_index`` is unused), so ``jit_decode_step`` captures it as a
+CUDA graph; the graph's warm-up runs on a clone of the state, which a call
+advances.
 """
 from __future__ import annotations
 

@@ -11,9 +11,12 @@ explicitly, so weights from JAX (``params_from_jax``) and the port's own
 initialiser are interchangeable.  The JAX ``lax.scan`` over layers is a
 Python loop over the stacked tensors.
 
-``forward_decode`` accepts ``cache_index`` as an int or a ``(B,)`` tensor:
-the per-slot form is the written-out ``vmap`` of the JAX scheduler — each
-slot gets its own rope positions, cache write position and causal offset.
+``forward_decode`` accepts ``cache_index`` as an int, a 0-d tensor or a
+``(B,)`` tensor: the per-slot form is the written-out ``vmap`` of the JAX
+scheduler — each slot gets its own rope positions, cache write position and
+causal offset.  A tensor is never read on the host, so the step can be
+captured as a CUDA graph (``runtime/compiled.py``); it gives the int form's
+logits bitwise.
 
 ``forward_train`` is differentiable: gradients reach the fp32 master leaves
 through the ``.to(dtype)`` casts, and the tied ``embed.tok`` from both the
@@ -189,7 +192,7 @@ class DenseTransformerLM(nn.Module):
     @torch.no_grad()
     def forward_decode(self, params: dict, tokens: torch.Tensor, cache: dict, cache_index, *,
                        kv_len: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
-        """tokens (B, Sq) at write position ``cache_index`` (int or (B,)),
+        """tokens (B, Sq) at write position ``cache_index`` (int, 0-d or (B,)),
         cache {"k","v": (L, B, S_max, KV, hd)}.  The new k/v are written into
         ``cache`` in place; returns (fp32 logits (B, Sq, V), cache).  On the
         kernel path the attention kernel's positions are built once here and

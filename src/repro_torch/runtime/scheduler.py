@@ -11,13 +11,24 @@ policy, one ``tick()`` at a time:
    ``cache_index = tokens already prefilled``.
 3. **decode** — every slot in the decode phase takes one step in one
    batched ``forward_decode`` with a per-slot ``(B,)`` ``cache_index`` (the
-   written-out form of the JAX scheduler's ``vmap`` over slots).  Only the
-   live slots run.
+   written-out form of the JAX scheduler's ``vmap`` over slots).  As in JAX
+   the step always runs all ``num_slots`` lanes: an idle lane carries an
+   all-null block table, so its write lands in the null page, and the host
+   ignores its logits.
 
 Both steps gather each slot's pages into a contiguous view, padded by the
 step's token count (``+1`` at decode, ``+chunk`` at prefill) so the write of
 the new tokens always fits, run the model, and scatter only the new tokens'
-k/v back into the pool; chunk pad lanes write to the null page.
+k/v back into the pool; chunk pad lanes write to the null page.  Both keep
+static shapes — decode ``(num_slots,)`` lanes, prefill one ``(1,
+prefill_chunk)`` chunk whose ``done`` and ``n_valid`` are 0-d tensors — and
+read nothing on the host, so each is compiled as JAX compiles its steps:
+``compiled=True`` (the default) builds ``_decode_fn`` and ``_prefill_fn``
+through ``runtime/compiled.py``, captured CUDA graphs replayed every tick on
+a CUDA device (sharing one graph pool), the same static-buffer plumbing
+with direct calls on the CPU.  ``compiled=False`` calls the steps eagerly:
+the oracle of the graphs.  The logits are copied to the host after the
+step, and sampling stays on the host.
 
 Eviction (oversubscribed pools only) preempts the youngest later-submitted
 request; generation restarts on re-admission and replays the same tokens
@@ -39,6 +50,7 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.runtime.compiled import compile_step
 from repro_torch.runtime.kv_cache import (
     CacheOOM,
     PagedCacheConfig,
@@ -141,7 +153,7 @@ class ContinuousBatchingScheduler:
     def __init__(self, model: Any, params: Any, cache_cfg: PagedCacheConfig,
                  *, prefill_chunk: int = 32, dtype=torch.bfloat16,
                  sample_fn: Optional[Callable] = None,
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter, compiled: bool = True):
         self.model = model
         self.params = params
         self.dtype = dtype
@@ -158,56 +170,70 @@ class ContinuousBatchingScheduler:
         self._generated = 0
         self._evicted = 0
         self._rngs: dict[int, np.random.Generator] = {}
+        self.compiled = compiled
+        if compiled:
+            pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+            kw = dict(held=(0,), donated=(1, 2), pool=pool)
+            self._decode_fn = compile_step(self._decode_step, self.device, name="decode step",
+                                           **kw)
+            self._prefill_fn = compile_step(self._prefill_step, self.device,
+                                            name="prefill step", **kw)
+        else:
+            self._decode_fn, self._prefill_fn = self._decode_step, self._prefill_step
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _inputs(self, *arrays) -> list[torch.Tensor]:
+        """A step's host inputs as tensors: left on the host for the compiled
+        steps (which copy them into their static buffers), on the device for
+        the eager ones."""
+        out = [torch.as_tensor(a) for a in arrays]
+        return out if self.compiled else [t.to(self.device) for t in out]
 
     # ------------------------------------------------------------ steps
     @torch.no_grad()
-    def _decode_step(self, tokens: np.ndarray, block_tables: np.ndarray,
-                     lens: np.ndarray) -> np.ndarray:
-        """One batched decode step over the live slots: tokens (B,),
-        block_tables (B, Pmax), lens (B,) -> logits (B, V) fp32 on the host.
-        The new token's k/v are scattered into the pool at each slot's
-        write position."""
+    def _decode_step(self, params, k_pages, v_pages, tokens, block_tables, lens):
+        """One batched decode step over every slot: tokens (B,), block_tables
+        (B, Pmax), lens (B,) -> logits (B, V) fp32 on the device.  The new
+        token's k/v are scattered into the pools in place at each slot's
+        write position; an idle lane (all-null table, length 0) writes into
+        the null page."""
         page = self.cache.config.page_size
-        bt, ln = self._tensor(block_tables), self._tensor(lens).long()
-        gk = _pad_seq(gather_pages(self.cache.k_pages, bt), 1)
-        gv = _pad_seq(gather_pages(self.cache.v_pages, bt), 1)
+        ln = lens.long()
+        gk = _pad_seq(gather_pages(k_pages, block_tables), 1)
+        gv = _pad_seq(gather_pages(v_pages, block_tables), 1)
         logits, nc = self.model.forward_decode(
-            self.params, self._tensor(tokens).long()[:, None], {"k": gk, "v": gv}, ln,
-            kv_len=ln + 1, dtype=self.dtype)
-        rows = torch.arange(len(tokens), device=self.device)
+            params, tokens.long()[:, None], {"k": gk, "v": gv}, ln, kv_len=ln + 1,
+            dtype=self.dtype)
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
         nk, nv = nc["k"][:, rows, ln], nc["v"][:, rows, ln]     # (L, B, KV, hd)
-        flat = flat_positions(bt, ln[:, None], page)[:, 0]
-        scatter_tokens(self.cache.k_pages, flat, nk)
-        scatter_tokens(self.cache.v_pages, flat, nv)
-        return logits[:, -1].cpu().numpy()
+        flat = flat_positions(block_tables, ln[:, None], page)[:, 0]
+        scatter_tokens(k_pages, flat, nk)
+        scatter_tokens(v_pages, flat, nv)
+        return logits[:, -1]
 
     @torch.no_grad()
-    def _prefill_step(self, tokens: np.ndarray, block_table: np.ndarray,
-                      done: int, n_valid: int) -> np.ndarray:
+    def _prefill_step(self, params, k_pages, v_pages, tokens, block_table, done, n_valid):
         """One prompt chunk for one slot: tokens (1, chunk) padded,
-        block_table (1, Pmax), done = tokens already in the cache, n_valid =
-        real tokens in this chunk.  Pad lanes write into the null page; the
-        returned logits row (V,) is the last valid position's."""
+        block_table (1, Pmax), done = tokens already in the cache and
+        n_valid = real tokens in this chunk, both 0-d tensors.  Pad lanes
+        write into the null page; the returned logits row (V,) is the last
+        valid position's."""
         page = self.cache.config.page_size
         chunk = tokens.shape[1]
-        bt = self._tensor(block_table)
-        gk = _pad_seq(gather_pages(self.cache.k_pages, bt), chunk)
-        gv = _pad_seq(gather_pages(self.cache.v_pages, bt), chunk)
-        kv_len = torch.full((1,), done + n_valid, dtype=torch.long, device=self.device)
+        done, n_valid = done.long(), n_valid.long()
+        gk = _pad_seq(gather_pages(k_pages, block_table), chunk)
+        gv = _pad_seq(gather_pages(v_pages, block_table), chunk)
         logits, nc = self.model.forward_decode(
-            self.params, self._tensor(tokens).long(), {"k": gk, "v": gv}, done,
-            kv_len=kv_len, dtype=self.dtype)
-        ck, cv = nc["k"][:, 0, done:done + chunk], nc["v"][:, 0, done:done + chunk]
-        positions = done + torch.arange(chunk, device=self.device)
-        flat = flat_positions(bt, positions[None], page)[0]
-        flat = torch.where(torch.arange(chunk, device=self.device) < n_valid, flat,
-                           positions % page)              # pads -> null page
-        scatter_tokens(self.cache.k_pages, flat, ck)
-        scatter_tokens(self.cache.v_pages, flat, cv)
-        return logits[0, n_valid - 1].cpu().numpy()
+            params, tokens.long(), {"k": gk, "v": gv}, done,
+            kv_len=(done + n_valid).reshape(1), dtype=self.dtype)
+        lanes = torch.arange(chunk, device=tokens.device)
+        positions = done + lanes
+        ck = nc["k"][:, 0].index_select(1, positions)
+        cv = nc["v"][:, 0].index_select(1, positions)
+        flat = flat_positions(block_table, positions[None], page)[0]
+        flat = torch.where(lanes < n_valid, flat, positions % page)   # pads -> null page
+        scatter_tokens(k_pages, flat, ck)
+        scatter_tokens(v_pages, flat, cv)
+        return logits[0].index_select(0, (n_valid - 1).reshape(1))[0]
 
     # ------------------------------------------------------------ API
     def submit(self, request: Request) -> TokenStream:
@@ -327,8 +353,10 @@ class ContinuousBatchingScheduler:
         toks[0, :n] = req.prompt[done:done + n]
         if not self._ensure_with_eviction(req, done + n):
             return                          # yielded its slot to an elder
-        logits = self._prefill_step(toks, self.cache.block_tables[req.slot][None],
-                                    done, n)
+        logits = self._prefill_fn(
+            self.params, self.cache.k_pages, self.cache.v_pages,
+            *self._inputs(toks, self.cache.block_tables[req.slot][None], np.int64(done),
+                          np.int64(n))).cpu().numpy()
         self.cache.advance(req.slot, n)
         req.prefilled = done + n
         if req.prefilled == len(req.prompt):
@@ -346,13 +374,19 @@ class ContinuousBatchingScheduler:
         live = [r for r in live if r.state == DECODING]
         if not live:
             return
-        slots = [r.slot for r in live]
-        tokens = np.asarray([r.tokens[-1] for r in live], np.int32)
-        logits = self._decode_step(tokens, self.cache.block_tables[slots],
-                                   self.cache.kv_len[slots])
-        for i, r in enumerate(live):
+        B = len(self._slots)
+        tokens = np.zeros((B,), np.int32)
+        tables = np.zeros((B, self.cache.config.max_pages_per_slot), np.int32)  # idle: null page
+        lens = np.zeros((B,), np.int32)
+        for r in live:
+            tokens[r.slot] = r.tokens[-1]
+            tables[r.slot] = self.cache.block_tables[r.slot]
+            lens[r.slot] = self.cache.kv_len[r.slot]
+        logits = self._decode_fn(self.params, self.cache.k_pages, self.cache.v_pages,
+                                 *self._inputs(tokens, tables, lens)).cpu().numpy()
+        for r in live:
             self.cache.advance(r.slot, 1)
-            self._append_token(r, logits[i])
+            self._append_token(r, logits[r.slot])
 
     # ------------------------------------------------------------ helpers
     def _append_token(self, req: Request, logits: np.ndarray,

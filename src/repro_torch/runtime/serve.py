@@ -18,6 +18,14 @@ batch of equal-length prompts:
   v}``) and ``decode_step``, whose positions then count the Sv prefix rows
   (``cache_index = Sv + S + i``).
 
+``jit_decode_step(donate=True)`` and ``jit_prefill_step()`` are JAX's
+compiled steps with JAX's signatures: captured CUDA graphs of
+``decode_step`` and ``prefill_step`` (``runtime/compiled.py``) on a CUDA
+device, sharing one graph pool per engine; the same static-buffer plumbing
+with direct calls on the CPU.  They hold the ``dense``, ``vlm`` and ``ssm``
+families; the others raise ``NotImplementedError`` (ROADMAP Queue 1 item 2).
+``greedy_generate_reference`` stays eager, as JAX's does: it is their oracle.
+
 Only a single device for now: a ``mesh`` raises ``NotImplementedError``
 (the parallel runtime is a later slice), and the telemetry hooks of the JAX
 engine wait for the port of ``repro.obs`` — the reference loop keeps its
@@ -34,6 +42,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.strategy import ExecutionPlan
+from repro_torch.runtime.compiled import compile_step
+
+#: the families whose steps ``jit_decode_step`` / ``jit_prefill_step`` capture
+COMPILED_FAMILIES = ("dense", "vlm", "ssm")
 
 
 def _fence(t: torch.Tensor) -> None:
@@ -52,6 +64,7 @@ class ServingEngine:
     dtype: torch.dtype = torch.bfloat16   # compute dtype of the forward passes
     latencies: dict = dataclasses.field(
         default_factory=lambda: {"prefill_s": [], "decode_s": []})
+    _graph_pool: Any = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -74,6 +87,61 @@ class ServingEngine:
     def decode_step(self, params, tokens, cache, cache_index, kv_len=None):
         return self.model.forward_decode(params, tokens, cache, cache_index, kv_len=kv_len,
                                          dtype=self.dtype)
+
+    # ------------------------------------------------------------ jit
+    def _compiled_device(self) -> torch.device:
+        """The device of the compiled steps, once the family is known to be
+        held by them; the graphs of this engine share one pool."""
+        family = self.model.cfg.family
+        if family not in COMPILED_FAMILIES:
+            raise NotImplementedError(
+                f"ServingEngine: the compiled steps hold the {COMPILED_FAMILIES} families; "
+                f"{family!r} is not ported yet (ROADMAP Queue 1 item 2)")
+        device = self.model.device
+        if device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return device
+
+    def jit_decode_step(self, donate: bool = True):
+        """``decode_step`` compiled: ``(params, tokens, cache, cache_index,
+        kv_len=None) -> (logits, cache)``.  ``cache_index`` and ``kv_len``
+        may be ints (turned into tensors on the host, fed to the graph) or
+        tensors.  ``donate=True`` writes ``cache`` in place, as JAX donates
+        it: the returned cache is the graph's buffers (the first call's cache
+        itself) and its logits the graph's static output, valid until the
+        next call; pass the returned cache back.  ``donate=False`` copies the
+        cache in and returns clones, leaving the argument as it was."""
+        device = self._compiled_device()
+        step = compile_step(self.decode_step, device, held=(0,),
+                            donated=(2,) if donate else (), pool=self._graph_pool,
+                            clone_outputs=not donate, name="jit_decode_step")
+
+        def decode(params, tokens, cache, cache_index, kv_len=None):
+            if isinstance(kv_len, int):
+                kv_len = torch.full((tokens.shape[0],), kv_len, dtype=torch.long)
+            return step(params, tokens, cache, torch.as_tensor(cache_index), kv_len)
+
+        decode.compiled = step
+        return decode
+
+    def jit_prefill_step(self):
+        """``prefill_step`` compiled: ``(params, tokens, extras=None) ->
+        (logits, cache)``, returned as fresh tensors (JAX's outputs are new
+        arrays; the graph's own stay in the pool).  A graph per ``max_len``
+        of the engine, which sizes the cache."""
+        device = self._compiled_device()
+        steps: dict = {}
+
+        def prefill(params, tokens, extras=None):
+            step = steps.get(self.max_len)
+            if step is None:
+                step = steps[self.max_len] = compile_step(
+                    self.prefill_step, device, held=(0,), pool=self._graph_pool,
+                    clone_outputs=True, name="jit_prefill_step")
+            return step(params, tokens, extras)
+
+        prefill.compiled = steps
+        return prefill
 
     # ------------------------------------------------------------ loops
     def greedy_generate(self, params, prompt_tokens, max_new: int,

@@ -18,7 +18,9 @@ the device, statically validated against the GALV08x checks in
 
 ``build`` returns a :class:`ServeSession` wrapping the continuous-batching
 scheduler (``repro_torch.runtime.scheduler``) over the paged KV cache (dense
-models).  The default cluster is one H100 card.
+models).  On CUDA the scheduler serves through captured CUDA graphs of its
+decode step (all ``num_slots`` lanes) and prefill step (one chunk), as JAX
+jits them (``runtime/compiled.py``).  The default cluster is one H100 card.
 
 ``step_engine(model, single_device_plan(cfg))`` is the step-level engine
 (``repro_torch.runtime.serve.ServingEngine``): ``greedy_generate`` serves a
@@ -31,7 +33,9 @@ zamba2, whisper)::
     engine = serving.step_engine(model, serving.single_device_plan(model.cfg))
     tokens = engine.greedy_generate(params, prompts, max_new=32, max_len=2080)
 
-Mesh-sharded engines and telemetry sinks are not ported yet.
+Its ``jit_prefill_step()`` and ``jit_decode_step(donate=True)`` are the
+compiled steps (CUDA graphs; dense, vlm and ssm families).  Mesh-sharded
+engines and telemetry sinks are not ported yet.
 """
 from __future__ import annotations
 

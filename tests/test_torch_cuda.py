@@ -1016,3 +1016,213 @@ def test_cuda_measure_block_times_vlm_ssm_and_hybrid_blocks(cuda_device, arch):
         assert math.isfinite(t) and t > 0.0
     assert m.peak_bytes > 2.0 * pm.profile_model(cfg, 256).layers[0].param_count
     assert (ssd_ops.ssd.launches > n) == (cfg.family != "vlm")
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+def _same(got, want, what):
+    """Graph replay against eager: bitwise, or (if cuBLAS picked another
+    algorithm under capture) within 1e-6 of the eager values' scale; the
+    case seen is printed."""
+    if torch.equal(got, want):
+        print(f"{what}: bitwise equal")
+        return
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    print(f"{what}: not bitwise; max |diff| {err:.3e} on a scale of {scale:.3e}")
+    assert err <= 1e-6 * scale, what
+
+
+def _counts():
+    from repro_torch.runtime.compiled import COUNTERS
+
+    return [getattr(obj, attr) for obj, attr in COUNTERS]
+
+
+def _kernel_cases(dev):
+    """(name, fn, inputs maker): K1 on the split decode path and on the
+    positional path of a prefill chunk, K2 plain and gated, K3 in bf16 and
+    fp32."""
+    def flash_decode(g):
+        q = torch.randn((8, 1, 32, 64), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((8, 8192, 8, 64), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        kv_len = torch.randint(4000, 8193, (8,), generator=g, device=dev)
+        return [q, k, v, *t_attn.flash_positions(kv_len - 1, 1, 8192, kv_len, 8, dev)]
+
+    def flash_chunk(g):
+        q = torch.randn((1, 256, 32, 64), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((1, 1280, 8, 64), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        off = torch.tensor(512, device=dev)
+        return [q, k, v, *t_attn.flash_positions(off, 256, 1280, (off + 256).reshape(1), 1,
+                                                 dev)]
+
+    def rms(g, rows=8, D=2048):
+        return [torch.randn((rows, D), generator=g, device=dev).bfloat16(),
+                torch.randn((D,), generator=g, device=dev)]
+
+    def gated(g):
+        return [*(torch.randn((4, 5120), generator=g, device=dev).bfloat16() for _ in range(2)),
+                torch.randn((5120,), generator=g, device=dev)]
+
+    def ssd(dtype):
+        return lambda g: list(_ssd_inputs(g, dev, 2, 200, 8, 64, 1, 128, dtype))
+
+    def flash(q, k, v, qp, kp):
+        return flash_ops.flash_attention_fwd(q, k, v, causal=True, q_pos=qp, k_pos=kp)
+
+    return [("K1 split decode", flash, flash_decode), ("K1 positional chunk", flash, flash_chunk),
+            ("K2", lambda x, s: rms_ops.rmsnorm(x, s), rms),
+            ("K2 gated", lambda x, z, s: rms_ops.rmsnorm(x, s, gate=z), gated),
+            ("K3 bf16", lambda *a: ssd_ops.ssd(*a), ssd(torch.bfloat16)),
+            ("K3 fp32", lambda *a: ssd_ops.ssd(*a), ssd(torch.float32))]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_cuda_graph_replays_each_kernel_as_eager(cuda_device, case):
+    """Each kernel captured in a graph and replayed on fresh inputs gives the
+    eager call's output, and each replay adds the kernel's launches."""
+    from repro_torch.runtime.compiled import compile_step
+
+    name, fn, make = _kernel_cases(cuda_device)[case]
+    g = torch.Generator(device=cuda_device).manual_seed(case)
+    step = compile_step(fn, cuda_device, name=name)
+    step(*make(g))                                  # warm-up, capture, one replay
+    for _ in range(2):
+        ins = make(g)
+        want = fn(*ins)
+        before = _counts()
+        got = step(*ins)
+        after = _counts()
+        eager_before = _counts()
+        fn(*ins)
+        eager = [a - b for a, b in zip(_counts(), eager_before)]
+        assert [a - b for a, b in zip(after, before)] == eager and any(eager)
+        for i, (o, w) in enumerate(zip(*(x if isinstance(x, tuple) else (x,)
+                                         for x in (got, want)))):
+            _same(o, w, f"{name} output {i}")
+    assert len(step.entries) == 1
+
+
+def test_cuda_graph_of_a_llama_decode_step_counts_replayed_launches(cuda_device):
+    """A reduced llama decode step through ``jit_decode_step``: N replays move
+    the K1 and K2 counters by N x one eager step's launches, and each step's
+    logits and cache are the eager step's."""
+    cfg = get_config("llama3.2-1b").reduced()
+    model = build_model(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(2), torch.bfloat16)
+    eng = serving.step_engine(model, serving.single_device_plan(cfg), max_len=48)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 16), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(3))
+    _, cache = eng.prefill_step(params, prompt)
+    eager_cache = {k: v.clone() for k, v in cache.items()}
+    decode = eng.jit_decode_step(donate=True)
+    tok = prompt[:, -1:]
+    before = _counts()
+    want, eager_cache = eng.decode_step(params, tok, eager_cache, 16)
+    per_step = [a - b for a, b in zip(_counts(), before)]
+    assert per_step[0] == cfg.num_layers and per_step[1] == 2 * cfg.num_layers + 1
+    got, cache = decode(params, tok, cache, 16)     # warm-up, capture, one replay
+    _same(got, want, "decode step 0")
+    n = 5
+    before = _counts()
+    for i in range(1, n + 1):
+        tok = want[:, -1].argmax(-1, keepdim=True)
+        want, eager_cache = eng.decode_step(params, tok, eager_cache, 16 + i)
+        got, cache = decode(params, tok, cache, 16 + i)
+        _same(got, want, f"decode step {i}")
+    moved = [a - b for a, b in zip(_counts(), before)]
+    assert moved == [2 * n * d for d in per_step]   # n replays and n eager steps
+    for k in cache:
+        _same(cache[k], eager_cache[k], f"cache {k}")
+    assert len(decode.compiled.entries) == 1
+
+
+def test_cuda_compiled_scheduler_matches_the_eager_scheduler(cuda_device):
+    """Reduced llama served in bf16 through the graphed scheduler and through
+    ``compiled=False``: the same logits rows (bitwise, or within 1e-6 of
+    scale) and tokens, and the same launches per tick."""
+    from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
+
+    config = serving.ServeConfig(
+        arch="llama3.2-1b", reduced=True, device="cuda",
+        cache=serving.CacheConfig(max_context=48, page_size=8),
+        scheduler=serving.SchedulerConfig(num_slots=3, prefill_chunk=8))
+    cfg = config.model_config()
+    model = build_model(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(5), torch.bfloat16)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 19), dtype=np.int32)
+    rows, launched = {}, {}
+    for compiled in (True, False):
+        rec = rows.setdefault(compiled, {})
+
+        def sample(logits, request, rng, rec=rec):
+            rec[(request.rid, len(request.tokens))] = torch.from_numpy(logits.copy())
+            return int(np.argmax(logits))
+
+        sched = ContinuousBatchingScheduler(model, params, config.cache_config(),
+                                            prefill_chunk=8, dtype=torch.bfloat16,
+                                            sample_fn=sample, compiled=compiled)
+        sched.submit(serving.Request(prompt=prompts[0], max_new=2))   # captures both graphs
+        sched.run_until_drained()
+        rec.clear()
+        before = _counts()
+        for p in prompts:
+            sched.submit(serving.Request(prompt=p, max_new=7))
+        sched.run_until_drained()
+        launched[compiled] = [a - b for a, b in zip(_counts(), before)]
+    assert rows[True].keys() == rows[False].keys() and len(rows[True]) == 4 * 7
+    for key in rows[True]:
+        _same(rows[True][key], rows[False][key], f"logits {key}")
+    assert launched[True] == launched[False] and launched[True][0] > 0
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b"])
+def test_cuda_jit_steps_match_the_eager_steps(cuda_device, arch):
+    """``jit_prefill_step()`` (K3 captured for mamba2) and 8
+    ``jit_decode_step`` calls against ``prefill_step`` and ``decode_step`` on
+    the same bf16 weights (internvl2 with seeded patch embeddings): logits
+    and tokens equal."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    params = model.init(g, torch.bfloat16)
+    Sv = cfg.vis_tokens if cfg.family == "vlm" else 0
+    S, new = 64, 9
+    eng = serving.step_engine(model, serving.single_device_plan(cfg), max_len=Sv + S + new)
+    prompt = torch.randint(0, cfg.vocab_size, (4, S), device=cuda_device, generator=g)
+    extras = ({"vis_embeds": torch.randn((4, Sv, cfg.d_model), device=cuda_device,
+                                         generator=g).bfloat16()} if Sv else None)
+    n = ssd_ops.ssd.launches
+    want, eager_cache = eng.prefill_step(params, prompt, extras)
+    prefill = eng.jit_prefill_step()
+    got, cache = prefill(params, prompt, extras)
+    assert (ssd_ops.ssd.launches - n) == (0 if cfg.family != "ssm"
+                                          else (1 + 2 + 1) * cfg.num_layers)
+    _same(got, want, f"{arch} prefill logits")
+    decode = eng.jit_decode_step(donate=True)
+    tok = want[:, -1].argmax(-1, keepdim=True)
+    for i in range(new - 1):
+        pos = Sv + S + i
+        kv_len = torch.full((4,), pos + 1, device=cuda_device)
+        want, eager_cache = eng.decode_step(params, tok, eager_cache, pos, kv_len)
+        got, cache = decode(params, tok, cache, pos, kv_len)
+        _same(got, want, f"{arch} decode step {i}")
+        tok = want[:, -1].argmax(-1, keepdim=True)
+        assert torch.equal(got[:, -1].argmax(-1, keepdim=True), tok)
+
+
+def test_cuda_a_capture_that_fails_raises(cuda_device):
+    """A step that reads a tensor on the host cannot be captured: the
+    capture raises, and nothing runs eagerly in its place.  (Last in the
+    file: a failed capture is the one error this module provokes.)"""
+    from repro_torch.runtime.compiled import compile_step
+
+    step = compile_step(lambda x: x * float(x.sum()), cuda_device, name="host read")
+    with pytest.raises(RuntimeError, match="capture of host read failed"):
+        step(torch.ones(4, device=cuda_device))
+    assert not step.entries
+    torch.cuda.synchronize()
+    assert torch.equal(torch.ones(4, device=cuda_device) * 2, torch.full((4,), 2.0,
+                                                                          device=cuda_device))
