@@ -118,7 +118,10 @@ Phases (any failure exits non-zero and prints no result line):
 8. zamba2 serve — phase 6 at full-width zamba2-7b (81 Mamba layers, d 3584,
    the shared attention block at 13 sites, hd 112, H = KV = 32): exactly 81
    SSD, 13 x 32 = 416 flash attention and 189 x 32 = 6048 RMSNorm launches,
-   81 x 32 = 2592 of them gated;
+   81 x 32 = 2592 of them gated; 8b. the same traffic through
+   ``jit_prefill_step()`` (K3 81 times, K1 at the 13 sites and K2 inside
+   one graph) and 31 ``jit_decode_step(donate=True)`` calls (the nested
+   ``{"mamba", "attn"}`` cache donated), as phase 6b;
 9. zamba2 parity — phase 7 for zamba2, its reduced model with 7 layers (3
    sites and a trailing Mamba layer);
 10. train — full-width llama3.2-1b (16 layers, random fp32 master weights
@@ -159,7 +162,10 @@ Phases (any failure exits non-zero and prints no result line):
    exactly 48 x 32 = 1536 flash attention and 97 x 32 = 3104 RMSNorm
    launches, none gated, no K3; the profiled prefill and decode steps group
    the MoE FFN's kernels by its profiler spans (routing, dispatch gather,
-   expert products, combine gather);
+   expert products, combine gather); 12b. the same traffic through
+   ``jit_prefill_step()`` (capacity 960 at T = 8192) and 31
+   ``jit_decode_step(donate=True)`` calls (capacity 8 at T = 4), full depth,
+   as phase 6b, the graph pool freed before phase 13;
 13. moonshot parity — (a) the reduced moonshot in fp32: identical greedy
    tokens with ``impl="kernel"`` and ``impl="ref"``; (b) full depth in
    bf16: the two paths' last-position logits, their top-1 agreement, the
@@ -185,7 +191,11 @@ Phases (any failure exits non-zero and prints no result line):
    the engine's own steps, ``prefill_step(params, tokens, {"frames": f})``
    then ``decode_step``; TTFT (the encoder included), TPOT, tok/s, peak
    memory; K1 12 and K2 22 launches a prefill, 8 and 13 a decode step,
-   pinned; one prefill and 4 decode steps profiled;
+   pinned; one prefill and 4 decode steps profiled; 15b. the same traffic
+   through ``jit_prefill_step()`` (the frames fed, the encoder inside the
+   graph) and 223 ``jit_decode_step(donate=True)`` calls (the nested
+   ``{"self", "cross"}`` cache donated, the cross cache read only), as
+   phase 6b, launches pinned by ``whisper_launches``;
 16. whisper parity — at full width and depth on the served weights: fp32
    (weights and frames cast) on 4 windows, the kernel path's prefill logits
    within 1e-3 of the plain path's scale and its greedy tokens over 32
@@ -1435,12 +1445,13 @@ def profile_step_engine(torch, engine, params, prompts, steps: int = 4, extras=N
 
 def graphed_serve(torch, engine, params, prompts, extras, new: int, eager, counters, *,
                   prefix: int = 0, prefill_graph: bool = False, profile_steps: int = 4) -> dict:
-    """Phases 6b and 18b: the step engine's compiled steps on the served
-    weights and traffic.  The prefill (``jit_prefill_step()`` where
-    ``prefill_graph``, else the eager ``prefill_step``), then ``new - 1``
-    ``jit_decode_step(donate=True)`` calls, after a 3-token warm-up run that
-    captures the graphs; launches pinned as the eager run's
-    (``step_engine_launches``) and the tokens held to the eager run's
+    """Phases 6b, 8b, 12b, 15b and 18b: the step engine's compiled steps on
+    the served weights and traffic.  The prefill (``jit_prefill_step()``
+    where ``prefill_graph``, else the eager ``prefill_step``), then ``new -
+    1`` ``jit_decode_step(donate=True)`` calls, after a 3-token warm-up run
+    that captures the graphs; launches pinned as the eager run's
+    (``whisper_launches`` for the encoder-decoder, else
+    ``step_engine_launches``) and the tokens held to the eager run's
     (``eager``: tokens, TTFT s, decode step seconds) token for token.  Logs
     TTFT, TPOT, the capture time and the pool bytes beside the eager run's,
     then ``profile_steps`` graphed decode steps under torch.profiler
@@ -1468,7 +1479,8 @@ def graphed_serve(torch, engine, params, prompts, extras, new: int, eager, count
                                                       prefix, prefill=prefill, decode=decode)
     wall = time.perf_counter() - t0
     launches = read_counts(counters)
-    expected = step_engine_launches(model, new)
+    expected = (whisper_launches(model.cfg, new) if model.cfg.family == "audio"
+                else step_engine_launches(model, new))
     require(launches == expected, f"{label} graphed: launched {launches}, expected {expected}")
     eager_tokens, eager_ttft, eager_steps = eager
     same = out.tolist() == eager_tokens.tolist()
@@ -2176,13 +2188,16 @@ MOE_PARITY_LAYERS, MOE_TRAIN_LAYERS = 4, 2
 def moe_serve_phase(torch, np, serving, build_model, get_config, counters) -> dict:
     """Phases 12-13: full-width, full-depth moonshot served through the step
     engine (``serve_step_engine``: K1 48 and K2 97 launches per forward
-    pinned), profiled, then ``parity_moe``; frees its weights.  Returns the
-    serve run's launches."""
-    import gc
-
-    engine, params, prompts, launches, _ = serve_step_engine(
+    pinned), profiled, served again through its compiled prefill and decode
+    steps (12b, ``graphed_serve``), then ``parity_moe``; frees its weights.
+    Returns the serve run's launches."""
+    engine, params, prompts, launches, eager = serve_step_engine(
         torch, np, serving, build_model, get_config, counters, MOE_ARCH)
     profile_step_engine(torch, engine, params, prompts)
+    graphed_serve(torch, engine, params, prompts, None, STATIC_NEW, eager, counters,
+                  prefill_graph=True)
+    gc.collect()                    # the graphs' pool goes before the full-depth parity
+    torch.cuda.empty_cache()
     parity_moe(torch, np, serving, build_model, get_config(MOE_ARCH).reduced(), engine, params,
                prompts)
     del engine, params
@@ -2382,7 +2397,7 @@ def whisper_serve_phase(torch, np, serving, build_model, get_config, counters):
     from seed 0) serving ``WHISPER_BATCH`` windows of real frames through
     ``generate_with_extras`` after a warm-up; launches pinned
     (``whisper_launches``).  Returns (engine, params, frames, prompts,
-    launches)."""
+    launches, (tokens, TTFT s, the decode steps' s))."""
     from repro_torch.models.common import tree_leaves
 
     cfg = get_config(WHISPER_ARCH)
@@ -2426,7 +2441,7 @@ def whisper_serve_phase(torch, np, serving, build_model, get_config, counters):
         f"a prefill, {3 * cfg.num_layers + 1} a decode step)  peak mem "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     log(f"whisper serve: tokens[0][:8] {out[0, :8].tolist()}")
-    return engine, params, frames, prompts, launches
+    return engine, params, frames, prompts, launches, (out, ttft, steps)
 
 
 def parity_whisper(torch, serving, build_model, engine, params, frames, prompts) -> None:
@@ -2884,8 +2899,9 @@ def main() -> int:
             torch, np, serving, build_model, get_config, counters, arch)
         static_launches[arch.split("-")[0]] = launches
         profile_step_engine(torch, engine, params, s_prompts)
-        if arch == "mamba2-2.7b":                   # 6b. its decode steps graphed
-            graphed_serve(torch, engine, params, s_prompts, None, STATIC_NEW, eager, counters)
+        # 6b. mamba2's decode steps graphed; 8b. zamba2's prefill and decode
+        graphed_serve(torch, engine, params, s_prompts, None, STATIC_NEW, eager, counters,
+                      prefill_graph=arch == "zamba2-7b")
         parity_step_engine(torch, np, serving, build_model, small_cfg, engine, params, s_prompts)
         if arch == "mamba2-2.7b":                   # 7b. K3 inside a prefill graph
             graphed_prefill_check(torch, np, serving, build_model, small_cfg, counters)
@@ -2914,9 +2930,13 @@ def main() -> int:
 
     # 15-16. the encoder-decoder: whisper served at full width and depth with
     # real frames, profiled, and its kernel path against its plain path
-    engine, w_params, w_frames, w_prompts, whisper_serve_launches = whisper_serve_phase(
+    engine, w_params, w_frames, w_prompts, whisper_serve_launches, eager = whisper_serve_phase(
         torch, np, serving, build_model, get_config, counters)
     profile_step_engine(torch, engine, w_params, w_prompts, extras={"frames": w_frames})
+    # 15b. the same traffic through the compiled prefill (the encoder inside)
+    # and decode steps
+    graphed_serve(torch, engine, w_params, w_prompts, {"frames": w_frames}, WHISPER_NEW, eager,
+                  counters, prefill_graph=True)
     parity_whisper(torch, serving, build_model, engine, w_params, w_frames, w_prompts)
     del engine, w_params, w_frames
     gc.collect()

@@ -14,6 +14,12 @@ The parameters are JAX's tree key for key (``embed``, ``enc_blocks``,
 ``params_from_jax`` carries weights across unchanged.  ``frames=None``
 means zeros, as in JAX: with this config's bias-free RMSNorm blocks every
 encoder layer then outputs 0, so a check of the encoder feeds real frames.
+
+Neither serving pass reads a tensor on the host: fed frames already in the
+pass's dtype are used in place, and decode reads the cross cache where it
+lies (a layer's slice is contiguous, so no copy) and writes only the
+self-attention cache.  So ``jit_prefill_step`` (the encoder inside the
+graph) and ``jit_decode_step`` capture them as CUDA graphs.
 """
 from __future__ import annotations
 

@@ -20,6 +20,12 @@ dtype (JAX pads each site's K/V to ``max_len``); ``forward_decode`` writes
 the new state and K/V into ``cache`` in place, builds the flash kernel's
 positions once per step and hands them to every site.  Prompts shorter than
 ``conv_width - 1`` keep ``Mamba2LM``'s left-padded conv buffers.
+
+Neither pass reads a tensor on the host (a 0-d tensor ``cache_index`` goes
+to the positions and every site's cache write as a tensor), so
+``jit_prefill_step`` / ``jit_decode_step`` capture them as CUDA graphs, K3
+once per Mamba layer inside the prefill's; the nested cache is donated leaf
+by leaf.
 """
 from __future__ import annotations
 

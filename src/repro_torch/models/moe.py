@@ -18,6 +18,13 @@ capacity comes from the call's own token count T, so a decode step of 4
 rows has C = 8 and every expert runs on its 8 slots.  The router's Switch
 aux loss rides the block's ``extra`` scalar (``DenseTransformerLM``).
 
+Nothing here reads a tensor on the host: C is a shape, ``F.one_hot`` with
+an explicit class count does no host check on CUDA, and the slot count,
+scatter-min and gathers run on the device; bf16 expert weights feed a bf16
+pass with no copy.  So ``jit_prefill_step`` / ``jit_decode_step`` capture a
+serving pass as a CUDA graph (C = 960 at prefill T = 8192, C = 8 at decode
+T = 4), the profiler spans recording nothing inside it.
+
 The routing, slot assignment and gathers are plain torch, as they are plain
 ``jnp`` in JAX; each stage is a profiler span (``moe_route``,
 ``moe_dispatch``, ``moe_experts``, ``moe_combine``).  Indices are int64

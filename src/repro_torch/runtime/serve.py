@@ -22,9 +22,11 @@ batch of equal-length prompts:
 compiled steps with JAX's signatures: captured CUDA graphs of
 ``decode_step`` and ``prefill_step`` (``runtime/compiled.py``) on a CUDA
 device, sharing one graph pool per engine; the same static-buffer plumbing
-with direct calls on the CPU.  They hold the ``dense``, ``vlm`` and ``ssm``
-families; the others raise ``NotImplementedError`` (ROADMAP Queue 1 item 2).
-``greedy_generate_reference`` stays eager, as JAX's does: it is their oracle.
+with direct calls on the CPU.  They hold every family, as JAX's do: a
+nested cache (the hybrid's ``{"mamba", "attn"}``, the encoder-decoder's
+``{"self", "cross"}``) is donated leaf by leaf, and ``extras`` (``frames``,
+``vis_embeds``, or None) are fed.  ``greedy_generate_reference`` stays
+eager, as JAX's does: it is their oracle.
 
 Only a single device for now: a ``mesh`` raises ``NotImplementedError``
 (the parallel runtime is a later slice), and the telemetry hooks of the JAX
@@ -43,9 +45,6 @@ import torch
 
 from repro_torch.core.strategy import ExecutionPlan
 from repro_torch.runtime.compiled import compile_step
-
-#: the families whose steps ``jit_decode_step`` / ``jit_prefill_step`` capture
-COMPILED_FAMILIES = ("dense", "vlm", "ssm")
 
 
 def _fence(t: torch.Tensor) -> None:
@@ -90,13 +89,8 @@ class ServingEngine:
 
     # ------------------------------------------------------------ jit
     def _compiled_device(self) -> torch.device:
-        """The device of the compiled steps, once the family is known to be
-        held by them; the graphs of this engine share one pool."""
-        family = self.model.cfg.family
-        if family not in COMPILED_FAMILIES:
-            raise NotImplementedError(
-                f"ServingEngine: the compiled steps hold the {COMPILED_FAMILIES} families; "
-                f"{family!r} is not ported yet (ROADMAP Queue 1 item 2)")
+        """The device of the compiled steps; the graphs of this engine share
+        one pool."""
         device = self.model.device
         if device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()

@@ -8,14 +8,16 @@ and the same numpy inputs:
   a Python scalar is refused, a held argument is keyed by address, a
   donated one is adopted and written in place, ``donate=False`` clones;
 * ``forward_decode`` with a 0-d tensor ``cache_index`` is bitwise the int
-  form (dense, VLM, mamba2);
+  form (every family: dense, VLM, mamba2, MoE, hybrid, audio);
 * the scheduler's all-lanes decode: idle lanes write nothing outside the
   null page, and the compiled scheduler is bitwise the eager one (the JAX
   scheduler parity stays in ``tests/test_torch_serving.py``);
 * ``ServingEngine.jit_prefill_step()`` + 8 ``jit_decode_step`` calls against
   JAX's ``jit_prefill_step()`` / ``jit_decode_step()`` in fp32: tokens
   identical, logits at 1e-4 (llama, internvl2 with seeded ``vis_embeds``,
-  mamba2); the moe, hybrid and audio families raise.
+  mamba2, moonshot, zamba2 with a trailing Mamba layer, whisper with seeded
+  ``frames``); a nested cache (zamba2's) donated leaf by leaf, and the
+  prefill's ``extras`` fed as frames or None.
 """
 import dataclasses
 
@@ -98,42 +100,73 @@ def test_wrapper_keys_held_arguments_on_address_and_adopts_donated_ones():
 
 # ------------------------------------------------------- device scalar cache_index
 
+#: per arch, the reduced config's overrides: zamba2 with 7 layers (3 sites of
+#: the shared block and a trailing Mamba layer), as chip_smoke checks it
+REDUCED = {"zamba2-7b": {"num_layers": 7}}
+
+
+def _reduced(get, arch):
+    return dataclasses.replace(get(arch).reduced(), **REDUCED.get(arch, {}))
+
+
 def _cpu_model(arch, **kw):
-    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    cfg = dataclasses.replace(_reduced(get_config, arch), **kw)
     model = build_model(cfg, device="cpu")
     return cfg, model, model.init(torch.Generator().manual_seed(3), torch.float32)
 
 
+def _leaves(tree, path=()):
+    """(path, tensor) of every leaf of a nested dict of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree)]
+    return [leaf for k, v in tree.items() for leaf in _leaves(v, path + (k,))]
+
+
 def _clone(tree):
-    return {k: v.clone() for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return {k: _clone(v) for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b"])
+def _side_inputs(cfg, seed=1):
+    """The prefill's seeded ``extras`` (numpy): the VLM's patch embeddings,
+    the encoder-decoder's frames; None for the other families."""
+    rows = {"vlm": ("vis_embeds", cfg.vis_tokens), "audio": ("frames", cfg.enc_frames)}
+    if cfg.family not in rows:
+        return None
+    name, n = rows[cfg.family]
+    x = np.random.default_rng(seed).standard_normal((B, n, cfg.d_model)).astype(np.float32)
+    return {name: x}
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b",
+                                  "moonshot-v1-16b-a3b", "zamba2-7b", "whisper-tiny"])
 def test_forward_decode_with_a_device_scalar_cache_index_is_the_int_form(arch):
     """``forward_decode`` at a 0-d tensor ``cache_index`` (and the kv_len the
-    scheduler passes) gives the int form's logits and cache bitwise, over
-    one token and over a chunk of four."""
+    scheduler passes; none for whisper, as JAX's loop) gives the int form's
+    logits and every (nested) cache leaf bitwise, over one token and, where
+    the family decodes chunks, over a chunk of four."""
     cfg, model, params = _cpu_model(arch)
     S, max_len = 6, 16
-    extras = {}
-    if arch == "internvl2-26b":
-        v = np.random.default_rng(1).standard_normal((B, cfg.vis_tokens, cfg.d_model))
-        extras = {"vis_embeds": torch.from_numpy(v.astype(np.float32))}
-        max_len += cfg.vis_tokens
+    np_extras = _side_inputs(cfg) or {}
+    extras = {k: torch.from_numpy(v) for k, v in np_extras.items()}
+    Sv = cfg.vis_tokens if cfg.family == "vlm" else 0
     prompt = torch.from_numpy(_tokens(0, (B, S), cfg.vocab_size)).long()
-    _, cache = model.forward_prefill(params, prompt, max_len=max_len, dtype=torch.float32,
+    _, cache = model.forward_prefill(params, prompt, max_len=max_len + Sv, dtype=torch.float32,
                                      **extras)
-    pos = S + (cfg.vis_tokens if extras else 0)
-    for sq in (1, 4) if cfg.family != "ssm" else (1,):
+    pos = S + Sv
+    for sq in (1,) if cfg.family in ("ssm", "hybrid") else (1, 4):
         toks = torch.from_numpy(_tokens(sq, (B, sq), cfg.vocab_size)).long()
-        kv_len = None if cfg.family == "ssm" else torch.full((B,), pos + sq)
+        kv_len = None if cfg.family in ("ssm", "audio") else torch.full((B,), pos + sq)
         want, want_cache = model.forward_decode(params, toks, _clone(cache), pos,
                                                 kv_len=kv_len, dtype=torch.float32)
         got, got_cache = model.forward_decode(params, toks, _clone(cache), torch.tensor(pos),
                                               kv_len=kv_len, dtype=torch.float32)
         assert torch.equal(got, want)
-        for k in want_cache:
-            assert torch.equal(got_cache[k], want_cache[k]), k
+        want_leaves = _leaves(want_cache)
+        assert [p for p, _ in _leaves(got_cache)] == [p for p, _ in want_leaves]
+        for (path, g), (_, w) in zip(_leaves(got_cache), want_leaves):
+            assert torch.equal(g, w), path
 
 
 # ------------------------------------------------------------- the scheduler
@@ -220,17 +253,21 @@ class _Float32:
         return self._model.forward_decode(*args, dtype=jnp.float32, **kw)
 
 
-JIT_ARCHS = ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b"]
+JIT_ARCHS = ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b", "moonshot-v1-16b-a3b",
+             "zamba2-7b", "whisper-tiny"]
 
 
 @pytest.mark.parametrize("arch", JIT_ARCHS)
 def test_jit_steps_match_jax_jit_steps(arch):
     """``jit_prefill_step()`` then 8 ``jit_decode_step(donate=True)`` calls,
     each fed the last argmax at ``cache_index = Sv + S + i`` (an int), with
-    ``kv_len`` one past it for the attention models, against JAX's jitted
-    steps on the same fp32 weights: every step's tokens identical, logits
-    within 1e-4.  internvl2 serves seeded patch embeddings."""
-    jcfg, tcfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
+    ``kv_len`` one past it for the decoder-only attention models (none for
+    mamba2, and none for whisper, as JAX's loop passes none there), against
+    JAX's jitted steps on the same fp32 weights: every step's tokens
+    identical, logits within 1e-4.  internvl2 serves seeded patch
+    embeddings, whisper seeded frames; zamba2 runs 7 layers (3 sites and a
+    trailing Mamba layer) and donates its nested cache."""
+    jcfg, tcfg = _reduced(jax_get_config, arch), _reduced(get_config, arch)
     jm = jax_build_model(jcfg)
     np_params = perturbed(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))),
                           np.random.default_rng(0))
@@ -241,10 +278,11 @@ def test_jit_steps_match_jax_jit_steps(arch):
     max_len = Sv + S + new
     prompts = _tokens(1, (B, S), tcfg.vocab_size)
     jextras = textras = None
-    if Sv:
-        vis = np.random.default_rng(2).standard_normal((B, Sv, tcfg.d_model)).astype(np.float32)
-        jextras, textras = {"vis_embeds": jnp.asarray(vis)}, {"vis_embeds": torch.from_numpy(vis)}
-    attn = tcfg.family != "ssm"
+    side = _side_inputs(tcfg, seed=2)
+    if side:
+        jextras = {k: jnp.asarray(v) for k, v in side.items()}
+        textras = {k: torch.from_numpy(v) for k, v in side.items()}
+    attn = tcfg.family not in ("ssm", "audio")
 
     jeng = jserving.step_engine(_Float32(jm), jserving.single_device_plan(jcfg), batch=B,
                                 max_len=max_len)
@@ -271,32 +309,53 @@ def test_jit_steps_match_jax_jit_steps(arch):
     assert len(tdecode.compiled.entries) == 1          # one graph for all 8 steps
 
 
-def test_jit_decode_step_donation():
-    """``donate=True`` writes the caller's cache in place and hands it back;
-    ``donate=False`` leaves the argument as it was and returns clones; both
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-7b"])
+def test_jit_decode_step_donation(arch):
+    """``donate=True`` writes the caller's cache in place, leaf by leaf (the
+    hybrid's nested ``{"mamba", "attn"}`` too), and hands those leaves back;
+    ``donate=False`` leaves every leaf as it was and returns clones; both
     give the same logits."""
-    cfg, model, params = _cpu_model("llama3.2-1b")
+    cfg, model, params = _cpu_model(arch)
     eng = serving.step_engine(model, serving.single_device_plan(cfg), max_len=12,
                               dtype=torch.float32, device="cpu")
     prompt = torch.from_numpy(_tokens(4, (B, 5), cfg.vocab_size)).long()
     _, cache = eng.jit_prefill_step()(params, prompt)
     tok = prompt[:, -1:]
-    kept = _clone(cache)
+    kept = _leaves(_clone(cache))
     lk, ck = eng.jit_decode_step(donate=False)(params, tok, cache, 5)
-    assert all(torch.equal(cache[k], kept[k]) for k in cache)
-    assert all(ck[k].data_ptr() != cache[k].data_ptr() for k in cache)
+    leaves, cloned = _leaves(cache), _leaves(ck)
+    assert len(leaves) == len(kept) == len(cloned) == (6 if cfg.family == "hybrid" else 2)
+    assert all(torch.equal(t, k) for (_, t), (_, k) in zip(leaves, kept))
+    assert all(c.data_ptr() != t.data_ptr() for (_, c), (_, t) in zip(cloned, leaves))
     ld, cd = eng.jit_decode_step(donate=True)(params, tok, cache, 5)
-    assert all(cd[k].data_ptr() == cache[k].data_ptr() for k in cache)
-    assert torch.equal(ld, lk) and all(torch.equal(cd[k], ck[k]) for k in cd)
-    assert not torch.equal(cache["k"], kept["k"])
+    donated = _leaves(cd)
+    assert [p for p, _ in donated] == [p for p, _ in leaves]
+    assert all(d.data_ptr() == t.data_ptr() for (_, d), (_, t) in zip(donated, leaves))
+    assert torch.equal(ld, lk)
+    assert all(torch.equal(d, c) for (_, d), (_, c) in zip(donated, cloned))
+    assert not all(torch.equal(t, k) for (_, t), (_, k) in zip(leaves, kept))
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "zamba2-7b", "whisper-tiny"])
-def test_jit_steps_raise_for_the_families_not_held(arch):
-    """moe, hybrid and audio: not captured yet (ROADMAP Queue 1 item 2)."""
-    cfg = get_config(arch).reduced()
-    eng = serving.step_engine(build_model(cfg, device="cpu"), serving.single_device_plan(cfg),
-                              device="cpu")
-    for jit in (eng.jit_decode_step, eng.jit_prefill_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            jit()
+def test_jit_prefill_step_feeds_frames_and_none():
+    """whisper's ``jit_prefill_step`` with ``extras=None`` encodes zeros, as
+    the eager step does, and with fed frames follows each call's frames (the
+    static buffer refreshed); every call returns a fresh nested cache."""
+    cfg, model, params = _cpu_model("whisper-tiny")
+    eng = serving.step_engine(model, serving.single_device_plan(cfg), max_len=10,
+                              dtype=torch.float32, device="cpu")
+    prefill = eng.jit_prefill_step()
+    prompt = torch.from_numpy(_tokens(5, (B, 4), cfg.vocab_size)).long()
+    outs = []
+    for extras in (None, *({"frames": torch.from_numpy(_side_inputs(cfg, seed)["frames"])}
+                           for seed in (6, 7))):
+        got, cache = prefill(params, prompt, extras)
+        want, want_cache = eng.prefill_step(params, prompt, extras)
+        assert torch.equal(got, want)
+        pairs = list(zip(_leaves(cache), _leaves(want_cache)))
+        assert [p for (p, _), _ in pairs] == [(kind, k) for kind in ("self", "cross")
+                                              for k in ("k", "v")]
+        assert all(torch.equal(g, w) for (_, g), (_, w) in pairs)
+        outs.append((got, cache))
+    assert len(prefill.compiled[10].entries) == 2          # None, then frames
+    assert not torch.equal(outs[1][0], outs[2][0])
+    assert outs[1][1]["cross"]["k"].data_ptr() != outs[2][1]["cross"]["k"].data_ptr()

@@ -2,7 +2,8 @@
 version (K1, K2 and K3 also under autograd), the wrappers' input checks,
 and the serving paths (paged dense, step-engine mamba2, zamba2, the MoE
 family, whisper and the VLM) and the training steps of every family with
-``impl="kernel"`` against ``impl="ref"``;
+``impl="kernel"`` against ``impl="ref"``; the compiled serving steps (CUDA
+graphs) of every family against their eager steps;
 the planner's block measurement and a calibration fitted from it.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
@@ -1178,13 +1179,30 @@ def test_cuda_compiled_scheduler_matches_the_eager_scheduler(cuda_device):
     assert launched[True] == launched[False] and launched[True][0] > 0
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b"])
+def _tree_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+
+
+def _moved(before):
+    return [a - b for a, b in zip(_counts(), before)]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b",
+                                  "moonshot-v1-16b-a3b", "zamba2-7b", "whisper-tiny"])
 def test_cuda_jit_steps_match_the_eager_steps(cuda_device, arch):
-    """``jit_prefill_step()`` (K3 captured for mamba2) and 8
-    ``jit_decode_step`` calls against ``prefill_step`` and ``decode_step`` on
-    the same bf16 weights (internvl2 with seeded patch embeddings): logits
-    and tokens equal."""
+    """``jit_prefill_step()`` and 8 ``jit_decode_step(donate=True)`` calls
+    against ``prefill_step`` and ``decode_step`` on the same bf16 weights
+    (internvl2 with seeded patch embeddings, whisper with seeded frames,
+    zamba2 with 7 layers: 3 sites and a trailing Mamba layer): logits,
+    tokens and every (nested) cache leaf equal.  The first call of each
+    step launches 3 x the eager call's kernels (2 warm-up calls and the
+    replay), each later replay 1 x (K1, K2, gated K2, K3 alike), and the
+    donated cache is the graph's own buffer from the first call on."""
     cfg = get_config(arch).reduced()
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, num_layers=7)
     model = build_model(cfg, device=cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(9)
     params = model.init(g, torch.bfloat16)
@@ -1192,25 +1210,42 @@ def test_cuda_jit_steps_match_the_eager_steps(cuda_device, arch):
     S, new = 64, 9
     eng = serving.step_engine(model, serving.single_device_plan(cfg), max_len=Sv + S + new)
     prompt = torch.randint(0, cfg.vocab_size, (4, S), device=cuda_device, generator=g)
-    extras = ({"vis_embeds": torch.randn((4, Sv, cfg.d_model), device=cuda_device,
-                                         generator=g).bfloat16()} if Sv else None)
-    n = ssd_ops.ssd.launches
+    side = {"vlm": ("vis_embeds", Sv), "audio": ("frames", cfg.enc_frames)}.get(cfg.family)
+    extras = None
+    if side:
+        extras = {side[0]: torch.randn((4, side[1], cfg.d_model), device=cuda_device,
+                                       generator=g).bfloat16()}
+    before = _counts()
     want, eager_cache = eng.prefill_step(params, prompt, extras)
+    per_prefill = _moved(before)
+    assert (per_prefill[4] > 0) == (cfg.family in ("ssm", "hybrid"))      # K3
     prefill = eng.jit_prefill_step()
+    before = _counts()
     got, cache = prefill(params, prompt, extras)
-    assert (ssd_ops.ssd.launches - n) == (0 if cfg.family != "ssm"
-                                          else (1 + 2 + 1) * cfg.num_layers)
+    assert _moved(before) == [3 * n for n in per_prefill]
     _same(got, want, f"{arch} prefill logits")
+    for a, b in zip(_tree_leaves(cache), _tree_leaves(eager_cache)):
+        _same(a, b, f"{arch} prefill cache")
     decode = eng.jit_decode_step(donate=True)
+    buffers = [t.data_ptr() for t in _tree_leaves(cache)]
+    attn = cfg.family not in ("ssm", "audio")
     tok = want[:, -1].argmax(-1, keepdim=True)
     for i in range(new - 1):
         pos = Sv + S + i
-        kv_len = torch.full((4,), pos + 1, device=cuda_device)
+        kv_len = torch.full((4,), pos + 1, device=cuda_device) if attn else None
+        before = _counts()
         want, eager_cache = eng.decode_step(params, tok, eager_cache, pos, kv_len)
+        per_step = _moved(before)
+        before = _counts()
         got, cache = decode(params, tok, cache, pos, kv_len)
+        assert _moved(before) == [(3 if i == 0 else 1) * n for n in per_step]
+        assert [t.data_ptr() for t in _tree_leaves(cache)] == buffers
         _same(got, want, f"{arch} decode step {i}")
         tok = want[:, -1].argmax(-1, keepdim=True)
         assert torch.equal(got[:, -1].argmax(-1, keepdim=True), tok)
+    for a, b in zip(_tree_leaves(cache), _tree_leaves(eager_cache)):
+        _same(a, b, f"{arch} cache after {new - 1} steps")
+    assert len(decode.compiled.entries) == 1
 
 
 def test_cuda_a_capture_that_fails_raises(cuda_device):
