@@ -141,9 +141,10 @@ Phases (any failure exits non-zero and prints no result line):
    no further from fp32 than twice the plain bf16 path's;
 11. planner — Galvatron's loop on the card through the port's entry points:
    ``launch.profile`` measures two full-width llama3.2-1b blocks (S 1024 and
-   4096, microbatch 2, bf16; forward, backward and full-remat overhead
-   through K1, K2 and K2's backward, whose launches it counts) into a fresh
-   profile cache,
+   4096, microbatch 2, bf16; forward, grad and full-remat grad, each a CUDA
+   graph as JAX jits them, through K1, K2 and K2's backward, whose launches
+   are pinned: ``profile_launches``) into a fresh profile cache, each cell
+   logged beside the same cell measured eagerly (``compiled=False``),
    and a second call measures nothing; one cell again with a random input in
    place of zeros; the fitted calibration; ``SearchEngine(cfg,
    cluster=H100_1)`` at S 4096 and global batch 8 with the analytic and the
@@ -239,7 +240,26 @@ Phases (any failure exits non-zero and prints no result line):
    a trailing Mamba layer), the mamba2 traffic, no remat policy (the
    hybrid takes none, as in JAX), the state donated: K3 52, K1 8, K2 and
    K2-backward 124 launches a step pinned;
-23. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
+23. moe planner — phase 11's loop for moonshot-v1-16b-a3b, after phase 14:
+   ``launch.profile`` measures two full-width moonshot blocks (64 experts
+   of ff 1408, top-6, a shared expert of 2816, hd 128; S 1024 and 4096,
+   microbatch 2, bf16) as CUDA graphs, launches pinned, each cell beside
+   its eager measurement, a second pass measures nothing; the calibration
+   from that cache alone (the fitted bwd / fwd and remat ratios against
+   their clips); ``SearchEngine(cfg, H100_1)`` at 8 x 4096 finds no plan at
+   48 layers, analytic or calibrated; cut to 2 layers the analytic search
+   finds one (its cost is its prediction, ``check_plan`` passes) and the
+   calibrated one none (its ``mem_scale``, the peak over the predicted
+   activations with the expert weights in the peak, prices the cut past
+   the card); the analytic search over grad_accum 4 and 8
+   (``MOE_PLAN_GRAD_ACCUM``: its unconstrained plan, grad_accum 2, runs
+   out of memory) gives the plan trained, 3 steps twice, with the cyclic
+   collector on and off (K1/K2/K2-backward launches pinned by
+   ``train_launches``, peaks within 1 %), beside both predictions of step
+   and peak and GALV070's verdict; ``python -m repro_torch.launch.train
+   --arch moonshot-v1-16b-a3b --seq 4096 --batch 8 --grad-accum 4 --remat
+   selective --validate-only`` exits 1 on GALV020;
+24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
    ``rmsnorm_bwd`` rows for K2, ``ssd`` and ``ssd_autograd`` for K3), then
    the device line last.
 """
@@ -1977,8 +1997,9 @@ def train_phase(torch, counters) -> tuple[dict, float]:
 
 # ---------------------------------------------------------------- phase 11
 
-PLAN_PROFILE_ARGS = ["--arch", TRAIN_ARCH, "--full", "--seq", "1024,4096", "--dtype", "bf16",
-                     "--microbatch", "2"]
+PROFILE_SEQS, PROFILE_MB, PROFILE_ITERS = (1024, 4096), 2, 3
+PLAN_PROFILE_ARGS = ["--full", "--seq", ",".join(map(str, PROFILE_SEQS)), "--dtype", "bf16",
+                     "--microbatch", str(PROFILE_MB)]
 LAUNCHER_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
                  "--grad-accum", str(TRAIN_ACCUM), "--remat", "selective",
                  "--steps", str(TRAIN_STEPS)]
@@ -1986,6 +2007,13 @@ LAUNCHER_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch", str(T
 #: the spread of phase 10's own selective steps (max / min - 1) when the
 #: card's host makes that wider — a difference inside it is not resolved
 LAUNCHER_STEP_TOL = 0.05
+
+
+def _src_env() -> dict:
+    """This environment with the checkout's ``src`` first on PYTHONPATH, for
+    the launchers run as subprocesses."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
 
 
 def _run_captured(fn, argv) -> tuple[int, str]:
@@ -2000,6 +2028,84 @@ def _run_captured(fn, argv) -> tuple[int, str]:
     for line in out.splitlines():
         log(f"  | {line}")
     return rc, out
+
+
+def profile_launches(graphed: bool) -> dict:
+    """Kernel launches of ``launch.profile`` measuring the ``PROFILE_SEQS``
+    cells of a decoder block (dense or MoE FFN).  Each of a cell's three
+    steps is called once untimed, then ``PROFILE_ITERS`` times: eagerly
+    that is 1 + iters calls; graphed, the first call runs
+    ``compiled.WARMUP`` eager calls, captures, and replays, so WARMUP + 1 +
+    iters calls' launches.  Per call the forward
+    launches K1 once and K2 twice; the grad adds K2's backward for both
+    norms; the full-remat grad reruns the forward in its backward (K1 2, K2
+    4).  Two eager forwards more read the peak (the first one warms the
+    current stream)."""
+    from repro_torch.runtime.compiled import WARMUP
+
+    cells = len(PROFILE_SEQS)
+    calls = (WARMUP + 1 if graphed else 1) + PROFILE_ITERS
+    return {"flash_attention_fwd": cells * (calls * (1 + 1 + 2) + 2),
+            "rmsnorm": cells * (calls * (2 + 2 + 4) + 4), "rmsnorm_gated": 0,
+            "rmsnorm_bwd": cells * calls * (2 + 2), "ssd": 0, "ssd_autograd": 0}
+
+
+def profile_and_calibrate(counters, cfg, cache_path: str, label: str):
+    """``launch.profile`` over ``cfg``'s two full-width cells (S 1024 and
+    4096, microbatch 2, bf16) into a fresh cache, each step a CUDA graph:
+    the launches pinned (``profile_launches``); per cell the graphed times
+    beside the same cell measured eagerly (``compiled=False``), the peak,
+    TFLOP/s against the analytic FLOPs and peak over predicted activations;
+    a second pass measures nothing; the calibration fitted from the cache.
+    Returns (cache entries by seq, calibration)."""
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import profile_cache as pcache
+    from repro_torch.core.profiler_model import measure_block
+    from repro_torch.launch import profile as profile_cli
+
+    argv = ["--arch", cfg.name, *PLAN_PROFILE_ARGS, "--cache", cache_path]
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    rc, out = _run_captured(profile_cli.main, argv)
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    require(rc == 0 and f"profile: {len(PROFILE_SEQS)} cell(s) measured" in out,
+            f"the profile launcher did not measure {cfg.name}'s {len(PROFILE_SEQS)} cells")
+    expected = profile_launches(graphed=True)
+    log(f"{label}: profiling ({wall:.1f} s) launched K1 {launches['flash_attention_fwd']}, K2 "
+        f"{launches['rmsnorm']} and K2's backward {launches['rmsnorm_bwd']} times (graphed: "
+        f"expected {expected}; eager would launch {profile_launches(graphed=False)})")
+    require(launches == expected, f"profiling {cfg.name} launched {launches}, not the "
+            f"graphed steps' {expected}")
+    cache = pcache.ProfileCache.load(cache_path)
+    entries = {e.key.seq: e for e in cache.entries.values()}
+    for seq in PROFILE_SEQS:
+        e = entries[seq]
+        eager = measure_block(cfg, seq, batch=PROFILE_MB, iters=PROFILE_ITERS, compiled=False)
+        log(f"{label}: cell {e.key.id()}: graphed | eager: fwd {e.fwd_time_s * 1e3:.4f} | "
+            f"{eager.fwd_time_s * 1e3:.4f} ms  bwd {e.bwd_time_s * 1e3:.4f} | "
+            f"{eager.bwd_time_s * 1e3:.4f} ms  remat extra {e.remat_extra_s * 1e3:.4f} | "
+            f"{eager.remat_extra_s * 1e3:.4f} ms (remat extra / fwd "
+            f"{e.remat_extra_s / e.fwd_time_s:.3f} | {eager.remat_extra_s / eager.fwd_time_s:.3f}; "
+            f"bwd / fwd "
+            f"{e.bwd_time_s / e.fwd_time_s:.3f} | {eager.bwd_time_s / eager.fwd_time_s:.3f})  "
+            f"peak {e.peak_bytes / 1e9:.4f} GB  (analytic fwd FLOPs {e.flops_fwd:.4e}, "
+            f"{e.flops_fwd / e.fwd_time_s / 1e12:.1f} | "
+            f"{e.flops_fwd / eager.fwd_time_s / 1e12:.1f} TFLOP/s; predicted activations "
+            f"{e.act_bytes_pred / 1e9:.4f} GB, peak / predicted "
+            f"{e.peak_bytes / e.act_bytes_pred:.3f})")
+        require(e.fwd_time_s > 0 and e.bwd_time_s > 0 and e.peak_bytes > 0,
+                f"a measured cell is not positive: {e.key.id()}")
+    zero_counts(counters)
+    rc, out = _run_captured(profile_cli.main, argv)
+    require(rc == 0 and "profile: 0 cell(s) measured" in out,
+            "the second profiling pass measured again")
+    require(not any(read_counts(counters).values()), "the second profiling pass launched kernels")
+    calibration = cal.load_calibration(cache_path)
+    require(calibration.source == "measured" and calibration.throughput.get("bf16", 0) > 0,
+            "the calibration fitted no bf16 throughput")
+    log(f"{label}: calibration\n" + calibration.format_table())
+    return entries, calibration
 
 
 def plan_cost(cfg, plan, calibration) -> tuple[float, float]:
@@ -2042,52 +2148,24 @@ def planner_phase(torch, counters, selective: list) -> None:
     from repro_torch.analysis import plan_check
     from repro_torch.configs.registry import get_config
     from repro_torch.core import calibrate as cal
-    from repro_torch.core import profile_cache as pcache
     from repro_torch.core.cluster import H100_1
     from repro_torch.core.profiler_model import measure_block, profile_model
     from repro_torch.core.search import SearchEngine
-    from repro_torch.launch import profile as profile_cli
 
     cfg = get_config(TRAIN_ARCH)
     _, dense, attn = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     with tempfile.TemporaryDirectory() as tmp:
         cache_path = os.path.join(tmp, "cuda.json")
-        argv = PLAN_PROFILE_ARGS + ["--cache", cache_path]
 
-        # 1. profile
-        zero_counts(counters)
-        rc, out = _run_captured(profile_cli.main, argv)
-        launches = read_counts(counters)
-        require(rc == 0 and "profile: 2 cell(s) measured" in out,
-                "the profile launcher did not measure its 2 cells")
-        require(all(launches[k] > 0 for k in ("flash_attention_fwd", "rmsnorm", "rmsnorm_bwd")),
-                f"profiling did not run through K1, K2 and K2's backward: launches {launches}")
-        log(f"planner: profiling launched K1 {launches['flash_attention_fwd']}, K2 "
-            f"{launches['rmsnorm']} and K2's backward {launches['rmsnorm_bwd']} times")
-        cache = pcache.ProfileCache.load(cache_path)
-        for e in sorted(cache.entries.values(), key=lambda e: e.key.seq):
-            log(f"planner: cell {e.key.id()}: fwd {e.fwd_time_s * 1e3:.4f} ms  bwd "
-                f"{e.bwd_time_s * 1e3:.4f} ms  remat extra {e.remat_extra_s * 1e3:.4f} ms  "
-                f"peak {e.peak_bytes / 1e9:.4f} GB  (analytic fwd FLOPs {e.flops_fwd:.4e}, "
-                f"{e.flops_fwd / e.fwd_time_s / 1e12:.1f} TFLOP/s; predicted activations "
-                f"{e.act_bytes_pred / 1e9:.4f} GB, peak / predicted "
-                f"{e.peak_bytes / e.act_bytes_pred:.3f})")
-            require(e.fwd_time_s > 0 and e.bwd_time_s > 0 and e.peak_bytes > 0,
-                    f"a measured cell is not positive: {e.key.id()}")
-        rc, out = _run_captured(profile_cli.main, argv)
-        require(rc == 0 and "profile: 0 cell(s) measured" in out,
-                "the second profiling pass measured again")
-        zeros = next(e for e in cache.entries.values() if e.key.seq == TRAIN_SEQ)
-        rnd = measure_block(cfg, TRAIN_SEQ, batch=2, input_seed=0)
+        # 1. profile (graphed, beside eager), calibrate
+        entries, calibration = profile_and_calibrate(counters, cfg, cache_path, "planner")
+        zeros = entries[TRAIN_SEQ]
+        rnd = measure_block(cfg, TRAIN_SEQ, batch=PROFILE_MB, input_seed=0)
         log(f"planner: the s{TRAIN_SEQ} mb2 cell with x ~ N(0, 1) in place of zeros: fwd "
             f"{rnd.fwd_time_s * 1e3:.4f} ms (zeros {zeros.fwd_time_s * 1e3:.4f})  bwd "
             f"{rnd.bwd_time_s * 1e3:.4f} ms (zeros {zeros.bwd_time_s * 1e3:.4f})  remat extra "
             f"{rnd.remat_extra_s * 1e3:.4f} ms (zeros {zeros.remat_extra_s * 1e3:.4f})")
-        calibration = cal.load_calibration(cache_path)
-        require(calibration.source == "measured" and calibration.throughput.get("bf16", 0) > 0,
-                "the calibration fitted no bf16 throughput")
-        log("planner: calibration\n" + calibration.format_table())
-        del cache, rnd
+        del rnd
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2147,10 +2225,8 @@ def planner_phase(torch, counters, selective: list) -> None:
         # 4. the train launcher, as a user runs it
         cmd = [sys.executable, "-m", "repro_torch.launch.train", *LAUNCHER_ARGS,
                "--log-every", "1", "--profile-cache", cache_path]
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+        proc = subprocess.run(cmd, cwd=ROOT, env=_src_env(), capture_output=True, text=True,
                               timeout=600)
         wall = time.perf_counter() - t0
         for line in proc.stdout.splitlines():
@@ -2300,6 +2376,165 @@ def parity_moe(torch, np, serving, build_model, small_cfg, engine, params, promp
     del cut
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 23
+
+#: the searched moonshot plan is trained at full width cut to 2 layers, as
+#: phase 14 trains (fp32 masters, grads and AdamW state for 48: ~462 GB)
+MOE_PLAN_LAYERS = 2
+MOE_VALIDATE_ARGS = ["--arch", MOE_ARCH, "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                     "--grad-accum", str(TRAIN_ACCUM), "--remat", "selective", "--validate-only"]
+#: the microbatch counts the trained plan is searched over.  The plan of
+#: the unconstrained search, grad_accum 2 (tp1-z0, predicted 73.52 GB, no
+#: diagnostic), asks for 69.93 GiB allocated + a 10.00 GiB request (the
+#: fp32 logits' grad) = 85.8 GB in its first backward, past the card's
+#: 79.18 GiB; the cost model prices grad_accum 2 and 4 alike on one card
+#: (0.1824 s), so the search takes the smaller count of the tie
+MOE_PLAN_GRAD_ACCUM = [4, 8]
+#: the trained plan's peak with the cyclic collector off against on
+COLLECTOR_PEAK_TOL = 0.01
+
+
+def moe_planner_phase(torch, counters) -> dict:
+    """Phase 23: Galvatron's loop for the MoE family.  ``launch.profile``
+    measures two full-width moonshot blocks as CUDA graphs (beside eager),
+    the calibration is fitted from that cache alone, the one-H100 search
+    finds no plan at full depth (analytic and calibrated) and, cut to
+    ``MOE_PLAN_LAYERS`` layers, the analytic one finds a plan (its cost,
+    ``check_plan``) while the calibrated one finds none: its ``mem_scale``
+    (peak over predicted activations, the peak counting the block's 1.18 GB
+    of expert weights) prices the cut past the card.  The analytic search
+    over ``MOE_PLAN_GRAD_ACCUM`` gives the plan that trains ``TRAIN_STEPS``
+    steps twice, with the cyclic collector on and off
+    (launches pinned, peaks equal, both predictions against the measured
+    step and peak, GALV070), and ``launch.train --validate-only`` refuses
+    the full model through ``plan_check`` (GALV020, exit 1).  Returns the
+    trained plan's launches."""
+    import tempfile
+
+    from repro_torch.analysis import plan_check
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import profile_cache as pcache
+    from repro_torch.core.cluster import H100_1
+    from repro_torch.core.profiler_model import profile_model
+    from repro_torch.core.search import SearchEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    cut = dataclasses.replace(cfg, num_layers=MOE_PLAN_LAYERS)
+
+    # 1. profile (graphed, beside eager), calibrate
+    with tempfile.TemporaryDirectory() as tmp:
+        entries, calibration = profile_and_calibrate(
+            counters, cfg, os.path.join(tmp, "cuda.json"), "moe planner")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mk = pcache.model_key(cfg)
+    cells = list(entries.values())
+    k_fit, k_r2 = cal._origin_fit([e.fwd_time_s for e in cells], [e.bwd_time_s for e in cells])
+    r_fit, r_r2 = cal._origin_fit([e.fwd_time_s for e in cells],
+                                  [e.remat_extra_s for e in cells])
+    log(f"moe planner: bwd / fwd fitted {k_fit:.4f} (R2 {k_r2:.4g}); the calibration keeps "
+        f"{calibration.bwd_factor(mk):.4f} (_BWD_RANGE {cal._BWD_RANGE}); remat extra / fwd "
+        f"fitted {r_fit:.4f} (R2 {r_r2:.4g}), kept {calibration.remat_overhead:.4f} "
+        f"(_REMAT_RANGE {cal._REMAT_RANGE}); mem_scale {calibration.mem_scale:.4f}")
+
+    # 2. search: no plan at full depth; cut to MOE_PLAN_LAYERS layers, the
+    # analytic one (the calibrated mem_scale prices the cut past the card),
+    # then the analytic one over MOE_PLAN_GRAD_ACCUM, the plan trained
+    trained = None
+    for name, c, model, accum in (
+            ("analytic", cal.DEFAULT_CALIBRATION, cfg, None),
+            ("analytic", cal.DEFAULT_CALIBRATION, cut, None),
+            ("calibrated", calibration, cfg, None),
+            ("calibrated", calibration, cut, None),
+            ("analytic", cal.DEFAULT_CALIBRATION, cut, MOE_PLAN_GRAD_ACCUM)):
+        res = SearchEngine(model, cluster=H100_1, calibration=c).search(
+            TRAIN_SEQ, TRAIN_BATCH, arch=model.name, shape_name="train_4k",
+            grad_accum_options=accum)
+        plan = res.plan
+        step_pred, mem_pred = plan_cost(model, plan, c)
+        report = plan_check.check_plan(plan, H100_1, model, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH,
+                                       profile=profile_model(model, TRAIN_SEQ,
+                                                             causal_frac=0.5),
+                                       calibration=c)
+        log(f"moe planner: {name} search at {model.num_layers} layers"
+            f"{f', grad_accum {accum}' if accum else ''} ({res.evaluated} "
+            f"combos, {res.search_seconds:.3f} s, rejections {res.rejections}): feasible "
+            f"{res.feasible}; {'plan' if res.feasible else 'best candidate'} "
+            f"{_plan_summary(plan)}; predicted step {plan.predicted_step_time} s; its cost "
+            f"{step_pred:.6f} s and memory {mem_pred / 1e9:.4f} GB (on "
+            f"{H100_1.hbm_bytes / 1e9:.2f} GB); check_plan: "
+            f"{report.codes() or 'no diagnostics'}")
+        if model is cfg or name == "calibrated":
+            require(not res.feasible and mem_pred > H100_1.hbm_bytes,
+                    f"the {name} search fits {model.num_layers}-layer moonshot on one card")
+            continue
+        require(res.feasible, f"the {name} search found no plan for {MOE_PLAN_LAYERS} layers")
+        require(abs(step_pred - plan.predicted_step_time) <= 1e-9 * step_pred,
+                f"the {name} plan's cost ({step_pred}) is not its prediction "
+                f"({plan.predicted_step_time})")
+        require(report.ok(), f"the {name} plan fails check_plan: {report.error_codes()}")
+        if accum:
+            trained = plan
+
+    # 3. train the searched plan, the collector on then off (an
+    # out-of-memory error is not caught)
+    plan = trained
+    _, dense, attn = train_flops(cut, TRAIN_BATCH, TRAIN_SEQ)
+    policies = {s.remat for s in plan.layer_strategies}
+    require(len(policies) == 1, f"the plan mixes remat policies {policies}")
+    expected = {name: n * TRAIN_STEPS for name, n in train_launches(
+        len(plan.layer_strategies), policies.pop(), plan.grad_accum).items()}
+    records = {}
+    for collector in ("on", "off"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if collector == "off":
+            gc.disable()
+        try:
+            record, bundle = train_plan(torch, counters, f"moonshot plan, collector {collector}",
+                                        plan, TRAIN_STEPS, dense + attn, cut)
+        finally:
+            gc.enable()
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+        require(record["launches"] == expected, f"the moonshot plan launched "
+                f"{record['launches']}, expected {expected}")
+        records[collector] = record
+    on, off = records["on"]["peak_bytes"], records["off"]["peak_bytes"]
+    log(f"moe planner: peak with the cyclic collector on {on / 1e9:.4f} GB, off "
+        f"{off / 1e9:.4f} GB (difference {(off - on) / 1e9:+.4f} GB, tol "
+        f"{100 * COLLECTOR_PEAK_TOL:g} %)")
+    require(abs(off - on) <= COLLECTOR_PEAK_TOL * on,
+            "the train step's peak depends on the cyclic collector")
+    record = records["on"]
+    for name, c in (("analytic", cal.DEFAULT_CALIBRATION), ("calibrated", calibration)):
+        step_pred, mem_pred = plan_cost(cut, plan, c)
+        timed = dataclasses.replace(plan, predicted_step_time=step_pred)
+        drift = plan_check.check_plan(timed, H100_1, cut, seq_len=TRAIN_SEQ,
+                                      measured_step_time=record["step_s"])
+        log(f"moe planner: the searched plan, {name} prediction: step {step_pred:.6f} s vs "
+            f"measured {record['step_s']:.6f} s (x{record['step_s'] / step_pred:.3f}); memory "
+            f"{mem_pred / 1e9:.4f} GB vs peak {record['peak_bytes'] / 1e9:.4f} GB "
+            f"(x{record['peak_bytes'] / mem_pred:.3f}, collector on); GALV070: "
+            + ("; ".join(map(str, drift.diagnostics)) or "within the band"))
+
+    # 4. the launcher refuses the full model through plan_check
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *MOE_VALIDATE_ARGS]
+    proc = subprocess.run(cmd, cwd=ROOT, env=_src_env(), capture_output=True, text=True,
+                          timeout=300)
+    for line in proc.stdout.splitlines():
+        log(f"  | {line}")
+    require(proc.returncode == 1 and "GALV020" in proc.stdout,
+            f"launch.train --validate-only exited {proc.returncode} without GALV020: "
+            f"{proc.stderr[-2000:]}")
+    log(f"moe planner: phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return record["launches"]
 
 
 # ---------------------------------------------------------------- phases 15-17
@@ -2928,6 +3163,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 23. the planner for the MoE family: profile (graphs), calibrate,
+    # search, check, train the plan, the launcher's refusal
+    moe_planner_phase(torch, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 15-16. the encoder-decoder: whisper served at full width and depth with
     # real frames, profiled, and its kernel path against its plain path
     engine, w_params, w_frames, w_prompts, whisper_serve_launches, eager = whisper_serve_phase(
@@ -2979,7 +3220,7 @@ def main() -> int:
     zamba2_train_launches = ssm_train_phase(torch, counters, "zamba2-7b", "none",
                                             layers=ZAMBA2_TRAIN_LAYERS)
 
-    # 23. results
+    # 24. results
     kernels = []
     for rows, name, source, replaces in (
             (flash_rows, "flash_attention_fwd",

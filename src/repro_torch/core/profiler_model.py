@@ -3,9 +3,9 @@
 The paper's model profiler measures per-layer forward time and memory on the
 target device.  The search reads profiles derived *analytically* from the
 architecture config (exact FLOP/byte counting); :func:`measure_block` is the
-measured path — one block's forward and backward timed on the card —
-whose cells :mod:`repro_torch.core.calibrate` fits the cost model's
-coefficients from.
+measured path — one block's forward and backward, each a CUDA graph as JAX
+jits them, timed on the card — whose cells :mod:`repro_torch.core.calibrate`
+fits the cost model's coefficients from.
 
 All per-layer quantities are **per sample** (batch=1, one sequence of
 ``seq_len``); the cost/memory models scale them by local batch and shard
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 
@@ -278,7 +278,7 @@ def profile_model(cfg: ModelConfig, seq_len: int, *, causal_frac: float = 1.0) -
 
 
 # --------------------------------------------------------------------------
-# measured path (one dense block on the model's device: the card by default)
+# measured path (one block on the model's device: the card by default)
 # --------------------------------------------------------------------------
 
 _DTYPES = {"fp32": "float32", "bf16": "bfloat16"}
@@ -289,11 +289,12 @@ def _block_apply_fn(cfg: ModelConfig, device="cuda", dtype: str = "bf16"):
     ``init_params`` (seed 0) in ``dtype``; ``apply(p, x) -> y`` is the
     block's training forward on the kernel path (K1, K2 and K3 on the card,
     their plain versions on the CPU).  As in JAX, the ssm and hybrid
-    families measure a Mamba2 block, the dense and vlm families a decoder
-    block; the moe and audio blocks are not measured yet (ROADMAP Queue 1
-    item 3)."""
+    families measure a Mamba2 block, the dense, vlm and moe families a
+    decoder block (``block_defs`` / ``block_apply``; the MoE block's router
+    aux loss stays out of ``y``, as JAX's ``[0]`` leaves it out)."""
     import torch
 
+    from repro_torch.models import build_model
     from repro_torch.models.common import init_params, resolve_device
 
     tdt = getattr(torch, _DTYPES[dtype])
@@ -304,21 +305,22 @@ def _block_apply_fn(cfg: ModelConfig, device="cuda", dtype: str = "bf16"):
         dev = resolve_device(device)
         params = init_params(mamba_block_defs(cfg), gen(dev), dev, tdt)
         return params, lambda p, x: mamba_block_apply(p, x, cfg, impl="kernel")[0]
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"measuring a {cfg.family!r} block is not ported yet (ROADMAP Queue 1 item 3); "
-            "the port measures dense, vlm, ssm and hybrid blocks")
-    from repro_torch.models.transformer import DenseTransformerLM
-
-    model = DenseTransformerLM(cfg, impl="kernel", device=device)
+            f"the {cfg.family!r} family has no block to measure: JAX's measure_block reaches "
+            "model.block_apply, which EncDecLM lacks (src/repro/models/encdec.py:19), and "
+            "raises AttributeError; the port measures dense, vlm, moe, ssm and hybrid blocks")
+    model = build_model(cfg, impl="kernel", device=device)
     params = init_params(model.block_defs(), gen(model.device), model.device, tdt)
     return params, lambda p, x: model.block_apply(p, x, mode="train")[0]
 
 
 def _timed(fn, *args, device, iters: int = 3) -> float:
-    """Median wall time of ``fn(*args)`` after one warm-up call (which also
-    builds the kernel library and lets cuBLAS pick its algorithms), each
-    call closed by a device synchronize."""
+    """Median wall time of ``fn(*args)`` over ``iters`` calls after one
+    untimed call, each call closed by a device synchronize.  The untimed
+    call builds the kernel library and lets cuBLAS pick its algorithms; for
+    a compiled step it is the warm-up and capture, so the timed calls are
+    graph replays (JAX's protocol: the first call compiles)."""
     import torch
 
     def run():
@@ -337,7 +339,7 @@ def _timed(fn, *args, device, iters: int = 3) -> float:
 
 def _grad_fn(apply):
     """``(p, x) -> grads`` of ``sum(apply(p, x).float())`` with respect to
-    every leaf of ``p``."""
+    every leaf of ``p``, in ``tree_leaves`` order."""
     import torch
 
     from repro_torch.models.common import tree_leaves, tree_map
@@ -361,17 +363,67 @@ def _forward_fn(apply):
     return fwd
 
 
-def measure_block_time(cfg: ModelConfig, seq_len: int, batch: int = 1,
-                       iters: int = 5, device="cuda") -> float:
-    """Median wall time of one bf16 block forward on ``device``."""
+@dataclasses.dataclass
+class BlockSteps:
+    """One block's measured steps on its device, each called as
+    ``step(params, x)``: ``forward`` (``no_grad``) -> y, ``grad`` -> the
+    grads of ``sum(y)`` in ``tree_leaves(params)`` order, ``grad_remat``
+    the same under the ``full`` remat policy (``parallel/remat.py``);
+    ``apply`` is the block's eager training forward ``apply(p, x) -> y``."""
+    params: dict
+    x: Any
+    apply: Callable
+    forward: Callable
+    grad: Callable
+    grad_remat: Callable
+
+
+def block_steps(cfg: ModelConfig, seq_len: int, *, batch: int = 1, dtype: str = "bf16",
+                device="cuda", compiled: bool = True,
+                input_seed: Optional[int] = None) -> BlockSteps:
+    """The steps ``measure_block`` times for one (cfg, seq, batch, dtype)
+    cell, on the block's parameters and input ``x`` (zeros as in JAX, or a
+    seeded standard normal with ``input_seed``).
+
+    ``compiled`` makes each step a ``runtime/compiled.py::compile_step`` —
+    the port's ``compat.jit``, as JAX jits the forward and both grads: the
+    parameters held, ``x`` fed, one graph pool for the three.  On the card
+    the first call warms the step up and captures it as a CUDA graph (a
+    capture that fails raises; nothing falls back to the eager call), and
+    later calls replay it; on the CPU the same plumbing calls the step
+    directly.  ``compiled=False`` gives the eager steps (the oracle)."""
     import torch
 
     from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel.remat import apply_remat
 
-    params, apply = _block_apply_fn(cfg, device)
+    params, apply = _block_apply_fn(cfg, device, dtype)
     dev = tree_leaves(params)[0].device
-    x = torch.zeros((batch, seq_len, cfg.d_model), dtype=torch.bfloat16, device=dev)
-    return _timed(_forward_fn(apply), params, x, device=dev, iters=iters)
+    shape = (batch, seq_len, cfg.d_model)
+    tdt = getattr(torch, _DTYPES[dtype])
+    if input_seed is None:
+        x = torch.zeros(shape, dtype=tdt, device=dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(input_seed)
+        x = torch.randn(shape, generator=gen, device=dev).to(tdt)
+    steps = {"forward": _forward_fn(apply), "grad": _grad_fn(apply),
+             "grad_remat": _grad_fn(apply_remat(apply, "full"))}
+    if compiled:
+        from repro_torch.runtime.compiled import compile_step
+
+        pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        steps = {name: compile_step(fn, dev, held=(0,), pool=pool,
+                                    name=f"{cfg.name} block {name}")
+                 for name, fn in steps.items()}
+    return BlockSteps(params=params, x=x, apply=apply, **steps)
+
+
+def measure_block_time(cfg: ModelConfig, seq_len: int, batch: int = 1,
+                       iters: int = 5, device="cuda") -> float:
+    """Median wall time of one bf16 block forward on ``device``, compiled
+    (``block_steps``: a graph replay on the card)."""
+    steps = block_steps(cfg, seq_len, batch=batch, device=device)
+    return _timed(steps.forward, steps.params, steps.x, device=steps.x.device, iters=iters)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -389,46 +441,42 @@ class BlockMeasurement:
 
 def measure_block(cfg: ModelConfig, seq_len: int, *, batch: int = 1,
                   iters: int = 3, dtype: str = "bf16",
-                  with_remat: bool = True, device="cuda",
+                  with_remat: bool = True, device="cuda", compiled: bool = True,
                   input_seed: Optional[int] = None) -> BlockMeasurement:
     """Measure one (cfg, seq, batch, dtype) cell for the profile cache on
     ``device``: the block forward's wall time, grad-minus-forward backward
-    time, the ``full`` remat policy's overhead (``parallel/remat.py``), and
-    the forward's peak memory (working set plus arguments, read from
-    ``torch.cuda.max_memory_allocated``; 0.0 on the CPU), plus the analytic
-    FLOP/activation bases the calibration fits against.
+    time, the ``full`` remat policy's overhead, each step compiled as JAX
+    compiles it (``block_steps``; ``compiled=False``: eager), and the
+    forward's peak memory (the eager ``no_grad`` forward's working set plus
+    its arguments, read from ``torch.cuda.max_memory_allocated`` over a
+    second eager forward once the graphs are gone, so cuBLAS's workspace
+    for the current stream is not counted; 0.0 on the CPU), plus the
+    analytic FLOP/activation bases the calibration fits against.
 
     ``x`` is zeros, as in the JAX package; ``input_seed`` draws it from a
     seeded standard normal instead (to see whether zeros flatter the card)."""
     import torch
 
     from repro_torch.models.common import tree_leaves
-    from repro_torch.parallel.remat import apply_remat
 
-    params, apply = _block_apply_fn(cfg, device, dtype)
-    dev = tree_leaves(params)[0].device
-    shape = (batch, seq_len, cfg.d_model)
-    tdt = getattr(torch, _DTYPES[dtype])
-    if input_seed is None:
-        x = torch.zeros(shape, dtype=tdt, device=dev)
-    else:
-        gen = torch.Generator(device=dev).manual_seed(input_seed)
-        x = torch.randn(shape, generator=gen, device=dev).to(tdt)
-
-    fwd = _forward_fn(apply)
-    fwd_t = _timed(fwd, params, x, device=dev, iters=iters)
-    total_t = _timed(_grad_fn(apply), params, x, device=dev, iters=iters)
+    steps = block_steps(cfg, seq_len, batch=batch, dtype=dtype, device=device,
+                        compiled=compiled, input_seed=input_seed)
+    params, x, apply, dev = steps.params, steps.x, steps.apply, steps.x.device
+    fwd_t = _timed(steps.forward, params, x, device=dev, iters=iters)
+    total_t = _timed(steps.grad, params, x, device=dev, iters=iters)
     bwd_t = max(total_t - fwd_t, 0.0)
 
     remat_extra = 0.0
     if with_remat:
-        ck_t = _timed(_grad_fn(apply_remat(apply, "full")), params, x, device=dev,
-                      iters=iters)
+        ck_t = _timed(steps.grad_remat, params, x, device=dev, iters=iters)
         remat_extra = max(ck_t - total_t, 0.0)
+    del steps                               # the graphs and their pool
 
     peak = 0.0
     if dev.type == "cuda":
+        fwd = _forward_fn(apply)
         args = sum(a.numel() * a.element_size() for a in tree_leaves(params) + [x])
+        fwd(params, x)          # the graphs ran on their own stream: warm this one
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)

@@ -1,9 +1,11 @@
 """``profile`` subcommand — measure block timings into the profile cache.
 
 Shared by both launchers (``train.py profile ...`` / ``serve.py profile ...``).
-Times one dense block's forward and backward per (arch, dtype, seq) cell on
-the card with :func:`repro_torch.core.profiler_model.measure_block` (K1 and
-K2 under autograd), fits the collective alpha-beta with
+Times one block's forward, grad and full-remat grad per (arch, dtype, seq)
+cell on the card with :func:`repro_torch.core.profiler_model.measure_block`
+(a decoder block of a dense, vlm or MoE model, a Mamba2 block of an ssm or
+hybrid one; K1, K2 and K3 under autograd), each step a CUDA graph as JAX
+jits it, fits the collective alpha-beta with
 :func:`repro_torch.core.profiler_hw.measure_allreduce` (one device: the
 exact degenerate fit), writes the versioned on-disk cache
 (``results/profiles/cuda.json``, the JAX package's layout) and prints the
@@ -11,6 +13,8 @@ fitted calibration table.  A second run over the same cells does **zero**
 re-measurement — everything comes from the cache.
 
     python -m repro_torch.launch.profile --arch llama3.2-1b --full \\
+        --seq 1024,4096 --dtype bf16 --microbatch 2
+    python -m repro_torch.launch.profile --arch moonshot-v1-16b-a3b --full \\
         --seq 1024,4096 --dtype bf16 --microbatch 2
 """
 from __future__ import annotations

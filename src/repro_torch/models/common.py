@@ -128,12 +128,16 @@ def init_params(defs: ParamTree, generator: torch.Generator, device,
     dev = resolve_device(device)
     values = {path: d.materialize(generator, dev, dtype)
               for path, d in tree_paths(defs)}
+    return _nest(defs, values, ())
 
-    def build(sub, prefix):
-        return {k: (build(v, prefix + (k,)) if isinstance(v, Mapping)
-                    else values[prefix + (k,)]) for k, v in sub.items()}
 
-    return build(defs, ())
+def _nest(defs: ParamTree, values: dict, prefix: tuple[str, ...]) -> ParamTree:
+    """``defs``' nesting with the leaf at each path taken from ``values``.
+    A module-level function: a nested one that calls itself sits in a
+    reference cycle with its closure, which kept ``values`` — every freshly
+    drawn parameter — alive until the cyclic collector ran."""
+    return {k: (_nest(v, values, prefix + (k,)) if isinstance(v, Mapping)
+                else values[prefix + (k,)]) for k, v in defs.items()}
 
 
 def params_from_jax(tree: Mapping, device, dtype: torch.dtype = torch.float32) -> ParamTree:

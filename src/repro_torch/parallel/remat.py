@@ -12,13 +12,23 @@ the port of ``repro.parallel.remat`` on ``torch.utils.checkpoint``.
 
 Both recomputing policies use non-reentrant checkpointing, which reruns the
 layer's forward on the first use of a saved tensor in the backward and may
-stop as soon as every saved tensor is back.
+stop as soon as every saved tensor is back.  No block of the port draws
+random numbers, so the checkpoint keeps no RNG state
+(``preserve_rng_state=False``: the same numbers) and a grad through it
+touches no generator when it is captured as a CUDA graph
+(``core/profiler_model.block_steps``).
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+# ``checkpoint`` imports torch._dynamo on its first call; that import runs
+# ``torch.fx.wrap``, whose frame refers to itself, so every frame above it
+# (the first train step's, with its parameters, grads and optimizer state)
+# would stay alive until the cyclic collector runs.  Imported here, the
+# chain above it is this module's import.
+import torch._dynamo  # noqa: F401
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -46,6 +56,6 @@ def apply_remat(fn, policy: str):
 
     @functools.wraps(fn)
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return wrapped

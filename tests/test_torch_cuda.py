@@ -4,7 +4,8 @@ and the serving paths (paged dense, step-engine mamba2, zamba2, the MoE
 family, whisper and the VLM) and the training steps of every family with
 ``impl="kernel"`` against ``impl="ref"``; the compiled serving steps (CUDA
 graphs) of every family against their eager steps;
-the planner's block measurement and a calibration fitted from it.
+the planner's block measurement (its forward, grad and full-remat grad
+graphed, against the eager steps) and a calibration fitted from it.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -1246,6 +1247,58 @@ def test_cuda_jit_steps_match_the_eager_steps(cuda_device, arch):
     for a, b in zip(_tree_leaves(cache), _tree_leaves(eager_cache)):
         _same(a, b, f"{arch} cache after {new - 1} steps")
     assert len(decode.compiled.entries) == 1
+
+
+BLOCK_ARCHS = ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b", "zamba2-7b",
+               "moonshot-v1-16b-a3b"]
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_cuda_measure_block_graphs_match_the_eager_steps(cuda_device, arch):
+    """``block_steps`` at reduced width, S 256, batch 2, bf16, seeded input:
+    the graphed forward, grad and full-remat grad (each captured with
+    autograd inside: K2's backward kernel, K1's plain recompute, K3's, the
+    MoE gathers' backwards) give the eager steps' outputs, and each replay
+    adds the eager call's launches (the first call 3x: two warm-up calls
+    and the replay after the capture)."""
+    from repro_torch.core import profiler_model as pm
+
+    cfg = get_config(arch).reduced()
+    graphed, eager = (pm.block_steps(cfg, 256, batch=2, compiled=c, input_seed=4)
+                      for c in (True, False))
+    for name in ("forward", "grad", "grad_remat"):
+        before = _counts()
+        want = getattr(eager, name)(eager.params, eager.x)
+        per_call = _moved(before)
+        assert per_call[1] > 0 and (per_call[3] > 0) == (name != "forward")       # K2, bwd
+        for i in range(3):
+            before = _counts()
+            got = getattr(graphed, name)(graphed.params, graphed.x)
+            assert _moved(before) == [(3 if i == 0 else 1) * n for n in per_call]
+            got, ref = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+            assert len(got) == len(ref) > 0
+            for j, (a, b) in enumerate(zip(got, ref)):
+                _same(a, b, f"{arch} {name} call {i} output {j}")
+        assert len(getattr(graphed, name).entries) == 1
+
+
+def test_cuda_measure_block_times_the_moe_block_in_graphs(cuda_device):
+    """``measure_block`` on moonshot's reduced block, graphed: positive
+    times and a peak above the block's bf16 parameters; K1, K2 and K2's
+    backward launched (counted by replay)."""
+    import math
+
+    from repro_torch.core import profiler_model as pm
+
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    before = _counts()
+    m = pm.measure_block(cfg, 256, batch=2, iters=3)
+    moved = _moved(before)
+    for t in (m.fwd_time_s, m.bwd_time_s):
+        assert math.isfinite(t) and t > 0.0
+    assert math.isfinite(m.remat_extra_s) and m.remat_extra_s >= 0.0
+    assert m.peak_bytes > 2.0 * pm.profile_model(cfg, 256).layers[0].param_count
+    assert moved[0] > 0 and moved[1] > 0 and moved[3] > 0     # K1, K2, K2 backward
 
 
 def test_cuda_a_capture_that_fails_raises(cuda_device):

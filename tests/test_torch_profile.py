@@ -2,11 +2,17 @@
 width (``device="cpu"``: the kernels' plain versions):
 
 * ``measure_block`` returns positive times and, off the card, no peak
-  memory, for dense, vlm, mamba2 and zamba2 blocks with JAX's FLOP bases;
-  the moe and audio families raise;
+  memory, for dense, vlm, moe, mamba2 and zamba2 blocks with JAX's FLOP
+  bases; the moe block's fp32 grads match ``jax.grad`` of JAX's
+  ``block_apply`` loss on the same weights (2e-3 of each grad's scale);
+  the audio family raises, as JAX's ``measure_block`` does; the compiled
+  steps (``compile_step``'s plumbing on the CPU) give the eager steps'
+  outputs and grads bitwise, for every family measured;
 * a profile cache written by either package loads in the other and fits an
   equal calibration (1e-12); a second profiling pass measures nothing and a
   stale schema is reset;
+* moonshot's search on one H100 at 48 layers (infeasible) and cut to 2
+  layers is JAX's, analytic and calibrated;
 * ``launch.train`` trains two steps with finite losses, builds the plan the
   JAX launcher builds for the same flags, prices it as JAX's cost model does
   on the same one-H100 spec, and ``--validate-only`` exits with JAX's
@@ -19,6 +25,9 @@ import json
 import math
 import re
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +40,8 @@ from repro.core import profiler_model as jpm
 from repro.core import search as jsearch
 from repro.core.strategy import LayerStrategy as JLayerStrategy
 from repro.core.strategy import uniform_plan as juniform_plan
+from repro.models import build_model as jbuild_model
+from repro.models.common import init_params as jinit_params
 from repro_torch.configs.registry import get_config
 from repro_torch.core import calibrate as tcal
 from repro_torch.core import cluster as tcluster
@@ -39,6 +50,8 @@ from repro_torch.core import profiler_model as tpm
 from repro_torch.launch import profile as profile_cli
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
+from repro_torch.models.common import params_from_jax, tree_paths
+from tests._torch_params import perturbed
 
 ARCH = "llama3.2-1b"
 JAX_H100_1 = jcluster.ClusterSpec(**dataclasses.asdict(tcluster.H100_1))
@@ -79,10 +92,80 @@ def test_measure_block_times_the_vlm_ssm_and_hybrid_blocks(arch):
     assert m.act_bytes_pred == (lp.act_inner + lp.act_boundary) * 2
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "grok-1-314b"])
+def test_measure_block_times_the_moe_block(arch):
+    """JAX's moe branch (``block_defs`` / ``block_apply``): positive times,
+    the FLOP and activation bases of JAX's ``_moe_block``."""
+    cfg = get_config(arch).reduced()
+    m = tpm.measure_block(cfg, 32, batch=2, iters=1, device="cpu")
+    assert m.fwd_time_s > 0.0 and m.bwd_time_s >= 0.0 and m.remat_extra_s >= 0.0
+    assert m.peak_bytes == 0.0
+    lp = jpm.profile_model(jget(arch).reduced(), 32, causal_frac=1.0).layers[0]
+    assert lp.kind == "moe_block"
+    assert m.flops_fwd == lp.flops * 2
+    assert m.act_bytes_pred == (lp.act_inner + lp.act_boundary) * 2
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "grok-1-314b"])
+def test_moe_block_grads_match_jax(arch):
+    """The measured moe block's fp32 grads (``_grad_fn`` of the port's
+    ``block_apply``) against ``jax.grad`` of JAX's ``sum(block_apply(p,
+    x)[0])`` on the same weights and a seeded input: 2e-3 of each grad's
+    largest magnitude; the block's outputs 1e-4."""
+    jcfg = jget(arch).reduced()
+    jm = jbuild_model(jcfg)
+    np_params = perturbed(jax.tree.map(np.asarray, jinit_params(jm.block_defs(),
+                                                                jax.random.PRNGKey(0))),
+                          np.random.default_rng(0))
+    x = np.random.default_rng(1).standard_normal((2, 24, jcfg.d_model)).astype(np.float32)
+    jp = jax.tree.map(jnp.asarray, np_params)
+    apply_j = lambda p: jm.block_apply(p, jnp.asarray(x), mode="train")[0]
+    want_y = np.asarray(apply_j(jp))
+    want = jax.grad(lambda p: jnp.sum(apply_j(p).astype(jnp.float32)))(jp)
+
+    _, apply = tpm._block_apply_fn(get_config(arch).reduced(), "cpu", "fp32")
+    tp = params_from_jax(np_params, "cpu", torch.float32)
+    y = apply(tp, torch.from_numpy(x))
+    np.testing.assert_allclose(y.detach().numpy(), want_y, atol=1e-4, rtol=1e-4)
+    got = tpm._grad_fn(apply)(tp, torch.from_numpy(x))
+    wanted = dict(tree_paths(jax.tree.map(np.asarray, want)))
+    assert len(got) == len(wanted)
+    for (path, _), g in zip(tree_paths(tp), got):
+        w = wanted[path]
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 2e-3 * np.abs(w).max(), (path, err, np.abs(w).max())
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_measure_block_takes_dense_blocks_only(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    """The audio family has no block to measure in either package: JAX's
+    ``measure_block`` reaches ``block_apply``, which ``EncDecLM`` lacks."""
+    with pytest.raises(AttributeError, match="block_apply"):
+        jpm.measure_block(jget(arch).reduced(), 32, iters=1, with_remat=False)
+    with pytest.raises(NotImplementedError, match="EncDecLM lacks"):
         tpm.measure_block(get_config(arch).reduced(), 32, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "internvl2-26b", "mamba2-2.7b",
+                                  "zamba2-7b", "moonshot-v1-16b-a3b"])
+def test_compiled_block_steps_are_the_eager_steps(arch):
+    """``block_steps(compiled=True)`` on the CPU (``compile_step``'s
+    plumbing: parameters held, ``x`` fed through a static buffer, direct
+    calls) against ``compiled=False``: the forward and both grads bitwise,
+    twice over (a later call replays the same key)."""
+    cfg = get_config(arch).reduced()
+    steps = {c: tpm.block_steps(cfg, 32, batch=2, dtype="fp32", device="cpu", compiled=c,
+                                input_seed=3) for c in (True, False)}
+    eager = steps[False]
+    for _ in range(2):
+        for name in ("forward", "grad", "grad_remat"):
+            got = getattr(steps[True], name)(steps[True].params, steps[True].x)
+            want = getattr(eager, name)(eager.params, eager.x)
+            got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+            assert len(got) == len(want) > 0
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (arch, name)
+    assert len(steps[True].grad.entries) == 1
 
 
 # ---------------------------------------------------------------- cache + calibration
@@ -186,6 +269,45 @@ def test_second_pass_measures_nothing_and_a_stale_schema_is_reset(tmp_path):
     path.write_text("{not json")
     with pytest.raises(tpcache.CorruptProfileCacheError):
         tpcache.ProfileCache.load(path)
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+@pytest.mark.parametrize("layers", [48, 2])
+def test_moe_search_on_one_h100_matches_jax(layers, calibrated, tmp_path):
+    """moonshot's search on ``H100_1`` at S 4096, global batch 8: at full
+    depth neither package finds a plan that fits, cut to 2 layers both find
+    the same one, analytic and calibrated (from moonshot cells of a
+    synthetic cache): feasibility, plan, rejections, predicted step and
+    memory within 1e-9.  The mesh is one card's, (1, 1), for both (JAX's
+    default is the TPU pod's)."""
+    from repro_torch.core.search import SearchEngine
+
+    arch = "moonshot-v1-16b-a3b"
+    jcfg = dataclasses.replace(jget(arch), num_layers=layers)
+    tcfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    jcalib, tcalib = jcal.DEFAULT_CALIBRATION, tcal.DEFAULT_CALIBRATION
+    if calibrated:
+        path = tmp_path / "cuda.json"
+        cache = tpcache.ProfileCache.load_or_create(path)
+        tcal.run_profile_cells(_cells(tpcache, "cuda", archs=(arch,)), cache,
+                               measure_fn=_fake_measure)
+        cache.save()
+        jcalib, tcalib = jcal.load_calibration(path), tcal.load_calibration(path)
+    kw = dict(mesh_shape=(1, 1), mesh_axes=("data", "model"), arch=arch,
+              shape_name="train_4k")
+    jres = jsearch.SearchEngine(jcfg, JAX_H100_1, calibration=jcalib).search(4096, 8, **kw)
+    tres = SearchEngine(tcfg, tcluster.H100_1, calibration=tcalib).search(4096, 8, **kw)
+    assert tres.feasible == jres.feasible == (layers == 2)
+    assert (tres.evaluated, tres.rejections) == (jres.evaluated, jres.rejections)
+    jd, td = json.loads(jres.plan.to_json()), json.loads(tres.plan.to_json())
+    floats = ("predicted_step_time", "predicted_memory")
+    assert {k: v for k, v in td.items() if k not in floats} == \
+        {k: v for k, v in jd.items() if k not in floats}
+    for k in floats:
+        if math.isinf(jd[k]):
+            assert math.isinf(td[k])
+        else:
+            assert td[k] == pytest.approx(jd[k], rel=1e-9), k
 
 
 def test_profile_launcher_measures_then_reads_its_cache(tmp_path, capsys):
