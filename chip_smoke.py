@@ -259,6 +259,23 @@ Phases (any failure exits non-zero and prints no result line):
    and peak and GALV070's verdict; ``python -m repro_torch.launch.train
    --arch moonshot-v1-16b-a3b --seq 4096 --batch 8 --grad-accum 4 --remat
    selective --validate-only`` exits 1 on GALV020;
+25. the parallel runtime (run after phase 22, before the results) —
+   full-width, full-depth llama3.2-1b on two ranks sharing the card: NCCL
+   refuses two ranks on one device, so they join over gloo (a
+   ``FileStore``), each a ``chip_smoke.py --parallel-rank`` process that
+   loads the library the parent built, on the mesh ``train_mesh_spec(2)``
+   = (data 1, model 2); each trains 2 steps of 4 x 4096 tokens (bf16
+   compute, fp32 masters) under (a) tp 2 + sp, ZeRO-1, selective, (b) tp 1
+   (dp 2 through the absorbed model axis), ZeRO-3, selective, (c) the
+   search's plan for a 2-card H100 cluster at half a card per rank; the
+   losses within 5e-2 of one rank's ``mesh=None`` step on the same seed-0
+   weights and batches (computed here while the ranks start), each rank's
+   K1 / K2 / K2-backward launches per step pinned (``par_launches``), K1 at
+   16 query and 4 KV heads under (a); then (a) and (b) in fp32 at 2 layers:
+   the loss within 1e-4 relative, every updated param within 2e-3 of its
+   leaf's update scale; logs per-rank peaks against the card, step times
+   (no interconnect measured) and the collectives called by name and
+   dtype;
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
    ``rmsnorm_bwd`` rows for K2, ``ssd`` and ``ssd_autograd`` for K3), then
    the device line last.
@@ -291,6 +308,9 @@ RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SSD_TOL = 1e-3                                  # x max(1, max |plain|)
 SSD_CHUNK = 64
 INT32_MAX = 2**31 - 1
+
+
+T_START = time.perf_counter()
 
 
 class SmokeFailure(RuntimeError):
@@ -471,8 +491,10 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     JSON rows of the timed bf16 cases: the two llama serving shapes (compact
     KV = 8), the g = 5 / hd 112 check shapes, the llama training shape,
     zamba2's and moonshot's serving shapes and moonshot's training shape,
-    whisper's, and internvl2's (g = 6) serving and training shapes and
-    zamba2's training shape."""
+    whisper's, and internvl2's (g = 6) serving and training shapes,
+    zamba2's training shape, and each rank's shape in the parallel rig
+    (phase 25): tp 2 (16 query and 4 KV heads, a microbatch's 2 sequences)
+    and dp 2 (32 and 8 heads, 1 sequence)."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -597,6 +619,10 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     cases.append((f"zamba2 train causal B2 S{SSM_TRAIN_SEQ} H32 KV32 hd112 bfloat16", True,
                   flash_case(torch, gen, B=2, Sq=SSM_TRAIN_SEQ, Sk=SSM_TRAIN_SEQ, H=32, hd=112,
                              dtype=torch.bfloat16, path="zamba2_train")))
+    for par, B, H, KV in (("tp2", 2, 16, 4), ("dp2", 1, 32, 8)):
+        cases.append((f"parallel {par} causal B{B} S{PAR_SEQ} H{H} KV{KV} hd64 bfloat16", True,
+                      flash_case(torch, gen, B=B, Sq=PAR_SEQ, Sk=PAR_SEQ, H=H, KV=KV, hd=64,
+                                 dtype=torch.bfloat16, path=f"parallel_{par}")))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -718,7 +744,9 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     internvl2_train: a microbatch of 2 x 4 096 rows x 6 144; mamba2_train
     and zamba2_train: a microbatch's 2 x 2 048 rows at the layer norm's
     width and at the gate norm's, which training runs ungated, composed
-    under autograd); "check" rows are timed
+    under autograd; parallel: a rank's 4 096 rows x 2048 in the parallel
+    rig, sequence-sharded under tp 2 + sp or a dp 2 rank's sequence, with
+    the fp32 master scale the model passes); "check" rows are timed
     and logged but belong to no path (the gate norms' widths 5120 and 7168,
     which the models now run gated)."""
     rows = []
@@ -728,16 +756,18 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
               ((10240, 6144), "internvl2"), ((8192, 6144), "internvl2_train"),
               ((4096, 2560), "mamba2_train"), ((4096, 5120), "mamba2_train"),
               ((4096, 3584), "zamba2_train"), ((4096, 7168), "zamba2_train"),
-              ((8192, 5120), "check"), ((8192, 7168), "check"), ((8192, 64), None),
+              ((4096, 2048, "fp32 scale"), "parallel"), ((8192, 5120), "check"),
+              ((8192, 7168), "check"), ((8192, 64), None),
               ((32768, 128), None), ((64, 14336), None), ((6, 40000), None), ((7, 333), None),
               ((8192, 3584, "misaligned"), None), ((300, 1000, "misaligned"), None)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         for shape, path in shapes:
-            mis = shape[-1] == "misaligned"
+            mis, f32_scale = shape[-1] == "misaligned", shape[-1] == "fp32 scale"
             shape = shape[:2]
             x = (3.0 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
-            scale = torch.randn(shape[-1:], generator=gen, device="cuda").to(dtype)
+            scale = torch.randn(shape[-1:], generator=gen, device="cuda").to(
+                torch.float32 if f32_scale else dtype)
             if mis:
                 x = misaligned_view(torch, x)
             out = rms_ops.rmsnorm(x, scale, 1e-5)
@@ -745,7 +775,8 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
             torch.cuda.synchronize()
             tol = RMSNORM_TOL[name]
             err, ok = _rms_close(torch, out, ref, tol)
-            label = f"{shape[0]}x{shape[1]} {name}{' misaligned view' if mis else ''}"
+            label = (f"{shape[0]}x{shape[1]} {name}{' misaligned view' if mis else ''}"
+                     f"{' scale float32' if f32_scale else ''}")
             log(f"K2 rmsnorm [{label}] template {_rms_template(rms_ops, x, scale)} "
                 f"max_abs_err {err:.3e} (tol {tol})")
             require(ok, f"rmsnorm disagrees with its plain version: {label}")
@@ -756,7 +787,8 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
             lib = device_ms(lambda: torch.nn.functional.rms_norm(
                 x, shape[-1:], weight=scale, eps=1e-5), torch)
             e = x.element_size()
-            b_ms, b_by = bound(2 * x.numel() * e + scale.numel() * e, 4.0 * x.numel(), name)
+            b_ms, b_by = bound(2 * x.numel() * e + scale.numel() * scale.element_size(),
+                               4.0 * x.numel(), name)
             log(f"K2 [{label}] kernel {ms:.5f} ms  plain {plain:.4f} ms  "
                 f"F.rms_norm {lib:.5f} ms  bound {b_ms:.6f} ms ({b_by}, {100 * b_ms / ms:.1f} %)")
             if path == "check":
@@ -820,8 +852,9 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     Cases: the training shape 8192 x 2048 (bf16 x, fp32 master scale; and
     fp32), 8192 x 3584, qk-norm rows 32768 x 128, whisper's encoder rows of
     a microbatch 48000 x 384, internvl2's 8192 x 6144, the Mamba2 gate
-    norms of a training microbatch (4096 x 5120 and 4096 x 7168), an odd
-    width, a misaligned view (the scalar
+    norms of a training microbatch (4096 x 5120 and 4096 x 7168), a
+    parallel-rig rank's 4096 x 2048 (phase 25), an odd width, a misaligned
+    view (the scalar
     two-pass template).  Timed rows (each with its path): the plain
     backward (``plain_ms``) and, as ``library_ms``, the backward of
     ``F.rms_norm`` on the same inputs through ``torch.autograd.grad``."""
@@ -834,6 +867,7 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
              ((8192, 6144), bf16, f32, False, "internvl2_train"),
              ((4096, 5120), bf16, f32, False, "mamba2_train"),
              ((4096, 7168), bf16, f32, False, "zamba2_train"),
+             ((4096, 2048), bf16, f32, False, "parallel"),
              ((8192, 2048), f32, f32, False, None), ((300, 333), f32, f32, False, None),
              ((8192, 2048), bf16, f32, True, None)]
     for shape, dtype, sdtype, mis, path in cases:
@@ -3045,6 +3079,335 @@ def allocator_report(torch, label: str) -> None:
             f"{len(blocks)} blocks (largest {[round(b / 2**20, 3) for b in blocks[:4]]} MiB)")
 
 
+# --------------------------------------------------------------------------
+# 25. the parallel runtime: two ranks sharing the card over gloo
+# --------------------------------------------------------------------------
+
+PAR_SEQ, PAR_BATCH, PAR_ACCUM, PAR_STEPS = 4096, 4, 2, 2
+PAR_MESH = ((1, 2), ("data", "model"))          # launch.mesh.train_mesh_spec(2)
+PAR_LOSS_TOL = 5e-2            # JAX's bf16 bound on a sharded step (tests/test_parallel_mp.py:53)
+PAR_FP32_LAYERS = 2
+PAR_FP32_BATCH = 2             # x PAR_SEQ tokens, one microbatch: a row per rank under (b)
+PAR_FP32_LOSS_RTOL = 1e-4
+PAR_FP32_UPDATE_TOL = 2e-3     # x the largest |update| of the leaf on one rank
+PAR_FP32_GRAD_TOL = 2e-3       # x the largest |grad| of the leaf on one rank
+# AdamW eps of the fp32 update check: the first step's update of an element
+# is lr·g/(|g| + eps), whose slope in g is up to lr/eps, so at 1e-8 a grad
+# element near 1e-10 that two summation orders round differently moves its
+# update by a whole lr (tests/test_torch_parallel_mp.py); the grads, which
+# do not read eps, are held beside the update
+PAR_FP32_EPS = 1e-4
+PAR_TIMEOUT = 600
+NO_INTERCONNECT = "gloo through the host on one card: no interconnect measured"
+
+
+def par_launches(plan, layers: int) -> dict:
+    """Kernel launches per step of one rank under ``plan``: each layer's
+    forward (K1 once, K2 twice), again in its backward where its group
+    recomputes, the final norm, and K2's backward once per norm; every
+    rank runs every layer (at its local heads or rows) for every
+    microbatch."""
+    strategies = plan.layer_strategies or [plan.default_strategy] * layers
+    again = [s.remat != "none" for s in strategies]
+    k = plan.grad_accum
+    return {"flash_attention_fwd": k * sum(1 + a for a in again),
+            "rmsnorm": k * (1 + sum(2 + 2 * a for a in again)), "rmsnorm_gated": 0,
+            "rmsnorm_bwd": k * (2 * layers + 1), "ssd": 0, "ssd_autograd": 0}
+
+
+def par_plans(cfg) -> dict:
+    """label -> (plan, what it is): (a) tp 2 + sp, ZeRO-1; (b) tp 1 (dp 2
+    through the absorbed model axis), ZeRO-3; both ``selective`` at
+    grad_accum 2; (c) the plan the search picks on the 2-card H100 cluster
+    at each rank's share of the card, the memory the two ranks really have
+    (the same search on a whole card per rank is logged beside it)."""
+    from repro_torch.core.cluster import H100_NODE8
+    from repro_torch.core.search import SearchEngine
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+
+    shape, axes = PAR_MESH
+    fixed = lambda s: uniform_plan(cfg.name, "train_4k", shape, axes, cfg.num_layers, s,
+                                   grad_accum=PAR_ACCUM)
+    cluster = dataclasses.replace(H100_NODE8, chips=2, intra_size=2)
+    search = lambda c: SearchEngine(cfg, cluster=c).search(
+        PAR_SEQ, PAR_BATCH, mesh_shape=shape, mesh_axes=axes, pp_options=[1], arch=cfg.name)
+    whole = search(cluster)
+    share = search(dataclasses.replace(cluster, hbm_bytes=cluster.hbm_bytes / 2))
+    require(share.feasible, "the search found no plan at half an H100 per rank")
+    log(f"parallel: the search on {cluster.name} x2 (a whole card per rank): "
+        f"{_plan_summary(whole.plan)}, {whole.plan.predicted_memory / 1e9:.2f} GB per "
+        f"device predicted; at half a card per rank: {_plan_summary(share.plan)}, "
+        f"{share.plan.predicted_memory / 1e9:.2f} GB")
+    return {"a": (fixed(LayerStrategy(tp=2, sp=True, zero=1, remat="selective")),
+                  "tp 2 + sp, ZeRO-1, selective"),
+            "b": (fixed(LayerStrategy(tp=1, zero=3, remat="selective")),
+                  "tp 1 (dp 2), ZeRO-3, selective"),
+            "c": (share.plan, "searched: " + _plan_summary(share.plan))}
+
+
+def _fp32_plan(plan, layers: int):
+    """``plan``'s strategy over ``layers`` layers, one microbatch."""
+    from repro_torch.core.strategy import uniform_plan
+
+    return uniform_plan(plan.arch, plan.shape, plan.mesh_shape, plan.mesh_axes, layers,
+                        plan.default_strategy)
+
+
+def parallel_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
+    """One rank of phase 25 (``chip_smoke.py --parallel-rank RANK WORLD DIR``):
+    device 0, gloo over a ``FileStore`` in DIR; waits for DIR/payload.json,
+    trains each plan of the payload for ``PAR_STEPS`` steps at full width,
+    then the fp32 runs at ``PAR_FP32_LAYERS`` layers (``value_and_grad``,
+    then ``apply_grads``: one ``train_step`` at one microbatch; the grads and
+    the updated params, each gathered to the canonical tree, held by rank 0
+    to the one-rank reference), and writes its record to DIR."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.strategy import ExecutionPlan
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    # the collectives the runtime calls, by name, device and dtype
+    used = collections.Counter()
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        def counted(out, *a, _run=getattr(dist, name), _name=name, **kw):
+            used[f"{_name} {out.device.type} {str(out.dtype).split('.')[-1]}"] += 1
+            return _run(out, *a, **kw)
+        setattr(dist, name, counted)
+    # the head counts K1 sees under autograd
+    k1_heads = set()
+    autograd_k1 = flash_ops.flash_attention
+
+    def seen(q, k, v, causal=True):
+        k1_heads.add((q.shape[2], k.shape[2]))
+        return autograd_k1(q, k, v, causal=causal)
+
+    flash_ops.flash_attention = seen
+    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    cfg = get_config(TRAIN_ARCH)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(*PAR_MESH, device=dev, backend="gloo")
+    ds = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_BATCH, seed=0)
+    ds32 = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_FP32_BATCH, seed=0)
+    record = {"runs": {}, "fp32": {}, "ready": time.perf_counter() - T_START}
+    while not (tmp / "payload.json").is_file():     # the parent's oracle runs meanwhile
+        time.sleep(0.05)
+    payload = json.loads((tmp / "payload.json").read_text())
+    for label, text in payload["plans"].items():
+        t_plan = time.perf_counter()
+        plan = ExecutionPlan.from_json(text)
+        hp = construct_hybrid_parallel_model(build_model(cfg), plan, mesh)
+        params = hp.init_params(torch.Generator(device=dev).manual_seed(0))
+        opt = hp.init_opt_state(params)
+        local = dict(tree_paths(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        used.clear()
+        k1_heads.clear()
+        run = {"losses": [], "grad_norms": [], "times": [], "launches": []}
+        for step in range(PAR_STEPS):
+            batch = ds.batch(step)
+            zero_counts(counters)
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, m = hp.train_step(params, opt, batch)
+            torch.cuda.synchronize()
+            run["times"].append(time.perf_counter() - t0)
+            run["launches"].append(read_counts(counters))
+            run["losses"].append(float(m["loss"]))
+            run["grad_norms"].append(float(m["grad_norm"]))
+        wq = next(v for p, v in local.items() if p[-2:] == ("attn", "wq"))
+        wk = next(v for p, v in local.items() if p[-2:] == ("attn", "wk"))
+        run.update(peak=torch.cuda.max_memory_allocated(), ops=dict(used),
+                   seconds=time.perf_counter() - t_plan,
+                   k1_heads=sorted(k1_heads), local_wq=list(wq.shape), local_wk=list(wk.shape))
+        record["runs"][label] = run
+        del hp, params, opt, m, local, wq, wk
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_fp32 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=PAR_FP32_LAYERS)
+    ref = torch.load(tmp / "fp32_ref.pt", map_location=dev) if rank == 0 else None
+    for label in payload["fp32"]:
+        t_run = time.perf_counter()
+        plan = _fp32_plan(ExecutionPlan.from_json(payload["plans"][label]), PAR_FP32_LAYERS)
+        hp = construct_hybrid_parallel_model(build_model(cfg2), plan, mesh,
+                                             AdamWConfig(eps=PAR_FP32_EPS))
+        params = hp.init_params(torch.Generator(device=dev).manual_seed(0))
+        loss, _, grads = hp.value_and_grad(params, ds32.batch(0), torch.float32)
+        new, _, _ = hp.apply_grads(params, grads, hp.init_opt_state(params))
+        grads, new = hp.gather_params(grads, hp.grad_specs), hp.gather_params(new)
+        out = {"loss": float(loss)}
+        if rank == 0:
+            worst = worst_g = 0.0
+            for (path, a), b, p0, g, rg in zip(
+                    tree_paths(new), tree_leaves(ref["new"]), tree_leaves(ref["init"]),
+                    tree_leaves(grads), tree_leaves(ref["grads"])):
+                scale = float((b - p0).abs().max())
+                worst = max(worst, float((a - b).abs().max()) / max(scale, 1e-30))
+                g_scale = float(rg.abs().max())
+                worst_g = max(worst_g, float((g - rg).abs().max()) / max(g_scale, 1e-30))
+            out.update(update_err=worst, grad_err=worst_g)
+        out["seconds"] = time.perf_counter() - t_run
+        record["fp32"][label] = out
+        del hp, params, grads, new
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["fp32_seconds"] = time.perf_counter() - t_fp32
+    (tmp / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def parallel_phase(torch) -> dict:
+    """Phase 25: the parallel runtime at full llama3.2-1b width and depth on
+    two ranks sharing the card over gloo (``par_plans``), held to one rank's
+    ``mesh=None`` step on the same seed-0 weights and batches: bf16 losses
+    within ``PAR_LOSS_TOL``, and, for every plan, at ``PAR_FP32_LAYERS``
+    layers in fp32 the loss within ``PAR_FP32_LOSS_RTOL`` relative, every
+    grad within ``PAR_FP32_GRAD_TOL`` of its leaf's grad scale and every
+    updated param within ``PAR_FP32_UPDATE_TOL`` of its leaf's update
+    scale.  Each rank's K1, K2 and K2-backward launches per step are pinned
+    (``par_launches``), and under (a) K1 sees 16 query and 4 KV heads.  Logs
+    each rank's peak memory and their sum against the card, the step times
+    (labelled: no interconnect is measured) and the collectives called on
+    CUDA tensors.  Returns each plan's launches in rank 0's last step."""
+    import math
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models import build_model
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    plans = par_plans(cfg)
+    ds = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_BATCH, seed=0)
+    ds32 = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_FP32_BATCH, seed=0)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # the ranks start (imports, the card, the process group, the mesh)
+        # while this process runs the one-rank oracle; they wait for the payload
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--parallel-rank", str(r), "2", str(tmp)],
+                                  env=dict(os.environ), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            # the one-rank oracle: mesh=None on the same weights and batches
+            one = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
+                               LayerStrategy(remat="selective"), grad_accum=PAR_ACCUM)
+            hp = construct_hybrid_parallel_model(build_model(cfg), one)
+            params = hp.init_params(gen())
+            opt = hp.init_opt_state(params)
+            ref_losses, ref_times = [], []
+            for step in range(PAR_STEPS):
+                t0 = time.perf_counter()
+                params, opt, m = hp.train_step(params, opt, ds.batch(step))
+                torch.cuda.synchronize()
+                ref_times.append(time.perf_counter() - t0)
+                ref_losses.append(float(m["loss"]))
+            del hp, params, opt, m
+            cfg2 = dataclasses.replace(cfg, num_layers=PAR_FP32_LAYERS)
+            hp = construct_hybrid_parallel_model(
+                build_model(cfg2), _fp32_plan(one, PAR_FP32_LAYERS), None,
+                AdamWConfig(eps=PAR_FP32_EPS))
+            init = hp.init_params(gen())
+            loss, _, grads = hp.value_and_grad(init, ds32.batch(0), torch.float32)
+            new, _, _ = hp.apply_grads(init, grads, hp.init_opt_state(init))
+            ref32_loss = float(loss)
+            torch.save({"new": new, "init": init, "grads": grads}, tmp / "fp32_ref.pt")
+            del hp, init, grads, new, loss
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"parallel: one rank (mesh=None, selective, grad_accum {PAR_ACCUM}): losses "
+                f"{ref_losses}, step times {[round(t, 4) for t in ref_times]} s; fp32 at "
+                f"{PAR_FP32_LAYERS} layers, {PAR_FP32_BATCH} x {PAR_SEQ}: loss {ref32_loss}")
+            (tmp / "payload.tmp").write_text(json.dumps({
+                "plans": {k: p.to_json() for k, (p, _) in plans.items()}, "fp32": list(plans)}))
+            os.replace(tmp / "payload.tmp", tmp / "payload.json")
+            t_ranks = time.perf_counter()
+            outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"parallel rank {r} exited {p.returncode}:\n"
+                    + "\n".join(out.splitlines()[-40:]))
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+        log(f"parallel: the oracle {t_ranks - t_phase:.1f} s, beside the ranks' start "
+            f"(rank 0 ready {ranks[0]['ready']:.1f} s after its process began); each plan "
+            f"(init and {PAR_STEPS} steps) "
+            f"{[round(run['seconds'], 1) for run in ranks[0]['runs'].values()]} s, the fp32 "
+            f"runs {ranks[0]['fp32_seconds']:.1f} s "
+            f"({[round(run['seconds'], 1) for run in ranks[0]['fp32'].values()]}); the ranks "
+            f"{time.perf_counter() - t_ranks:.1f} s after the payload")
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    for label, (plan, what) in plans.items():
+        runs = [rk["runs"][label] for rk in ranks]
+        want = par_launches(plan, cfg.num_layers)
+        losses = runs[0]["losses"]
+        require(all(math.isfinite(x) for x in losses), f"parallel ({label}): losses {losses}")
+        require(runs[0]["losses"] == runs[1]["losses"],
+                f"parallel ({label}): the ranks report different losses")
+        delta = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        require(delta <= PAR_LOSS_TOL, f"parallel ({label}): losses {losses} vs one rank "
+                f"{ref_losses} (|delta| {delta:.4g} > {PAR_LOSS_TOL})")
+        for r, run in enumerate(runs):
+            for step, got in enumerate(run["launches"]):
+                require(got == want, f"parallel ({label}) rank {r} step {step}: launches "
+                        f"{got}, expected {want}")
+        peaks = [run["peak"] for run in runs]
+        log(f"parallel ({label}) {what}: losses {losses} (one rank {ref_losses}, |delta| "
+            f"{delta:.4g}), grad norms {runs[0]['grad_norms']}; step times rank 0 "
+            f"{[round(t, 4) for t in runs[0]['times']]} s, rank 1 "
+            f"{[round(t, 4) for t in runs[1]['times']]} s ({NO_INTERCONNECT}); peak memory "
+            f"{[round(x / 2**30, 2) for x in peaks]} GiB, sum {sum(peaks) / 2**30:.2f} of "
+            f"{card / 2**30:.2f} GiB; launches per rank per step K1 "
+            f"{want['flash_attention_fwd']}, K2 {want['rmsnorm']}, K2 backward "
+            f"{want['rmsnorm_bwd']}; K1 heads (query, KV) {runs[0]['k1_heads']}, local wq "
+            f"{runs[0]['local_wq']} wk {runs[0]['local_wk']}; collectives per rank over "
+            f"{PAR_STEPS} steps {runs[0]['ops']}")
+        if label == "a":
+            require(all(run["k1_heads"] == [[16, 4]] for run in runs),
+                    f"parallel (a): K1 heads {[run['k1_heads'] for run in runs]}, not 16 / 4")
+    for label in plans:
+        got = ranks[0]["fp32"][label]
+        rel = abs(got["loss"] - ref32_loss) / abs(ref32_loss)
+        err, g_err = got["update_err"], got["grad_err"]
+        log(f"parallel fp32 ({label}, {PAR_FP32_LAYERS} layers, AdamW eps {PAR_FP32_EPS}): "
+            f"loss {got['loss']} vs one rank {ref32_loss} (relative {rel:.3g}); largest "
+            f"grad error {g_err:.3g} and update error {err:.3g} of its leaf's scale")
+        require(rel <= PAR_FP32_LOSS_RTOL, f"parallel fp32 ({label}): loss relative {rel}")
+        require(g_err <= PAR_FP32_GRAD_TOL, f"parallel fp32 ({label}): grad error {g_err}")
+        require(err <= PAR_FP32_UPDATE_TOL, f"parallel fp32 ({label}): update error {err}")
+    seconds = time.perf_counter() - t_phase
+    log(f"parallel: phase 25 took {seconds:.1f} s")
+    return {label: ranks[0]["runs"][label]["launches"][-1] for label in plans}
+
+
 def main() -> int:
     # growable segments, for every phase: moonshot's training (phase 14)
     # runs out of memory without them, asking for its 5 GiB of fp32 logits
@@ -3220,6 +3583,13 @@ def main() -> int:
     zamba2_train_launches = ssm_train_phase(torch, counters, "zamba2-7b", "none",
                                             layers=ZAMBA2_TRAIN_LAYERS)
 
+    # 25. the parallel runtime: two ranks sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = parallel_phase(torch)
+    par_launches = {"parallel_tp2": par["a"], "parallel_dp2": par["b"],
+                    "parallel": {k: sum(run[k] for run in par.values()) for k in par["a"]}}
+
     # 24. results
     kernels = []
     for rows, name, source, replaces in (
@@ -3243,7 +3613,8 @@ def main() -> int:
                         "whisper_train": whisper_train_launches, "internvl2": vlm_launches,
                         "internvl2_train": vlm_train_launches,
                         "mamba2_train": mamba2_train_launches,
-                        "zamba2_train": zamba2_train_launches, **static_launches}[r["path"]]
+                        "zamba2_train": zamba2_train_launches, **par_launches,
+                        **static_launches}[r["path"]]
             kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
                             "source": source, "replaces": replaces,
                             "launches": launches[name], "max_abs_err": r["max_abs_err"],
@@ -3258,4 +3629,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
+        sys.exit(0)
     sys.exit(main())

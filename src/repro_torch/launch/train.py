@@ -1,6 +1,7 @@
-"""Training launcher on one device: plan -> check -> construct -> train.
+"""Training launcher: plan -> check -> construct -> train.
 
-The single-device path of ``repro.launch.train``: the plan is uniform, built
+On one device (``WORLD_SIZE`` unset or 1), the single-device path of
+``repro.launch.train``: the plan is uniform, built
 from ``--remat`` and ``--grad-accum`` exactly as the JAX launcher builds it
 on one device (it does not search there, and neither does this one).  The
 cost model prices that plan on one H100 (``H100_1``), calibrated from
@@ -15,13 +16,27 @@ kernels); ``--device cpu`` runs the plain versions.
         --batch 8 --grad-accum 4 --remat selective --steps 3
     python -m repro_torch.launch.train profile --full --seq 1024,4096 --dtype bf16
 
-A mesh, pipeline and context parallelism, checkpoints, resume, elastic
-resize, the compiled-step audit and run sinks wait for later slices.
+Under ``torchrun`` (``WORLD_SIZE`` n > 1) it follows JAX's multi-device
+branch: the mesh ``train_mesh_spec(n)``, a ``SearchEngine`` over it on an
+n-card H100 cluster (``H100_NODE8`` with ``chips=n``, ``intra_size=min(n,
+8)``) with ``pp_options=[1]``, the plan line printed by rank 0 alone, then
+the mesh (NCCL on CUDA, gloo on the CPU), ``construct_hybrid_parallel_model``
+and training, every rank building the same global ``SyntheticDataset``
+batch and taking its rows of it.  ``--validate-only`` checks the searched
+plan on that cluster and exits 0 or 1.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \
+        --reduced --device cpu --steps 2 --seq 32 --batch 8
+
+Pipeline (``--pp``) and context parallelism (``--cp``), checkpoints,
+resume, elastic resize, the compiled-step audit and run sinks wait for
+later slices.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import statistics
 import sys
 import time
@@ -33,10 +48,11 @@ from repro_torch.configs.registry import ARCH_IDS, ModelConfig, get_config
 from repro_torch.core import calibrate
 from repro_torch.core import cost_model as cm
 from repro_torch.core import profile_cache as pcache_lib
-from repro_torch.core.cluster import H100_1
+from repro_torch.core.cluster import H100_1, H100_NODE8, ClusterSpec
 from repro_torch.core.profiler_model import profile_model
-from repro_torch.core.search import evaluate_uniform
+from repro_torch.core.search import SearchEngine, evaluate_uniform
 from repro_torch.core.strategy import ExecutionPlan, LayerStrategy, uniform_plan
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import build_model
 from repro_torch.models.common import tree_leaves
 from repro_torch.obs.drift import DRIFT_RATIO_THRESHOLD
@@ -57,12 +73,13 @@ def resolve_cfg(args) -> ModelConfig:
 
 
 def _predicted_breakdown(plan: ExecutionPlan, cfg: ModelConfig, seq_len: int,
-                         global_batch: int, calibration) -> dict:
-    """Cost-model comm-vs-compute split for ``plan`` on one H100 (seconds
+                         global_batch: int, calibration,
+                         cluster: ClusterSpec = H100_1) -> dict:
+    """Cost-model comm-vs-compute split for ``plan`` on ``cluster`` (seconds
     per step), beside the plan's predicted step time and memory."""
     profile = profile_model(cfg, seq_len)
     micro = max(global_batch // max(plan.grad_accum, 1), 1)
-    env = cm.CostEnv(cluster=H100_1,
+    env = cm.CostEnv(cluster=cluster,
                      devices=plan.num_devices // max(plan.pp, 1),
                      pp=plan.pp, micro_batch=micro,
                      grad_accum=plan.grad_accum,
@@ -115,7 +132,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda: the CUDA kernels; cpu: the "
                          "plain versions)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (waits for Queue 1 item 4's pipeline PR)")
+    ap.add_argument("--cp", type=int, default=1,
+                    help="context-parallel degree (waits for Queue 1 item 4's context PR)")
     args = ap.parse_args(argv)
+    if args.pp > 1:
+        raise SystemExit("--pp waits for Queue 1 item 4's pipeline PR "
+                         "(parallel/pipeline.py, runtime/train_pp.py)")
+    if args.cp > 1:
+        raise SystemExit("--cp waits for Queue 1 item 4's context PR (parallel/context.py)")
 
     calibration = calibrate.DEFAULT_CALIBRATION
     if args.profile_cache:
@@ -130,6 +156,9 @@ def main(argv=None) -> int:
         print(f"calibration: {calibration.source} ({args.profile_cache})")
 
     cfg = resolve_cfg(args)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        return _main_ranks(args, cfg, calibration, world)
     model = build_model(cfg, device=args.device)
     # the JAX launcher's plan on one device: one strategy for every layer
     plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
@@ -196,6 +225,70 @@ def main(argv=None) -> int:
           + (str(drift[0]) if drift else "within the band"))
     print("done")
     return 0
+
+
+def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
+    """The multi-device branch under ``torchrun`` (see the module note)."""
+    import torch.distributed as dist
+
+    rank = int(os.environ.get("RANK", "0"))
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        shape, axes = mesh_lib.train_mesh_spec(world)
+        cluster = dataclasses.replace(H100_NODE8, chips=world, intra_size=min(world, 8))
+        res = SearchEngine(cfg, cluster=cluster, calibration=calibration).search(
+            args.seq, args.batch, mesh_shape=shape, mesh_axes=axes, pp_options=[1],
+            arch=cfg.name)
+        plan = res.plan
+        say = print if rank == 0 else (lambda *a, **k: None)
+        note = plan.notes.split("|")[-1].strip() if plan.notes else ""
+        say(f"plan[search]: {plan.default_strategy.short()} ga={plan.grad_accum} "
+            f"mesh={plan.mesh_shape} groups={len(plan.groups())}" + (f" ({note})" if note
+                                                                     else ""))
+        b = _predicted_breakdown(plan, cfg, args.seq, args.batch, calibration, cluster)
+        say(f"predicted ({cluster.name} x{world}, {calibration.source} calibration): "
+            f"compute {b['compute_s']:.6g} s, comm {b['comm_s']:.6g} s per step; plan step "
+            f"{b['predicted_step_time_s']:.6g} s, memory "
+            f"{b['predicted_memory_bytes'] / 1e9:.6g} GB per device")
+        if args.validate_only:
+            report = plan_check.check_plan(
+                plan, cluster, cfg, seq_len=args.seq, global_batch=args.batch,
+                profile=profile_model(cfg, args.seq), calibration=calibration)
+            say(report.format_table())
+            return 0 if report.ok() else 1
+
+        mesh = mesh_lib.make_mesh(shape, axes, device=device)
+        hp = construct_hybrid_parallel_model(build_model(cfg, device=device), plan, mesh)
+        params = hp.init_params(torch.Generator(device=device).manual_seed(0))
+        opt = hp.init_opt_state(params)
+        say(f"model: {cfg.name} on {world} ranks of {mesh.backend} ({device.type}), "
+            f"groups {[g.strategy.short() for g in plan.groups()]}")
+        ds = SyntheticDataset(cfg, seq_len=args.seq, global_batch=args.batch)
+        times = []
+        for step in range(args.steps):
+            batch = ds.batch(step)
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, metrics = hp.train_step(params, opt, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                say(f"step {step} loss {float(metrics['loss']):.6f} grad_norm "
+                    f"{float(metrics['grad_norm']):.6f} step_time {times[-1] * 1e3:.1f} ms")
+        if device.type == "cuda":
+            say(f"peak memory (rank 0) "
+                f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        say(f"median step {statistics.median(times) * 1e3:.1f} ms vs predicted "
+            f"{plan.predicted_step_time * 1e3:.1f} ms")
+        say("done")
+        return 0
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

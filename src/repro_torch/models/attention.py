@@ -1,8 +1,18 @@
 """Multi-head attention with GQA, qk-norm, optional bias, a KV cache and
 cross-attention.
 
-K/V are stored compact (``num_kv_heads``).  The port runs on one device, so
-query heads are never padded for tensor parallelism.
+K/V are stored compact (``num_kv_heads``).  Query heads are never padded
+for tensor parallelism: under it (``collectives.tp_state``, training only)
+the head counts are read from the shard shapes.  ``wq`` / ``wo`` hold this
+rank's contiguous block of query heads and ``wk`` / ``wv`` its KV heads, or
+every KV head where ``spec_for_shape`` left them whole (fewer KV heads than
+ranks); then each rank keeps the KV heads its query heads map to, global
+query head // g, which is the function JAX's expanded heads give.  The
+block is a region (``collectives.region_in`` / ``region_out``), and the
+leaves a rank holds whole but uses for its heads alone (qk-norm scales,
+replicated K/V projections) get their grads summed over the model axis
+(``collectives.partial_grad``).  A head count the model axis does not
+divide keeps the block whole and replicated.
 
 ``attention_block`` takes JAX's modes: ``"train"``, ``"prefill"`` and
 ``"decode"`` (causal self-attention), ``"encoder"`` (non-causal
@@ -47,6 +57,7 @@ from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models.common import ParamDef
 from repro_torch.models.norms import head_rmsnorm
 from repro_torch.models.rotary import apply_rope, rope_angles
+from repro_torch.parallel import collectives
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 INT32_MAX = int(np.iinfo(np.int32).max)
@@ -62,15 +73,19 @@ def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     # explicit stds: q/k/v contract over d_model and wo over h·hd, which the
     # fan-in heuristic (shape[-2]) gets wrong for these 3-D projections
     defs = {
-        "wq": ParamDef((d, h, hd), ("embed", "q_heads", "head_dim"), scale=d ** -0.5),
-        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=d ** -0.5),
-        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=d ** -0.5),
-        "wo": ParamDef((h, hd, d), ("q_heads", "head_dim", "embed"), scale=(h * hd) ** -0.5),
+        "wq": ParamDef((d, h, hd), ("embed", "q_heads", "head_dim"), scale=d ** -0.5,
+                       cast=True),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=d ** -0.5,
+                       cast=True),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"), scale=d ** -0.5,
+                       cast=True),
+        "wo": ParamDef((h, hd, d), ("q_heads", "head_dim", "embed"), scale=(h * hd) ** -0.5,
+                       cast=True),
     }
     if cfg.qkv_bias and not cross:
-        defs["bq"] = ParamDef((h, hd), ("q_heads", "head_dim"), init="zeros")
-        defs["bk"] = ParamDef((kv, hd), ("kv_heads", "head_dim"), init="zeros")
-        defs["bv"] = ParamDef((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+        defs["bq"] = ParamDef((h, hd), ("q_heads", "head_dim"), init="zeros", cast=True)
+        defs["bk"] = ParamDef((kv, hd), ("kv_heads", "head_dim"), init="zeros", cast=True)
+        defs["bv"] = ParamDef((kv, hd), ("kv_heads", "head_dim"), init="zeros", cast=True)
     if cfg.qk_norm and not cross:
         defs["q_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
         defs["k_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
@@ -344,6 +359,42 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, cache_index) -> None:
     cache[:, ci:ci + Sq] = new
 
 
+def _tp_params(params: dict, cfg: ModelConfig) -> dict:
+    """The attention params of a head-sharded region: leaves held whole and
+    used for this rank's heads alone get their grads summed over the model
+    axis."""
+    out = dict(params)
+    whole = ["q_norm", "k_norm"]
+    if params["wk"].shape[1] == cfg.num_kv_heads:
+        whole += ["wk", "wv", "bk", "bv"]
+    for name in whole:
+        if name in out:
+            out[name] = collectives.partial_grad(out[name])
+    return out
+
+
+def local_kv_heads(num_heads: int, num_kv: int, first_q: int, local_q: int) -> list[int]:
+    """The KV heads (of ``num_kv``) that query heads ``first_q`` ..
+    ``first_q + local_q - 1`` read, one per query head (global head // g),
+    collapsed to each distinct head once where every one serves the same
+    number of consecutive query heads (a compact GQA layout the kernel
+    takes as it is)."""
+    g = num_heads // num_kv
+    idx = [(first_q + i) // g for i in range(local_q)]
+    distinct = sorted(set(idx))
+    per = local_q // len(distinct)
+    if per * len(distinct) == local_q and idx == [h for h in distinct for _ in range(per)]:
+        return distinct
+    return idx
+
+
+def _select_kv(k, v, heads: list[int]):
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return k[:, :, heads[0]:heads[0] + len(heads)], v[:, :, heads[0]:heads[0] + len(heads)]
+    idx = torch.tensor(heads, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _flash_full(q, k, v, *, causal, kv_len=None):
     """K1 on a full pass (offset 0): under its autograd function where a grad
     is wanted, else the forward alone (with ``kv_len`` as positions)."""
@@ -397,7 +448,19 @@ def attention_block(
             out = attention_math(q, ke, ve, causal=False, kv_len=kv_len)
         return _out_proj(params, out, x.dtype), cache
 
+    tp = collectives.tp_state() if mode == "train" and not cross else None
+    sharded = False
+    if tp is not None:
+        sharded = params["wq"].shape[1] < cfg.num_heads
+        x = collectives.region_in(x, sharded)
+        B, Sq, _ = x.shape
+        if sharded:
+            params = _tp_params(params, cfg)
     q, k, v = _project_qkv(params, x, kv_source if cross else x, cfg, impl)
+    if sharded and k.shape[2] == cfg.num_kv_heads:      # KV heads held whole
+        local_q = q.shape[2]
+        k, v = _select_kv(k, v, local_kv_heads(cfg.num_heads, cfg.num_kv_heads,
+                                               tp.group.index * local_q, local_q))
     if not cross:                   # RoPE on self-attention only
         pos_q = (_q_positions(cache_index, Sq, x.device) if mode == "decode"
                  else torch.arange(Sq, device=x.device))
@@ -429,4 +492,7 @@ def attention_block(
         else:
             q, ke, ve = expand_and_pad(q, k, v)
             out = attention_math(q, ke, ve, causal=causal, kv_len=kv_len)
-    return _out_proj(params, out, x.dtype), new_cache
+    y = _out_proj(params, out, x.dtype)
+    if tp is not None:
+        y = collectives.region_out(y, sharded)
+    return y, new_cache

@@ -47,6 +47,10 @@ class ParamDef:
     logical_axes: tuple[str | None, ...]
     init: str = "normal"          # normal | zeros | ones | small_normal
     scale: float | None = None    # stddev override for normal inits
+    # the layers read this leaf once, through ``.to(<the forward's dtype>)``,
+    # so a ZeRO-3 gather may move it in that dtype (runtime/train.py); a
+    # leaf read at several sites is not cast, as its grads sum in fp32
+    cast: bool = False
 
     def __post_init__(self):
         if len(self.shape) != len(self.logical_axes):

@@ -1,6 +1,9 @@
 """Feed-forward variants: SwiGLU (llama/qwen), squared-ReLU (nemotron), GELU.
 
-Plain matrix products, as the JAX package leaves them to XLA.
+Plain matrix products, as the JAX package leaves them to XLA.  Under
+tensor parallelism ``w_in`` / ``w_gate`` hold this rank's ff columns and
+``w_out`` its ff rows: the FFN is a region (``collectives.region_in`` /
+``region_out``, JAX's ``lc`` sites on ``h`` and ``y``).
 """
 from __future__ import annotations
 
@@ -9,16 +12,17 @@ import torch.nn.functional as F
 
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models.common import ParamDef
+from repro_torch.parallel import collectives
 
 
 def ffn_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
     defs = {
-        "w_in": ParamDef((d, f), ("embed", "ff")),
-        "w_out": ParamDef((f, d), ("ff", "embed")),
+        "w_in": ParamDef((d, f), ("embed", "ff"), cast=True),
+        "w_out": ParamDef((f, d), ("ff", "embed"), cast=True),
     }
     if cfg.mlp_type in ("swiglu", "geglu"):
-        defs["w_gate"] = ParamDef((d, f), ("embed", "ff"))
+        defs["w_gate"] = ParamDef((d, f), ("embed", "ff"), cast=True)
     return defs
 
 
@@ -28,6 +32,8 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    sharded = params["w_in"].shape[-1] < cfg.d_ff
+    x = collectives.region_in(x, sharded)
     h = torch.matmul(x, params["w_in"].to(x.dtype))
     if cfg.mlp_type in ("swiglu", "geglu"):
         g = torch.matmul(x, params["w_gate"].to(x.dtype))
@@ -40,4 +46,4 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = _gelu(h)
     else:
         raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
-    return torch.matmul(h, params["w_out"].to(x.dtype))
+    return collectives.region_out(torch.matmul(h, params["w_out"].to(x.dtype)), sharded)

@@ -29,6 +29,7 @@ by leaf.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -36,7 +37,7 @@ import torch
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import embedding
-from repro_torch.models.common import stacked
+from repro_torch.models.common import stacked, tree_map
 from repro_torch.models.mamba2 import Mamba2LM, mamba_block_apply, mamba_block_defs, stack_states
 from repro_torch.models.norms import rmsnorm, rmsnorm_defs
 from repro_torch.models.transformer import decoder_block_apply, decoder_block_defs
@@ -46,6 +47,8 @@ class HybridLM(Mamba2LM):
     """``impl="kernel"`` runs K1, K2 and K3 on CUDA tensors (their plain
     versions on CPU tensors); ``impl="ref"`` runs the plain PyTorch math
     everywhere."""
+
+    supports_layer_grouping = False  # the segment structure owns the stack layout
 
     def __init__(self, cfg: ModelConfig, impl: str = "kernel", device="cuda"):
         super().__init__(cfg, impl, device)
@@ -65,7 +68,9 @@ class HybridLM(Mamba2LM):
         return {
             "embed": embedding.embed_defs(cfg),
             "blocks": stacked(mamba_block_defs(cfg), cfg.num_layers),
-            "shared_attn": self.shared_block_defs(),             # stored ONCE
+            # stored ONCE and read at every site, so none of it is cast
+            "shared_attn": tree_map(lambda d: dataclasses.replace(d, cast=False),
+                                    self.shared_block_defs()),
             "final_norm": rmsnorm_defs(cfg.d_model),
         }
 

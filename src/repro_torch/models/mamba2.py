@@ -68,19 +68,19 @@ def mamba_block_defs(cfg: ModelConfig) -> dict:
     W = cfg.conv_width
     return {
         "ln": rmsnorm_defs(d),
-        "w_z": ParamDef((d, d_inner), ("embed", "ssm_inner")),
-        "w_x": ParamDef((d, d_inner), ("embed", "ssm_inner")),
-        "w_B": ParamDef((d, G * N), ("embed", "ssm_groups")),
-        "w_C": ParamDef((d, G * N), ("embed", "ssm_groups")),
-        "w_dt": ParamDef((d, H), ("embed", "ssm_heads")),
-        "conv_x": ParamDef((W, d_inner), ("conv", "ssm_inner"), scale=0.5),
-        "conv_B": ParamDef((W, G * N), ("conv", "ssm_groups"), scale=0.5),
-        "conv_C": ParamDef((W, G * N), ("conv", "ssm_groups"), scale=0.5),
+        "w_z": ParamDef((d, d_inner), ("embed", "ssm_inner"), cast=True),
+        "w_x": ParamDef((d, d_inner), ("embed", "ssm_inner"), cast=True),
+        "w_B": ParamDef((d, G * N), ("embed", "ssm_groups"), cast=True),
+        "w_C": ParamDef((d, G * N), ("embed", "ssm_groups"), cast=True),
+        "w_dt": ParamDef((d, H), ("embed", "ssm_heads"), cast=True),
+        "conv_x": ParamDef((W, d_inner), ("conv", "ssm_inner"), scale=0.5, cast=True),
+        "conv_B": ParamDef((W, G * N), ("conv", "ssm_groups"), scale=0.5, cast=True),
+        "conv_C": ParamDef((W, G * N), ("conv", "ssm_groups"), scale=0.5, cast=True),
         "A_log": ParamDef((H,), ("ssm_heads",), init="zeros"),
         "D": ParamDef((H,), ("ssm_heads",), init="ones"),
         "dt_bias": ParamDef((H,), ("ssm_heads",), init="zeros"),
         "gate_norm": rmsnorm_defs(d_inner),
-        "w_out": ParamDef((d_inner, d), ("ssm_inner", "embed")),
+        "w_out": ParamDef((d_inner, d), ("ssm_inner", "embed"), cast=True),
     }
 
 

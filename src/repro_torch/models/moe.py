@@ -49,12 +49,14 @@ def moe_ffn_defs(cfg: ModelConfig) -> dict:
     # explicit scales (lint: paramdef-scale), 1/sqrt(fan_in) as JAX writes them
     defs = {
         "router": ParamDef((d, e), ("embed", "experts"), init="small_normal"),
-        "w_in": ParamDef((e, d, f), ("experts", "embed", "ff"), scale=1.0 / math.sqrt(d)),
-        "w_out": ParamDef((e, f, d), ("experts", "ff", "embed"), scale=1.0 / math.sqrt(f)),
+        "w_in": ParamDef((e, d, f), ("experts", "embed", "ff"), scale=1.0 / math.sqrt(d),
+                         cast=True),
+        "w_out": ParamDef((e, f, d), ("experts", "ff", "embed"), scale=1.0 / math.sqrt(f),
+                          cast=True),
     }
     if cfg.mlp_type in ("swiglu", "geglu"):
         defs["w_gate"] = ParamDef((e, d, f), ("experts", "embed", "ff"),
-                                  scale=1.0 / math.sqrt(d))
+                                  scale=1.0 / math.sqrt(d), cast=True)
     if cfg.shared_expert_ff:
         defs["shared"] = ffn.ffn_defs(cfg, cfg.shared_expert_ff)
     return defs

@@ -25,6 +25,14 @@ applies each layer's remat policy); ``default_layer_runner`` is the plain
 loop in place of JAX's ``lax.scan``.  Each block returns the FFN's fp32
 side loss (``extra``: the MoE router's aux loss, 0.0 for the dense FFN);
 ``forward_train`` sums it over the layers, the serving passes drop it.
+
+Under tensor parallelism (training on a mesh) the attention and the FFN are
+regions of their own (``models/attention.py``, ``models/ffn.py``); the
+residual stream between them holds the boundary layout, sequence shards
+under sequence parallelism, where the norms' scales get their grads summed
+over the model axis (``collectives.seq_partial``).  ``forward_train`` moves
+the embedding to that layout (``lc``: JAX's ``lc(x, "batch", "seq",
+"embed")``), and the head back to the whole sequence.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ from repro_torch.models import embedding, ffn
 from repro_torch.models.common import (init_params, resolve_device, stacked, take_layer,
                                        unstack_layers)
 from repro_torch.models.norms import rmsnorm, rmsnorm_defs
+from repro_torch.parallel import collectives
+from repro_torch.parallel.axes import lc
 
 
 def default_layer_runner(stacked_params: dict, x: torch.Tensor, apply_block):
@@ -74,12 +84,12 @@ def decoder_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, impl: s
     (y, extra)`` replaces the dense FFN (the MoE family's hook).  Returns
     (x, the attention's new cache (see ``attention.attention_block``), the
     FFN's fp32 side loss: 0.0 for the dense FFN)."""
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps, impl)
+    h = rmsnorm(collectives.seq_partial(params["ln1"]), x, cfg.norm_eps, impl)
     a, new_cache = attn.attention_block(
         params["attn"], h, cfg=cfg, mode=mode, cache=cache,
         cache_index=cache_index, kv_len=kv_len, impl=impl, positions=positions)
     x = x + a
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps, impl)
+    h = rmsnorm(collectives.seq_partial(params["ln2"]), x, cfg.norm_eps, impl)
     if ffn_apply is None:
         y, extra = dense_ffn_apply(params["mlp"], h, cfg)
     else:
@@ -137,7 +147,7 @@ class DenseTransformerLM(nn.Module):
                       vis_embeds: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
         """Token embeddings (B, S, D), with ``vis_embeds`` (B, Sv, D) cast to
         ``dtype`` and prepended along the sequence when given."""
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, self.cfg.vocab_size)
         if vis_embeds is not None:
             x = torch.cat([vis_embeds.to(dtype), x], dim=1)
         return x
@@ -148,14 +158,15 @@ class DenseTransformerLM(nn.Module):
         """tokens (B, S) -> (fp32 logits (B, Sv + S, V), extra fp32 scalar);
         Sv = 0 without ``vis_embeds``."""
         runner = layer_runner or default_layer_runner
-        x = self._embed_inputs(params, tokens, vis_embeds, dtype)
+        x = lc(self._embed_inputs(params, tokens, vis_embeds, dtype), "batch", "seq", "embed")
 
         def apply_block(bp, h):
             out, _, extra = self.block_apply(bp, h, mode="train")
             return out, extra
 
         x, extra = runner(params["blocks"], x, apply_block)
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
+        x = rmsnorm(collectives.seq_partial(params["final_norm"]), x, self.cfg.norm_eps,
+                    self.impl)
         return embedding.lm_head(params["embed"], x, self.cfg), extra
 
     # ------------------------------------------------------------ serving

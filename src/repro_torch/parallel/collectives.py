@@ -1,0 +1,324 @@
+"""Collectives and the tensor-parallel region operators.
+
+JAX hands sharding constraints to GSPMD, which inserts the collectives.  The
+port holds local shards as plain tensors and moves activations itself, in
+the Megatron layout that Galvatron's own PyTorch runtime uses: explicit
+process groups (``launch.mesh.AxisGroup``) and ``torch.autograd.Function``s
+at the region boundaries.  Each pairs a forward collective with its adjoint:
+
+================  ==============================  ===========================
+operator          forward                         backward
+================  ==============================  ===========================
+``copy_to``       identity                        all-reduce
+``reduce_from``   all-reduce                      identity
+``gather``        all-gather along ``dim``        this rank's slice
+``split``         this rank's slice               all-gather
+``gather_sum``    all-gather along ``dim``        reduce-scatter
+``scatter_sum``   reduce-scatter along ``dim``    all-gather
+================  ==============================  ===========================
+
+``gather_sum_many`` is ``gather_sum`` over several tensors in one message.
+
+A group of one makes every operator the identity.  Every collective runs
+in its tensor's dtype, as NCCL and XLA reduce: a bf16 partial sum is summed
+in bf16, so two ranks round it once, as a single card rounds its matmul's
+fp32 sum once.  The names used (``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``) exist in every torch this runs on, and gloo
+takes each of them on CUDA tensors in fp32 and bf16, so nothing is staged
+through the host by hand.
+
+``region_in`` / ``region_out`` are the tensor-parallel boundaries the
+models call where JAX marks ``lc`` sites: entering a region whose weights
+are sharded over the model axis (identity forward, all-reduced grad; under
+sequence parallelism an all-gather of the sequence with a reduce-scattered
+grad) and leaving it after ``wo`` / ``w_out`` (an all-reduce; under
+sequence parallelism a reduce-scatter to sequence shards).  Where
+``spec_for_shape`` left a weight whole (e.g. one KV head at tp 2), the
+region is computed replicated and only the sequence moves.
+``partial_grad`` marks a leaf that every rank holds whole but uses for part
+of the work (the norm scales under sequence parallelism, qk-norm scales and
+replicated K/V projections beside sharded query heads): identity forward,
+grad all-reduced over the model axis.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.axes import current_rules
+
+def _trivial(group) -> bool:
+    return group is None or group.size == 1
+
+
+# --------------------------------------------------------------------------
+# plain collectives (out of place, no autograd)
+# --------------------------------------------------------------------------
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A new tensor: ``x`` reduced over ``group``."""
+    if _trivial(group):
+        return x
+    buf = x.clone()
+    dist.all_reduce(buf, op=op, group=group.pg)
+    return buf
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim`` in shard order."""
+    if _trivial(group):
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((group.size * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group.pg)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's shard along ``dim`` of the sum of the group's tensors."""
+    if _trivial(group):
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    if src.shape[0] % group.size:
+        raise ValueError(f"dim {dim} of size {src.shape[0]} does not split over "
+                         f"{group.size} ranks")
+    out = torch.empty((src.shape[0] // group.size,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=group.pg)
+    return out.movedim(0, dim).contiguous()
+
+
+def take_shard(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's contiguous shard of ``x`` along ``dim`` (a copy)."""
+    if _trivial(group):
+        return x
+    n = x.shape[dim]
+    if n % group.size:
+        raise ValueError(f"dim {dim} of size {n} does not split over {group.size} ranks")
+    size = n // group.size
+    return x.narrow(dim, group.index * size, size).contiguous()
+
+
+# --------------------------------------------------------------------------
+# autograd operators
+# --------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return take_shard(g, ctx.dim, ctx.group), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return take_shard(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherSumMany(torch.autograd.Function):
+    """``gather_sum`` of several tensors of one dtype over one group, in one
+    all-gather forward and one reduce-scatter backward: each tensor's
+    ``dim`` moved first and flattened into one buffer per rank."""
+
+    @staticmethod
+    def forward(ctx, dims, group, *xs):
+        ctx.dims, ctx.group = dims, group
+        moved = [x.movedim(d, 0) for x, d in zip(xs, dims)]
+        ctx.shapes = [tuple(m.shape) for m in moved]
+        flat = torch.cat([m.reshape(-1) for m in moved])
+        out = all_gather(flat, 0, group).view(group.size, -1)
+        outs, start = [], 0
+        for (n0, *rest), d in zip(ctx.shapes, dims):
+            size = n0 * int(np.prod(rest, dtype=np.int64))
+            piece = out[:, start:start + size].reshape(group.size * n0, *rest)
+            outs.append(piece.movedim(0, d).contiguous())
+            start += size
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.group.size
+        flat = torch.cat([g.movedim(d, 0).reshape(n, -1)
+                          for g, d in zip(grads, ctx.dims)], dim=1)
+        mine = reduce_scatter(flat.reshape(-1), 0, ctx.group)
+        outs, start = [], 0
+        for shape, d in zip(ctx.shapes, ctx.dims):
+            size = int(np.prod(shape, dtype=np.int64))
+            outs.append(mine[start:start + size].reshape(shape).movedim(0, d).contiguous())
+            start += size
+        return (None, None, *outs)
+
+
+def gather_sum_many(xs: list, dims: list, group) -> list:
+    """``[gather_sum(x, d, group) ...]`` in one collective each way (ZeRO-3's
+    per-layer gather: one message a layer, not one a leaf)."""
+    if _trivial(group) or not xs:
+        return list(xs)
+    if len({x.dtype for x in xs}) > 1:
+        raise ValueError("gather_sum_many takes one dtype, got "
+                         f"{sorted({str(x.dtype) for x in xs})}")
+    return list(_GatherSumMany.apply(tuple(dims), group, *xs))
+
+
+def copy_to(x, group):
+    return x if _trivial(group) else _CopyTo.apply(x, group)
+
+
+def reduce_from(x, group):
+    return x if _trivial(group) else _ReduceFrom.apply(x, group)
+
+
+def gather(x, dim: int, group):
+    return x if _trivial(group) else _Gather.apply(x, dim, group)
+
+
+def split(x, dim: int, group):
+    return x if _trivial(group) else _Split.apply(x, dim, group)
+
+
+def gather_sum(x, dim: int, group):
+    return x if _trivial(group) else _GatherSum.apply(x, dim, group)
+
+
+def scatter_sum(x, dim: int, group):
+    return x if _trivial(group) else _ScatterSum.apply(x, dim, group)
+
+
+# --------------------------------------------------------------------------
+# tensor-parallel regions, read from the active rules
+# --------------------------------------------------------------------------
+
+SEQ_DIM = 1          # activations are (batch, seq, ...)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPState:
+    group: object        # launch.mesh.AxisGroup of the model axis
+    sp: bool             # sequence parallelism: boundaries hold sequence shards
+
+
+def tp_state() -> Optional[TPState]:
+    """The active layer group's tensor parallelism, or None (no rules, an
+    abstract mesh, tp 1, or a model axis of one rank)."""
+    rules = current_rules()
+    if rules is None or not hasattr(rules.mesh, "group"):
+        return None
+    target = rules.rules.get("q_heads")
+    if target is None:
+        return None
+    group = rules.mesh.group(target)
+    if group.size == 1:
+        return None
+    seq = rules.rules.get("seq")
+    sp = seq is not None and target in (seq if isinstance(seq, tuple) else (seq,))
+    return TPState(group, sp)
+
+
+def region_in(x: torch.Tensor, sharded: bool = True) -> torch.Tensor:
+    """Enter a tensor-parallel region from the boundary layout: the full
+    sequence on every rank of the model axis (see the module note)."""
+    tp = tp_state()
+    if tp is None:
+        return x
+    if sharded:
+        return gather_sum(x, SEQ_DIM, tp.group) if tp.sp else copy_to(x, tp.group)
+    return gather(x, SEQ_DIM, tp.group) if tp.sp else x
+
+
+def region_out(y: torch.Tensor, sharded: bool = True) -> torch.Tensor:
+    """Leave a tensor-parallel region: ``y`` is this rank's partial sum when
+    the region's weights are sharded, else the whole value."""
+    tp = tp_state()
+    if tp is None:
+        return y
+    if sharded:
+        return scatter_sum(y, SEQ_DIM, tp.group) if tp.sp else reduce_from(y, tp.group)
+    return split(y, SEQ_DIM, tp.group) if tp.sp else y
+
+
+def partial_grad(w: torch.Tensor) -> torch.Tensor:
+    """``w`` whole on every rank of the model axis, its grad summed over it."""
+    tp = tp_state()
+    return w if tp is None else copy_to(w, tp.group)
+
+
+def seq_partial(params: dict) -> dict:
+    """A norm's params, their grads summed over the model axis when the
+    norm runs on sequence shards."""
+    tp = tp_state()
+    if tp is None or not tp.sp:
+        return params
+    return {k: copy_to(v, tp.group) for k, v in params.items()}
+
+
+def relayout(x: torch.Tensor, src: str, dst: str, group) -> torch.Tensor:
+    """The residual stream moved between two layouts over the model axis:
+    ``"rep"`` (whole on every rank), ``"seq"`` (sequence shards) or
+    ``"batch"`` (batch shards, where a tp 1 layer absorbs the model axis
+    into data parallelism).  A pure change of layout: its backward is the
+    inverse change, so grads stay those of the whole value."""
+    if src == dst or _trivial(group):
+        return x
+    if src != "rep":
+        x = gather(x, SEQ_DIM if src == "seq" else 0, group)
+    if dst != "rep":
+        x = split(x, SEQ_DIM if dst == "seq" else 0, group)
+    return x

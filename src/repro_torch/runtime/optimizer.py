@@ -12,6 +12,12 @@ package's and is kept as it is: the stacked block norm scales ``(L, D)`` and
 the qkv biases ``(L, H, hd)`` have rank >= 2 and so are decayed; only
 unstacked vectors such as ``final_norm.scale`` are not.
 
+On a mesh the trees hold local shards: ``global_norm`` takes their spec
+tree and sums each leaf's squares over exactly the mesh axes that leaf is
+sharded on, so a leaf held whole counts once, and the update takes that
+norm (``gnorm=``) instead of the local one.  The rank rule reads the
+shard's rank, which is the leaf's.
+
 ``abstract_adamw_state`` waits for the dry-run slice.
 """
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import spec_dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,15 +57,33 @@ def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
                       m=zeros(cfg.m_dtype), v=zeros(cfg.v_dtype))
 
 
-def global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """The 2-norm of every leaf together.  With ``specs`` (the tree's spec
+    tree) and ``mesh``, leaves are local shards: the squares of the leaves
+    sharded over one set of axes (those of more than one rank) are summed
+    and all-reduced over that set."""
+    if specs is None:
+        sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    parts: dict = {}
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        axes = {a for _, dim_axes in spec_dims(spec) for a in dim_axes if mesh.shape[a] > 1}
+        key = tuple(a for a in mesh.axis_names if a in axes)
+        parts.setdefault(key, []).append(torch.sum(torch.square(x.float())))
+    total = None
+    for key in sorted(parts, key=len):
+        part = torch.sum(torch.stack(parts[key]))
+        if key:
+            part = collectives.all_reduce(part, mesh.group(key))
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
-def _leaf_update(grads, state: AdamWState, cfg: AdamWConfig):
+def _leaf_update(grads, state: AdamWState, cfg: AdamWConfig, gnorm=None):
     """(new step, ``upd(p, g, m, v) -> (new_p, new_m, new_v)`` for one leaf,
-    the grads' global norm)."""
-    gnorm = global_norm(grads)
+    the grads' global norm: ``gnorm`` when given, else ``grads``')."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0) if cfg.grad_clip
              else 1.0)
     step = state.step + 1
@@ -81,20 +107,20 @@ def _leaf_update(grads, state: AdamWState, cfg: AdamWConfig):
     return step, upd, gnorm
 
 
-def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig):
+def adamw_update(params, grads, state: AdamWState, cfg: AdamWConfig, gnorm=None):
     """Returns (new_params, new_state, stats)."""
-    step, upd, gnorm = _leaf_update(grads, state, cfg)
+    step, upd, gnorm = _leaf_update(grads, state, cfg, gnorm)
     flat = tree_map(upd, params, grads, state.m, state.v)
     pick = lambda i: tree_map(lambda t3: t3[i], flat)
     return pick(0), AdamWState(step, pick(1), pick(2)), {"grad_norm": gnorm}
 
 
-def adamw_update_(params, grads, state: AdamWState, cfg: AdamWConfig):
+def adamw_update_(params, grads, state: AdamWState, cfg: AdamWConfig, gnorm=None):
     """``adamw_update`` with its results written into ``params``, ``state.m``
     and ``state.v`` in place, leaf by leaf (the same numbers): only one
     leaf's temporaries are live at a time, never a second tree.  Returns
     (params, the new state over the same m/v tensors, stats)."""
-    step, upd, gnorm = _leaf_update(grads, state, cfg)
+    step, upd, gnorm = _leaf_update(grads, state, cfg, gnorm)
     for p, g, m, v in zip(*map(tree_leaves, (params, grads, state.m, state.v))):
         for dst, new in zip((p, m, v), upd(p, g, m, v)):
             dst.copy_(new)

@@ -1,33 +1,55 @@
-"""Training runtime on one device (the single-device part of
-``repro.runtime.train``).
+"""Training runtime (the port of ``repro.runtime.train``).
 
 ``construct_hybrid_parallel_model`` (named after the paper's API) takes a
-model and an :class:`ExecutionPlan` and returns a :class:`HybridParallelModel`
-whose ``train_step(params, opt_state, batch)`` applies the plan: each
-layer's remat policy from ``plan.layer_strategies``, gradient accumulation
-over ``plan.grad_accum`` microbatches (the mean of their losses and grads,
-summed in fp32), then AdamW.  Parameters keep the canonical stacked
-``blocks`` tree; grouping them by strategy is a sharding concern of the
-parallel runtime.
+model, an :class:`ExecutionPlan` and a mesh, and returns a
+:class:`HybridParallelModel` whose ``train_step(params, opt_state, batch)``
+applies the plan: each group's activation rules and remat policy, gradient
+accumulation over ``plan.grad_accum`` microbatches (the mean of their
+losses and grads, summed in fp32), the grads reduced as the ZeRO stage
+says, then AdamW.
 
-One device only: a mesh, or a plan that spans more than one device (a mesh
-shape of more than one device, or tp, cp, ep or pp above 1), raises
-``NotImplementedError``.  ZeRO stages are accepted: over one device they
-shard nothing.  Nothing is compiled (``jit_train_step`` returns the eager
-step), and the checkpoint hooks wait for the checkpointing slice.
+``mesh=None`` is one device: the canonical stacked ``blocks`` tree, with
+each layer's remat policy.  On a ``launch.mesh.ProcessMesh`` the runtime
+builds ``param_specs``, ``grad_specs`` and ``opt_specs`` as JAX does, and
+each rank holds its local shards of the grouped tree (``place_params``;
+``gather_params`` is the inverse).  The global batch is split into
+microbatches first, then each microbatch over the default strategy's dp
+ranks, as JAX reshapes then shards; the loss is normalised by the global
+valid-token count.  Grads are reduced by ZeRO stage over the state axes of
+each leaf's layer group: stage 0 and 1 all-reduce (stage 1 then updates
+this rank's optimizer shard and all-gathers the params), stage 2
+reduce-scatters into the optimizer layout, stage 3 holds the params
+dp-sharded and all-gathers them per layer inside the runner, one message a
+layer, through an autograd function whose backward reduce-scatters (so a
+``full`` remat regathers on recompute); a leaf whose ``ParamDef`` is
+``cast`` is gathered in the forward's dtype (``_gather_sum``).  Where two
+consecutive groups differ in layout (tp, sp, or a tp 1 group absorbing the
+model axis into dp), the residual stream changes layout at the boundary
+(``collectives.relayout``).
+
+Refused, each naming its Queue 1 item: pipeline (pp > 1), context (cp > 1)
+and expert parallelism (ep > 1, and the moe family over more than one
+rank: JAX's capacity counts the global batch), and tp > 1 on the ssm,
+hybrid and audio families.  Nothing is compiled (``jit_train_step`` returns
+the eager step), and the checkpoint hooks wait for the checkpointing slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.core.strategy import ExecutionPlan
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import tree_leaves, tree_map, unstack_layers
 from repro_torch.models.transformer import default_layer_runner
+from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.axes import axis_rules
 from repro_torch.parallel.remat import apply_remat
 from repro_torch.runtime import optimizer as opt_lib
 
@@ -39,39 +61,97 @@ Z_LOSS_WEIGHT = 1e-4
 # loss
 # --------------------------------------------------------------------------
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor):
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, vocab=None, dp=None):
     """logits (B,S,V) fp32; labels (B,S) int, -1 = masked.  Returns (mean
     nll + z-loss, metrics dict).  The label logit is a ``gather`` at the
     clamped label, then masked: on one device this is exactly the JAX
-    package's iota-masked sum, without a (B,S,V) mask or temporary."""
+    package's iota-masked sum, without a (B,S,V) mask or temporary.
+
+    ``vocab=(group, first)``: the logits are this rank's vocab columns from
+    ``first`` on, and the loss partitions along vocab as JAX's comment
+    says: the max and the sum of exponentials are all-reduced over
+    ``group`` for the lse, and the label logit is the masked local gather,
+    all-reduced.  ``dp``: the group the batch is split over; the mean is
+    over its global valid-token count, so the ranks' losses sum to it."""
     valid = (labels >= 0).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp(min=0).long().unsqueeze(-1)).squeeze(-1)
+    if vocab is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.clamp(min=0).long().unsqueeze(-1)).squeeze(-1)
+    else:
+        group, first = vocab
+        width = logits.shape[-1]
+        m = collectives.all_reduce(logits.detach().amax(dim=-1), group, op=dist.ReduceOp.MAX)
+        se = torch.exp(logits - m.unsqueeze(-1)).sum(dim=-1)
+        lse = m + torch.log(collectives.reduce_from(se, group))
+        local = labels.long() - first
+        inside = (local >= 0) & (local < width)
+        ll = torch.gather(logits, -1, local.clamp(0, width - 1).unsqueeze(-1)).squeeze(-1)
+        ll = collectives.reduce_from(ll * inside, group)
     nll = (lse - ll) * valid
-    denom = torch.clamp(valid.sum(), min=1.0)
+    count = collectives.all_reduce(valid.sum(), dp)
+    denom = torch.clamp(count, min=1.0)
     loss = nll.sum() / denom
     zloss = Z_LOSS_WEIGHT * torch.sum(torch.square(lse) * valid) / denom
-    return loss + zloss, {"nll": loss, "zloss": zloss, "tokens": valid.sum()}
+    return loss + zloss, {"nll": loss, "zloss": zloss, "tokens": count}
 
 
 # --------------------------------------------------------------------------
-# layer runner (per-layer remat)
+# layer runner (per-group strategies + remat)
 # --------------------------------------------------------------------------
 
-def make_layer_runner(plan: ExecutionPlan):
-    """A ``layer_runner`` applying layer i's remat policy
-    (``plan.layer_strategies[i]``, or the default strategy for every layer
-    when the plan lists none) around ``default_layer_runner``'s loop."""
+def make_layer_runner(plan: ExecutionPlan, mesh=None, gather=None):
+    """A ``layer_runner`` applying each layer's strategy.
+
+    Without a mesh: layer i's remat policy (``plan.layer_strategies[i]``, or
+    the default strategy for every layer when the plan lists none) around
+    ``default_layer_runner``'s loop over the canonical stacked blocks.
+
+    On a mesh: each group of the grouped blocks (``g000``, ...; one group
+    for a uniform plan) runs under its ``act_rules`` with its remat policy,
+    the residual stream moved into the group's layout before it and back
+    to the default strategy's after the last.  ``gather(i, layer_params)``
+    (ZeRO-3) all-gathers one layer of group i; it runs inside the remat
+    region, so a recompute regathers."""
+    if mesh is None:
+        def runner(blocks, x, apply_block):
+            num_layers = tree_leaves(blocks)[0].shape[0]
+            strategies = plan.layer_strategies or [plan.default_strategy] * num_layers
+            if len(strategies) != num_layers:
+                raise ValueError(f"plan has {len(strategies)} layer strategies for "
+                                 f"{num_layers} layers")
+            policies = iter(s.remat for s in strategies)
+            return default_layer_runner(
+                blocks, x, lambda p, h: apply_remat(apply_block, next(policies))(p, h))
+
+        return runner
+
+    groups = plan.groups()
+    home = shd.residual_layout(plan, plan.default_strategy, mesh)
+    model_axis = mesh.group("model") if "model" in mesh.shape else None
 
     def runner(blocks, x, apply_block):
-        num_layers = tree_leaves(blocks)[0].shape[0]
-        strategies = plan.layer_strategies or [plan.default_strategy] * num_layers
-        if len(strategies) != num_layers:
-            raise ValueError(f"plan has {len(strategies)} layer strategies for "
-                             f"{num_layers} layers")
-        policies = iter(s.remat for s in strategies)
-        return default_layer_runner(
-            blocks, x, lambda p, h: apply_remat(apply_block, next(policies))(p, h))
+        if shd.is_grouped(blocks):
+            items = [(blocks[f"g{i:03d}"], i, g.strategy) for i, g in enumerate(groups)]
+        else:
+            strat = plan.layer_strategies[0] if plan.layer_strategies else plan.default_strategy
+            items = [(blocks, 0, strat)]
+        extra = torch.zeros((), dtype=torch.float32, device=x.device)
+        layout = home
+        for stacked_params, i, strat in items:
+            rules = shd.act_rules(plan, strat, mesh)
+            target = shd.residual_layout(plan, strat, mesh)
+            x = collectives.relayout(x, layout, target, model_axis)
+            layout = target
+
+            def layer(lp, h, rules=rules, i=i):
+                with axis_rules(rules):     # also around a recompute
+                    return apply_block(gather(i, lp) if gather else lp, h)
+
+            fn = apply_remat(layer, strat.remat)
+            for lp in unstack_layers(stacked_params):
+                x, e = fn(lp, x)
+                extra = extra + e
+        return collectives.relayout(x, layout, home, model_axis), extra
 
     return runner
 
@@ -82,15 +162,63 @@ def _to_device(value, device: torch.device):
     return value.to(device)
 
 
-def _single_device(plan: ExecutionPlan, mesh) -> None:
+_ITEM = "Queue 1 item 4"
+
+
+def check_supported(model, plan: ExecutionPlan, mesh) -> None:
+    """Refuse what later PRs bring, each naming its Queue 1 item, and a
+    plan over more than one device without a mesh."""
     strategies = list(plan.layer_strategies) + [plan.default_strategy]
-    many = (mesh is not None or plan.num_devices > 1 or plan.pp > 1
-            or any(s.tp > 1 or s.cp > 1 or s.ep > 1 for s in strategies))
-    if many:
+    family = model.cfg.family
+    if plan.pp > 1:
+        raise NotImplementedError(f"pipeline parallelism (pp {plan.pp}) waits for {_ITEM}'s "
+                                  "pipeline PR (parallel/pipeline.py, runtime/train_pp.py)")
+    if any(s.cp > 1 for s in strategies):
+        raise NotImplementedError(f"context parallelism (cp > 1) waits for {_ITEM}'s "
+                                  "context PR (parallel/context.py)")
+    if any(s.ep > 1 for s in strategies):
+        raise NotImplementedError(f"expert parallelism (ep > 1) waits for {_ITEM}'s EP PR "
+                                  "(routing across ranks)")
+    if mesh is None:
+        if plan.num_devices > 1 or any(s.tp > 1 for s in strategies):
+            raise ValueError(f"a plan over mesh {plan.mesh_shape} with tp up to "
+                             f"{max(s.tp for s in strategies)} needs a mesh "
+                             "(repro_torch.launch.mesh.make_mesh)")
+        return
+    if not hasattr(mesh, "group"):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.ProcessMesh, got "
+                        f"{type(mesh).__name__}")
+    if (tuple(mesh.axis_names), tuple(mesh.sizes)) != (tuple(plan.mesh_axes),
+                                                      tuple(plan.mesh_shape)):
+        raise ValueError(f"plan mesh {plan.mesh_axes} {plan.mesh_shape} vs mesh "
+                         f"{mesh.axis_names} {mesh.sizes}")
+    if family == "moe" and mesh.size > 1:
         raise NotImplementedError(
-            "repro_torch trains on one device only; a mesh, or a plan over more than one "
-            f"device (mesh {plan.mesh_shape}, pp {plan.pp}, tp/cp/ep above 1), waits for "
-            "the parallel-runtime slice")
+            f"the moe family over {mesh.size} ranks waits for {_ITEM}'s EP PR: JAX "
+            "computes an MoE layer's capacity from the global batch, so each rank's "
+            "routing needs the lower ranks' counts")
+    for s in strategies:
+        if s.tp == 1:
+            continue
+        if family in ("ssm", "hybrid", "audio"):
+            raise NotImplementedError(
+                f"tp {s.tp} on the {family} family waits for {_ITEM}'s EP / SSM-TP PR "
+                "(the ssm_inner / ssm_heads regions, the encoder and cross-attention)")
+        if mesh.shape.get("model") != s.tp:
+            raise ValueError(f"tp {s.tp} needs a model axis of {s.tp} ranks, mesh "
+                             f"{mesh.shape}")
+
+
+def _shard_dims(x: torch.Tensor, dims) -> torch.Tensor:
+    for d, group in dims:
+        x = collectives.take_shard(x, d, group)
+    return x
+
+
+def _gather_dims(x: torch.Tensor, dims) -> torch.Tensor:
+    for d, group in dims:
+        x = collectives.all_gather(x, d, group)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -102,39 +230,173 @@ class HybridParallelModel:
     model: Any
     plan: ExecutionPlan
     opt_cfg: opt_lib.AdamWConfig
+    mesh: Any = None
+
+    # filled by construct_hybrid_parallel_model on a mesh
+    param_specs: Any = None
+    grad_specs: Any = None
+    opt_specs: Any = None
+    tp_specs: Any = None          # the layout the layers compute in (no ZeRO)
 
     @property
     def device(self) -> torch.device:
-        return self.model.device
+        return self.model.device if self.mesh is None else self.mesh.device
+
+    # ------------------------------------------------------------ layout
+    def _layout(self) -> None:
+        """Spec trees, and per leaf the groups that move it between them."""
+        model, plan, mesh = self.model, self.plan, self.mesh
+        spec = lambda **kw: shd.param_spec_tree(model, plan, mesh, **kw)
+        self.param_specs = spec(kind="param")
+        self.grad_specs = spec(kind="grad")
+        self.opt_specs = spec(kind="opt")
+        self.tp_specs = spec(kind="param", zero=False)
+        dims = lambda full, base: [(d, mesh.group(a)) for d, a in shd.zero_dims(full, base)]
+        self._param_zero = tree_map(dims, self.param_specs, self.tp_specs)
+        self._grad_zero = tree_map(dims, self.grad_specs, self.tp_specs)
+        self._opt_from_param = tree_map(dims, self.opt_specs, self.param_specs)
+        self._opt_from_grad = tree_map(dims, self.opt_specs, self.grad_specs)
+        # per leaf, whether its ParamDef lets a ZeRO-3 gather move it in the
+        # forward's dtype (every block group holds the same leaves)
+        casts = tree_map(lambda d: d.cast, model.param_defs())
+        self._cast = {key: ({g: casts[key] for g in sub}
+                            if key == "blocks" and shd.is_grouped(sub) else casts[key])
+                      for key, sub in self.param_specs.items()}
+        # each leaf's state axes: those of its layer group's strategy, as
+        # param_spec_tree assigns the strategies
+        default = plan.default_strategy
+        first = plan.layer_strategies[0] if plan.layer_strategies else default
+        strategy_of = {f"g{i:03d}": g.strategy for i, g in enumerate(plan.groups())}
+        group_of = lambda s: (lambda _: mesh.group(plan.state_axes_for(s)))
+        self._state_group = {
+            key: ({g: tree_map(group_of(strategy_of[g]), sub[g]) for g in sub}
+                  if key == "blocks" and shd.is_grouped(sub)
+                  else tree_map(group_of(first if key == "blocks" else default), sub))
+            for key, sub in self.param_specs.items()}
+        self._default_rules = shd.act_rules(plan, default, mesh)
+        self._batch_group = mesh.group(plan.dp_axes_for(default))
+        self._whole_model_gather = not self._supports_grouping
+
+    @property
+    def _supports_grouping(self) -> bool:
+        return getattr(self.model, "supports_layer_grouping", True)
+
+    def group(self, params):
+        if self.mesh is None:
+            return params
+        return shd.group_blocks(params, self.plan, self._supports_grouping)
+
+    def ungroup(self, params):
+        if self.mesh is None:
+            return params
+        return shd.ungroup_blocks(params, self.plan, self._supports_grouping)
 
     # ------------------------------------------------------------ params
     def init_params(self, generator: torch.Generator) -> dict:
-        """fp32 master weights on the model's device (``generator`` lives there)."""
-        return self.model.init(generator, torch.float32)
+        """fp32 master weights on the model's device (``generator`` lives
+        there); on a mesh, this rank's shards of the same canonical draw."""
+        canonical = self.model.init(generator, torch.float32)
+        if self.mesh is None:
+            return canonical
+        return self.place_params(canonical)
+
+    def place_params(self, canonical: dict) -> dict:
+        """This rank's shards (``param_specs``) of a canonical tree."""
+        if self.mesh is None:
+            return canonical
+        return shd.place_params(self.group(canonical), self.param_specs, self.mesh)
+
+    def gather_params(self, params: dict, specs=None) -> dict:
+        """The canonical tree (every leaf whole) from this rank's shards of a
+        tree laid out by ``specs`` (``param_specs`` by default; pass
+        ``grad_specs`` for grads)."""
+        if self.mesh is None:
+            return params
+        specs = self.param_specs if specs is None else specs
+        return self.ungroup(shd.gather_params(params, specs, self.mesh))
 
     def init_opt_state(self, params) -> opt_lib.AdamWState:
-        return opt_lib.adamw_init(params, self.opt_cfg)
+        if self.mesh is None:
+            return opt_lib.adamw_init(params, self.opt_cfg)
+        return opt_lib.adamw_init(tree_map(_shard_dims, params, self._opt_from_param),
+                                  self.opt_cfg)
 
     # ------------------------------------------------------------ steps
+    def _gather_layer(self, i: int, layer_params: dict, dtype) -> dict:
+        """ZeRO-3: one layer of block group i whole over its dp axes (dims
+        shift by the stacked layer dim)."""
+        blocks, casts = self._param_zero["blocks"], self._cast["blocks"]
+        if shd.is_grouped(blocks):
+            blocks, casts = blocks[f"g{i:03d}"], casts[f"g{i:03d}"]
+        return self._gather_sum(layer_params, tree_map(
+            lambda ds: [(d - 1, g) for d, g in ds], blocks), casts, dtype)
+
+    @staticmethod
+    def _gather_sum(tree: dict, dims: dict, casts: dict, dtype) -> dict:
+        """Every leaf of ``tree`` whole along its ZeRO dim (``dims``: the
+        leaf's (dim, group), or none), one message per group and dtype.
+        A leaf whose ``ParamDef`` is ``cast`` (``casts``) is cast to the
+        forward's ``dtype`` before the gather: the layers read it once,
+        through ``.to(dtype)``, so the values and its grad are the same and
+        the gather moves half the bytes of the fp32 master (FSDP's mixed
+        precision).  Any other leaf is gathered as it is: one the layers
+        read in fp32 (a norm scale, the MoE router, Mamba2's A_log, D,
+        dt_bias), or one whose grad sums several reads in fp32 (the token
+        table, zamba2's shared block)."""
+        triples: list = []
+        tree_map(lambda x, ds, c: triples.append((x, ds, c)), tree, dims, casts)
+        leaves = [x.to(dtype) if ds and c else x for x, ds, c in triples]
+        out = list(leaves)
+        batches: dict = {}
+        for k, (x, (_, ds, _)) in enumerate(zip(leaves, triples)):
+            for d, group in ds:       # one ZeRO dim a leaf at most
+                batches.setdefault((id(group), x.dtype), (group, []))[1].append((k, d))
+        for group, items in batches.values():
+            gathered = collectives.gather_sum_many([leaves[k] for k, _ in items],
+                                                   [d for _, d in items], group)
+            for (k, _), x in zip(items, gathered):
+                out[k] = x
+        flat = iter(out)
+        return tree_map(lambda _: next(flat), tree)
+
     def loss_fn(self, params, batch, dtype=torch.bfloat16):
-        """(loss, metrics) of one batch, the forward computed in ``dtype``
-        over the fp32 master weights (bf16 in ``train_step``; the parity
-        checks also run fp32)."""
+        """(loss, metrics) of one batch (this rank's rows on a mesh), the
+        forward computed in ``dtype`` over the fp32 master weights (bf16 in
+        ``train_step``; the parity checks also run fp32)."""
         side = {k: batch[k] for k in ("vis_embeds", "frames") if k in batch}
-        logits, extra = self.model.forward_train(
-            params, batch["tokens"], layer_runner=make_layer_runner(self.plan), dtype=dtype,
-            **side)
-        off = self.model.text_offset()
-        if off:
-            logits = logits[:, off:, :]
-        loss, metrics = softmax_xent(logits, batch["labels"])
+        if self.mesh is None:
+            logits, extra = self.model.forward_train(
+                params, batch["tokens"], layer_runner=make_layer_runner(self.plan),
+                dtype=dtype, **side)
+            off = self.model.text_offset()
+            if off:
+                logits = logits[:, off:, :]
+            loss, metrics = softmax_xent(logits, batch["labels"])
+            metrics["aux"] = extra
+            return loss + AUX_LOSS_WEIGHT * extra, metrics
+        with axis_rules(self._default_rules):
+            # the blocks are gathered a layer at a time by the runner, or
+            # here, whole, for a model that runs its layers itself (zamba2)
+            live = {k: (v if k == "blocks" and not self._whole_model_gather else
+                        self._gather_sum(v, self._param_zero[k], self._cast[k], dtype))
+                    for k, v in params.items()}
+            runner = make_layer_runner(self.plan, self.mesh,
+                                       functools.partial(self._gather_layer, dtype=dtype))
+            logits, extra = self.model.forward_train(live, batch["tokens"],
+                                                     layer_runner=runner, dtype=dtype, **side)
+            off = self.model.text_offset()
+            if off:
+                logits = logits[:, off:, :]
+            vocab = None
+            tp = collectives.tp_state()
+            if tp is not None and logits.shape[-1] < self.model.cfg.vocab_size:
+                vocab = (tp.group, tp.group.index * logits.shape[-1])
+            loss, metrics = softmax_xent(logits, batch["labels"], vocab=vocab,
+                                         dp=self._batch_group)
         metrics["aux"] = extra
         return loss + AUX_LOSS_WEIGHT * extra, metrics
 
-    def value_and_grad(self, params, batch, dtype=torch.bfloat16):
-        """(loss, metrics, grads) of one batch; grads in the params' tree and
-        dtype.  ``batch`` arrays (numpy or torch) move to the model's device."""
-        batch = {k: _to_device(v, self.device) for k, v in batch.items()}
+    def _local_value_and_grad(self, params, batch, dtype):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = tree_leaves(live)
         with torch.enable_grad():
@@ -143,13 +405,56 @@ class HybridParallelModel:
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_map(lambda p: grads[id(p)], live)
 
+    def _local_rows(self, batch: dict) -> dict:
+        """This rank's rows of a (micro)batch: its shard over the default
+        strategy's dp axes."""
+        return {k: collectives.take_shard(v, 0, self._batch_group) for k, v in batch.items()}
+
+    def _reduce_grads(self, grads):
+        """Local grads (partial over each leaf's state axes) -> the
+        ``grad_specs`` layout, summed: all-reduced, or reduce-scattered at
+        ZeRO-2; ZeRO-3 leaves arrive reduce-scattered by the gather's
+        backward."""
+        def reduce(g, param_zero, grad_zero, group):
+            if param_zero:
+                return g
+            if grad_zero:
+                (d, _), = grad_zero
+                return collectives.reduce_scatter(g, d, group)
+            return collectives.all_reduce(g, group)
+
+        return tree_map(reduce, grads, self._param_zero, self._grad_zero, self._state_group)
+
+    def value_and_grad(self, params, batch, dtype=torch.bfloat16):
+        """(loss, metrics, grads) of one batch; grads in the params' tree and
+        dtype.  ``batch`` arrays (numpy or torch) move to the model's device.
+        On a mesh ``batch`` is the global batch: the loss is the global one
+        and the grads are summed over the ranks, laid out by ``grad_specs``
+        (``gather_params(grads, hp.grad_specs)`` gives the canonical tree)."""
+        batch = {k: _to_device(v, self.device) for k, v in batch.items()}
+        if self.mesh is None:
+            return self._local_value_and_grad(params, batch, dtype)
+        loss, metrics, grads = self._local_value_and_grad(params, self._local_rows(batch),
+                                                          dtype)
+        metrics = self._sum_metrics(metrics)
+        return (collectives.all_reduce(loss, self._batch_group), metrics,
+                self._reduce_grads(tree_map(lambda g: g.float(), grads)))
+
+    def _sum_metrics(self, metrics: dict) -> dict:
+        out = dict(metrics)
+        for k in ("nll", "zloss"):
+            out[k] = collectives.all_reduce(out[k], self._batch_group)
+        return out
+
     def train_step(self, params, opt_state: opt_lib.AdamWState, batch: dict,
                    dtype=torch.bfloat16, *, donate: bool = False):
         """One optimizer step over the global batch: the mean loss and grads
         of ``plan.grad_accum`` microbatches (grads summed in fp32), then
         AdamW inside the profiler span ``optimizer``, as the JAX step's named
         scope marks it.  ``dtype`` is the forward's compute dtype (bf16, as
-        in the JAX step; the parity checks also run fp32).
+        in the JAX step; the parity checks also run fp32).  On a mesh every
+        rank passes the same global batch and takes its rows of each
+        microbatch.
 
         ``donate=True`` writes the update into ``params`` and ``opt_state``
         in place (``adamw_update_``: the same numbers), so no second copy of
@@ -164,8 +469,10 @@ class HybridParallelModel:
         grads = None
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(k):
-            l, metrics, g = self.value_and_grad(params, {n: v[i] for n, v in micro.items()},
-                                                dtype)
+            mb = {n: v[i] for n, v in micro.items()}
+            if self.mesh is not None:
+                mb = self._local_rows(mb)
+            l, metrics, g = self._local_value_and_grad(params, mb, dtype)
             loss = loss + l
             if grads is None:       # fp32; a private copy to sum into when k > 1
                 grads = tree_map(lambda x: x.float().clone() if k > 1 else x.float(), g)
@@ -175,13 +482,46 @@ class HybridParallelModel:
         if k > 1:
             grads = tree_map(lambda g: g.div_(k), grads)
         loss = loss / k
-        with record_function("optimizer"):
-            update = opt_lib.adamw_update_ if donate else opt_lib.adamw_update
-            new_params, new_opt, stats = update(params, grads, opt_state, self.opt_cfg)
+        if self.mesh is not None:
+            loss = collectives.all_reduce(loss, self._batch_group)
+            metrics = self._sum_metrics(metrics)
+            grads = self._reduce_grads(grads)
+        new_params, new_opt, stats = self.apply_grads(params, grads, opt_state, donate=donate)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics.update(stats)
         return new_params, new_opt, metrics
+
+    def apply_grads(self, params, grads, opt_state: opt_lib.AdamWState, *,
+                    donate: bool = False):
+        """AdamW on ``grads`` laid out as ``value_and_grad`` returns them
+        (summed over the ranks, ``grad_specs`` on a mesh), inside the
+        profiler span ``optimizer``: (new params, new state, stats).
+        ``train_step`` is ``value_and_grad`` over its microbatches, then
+        this."""
+        with record_function("optimizer"):
+            if self.mesh is None:
+                update = opt_lib.adamw_update_ if donate else opt_lib.adamw_update
+                return update(params, grads, opt_state, self.opt_cfg)
+            return self._sharded_update(params, grads, opt_state, donate)
+
+    def _sharded_update(self, params, grads, opt_state, donate: bool):
+        """AdamW on this rank's optimizer shards: params and grads cut to
+        the ``opt_specs`` layout, updated beside their m / v shards under
+        the global grad norm, then the params all-gathered back to
+        ``param_specs``."""
+        gnorm = opt_lib.global_norm(grads, self.grad_specs, self.mesh)
+        p_opt = tree_map(_shard_dims, params, self._opt_from_param)
+        g_opt = tree_map(_shard_dims, grads, self._opt_from_grad)
+        update = opt_lib.adamw_update_ if donate else opt_lib.adamw_update
+        new_opt_p, new_opt, stats = update(p_opt, g_opt, opt_state, self.opt_cfg, gnorm=gnorm)
+        new_params = tree_map(_gather_dims, new_opt_p, self._opt_from_param)
+        if donate:
+            for p, new in zip(tree_leaves(params), tree_leaves(new_params)):
+                if new is not p:
+                    p.copy_(new)
+            new_params = params
+        return new_params, new_opt, stats
 
     def jit_train_step(self, donate: bool = True):
         """The eager ``train_step``: nothing is compiled in the port."""
@@ -194,11 +534,18 @@ def construct_hybrid_parallel_model(
     mesh=None,
     opt_cfg: Optional[opt_lib.AdamWConfig] = None,
 ) -> HybridParallelModel:
-    """The paper's runtime entry point (Fig. 2 line 13), on one device: the
-    model's (``"cuda"`` unless it was built with ``device="cpu"``).  Trains
-    every family: the decoders (dense, MoE, and the VLM, whose batches
-    carry ``vis_embeds``), Mamba2 and the hybrid, and the encoder-decoder
-    (whose batches carry ``frames``); ``loss_fn`` adds the MoE router's aux
-    loss at ``AUX_LOSS_WEIGHT``."""
-    _single_device(plan, mesh)
-    return HybridParallelModel(model=model, plan=plan, opt_cfg=opt_cfg or opt_lib.AdamWConfig())
+    """The paper's runtime entry point (Fig. 2 line 13).  Without a mesh,
+    one device: the model's (``"cuda"`` unless it was built with
+    ``device="cpu"``); it trains every family: the decoders (dense, MoE,
+    and the VLM, whose batches carry ``vis_embeds``), Mamba2 and the
+    hybrid, and the encoder-decoder (whose batches carry ``frames``);
+    ``loss_fn`` adds the MoE router's aux loss at ``AUX_LOSS_WEIGHT``.  On
+    a ``launch.mesh.ProcessMesh``: DP, ZeRO 1-3, TP and SP per layer group
+    for the dense and vlm families, DP and ZeRO for the ssm, hybrid and
+    audio families; the rest is refused (``check_supported``)."""
+    check_supported(model, plan, mesh)
+    hp = HybridParallelModel(model=model, plan=plan, opt_cfg=opt_cfg or opt_lib.AdamWConfig(),
+                             mesh=mesh)
+    if mesh is not None:
+        hp._layout()
+    return hp

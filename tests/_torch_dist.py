@@ -1,0 +1,298 @@
+"""Spawned gloo ranks for the port's parallel-runtime tests.
+
+``run_ranks(world, target, payload, tmp)`` starts ``world`` fresh Python
+processes (``subprocess``, so it works under any pytest worker), each
+running this file as a script, joined by gloo over a ``FileStore`` in
+``tmp`` (never a TCP port: test files run in parallel); each calls this
+module's function ``target`` on ``payload`` and the call returns every
+rank's result.  A rank that raises fails the call with its traceback.  The
+ranks import torch and ``repro_torch`` only, never JAX, and need no
+``tests`` package on their path.
+
+The rank-side functions below train one case on a mesh: ``place_params``
+from the canonical weights, ``value_and_grad`` and one ``train_step`` on
+the global batch, and the results gathered back to the canonical trees;
+they also collect the runtime's refusals and an all-reduce fit, and
+compare a one-rank mesh's steps with ``mesh=None``'s.
+``references`` builds a case and its two single-device references in the
+test process (the only function here that imports JAX).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+import traceback
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def run_ranks(world: int, target: str, payload, tmp, timeout: float = 300.0) -> list:
+    """``target`` names a function of this module; see the module note."""
+    tmp = pathlib.Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    torch.save(payload, tmp / "payload.pt")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), env.get("PYTHONPATH", "")])
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         str(rank), str(world), str(tmp), target],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        path = tmp / f"result{rank}.pt"
+        if p.returncode != 0 or not path.is_file():
+            raise RuntimeError(f"rank {rank} exited {p.returncode}:\n{out}")
+        res = torch.load(path, weights_only=False)
+        if "error" in res:
+            raise RuntimeError(f"rank {rank} raised:\n{res['error']}")
+        results.append(res["result"])
+    return results
+
+
+def _child() -> None:
+    import torch.distributed as dist
+
+    rank, world, tmp, target = (int(sys.argv[1]), int(sys.argv[2]), pathlib.Path(sys.argv[3]),
+                                sys.argv[4])
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        out = {"result": globals()[target](torch.load(tmp / "payload.pt", weights_only=False))}
+    except Exception:
+        out = {"error": traceback.format_exc()}
+    torch.save(out, tmp / f"result{rank}.pt")
+    dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# rank side
+# --------------------------------------------------------------------------
+
+def plan_of(arch: str, num_layers: int, mesh_shape, strategies, grad_accum: int = 1):
+    """An ExecutionPlan over ("data", "model") with one strategy per layer
+    (the first is the default, as a uniform plan's)."""
+    from repro_torch.core.strategy import ExecutionPlan
+
+    strategies = list(strategies)
+    if len(strategies) == 1:
+        strategies = strategies * num_layers
+    return ExecutionPlan(arch=arch, shape="train", mesh_axes=("data", "model"),
+                         mesh_shape=tuple(mesh_shape), grad_accum=grad_accum,
+                         layer_strategies=strategies, default_strategy=strategies[0])
+
+
+def train_cases(payload: dict) -> dict:
+    """Every case of ``payload["cases"]`` on a ``payload["mesh"]`` mesh of
+    ranks: (loss, grads) of ``value_and_grad`` and (loss, grad norm, new
+    params) of one ``train_step``, in the case's ``dtype`` (fp32 unless
+    given), gathered to canonical trees; at one microbatch, whether
+    ``apply_grads`` on those grads gives the step's params bitwise.
+    Rank 0 returns them; the others return None."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    from repro_torch.models.common import tree_map
+
+    device = torch.device(payload.get("device", "cpu"))
+    if device.type == "cuda":                       # every rank on the one card
+        device = torch.device("cuda", device.index or 0)
+        torch.cuda.set_device(device)
+    mesh = make_mesh(payload["mesh"], ("data", "model"), device=device,
+                     backend=payload.get("backend"))
+    out = {}
+    for case in payload["cases"]:
+        cfg = case["cfg"]
+        plan = plan_of(cfg.name, cfg.num_layers, payload["mesh"], case["strategies"],
+                       case.get("grad_accum", 1))
+        hp = construct_hybrid_parallel_model(build_model(cfg, device=device), plan, mesh,
+                                             payload.get("opt"))
+        params = hp.place_params(tree_map(lambda x: x.to(device), case["params"]))
+        batch = case["batch"]
+        dtype = case.get("dtype", torch.float32)
+        loss, _, grads = hp.value_and_grad(params, batch, dtype)
+        applied, _, _ = hp.apply_grads(params, grads, hp.init_opt_state(params))
+        grads = hp.gather_params(grads, hp.grad_specs)
+        new, _, metrics = hp.train_step(params, hp.init_opt_state(params), batch, dtype)
+        # at one microbatch the step is value_and_grad, then apply_grads
+        applied_is_step = (all(torch.equal(a, b) for a, b in zip(_flat(applied).values(),
+                                                                 _flat(new).values()))
+                           if case.get("grad_accum", 1) == 1 else None)
+        back = hp.gather_params(params)
+        roundtrip = all(torch.equal(a.cpu(), b) for a, b in zip(_flat(back).values(),
+                                                                _flat(case["params"]).values()))
+        cpu = lambda tree: tree_map(lambda x: x.cpu(), tree)
+        res = {"vg_loss": float(loss), "grads": cpu(grads), "step_loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "new": cpu(hp.gather_params(new)),
+               "roundtrip": roundtrip and _flat(back).keys() == _flat(case["params"]).keys(),
+               "applied_is_step": applied_is_step,
+               "local_shapes": {k: tuple(v.shape) for k, v in _flat(params).items()}}
+        out[case["name"]] = res if dist.get_rank() == 0 else None
+    return out
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def one_rank_steps(payload: dict) -> dict:
+    """On one rank, for each ``payload["cases"]`` entry (name -> (arch,
+    strategy)): two bf16 ``train_step``s of the reduced config on a (1, 1)
+    mesh and with ``mesh=None``, from the same seed-0 weights and batches.
+    Returns name -> (losses on the mesh, losses without, the paths of the
+    params that are not bitwise equal after the steps)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.strategy import uniform_plan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    out = {}
+    for name, (arch, strategy) in payload["cases"].items():
+        cfg = get_config(arch).reduced()
+        ds = SyntheticDataset(cfg, 32, 4, seed=2)
+        runs = []
+        for m in (mesh, None):
+            shape, axes = ((1,), ("data",)) if m is None else ((1, 1), ("data", "model"))
+            plan = uniform_plan(cfg.name, "t", shape, axes, cfg.num_layers, strategy)
+            hp = construct_hybrid_parallel_model(build_model(cfg, device="cpu"), plan, m)
+            params = hp.init_params(torch.Generator().manual_seed(0))
+            opt = hp.init_opt_state(params)
+            losses = []
+            for step in range(2):
+                params, opt, metrics = hp.train_step(params, opt, ds.batch(step))
+                losses.append(float(metrics["loss"]))
+            runs.append((losses, dict(tree_paths(hp.gather_params(params)))))
+        (l_mesh, p_mesh), (l_one, p_one) = runs
+        out[name] = (l_mesh, l_one,
+                     sorted(".".join(k) for k in p_one if not torch.equal(p_mesh[k], p_one[k])))
+    return out
+
+
+def refusals_and_fit(payload: dict) -> dict:
+    """On 2 ranks: the message each refused plan raises (``payload["refused"]``:
+    name -> (arch, mesh shape, strategy, pp)), and ``measure_allreduce``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import profiler_hw
+    from repro_torch.core.strategy import ExecutionPlan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    out = {}
+    meshes = {}
+    for name, (arch, shape, strategy, pp) in payload["refused"].items():
+        cfg = get_config(arch).reduced()
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+        plan = ExecutionPlan(arch=arch, shape="train", mesh_axes=("data", "model"),
+                             mesh_shape=shape, pp=pp,
+                             layer_strategies=[strategy] * cfg.num_layers,
+                             default_strategy=strategy)
+        try:
+            construct_hybrid_parallel_model(build_model(cfg, device="cpu"), plan,
+                                            meshes[shape])
+            out[name] = None
+        except Exception as e:          # the test reads each refusal's type and text
+            out[name] = (type(e).__name__, str(e))
+    fit = profiler_hw.measure_allreduce(iters=3)
+    out["fit"] = (fit.alpha, fit.beta, fit.r2)
+    return out
+
+
+def references(name: str, arch: str, strategies, grad_accum: int = 1, batch: int = 8,
+               seq: int = 32, eps: float = 1e-4) -> tuple[dict, dict]:
+    """(case, refs): the case for ``train_cases`` on JAX-initialised
+    (perturbed) weights and a seeded batch with masked labels, and its
+    references: JAX's fp32 ``value_and_grad`` of its ``loss_fn`` formula and
+    the port's single-device ``value_and_grad`` and ``train_step``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs.registry import get_config as jax_get_config
+    from repro.models import build_model as jax_build_model
+    from repro.runtime import train as jtrain
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.strategy import uniform_plan
+    from repro_torch.models import build_model
+    from repro_torch.models.common import params_from_jax
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+    from tests._torch_params import perturbed
+
+    cfg = get_config(arch).reduced()
+    jm = jax_build_model(jax_get_config(arch).reduced())
+    np_params = perturbed(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))),
+                          np.random.default_rng(0))
+    rng = np.random.default_rng(7)
+    text = seq - (cfg.vis_tokens if cfg.family == "vlm" else 0)
+    toks = rng.integers(0, cfg.vocab_size, (batch, text + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[1, :3] = -1
+    side = {}
+    if cfg.family == "vlm":
+        side["vis_embeds"] = rng.standard_normal((batch, cfg.vis_tokens, cfg.d_model)
+                                                 ).astype(np.float32)
+    if cfg.family == "audio":
+        side["frames"] = rng.standard_normal((batch, cfg.enc_frames, cfg.d_model)
+                                             ).astype(np.float32)
+    off = jm.text_offset()
+
+    def jloss(p, tokens, labels, side):
+        logits, extra = jm.forward_train(p, tokens, dtype=jnp.float32, **side)
+        loss, _ = jtrain.softmax_xent(logits[:, off:, :], labels)
+        return loss + jtrain.AUX_LOSS_WEIGHT * extra
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(
+        jax.tree.map(jnp.asarray, np_params), jnp.asarray(toks[:, :-1]), jnp.asarray(labels),
+        {k: jnp.asarray(v) for k, v in side.items()})
+    params = params_from_jax(np_params, "cpu", torch.float32)
+    tbatch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(labels),
+              **{k: torch.from_numpy(v) for k, v in side.items()}}
+    opt = AdamWConfig(eps=eps)
+    plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
+                        dataclasses.replace(strategies[0], tp=1, sp=False, zero=0),
+                        grad_accum=grad_accum)
+    hp = construct_hybrid_parallel_model(build_model(cfg, device="cpu"), plan, None, opt)
+    loss, _, grads = hp.value_and_grad(params, tbatch, torch.float32)
+    new, _, metrics = hp.train_step(params, hp.init_opt_state(params), tbatch, torch.float32)
+    case = dict(name=name, cfg=cfg, strategies=list(strategies), grad_accum=grad_accum,
+                params=params, batch=tbatch)
+    refs = dict(jax_loss=float(jl), jax_grads=jax.tree.map(np.asarray, jg),
+                loss=float(loss), grads=grads, step_loss=float(metrics["loss"]),
+                grad_norm=float(metrics["grad_norm"]), new=new, opt=opt)
+    return case, refs
+
+
+if __name__ == "__main__":
+    _child()

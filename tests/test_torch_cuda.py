@@ -5,7 +5,9 @@ family, whisper and the VLM) and the training steps of every family with
 ``impl="kernel"`` against ``impl="ref"``; the compiled serving steps (CUDA
 graphs) of every family against their eager steps;
 the planner's block measurement (its forward, grad and full-remat grad
-graphed, against the eager steps) and a calibration fitted from it.
+graphed, against the eager steps) and a calibration fitted from it; the
+parallel runtime on a one-rank NCCL mesh (bitwise the single-device step)
+and on two gloo ranks sharing the card (tp 2 + sp against one rank).
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -13,6 +15,8 @@ This file imports no JAX, so on a GPU machine without JAX it runs with::
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 import dataclasses
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -1314,3 +1318,85 @@ def test_cuda_a_capture_that_fails_raises(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(torch.ones(4, device=cuda_device) * 2, torch.full((4,), 2.0,
                                                                           device=cuda_device))
+
+
+# ------------------------------------------------------------------ the parallel runtime
+
+def test_cuda_one_rank_nccl_mesh_is_bitwise_the_single_device_step(cuda_device, tmp_path):
+    """A (1, 1) mesh over a one-rank NCCL group: every collective is the
+    identity and every layout change a no-op, so two bf16 steps of reduced
+    llama (ZeRO-1, ``selective``, grad_accum 2) give the ``mesh=None``
+    step's losses and params bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    cfg = get_config("llama3.2-1b").reduced()
+    strat = LayerStrategy(zero=1, remat="selective")
+    ds = SyntheticDataset(cfg, 64, 4, seed=2)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        runs = []
+        for mesh in (None, make_mesh((1, 1), ("data", "model"), device=cuda_device)):
+            shape, axes = ((1,), ("data",)) if mesh is None else ((1, 1), ("data", "model"))
+            plan = uniform_plan(cfg.name, "t", shape, axes, cfg.num_layers, strat,
+                                grad_accum=2)
+            hp = construct_hybrid_parallel_model(build_model(cfg), plan, mesh)
+            params = hp.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+            opt = hp.init_opt_state(params)
+            losses = []
+            for step in range(2):
+                params, opt, m = hp.train_step(params, opt, ds.batch(step))
+                losses.append(float(m["loss"]))
+            runs.append((losses, hp.gather_params(params)))
+        assert mesh.backend == "nccl"
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = runs
+    assert l0 == l1
+    for (path, a), (_, b) in zip(tree_paths(p0), tree_paths(p1)):
+        assert torch.equal(a, b), path
+
+
+def test_cuda_two_gloo_ranks_sharing_the_card_hold_tp2_sp_to_one_rank(cuda_device, tmp_path):
+    """Two ranks on the one card over gloo, reduced llama at tp 2 with
+    sequence parallelism (ZeRO-1): one fp32 step through K1 and K2 against
+    one rank's ``mesh=None`` step on the same weights and batch: the loss
+    within 1e-4 relative, every updated param within 2e-3 of its leaf's
+    update scale (AdamW eps 1e-4, as tests/test_torch_parallel_mp.py)."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    # by its path: this file runs with --noconftest where a ``tests`` package
+    # of another project may shadow this directory
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist_helpers", pathlib.Path(__file__).with_name("_torch_dist.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    cfg = get_config("llama3.2-1b").reduced()
+    opt_cfg = AdamWConfig(eps=1e-4)
+    batch = SyntheticDataset(cfg, 64, 4, seed=5).batch(0)
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    plan = uniform_plan(cfg.name, "t", (1,), ("data",), cfg.num_layers, LayerStrategy())
+    hp = construct_hybrid_parallel_model(build_model(cfg), plan, None, opt_cfg)
+    live = tree_map(lambda x: x.to(cuda_device), params)
+    new, _, m = hp.train_step(live, hp.init_opt_state(live), batch, torch.float32)
+    case = dict(name="tp2_sp", cfg=cfg, strategies=[LayerStrategy(tp=2, sp=True, zero=1)],
+                params=params, batch=batch)
+    payload = {"mesh": (1, 2), "cases": [case], "opt": opt_cfg, "device": "cuda",
+               "backend": "gloo"}          # NCCL refuses two ranks on one device
+    got = helpers.run_ranks(2, "train_cases", payload, tmp_path)[0]["tp2_sp"]
+    np.testing.assert_allclose(got["step_loss"], float(m["loss"]), rtol=1e-4)
+    ref, init = dict(tree_paths(new)), dict(tree_paths(params))
+    for path, a in tree_paths(got["new"]):
+        want = ref[path].cpu() - init[path]
+        err = float((a - ref[path].cpu()).abs().max())
+        assert err <= 2e-3 * float(want.abs().max()), (path, err)

@@ -18,7 +18,8 @@ and batches:
 * the kernel route on CPU tensors (the autograd functions of K1 and K2 with
   their plain forwards and recomputing backwards) gives the plain path's
   grads;
-* the entry points refuse what one device cannot run;
+* the entry points refuse what one device cannot run: a plan over more
+  than one device without a mesh, and pipeline parallelism;
 * ``train_step`` leaves no tensor in a reference cycle: the initial
   parameters go as soon as a step replaces them, with the cyclic collector
   off.
@@ -142,7 +143,9 @@ def test_train_step_is_adamw_on_the_mean_of_its_microbatches(pair, k):
     """``train_step`` with ``grad_accum`` k (bf16, as it runs) against the
     same step composed here: ``value_and_grad`` of each of the k slices of
     the batch, the mean of their losses and fp32 grads, then ``adamw_update``.
-    Loss, grad norm, parameters and moments within 1e-6."""
+    Loss, grad norm, parameters and moments within 1e-6; ``apply_grads``
+    (the step's optimizer half) on the same mean is ``adamw_update``
+    bitwise."""
     cfg = pair["cfg"]
     _, tplan = _plans(cfg, "selective", grad_accum=k)
     hp = ttrain.construct_hybrid_parallel_model(pair["tm"], tplan)
@@ -156,6 +159,10 @@ def test_train_step_is_adamw_on_the_mean_of_its_microbatches(pair, k):
     loss = sum(float(p[0]) for p in parts) / k
     mean = tree_map(lambda *g: sum(x.float() for x in g) / k, *(p[2] for p in parts))
     rp, rs, rm = topt.adamw_update(pair["tp"], mean, state, hp.opt_cfg)
+    ap, a_s, am = hp.apply_grads(pair["tp"], mean, state)
+    assert float(am["grad_norm"]) == float(rm["grad_norm"])
+    for got, want in ((ap, rp), (a_s.m, rs.m), (a_s.v, rs.v)):
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
     np.testing.assert_allclose(float(tm["loss"]), loss, rtol=1e-6)
     np.testing.assert_allclose(float(tm["grad_norm"]), float(rm["grad_norm"]), rtol=1e-6)
     for got, want in ((tp, rp), (ts.m, rs.m), (ts.v, rs.v)):
@@ -354,15 +361,21 @@ def test_entry_points_refuse_what_one_device_cannot_run(pair):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ttrain.construct_hybrid_parallel_model(build_model(cfg), plan)
+    # a plan over more than one device needs a mesh: none falls back to one
+    # device (the parallel runtime's cases: tests/test_torch_parallel_mp*.py)
     tp2 = uniform_plan(cfg.name, "train_4k", (2,), ("model",), cfg.num_layers,
                        LayerStrategy(tp=2))
-    with pytest.raises(NotImplementedError, match="parallel-runtime"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         ttrain.construct_hybrid_parallel_model(pair["tm"], tp2)
-    with pytest.raises(NotImplementedError, match="parallel-runtime"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         ttrain.construct_hybrid_parallel_model(pair["tm"], plan, mesh=object())
     dp2 = uniform_plan(cfg.name, "train_4k", (2,), ("data",), cfg.num_layers, LayerStrategy())
-    with pytest.raises(NotImplementedError, match="parallel-runtime"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         ttrain.construct_hybrid_parallel_model(pair["tm"], dp2)
+    pp2 = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
+                       LayerStrategy(), pp=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4's pipeline"):
+        ttrain.construct_hybrid_parallel_model(pair["tm"], pp2)
     z3 = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
                       LayerStrategy(zero=3))
     assert ttrain.construct_hybrid_parallel_model(pair["tm"], z3).plan is z3
