@@ -28,7 +28,9 @@ Phases (any failure exits non-zero and prints no result line):
    Sq1 Sk1500, and the decoder's self decode B16 Sq1 Sk448 at per-slot
    kv_len; internvl2-26b's (H 48 over KV 8, g = 6, hd 128): the prefill
    B8 S1280, a decode step B8 Sq1 Sk1344 at per-slot kv_len and the
-   training shape B2 S4096; zamba2's training shape B2 S2048 at hd 112:
+   training shape B2 S4096; zamba2's training shape B2 S2048 at hd 112;
+   the parallel rigs' ranks (phase 25: llama at tp 2 and dp 2; phase 26:
+   moonshot at B1 S4096 H16 under ep 2 and dp 2, B2 S4096 H8 under tp 2):
    fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
@@ -276,6 +278,24 @@ Phases (any failure exits non-zero and prints no result line):
    leaf's update scale; logs per-rank peaks against the card, step times
    (no interconnect measured) and the collectives called by name and
    dtype;
+26. the MoE family on a mesh (run after phase 25, before the results) —
+   moonshot-v1-16b-a3b at full width cut to 2 layers on two ranks sharing
+   the card over gloo (``chip_smoke.py --moe-parallel-rank``, as phase 25):
+   first the routing of 8 192 seeded fp32 router logits split over the
+   ranks (``moe.distributed_slots`` from the all-gathered counts) against
+   one rank's ``assign_slots``, integer-exact; then 2 steps of 4 x 4096 in
+   2 microbatches (bf16 compute, fp32 masters; C = 960 a global
+   microbatch) under (a) (data 2, model 1), ep 2, ZeRO-1, selective (the
+   expert exchange), (b) (1, 2), tp 2 + sp, ZeRO-1, selective, (c) (1, 2),
+   tp 1 (dp 2), ZeRO-3, no remat; the losses within 5e-2 of one rank's
+   ``mesh=None`` step on the same seed-0 weights and batches (computed
+   here while the ranks start), each rank's K1 / K2 / K2-backward launches
+   per step pinned and K1's local heads checked; the kept share per layer
+   against one rank's, the exchange's bytes, peaks and step times (no
+   interconnect measured); then each plan's fp32 ``value_and_grad`` at 2 x
+   1024 against one rank's (``mesh=None``, on each rank): the loss within
+   1e-4 relative, every grad's shards within 2e-3 of its leaf's scale,
+   each layer's routing decisions that differ from one rank's logged;
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
    ``rmsnorm_bwd`` rows for K2, ``ssd`` and ``ssd_autograd`` for K3), then
    the device line last.
@@ -494,7 +514,8 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     whisper's, and internvl2's (g = 6) serving and training shapes,
     zamba2's training shape, and each rank's shape in the parallel rig
     (phase 25): tp 2 (16 query and 4 KV heads, a microbatch's 2 sequences)
-    and dp 2 (32 and 8 heads, 1 sequence)."""
+    and dp 2 (32 and 8 heads, 1 sequence); a moonshot rank's in phase 26:
+    ep 2 and dp 2 (16 heads, 1 sequence), tp 2 (8 heads, 2 sequences)."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -623,6 +644,12 @@ def check_flash(torch, flash_ops, flash_ref, gen):
         cases.append((f"parallel {par} causal B{B} S{PAR_SEQ} H{H} KV{KV} hd64 bfloat16", True,
                       flash_case(torch, gen, B=B, Sq=PAR_SEQ, Sk=PAR_SEQ, H=H, KV=KV, hd=64,
                                  dtype=torch.bfloat16, path=f"parallel_{par}")))
+    # phase 26: a moonshot rank's local heads, (a) ep 2 and (c) dp 2 / (b) tp 2
+    for par, B, H in (("ep2/dp2", 1, 16), ("tp2", 2, 8)):
+        cases.append((f"moe parallel {par} causal B{B} S{PAR_SEQ} H{H} KV{H} hd128 bfloat16",
+                      True, flash_case(torch, gen, B=B, Sq=PAR_SEQ, Sk=PAR_SEQ, H=H, hd=128,
+                                       dtype=torch.bfloat16,
+                                       path="moe_parallel_b1" if B == 1 else "moe_parallel_tp2")))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -1611,8 +1638,8 @@ class RoutingLog:
         self.moe, self.idx, self.keep = moe, [], []
         self.saved = route, assign = moe.route, moe.assign_slots
 
-        def rec_route(logits, cfg):
-            out = route(logits, cfg)
+        def rec_route(*a):
+            out = route(*a)
             self.idx.append(out[1])
             return out
 
@@ -3408,6 +3435,383 @@ def parallel_phase(torch) -> dict:
     return {label: ranks[0]["runs"][label]["launches"][-1] for label in plans}
 
 
+# --------------------------------------------------------------------------
+# 26. the MoE family on a mesh: two ranks sharing the card over gloo
+# --------------------------------------------------------------------------
+
+# phase 25's steps, batch and sequence (PAR_*), over moonshot's layers
+MPAR_LAYERS = 2                 # full width cut in depth, as phases 14 and 23
+MPAR_FP32_SEQ, MPAR_FP32_BATCH = 1024, 2     # one microbatch: C = 240
+
+
+def moe_par_plans(cfg) -> dict:
+    """label -> (plan, what it is), each over ``MPAR_LAYERS`` layers at
+    grad_accum ``PAR_ACCUM``: (a) mesh (data 2, model 1), ep 2, ZeRO-1,
+    ``selective``: the expert exchange and global routing; (b)
+    ``train_mesh_spec(2)`` = (1, 2), tp 2 + sp, ZeRO-1, ``selective``: the
+    experts' ff halved, the routing replicated over tp; (c) (1, 2), tp 1
+    (dp 2 through the absorbed model axis), ZeRO-3, no remat: global
+    routing with no EP, the experts gathered per layer."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+
+    plan = lambda shape, s: uniform_plan(cfg.name, "train_4k", shape, ("data", "model"),
+                                         MPAR_LAYERS, s, grad_accum=PAR_ACCUM)
+    return {"a": (plan((2, 1), LayerStrategy(ep=2, zero=1, remat="selective")),
+                  "(data 2, model 1), ep 2, ZeRO-1, selective"),
+            "b": (plan((1, 2), LayerStrategy(tp=2, sp=True, zero=1, remat="selective")),
+                  "(1, 2), tp 2 + sp, ZeRO-1, selective"),
+            "c": (plan((1, 2), LayerStrategy(zero=3)), "(1, 2), tp 1 (dp 2), ZeRO-3, none")}
+
+
+def route_check(torch, mesh) -> dict:
+    """The routing with no model: global fp32 router logits (seeded, the
+    whole ``PAR_ACCUM``-th of a step's tokens, E experts), this rank's
+    half routed by ``moe.route`` and placed by ``moe.distributed_slots``
+    from the all-gathered counts, gathered back: integer-exact against one
+    rank's ``assign_slots`` on the whole, at the layer's capacity and at a
+    quarter of it (where choices drop)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    from repro_torch.parallel import collectives
+
+    cfg = get_config(MOE_ARCH)
+    group = mesh.group(("data", "model"))
+    T = PAR_BATCH // PAR_ACCUM * PAR_SEQ
+    C = moe._capacity(cfg, T)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    logits = torch.randn(T, cfg.num_experts, generator=gen, device="cuda")
+    mine = logits.chunk(group.size)[group.index]
+    _, idx, aux = moe.route(mine, cfg, group, T)
+    counts = collectives.all_gather(moe.choice_counts(idx, cfg.num_experts)[None], 0, group)
+    _, one_idx, one_aux = moe.route(logits, cfg)
+    out = {"tokens": T, "capacity": C, "kept": [], "aux": float(aux), "one_aux": float(one_aux),
+           "idx": bool(torch.equal(collectives.all_gather(idx, 0, group), one_idx)),
+           "slots": True, "keep": True}
+    for cap in (C, C // 4):
+        slots, keep, _ = moe.distributed_slots(idx, counts, group.index, cap)
+        got = [collectives.all_gather(t, 0, group) for t in (slots, keep.to(torch.int64))]
+        one_slots, one_keep = moe.assign_slots(one_idx, cfg.num_experts, cap)
+        out["kept"].append(float(one_keep.float().mean()))
+        out["slots"] &= bool(torch.equal(got[0], one_slots))
+        out["keep"] &= bool(torch.equal(got[1].bool(), one_keep))
+    return out
+
+
+def moe_parallel_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
+    """One rank of phase 26 (``chip_smoke.py --moe-parallel-rank RANK WORLD
+    DIR``): device 0, gloo over a ``FileStore`` in DIR, both meshes; the
+    routing check, then, once DIR/payload.json is there, each plan trained
+    ``PAR_STEPS`` steps (losses, times, launches, K1 heads, exchange bytes,
+    peak, the first microbatch's routing); then each rank runs one rank's
+    fp32 ``value_and_grad`` (``mesh=None``) at ``MPAR_FP32_SEQ`` and every
+    plan runs its own, each rank holding its shards of the grads to the
+    same shards of one rank's; writes its record and routings to DIR."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.strategy import ExecutionPlan, LayerStrategy, uniform_plan
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    # the exchange's bytes (sent and received) and the collectives by name
+    moved = collections.Counter()
+    real_a2a = dist.all_to_all_single
+
+    def a2a(out, x, *a, **kw):
+        moved["bytes"] += (out.numel() + x.numel()) * out.element_size()
+        moved["calls"] += 1
+        moved[f"{out.device.type} {str(out.dtype).split('.')[-1]}"] += 1
+        return real_a2a(out, x, *a, **kw)
+
+    dist.all_to_all_single = a2a
+    k1_heads = set()
+    autograd_k1 = flash_ops.flash_attention
+
+    def seen(q, k, v, causal=True):
+        k1_heads.add((q.shape[0], q.shape[2], k.shape[2]))
+        return autograd_k1(q, k, v, causal=causal)
+
+    flash_ops.flash_attention = seen
+    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    dev = torch.device("cuda", 0)
+    meshes = {shape: make_mesh(shape, ("data", "model"), device=dev, backend="gloo")
+              for shape in ((2, 1), (1, 2))}
+    record = {"runs": {}, "fp32": {}, "ready": time.perf_counter() - T_START,
+              "route": route_check(torch, meshes[(2, 1)])}
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MPAR_LAYERS)
+    ds = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_BATCH, seed=0)
+    ds32 = SyntheticDataset(cfg, seq_len=MPAR_FP32_SEQ, global_batch=MPAR_FP32_BATCH, seed=0)
+    routes = {}                 # each run's forward routing, layer by layer
+    first = lambda log: [idx.cpu() for idx in log.idx[:MPAR_LAYERS]]
+    while not (tmp / "payload.json").is_file():     # the parent's oracle runs meanwhile
+        time.sleep(0.05)
+    payload = json.loads((tmp / "payload.json").read_text())
+    for label, text in payload["plans"].items():
+        t_plan = time.perf_counter()
+        plan = ExecutionPlan.from_json(text)
+        mesh = meshes[tuple(plan.mesh_shape)]
+        hp = construct_hybrid_parallel_model(build_model(cfg), plan, mesh)
+        params = hp.init_params(torch.Generator(device=dev).manual_seed(0))
+        opt = hp.init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"losses": [], "auxes": [], "grad_norms": [], "times": [], "launches": [],
+               "bytes": []}
+        k1_heads.clear()
+        for step in range(PAR_STEPS):
+            zero_counts(counters)
+            moved.clear()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with RoutingLog() as rlog:
+                params, opt, m = hp.train_step(params, opt, ds.batch(step))
+            torch.cuda.synchronize()
+            run["times"].append(time.perf_counter() - t0)
+            run["launches"].append(read_counts(counters))
+            run["bytes"].append(moved["bytes"])
+            run["losses"].append(float(m["loss"]))
+            run["auxes"].append(float(m["aux"]))
+            run["grad_norms"].append(float(m["grad_norm"]))
+            if step == 0:
+                routes[label] = first(rlog)
+        run.update(peak=torch.cuda.max_memory_allocated(), k1_heads=sorted(k1_heads),
+                   a2a={k: v for k, v in moved.items() if k != "bytes"},
+                   seconds=time.perf_counter() - t_plan)
+        record["runs"][label] = run
+        del hp, params, opt, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one rank's fp32 step on the same weights and batch, on each rank
+    t_fp32 = time.perf_counter()
+    batch32 = ds32.batch(0)
+    one = uniform_plan(cfg.name, "t", (1,), ("data",), MPAR_LAYERS,
+                       LayerStrategy(remat="selective"))
+    hp = construct_hybrid_parallel_model(build_model(cfg), one)
+    params = hp.init_params(torch.Generator(device=dev).manual_seed(0))
+    with RoutingLog() as rlog:
+        loss, _, ref_grads = hp.value_and_grad(params, batch32, torch.float32)
+    ref_loss = float(loss)
+    routes["fp32_one"] = first(rlog)
+    del hp, params, loss
+    record["fp32_ref_seconds"] = time.perf_counter() - t_fp32
+    for label, text in payload["plans"].items():
+        t_run = time.perf_counter()
+        full = ExecutionPlan.from_json(text)
+        plan = uniform_plan(cfg.name, "t", full.mesh_shape, full.mesh_axes, MPAR_LAYERS,
+                            full.default_strategy)
+        mesh = meshes[tuple(plan.mesh_shape)]
+        hp = construct_hybrid_parallel_model(build_model(cfg), plan, mesh)
+        params = hp.init_params(torch.Generator(device=dev).manual_seed(0))
+        dist.barrier()
+        with RoutingLog() as rlog:
+            loss, _, grads = hp.value_and_grad(params, batch32, torch.float32)
+        routes[f"fp32_{label}"] = first(rlog)
+        # each rank's shards of every grad against the same shards of one
+        # rank's, over that leaf's whole scale; the worst over the ranks
+        errs = []
+        for g, rg, spec in zip(tree_leaves(grads), tree_leaves(ref_grads),
+                               tree_leaves(hp.grad_specs)):
+            mine = shd.shard_leaf(rg, spec, mesh)
+            errs.append(float((g - mine).abs().max()) / max(float(rg.abs().max()), 1e-30))
+        worst = torch.tensor(errs, device=dev)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        k = int(worst.argmax())
+        out = {"loss": float(loss), "ref_loss": ref_loss, "grad_err": float(worst[k]),
+               "grad_err_leaf": ".".join(tree_paths(grads)[k][0]),
+               "seconds": time.perf_counter() - t_run}
+        record["fp32"][label] = out
+        del hp, params, grads, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["fp32_seconds"] = time.perf_counter() - t_fp32
+    torch.save(routes, tmp / f"routes{rank}.pt")
+    (tmp / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def kept_shares(cfg, routes: list, tokens: int) -> list:
+    """Per layer: the share of (token, choice) choices JAX's ``assign_slots``
+    keeps on the global microbatch ``routes`` (T, k) of ``tokens`` tokens."""
+    from repro_torch.models import moe
+
+    C = moe._capacity(cfg, tokens)
+    return [float(moe.assign_slots(idx, cfg.num_experts, C)[1].float().mean())
+            for idx in routes]
+
+
+def moe_parallel_phase(torch) -> dict:
+    """Phase 26: moonshot at full width cut to ``MPAR_LAYERS`` layers on two
+    ranks sharing the card over gloo (``moe_par_plans``), held to one rank's
+    ``mesh=None`` step on the same seed-0 weights and batches: bf16 losses
+    within ``PAR_LOSS_TOL``; at ``MPAR_FP32_SEQ`` in fp32 the loss within
+    ``PAR_FP32_LOSS_RTOL`` relative and every grad (each rank's shards of
+    it) within ``PAR_FP32_GRAD_TOL`` of its leaf's grad scale, each layer's routing
+    decisions that differ from one rank's logged beside them; the routing
+    of global logits split over the ranks integer-exact (``route_check``).
+    Each rank's K1, K2 and K2-backward launches per step are pinned
+    (``par_launches``) and K1's local heads checked.  Logs the kept share
+    per layer against one rank's, the exchange's bytes, each rank's peak
+    and their sum against the card, and the step times (labelled: no
+    interconnect is measured).  Returns each plan's launches in rank 0's
+    last step."""
+    import math
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models import build_model
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MPAR_LAYERS)
+    plans = moe_par_plans(cfg)
+    ds = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_BATCH, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--moe-parallel-rank", str(r), "2", str(tmp)],
+                                  env=dict(os.environ), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            one = uniform_plan(cfg.name, "train_4k", (1,), ("data",), MPAR_LAYERS,
+                               LayerStrategy(remat="selective"), grad_accum=PAR_ACCUM)
+            hp = construct_hybrid_parallel_model(build_model(cfg), one)
+            params = hp.init_params(torch.Generator(device="cuda").manual_seed(0))
+            opt = hp.init_opt_state(params)
+            ref_losses, ref_times, ref_auxes = [], [], []
+            for step in range(PAR_STEPS):
+                t0 = time.perf_counter()
+                with RoutingLog() as rlog:
+                    params, opt, m = hp.train_step(params, opt, ds.batch(step))
+                torch.cuda.synchronize()
+                ref_times.append(time.perf_counter() - t0)
+                ref_losses.append(float(m["loss"]))
+                ref_auxes.append(float(m["aux"]))
+                if step == 0:           # the first microbatch's forward, layer by layer
+                    ref_routes = [idx.cpu() for idx in rlog.idx[:MPAR_LAYERS]]
+                del rlog
+            ref_peak = torch.cuda.max_memory_allocated()
+            del hp, params, opt, m
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"moe parallel: one rank (mesh=None, selective, grad_accum {PAR_ACCUM}, "
+                f"{PAR_BATCH} x {PAR_SEQ}): losses {ref_losses}, aux {ref_auxes}, step times "
+                f"{[round(t, 4) for t in ref_times]} s, peak {ref_peak / 2**30:.2f} GiB")
+            (tmp / "payload.tmp").write_text(json.dumps(
+                {"plans": {k: p.to_json() for k, (p, _) in plans.items()}}))
+            os.replace(tmp / "payload.tmp", tmp / "payload.json")
+            t_ranks = time.perf_counter()
+            outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"moe parallel rank {r} exited {p.returncode}:\n"
+                    + "\n".join(out.splitlines()[-40:]))
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+        routes = [torch.load(tmp / f"routes{r}.pt") for r in range(2)]
+        log(f"moe parallel: the oracle {t_ranks - t_phase:.1f} s beside the ranks' start "
+            f"(rank 0 ready {ranks[0]['ready']:.1f} s after its process began); each plan "
+            f"(init and {PAR_STEPS} steps) "
+            f"{[round(run['seconds'], 1) for run in ranks[0]['runs'].values()]} s; fp32 "
+            f"{ranks[0]['fp32_seconds']:.1f} s (one rank's reference "
+            f"{ranks[0]['fp32_ref_seconds']:.1f}); the ranks {time.perf_counter() - t_ranks:.1f} "
+            f"s after the payload")
+
+    rc = ranks[0]["route"]
+    log(f"moe parallel: routing of {rc['tokens']} seeded fp32 logits split over 2 ranks "
+        f"(C {rc['capacity']} and a quarter of it: {rc['kept']} of choices kept): expert indices "
+        f"{'exact' if rc['idx'] else 'DIFFER'}, slots {'exact' if rc['slots'] else 'DIFFER'}, "
+        f"keep {'exact' if rc['keep'] else 'DIFFER'}; aux {rc['aux']} vs one rank "
+        f"{rc['one_aux']}")
+    require(all(rk["route"][k] for rk in ranks for k in ("idx", "slots", "keep")),
+            f"moe parallel: distributed routing differs from one rank's: {rc}")
+    require(abs(rc["aux"] - rc["one_aux"]) <= 1e-5 * abs(rc["one_aux"]),
+            f"moe parallel: the routing check's aux {rc['aux']} vs {rc['one_aux']}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    tokens = PAR_BATCH // PAR_ACCUM * PAR_SEQ
+    one_kept = kept_shares(cfg, ref_routes, tokens)
+    for label, (plan, what) in plans.items():
+        runs = [rk["runs"][label] for rk in ranks]
+        want = par_launches(plan, MPAR_LAYERS)
+        losses = runs[0]["losses"]
+        require(all(math.isfinite(x) for x in losses + runs[0]["auxes"]),
+                f"moe parallel ({label}): losses {losses}, aux {runs[0]['auxes']}")
+        require(runs[0]["losses"] == runs[1]["losses"],
+                f"moe parallel ({label}): the ranks report different losses")
+        delta = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        require(delta <= PAR_LOSS_TOL, f"moe parallel ({label}): losses {losses} vs one rank "
+                f"{ref_losses} (|delta| {delta:.4g} > {PAR_LOSS_TOL})")
+        for r, run in enumerate(runs):
+            for step, got in enumerate(run["launches"]):
+                require(got == want, f"moe parallel ({label}) rank {r} step {step}: launches "
+                        f"{got}, expected {want}")
+        s = plan.default_strategy
+        heads = ([[PAR_BATCH // PAR_ACCUM, 8, 8]] if s.tp == 2 else [[1, 16, 16]])
+        require(all(run["k1_heads"] == heads for run in runs),
+                f"moe parallel ({label}): K1 (batch, heads, KV heads) "
+                f"{[run['k1_heads'] for run in runs]}, expected {heads}")
+        # the first microbatch's routing, the ranks' tokens in batch order
+        ranked = routes[0][label] if s.tp == 2 else [
+            torch.cat([routes[0][label][i], routes[1][label][i]]) for i in range(MPAR_LAYERS)]
+        kept = kept_shares(cfg, ranked, tokens)
+        peaks = [run["peak"] for run in runs]
+        log(f"moe parallel ({label}) {what}: losses {losses} (one rank {ref_losses}, |delta| "
+            f"{delta:.4g}), aux {runs[0]['auxes']} (one rank {ref_auxes}), grad norms "
+            f"{runs[0]['grad_norms']}; kept share per layer {[round(x, 4) for x in kept]} (one "
+            f"rank {[round(x, 4) for x in one_kept]}); exchange bytes a rank a step (sent and "
+            f"received) {runs[0]['bytes']} / {runs[1]['bytes']}, all_to_all calls "
+            f"{runs[0]['a2a']}; step times rank 0 {[round(t, 4) for t in runs[0]['times']]} s, "
+            f"rank 1 {[round(t, 4) for t in runs[1]['times']]} s ({NO_INTERCONNECT}); peak "
+            f"memory {[round(x / 2**30, 2) for x in peaks]} GiB, sum {sum(peaks) / 2**30:.2f} "
+            f"of {card / 2**30:.2f} GiB; launches per rank per step K1 "
+            f"{want['flash_attention_fwd']}, K2 {want['rmsnorm']}, K2 backward "
+            f"{want['rmsnorm_bwd']}; K1 (batch, heads, KV heads) {runs[0]['k1_heads']}")
+        require(sum(peaks) <= card, f"moe parallel ({label}): peaks {peaks} past the card")
+        if s.ep > 1:
+            require(all(run["bytes"][0] > 0 for run in runs),
+                    f"moe parallel ({label}): no expert exchange under ep {s.ep}")
+    one_fp32 = routes[0]["fp32_one"]
+    for label, (plan, _) in plans.items():
+        got = ranks[0]["fp32"][label]
+        rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+        tp = plan.default_strategy.tp == 2
+        ranked = routes[0][f"fp32_{label}"] if tp else [
+            torch.cat([routes[0][f"fp32_{label}"][i], routes[1][f"fp32_{label}"][i]])
+            for i in range(MPAR_LAYERS)]
+        flips = [int((a != b).sum()) for a, b in zip(ranked, one_fp32)]
+        log(f"moe parallel fp32 ({label}, {MPAR_LAYERS} layers, {MPAR_FP32_BATCH} x "
+            f"{MPAR_FP32_SEQ}): loss {got['loss']} vs one rank {got['ref_loss']} (relative "
+            f"{rel:.3g}); largest grad error {got['grad_err']:.3g} of its leaf's scale "
+            f"({got['grad_err_leaf']}); routing decisions that differ from one rank's per layer "
+            f"{flips} of {one_fp32[0].numel()}")
+        require(rel <= PAR_FP32_LOSS_RTOL, f"moe parallel fp32 ({label}): loss relative {rel}")
+        require(got["grad_err"] <= PAR_FP32_GRAD_TOL,
+                f"moe parallel fp32 ({label}): grad error {got['grad_err']}")
+    seconds = time.perf_counter() - t_phase
+    log(f"moe parallel: phase 26 took {seconds:.1f} s")
+    return {label: ranks[0]["runs"][label]["launches"][-1] for label in plans}
+
+
 def main() -> int:
     # growable segments, for every phase: moonshot's training (phase 14)
     # runs out of memory without them, asking for its 5 GiB of fp32 logits
@@ -3590,6 +3994,13 @@ def main() -> int:
     par_launches = {"parallel_tp2": par["a"], "parallel_dp2": par["b"],
                     "parallel": {k: sum(run[k] for run in par.values()) for k in par["a"]}}
 
+    # 26. the MoE family on a mesh: two ranks sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    mpar = moe_parallel_phase(torch)
+    par_launches.update({"moe_parallel_tp2": mpar["b"], "moe_parallel_b1": {
+        k: mpar["a"][k] + mpar["c"][k] for k in mpar["a"]}})
+
     # 24. results
     kernels = []
     for rows, name, source, replaces in (
@@ -3631,5 +4042,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         parallel_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--moe-parallel-rank"]:
+        moe_parallel_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
-"""Phase 25 of ``chip_smoke.py`` alone, on one CUDA GPU: the parallel
-runtime at full llama3.2-1b width and depth on two ranks sharing the card
-over gloo, each plan held to one rank's step (see
-``chip_smoke.parallel_phase``).
+"""Phase 25 or 26 of ``chip_smoke.py`` alone, on one CUDA GPU: the parallel
+runtime on two ranks sharing the card over gloo, each plan held to one
+rank's step (see ``chip_smoke.parallel_phase`` and
+``chip_smoke.moe_parallel_phase``).
 
-    python3 scripts/chip_parallel.py            # the phase, about three minutes
+    python3 scripts/chip_parallel.py            # phase 25 (llama), about three minutes
+    python3 scripts/chip_parallel.py --moe      # phase 26 (moonshot on a mesh)
     python3 scripts/chip_parallel.py --probe    # the backends, about half a minute
 
 ``--probe`` asks each process-group backend for two ranks on device 0:
 NCCL (with ``NCCL_DEBUG=WARN``, whose reason for refusing lands in the
 ranks' output), then gloo on CUDA tensors with ``all_reduce``,
-``all_gather_into_tensor``, ``reduce_scatter_tensor`` and ``broadcast`` in
-fp32, and the gather, all-reduce and reduce-scatter in bf16; it prints
-each rank's answer
-per op, then gloo's all-reduce fit (``measure_allreduce``, 1 to 64 MiB) on
-CUDA tensors, and the same fit of all-reduces on CPU tensors: the host's
-rate, no interconnect.  Exits non-zero
-without a GPU.
+``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``broadcast`` and
+``all_to_all_single`` (uneven splits) in fp32, the gather, all-reduce,
+reduce-scatter and all-to-all in bf16, and the gather and all-to-all in
+int64 (the MoE counts and slots); it prints each rank's answer per op,
+then gloo's all-reduce fit (``measure_allreduce``, 1 to 64 MiB) on CUDA
+tensors, and the same fit of all-reduces on CPU tensors: the host's rate,
+no interconnect.  Exits non-zero without a GPU.
 """
 import os
 import pathlib
@@ -28,7 +29,6 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor", "broadcast")
 
 
 def probe_rank(rank: int, world: int, store: str, backend: str) -> None:
@@ -54,6 +54,22 @@ def probe_rank(rank: int, world: int, store: str, backend: str) -> None:
     ops["all_reduce bf16"] = lambda: dist.all_reduce(y.clone())
     ops["reduce_scatter_tensor bf16"] = lambda: dist.reduce_scatter_tensor(
         torch.empty(8 // world, device=dev, dtype=torch.bfloat16), y)
+    # uneven splits, as the expert exchange sends: rank r sends r + 1 rows
+    # to each rank and receives (its sender's index + 1) from each
+    send, recv = [rank + 1] * world, [s + 1 for s in range(world)]
+    for dtype in (torch.float32, torch.bfloat16, torch.int64):
+        name = str(dtype).split(".")[-1]
+        rows = torch.full((sum(send), 4), rank + 1, device=dev).to(dtype)
+
+        def a2a(rows=rows, dtype=dtype):
+            out = torch.zeros((sum(recv), 4), device=dev, dtype=dtype)
+            dist.all_to_all_single(out, rows, recv, send)
+            want = torch.cat([torch.full((s + 1, 4), s + 1, device=dev) for s in range(world)])
+            if not torch.equal(out.float(), want.float()):
+                raise ValueError(f"wrong rows {out[:, 0].tolist()}")
+        ops[f"all_to_all_single {name}"] = a2a
+    ops["all_gather_into_tensor int64"] = lambda: dist.all_gather_into_tensor(
+        torch.empty(8 * world, device=dev, dtype=torch.int64), x.long())
     for name in ops:
         try:
             ops[name]()
@@ -131,7 +147,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     cs.log(f"build: {time.perf_counter() - t0:.1f} s")
-    cs.parallel_phase(torch)
+    if sys.argv[1:2] == ["--moe"]:
+        cs.moe_parallel_phase(torch)
+    else:
+        cs.parallel_phase(torch)
     return 0
 
 

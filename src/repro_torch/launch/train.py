@@ -22,8 +22,10 @@ n-card H100 cluster (``H100_NODE8`` with ``chips=n``, ``intra_size=min(n,
 8)``) with ``pp_options=[1]``, the plan line printed by rank 0 alone, then
 the mesh (NCCL on CUDA, gloo on the CPU), ``construct_hybrid_parallel_model``
 and training, every rank building the same global ``SyntheticDataset``
-batch and taking its rows of it.  ``--validate-only`` checks the searched
-plan on that cluster and exits 0 or 1.
+batch and taking its rows of it; the moe family too (its layers route
+the global microbatch; ``ep`` > 1 where the search picks it: at n = 4 the
+mesh is (2, 2), so ep 2 is a candidate).  ``--validate-only`` checks the
+searched plan on that cluster and exits 0 or 1.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \
         --reduced --device cpu --steps 2 --seq 32 --batch 8

@@ -31,8 +31,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    sharded = params["w_in"].shape[-1] < cfg.d_ff
+def ffn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              d_ff: int | None = None) -> torch.Tensor:
+    """``d_ff``: the FFN's whole width where it is not ``cfg.d_ff`` (the MoE
+    shared expert's), which tells this rank's ff columns from all of them."""
+    sharded = params["w_in"].shape[-1] < (d_ff or cfg.d_ff)
     x = collectives.region_in(x, sharded)
     h = torch.matmul(x, params["w_in"].to(x.dtype))
     if cfg.mlp_type in ("swiglu", "geglu"):

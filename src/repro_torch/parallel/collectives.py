@@ -15,17 +15,20 @@ operator          forward                         backward
 ``split``         this rank's slice               all-gather
 ``gather_sum``    all-gather along ``dim``        reduce-scatter
 ``scatter_sum``   reduce-scatter along ``dim``    all-gather
+``exchange``      all-to-all of rows by splits    the reverse all-to-all
 ================  ==============================  ===========================
 
-``gather_sum_many`` is ``gather_sum`` over several tensors in one message.
+``gather_sum_many`` is ``gather_sum`` over several tensors in one message;
+``exchange`` is expert parallelism's: rows sent to each rank of a group by
+split sizes.
 
 A group of one makes every operator the identity.  Every collective runs
 in its tensor's dtype, as NCCL and XLA reduce: a bf16 partial sum is summed
 in bf16, so two ranks round it once, as a single card rounds its matmul's
 fp32 sum once.  The names used (``all_reduce``, ``all_gather_into_tensor``,
-``reduce_scatter_tensor``) exist in every torch this runs on, and gloo
-takes each of them on CUDA tensors in fp32 and bf16, so nothing is staged
-through the host by hand.
+``reduce_scatter_tensor``, ``all_to_all_single``) exist in every torch
+this runs on, and gloo takes each of them on CUDA tensors in fp32 and
+bf16, so nothing is staged through the host by hand.
 
 ``region_in`` / ``region_out`` are the tensor-parallel boundaries the
 models call where JAX marks ``lc`` sites: entering a region whose weights
@@ -43,6 +46,7 @@ grad all-reduced over the model axis.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -91,6 +95,26 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
                       dtype=src.dtype, device=src.device)
     dist.reduce_scatter_tensor(out, src, group=group.pg)
     return out.movedim(0, dim).contiguous()
+
+
+def all_to_all(x: torch.Tensor, send: list, recv: list, group, rows=None) -> torch.Tensor:
+    """Rows of ``x`` to the ranks of ``group``: the first ``send[0]`` to its
+    rank 0, the next ``send[1]`` to its rank 1, ...; the rows received,
+    ``recv[i]`` from rank i, in rank order.  The result has ``rows`` rows
+    (default ``max(sum(recv), 1)``), the ones past ``sum(recv)`` zeros, and
+    ``x`` may hold rows past ``sum(send)``, which stay: so a rank that
+    sends or receives nothing still passes and gets a tensor to gather
+    from."""
+    n_in, n_out = sum(send), sum(recv)
+    rows = max(n_out, 1) if rows is None else rows
+    out = x.new_empty((rows,) + tuple(x.shape[1:]))
+    out[n_out:].zero_()
+    if _trivial(group):
+        out[:n_out] = x[:n_in]
+    else:
+        dist.all_to_all_single(out[:n_out], x[:n_in].contiguous(), list(recv), list(send),
+                               group=group.pg)
+    return out
 
 
 def take_shard(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -173,6 +197,17 @@ class _ScatterSum(torch.autograd.Function):
         return all_gather(g, ctx.dim, ctx.group), None, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.send, ctx.recv, ctx.group, ctx.rows = send, recv, group, x.shape[0]
+        return all_to_all(x, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.recv, ctx.send, ctx.group, rows=ctx.rows), None, None, None
+
+
 class _GatherSumMany(torch.autograd.Function):
     """``gather_sum`` of several tensors of one dtype over one group, in one
     all-gather forward and one reduce-scatter backward: each tensor's
@@ -216,6 +251,14 @@ def gather_sum_many(xs: list, dims: list, group) -> list:
         raise ValueError("gather_sum_many takes one dtype, got "
                          f"{sorted({str(x.dtype) for x in xs})}")
     return list(_GatherSumMany.apply(tuple(dims), group, *xs))
+
+
+def exchange(x, send: list, recv: list, group):
+    """``all_to_all`` under autograd: the grad of the rows received goes back
+    to their senders by the reverse exchange.  The split sizes are host
+    integers, read from the device by the caller: an eager step's reading,
+    which a step captured as a CUDA graph could not make."""
+    return _Exchange.apply(x, list(send), list(recv), group)
 
 
 def copy_to(x, group):
@@ -270,6 +313,42 @@ def tp_state() -> Optional[TPState]:
     seq = rules.rules.get("seq")
     sp = seq is not None and target in (seq if isinstance(seq, tuple) else (seq,))
     return TPState(group, sp)
+
+
+def batch_group():
+    """The ranks the active layer group's batch is split over (its rules'
+    ``batch`` axes), or None off a mesh; a layer's tokens are the global
+    microbatch, these ranks' rows in their order."""
+    rules = current_rules()
+    if rules is None or not hasattr(rules.mesh, "group"):
+        return None
+    return rules.mesh.group(tuple(rules.rules.get("batch") or ()))
+
+
+def experts_group():
+    """The ranks the active rules shard the ``experts`` dim over (the data
+    axis under expert parallelism), or None."""
+    rules = current_rules()
+    target = None if rules is None else rules.rules.get("experts")
+    if target is None or not hasattr(rules.mesh, "group"):
+        return None
+    return rules.mesh.group(target if isinstance(target, tuple) else (target,))
+
+
+def member_indices(sub, outer) -> list:
+    """The index in ``outer`` (an ``AxisGroup`` whose axes hold ``sub``'s)
+    of every rank of ``sub``, in ``sub``'s order: the ranks that share this
+    rank's coordinates on every other axis."""
+    mesh = current_rules().mesh
+    coords = dict(mesh.coords)
+    out = []
+    for combo in itertools.product(*(range(mesh.shape[a]) for a in sub.axes)):
+        c = dict(coords, **dict(zip(sub.axes, combo)))
+        index = 0
+        for a in outer.axes:
+            index = index * mesh.shape[a] + c[a]
+        out.append(index)
+    return out
 
 
 def region_in(x: torch.Tensor, sharded: bool = True) -> torch.Tensor:

@@ -18,7 +18,10 @@ whole, and the port computes that part replicated on every rank.
 Port-side additions: :func:`place_params` cuts this rank's local shard of
 every leaf from the canonical tree, :func:`gather_params` puts the canonical
 leaves back together (both per spec tree, on a ``launch.mesh.ProcessMesh``);
-:func:`zero_dims` names the dim a leaf's ZeRO layout adds.
+:func:`zero_dims` names the dim a leaf's ZeRO layout adds, :func:`reshard`
+moves a shard between two layouts of one leaf (under expert parallelism
+the MoE router's ZeRO layout shards ``embed`` where its compute layout
+shards ``experts``: ``MeshRules.spec``'s dedup).
 ``cache_spec_tree`` waits for the serving mesh, ``ring_context`` for
 context parallelism.
 """
@@ -217,6 +220,31 @@ def place_params(canonical: dict, specs: dict, mesh) -> dict:
 def gather_params(local: dict, specs: dict, mesh) -> dict:
     """The inverse of :func:`place_params`: every leaf whole, on every rank."""
     return tree_map(lambda x, s: unshard_leaf(x, s, mesh), local, specs)
+
+
+def _entries(spec: Spec, n: int) -> list:
+    return [tuple(e) if isinstance(e, tuple) else ((e,) if e else ())
+            for e in tuple(spec) + (None,) * (n - len(spec))]
+
+
+def spec_axes(spec: Spec) -> set:
+    """The mesh axes a spec shards over."""
+    return {a for _, axes in spec_dims(spec) for a in axes}
+
+
+def reshard(x: torch.Tensor, src: Spec, dst: Spec, mesh) -> torch.Tensor:
+    """A local shard laid out by ``src`` -> the same leaf's shard laid out by
+    ``dst``: every dim whose mesh axes differ is all-gathered, then cut as
+    ``dst`` says (a pure change of layout; ``x`` itself where they agree)."""
+    n = max(len(src), len(dst))
+    a, b = _entries(src, n), _entries(dst, n)
+    for dim in range(n):
+        if a[dim] and a[dim] != b[dim]:
+            x = collectives.all_gather(x, dim, mesh.group(a[dim]))
+    for dim in range(n):
+        if b[dim] and a[dim] != b[dim]:
+            x = collectives.take_shard(x, dim, mesh.group(b[dim]))
+    return x
 
 
 def zero_dims(full: Spec, base: Spec):

@@ -15,23 +15,34 @@ each rank holds its local shards of the grouped tree (``place_params``;
 ``gather_params`` is the inverse).  The global batch is split into
 microbatches first, then each microbatch over the default strategy's dp
 ranks, as JAX reshapes then shards; the loss is normalised by the global
-valid-token count.  Grads are reduced by ZeRO stage over the state axes of
-each leaf's layer group: stage 0 and 1 all-reduce (stage 1 then updates
-this rank's optimizer shard and all-gathers the params), stage 2
-reduce-scatters into the optimizer layout, stage 3 holds the params
-dp-sharded and all-gathers them per layer inside the runner, one message a
-layer, through an autograd function whose backward reduce-scatters (so a
-``full`` remat regathers on recompute); a leaf whose ``ParamDef`` is
-``cast`` is gathered in the forward's dtype (``_gather_sum``).  Where two
-consecutive groups differ in layout (tp, sp, or a tp 1 group absorbing the
-model axis into dp), the residual stream changes layout at the boundary
-(``collectives.relayout``).
+valid-token count.  A leaf's grad is summed over exactly the batch axes of
+its layer group (the state axes) that its ``param_specs`` layout does not
+shard it over: the rest of the sum has been taken by the forward's own
+collectives' backwards (ZeRO-3's gather, the MoE router's gather and the
+expert exchange over the data axis).  By ZeRO stage: stage 0 and 1
+all-reduce (stage 1 then updates this rank's optimizer shard and
+all-gathers the params), stage 2 reduce-scatters into the optimizer
+layout, stage 3 holds the params dp-sharded and all-gathers them per layer
+inside the runner, one message a layer, through an autograd function whose
+backward reduce-scatters (so a ``full`` remat regathers on recompute); a
+leaf whose ``ParamDef`` is ``cast`` is gathered in the forward's dtype
+(``_gather_sum``).  Where two layouts of one leaf do not nest (the MoE
+router under expert parallelism), it moves between them by
+``sharding.reshard``.  Where two consecutive groups differ in layout (tp,
+sp, or a tp 1 group absorbing the model axis into dp), the residual stream
+changes layout at the boundary (``collectives.relayout``).
 
-Refused, each naming its Queue 1 item: pipeline (pp > 1), context (cp > 1)
-and expert parallelism (ep > 1, and the moe family over more than one
-rank: JAX's capacity counts the global batch), and tp > 1 on the ssm,
-hybrid and audio families.  Nothing is compiled (``jit_train_step`` returns
-the eager step), and the checkpoint hooks wait for the checkpointing slice.
+The MoE family routes the global microbatch (``models/moe.py``): its aux
+loss has one value on every rank of a batch group, so ``loss_fn`` adds it
+to each rank's loss at 1 / (the group's size) of its value and at its whole
+grad (each rank's grad is that rank's share), and the summed loss and
+grads count it once, as JAX's step does.
+
+Refused, each naming its Queue 1 item: pipeline (pp > 1), context (cp > 1),
+and tp > 1 on the ssm, hybrid and audio families; ep > 1 is an error where
+GALV006 fails or no layer has experts.  Nothing is compiled
+(``jit_train_step`` returns the eager step), and the checkpoint hooks wait
+for the checkpointing slice.
 """
 from __future__ import annotations
 
@@ -176,13 +187,23 @@ def check_supported(model, plan: ExecutionPlan, mesh) -> None:
     if any(s.cp > 1 for s in strategies):
         raise NotImplementedError(f"context parallelism (cp > 1) waits for {_ITEM}'s "
                                   "context PR (parallel/context.py)")
-    if any(s.ep > 1 for s in strategies):
-        raise NotImplementedError(f"expert parallelism (ep > 1) waits for {_ITEM}'s EP PR "
-                                  "(routing across ranks)")
+    for s in strategies:
+        if s.ep == 1:
+            continue
+        if family != "moe":
+            raise ValueError(f"ep {s.ep} on the {family} family: no layer has experts to "
+                             "shard (the search proposes ep for moe blocks alone)")
+        if model.cfg.num_experts % s.ep:
+            raise ValueError(f"GALV006: ep {s.ep} does not divide "
+                             f"{model.cfg.num_experts} experts")
+        if mesh is not None and mesh.shape.get("data", 1) == 1:
+            raise ValueError(f"ep {s.ep} shards the experts over the data axis, and mesh "
+                             f"{mesh.shape} has none")
     if mesh is None:
-        if plan.num_devices > 1 or any(s.tp > 1 for s in strategies):
+        if plan.num_devices > 1 or any(s.tp > 1 or s.ep > 1 for s in strategies):
             raise ValueError(f"a plan over mesh {plan.mesh_shape} with tp up to "
-                             f"{max(s.tp for s in strategies)} needs a mesh "
+                             f"{max(s.tp for s in strategies)} and ep up to "
+                             f"{max(s.ep for s in strategies)} needs a mesh "
                              "(repro_torch.launch.mesh.make_mesh)")
         return
     if not hasattr(mesh, "group"):
@@ -192,33 +213,16 @@ def check_supported(model, plan: ExecutionPlan, mesh) -> None:
                                                       tuple(plan.mesh_shape)):
         raise ValueError(f"plan mesh {plan.mesh_axes} {plan.mesh_shape} vs mesh "
                          f"{mesh.axis_names} {mesh.sizes}")
-    if family == "moe" and mesh.size > 1:
-        raise NotImplementedError(
-            f"the moe family over {mesh.size} ranks waits for {_ITEM}'s EP PR: JAX "
-            "computes an MoE layer's capacity from the global batch, so each rank's "
-            "routing needs the lower ranks' counts")
     for s in strategies:
         if s.tp == 1:
             continue
         if family in ("ssm", "hybrid", "audio"):
             raise NotImplementedError(
-                f"tp {s.tp} on the {family} family waits for {_ITEM}'s EP / SSM-TP PR "
+                f"tp {s.tp} on the {family} family waits for {_ITEM}'s SSM-TP PR "
                 "(the ssm_inner / ssm_heads regions, the encoder and cross-attention)")
         if mesh.shape.get("model") != s.tp:
             raise ValueError(f"tp {s.tp} needs a model axis of {s.tp} ranks, mesh "
                              f"{mesh.shape}")
-
-
-def _shard_dims(x: torch.Tensor, dims) -> torch.Tensor:
-    for d, group in dims:
-        x = collectives.take_shard(x, d, group)
-    return x
-
-
-def _gather_dims(x: torch.Tensor, dims) -> torch.Tensor:
-    for d, group in dims:
-        x = collectives.all_gather(x, d, group)
-    return x
 
 
 # --------------------------------------------------------------------------
@@ -253,9 +257,6 @@ class HybridParallelModel:
         self.tp_specs = spec(kind="param", zero=False)
         dims = lambda full, base: [(d, mesh.group(a)) for d, a in shd.zero_dims(full, base)]
         self._param_zero = tree_map(dims, self.param_specs, self.tp_specs)
-        self._grad_zero = tree_map(dims, self.grad_specs, self.tp_specs)
-        self._opt_from_param = tree_map(dims, self.opt_specs, self.param_specs)
-        self._opt_from_grad = tree_map(dims, self.opt_specs, self.grad_specs)
         # per leaf, whether its ParamDef lets a ZeRO-3 gather move it in the
         # forward's dtype (every block group holds the same leaves)
         casts = tree_map(lambda d: d.cast, model.param_defs())
@@ -267,15 +268,29 @@ class HybridParallelModel:
         default = plan.default_strategy
         first = plan.layer_strategies[0] if plan.layer_strategies else default
         strategy_of = {f"g{i:03d}": g.strategy for i, g in enumerate(plan.groups())}
-        group_of = lambda s: (lambda _: mesh.group(plan.state_axes_for(s)))
-        self._state_group = {
-            key: ({g: tree_map(group_of(strategy_of[g]), sub[g]) for g in sub}
+        state_of = lambda s: (lambda _: plan.state_axes_for(s))
+        state = {
+            key: ({g: tree_map(state_of(strategy_of[g]), sub[g]) for g in sub}
                   if key == "blocks" and shd.is_grouped(sub)
-                  else tree_map(group_of(first if key == "blocks" else default), sub))
+                  else tree_map(state_of(first if key == "blocks" else default), sub))
             for key, sub in self.param_specs.items()}
+        self._grad_reduce = tree_map(self._grad_reduction, state, self.param_specs,
+                                     self.grad_specs)
         self._default_rules = shd.act_rules(plan, default, mesh)
         self._batch_group = mesh.group(plan.dp_axes_for(default))
         self._whole_model_gather = not self._supports_grouping
+
+    def _grad_reduction(self, state: tuple, param: tuple, grad: tuple):
+        """How a leaf's local grad (``param`` layout, partial over the state
+        axes the leaf is not sharded on) becomes its ``grad`` layout, summed:
+        (the group summed over, the dim reduce-scattered over it or None)."""
+        sharded = shd.spec_axes(param)
+        axes = tuple(a for a in state if a not in sharded)
+        added = shd.zero_dims(grad, param)
+        nested = all(grad[d:d + 1] == param[d:d + 1] for d, _ in shd.spec_dims(param))
+        scatter = (added[0][0] if nested and len(added) == 1 and added[0][1] == axes
+                   else None)
+        return self.mesh.group(axes), scatter
 
     @property
     def _supports_grouping(self) -> bool:
@@ -318,8 +333,11 @@ class HybridParallelModel:
     def init_opt_state(self, params) -> opt_lib.AdamWState:
         if self.mesh is None:
             return opt_lib.adamw_init(params, self.opt_cfg)
-        return opt_lib.adamw_init(tree_map(_shard_dims, params, self._opt_from_param),
+        return opt_lib.adamw_init(self._reshard(params, self.param_specs, self.opt_specs),
                                   self.opt_cfg)
+
+    def _reshard(self, tree: dict, src: dict, dst: dict) -> dict:
+        return tree_map(lambda x, a, b: shd.reshard(x, a, b, self.mesh), tree, src, dst)
 
     # ------------------------------------------------------------ steps
     def _gather_layer(self, i: int, layer_params: dict, dtype) -> dict:
@@ -394,7 +412,10 @@ class HybridParallelModel:
             loss, metrics = softmax_xent(logits, batch["labels"], vocab=vocab,
                                          dp=self._batch_group)
         metrics["aux"] = extra
-        return loss + AUX_LOSS_WEIGHT * extra, metrics
+        # the ranks' losses are summed: the aux value counts once over them,
+        # its grad whole on each rank (that rank's share; see the module note)
+        once = extra + extra.detach() * (1.0 / self._batch_group.size - 1.0)
+        return loss + AUX_LOSS_WEIGHT * once, metrics
 
     def _local_value_and_grad(self, params, batch, dtype):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -411,19 +432,20 @@ class HybridParallelModel:
         return {k: collectives.take_shard(v, 0, self._batch_group) for k, v in batch.items()}
 
     def _reduce_grads(self, grads):
-        """Local grads (partial over each leaf's state axes) -> the
-        ``grad_specs`` layout, summed: all-reduced, or reduce-scattered at
-        ZeRO-2; ZeRO-3 leaves arrive reduce-scattered by the gather's
-        backward."""
-        def reduce(g, param_zero, grad_zero, group):
-            if param_zero:
-                return g
-            if grad_zero:
-                (d, _), = grad_zero
-                return collectives.reduce_scatter(g, d, group)
-            return collectives.all_reduce(g, group)
+        """Local grads -> the ``grad_specs`` layout, summed over the state
+        axes each leaf is not sharded on (``_grad_reduction``): reduce-
+        scattered where its grad layout adds one dim over exactly those
+        axes (ZeRO-2), else all-reduced and moved to its grad layout.  A
+        ZeRO-3 leaf arrives reduce-scattered by its gather's backward, and
+        an expert leaf under EP summed over the data axis by the
+        exchange's."""
+        def reduce(g, how, param, grad):
+            group, scatter = how
+            if scatter is not None:
+                return collectives.reduce_scatter(g, scatter, group)
+            return shd.reshard(collectives.all_reduce(g, group), param, grad, self.mesh)
 
-        return tree_map(reduce, grads, self._param_zero, self._grad_zero, self._state_group)
+        return tree_map(reduce, grads, self._grad_reduce, self.param_specs, self.grad_specs)
 
     def value_and_grad(self, params, batch, dtype=torch.bfloat16):
         """(loss, metrics, grads) of one batch; grads in the params' tree and
@@ -511,11 +533,11 @@ class HybridParallelModel:
         the global grad norm, then the params all-gathered back to
         ``param_specs``."""
         gnorm = opt_lib.global_norm(grads, self.grad_specs, self.mesh)
-        p_opt = tree_map(_shard_dims, params, self._opt_from_param)
-        g_opt = tree_map(_shard_dims, grads, self._opt_from_grad)
+        p_opt = self._reshard(params, self.param_specs, self.opt_specs)
+        g_opt = self._reshard(grads, self.grad_specs, self.opt_specs)
         update = opt_lib.adamw_update_ if donate else opt_lib.adamw_update
         new_opt_p, new_opt, stats = update(p_opt, g_opt, opt_state, self.opt_cfg, gnorm=gnorm)
-        new_params = tree_map(_gather_dims, new_opt_p, self._opt_from_param)
+        new_params = self._reshard(new_opt_p, self.opt_specs, self.param_specs)
         if donate:
             for p, new in zip(tree_leaves(params), tree_leaves(new_params)):
                 if new is not p:
@@ -541,8 +563,9 @@ def construct_hybrid_parallel_model(
     hybrid, and the encoder-decoder (whose batches carry ``frames``);
     ``loss_fn`` adds the MoE router's aux loss at ``AUX_LOSS_WEIGHT``.  On
     a ``launch.mesh.ProcessMesh``: DP, ZeRO 1-3, TP and SP per layer group
-    for the dense and vlm families, DP and ZeRO for the ssm, hybrid and
-    audio families; the rest is refused (``check_supported``)."""
+    for the dense, vlm and moe families, with expert parallelism (ep > 1)
+    for the moe family, DP and ZeRO for the ssm, hybrid and audio
+    families; the rest is refused (``check_supported``)."""
     check_supported(model, plan, mesh)
     hp = HybridParallelModel(model=model, plan=plan, opt_cfg=opt_cfg or opt_lib.AdamWConfig(),
                              mesh=mesh)

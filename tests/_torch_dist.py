@@ -147,7 +147,76 @@ def train_cases(payload: dict) -> dict:
                "roundtrip": roundtrip and _flat(back).keys() == _flat(case["params"]).keys(),
                "applied_is_step": applied_is_step,
                "local_shapes": {k: tuple(v.shape) for k, v in _flat(params).items()}}
+        if case.get("aux_weights"):
+            res["aux"] = aux_runs(hp, params, batch, dtype, case["aux_weights"])
         out[case["name"]] = res if dist.get_rank() == 0 else None
+    return out
+
+
+def aux_runs(hp, params, batch, dtype, weights) -> dict:
+    """weight -> (loss, canonical grads) of ``value_and_grad`` with the
+    runtime's ``AUX_LOSS_WEIGHT`` set to each weight in turn."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime import train as rt
+
+    out, kept = {}, rt.AUX_LOSS_WEIGHT
+    try:
+        for w in weights:
+            rt.AUX_LOSS_WEIGHT = w
+            loss, _, grads = hp.value_and_grad(params, batch, dtype)
+            out[w] = (float(loss), tree_map(lambda x: x.cpu(), hp.gather_params(
+                grads, hp.grad_specs if hp.mesh is not None else None)))
+    finally:
+        rt.AUX_LOSS_WEIGHT = kept
+    return out
+
+
+def exchange_rows(payload: dict) -> dict:
+    """On every rank of a (world, 1) mesh: ``collectives.exchange`` of
+    seeded rows by uneven split sizes over the data axis, forward and
+    backward (the grad of a seeded weighted sum of the rows received),
+    against the same rows moved by a plain gather and its backward, from
+    every rank's rows and weights (each rank draws them all from the seed).
+    ``payload["silent"]`` names ranks that send and receive nothing.
+    Returns whether each is bitwise, and the padded rows' sum."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives
+
+    device = torch.device(payload.get("device", "cpu"))
+    if device.type == "cuda":
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = make_mesh((world, 1), ("data", "model"), device=device,
+                      backend=payload.get("backend")).group("data")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(payload.get("seed", 0))
+        splits = torch.randint(0, 4, (world, world), generator=gen)           # s -> d
+        for r in payload.get("silent", ()):     # ranks that send and receive nothing
+            splits[r, :] = splits[:, r] = 0
+        splits = splits.tolist()
+        rows = [torch.randn(sum(splits[s]), 8, generator=gen).to(dtype) for s in range(world)]
+        weights = [torch.randn(sum(splits[s][d] for s in range(world)), 8,
+                               generator=gen).to(dtype) for d in range(world)]
+        first = lambda s, d: sum(splits[s][:d])
+        plain = torch.cat([rows[s][first(s, rank):first(s, rank) + splits[s][rank]]
+                           for s in range(world)])
+        # the grad of my rows: each destination's weights at the rows I sent it
+        plain_grad = torch.cat([weights[d][sum(splits[s][d] for s in range(rank)):][
+            :splits[rank][d]] for d in range(world)])
+        x = rows[rank].to(device).requires_grad_()
+        recv = [splits[s][rank] for s in range(world)]
+        got = collectives.exchange(x, splits[rank], recv, group)
+        n = sum(recv)
+        (got[:n] * weights[rank].to(device)).sum().backward()
+        name = str(dtype).split(".")[-1]
+        out[name] = {"rows": torch.equal(got[:n].cpu(), plain),
+                     "grad": torch.equal(x.grad.cpu(), plain_grad),
+                     "padding": float(got[n:].float().abs().sum()),
+                     "shape": tuple(got.shape), "received": n}
     return out
 
 
@@ -230,11 +299,13 @@ def refusals_and_fit(payload: dict) -> dict:
 
 
 def references(name: str, arch: str, strategies, grad_accum: int = 1, batch: int = 8,
-               seq: int = 32, eps: float = 1e-4) -> tuple[dict, dict]:
+               seq: int = 32, eps: float = 1e-4,
+               overrides: dict | None = None) -> tuple[dict, dict]:
     """(case, refs): the case for ``train_cases`` on JAX-initialised
     (perturbed) weights and a seeded batch with masked labels, and its
     references: JAX's fp32 ``value_and_grad`` of its ``loss_fn`` formula and
-    the port's single-device ``value_and_grad`` and ``train_step``."""
+    the port's single-device ``value_and_grad`` and ``train_step``.
+    ``overrides`` replace fields of the reduced config in both packages."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -250,8 +321,11 @@ def references(name: str, arch: str, strategies, grad_accum: int = 1, batch: int
     from repro_torch.runtime.train import construct_hybrid_parallel_model
     from tests._torch_params import perturbed
 
-    cfg = get_config(arch).reduced()
-    jm = jax_build_model(jax_get_config(arch).reduced())
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+        jcfg = dataclasses.replace(jcfg, **overrides)
+    jm = jax_build_model(jcfg)
     np_params = perturbed(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))),
                           np.random.default_rng(0))
     rng = np.random.default_rng(7)
@@ -281,7 +355,7 @@ def references(name: str, arch: str, strategies, grad_accum: int = 1, batch: int
               **{k: torch.from_numpy(v) for k, v in side.items()}}
     opt = AdamWConfig(eps=eps)
     plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
-                        dataclasses.replace(strategies[0], tp=1, sp=False, zero=0),
+                        dataclasses.replace(strategies[0], tp=1, sp=False, zero=0, ep=1),
                         grad_accum=grad_accum)
     hp = construct_hybrid_parallel_model(build_model(cfg, device="cpu"), plan, None, opt)
     loss, _, grads = hp.value_and_grad(params, tbatch, torch.float32)

@@ -1400,3 +1400,88 @@ def test_cuda_two_gloo_ranks_sharing_the_card_hold_tp2_sp_to_one_rank(cuda_devic
         want = ref[path].cpu() - init[path]
         err = float((a - ref[path].cpu()).abs().max())
         assert err <= 2e-3 * float(want.abs().max()), (path, err)
+
+
+def test_cuda_distributed_slots_are_one_ranks_routing(cuda_device):
+    """moonshot's routing of 8 192 seeded fp32 router logits on the card,
+    split over 1 to 4 ranks and evaluated rank by rank from every rank's
+    counts (``moe.distributed_slots``), gives one rank's expert indices,
+    slots and keep mask on the whole batch exactly, at its capacity (C 960)
+    and at a quarter of it (drops)."""
+    from repro_torch.models import moe
+
+    cfg = get_config("moonshot-v1-16b-a3b")
+    T, E = 8192, cfg.num_experts
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    logits = torch.randn(T, E, generator=g, device=cuda_device)
+    _, idx, _ = moe.route(logits, cfg)
+    full = moe._capacity(cfg, T)
+    for C in (full, full // 4):
+        slots, keep = moe.assign_slots(idx, E, C)
+        assert C == full or not bool(keep.all())          # a quarter of C drops
+        for ranks in (1, 2, 4):
+            parts = [moe.route(part, cfg)[1] for part in logits.chunk(ranks)]
+            counts = torch.stack([moe.choice_counts(p, E) for p in parts])
+            got = [moe.distributed_slots(p, counts, r, C) for r, p in enumerate(parts)]
+            assert torch.equal(torch.cat(parts), idx)
+            assert torch.equal(torch.cat([s for s, _, _ in got]), slots), (C, ranks)
+            assert torch.equal(torch.cat([k for _, k, _ in got]), keep), (C, ranks)
+
+
+def test_cuda_moe_one_rank_nccl_mesh_is_bitwise_the_single_device_step(cuda_device, tmp_path):
+    """A (1, 1) mesh over a one-rank NCCL group runs the MoE layer's mesh
+    path (a batch group of one rank): two bf16 steps of reduced moonshot (2
+    layers; ZeRO-3, so the fp32 router is gathered; ``selective``,
+    grad_accum 2) give the ``mesh=None`` step's losses and params bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(),
+                              moe_capacity_factor=1.25)
+    strat = LayerStrategy(zero=3, remat="selective")
+    ds = SyntheticDataset(cfg, 64, 4, seed=2)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        runs = []
+        for mesh in (None, make_mesh((1, 1), ("data", "model"), device=cuda_device)):
+            shape, axes = ((1,), ("data",)) if mesh is None else ((1, 1), ("data", "model"))
+            plan = uniform_plan(cfg.name, "t", shape, axes, cfg.num_layers, strat,
+                                grad_accum=2)
+            hp = construct_hybrid_parallel_model(build_model(cfg), plan, mesh)
+            params = hp.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+            opt = hp.init_opt_state(params)
+            losses = []
+            for step in range(2):
+                params, opt, m = hp.train_step(params, opt, ds.batch(step))
+                losses.append((float(m["loss"]), float(m["aux"])))
+            runs.append((losses, hp.gather_params(params)))
+        assert mesh.backend == "nccl"
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = runs
+    assert l0 == l1
+    for (path, a), (_, b) in zip(tree_paths(p0), tree_paths(p1)):
+        assert torch.equal(a, b), path
+
+
+def test_cuda_exchange_is_a_plain_gather_on_gloo_ranks_sharing_the_card(cuda_device,
+                                                                          tmp_path):
+    """``collectives.exchange`` on CUDA tensors over two gloo ranks sharing
+    the card (NCCL refuses two ranks on one device), uneven splits, fp32 and
+    bf16: the rows received and the grad of the rows sent are bitwise a
+    plain gather's."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist_helpers", pathlib.Path(__file__).with_name("_torch_dist.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    got = helpers.run_ranks(2, "exchange_rows", {"device": "cuda", "backend": "gloo"},
+                            tmp_path)
+    for rank in got:
+        for dtype, res in rank.items():
+            assert res["rows"] and res["grad"] and res["padding"] == 0.0, (dtype, res)

@@ -5,10 +5,11 @@ sequence), mamba2 at dp 4 with ZeRO-1 and ``full`` remat (K3's plain
 version under the runner), and whisper at dp 4 with ZeRO-2 (its ``frames``
 split with the batch), each on four ranks against the port's single-device
 step and JAX's ``value_and_grad``.  Then, on two ranks: the runtime's
-refusals, each naming its Queue 1 item, and ``measure_allreduce``'s fit;
+refusals, each naming its Queue 1 item, its errors for plans that are not
+valid (ep on a family with no experts), and ``measure_allreduce``'s fit;
 and the launcher under ``torchrun`` on four CPU ranks, which searches a
-plan, prints its line once and trains, and whose ``--validate-only``
-exits by ``check_plan``.
+plan, prints its line once and trains (llama, and moonshot: the moe family
+on a mesh), and whose ``--validate-only`` exits by ``check_plan``.
 """
 import os
 import pathlib
@@ -30,16 +31,23 @@ CASES = {
 }
 
 REFUSED = {
-    "moonshot_dp2": ("moonshot-v1-16b-a3b", (2, 1), LayerStrategy(), 1,
-                     "NotImplementedError", "EP PR"),
-    "moonshot_ep2": ("moonshot-v1-16b-a3b", (2, 1), LayerStrategy(ep=2), 1,
-                     "NotImplementedError", "EP PR"),
     "mamba2_tp2": ("mamba2-2.7b", (1, 2), LayerStrategy(tp=2), 1,
+                   "NotImplementedError", "SSM-TP PR"),
+    "zamba2_tp2": ("zamba2-7b", (1, 2), LayerStrategy(tp=2), 1,
                    "NotImplementedError", "SSM-TP PR"),
     "llama_pp2": ("llama3.2-1b", (2, 1), LayerStrategy(), 2,
                   "NotImplementedError", "pipeline PR"),
     "llama_cp2": ("llama3.2-1b", (2, 1), LayerStrategy(cp=2), 1,
                   "NotImplementedError", "context PR"),
+}
+
+
+# plans that are not valid: an error naming why, no Queue 1 item
+INVALID = {
+    "llama_ep2": ("llama3.2-1b", (2, 1), LayerStrategy(ep=2), 1,
+                  "ValueError", "no layer has experts"),
+    "moonshot_ep3": ("moonshot-v1-16b-a3b", (2, 1), LayerStrategy(ep=3), 1,
+                     "ValueError", "GALV006"),
 }
 
 
@@ -50,7 +58,7 @@ def results(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    payload = {"refused": {k: v[:4] for k, v in REFUSED.items()}}
+    payload = {"refused": {k: v[:4] for k, v in {**REFUSED, **INVALID}.items()}}
     return run_ranks(2, "refusals_and_fit", payload,
                      tmp_path_factory.mktemp("two"))[0]
 
@@ -72,6 +80,14 @@ def test_runtime_refuses_what_later_items_bring(two_ranks, name):
     got = two_ranks[name]
     assert got is not None, name
     assert got[0] == kind and words in got[1] and "Queue 1 item 4" in got[1], got
+
+
+@pytest.mark.parametrize("name", list(INVALID))
+def test_runtime_rejects_invalid_expert_plans(two_ranks, name):
+    kind, words = INVALID[name][4:]
+    got = two_ranks[name]
+    assert got is not None, name
+    assert got[0] == kind and words in got[1], got
 
 
 def test_measure_allreduce_fits_over_two_gloo_ranks(two_ranks):
@@ -104,19 +120,29 @@ def test_one_rank_zero3_bf16_steps_are_bitwise_the_single_device_steps(one_rank,
     assert differ == []
 
 
-def _torchrun(*args: str) -> subprocess.CompletedProcess:
+def _torchrun(*args: str, arch: str = "llama3.2-1b") -> subprocess.CompletedProcess:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), env.get("PYTHONPATH", "")])
     env["OMP_NUM_THREADS"] = "1"
     return subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-         "4", "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b", "--reduced",
+         "4", "-m", "repro_torch.launch.train", "--arch", arch, "--reduced",
          "--device", "cpu", "--seq", "32", "--batch", "8", *args],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
 
 
 def test_torchrun_launcher_trains_a_searched_plan_on_four_ranks():
-    run = _torchrun("--steps", "2", "--log-every", "1")
+    _check_trains(_torchrun("--steps", "2", "--log-every", "1"))
+
+
+def test_torchrun_launcher_trains_moonshot_on_four_ranks():
+    """The moe family on the launcher's mesh: its layers route the global
+    microbatch."""
+    _check_trains(_torchrun("--steps", "2", "--log-every", "1",
+                            arch="moonshot-v1-16b-a3b"))
+
+
+def _check_trains(run):
     assert run.returncode == 0, run.stdout + run.stderr
     plan_lines = [ln for ln in run.stdout.splitlines() if ln.startswith("plan[search]:")]
     assert len(plan_lines) == 1 and "mesh=(2, 2)" in plan_lines[0], run.stdout
