@@ -60,7 +60,12 @@ Phases (any failure exits non-zero and prints no result line):
    calls) at 8192 x 2048 (bf16 x with fp32 scale, and fp32), 8192 x 3584,
    32768 x 128, 48 000 x 384, 8192 x 6144, 4096 x 5120, 4096 x 7168, an odd
    width and a misaligned view, timed against the plain
-   backward and ``F.rms_norm``'s backward; SSD scan: max |err| <= 1e-3 *
+   backward and ``F.rms_norm``'s backward; the split-row form (phase 27's
+   gate norms, 4096 rows of 5120 and 7168 split over two halves, an odd
+   width, a misaligned view; bf16 and fp32): each half's passes, the row
+   statistics summed by hand, against the plain passes and, concatenated,
+   against the whole-row K2 and its backward, the bf16 halves' forward and
+   backward pairs timed beside the whole-row K2 at the same width; SSD scan: max |err| <= 1e-3 *
    max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
    the mamba2 prefill shape, a ragged S, G = 2 and zamba2's prefill (112
@@ -69,7 +74,8 @@ Phases (any failure exits non-zero and prints no result line):
    step-by-step scan; each template's shared memory per block and blocks
    per SM at N 128, P 64 are logged); the scan under autograd
    (``ssd_autograd``: K3 forward, fp32 recompute backward) at mamba2's and
-   zamba2's training shapes (B2 S2048) and a ragged S 1 000: y and the five
+   zamba2's training shapes (B2 S2048), a ragged S 1 000 and a phase 27
+   rank's local heads (mamba2 H40, zamba2 H56 on one group): y and the five
    grads against autograd through ``ssd_chunked``, 1e-3 * max(1, max
    |plain|) in fp32, no further from fp32 than twice the plain route's in
    bf16, the forward and backward timed; then each case's median
@@ -231,11 +237,11 @@ Phases (any failure exits non-zero and prints no result line):
    ``selective``, the state donated (updated in place); K1 16, K2 36 and
    K2-backward 20 launches a step pinned; phase 10's kernel-vs-plain
    parity on one microbatch with seeded non-zero patch embeddings;
-21. mamba2 train — full-width, full-depth mamba2-2.7b (2.83 G parameters),
+21. mamba2 train — mamba2-2.7b at full width cut to 16 of 64 layers
+   (``MAMBA2_TRAIN_LAYERS``: the whole run's time limit),
    3 steps of 8 x 2048 tokens in 4 microbatches under ``selective``, the
-   state donated (two copies of its 45 GB of fp32 state would not fit): K3
-   under autograd (512 launches a step: the forward and the selective
-   recompute), K2 1028 and K2-backward 516 pinned; MFU with the scan's
+   state donated: K3 under autograd (128 launches a step: the forward and
+   the selective recompute), K2 260 and K2-backward 132 pinned; MFU with the scan's
    FLOPs (``ssm_train_flops``); one step profiled with the ``ssd_vjp`` and
    ``optimizer`` spans; phase 10's kernel-vs-plain parity at 2 layers;
 22. zamba2 train — full width cut to 13 layers (two shared-block sites and
@@ -262,7 +268,8 @@ Phases (any failure exits non-zero and prints no result line):
    --arch moonshot-v1-16b-a3b --seq 4096 --batch 8 --grad-accum 4 --remat
    selective --validate-only`` exits 1 on GALV020;
 25. the parallel runtime (run after phase 22, before the results) —
-   full-width, full-depth llama3.2-1b on two ranks sharing the card: NCCL
+   llama3.2-1b at full width cut to 4 of 16 layers (``PAR_LAYERS``: the
+   whole run's time limit) on two ranks sharing the card: NCCL
    refuses two ranks on one device, so they join over gloo (a
    ``FileStore``), each a ``chip_smoke.py --parallel-rank`` process that
    loads the library the parent built, on the mesh ``train_mesh_spec(2)``
@@ -279,7 +286,8 @@ Phases (any failure exits non-zero and prints no result line):
    (no interconnect measured) and the collectives called by name and
    dtype;
 26. the MoE family on a mesh (run after phase 25, before the results) —
-   moonshot-v1-16b-a3b at full width cut to 2 layers on two ranks sharing
+   moonshot-v1-16b-a3b at full width cut to 1 layer (``MPAR_LAYERS``: the
+   whole run's time limit) on two ranks sharing
    the card over gloo (``chip_smoke.py --moe-parallel-rank``, as phase 25):
    first the routing of 8 192 seeded fp32 router logits split over the
    ranks (``moe.distributed_slots`` from the all-gathered counts) against
@@ -296,9 +304,29 @@ Phases (any failure exits non-zero and prints no result line):
    1024 against one rank's (``mesh=None``, on each rank): the loss within
    1e-4 relative, every grad's shards within 2e-3 of its leaf's scale,
    each layer's routing decisions that differ from one rank's logged;
-24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated`` and
-   ``rmsnorm_bwd`` rows for K2, ``ssd`` and ``ssd_autograd`` for K3), then
-   the device line last.
+27. tensor parallelism in the SSM, hybrid and audio families (run after
+   phase 26, before the results) — two ranks sharing the card over gloo
+   (``chip_smoke.py --ssm-parallel-rank``, as phase 25) on mesh (data 1,
+   model 2), 2 steps each in 2 microbatches (bf16 compute, fp32 masters):
+   (a) mamba2-2.7b at full width cut to 4 layers, tp 2 without SP, ZeRO-1,
+   selective, 4 x 2048 a step (K3 at 40 heads, the split K2 at 2560 of
+   5120 columns); (b) zamba2-7b at full width cut to 6 layers (one
+   shared-block site), tp 2 + sp, ZeRO-1, 4 x 2048 (K3 at 56 heads on one
+   of the 2 groups, K1 at 16 heads, hd 112); (c) whisper-tiny at full
+   width and depth, tp 2 + sp, ZeRO-1, 64 windows x 448 tokens and 1500
+   seeded frames (K1 at 3 heads: encoder, cross- and self-attention); the
+   losses within 5e-2 of one rank's ``mesh=None`` step on the same seed-0
+   weights and batches (computed here while the ranks start), every
+   launch per rank a step pinned (``ssm_par_launches``: K1, K2, its
+   backward, the split K2's four passes, K3) and the shapes each kernel
+   sees checked; then each case in fp32 (mamba2 at 2 layers and zamba2 at
+   6, 2 x 512; whisper at 4 windows): the loss within 1e-4 relative of one
+   rank's and every grad's shards within 2e-3 of its leaf's scale; peaks
+   per rank and their sum against the card, step times (no interconnect
+   measured) and the collectives called;
+24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated``,
+   ``rmsnorm_bwd``, ``rmsnorm_split_fwd`` and ``rmsnorm_split_bwd`` rows for
+   K2, ``ssd`` and ``ssd_autograd`` for K3), then the device line last.
 """
 from __future__ import annotations
 
@@ -344,6 +372,11 @@ def require(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(phase: str) -> None:
+    """Log where the run stands as a phase begins (seconds since the start)."""
+    log(f"phase {phase}: begins at {time.perf_counter() - T_START:.1f} s")
 
 
 def launch_counters(flash_ops, rms_ops, ssd_ops) -> dict:
@@ -515,7 +548,9 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     zamba2's training shape, and each rank's shape in the parallel rig
     (phase 25): tp 2 (16 query and 4 KV heads, a microbatch's 2 sequences)
     and dp 2 (32 and 8 heads, 1 sequence); a moonshot rank's in phase 26:
-    ep 2 and dp 2 (16 heads, 1 sequence), tp 2 (8 heads, 2 sequences)."""
+    ep 2 and dp 2 (16 heads, 1 sequence), tp 2 (8 heads, 2 sequences); a
+    rank's in phase 27: zamba2's shared block at 16 heads (b), whisper's
+    encoder, cross- and self-attention at 3 heads over 32 windows (c)."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -650,6 +685,18 @@ def check_flash(torch, flash_ops, flash_ref, gen):
                       True, flash_case(torch, gen, B=B, Sq=PAR_SEQ, Sk=PAR_SEQ, H=H, hd=128,
                                        dtype=torch.bfloat16,
                                        path="moe_parallel_b1" if B == 1 else "moe_parallel_tp2")))
+    # phase 27: a rank's local heads at tp 2, (b) zamba2's shared block and
+    # (c) whisper's encoder, cross- and decoder self-attention
+    cases.append((f"ssm parallel (b) causal B2 S{SSM_TRAIN_SEQ} H16 KV16 hd112 bfloat16", True,
+                  flash_case(torch, gen, B=2, Sq=SSM_TRAIN_SEQ, Sk=SSM_TRAIN_SEQ, H=16, hd=112,
+                             dtype=torch.bfloat16, path="ssm_parallel_b")))
+    for part, Sq, Sk, causal in (("encoder non-causal", SPAR_FRAMES, SPAR_FRAMES, False),
+                                 ("cross non-causal", SPAR_TEXT, SPAR_FRAMES, False),
+                                 ("self causal", SPAR_TEXT, SPAR_TEXT, True)):
+        cases.append((f"ssm parallel (c) whisper {part} B{WHISPER_MICRO} Sq{Sq} Sk{Sk} H3 KV3 "
+                      "hd64 bfloat16", True, flash_case(
+                          torch, gen, B=WHISPER_MICRO, Sq=Sq, Sk=Sk, H=3, hd=64,
+                          dtype=torch.bfloat16, causal=causal, path="ssm_parallel_c")))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -678,7 +725,9 @@ def check_flash(torch, flash_ops, flash_ref, gen):
             continue
         q, k, v = c["q"], c["k"], c["v"]
         ms = device_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, **kw), torch)
-        plain = device_ms(lambda: flash_ref.flash_attention_fwd(q, k, v, **kw), torch)
+        # the plain version at 3 calls a group, 7 groups: it takes up to 43 ms a call
+        plain = device_ms(lambda: flash_ref.flash_attention_fwd(q, k, v, **kw), torch, inner=3,
+                          reps=7)
         # a plain causal mask (the training shape, a full prefill) is SDPA's
         # own ``is_causal`` and a non-causal case takes no mask (both reach
         # its flash backend); the other rows pass the case's boolean mask
@@ -711,12 +760,20 @@ def check_flash_autograd(torch, flash_ops, flash_ref, gen):
     split path (causal, S 20 000), whisper's cross-attention at its
     training shape (non-causal, Sq 448 over Sk 1 500, whose recompute walks
     two key blocks, the second ragged), zamba2's shared block at its
-    training shape (hd 112) and internvl2's heads (g = 6, hd 128)."""
+    training shape (hd 112) and internvl2's heads (g = 6, hd 128); a
+    phase 27 rank's (path ``ssm_parallel_b`` / ``_c``): zamba2's shared
+    block at 16 heads, whisper's encoder and cross-attention at 3."""
     for label, B, Sq, Sk, H, KV, hd, causal in (
             ("split path causal", 1, 20000, 20000, 2, 1, 64, True),
             ("whisper cross train non-causal", WHISPER_MICRO, 448, 1500, 6, 6, 64, False),
             ("zamba2 train causal", 2, SSM_TRAIN_SEQ, SSM_TRAIN_SEQ, 32, 32, 112, True),
-            ("internvl2 heads causal", 1, 1024, 1024, 48, 8, 128, True)):
+            ("internvl2 heads causal", 1, 1024, 1024, 48, 8, 128, True),
+            ("ssm_parallel_b: zamba2 rank causal", 2, SSM_TRAIN_SEQ, SSM_TRAIN_SEQ, 16, 16, 112,
+             True),
+            ("ssm_parallel_c: whisper rank encoder non-causal", WHISPER_MICRO, SPAR_FRAMES,
+             SPAR_FRAMES, 3, 3, 64, False),
+            ("ssm_parallel_c: whisper rank cross non-causal", WHISPER_MICRO, SPAR_TEXT,
+             SPAR_FRAMES, 3, 3, 64, False)):
         q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda")
         k, v = (torch.randn((B, Sk, KV, hd), generator=gen, device="cuda") for _ in "kv")
         cot = torch.randn((B, Sq, H, hd), generator=gen, device="cuda")
@@ -952,6 +1009,123 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     return rows
 
 
+def check_rmsnorm_split(torch, rms_ops, rms_ref, gen):
+    """K2's split-row form (phase 27's gate norms: 4096 rows of mamba2's
+    d_inner 5120 and zamba2's 7168, split over two ranks) in bf16 and fp32,
+    no process group: each half's pass 1, the two sums added by hand, each
+    half's pass 2, against the plain passes (fp32 1e-5, bf16 2e-2, atol
+    and rtol, as the forward) and, concatenated, against the whole-row K2 and
+    its backward on the whole row (dx at the forward's tolerances of its
+    scale, dscale within 1e-4 of its scale in fp32 and 2e-2 in bf16);
+    dx and dscale bitwise equal over two calls; an odd width and a
+    misaligned view take the scalar template.  Timed (bf16 x, fp32 scale,
+    one rank's half): the forward's two passes and the backward's two
+    passes beside their plain versions and the whole-row K2 (and its
+    backward) at the same local width; ``library_ms`` null: no PyTorch call
+    takes an external row statistic."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    cases = [((4096, 5120), bf16, "ssm_parallel_a"), ((4096, 7168), bf16, "ssm_parallel_b"),
+             ((4096, 5120), f32, None), ((4096, 7168), f32, None), ((300, 666), f32, None),
+             ((300, 666), bf16, None), ((512, 1024, "misaligned"), bf16, None)]
+    for shape, dtype, path in cases:
+        mis = shape[-1] == "misaligned"
+        R, W = shape[:2]
+        name = str(dtype).replace("torch.", "")
+        tol = RMSNORM_TOL[name]
+        x = (3.0 * torch.randn((R, W), generator=gen, device="cuda")).to(dtype)
+        g = torch.randn((R, W), generator=gen, device="cuda").to(dtype)
+        scale = 1 + 0.3 * torch.randn((W,), generator=gen, device="cuda")
+        halves = [t.contiguous() for t in x.chunk(2, -1)]
+        g_halves = [t.contiguous() for t in g.chunk(2, -1)]
+        if mis:
+            halves = [misaligned_view(torch, t) for t in halves]
+            g_halves = [misaligned_view(torch, t) for t in g_halves]
+        s_halves = list(scale.chunk(2))
+
+        def forward(plain=False):
+            sumsq = rms_ref.rmsnorm_split_sumsq_reference if plain else rms_ops.rmsnorm_split_sumsq
+            fwd = rms_ref.rmsnorm_split_reference if plain else rms_ops.rmsnorm_split
+            stat = sumsq(halves[0]) + sumsq(halves[1])
+            return stat, [fwd(h, s, stat, W) for h, s in zip(halves, s_halves)]
+
+        def backward(stat, plain=False):
+            dot_fn = rms_ref.rmsnorm_split_dot_reference if plain else rms_ops.rmsnorm_split_dot
+            bwd = (rms_ref.rmsnorm_split_backward_reference if plain
+                   else rms_ops.rmsnorm_split_backward)
+            dot = sum(dot_fn(h, s, q, stat, W) for h, s, q in zip(halves, s_halves, g_halves))
+            return [bwd(h, s, q, stat, dot, W) for h, s, q in zip(halves, s_halves, g_halves)]
+
+        stat, outs = forward()
+        rstat, routs = forward(plain=True)
+        grads, grads2 = backward(stat), backward(stat)
+        rgrads = backward(rstat, plain=True)
+        whole = rms_ops.rmsnorm(x, scale, 1e-5)
+        wdx, wds = rms_ops.rmsnorm_backward(x, scale, g, 1e-5)
+        torch.cuda.synchronize()
+        closes = [_rms_close(torch, o, r, tol) for o, r in zip(outs, routs)]
+        err_f, ok_f = max(e for e, _ in closes), all(ok for _, ok in closes)
+        err_w, ok_w = _rms_close(torch, torch.cat(outs, -1), whole, tol)
+        dx, ds = torch.cat([a for a, _ in grads], -1), torch.cat([b for _, b in grads])
+        rdx, rds = torch.cat([a for a, _ in rgrads], -1), torch.cat([b for _, b in rgrads])
+        tol_dx = tol * max(1.0, float(rdx.float().abs().max()))
+        tol_ds = (1e-4 if dtype == f32 else tol) * float(rds.abs().max())
+        err_dx = float((dx.float() - rdx.float()).abs().max())
+        err_ds = float((ds - rds).abs().max())
+        werr_dx = float((dx.float() - wdx.float()).abs().max())
+        werr_ds = float((ds - wds).abs().max())
+        same = all(torch.equal(a, c) and torch.equal(b, d) for (a, b), (c, d) in zip(grads, grads2))
+        label = f"{R}x{W // 2} of {W} {name}{' misaligned view' if mis else ''}"
+        tpl_f = _rms_template(rms_ops, halves[0], s_halves[0])
+        tpl_b = _rms_template(rms_ops, halves[0], s_halves[0], g_halves[0], backward=True)
+        log(f"K2 split [{label}] templates {tpl_f} / {tpl_b}: forward max_abs_err {err_f:.3e} "
+            f"vs plain, {err_w:.3e} vs the whole-row K2 (atol and rtol {tol}, as the forward's "
+            f"check); backward dx {err_dx:.3e} / {werr_dx:.3e} (tol {tol_dx:.3e}), dscale "
+            f"{err_ds:.3e} / {werr_ds:.3e} (tol {tol_ds:.3e}); two calls bitwise equal: {same}")
+        require(ok_f and ok_w, f"split rmsnorm forward disagrees: {label}")
+        require(max(err_dx, werr_dx) <= tol_dx and max(err_ds, werr_ds) <= tol_ds,
+                f"split rmsnorm backward disagrees: {label}")
+        require(same, f"split rmsnorm backward is not deterministic: {label}")
+        if path is None:
+            continue
+        h, sc, q = halves[0], s_halves[0], g_halves[0]
+
+        def fwd_pair(plain=False):
+            if plain:
+                st = rms_ref.rmsnorm_split_sumsq_reference(h)
+                return rms_ref.rmsnorm_split_reference(h, sc, st, W)
+            return rms_ops.rmsnorm_split(h, sc, rms_ops.rmsnorm_split_sumsq(h), W)
+
+        def bwd_pair(plain=False):
+            if plain:
+                dot = rms_ref.rmsnorm_split_dot_reference(h, sc, q, stat, W)
+                return rms_ref.rmsnorm_split_backward_reference(h, sc, q, stat, dot, W)
+            dot = rms_ops.rmsnorm_split_dot(h, sc, q, stat, W)
+            return rms_ops.rmsnorm_split_backward(h, sc, q, stat, dot, W)
+
+        e = h.element_size()
+        for kind, fn, nbytes, flops, whole_fn, err in (
+                ("forward", fwd_pair, 2 * h.numel() * e + 4 * sc.numel() + 8 * R, 4.0 * h.numel(),
+                 lambda: rms_ops.rmsnorm(h, sc, 1e-5), max(err_f, err_w)),
+                ("backward", bwd_pair, 3 * h.numel() * e + 8 * sc.numel() + 12 * R,
+                 10.0 * h.numel(), lambda: rms_ops.rmsnorm_backward(h, sc, q, 1e-5),
+                 max(err_dx, werr_dx, err_ds, werr_ds))):
+            ms = device_ms(fn, torch)
+            plain = device_ms(lambda: fn(plain=True), torch, inner=3, reps=7)
+            whole_ms = device_ms(whole_fn, torch)
+            b_ms, b_by = bound(nbytes, flops, name)
+            log(f"K2 split {kind} [{label}, fp32 scale] two passes {ms:.5f} ms  plain "
+                f"{plain:.4f} ms  the whole-row K2 {kind} at the same {W // 2} columns "
+                f"{whole_ms:.5f} ms  bound {b_ms:.6f} ms ({b_by}, {100 * b_ms / ms:.1f} %); "
+                "library: none (no PyTorch call takes an external row statistic)")
+            rows.append(dict(label=f"{label} {kind}, two passes", path=path, kind=kind,
+                             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by, whole_ms=whole_ms))
+        del x, g, halves, g_halves, outs, routs, grads, grads2, rgrads, whole, wdx
+    torch.cuda.empty_cache()
+    return rows
+
+
 def ssd_bound(x, dt, A, B) -> tuple[float, str]:
     """Bytes: x, dt, A, B and C read once, y and the fp32 final state
     written once.  Operations: per chunk of 64, 2·N per unmasked (i >= j)
@@ -1046,7 +1220,8 @@ def check_ssd_autograd(torch, ssd_ops, ssd_ref, gen):
     recompute backward through ``ssd_chunked``) against
     ``torch.autograd.grad`` through the plain ``ssd_chunked`` on the same
     inputs and cotangent, at the training shapes (mamba2 B2 S2048 H80 P64
-    G1 N128, zamba2 B2 S2048 H112 P64 G2 N64) and a ragged S 1 000.  fp32
+    G1 N128, zamba2 B2 S2048 H112 P64 G2 N64), a ragged S 1 000, and a
+    phase 27 rank's local heads and group (H40 G1 N128, H56 G1 N64).  fp32
     inputs: y, dx, ddt, dA, dB, dC within 1e-3 · max(1, max |plain|); bf16
     x/B/C (the fp32 inputs rounded): each no further from the fp32 plain
     grads than twice the plain bf16 route's.  Timed (bf16): the forward
@@ -1059,7 +1234,12 @@ def check_ssd_autograd(torch, ssd_ops, ssd_ref, gen):
              "mamba2_train"),
             ("zamba2 train B2 S2048 H112 P64 G2 N64", 2, SSM_TRAIN_SEQ, 112, 64, 2, 64,
              "zamba2_train"),
-            ("ragged B1 S1000 H80 P64 G1 N128", 1, 1000, 80, 64, 1, 128, None)):
+            ("ragged B1 S1000 H80 P64 G1 N128", 1, 1000, 80, 64, 1, 128, None),
+            # phase 27: a tp 2 rank's heads, and the one group they read
+            ("ssm parallel (a) rank B2 S2048 H40 P64 G1 N128", 2, SSM_TRAIN_SEQ, 40, 64, 1, 128,
+             "ssm_parallel_a"),
+            ("ssm parallel (b) rank B2 S2048 H56 P64 G1 N64", 2, SSM_TRAIN_SEQ, 56, 64, 1, 64,
+             "ssm_parallel_b")):
         def rn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
         x = rn(Bs, S, H, P)
@@ -2987,6 +3167,9 @@ SSM_TRAIN_SEQ = 2048
 ZAMBA2_TRAIN_LAYERS = 13
 #: mamba2's kernel-vs-plain training parity: full width cut to 2 layers
 SSM_PARITY_LAYERS = 2
+#: mamba2 trained at full width cut to 16 of its 64 layers, to keep the
+#: whole run inside its time limit on a slow host (phase 27 came after it)
+MAMBA2_TRAIN_LAYERS = 16
 
 
 def ssm_train_flops(cfg, batch: int, seq: int) -> tuple[int, float, float, float]:
@@ -3111,6 +3294,9 @@ def allocator_report(torch, label: str) -> None:
 # --------------------------------------------------------------------------
 
 PAR_SEQ, PAR_BATCH, PAR_ACCUM, PAR_STEPS = 4096, 4, 2, 2
+#: llama3.2-1b at full width cut to 4 of its 16 layers, to keep the whole
+#: run inside its time limit on a slow host (phase 27 came after it)
+PAR_LAYERS = 4
 PAR_MESH = ((1, 2), ("data", "model"))          # launch.mesh.train_mesh_spec(2)
 PAR_LOSS_TOL = 5e-2            # JAX's bf16 bound on a sharded step (tests/test_parallel_mp.py:53)
 PAR_FP32_LAYERS = 2
@@ -3227,7 +3413,7 @@ def parallel_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
 
     flash_ops.flash_attention = seen
     counters = launch_counters(flash_ops, rms_ops, ssd_ops)
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=PAR_LAYERS)
     dev = torch.device("cuda", 0)
     mesh = make_mesh(*PAR_MESH, device=dev, backend="gloo")
     ds = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_BATCH, seed=0)
@@ -3302,8 +3488,9 @@ def parallel_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
 
 
 def parallel_phase(torch) -> dict:
-    """Phase 25: the parallel runtime at full llama3.2-1b width and depth on
-    two ranks sharing the card over gloo (``par_plans``), held to one rank's
+    """Phase 25: the parallel runtime at full llama3.2-1b width cut to
+    ``PAR_LAYERS`` layers on two ranks sharing the card over gloo
+    (``par_plans``), held to one rank's
     ``mesh=None`` step on the same seed-0 weights and batches: bf16 losses
     within ``PAR_LOSS_TOL``, and, for every plan, at ``PAR_FP32_LAYERS``
     layers in fp32 the loss within ``PAR_FP32_LOSS_RTOL`` relative, every
@@ -3325,7 +3512,7 @@ def parallel_phase(torch) -> dict:
     from repro_torch.runtime.train import construct_hybrid_parallel_model
 
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=PAR_LAYERS)
     plans = par_plans(cfg)
     ds = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_BATCH, seed=0)
     ds32 = SyntheticDataset(cfg, seq_len=PAR_SEQ, global_batch=PAR_FP32_BATCH, seed=0)
@@ -3440,7 +3627,9 @@ def parallel_phase(torch) -> dict:
 # --------------------------------------------------------------------------
 
 # phase 25's steps, batch and sequence (PAR_*), over moonshot's layers
-MPAR_LAYERS = 2                 # full width cut in depth, as phases 14 and 23
+#: moonshot at full width cut to 1 layer (phases 14 and 23 keep 2), to keep
+#: the whole run inside its time limit on a slow host
+MPAR_LAYERS = 1
 MPAR_FP32_SEQ, MPAR_FP32_BATCH = 1024, 2     # one microbatch: C = 240
 
 
@@ -3812,6 +4001,370 @@ def moe_parallel_phase(torch) -> dict:
     return {label: ranks[0]["runs"][label]["launches"][-1] for label in plans}
 
 
+# --------------------------------------------------------------------------
+# 27. tensor parallelism in the SSM, hybrid and audio families: two ranks
+#     sharing the card over gloo
+# --------------------------------------------------------------------------
+
+SPAR_SEQ = 2048                 # mamba2 and zamba2: PAR_BATCH x 2048 tokens a step
+SPAR_WINDOWS, SPAR_TEXT, SPAR_FRAMES = 64, 448, 1500    # whisper: 64 windows a step
+SPAR_FP32_SEQ = 512             # mamba2 and zamba2 in fp32: 2 x 512, one microbatch
+SPAR_FP32_BATCH = 2
+SPAR_FP32_WINDOWS = 4
+
+
+def ssm_par_cases() -> dict:
+    """label -> (arch, layers (None: full depth), strategy, global batch,
+    sequence, fp32 layers, fp32 batch, what): (a) mamba2-2.7b cut to 4
+    layers, tp 2 without SP (what the search proposes for the ssm family),
+    ZeRO-1, ``selective``; (b) zamba2-7b cut to 6 layers (one shared-block
+    site, the least depth that has one), tp 2 + sp, ZeRO-1, no remat (the
+    family takes no runner); (c) whisper-tiny at full depth, tp 2 + sp,
+    ZeRO-1.  Each on mesh (data 1, model 2) at grad_accum ``PAR_ACCUM``."""
+    from repro_torch.core.strategy import LayerStrategy
+
+    return {"a": ("mamba2-2.7b", 4, LayerStrategy(tp=2, zero=1, remat="selective"),
+                  PAR_BATCH, SPAR_SEQ, 2, SPAR_FP32_BATCH,
+                  "mamba2-2.7b cut to 4 layers, tp 2, ZeRO-1, selective"),
+            "b": ("zamba2-7b", 6, LayerStrategy(tp=2, sp=True, zero=1), PAR_BATCH, SPAR_SEQ,
+                  6, SPAR_FP32_BATCH,
+                  "zamba2-7b cut to 6 layers (one shared-block site), tp 2 + sp, ZeRO-1"),
+            "c": ("whisper-tiny", None, LayerStrategy(tp=2, sp=True, zero=1), SPAR_WINDOWS,
+                  SPAR_TEXT, None, SPAR_FP32_WINDOWS,
+                  "whisper-tiny at full depth, tp 2 + sp, ZeRO-1")}
+
+
+def ssm_par_config(arch: str, layers):
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def ssm_par_plan(cfg, strategy, mesh: bool, grad_accum: int = PAR_ACCUM):
+    """The case's plan on (data 1, model 2), or one rank's (tp 1, no SP, no
+    ZeRO, the same remat)."""
+    from repro_torch.core.strategy import uniform_plan
+
+    if mesh:
+        return uniform_plan(cfg.name, "train", PAR_MESH[0], PAR_MESH[1], cfg.num_layers,
+                            strategy, grad_accum=grad_accum)
+    return uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
+                        dataclasses.replace(strategy, tp=1, sp=False, zero=0),
+                        grad_accum=grad_accum)
+
+
+def split_counters(rms_ops) -> dict:
+    """K2's split-row passes' launch counters, beside ``launch_counters``'."""
+    return {"rmsnorm_split_sumsq": (rms_ops.rmsnorm_split_sumsq, "launches"),
+            "rmsnorm_split": (rms_ops.rmsnorm_split, "launches"),
+            "rmsnorm_split_dot": (rms_ops.rmsnorm_split_dot, "launches"),
+            "rmsnorm_split_backward": (rms_ops.rmsnorm_split_backward, "launches")}
+
+
+def ssm_par_launches(cfg, strategy) -> dict:
+    """Kernel launches per step of one rank under a phase 27 plan.  A
+    Mamba2 layer's forward launches the whole-row K2 once (its layer norm),
+    the split K2's two forward passes once each (its gate norm) and K3 once,
+    and a recomputing policy reruns them in the backward (the ssm family
+    alone: the hybrid and audio families take no runner); its backward runs
+    K2's backward once and the split backward's two passes once each.  A
+    shared-block site: K1 once, K2 and its backward twice.  Whisper: K1 per
+    encoder layer and twice per decoder layer, K2 and its backward per norm
+    (``whisper_train_phase``).  The final norm: K2 and its backward once."""
+    k = PAR_ACCUM
+    zero = {name: 0 for name in ("flash_attention_fwd", "rmsnorm", "rmsnorm_gated",
+                                 "rmsnorm_bwd", "ssd", "ssd_autograd", "rmsnorm_split_sumsq",
+                                 "rmsnorm_split", "rmsnorm_split_dot", "rmsnorm_split_backward")}
+    if cfg.family == "audio":
+        norms = 2 * cfg.enc_layers + 3 * cfg.num_layers + 2
+        return {**zero, "flash_attention_fwd": k * (cfg.enc_layers + 2 * cfg.num_layers),
+                "rmsnorm": k * norms, "rmsnorm_bwd": k * norms}
+    L = cfg.num_layers
+    sites = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    again = int(strategy.remat != "none" and cfg.family == "ssm")
+    fwd = k * L * (1 + again)
+    return {**zero, "flash_attention_fwd": k * sites,
+            "rmsnorm": k * (L * (1 + again) + 2 * sites + 1),
+            "rmsnorm_bwd": k * (L + 2 * sites + 1),
+            "ssd": fwd, "ssd_autograd": fwd, "rmsnorm_split_sumsq": fwd, "rmsnorm_split": fwd,
+            "rmsnorm_split_dot": k * L, "rmsnorm_split_backward": k * L}
+
+
+def ssm_par_shapes(cfg, batch: int, seq: int) -> dict:
+    """What a tp 2 rank's kernels see: K1's (batch, Sq, Sk, heads, KV
+    heads), K3's (batch, S, heads, groups) and the split K2's (rows,
+    columns, width)."""
+    mb = batch // PAR_ACCUM
+    if cfg.family == "audio":
+        F, h = cfg.enc_frames, cfg.num_heads // 2
+        return {"k1": sorted([[mb, F, F, h, h], [mb, seq, F, h, h], [mb, seq, seq, h, h]]),
+                "k3": [], "split": []}
+    d_inner = cfg.ssm_expand * cfg.d_model
+    H, G = d_inner // cfg.ssm_head_dim, cfg.ssm_groups
+    k1 = ([[mb, seq, seq, cfg.num_heads // 2, cfg.num_kv_heads // 2]]
+          if cfg.family == "hybrid" else [])
+    return {"k1": k1, "k3": [[mb, seq, H // 2, max(G // 2, 1)]],
+            "split": [[mb * seq, d_inner // 2, d_inner]]}
+
+
+def ssm_parallel_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
+    """One rank of phase 27 (``chip_smoke.py --ssm-parallel-rank RANK WORLD
+    DIR``): device 0, gloo over a ``FileStore`` in DIR; once DIR/payload.json
+    is there (the parent's oracle done), each case of ``ssm_par_cases``
+    trained ``PAR_STEPS`` steps (losses, times, launches, the shapes K1, K3
+    and the split K2 see, the collectives by name, peak); then each case in
+    fp32 at its reduced size: one rank's ``value_and_grad`` (``mesh=None``)
+    and the plan's on the same weights and batch, each rank holding its
+    shards of the grads to the same shards of one rank's; writes its record
+    to DIR."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.models.mamba2 import local_groups
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    used = collections.Counter()
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        def counted(out, *a, _run=getattr(dist, name), _name=name, **kw):
+            used[f"{_name} {out.device.type} {str(out.dtype).split('.')[-1]}"] += 1
+            return _run(out, *a, **kw)
+        setattr(dist, name, counted)
+    # what the kernels see: hooks on functions that hold no counter
+    seen = {"k1": set(), "k3": set(), "split": set()}
+    autograd_k1, ssd_kernel = flash_ops.flash_attention, ssd_ops._ssd_kernel
+    check_stat, check_width = rms_ops._check_stat, rms_ops._check_width
+
+    def k1(q, k, v, causal=True):
+        seen["k1"].add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2]))
+        return autograd_k1(q, k, v, causal=causal)
+
+    def k3(x, dt, A, B, C, **kw):
+        seen["k3"].add((x.shape[0], x.shape[1], x.shape[2], B.shape[2]))
+        return ssd_kernel(x, dt, A, B, C, **kw)
+
+    last = {}
+
+    def stat_hook(name, x, *stats):
+        last["rows"] = x.numel() // x.shape[-1]
+        return check_stat(name, x, *stats)
+
+    def width_hook(name, D, width):
+        if name == "rmsnorm split":
+            seen["split"].add((last["rows"], D, width))
+        return check_width(name, D, width)
+
+    flash_ops.flash_attention, ssd_ops._ssd_kernel = k1, k3
+    rms_ops._check_stat, rms_ops._check_width = stat_hook, width_hook
+    counters = {**launch_counters(flash_ops, rms_ops, ssd_ops), **split_counters(rms_ops)}
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(*PAR_MESH, device=dev, backend="gloo")
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    record = {"runs": {}, "fp32": {}, "ready": time.perf_counter() - T_START,
+              "groups": local_groups(112, 2, 2, rank)}
+    while not (tmp / "payload.json").is_file():     # the parent's oracle runs meanwhile
+        time.sleep(0.05)
+    for label, (arch, layers, strategy, batch, seq, _, _, _) in ssm_par_cases().items():
+        t_plan = time.perf_counter()
+        cfg = ssm_par_config(arch, layers)
+        ds = SyntheticDataset(cfg, seq_len=seq, global_batch=batch, seed=0)
+        hp = construct_hybrid_parallel_model(build_model(cfg), ssm_par_plan(cfg, strategy, True),
+                                             mesh)
+        params = hp.init_params(gen())
+        opt = hp.init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        used.clear()
+        for v in seen.values():
+            v.clear()
+        run = {"losses": [], "grad_norms": [], "times": [], "launches": []}
+        for step in range(PAR_STEPS):
+            b = ds.batch(step)
+            zero_counts(counters)
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, m = hp.train_step(params, opt, b)
+            torch.cuda.synchronize()
+            run["times"].append(time.perf_counter() - t0)
+            run["launches"].append(read_counts(counters))
+            run["losses"].append(float(m["loss"]))
+            run["grad_norms"].append(float(m["grad_norm"]))
+        run.update(peak=torch.cuda.max_memory_allocated(), ops=dict(used),
+                   seconds=time.perf_counter() - t_plan,
+                   **{k: sorted(list(t) for t in v) for k, v in seen.items()})
+        record["runs"][label] = run
+        del hp, params, opt, m, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_fp32 = time.perf_counter()
+    for label, (arch, layers, strategy, _, seq, layers32, batch32, _) in ssm_par_cases().items():
+        t_run = time.perf_counter()
+        cfg = ssm_par_config(arch, layers32)
+        batch = SyntheticDataset(cfg, seq_len=seq if cfg.family == "audio" else SPAR_FP32_SEQ,
+                                 global_batch=batch32, seed=0).batch(0)
+        one = construct_hybrid_parallel_model(build_model(cfg),
+                                              ssm_par_plan(cfg, strategy, False, 1))
+        ref_loss, _, ref_grads = one.value_and_grad(one.init_params(gen()), batch,
+                                                    torch.float32)
+        del one
+        hp = construct_hybrid_parallel_model(build_model(cfg),
+                                             ssm_par_plan(cfg, strategy, True, 1), mesh)
+        dist.barrier()
+        loss, _, grads = hp.value_and_grad(hp.init_params(gen()), batch, torch.float32)
+        errs = []
+        for g, rg, spec in zip(tree_leaves(grads), tree_leaves(hp.group(ref_grads)),
+                               tree_leaves(hp.grad_specs)):
+            mine = shd.shard_leaf(rg, spec, mesh)
+            errs.append(float((g - mine).abs().max()) / max(float(rg.abs().max()), 1e-30))
+        worst = torch.tensor(errs, device=dev)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        i = int(worst.argmax())
+        record["fp32"][label] = {"loss": float(loss), "ref_loss": float(ref_loss),
+                                 "grad_err": float(worst[i]),
+                                 "grad_err_leaf": ".".join(tree_paths(grads)[i][0]),
+                                 "layers": cfg.num_layers, "seconds": time.perf_counter() - t_run}
+        del hp, grads, ref_grads, loss, ref_loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["fp32_seconds"] = time.perf_counter() - t_fp32
+    (tmp / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def ssm_parallel_phase(torch) -> dict:
+    """Phase 27: tensor parallelism in the SSM, hybrid and audio families on
+    two ranks sharing the card over gloo (``ssm_par_cases``), each held to
+    one rank's ``mesh=None`` step on the same seed-0 weights and batches
+    (computed here while the ranks start): bf16 losses within
+    ``PAR_LOSS_TOL``; in fp32 at the reduced sizes the loss within
+    ``PAR_FP32_LOSS_RTOL`` relative and every grad's shards within
+    ``PAR_FP32_GRAD_TOL`` of its leaf's grad scale.  Each rank's launches
+    per step of K1, K2, K2's backward, the split K2's four passes and K3 are
+    pinned (``ssm_par_launches``), and the shapes K1, K3 and the split K2
+    see are a tp 2 rank's (``ssm_par_shapes``: zamba2's K3 on one of the
+    two groups, rank 0 on group 0 and rank 1 on group 1).  Logs each rank's
+    peak and their sum against the card, the step times (labelled: no
+    interconnect is measured) and the collectives called.  Returns each
+    case's launches in rank 0's last step."""
+    import math
+    import tempfile
+
+    from repro_torch.models import build_model
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    t_phase = time.perf_counter()
+    cases = ssm_par_cases()
+    oracle = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--ssm-parallel-rank", str(r), "2", str(tmp)],
+                                  env=dict(os.environ), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            for label, (arch, layers, strategy, batch, seq, _, _, _) in cases.items():
+                cfg = ssm_par_config(arch, layers)
+                ds = SyntheticDataset(cfg, seq_len=seq, global_batch=batch, seed=0)
+                hp = construct_hybrid_parallel_model(build_model(cfg),
+                                                     ssm_par_plan(cfg, strategy, False))
+                params = hp.init_params(torch.Generator(device="cuda").manual_seed(0))
+                opt = hp.init_opt_state(params)
+                torch.cuda.reset_peak_memory_stats()
+                losses, times = [], []
+                for step in range(PAR_STEPS):
+                    t0 = time.perf_counter()
+                    params, opt, m = hp.train_step(params, opt, ds.batch(step))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    losses.append(float(m["loss"]))
+                oracle[label] = (losses, times, torch.cuda.max_memory_allocated())
+                del hp, params, opt, m
+                gc.collect()
+                torch.cuda.empty_cache()
+            (tmp / "payload.tmp").write_text(json.dumps({"go": True}))
+            os.replace(tmp / "payload.tmp", tmp / "payload.json")
+            t_ranks = time.perf_counter()
+            outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"ssm parallel rank {r} exited {p.returncode}:\n"
+                    + "\n".join(out.splitlines()[-40:]))
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    log(f"ssm parallel: the oracle {t_ranks - t_phase:.1f} s beside the ranks' start (rank 0 "
+        f"ready {ranks[0]['ready']:.1f} s after its process began); each case (init and "
+        f"{PAR_STEPS} steps) {[round(run['seconds'], 1) for run in ranks[0]['runs'].values()]} "
+        f"s; fp32 {ranks[0]['fp32_seconds']:.1f} s; the ranks "
+        f"{time.perf_counter() - t_ranks:.1f} s after the payload")
+    require([rk["groups"] for rk in ranks] == [[0, 1], [1, 2]],
+            f"ssm parallel: zamba2's groups at tp 2 {[rk['groups'] for rk in ranks]}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    for label, (arch, layers, strategy, batch, seq, _, _, what) in cases.items():
+        cfg = ssm_par_config(arch, layers)
+        runs = [rk["runs"][label] for rk in ranks]
+        want = ssm_par_launches(cfg, strategy)
+        shapes = ssm_par_shapes(cfg, batch, seq)
+        ref_losses, ref_times, ref_peak = oracle[label]
+        losses = runs[0]["losses"]
+        require(all(math.isfinite(x) for x in losses), f"ssm parallel ({label}): losses {losses}")
+        require(runs[0]["losses"] == runs[1]["losses"],
+                f"ssm parallel ({label}): the ranks report different losses")
+        delta = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        require(delta <= PAR_LOSS_TOL, f"ssm parallel ({label}): losses {losses} vs one rank "
+                f"{ref_losses} (|delta| {delta:.4g} > {PAR_LOSS_TOL})")
+        for r, run in enumerate(runs):
+            for step, got in enumerate(run["launches"]):
+                require(got == want, f"ssm parallel ({label}) rank {r} step {step}: launches "
+                        f"{got}, expected {want}")
+            got_shapes = {k: run[k] for k in shapes}
+            require(got_shapes == shapes, f"ssm parallel ({label}) rank {r}: kernel shapes "
+                    f"{got_shapes}, expected {shapes}")
+        peaks = [run["peak"] for run in runs]
+        log(f"ssm parallel ({label}) {what}, {batch} x {seq} a step in {PAR_ACCUM} "
+            f"microbatches: losses {losses} (one rank {ref_losses}, |delta| {delta:.4g}), grad "
+            f"norms {runs[0]['grad_norms']}; step times rank 0 "
+            f"{[round(t, 4) for t in runs[0]['times']]} s, rank 1 "
+            f"{[round(t, 4) for t in runs[1]['times']]} s ({NO_INTERCONNECT}; one rank "
+            f"{[round(t, 4) for t in ref_times]} s, peak {ref_peak / 2**30:.2f} GiB); peak "
+            f"memory {[round(x / 2**30, 2) for x in peaks]} GiB, sum {sum(peaks) / 2**30:.2f} "
+            f"of {card / 2**30:.2f} GiB; launches per rank per step "
+            f"{ {k: v for k, v in want.items() if v} }; kernel shapes {shapes}; collectives "
+            f"per rank over {PAR_STEPS} steps {runs[0]['ops']}")
+        require(sum(peaks) <= card, f"ssm parallel ({label}): peaks {peaks} past the card")
+    for label in cases:
+        got = ranks[0]["fp32"][label]
+        rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+        log(f"ssm parallel fp32 ({label}, {got['layers']} layers): loss {got['loss']} vs one "
+            f"rank {got['ref_loss']} (relative {rel:.3g}); largest grad error "
+            f"{got['grad_err']:.3g} of its leaf's scale ({got['grad_err_leaf']})")
+        require(rel <= PAR_FP32_LOSS_RTOL, f"ssm parallel fp32 ({label}): loss relative {rel}")
+        require(got["grad_err"] <= PAR_FP32_GRAD_TOL,
+                f"ssm parallel fp32 ({label}): grad error {got['grad_err']}")
+    seconds = time.perf_counter() - t_phase
+    log(f"ssm parallel: phase 27 took {seconds:.1f} s")
+    return {label: ranks[0]["runs"][label]["launches"][-1] for label in cases}
+
+
 def main() -> int:
     # growable segments, for every phase: moonshot's training (phase 14)
     # runs out of memory without them, asking for its 5 GiB of fp32 logits
@@ -3855,6 +4408,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
+    mark("2")
     # 2. build
     t0 = time.perf_counter()
     lib = _build.build()
@@ -3867,6 +4421,7 @@ def main() -> int:
             log("  " + line)
         require(not k2_spills, f"a K2 kernel spills registers: {k2_spills}")
 
+    mark("3")
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash_rows = check_flash(torch, flash_ops, flash_ref, gen)
@@ -3874,9 +4429,11 @@ def main() -> int:
     rms_rows = check_rmsnorm(torch, rms_ops, rms_ref, gen)
     gated_rows = check_rmsnorm_gated(torch, rms_ops, rms_ref, gen)
     bwd_rows = check_rmsnorm_backward(torch, rms_ops, rms_ref, gen)
+    split_rows = check_rmsnorm_split(torch, rms_ops, rms_ref, gen)
     ssd_rows = check_ssd(torch, ssd_ops, ssd_ref, gen)
     ssd_grad_rows = check_ssd_autograd(torch, ssd_ops, ssd_ref, gen)
 
+    mark("4")
     # 4. the llama path at full width
     counters = launch_counters(flash_ops, rms_ops, ssd_ops)
     session, eager_session, prompts, llama_launches = serve_full_width(torch, np, serving,
@@ -3885,11 +4442,13 @@ def main() -> int:
     profile_decode(torch, np, serving, eager_session)
     del eager_session
 
+    mark("5")
     # 5. llama kernel path against plain path
     parity(torch, np, serving, build_model, session, prompts)
     del session
     torch.cuda.empty_cache()
 
+    mark("6-9")
     # 6-9. the mamba2 and zamba2 paths at full width through the step
     # engine, each followed by its kernel path against its plain path
     static_launches = {}
@@ -3911,31 +4470,37 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    mark("10")
     # 10. the dense training step at full width
     train_launches, selective = train_phase(torch, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("11")
     # 11. the planner: profile, calibrate, search, train the plan, the launcher
     planner_phase(torch, counters, selective)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("12-13")
     # 12-13. the MoE family: moonshot served at full width and depth, its parity
     moe_launches = moe_serve_phase(torch, np, serving, build_model, get_config, counters)
     allocator_report(torch, "the moonshot serve and parity phases")
 
+    mark("14")
     # 14. moonshot trained at full width, cut to 2 layers
     moe_train_launches = moe_train_phase(torch, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("23")
     # 23. the planner for the MoE family: profile (graphs), calibrate,
     # search, check, train the plan, the launcher's refusal
     moe_planner_phase(torch, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("15-16")
     # 15-16. the encoder-decoder: whisper served at full width and depth with
     # real frames, profiled, and its kernel path against its plain path
     engine, w_params, w_frames, w_prompts, whisper_serve_launches, eager = whisper_serve_phase(
@@ -3950,11 +4515,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("17")
     # 17. whisper trained at full width and depth
     whisper_train_launches = whisper_train_phase(torch, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("18-19")
     # 18-19. the VLM: internvl2 served at full width and depth with an image
     # prefix, profiled, and its kernel path against its plain path at 4 layers
     engine, v_params, v_vis, v_prompts, vlm_launches, eager = vlm_serve_phase(
@@ -3972,21 +4539,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("20")
     # 20. internvl2 trained at full width, cut to 2 layers
     vlm_train_launches = vlm_train_phase(torch, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 21. mamba2 trained at full width and depth through K3 under autograd
+    # 21. mamba2 trained at full width, cut to 16 layers, through K3 under autograd
+    mark("21")
     mamba2_train_launches = ssm_train_phase(torch, counters, "mamba2-2.7b", "selective",
+                                            layers=MAMBA2_TRAIN_LAYERS,
                                             profile=True)
     gc.collect()
     torch.cuda.empty_cache()
 
+    mark("22")
     # 22. zamba2 trained at full width, cut to 13 layers
     zamba2_train_launches = ssm_train_phase(torch, counters, "zamba2-7b", "none",
                                             layers=ZAMBA2_TRAIN_LAYERS)
 
+    mark("25")
     # 25. the parallel runtime: two ranks sharing the card over gloo
     gc.collect()
     torch.cuda.empty_cache()
@@ -3994,6 +4566,7 @@ def main() -> int:
     par_launches = {"parallel_tp2": par["a"], "parallel_dp2": par["b"],
                     "parallel": {k: sum(run[k] for run in par.values()) for k in par["a"]}}
 
+    mark("26")
     # 26. the MoE family on a mesh: two ranks sharing the card over gloo
     gc.collect()
     torch.cuda.empty_cache()
@@ -4001,6 +4574,18 @@ def main() -> int:
     par_launches.update({"moe_parallel_tp2": mpar["b"], "moe_parallel_b1": {
         k: mpar["a"][k] + mpar["c"][k] for k in mpar["a"]}})
 
+    mark("27")
+    # 27. tensor parallelism in the SSM, hybrid and audio families: two ranks
+    # sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    spar = ssm_parallel_phase(torch)
+    for label, n in spar.items():     # a row of the split K2 counts both its passes
+        par_launches[f"ssm_parallel_{label}"] = {
+            **n, "rmsnorm_split_fwd": n["rmsnorm_split_sumsq"] + n["rmsnorm_split"],
+            "rmsnorm_split_bwd": n["rmsnorm_split_dot"] + n["rmsnorm_split_backward"]}
+
+    mark("24")
     # 24. results
     kernels = []
     for rows, name, source, replaces in (
@@ -4016,7 +4601,13 @@ def main() -> int:
             (ssd_rows, "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/kernel.py:74"),
             (ssd_grad_rows, "ssd_autograd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-             "src/repro/kernels/ssd/kernel.py:74")):
+             "src/repro/kernels/ssd/kernel.py:74"),
+            ([r for r in split_rows if r["kind"] == "forward"], "rmsnorm_split_fwd",
+             "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm/kernel.py:24"),
+            ([r for r in split_rows if r["kind"] == "backward"], "rmsnorm_split_bwd",
+             "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+             "src/repro/models/norms.py:24")):
         for r in rows:
             launches = {"llama": llama_launches, "train": train_launches,
                         "moonshot": moe_launches, "moonshot_train": moe_train_launches,
@@ -4045,5 +4636,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--moe-parallel-rank"]:
         moe_parallel_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ssm-parallel-rank"]:
+        ssm_parallel_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Phase 25 or 26 of ``chip_smoke.py`` alone, on one CUDA GPU: the parallel
-runtime on two ranks sharing the card over gloo, each plan held to one
-rank's step (see ``chip_smoke.parallel_phase`` and
-``chip_smoke.moe_parallel_phase``).
+"""Phase 25, 26 or 27 of ``chip_smoke.py`` alone, on one CUDA GPU: the
+parallel runtime on two ranks sharing the card over gloo, each plan held to
+one rank's step (see ``chip_smoke.parallel_phase``,
+``chip_smoke.moe_parallel_phase`` and ``chip_smoke.ssm_parallel_phase``).
 
     python3 scripts/chip_parallel.py            # phase 25 (llama), about three minutes
     python3 scripts/chip_parallel.py --moe      # phase 26 (moonshot on a mesh)
+    python3 scripts/chip_parallel.py --ssm      # phase 27 (mamba2, zamba2, whisper at tp 2)
     python3 scripts/chip_parallel.py --probe    # the backends, about half a minute
 
 ``--probe`` asks each process-group backend for two ranks on device 0:
@@ -149,6 +150,8 @@ def main() -> int:
     cs.log(f"build: {time.perf_counter() - t0:.1f} s")
     if sys.argv[1:2] == ["--moe"]:
         cs.moe_parallel_phase(torch)
+    elif sys.argv[1:2] == ["--ssm"]:
+        cs.ssm_parallel_phase(torch)
     else:
         cs.parallel_phase(torch)
     return 0

@@ -32,6 +32,8 @@
 //     within an ulp or two of fp32.
 #include "rmsnorm.cuh"
 
+#include <initializer_list>
+
 namespace {
 
 struct FwdArgs {
@@ -234,4 +236,158 @@ extern "C" int repro_rmsnorm_fwd(const void* x, const void* z, const void* scale
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// The split-row form, for a row whose columns are split over the ranks of a
+// tensor-parallel group (Mamba2's gate norm over d_inner).  Each rank holds
+// D of the row's `width` columns.  Pass 1 writes each row's fp32 sum of x^2
+// over this rank's columns; the caller all-reduces those sums into S; pass 2
+// normalises this rank's columns with r = rsqrt(S / width + eps), the mean
+// over the whole row, and scales them by this rank's slice of the scale.
+// The arithmetic is the whole-row kernel's: fp32 sums, rsqrtf, the output
+// rounded once to x's dtype.  A simple layout: each row group walks its
+// columns in 16-byte packs (or scalars) with a stride of tpr packs, the
+// threads of a row on neighbouring packs; tpr as _template picks it.
+namespace {
+
+template <typename TX, int VEC>
+__global__ void __launch_bounds__(kMaxThreads) rmsnorm_split_sumsq_kernel(
+    const TX* __restrict__ x, float* __restrict__ ss, long long rows, int D, int tpr) {
+  __shared__ float red[1][kMaxWarps];
+  const int nvec = D / VEC;
+  const int t = threadIdx.x % tpr;
+  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x / tpr) +
+                        threadIdx.x / tpr;
+  const bool valid = row < rows;
+  const TX* xr = x + (valid ? row * D : 0);
+  float s[1] = {0.f};
+  for (int i = t; valid && i < nvec; i += tpr)
+    s[0] = sum_sq<TX, VEC>(load<TX, VEC>(xr + i * VEC), s[0]);
+  group_sum<1>(s, tpr, red);
+  if (valid && t == 0) ss[row] = s[0];
+}
+
+template <typename TX, typename TS, int VEC>
+__global__ void __launch_bounds__(kMaxThreads) rmsnorm_split_fwd_kernel(
+    const TX* __restrict__ x, const TS* __restrict__ scale, const float* __restrict__ stat,
+    TX* __restrict__ out, long long rows, int D, int tpr, float inv_width, float eps) {
+  const int nvec = D / VEC;
+  const int t = threadIdx.x % tpr;
+  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x / tpr) +
+                        threadIdx.x / tpr;
+  if (row >= rows) return;                 // no barrier follows
+  const float inv = rsqrtf(stat[row] * inv_width + eps);
+  const long long base = row * D;
+  for (int i = t; i < nvec; i += tpr)
+    write_pack<TX, TS, VEC>(out + base, scale, i * VEC, load<TX, VEC>(x + base + i * VEC), inv);
+}
+
+struct SplitGeom {
+  long long rows;
+  int D;
+  int tpr;
+  cudaStream_t stream;
+  long long blocks() const { return (rows + rows_per_block() - 1) / rows_per_block(); }
+  int rows_per_block() const { return tpr >= 256 ? 1 : 256 / tpr; }
+};
+
+struct SumSqOp {
+  SplitGeom geo;
+  const void* x;
+  float* ss;
+  template <typename TX, typename TS, int VEC>
+  cudaError_t run() const {
+    if (geo.blocks() > 0x7fffffffLL) return cudaErrorInvalidValue;
+    rmsnorm_split_sumsq_kernel<TX, VEC>
+        <<<static_cast<unsigned>(geo.blocks()), geo.rows_per_block() * geo.tpr, 0, geo.stream>>>(
+            static_cast<const TX*>(x), ss, geo.rows, geo.D, geo.tpr);
+    return cudaGetLastError();
+  }
+};
+
+struct SplitFwdOp {
+  SplitGeom geo;
+  const void* x;
+  const void* scale;
+  const float* stat;
+  void* out;
+  float inv_width;
+  float eps;
+  template <typename TX, typename TS, int VEC>
+  cudaError_t run() const {
+    if (geo.blocks() > 0x7fffffffLL) return cudaErrorInvalidValue;
+    rmsnorm_split_fwd_kernel<TX, TS, VEC>
+        <<<static_cast<unsigned>(geo.blocks()), geo.rows_per_block() * geo.tpr, 0, geo.stream>>>(
+            static_cast<const TX*>(x), static_cast<const TS*>(scale), stat,
+            static_cast<TX*>(out), geo.rows, geo.D, geo.tpr, inv_width, eps);
+    return cudaGetLastError();
+  }
+};
+
+template <typename Op, typename TX, typename TS>
+cudaError_t split_by_vec(const Op& op, int vec) {
+  constexpr int kVec = 16 / sizeof(TX);
+  if (vec == kVec) return op.template run<TX, TS, kVec>();
+  if (vec == 1) return op.template run<TX, TS, 1>();
+  return cudaErrorInvalidValue;
+}
+
+template <typename Op, typename TX>
+cudaError_t split_by_scale(const Op& op, int s_dtype, int vec) {
+  switch (s_dtype) {
+    case 0: return split_by_vec<Op, TX, float>(op, vec);
+    case 1: return split_by_vec<Op, TX, __nv_bfloat16>(op, vec);
+    case 2: return split_by_vec<Op, TX, __half>(op, vec);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Op>
+cudaError_t split_dispatch(const Op& op, int x_dtype, int s_dtype, int vec) {
+  switch (x_dtype) {
+    case 0: return split_by_scale<Op, float>(op, s_dtype, vec);
+    case 1: return split_by_scale<Op, __nv_bfloat16>(op, s_dtype, vec);
+    case 2: return split_by_scale<Op, __half>(op, s_dtype, vec);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool split_args_ok(long long rows, int D, int tpr, int vec,
+                   std::initializer_list<const void*> ptrs) {
+  if (rows <= 0 || D <= 0 || !valid_tpr(tpr) || vec < 1 || D % vec) return false;
+  if (vec > 1) {
+    for (const void* p : ptrs)
+      if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  }
+  return true;
+}
+
+}  // namespace
+
+// Pass 1: ss[row] = the fp32 sum of x^2 over the row's D columns (rows x D
+// contiguous).  vec: 16 / sizeof(x) (x 16-byte aligned) or 1; tpr the
+// threads per row.
+extern "C" int repro_rmsnorm_split_sumsq(const void* x, void* ss, long long rows, int D,
+                                         int x_dtype, int vec, int tpr, void* stream) {
+  cudaGetLastError();
+  if (!split_args_ok(rows, D, tpr, vec, {x})) return static_cast<int>(cudaErrorInvalidValue);
+  const SumSqOp op{{rows, D, tpr, static_cast<cudaStream_t>(stream)}, x,
+                   static_cast<float*>(ss)};
+  return static_cast<int>(split_dispatch(op, x_dtype, 0, vec));
+}
+
+// Pass 2: out = x * rsqrt(stat / width + eps) * scale over this rank's D
+// columns; stat (rows,) fp32 is the row's sum of x^2 over all `width`
+// columns; scale (D,) this rank's slice.
+extern "C" int repro_rmsnorm_split_fwd(const void* x, const void* scale, const void* stat,
+                                       void* out, long long rows, int D, int width, float eps,
+                                       int x_dtype, int s_dtype, int vec, int tpr, void* stream) {
+  cudaGetLastError();
+  if (width < D || !split_args_ok(rows, D, tpr, vec, {x, scale, out}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SplitFwdOp op{{rows, D, tpr, static_cast<cudaStream_t>(stream)}, x, scale,
+                      static_cast<const float*>(stat), out, 1.0f / static_cast<float>(width),
+                      eps};
+  return static_cast<int>(split_dispatch(op, x_dtype, s_dtype, vec));
 }

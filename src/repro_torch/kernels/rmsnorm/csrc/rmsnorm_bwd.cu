@@ -379,3 +379,206 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale, const void* g
                     eps, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch(op, x_dtype, s_dtype, vec, nv));
 }
+
+// ---------------------------------------------------------------------------
+// The split-row backward (the forward's split form is in rmsnorm.cu): this
+// rank holds D of the row's `width` columns, stat[row] is the all-reduced
+// sum of x^2 over the whole row, r = rsqrt(stat / width + eps) and
+// x^ = x r, gs = g * scale.
+//   pass 1: dot[row] = sum over this rank's columns of gs * x^ (fp32); the
+//           caller all-reduces it into T;
+//   pass 2: dx = r * (gs - x^ * T / width) for this rank's columns, and
+//           dscale for them through the same deterministic scheme as the
+//           whole-row backward: one fp32 partial row per block, then
+//           rmsnorm_colsum_kernel.
+// Pass 2 keeps one row group per block (blockDim.x == tpr): each thread owns
+// its columns over every row the block walks, so its dscale sums stay in
+// registers (NV packs) or, for rows wider than two packs a thread (NV = 0),
+// in the block's partial row in device memory; no barrier is needed.
+namespace {
+
+template <typename TX, typename TS, int VEC>
+__global__ void __launch_bounds__(kBlock) rmsnorm_split_dot_kernel(
+    const TX* __restrict__ x, const TS* __restrict__ scale, const TX* __restrict__ g,
+    const float* __restrict__ stat, float* __restrict__ dot, long long rows, int D, int tpr,
+    float inv_width, float eps) {
+  __shared__ float red[1][kMaxWarps];
+  const int nvec = D / VEC;
+  const int t = threadIdx.x % tpr;
+  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x / tpr) +
+                        threadIdx.x / tpr;
+  const bool valid = row < rows;
+  const long long base = valid ? row * D : 0;
+  float s[1] = {0.f};
+  for (int i = t; valid && i < nvec; i += tpr) {
+    const Pack<TX, VEC> xv = load<TX, VEC>(x + base + i * VEC);
+    const Pack<TX, VEC> gv = load<TX, VEC>(g + base + i * VEC);
+    const Pack<TS, VEC> sv = load<TS, VEC>(scale + i * VEC);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) s[0] = fmaf(to_f(gv.v[k]) * to_f(sv.v[k]), to_f(xv.v[k]), s[0]);
+  }
+  group_sum<1>(s, tpr, red);
+  if (valid && t == 0) dot[row] = s[0] * rsqrtf(stat[row] * inv_width + eps);
+}
+
+template <typename TX, typename TS, int VEC, int NV>
+__global__ void __launch_bounds__(kBlock) rmsnorm_split_bwd_kernel(
+    const TX* __restrict__ x, const TS* __restrict__ scale, const TX* __restrict__ g,
+    const float* __restrict__ stat, const float* __restrict__ dot, TX* __restrict__ dx,
+    float* __restrict__ partial, long long rows, int D, float inv_width, float eps) {
+  const int nvec = D / VEC;
+  const int t = threadIdx.x;
+  const int tpr = blockDim.x;
+  float* prow = partial + static_cast<long long>(blockIdx.x) * D;
+  float acc[NV > 0 ? NV : 1][VEC] = {};
+  if constexpr (NV == 0) {
+    for (int i = t; i < nvec; i += tpr) store<float, VEC>(prow + i * VEC, Pack<float, VEC>{});
+  }
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long base = row * D;
+    const float r = rsqrtf(stat[row] * inv_width + eps);
+    const float c = dot[row] * inv_width;          // mean(gs * x^) over the whole row
+    int j = 0;
+    for (int i = t; i < nvec; i += tpr, ++j) {
+      const Pack<TX, VEC> xv = load<TX, VEC>(x + base + i * VEC);
+      const Pack<TX, VEC> gv = load<TX, VEC>(g + base + i * VEC);
+      const Pack<TS, VEC> sv = load<TS, VEC>(scale + i * VEC);
+      Pack<TX, VEC> o;
+      float ga[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float xh = to_f(xv.v[k]) * r;
+        const float gf = to_f(gv.v[k]);
+        o.v[k] = from_f<TX>(r * (gf * to_f(sv.v[k]) - xh * c));
+        ga[k] = gf * xh;
+      }
+      store<TX, VEC>(dx + base + i * VEC, o);
+      if constexpr (NV > 0) {
+#pragma unroll
+        for (int jj = 0; jj < NV; ++jj) {
+          if (jj == j) {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) acc[jj][k] += ga[k];
+          }
+        }
+      } else {
+        Pack<float, VEC> p = load<float, VEC>(prow + i * VEC);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) p.v[k] += ga[k];
+        store<float, VEC>(prow + i * VEC, p);
+      }
+    }
+  }
+  if constexpr (NV > 0) {
+#pragma unroll
+    for (int jj = 0; jj < NV; ++jj) {
+      const int i = t + jj * tpr;
+      if (i < nvec) {
+        Pack<float, VEC> p;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) p.v[k] = acc[jj][k];
+        store<float, VEC>(prow + i * VEC, p);
+      }
+    }
+  }
+}
+
+struct SplitDotOp {
+  const void* x;
+  const void* scale;
+  const void* g;
+  const float* stat;
+  float* dot;
+  long long rows;
+  int D;
+  int tpr;
+  float inv_width;
+  float eps;
+  cudaStream_t stream;
+  template <typename TX, typename TS, int VEC, int NV>
+  cudaError_t run() const {
+    const int rpb = rows_per_block(tpr);
+    const long long blocks = (rows + rpb - 1) / rpb;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    rmsnorm_split_dot_kernel<TX, TS, VEC><<<static_cast<unsigned>(blocks), rpb * tpr, 0,
+                                             stream>>>(
+        static_cast<const TX*>(x), static_cast<const TS*>(scale), static_cast<const TX*>(g),
+        stat, dot, rows, D, tpr, inv_width, eps);
+    return cudaGetLastError();
+  }
+};
+
+struct SplitBwdOp {
+  const void* x;
+  const void* scale;
+  const void* g;
+  const float* stat;
+  const float* dot;
+  void* dx;
+  float* partial;
+  void* dscale;
+  long long rows;
+  int D;
+  int tpr;
+  int grid;
+  float inv_width;
+  float eps;
+  cudaStream_t stream;
+  template <typename TX, typename TS, int VEC, int NV>
+  cudaError_t run() const {
+    if (NV > 0 && static_cast<long long>(NV) * tpr * VEC < D) return cudaErrorInvalidValue;
+    if (grid < 1 || grid > rows) return cudaErrorInvalidValue;
+    rmsnorm_split_bwd_kernel<TX, TS, VEC, NV><<<grid, tpr, 0, stream>>>(
+        static_cast<const TX*>(x), static_cast<const TS*>(scale), static_cast<const TX*>(g),
+        stat, dot, static_cast<TX*>(dx), partial, rows, D, inv_width, eps);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    rmsnorm_colsum_kernel<TS><<<(D + 31) / 32, dim3(32, kSumSlices), 0, stream>>>(
+        partial, static_cast<TS*>(dscale), grid, D);
+    return cudaGetLastError();
+  }
+};
+
+}  // namespace
+
+// Split pass 1 of the backward: dot[row] = sum over the D columns of
+// g * scale * x * rsqrt(stat[row] / width + eps) (fp32).  Codes and
+// template arguments as repro_rmsnorm_bwd's; nv is the template's (any of
+// its values runs the same strided loop).
+extern "C" int repro_rmsnorm_split_dot(const void* x, const void* scale, const void* g,
+                                       const void* stat, void* dot, long long rows, int D,
+                                       int width, float eps, int x_dtype, int s_dtype, int vec,
+                                       int nv, int tpr, void* stream) {
+  cudaGetLastError();
+  if (rows <= 0 || D <= 0 || width < D || !valid_tpr(tpr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec > 1 && (D % vec || misaligned(x) || misaligned(scale) || misaligned(g)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const SplitDotOp op{x, scale, g, static_cast<const float*>(stat), static_cast<float*>(dot),
+                      rows, D, tpr, 1.0f / static_cast<float>(width), eps,
+                      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dispatch(op, x_dtype, s_dtype, vec, nv));
+}
+
+// Split pass 2 of the backward: dx (x's dtype and shape) and dscale
+// (scale's dtype, (D,)) for this rank's columns, from stat and the
+// all-reduced dot (both (rows,) fp32); `partial` is scratch of (grid, D)
+// floats, grid <= rows blocks of tpr threads.  Two launches: the rows, then
+// the column sums.
+extern "C" int repro_rmsnorm_split_bwd(const void* x, const void* scale, const void* g,
+                                       const void* stat, const void* dot, void* dx,
+                                       void* partial, void* dscale, long long rows, int D,
+                                       int width, float eps, int x_dtype, int s_dtype, int vec,
+                                       int nv, int tpr, int grid, void* stream) {
+  cudaGetLastError();
+  if (rows <= 0 || D <= 0 || width < D || !valid_tpr(tpr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec > 1 && (D % vec || misaligned(x) || misaligned(scale) || misaligned(g) ||
+                  misaligned(dx) || misaligned(partial)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const SplitBwdOp op{x, scale, g, static_cast<const float*>(stat),
+                      static_cast<const float*>(dot), dx, static_cast<float*>(partial), dscale,
+                      rows, D, tpr, grid, 1.0f / static_cast<float>(width), eps,
+                      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dispatch(op, x_dtype, s_dtype, vec, nv));
+}

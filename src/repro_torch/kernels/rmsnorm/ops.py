@@ -5,7 +5,7 @@ Replaces the TPU kernel ``repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas``
 (body ``_rmsnorm_kernel``) with ``csrc/rmsnorm.cu``, and gives it a backward,
 ``csrc/rmsnorm_bwd.cu`` (the counterpart of XLA's compiled backward of the
 JAX norm).  What bounds both on the H100: bytes — one read and one write of
-every element at 3.35 TB/s, a few flops each.  Three entry points:
+every element at 3.35 TB/s, a few flops each.  Entry points:
 
 - ``rmsnorm(x, scale, eps)``: one read of each row in 16-byte packs kept in
   registers, the fp32 sum of squares reduced over the row's threads, one
@@ -15,16 +15,29 @@ every element at 3.35 TB/s, a few flops each.  Three entry points:
   where the plain composition rounds;
 - ``rmsnorm_backward(x, scale, g, eps)``, the backward of ``_RMSNorm``:
   dx and a deterministic dscale (fp32 partial rows per block, then a
-  column sum; no atomics).
+  column sum; no atomics);
+- the split-row form, for a row whose columns are split over the ranks of
+  a tensor-parallel group (Mamba2's gate norm over ``d_inner``): each rank
+  holds D of the row's ``width`` columns.  Forward: ``rmsnorm_split_sumsq``
+  (each row's fp32 Σ x² over this rank's columns), an all-reduce, then
+  ``rmsnorm_split`` (normalise with the whole row's mean, scale by this
+  rank's slice).  Backward: ``rmsnorm_split_dot`` (each row's Σ gs·x̂), an
+  all-reduce, then ``rmsnorm_split_backward`` (dx, and this slice's dscale
+  through the whole-row backward's column sums).
+  ``rmsnorm_split_autograd`` composes them under autograd.
 
 The layout of a call — 16-byte packs or scalars, packs per thread, threads
 per row — is the pure function ``_template``.  Counters (kernel launches on
 CUDA tensors; plain-version calls on the CPU do not count):
 ``rmsnorm.launches`` (every forward, gated or not), ``rmsnorm.gated_launches``
 (the gated forwards) and ``rmsnorm.backward_launches`` (backward calls, each
-two launches: the rows, then the column sums).  ``COUNTERS`` lists them for
-``runtime/compiled.py``, which adds a captured graph's launches at each
-replay, so under a CUDA graph they still count device launches.
+two launches: the rows, then the column sums), and each split pass's own
+``launches`` (``rmsnorm_split_sumsq``, ``rmsnorm_split``,
+``rmsnorm_split_dot``, ``rmsnorm_split_backward``: two launches a call, as
+the whole-row backward).  ``COUNTERS`` lists the whole-row ones and
+``SPLIT_COUNTERS`` the split passes' for ``runtime/compiled.py``, which
+adds a captured graph's launches at each replay, so under a CUDA graph they
+still count device launches.
 """
 from __future__ import annotations
 
@@ -36,7 +49,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rmsnorm.ref import (gated_rmsnorm_reference, rmsnorm_backward_reference,
-                                             rmsnorm_reference)
+                                             rmsnorm_reference, rmsnorm_split_backward_reference,
+                                             rmsnorm_split_dot_reference,
+                                             rmsnorm_split_reference,
+                                             rmsnorm_split_sumsq_reference)
+from repro_torch.parallel import collectives
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -219,3 +236,187 @@ def rmsnorm_autograd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) ->
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale, eps)
     return rmsnorm(x, scale, eps)
+
+
+# --------------------------------------------------------------------------
+# the split-row form (a row whose columns are split over a group of ranks)
+# --------------------------------------------------------------------------
+
+_SUMSQ_ARGTYPES = (_P, _P, _LL, _I, _I, _I, _I, _P)
+_SPLIT_FWD_ARGTYPES = (_P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _P)
+_SPLIT_DOT_ARGTYPES = (_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _I, _I, _I, _I, _P)
+_SPLIT_BWD_ARGTYPES = (_P,) * 8 + (_LL, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P)
+
+
+def _check_stat(name: str, x: torch.Tensor, *stats: torch.Tensor) -> None:
+    for s in stats:
+        if (s.shape != x.shape[:-1] or s.dtype != torch.float32 or s.device != x.device
+                or not s.is_contiguous()):
+            raise ValueError(f"{name}: a row statistic {tuple(s.shape)} {s.dtype} on "
+                             f"{s.device}; the kernel takes contiguous fp32 "
+                             f"{tuple(x.shape[:-1])} on {x.device}")
+
+
+def _check_width(name: str, D: int, width: int) -> None:
+    if width < D:
+        raise ValueError(f"{name}: the whole row's width {width} is less than this "
+                         f"rank's {D} columns")
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def rmsnorm_split_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """Pass 1 of the split forward: each row's fp32 Σ x² over x's columns,
+    shape ``x.shape[:-1]``."""
+    if _on_cpu(x):
+        return rmsnorm_split_sumsq_reference(x)
+    if x.device.type != "cuda" or x.dtype not in _DTYPE_CODES or not x.is_contiguous():
+        raise ValueError(f"rmsnorm split sumsq: x {x.dtype} on {x.device}; the kernel takes "
+                         "a contiguous float32, bfloat16 or float16 CUDA tensor")
+    D = x.shape[-1]
+    ss = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    rows = ss.numel()
+    if rows == 0 or D == 0:
+        return ss.zero_()
+    tpl = _template(D, x.dtype, x.data_ptr())
+    fn = _build.function("repro_rmsnorm_split_sumsq", _SUMSQ_ARGTYPES)
+    _build.check(fn(x.data_ptr(), ss.data_ptr(), rows, D, _DTYPE_CODES[x.dtype], tpl.vec,
+                    tpl.tpr, _stream(x)), "rmsnorm split sumsq")
+    rmsnorm_split_sumsq.launches += 1
+    return ss
+
+
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, stat: torch.Tensor, width: int,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Pass 2 of the split forward: x's D columns normalised with r =
+    rsqrt(stat / width + eps) and scaled by ``scale`` (D,), this rank's
+    slice; ``stat`` (``x.shape[:-1]``, fp32) is the row's Σ x² over all
+    ``width`` columns.  Output in x's dtype."""
+    if _on_cpu(x, scale, stat):
+        return rmsnorm_split_reference(x, scale, stat, width, eps)
+    D = _check("rmsnorm split", x, scale)
+    _check_stat("rmsnorm split", x, stat)
+    _check_width("rmsnorm split", D, width)
+    out = torch.empty_like(x)
+    rows = stat.numel()
+    if rows == 0 or D == 0:
+        return out
+    tpl = _template(D, x.dtype, x.data_ptr(), scale.data_ptr(), out.data_ptr())
+    fn = _build.function("repro_rmsnorm_split_fwd", _SPLIT_FWD_ARGTYPES)
+    _build.check(fn(x.data_ptr(), scale.data_ptr(), stat.data_ptr(), out.data_ptr(), rows, D,
+                    width, float(eps), _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
+                    tpl.vec, tpl.tpr, _stream(x)), "rmsnorm split")
+    rmsnorm_split.launches += 1
+    return out
+
+
+def rmsnorm_split_dot(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                      stat: torch.Tensor, width: int, eps: float = 1e-5) -> torch.Tensor:
+    """Pass 1 of the split backward: each row's fp32 Σ gs·x̂ over x's
+    columns (x̂ = x·r with r from ``stat`` as the forward's, gs =
+    g·scale), shape ``x.shape[:-1]``."""
+    if _on_cpu(x, scale, g, stat):
+        return rmsnorm_split_dot_reference(x, scale, g, stat, width, eps)
+    D = _check("rmsnorm split dot", x, scale, g)
+    _check_stat("rmsnorm split dot", x, stat)
+    _check_width("rmsnorm split dot", D, width)
+    dot = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    rows = dot.numel()
+    if rows == 0 or D == 0:
+        return dot.zero_()
+    tpl = _template(D, x.dtype, x.data_ptr(), scale.data_ptr(), g.data_ptr(), backward=True)
+    fn = _build.function("repro_rmsnorm_split_dot", _SPLIT_DOT_ARGTYPES)
+    _build.check(fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), stat.data_ptr(),
+                    dot.data_ptr(), rows, D, width, float(eps), _DTYPE_CODES[x.dtype],
+                    _DTYPE_CODES[scale.dtype], tpl.vec, tpl.nv, tpl.tpr, _stream(x)),
+                 "rmsnorm split dot")
+    rmsnorm_split_dot.launches += 1
+    return dot
+
+
+def _split_grid(device: int, rows: int, tpr: int) -> int:
+    """Blocks (= dscale partial rows) of one split backward launch: one row
+    group of ``tpr`` threads a block, as many as fill the SMs' 2048 threads
+    once, at most one a row."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(rows, sms * max(1, 2048 // tpr)))
+
+
+def rmsnorm_split_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                           stat: torch.Tensor, dot: torch.Tensor, width: int,
+                           eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 of the split backward: (dx, dscale) for x's D columns, with
+    ``stat`` and ``dot`` the row's Σ x² and Σ gs·x̂ over all ``width``
+    columns: dx = r·(gs − x̂·dot / width) in x's dtype, dscale = Σ_rows g·x̂
+    in scale's (two launches: the rows, then the column sums)."""
+    if _on_cpu(x, scale, g, stat, dot):
+        return rmsnorm_split_backward_reference(x, scale, g, stat, dot, width, eps)
+    D = _check("rmsnorm split backward", x, scale, g)
+    _check_stat("rmsnorm split backward", x, stat, dot)
+    _check_width("rmsnorm split backward", D, width)
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    rows = stat.numel()
+    if rows == 0 or D == 0:
+        return dx, dscale.zero_()
+    tpl = _template(D, x.dtype, *(t.data_ptr() for t in (x, scale, g, dx)), backward=True)
+    grid = _split_grid(x.device.index, rows, tpl.tpr)
+    partial = torch.empty((grid, D), dtype=torch.float32, device=x.device)
+    fn = _build.function("repro_rmsnorm_split_bwd", _SPLIT_BWD_ARGTYPES)
+    _build.check(fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), stat.data_ptr(),
+                    dot.data_ptr(), dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(), rows,
+                    D, width, float(eps), _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
+                    tpl.vec, tpl.nv, tpl.tpr, grid, _stream(x)), "rmsnorm split backward")
+    rmsnorm_split_backward.launches += 1
+    return dx, dscale
+
+
+rmsnorm_split_sumsq.launches = 0
+rmsnorm_split.launches = 0
+rmsnorm_split_dot.launches = 0
+rmsnorm_split_backward.launches = 0
+SPLIT_COUNTERS = ((rmsnorm_split_sumsq, "launches"), (rmsnorm_split, "launches"),
+                  (rmsnorm_split_dot, "launches"), (rmsnorm_split_backward, "launches"))
+
+
+class _RMSNormSplit(torch.autograd.Function):
+    """The split form under autograd: pass 1, an fp32 all-reduce of the row
+    sums over ``group``, pass 2.  It saves x, the scale slice and the
+    reduced (R,) statistic, so its backward makes one all-reduce (of the
+    row dot), not two: it departs from the whole-row ``_RMSNorm``, and from
+    the JAX package's no-save ``jax.checkpoint`` around its norm, only by
+    those R floats.  ``plain`` runs the plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, width, group, plain):
+        sumsq = rmsnorm_split_sumsq_reference if plain else rmsnorm_split_sumsq
+        stat = collectives.all_reduce(sumsq(x), group)
+        ctx.save_for_backward(x, scale, stat)
+        ctx.args = (eps, width, group, plain)
+        fwd = rmsnorm_split_reference if plain else rmsnorm_split
+        return fwd(x, scale, stat, width, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, stat = ctx.saved_tensors
+        eps, width, group, plain = ctx.args
+        g = g.contiguous()
+        dot_fn = rmsnorm_split_dot_reference if plain else rmsnorm_split_dot
+        bwd = rmsnorm_split_backward_reference if plain else rmsnorm_split_backward
+        dot = collectives.all_reduce(dot_fn(x, scale, g, stat, width, eps), group)
+        dx, dscale = bwd(x, scale, g, stat, dot, width, eps)
+        return dx, dscale, None, None, None, None
+
+
+def rmsnorm_split_autograd(x: torch.Tensor, scale_cols: torch.Tensor, eps: float, width: int,
+                           group, plain: bool = False) -> torch.Tensor:
+    """RMSNorm of rows whose ``width`` columns are split over ``group``
+    (``launch.mesh.AxisGroup``): x holds this rank's columns and
+    ``scale_cols`` its slice of the scale; the statistics are the whole
+    row's.  Differentiable in x and ``scale_cols`` (dscale is this rank's
+    slice's, from its columns alone).  Off a mesh, or on a group of one, the
+    caller runs the whole-row ``rmsnorm_autograd`` instead."""
+    return _RMSNormSplit.apply(x.contiguous(), scale_cols.contiguous(), eps, width, group,
+                               plain)

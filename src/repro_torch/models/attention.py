@@ -2,8 +2,9 @@
 cross-attention.
 
 K/V are stored compact (``num_kv_heads``).  Query heads are never padded
-for tensor parallelism: under it (``collectives.tp_state``, training only)
-the head counts are read from the shard shapes.  ``wq`` / ``wo`` hold this
+for tensor parallelism: under it (``collectives.tp_state``: the training
+modes, ``"train"`` self- and cross-attention and ``"encoder"``) the head
+counts are read from the shard shapes.  ``wq`` / ``wo`` hold this
 rank's contiguous block of query heads and ``wk`` / ``wv`` its KV heads, or
 every KV head where ``spec_for_shape`` left them whole (fewer KV heads than
 ranks); then each rank keeps the KV heads its query heads map to, global
@@ -12,7 +13,10 @@ block is a region (``collectives.region_in`` / ``region_out``), and the
 leaves a rank holds whole but uses for its heads alone (qk-norm scales,
 replicated K/V projections) get their grads summed over the model axis
 (``collectives.partial_grad``).  A head count the model axis does not
-divide keeps the block whole and replicated.
+divide keeps the block whole and replicated.  A cross-attention region
+takes its K/V source (the encoder output, in the boundary layout) through
+``region_in`` too, so under sequence parallelism every rank's keys are the
+whole encoded sequence.
 
 ``attention_block`` takes JAX's modes: ``"train"``, ``"prefill"`` and
 ``"decode"`` (causal self-attention), ``"encoder"`` (non-causal
@@ -448,11 +452,13 @@ def attention_block(
             out = attention_math(q, ke, ve, causal=False, kv_len=kv_len)
         return _out_proj(params, out, x.dtype), cache
 
-    tp = collectives.tp_state() if mode == "train" and not cross else None
+    tp = collectives.tp_state() if mode in ("train", "encoder") else None
     sharded = False
     if tp is not None:
         sharded = params["wq"].shape[1] < cfg.num_heads
         x = collectives.region_in(x, sharded)
+        if cross:                   # the encoder output enters the region too
+            kv_source = collectives.region_in(kv_source, sharded)
         B, Sq, _ = x.shape
         if sharded:
             params = _tp_params(params, cfg)

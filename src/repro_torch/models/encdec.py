@@ -9,6 +9,15 @@ cross-attention over the encoder output (no RoPE, no mask) -> RMSNorm ->
 FFN, then ``final_norm`` and the head.  Serving keeps a self-attention KV
 cache and the cross-attention K/V computed once at prefill.
 
+On a mesh (training) the encoder's attention and FFN, and the decoder's
+self-attention, cross-attention and FFN, are tensor-parallel regions
+(``models/attention.py``, ``models/ffn.py``); the frames and the decoder's
+embedding enter the boundary layout (``lc``: JAX's ``lc(frames, "batch",
+"seq", "embed")``), every norm between the regions takes ``seq_partial``
+(it runs on sequence shards under sequence parallelism), each
+cross-attention region gathers the encoder output it reads, and the head
+gathers the sequence back, as the dense head does.
+
 The parameters are JAX's tree key for key (``embed``, ``enc_blocks``,
 ``enc_norm``, ``dec_blocks``, ``final_norm``; stacked layers), so
 ``params_from_jax`` carries weights across unchanged.  ``frames=None``
@@ -34,6 +43,8 @@ from repro_torch.models import embedding, ffn
 from repro_torch.models.common import (init_params, resolve_device, stacked, take_layer,
                                        unstack_layers)
 from repro_torch.models.norms import rmsnorm, rmsnorm_defs
+from repro_torch.parallel.axes import lc
+from repro_torch.parallel.collectives import seq_partial
 
 
 class EncDecLM(nn.Module):
@@ -87,16 +98,18 @@ class EncDecLM(nn.Module):
 
     # ------------------------------------------------------------ encoder
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
-        """frames (B, F, D) stub embeddings -> encoder output (B, F, D)."""
+        """frames (B, F, D) stub embeddings -> encoder output (B, F, D); on a
+        mesh, in the boundary layout (this rank's frames under sequence
+        parallelism)."""
         cfg = self.cfg
-        x = frames
+        x = lc(frames, "batch", "seq", "embed")
         for lp in unstack_layers(params["enc_blocks"]):
-            h = rmsnorm(lp["ln1"], x, cfg.norm_eps, self.impl)
+            h = rmsnorm(seq_partial(lp["ln1"]), x, cfg.norm_eps, self.impl)
             a, _ = attn.attention_block(lp["attn"], h, cfg=cfg, mode="encoder", impl=self.impl)
             x = x + a
-            h = rmsnorm(lp["ln2"], x, cfg.norm_eps, self.impl)
+            h = rmsnorm(seq_partial(lp["ln2"]), x, cfg.norm_eps, self.impl)
             x = x + ffn.ffn_apply(lp["mlp"], h, cfg)
-        return rmsnorm(params["enc_norm"], x, cfg.norm_eps, self.impl)
+        return rmsnorm(seq_partial(params["enc_norm"]), x, cfg.norm_eps, self.impl)
 
     def _frames(self, frames, batch: int, dtype) -> torch.Tensor:
         """The encoder's input in ``dtype``; None means zeros, as in JAX."""
@@ -112,18 +125,18 @@ class EncDecLM(nn.Module):
                    positions=None):
         """(x, the self-attention's new cache, the cross-attention's)."""
         cfg = self.cfg
-        h = rmsnorm(lp["ln1"], x, cfg.norm_eps, self.impl)
+        h = rmsnorm(seq_partial(lp["ln1"]), x, cfg.norm_eps, self.impl)
         a, new_self = attn.attention_block(
             lp["self_attn"], h, cfg=cfg, mode=mode, cache=self_cache,
             cache_index=cache_index, kv_len=kv_len, impl=self.impl, positions=positions)
         x = x + a
-        h = rmsnorm(lp["ln_x"], x, cfg.norm_eps, self.impl)
+        h = rmsnorm(seq_partial(lp["ln_x"]), x, cfg.norm_eps, self.impl)
         # no kv_len: every encoder frame is valid (JAX passes none either)
         a, new_cross = attn.attention_block(
             lp["cross_attn"], h, cfg=cfg, mode=mode, cache=cross_cache,
             kv_source=enc_out, cross=True, impl=self.impl)
         x = x + a
-        h = rmsnorm(lp["ln2"], x, cfg.norm_eps, self.impl)
+        h = rmsnorm(seq_partial(lp["ln2"]), x, cfg.norm_eps, self.impl)
         return x + ffn.ffn_apply(lp["mlp"], h, cfg), new_self, new_cross
 
     # ------------------------------------------------------------ training
@@ -135,10 +148,11 @@ class EncDecLM(nn.Module):
         family in either package."""
         x_enc = self._frames(frames, tokens.shape[0], dtype)
         enc_out = self.encode(params, x_enc)
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, self.cfg.vocab_size)
+        x = lc(x, "batch", "seq", "embed")
         for lp in unstack_layers(params["dec_blocks"]):
             x, _, _ = self._dec_block(lp, x, enc_out, mode="train")
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
+        x = rmsnorm(seq_partial(params["final_norm"]), x, self.cfg.norm_eps, self.impl)
         extra = torch.zeros((), dtype=torch.float32, device=x.device)
         return embedding.lm_head(params["embed"], x, self.cfg), extra
 

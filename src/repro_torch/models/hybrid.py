@@ -41,6 +41,8 @@ from repro_torch.models.common import stacked, tree_map
 from repro_torch.models.mamba2 import Mamba2LM, mamba_block_apply, mamba_block_defs, stack_states
 from repro_torch.models.norms import rmsnorm, rmsnorm_defs
 from repro_torch.models.transformer import decoder_block_apply, decoder_block_defs
+from repro_torch.parallel import collectives
+from repro_torch.parallel.axes import lc
 
 
 class HybridLM(Mamba2LM):
@@ -97,14 +99,19 @@ class HybridLM(Mamba2LM):
         ``layer_runner`` is accepted and not used: JAX scans the Mamba
         segments and the shared block itself and takes no runner, so no
         remat policy applies to this family in either package.
-        ``vis_embeds`` is unused, as in JAX."""
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        ``vis_embeds`` is unused, as in JAX.  On a mesh the embedding enters
+        the boundary layout (``lc``) and the Mamba layers and the shared
+        block are tensor-parallel regions of their own."""
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, self.cfg.vocab_size)
+        x = lc(x, "batch", "seq", "embed")
         for layer, bp in enumerate(self._layers(params)):
             x, _ = mamba_block_apply(bp, x, self.cfg, mode="train", impl=self.impl)
             if self._site(layer) is not None:
                 x, _ = self._shared_apply(params, x, mode="train")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._head(params, x), aux
+        x = rmsnorm(collectives.seq_partial(params["final_norm"]), x, self.cfg.norm_eps,
+                    self.impl)
+        return embedding.lm_head(params["embed"], x, self.cfg), aux
 
     # ------------------------------------------------------------ serving
     def _kv_shape(self, batch: int, max_len: int) -> tuple[int, ...]:

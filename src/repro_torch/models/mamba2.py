@@ -20,7 +20,11 @@ on every device, as the JAX package does (jnp, not a kernel).
 ``forward_train`` is differentiable, as JAX's: its layer loop is a
 ``layer_runner`` (the runtime's applies each layer's remat policy), K3 runs
 under ``ssd_autograd`` (backward: a plain fp32 recompute) and the gate norm
-as ``rmsnorm(y * silu(z))`` through K2's autograd function.
+as ``rmsnorm(y * silu(z))`` through K2's autograd function.  On a mesh
+under tensor parallelism each layer is a region (``mamba_block_apply``);
+the residual stream between layers holds the boundary layout (sequence
+shards under sequence parallelism, where ``ln`` and ``final_norm`` take
+``seq_partial``), as the dense family's does.
 
 Decode state per layer: the conv ring buffer (the last W-1 inputs of each
 conv channel) and the SSD state (B, H, N, P) fp32.  Two departures from the
@@ -54,6 +58,8 @@ from repro_torch.models.common import (ParamDef, init_params, resolve_device, st
                                        unstack_layers)
 from repro_torch.models.norms import gated_rmsnorm, rmsnorm, rmsnorm_defs
 from repro_torch.models.transformer import default_layer_runner
+from repro_torch.parallel import collectives
+from repro_torch.parallel.axes import lc
 
 
 def _dims(cfg: ModelConfig):
@@ -117,16 +123,78 @@ def _conv_tail(v: torch.Tensor, keep: int) -> torch.Tensor:
     return F.pad(v, (0, 0, keep - v.shape[1], 0))
 
 
+def local_groups(H: int, G: int, tp: int, rank: int) -> tuple[int, int]:
+    """The groups ``[g0, g1)`` whose B/C rank ``rank`` of ``tp`` reads: it
+    holds the contiguous heads ``[rank·H/tp, (rank+1)·H/tp)``, and head h
+    reads group ``h // (H/G)`` (``_expand_groups``).  So each of its heads
+    reads the group ``_expand_groups`` gives it at the local counts,
+    ``H/tp`` heads over ``g1 - g0`` groups.  Raises ``ValueError`` naming
+    the dims where tp does not divide H, or where a rank's heads straddle
+    groups unevenly (neither tp | G nor G | tp): there ``spec_for_shape``
+    would shard some of the layer's leaves and not others, which GSPMD
+    reshards and the port does not."""
+    if H % G:
+        raise ValueError(f"{H} SSM heads do not fall into {G} groups")
+    if H % tp or (G % tp and tp % G):
+        raise ValueError(f"tp {tp} over {H} SSM heads (ssm_heads) in {G} groups "
+                         f"(ssm_groups): tp must divide the heads, and tp | G or G | tp, "
+                         "so that every rank's heads read whole groups")
+    per_rank, per_group = H // tp, H // G
+    first = rank * per_rank
+    return first // per_group, (first + per_rank - 1) // per_group + 1
+
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Raise ``ValueError`` where ``tp`` ranks cannot each hold whole groups
+    of ``cfg``'s Mamba2 heads (``local_groups``)."""
+    _, H, G, _, _ = _dims(cfg)
+    local_groups(H, G, tp, 0)
+
+
+def _tp_params(params: dict, N: int, H: int, G: int, group) -> dict:
+    """A sharded layer's params on this rank: B and C's projections and
+    convolutions cut to the groups its heads read (``local_groups``), their
+    grads summed over the model axis, since every rank holds them whole and
+    uses them in part (so do the gate norm's scale, sliced by
+    ``gated_rmsnorm``)."""
+    g0, g1 = local_groups(H, G, group.size, group.index)
+    out = dict(params)
+    for name in ("w_B", "w_C", "conv_B", "conv_C"):
+        out[name] = collectives.partial_grad(params[name])[:, g0 * N:g1 * N]
+    return out
+
+
 def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                       mode: str = "train", state: Optional[dict] = None,
                       impl: str = "kernel"):
     """x: (B, S, D).  ``mode`` train | prefill | decode (S = 1, ``state``
     {"conv_x","conv_B","conv_C","ssm"} of this layer).  Returns (x + block
-    output, new state or None)."""
+    output, new state or None).
+
+    Under tensor parallelism (training on a mesh) the layer is a region, as
+    JAX's ``lc`` sites lay it out: ``w_z`` / ``w_x`` / ``conv_x`` hold this
+    rank's ``d_inner`` columns, ``w_dt``, ``A_log``, ``D`` and ``dt_bias``
+    its heads and ``w_out`` its rows; the region sees the whole sequence
+    (``region_in`` gathers it under sequence parallelism), K3 runs on the
+    local heads and the groups they read, the gate norm on the split row,
+    and ``region_out`` sums the row-parallel ``w_out`` (a reduce-scatter to
+    sequence shards under SP)."""
     d_inner, H, G, N, P = _dims(cfg)
-    Bsz, S, _ = x.shape
-    h = rmsnorm(params["ln"], x, cfg.norm_eps, impl)
+    tp = collectives.tp_state() if mode == "train" else None
+    ln = params["ln"]
+    sharded = False
+    if tp is not None:
+        sharded = params["w_x"].shape[-1] < d_inner
+        ln = collectives.seq_partial(ln)
+    h = rmsnorm(ln, x, cfg.norm_eps, impl)
+    if tp is not None:
+        h = collectives.region_in(h, sharded)
+        if sharded:
+            params = _tp_params(params, N, H, G, tp.group)
+    Bsz, S, _ = h.shape
     z, xv, Bv, Cv, dt_raw = _projections(params, h)
+    width = xv.shape[-1]                    # d_inner, or this rank's columns of it
+    H_loc, G_loc = dt_raw.shape[-1], Bv.shape[-1] // N
 
     A = -torch.exp(params["A_log"].float())
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
@@ -148,9 +216,9 @@ def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         ox = F.silu(_causal_conv(xv, params["conv_x"].to(xv.dtype)))
         oB = F.silu(_causal_conv(Bv, params["conv_B"].to(xv.dtype)))
         oC = F.silu(_causal_conv(Cv, params["conv_C"].to(xv.dtype)))
-        xh = ox.reshape(Bsz, S, H, P)
-        Bm = oB.reshape(Bsz, S, G, N)
-        Cm = oC.reshape(Bsz, S, G, N)
+        xh = ox.reshape(Bsz, S, H_loc, P)
+        Bm = oB.reshape(Bsz, S, G_loc, N)
+        Cm = oC.reshape(Bsz, S, G_loc, N)
         y, final = ssd_ops.ssd(xh, dt, A, Bm, Cm, impl=impl)        # y in xh's dtype
         y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
         if mode == "prefill":
@@ -160,9 +228,11 @@ def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    y = y.reshape(Bsz, y.shape[1], d_inner)
+    y = y.reshape(Bsz, y.shape[1], width)
     y = gated_rmsnorm(params["gate_norm"], y, z[:, : y.shape[1]], cfg.norm_eps, impl)
     out = torch.matmul(y, params["w_out"].to(x.dtype))
+    if tp is not None:
+        out = collectives.region_out(out, sharded)
     return x + out, new_state
 
 
@@ -221,14 +291,16 @@ class Mamba2LM(nn.Module):
         0.0, as JAX's).  ``layer_runner`` walks the stacked blocks, as in
         JAX; ``vis_embeds`` is accepted and unused, as in JAX."""
         runner = layer_runner or default_layer_runner
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, self.cfg.vocab_size)
+        x = lc(x, "batch", "seq", "embed")
 
         def apply_block(bp, h):
             out, _ = mamba_block_apply(bp, h, self.cfg, mode="train", impl=self.impl)
             return out, 0.0
 
         x, extra = runner(params["blocks"], x, apply_block)
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)
+        x = rmsnorm(collectives.seq_partial(params["final_norm"]), x, self.cfg.norm_eps,
+                    self.impl)
         return embedding.lm_head(params["embed"], x, self.cfg), extra
 
     # ------------------------------------------------------------ serving

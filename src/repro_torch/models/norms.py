@@ -12,6 +12,13 @@ device — the comparison path only.
 nothing to differentiate (serving) it is one call of the gated kernel, which
 reads y and z and writes the output; with a grad to take it is the
 composition through ``rmsnorm_autograd``, so K2 still runs under autograd.
+Under tensor parallelism the row is split: y and z hold this rank's
+columns of ``d_inner`` and the scale is whole on every rank (its logical
+axis is ``norm``, which TP does not shard).  There ``gated_rmsnorm`` takes
+this rank's slice of the scale, its grad summed over the model axis
+(``collectives.partial_grad``), and runs K2's split-row form
+(``rmsnorm_split_autograd``): the statistics over the whole row, as
+JAX's norm over the GSPMD-sharded row all-reduces its partial sums.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.kernels.rmsnorm.ref import gated_rmsnorm_reference, rmsnorm_reference
 from repro_torch.models.common import ParamDef
+from repro_torch.parallel import collectives
 
 
 def rmsnorm_defs(dim: int) -> dict:
@@ -42,12 +50,22 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5, impl: str = "kerne
 def gated_rmsnorm(params: dict, y: torch.Tensor, z: torch.Tensor, eps: float = 1e-5,
                   impl: str = "kernel") -> torch.Tensor:
     """``rmsnorm(y * silu(z))``, z of y's shape and dtype (JAX:
-    ``rmsnorm(params, y * jax.nn.silu(z), eps)``)."""
+    ``rmsnorm(params, y * jax.nn.silu(z), eps)``).  y narrower than the
+    scale: this rank's columns of a row split over the model axis."""
     scale = params["scale"]
+    if impl not in ("kernel", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    width, cols = scale.shape[0], y.shape[-1]
+    if cols < width:
+        tp = collectives.tp_state()
+        if tp is None or cols * tp.group.size != width:
+            raise ValueError(f"gated_rmsnorm: {cols} of {width} columns, and the model axis "
+                             f"is {None if tp is None else tp.group.size} ranks")
+        scale_cols = collectives.partial_grad(scale).narrow(0, tp.group.index * cols, cols)
+        return rmsnorm_ops.rmsnorm_split_autograd(y * F.silu(z), scale_cols, eps, width,
+                                                  tp.group, plain=impl == "ref")
     if impl == "ref":
         return gated_rmsnorm_reference(y, z, scale, eps)
-    if impl != "kernel":
-        raise ValueError(f"unknown impl {impl!r}")
     if torch.is_grad_enabled() and (y.requires_grad or z.requires_grad or scale.requires_grad):
         return rmsnorm_ops.rmsnorm_autograd((y * F.silu(z)).contiguous(), scale, eps)
     return rmsnorm_ops.rmsnorm(y.contiguous(), scale, eps, gate=z.contiguous())

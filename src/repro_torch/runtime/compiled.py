@@ -48,7 +48,8 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 
 #: every kernel launch counter: (the object holding it, its attribute)
-COUNTERS = (*flash_ops.COUNTERS, *rms_ops.COUNTERS, *ssd_ops.COUNTERS)
+COUNTERS = (*flash_ops.COUNTERS, *rms_ops.COUNTERS, *ssd_ops.COUNTERS,
+            *rms_ops.SPLIT_COUNTERS)
 WARMUP = 2                 # eager calls of a new key before its capture
 
 

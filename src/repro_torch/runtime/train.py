@@ -38,9 +38,10 @@ to each rank's loss at 1 / (the group's size) of its value and at its whole
 grad (each rank's grad is that rank's share), and the summed loss and
 grads count it once, as JAX's step does.
 
-Refused, each naming its Queue 1 item: pipeline (pp > 1), context (cp > 1),
-and tp > 1 on the ssm, hybrid and audio families; ep > 1 is an error where
-GALV006 fails or no layer has experts.  Nothing is compiled
+Refused, each naming its Queue 1 item: pipeline (pp > 1) and context
+(cp > 1); ep > 1 is an error where GALV006 fails or no layer has experts,
+and so is a tp that does not divide a Mamba2 layer's heads or whose ranks'
+heads straddle its B/C groups.  Nothing is compiled
 (``jit_train_step`` returns the eager step), and the checkpoint hooks wait
 for the checkpointing slice.
 """
@@ -57,6 +58,7 @@ from torch.profiler import record_function
 
 from repro_torch.core.strategy import ExecutionPlan
 from repro_torch.models.common import tree_leaves, tree_map, unstack_layers
+from repro_torch.models.mamba2 import check_tp as check_mamba2_tp
 from repro_torch.models.transformer import default_layer_runner
 from repro_torch.parallel import collectives
 from repro_torch.parallel import sharding as shd
@@ -177,8 +179,10 @@ _ITEM = "Queue 1 item 4"
 
 
 def check_supported(model, plan: ExecutionPlan, mesh) -> None:
-    """Refuse what later PRs bring, each naming its Queue 1 item, and a
-    plan over more than one device without a mesh."""
+    """Refuse what later PRs bring, each naming its Queue 1 item, a plan
+    over more than one device without a mesh, and a tp whose Mamba2 layout
+    the port cannot nest (``mamba2.check_tp``: tp must divide the SSM
+    heads, and tp | G or G | tp; GSPMD would reshard such a layer)."""
     strategies = list(plan.layer_strategies) + [plan.default_strategy]
     family = model.cfg.family
     if plan.pp > 1:
@@ -216,13 +220,11 @@ def check_supported(model, plan: ExecutionPlan, mesh) -> None:
     for s in strategies:
         if s.tp == 1:
             continue
-        if family in ("ssm", "hybrid", "audio"):
-            raise NotImplementedError(
-                f"tp {s.tp} on the {family} family waits for {_ITEM}'s SSM-TP PR "
-                "(the ssm_inner / ssm_heads regions, the encoder and cross-attention)")
         if mesh.shape.get("model") != s.tp:
             raise ValueError(f"tp {s.tp} needs a model axis of {s.tp} ranks, mesh "
                              f"{mesh.shape}")
+        if family in ("ssm", "hybrid"):
+            check_mamba2_tp(model.cfg, s.tp)    # raises, naming the dims
 
 
 # --------------------------------------------------------------------------
@@ -283,7 +285,14 @@ class HybridParallelModel:
     def _grad_reduction(self, state: tuple, param: tuple, grad: tuple):
         """How a leaf's local grad (``param`` layout, partial over the state
         axes the leaf is not sharded on) becomes its ``grad`` layout, summed:
-        (the group summed over, the dim reduce-scattered over it or None)."""
+        (the group summed over, the dim reduce-scattered over it or None).
+        The model axis is never a state axis under tp > 1: a leaf every rank
+        of it holds whole but uses in part has had its grad summed over it
+        at its use (``collectives.partial_grad``).  So the Mamba2 gate
+        scale under ZeRO-3, gathered over the data axes and used in part
+        over the model axis, arrives summed over both: its gather's backward
+        reduce-scatters over data, ``partial_grad`` all-reduces over model,
+        and nothing is left to reduce here."""
         sharded = shd.spec_axes(param)
         axes = tuple(a for a in state if a not in sharded)
         added = shd.zero_dims(grad, param)
@@ -563,9 +572,8 @@ def construct_hybrid_parallel_model(
     hybrid, and the encoder-decoder (whose batches carry ``frames``);
     ``loss_fn`` adds the MoE router's aux loss at ``AUX_LOSS_WEIGHT``.  On
     a ``launch.mesh.ProcessMesh``: DP, ZeRO 1-3, TP and SP per layer group
-    for the dense, vlm and moe families, with expert parallelism (ep > 1)
-    for the moe family, DP and ZeRO for the ssm, hybrid and audio
-    families; the rest is refused (``check_supported``)."""
+    for every family, with expert parallelism (ep > 1) for the moe family;
+    the rest is refused (``check_supported``)."""
     check_supported(model, plan, mesh)
     hp = HybridParallelModel(model=model, plan=plan, opt_cfg=opt_cfg or opt_lib.AdamWConfig(),
                              mesh=mesh)

@@ -149,6 +149,8 @@ def train_cases(payload: dict) -> dict:
                "local_shapes": {k: tuple(v.shape) for k, v in _flat(params).items()}}
         if case.get("aux_weights"):
             res["aux"] = aux_runs(hp, params, batch, dtype, case["aux_weights"])
+        if case.get("naive_groups"):
+            res["naive_loss"] = naive_groups_loss(hp, params, batch, dtype)
         out[case["name"]] = res if dist.get_rank() == 0 else None
     return out
 
@@ -169,6 +171,22 @@ def aux_runs(hp, params, batch, dtype, weights) -> dict:
     finally:
         rt.AUX_LOSS_WEIGHT = kept
     return out
+
+
+def naive_groups_loss(hp, params, batch, dtype) -> float:
+    """The loss of ``value_and_grad`` with every rank handed all of a Mamba2
+    layer's B/C groups (``mamba2.local_groups`` returning them all), as a
+    naive port would: K3 then maps local head j to group j // (H_local / G)
+    rather than to the group its global head reads."""
+    from repro_torch.models import mamba2
+
+    kept = mamba2.local_groups
+    mamba2.local_groups = lambda H, G, tp, rank: (0, G)
+    try:
+        loss, _, _ = hp.value_and_grad(params, batch, dtype)
+    finally:
+        mamba2.local_groups = kept
+    return float(loss)
 
 
 def exchange_rows(payload: dict) -> dict:
@@ -269,7 +287,8 @@ def one_rank_steps(payload: dict) -> dict:
 
 def refusals_and_fit(payload: dict) -> dict:
     """On 2 ranks: the message each refused plan raises (``payload["refused"]``:
-    name -> (arch, mesh shape, strategy, pp)), and ``measure_allreduce``."""
+    name -> (arch, mesh shape, strategy, pp[, overrides of the reduced
+    config])), and ``measure_allreduce``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import profiler_hw
     from repro_torch.core.strategy import ExecutionPlan
@@ -279,8 +298,8 @@ def refusals_and_fit(payload: dict) -> dict:
 
     out = {}
     meshes = {}
-    for name, (arch, shape, strategy, pp) in payload["refused"].items():
-        cfg = get_config(arch).reduced()
+    for name, (arch, shape, strategy, pp, *more) in payload["refused"].items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **(more[0] if more else {}))
         if shape not in meshes:
             meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
         plan = ExecutionPlan(arch=arch, shape="train", mesh_axes=("data", "model"),

@@ -6,8 +6,10 @@ family, whisper and the VLM) and the training steps of every family with
 graphs) of every family against their eager steps;
 the planner's block measurement (its forward, grad and full-remat grad
 graphed, against the eager steps) and a calibration fitted from it; the
-parallel runtime on a one-rank NCCL mesh (bitwise the single-device step)
-and on two gloo ranks sharing the card (tp 2 + sp against one rank).
+parallel runtime on a one-rank NCCL mesh (bitwise the single-device step:
+dense, MoE, mamba2, whisper) and on two gloo ranks sharing the card (tp 2
++ sp against one rank); K2's split-row form against its plain passes and
+the whole-row K2.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -1460,6 +1462,105 @@ def test_cuda_moe_one_rank_nccl_mesh_is_bitwise_the_single_device_step(cuda_devi
             for step in range(2):
                 params, opt, m = hp.train_step(params, opt, ds.batch(step))
                 losses.append((float(m["loss"]), float(m["aux"])))
+            runs.append((losses, hp.gather_params(params)))
+        assert mesh.backend == "nccl"
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = runs
+    assert l0 == l1
+    for (path, a), (_, b) in zip(tree_paths(p0), tree_paths(p1)):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,width", [(4096, 5120), (4096, 7168), (37, 666)])
+def test_cuda_rmsnorm_split_passes_match_plain_and_the_whole_row(cuda_device, rows, width,
+                                                                  dtype, tol):
+    """K2's split-row form over two halves of a row (phase 27's gate norms
+    at tp 2, and an odd half of 333 columns: the scalar template), each
+    half's statistics summed by hand: each of the four passes against its
+    plain version, and the halves concatenated against the whole-row K2 and
+    its backward (dx at ``tol`` of its scale, dscale at 1e-4 of its scale
+    in fp32, ``tol`` in bf16); each pass's launch counter moves once."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + width)
+    x = (3.0 * torch.randn((rows, width), generator=g, device=cuda_device)).to(dtype)
+    gy = torch.randn((rows, width), generator=g, device=cuda_device).to(dtype)
+    scale = 1 + 0.3 * torch.randn((width,), generator=g, device=cuda_device)
+    xs = [t.contiguous() for t in x.chunk(2, -1)]
+    gs = [t.contiguous() for t in gy.chunk(2, -1)]
+    ss = list(scale.chunk(2))
+    counters = [rms_ops.rmsnorm_split_sumsq, rms_ops.rmsnorm_split, rms_ops.rmsnorm_split_dot,
+                rms_ops.rmsnorm_split_backward]
+    before = [c.launches for c in counters]
+    parts = [rms_ops.rmsnorm_split_sumsq(h) for h in xs]
+    for p, h in zip(parts, xs):
+        torch.testing.assert_close(p, rms_ops.rmsnorm_split_sumsq_reference(h), atol=1e-3,
+                                   rtol=1e-5)
+    stat = parts[0] + parts[1]
+    outs = [rms_ops.rmsnorm_split(h, s, stat, width) for h, s in zip(xs, ss)]
+    for o, h, s in zip(outs, xs, ss):
+        torch.testing.assert_close(o.float(), rms_ops.rmsnorm_split_reference(
+            h, s, stat, width).float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(torch.cat(outs, -1).float(),
+                               rms_ops.rmsnorm(x, scale, 1e-5).float(), atol=tol, rtol=tol)
+    dots = [rms_ops.rmsnorm_split_dot(h, s, q, stat, width) for h, s, q in zip(xs, ss, gs)]
+    for d, h, s, q in zip(dots, xs, ss, gs):
+        want = rms_ops.rmsnorm_split_dot_reference(h, s, q, stat, width)
+        torch.testing.assert_close(d, want, atol=1e-4 * float(want.abs().max()), rtol=1e-4)
+    dot = dots[0] + dots[1]
+    grads = [rms_ops.rmsnorm_split_backward(h, s, q, stat, dot, width)
+             for h, s, q in zip(xs, ss, gs)]
+    dx, ds = torch.cat([a for a, _ in grads], -1), torch.cat([b for _, b in grads])
+    wdx, wds = rms_ops.rmsnorm_backward(x, scale, gy, 1e-5)
+    rgrads = [rms_ops.rmsnorm_split_backward_reference(h, s, q, stat, dot, width)
+              for h, s, q in zip(xs, ss, gs)]
+    rdx, rds = torch.cat([a for a, _ in rgrads], -1), torch.cat([b for _, b in rgrads])
+    ds_tol = (1e-4 if dtype == torch.float32 else tol) * float(rds.abs().max())
+    for got_dx, got_ds in ((rdx, rds), (wdx, wds)):
+        torch.testing.assert_close(dx.float(), got_dx.float(),
+                                   atol=tol * max(1.0, float(got_dx.float().abs().max())),
+                                   rtol=tol)
+        torch.testing.assert_close(ds, got_ds, atol=ds_tol, rtol=0)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2, 2]
+
+
+@pytest.mark.parametrize("arch,strategy", [
+    ("mamba2-2.7b", dict(zero=1, remat="selective")),
+    ("whisper-tiny", dict(zero=1))])
+def test_cuda_ssm_and_audio_one_rank_nccl_mesh_is_bitwise_the_single_device_step(
+        cuda_device, tmp_path, arch, strategy):
+    """A (1, 1) mesh over a one-rank NCCL group: the model axis of one rank
+    keeps every Mamba2 layer and attention block out of its region (the
+    whole-row K2 on the gate norm, K3 on every head and group), so two bf16
+    steps of reduced mamba2 (ZeRO-1, ``selective``) and whisper (ZeRO-1,
+    real frames), grad_accum 2, give the ``mesh=None`` step's losses and
+    params bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    cfg = get_config(arch).reduced()
+    strat = LayerStrategy(**strategy)
+    ds = SyntheticDataset(cfg, 64, 4, seed=2)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        runs = []
+        for mesh in (None, make_mesh((1, 1), ("data", "model"), device=cuda_device)):
+            shape, axes = ((1,), ("data",)) if mesh is None else ((1, 1), ("data", "model"))
+            plan = uniform_plan(cfg.name, "t", shape, axes, cfg.num_layers, strat,
+                                grad_accum=2)
+            hp = construct_hybrid_parallel_model(build_model(cfg), plan, mesh)
+            params = hp.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+            opt = hp.init_opt_state(params)
+            losses = []
+            for step in range(2):
+                params, opt, m = hp.train_step(params, opt, ds.batch(step))
+                losses.append(float(m["loss"]))
             runs.append((losses, hp.gather_params(params)))
         assert mesh.backend == "nccl"
     finally:

@@ -6,10 +6,11 @@ version under the runner), and whisper at dp 4 with ZeRO-2 (its ``frames``
 split with the batch), each on four ranks against the port's single-device
 step and JAX's ``value_and_grad``.  Then, on two ranks: the runtime's
 refusals, each naming its Queue 1 item, its errors for plans that are not
-valid (ep on a family with no experts), and ``measure_allreduce``'s fit;
+valid (ep on a family with no experts, a tp whose ranks' SSM heads
+straddle B/C groups), and ``measure_allreduce``'s fit;
 and the launcher under ``torchrun`` on four CPU ranks, which searches a
-plan, prints its line once and trains (llama, and moonshot: the moe family
-on a mesh), and whose ``--validate-only`` exits by ``check_plan``.
+plan, prints its line once and trains (llama, moonshot: the moe family on
+a mesh, and zamba2: the hybrid family), and whose ``--validate-only`` exits by ``check_plan``.
 """
 import os
 import pathlib
@@ -31,10 +32,10 @@ CASES = {
 }
 
 REFUSED = {
-    "mamba2_tp2": ("mamba2-2.7b", (1, 2), LayerStrategy(tp=2), 1,
-                   "NotImplementedError", "SSM-TP PR"),
-    "zamba2_tp2": ("zamba2-7b", (1, 2), LayerStrategy(tp=2), 1,
-                   "NotImplementedError", "SSM-TP PR"),
+    "mamba2_pp2": ("mamba2-2.7b", (2, 1), LayerStrategy(), 2,
+                   "NotImplementedError", "pipeline PR"),
+    "mamba2_cp2": ("mamba2-2.7b", (2, 1), LayerStrategy(cp=2), 1,
+                   "NotImplementedError", "context PR"),
     "llama_pp2": ("llama3.2-1b", (2, 1), LayerStrategy(), 2,
                   "NotImplementedError", "pipeline PR"),
     "llama_cp2": ("llama3.2-1b", (2, 1), LayerStrategy(cp=2), 1,
@@ -50,6 +51,14 @@ INVALID = {
                      "ValueError", "GALV006"),
 }
 
+# a Mamba2 layout the port does not nest (GSPMD would reshard it): 12 SSM
+# heads in 3 groups, so at tp 2 a rank's 6 heads read parts of two groups
+LAYOUTS = {
+    "zamba2_tp2_straddled_groups": ("zamba2-7b", (1, 2), LayerStrategy(tp=2), 1,
+                                    "ValueError", "in 3 groups (ssm_groups)"),
+}
+OVERRIDES = {"zamba2_tp2_straddled_groups": {"d_model": 192, "ssm_groups": 3}}
+
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
@@ -58,7 +67,8 @@ def results(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    payload = {"refused": {k: v[:4] for k, v in {**REFUSED, **INVALID}.items()}}
+    payload = {"refused": {k: v[:4] + (OVERRIDES.get(k, {}),)
+                           for k, v in {**REFUSED, **INVALID, **LAYOUTS}.items()}}
     return run_ranks(2, "refusals_and_fit", payload,
                      tmp_path_factory.mktemp("two"))[0]
 
@@ -88,6 +98,14 @@ def test_runtime_rejects_invalid_expert_plans(two_ranks, name):
     got = two_ranks[name]
     assert got is not None, name
     assert got[0] == kind and words in got[1], got
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_runtime_rejects_layouts_it_cannot_nest(two_ranks, name):
+    kind, words = LAYOUTS[name][4:]
+    got = two_ranks[name]
+    assert got is not None, name
+    assert got[0] == kind and words in got[1] and "ssm_heads" in got[1], got
 
 
 def test_measure_allreduce_fits_over_two_gloo_ranks(two_ranks):
@@ -140,6 +158,12 @@ def test_torchrun_launcher_trains_moonshot_on_four_ranks():
     microbatch."""
     _check_trains(_torchrun("--steps", "2", "--log-every", "1",
                             arch="moonshot-v1-16b-a3b"))
+
+
+def test_torchrun_launcher_trains_zamba2_on_four_ranks():
+    """The hybrid family on the launcher's mesh: the searched plan trains
+    whatever tp it picks for the Mamba2 layers and the shared block."""
+    _check_trains(_torchrun("--steps", "2", "--log-every", "1", arch="zamba2-7b"))
 
 
 def _check_trains(run):
