@@ -324,9 +324,30 @@ Phases (any failure exits non-zero and prints no result line):
    rank's and every grad's shards within 2e-3 of its leaf's scale; peaks
    per rank and their sum against the card, step times (no interconnect
    measured) and the collectives called;
+28. pipeline parallelism (run after phase 27, before the results) — two
+   pipeline stages sharing the card over gloo (``chip_smoke.py --pp-rank``,
+   as phase 25; every hop staged through pinned host buffers) on
+   ``train_mesh_spec(2, pp=2)`` = (pod 2, data 1, model 1), through
+   ``runtime.train_pp.PipelineTrainer``, 2 steps each of 8 sequences in 4
+   microbatches (bf16 compute, fp32 masters, ``selective``): llama3.2-1b
+   at full width cut to 4 layers (``PP_LAYERS``), 8 x 4096, under (a)
+   gpipe, (b) 1f1b (2 windows of 2), (c) interleaved v 2 (stage 0 holds
+   layers 0 and 2); (d) mamba2-2.7b at full width cut to 4 layers, 8 x
+   2048, 1f1b (K3 under autograd in both stages); the losses within 5e-2
+   of one rank's full-batch loss on the same seed-0 weights and batches
+   (computed here while the stages start), each stage's K1 / K2 /
+   K2-backward / K3 launches a step pinned (``pp_launches``), the shapes K1
+   and K3 see (the llama and mamba2 training rows), ``max_in_flight`` (4
+   under gpipe, at most 2 otherwise); peaks against the card, boundary
+   bytes, step times (gloo, no interconnect) and collectives logged; then
+   each case in fp32 at 8 x 256 against one rank's ``value_and_grad`` at
+   grad_accum 1: the loss within 1e-4 relative, every grad's shards within
+   2e-3 of its leaf's scale;
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated``,
    ``rmsnorm_bwd``, ``rmsnorm_split_fwd`` and ``rmsnorm_split_bwd`` rows for
-   K2, ``ssd`` and ``ssd_autograd`` for K3), then the device line last.
+   K2, ``ssd`` and ``ssd_autograd`` for K3; a row phase 28's stages also
+   run stands again for each ``pipeline_*`` path with its launches), then
+   the device line last.
 """
 from __future__ import annotations
 
@@ -344,6 +365,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
+#: phase 28's llama stages (cases a-c) see phase 3's llama training rows
+PP_LLAMA_PATHS = ("pipeline_a", "pipeline_b", "pipeline_c")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # per (b, s, h) row of K1's output: the largest error against the fp32 plain
@@ -554,7 +577,7 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
-        path="train"))]
+        path=("train",) + PP_LLAMA_PATHS))]
     # the many-row split path: past 256 key tiles, blocks of 64 rows split too
     long_kv = torch.tensor([20000], device="cuda")
     for dtype in (torch.bfloat16, torch.float32):
@@ -835,10 +858,12 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     which the models now run gated)."""
     rows = []
     shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 2560), "mamba2"),
-              ((4, 2560), "mamba2"), ((8192, 2048), "train"), ((8192, 3584), "zamba2"),
+              ((4, 2560), "mamba2"), ((8192, 2048), ("train",) + PP_LLAMA_PATHS),
+              ((8192, 3584), "zamba2"),
               ((24000, 384), "whisper"), ((16, 384), "whisper"), ((48000, 384), "whisper_train"),
               ((10240, 6144), "internvl2"), ((8192, 6144), "internvl2_train"),
-              ((4096, 2560), "mamba2_train"), ((4096, 5120), "mamba2_train"),
+              ((4096, 2560), ("mamba2_train", "pipeline_d")),
+              ((4096, 5120), ("mamba2_train", "pipeline_d")),
               ((4096, 3584), "zamba2_train"), ((4096, 7168), "zamba2_train"),
               ((4096, 2048, "fp32 scale"), "parallel"), ((8192, 5120), "check"),
               ((8192, 7168), "check"), ((8192, 64), None),
@@ -935,24 +960,29 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     within 1e-4 of its scale, dscale and dx bitwise equal over two calls.
     Cases: the training shape 8192 x 2048 (bf16 x, fp32 master scale; and
     fp32), 8192 x 3584, qk-norm rows 32768 x 128, whisper's encoder rows of
-    a microbatch 48000 x 384, internvl2's 8192 x 6144, the Mamba2 gate
-    norms of a training microbatch (4096 x 5120 and 4096 x 7168), a
-    parallel-rig rank's 4096 x 2048 (phase 25), an odd width, a misaligned
-    view (the scalar
-    two-pass template).  Timed rows (each with its path): the plain
+    a microbatch 48000 x 384, internvl2's 8192 x 6144, mamba2's layer norm
+    and the Mamba2 gate norms of a training microbatch (4096 x 2560, 4096 x
+    5120 and 4096 x 7168), a parallel-rig rank's 4096 x 2048 (phase 25),
+    the pipeline's final norms on the fp32 boundary output (8192 x 2048 and
+    4096 x 2560 fp32: the latter takes the fp32 two-pass template), an odd
+    width, a misaligned view (the scalar two-pass template).  Timed rows
+    (each with its paths; a row of a path carries that path's launches, as
+    every row does): the plain
     backward (``plain_ms``) and, as ``library_ms``, the backward of
     ``F.rms_norm`` on the same inputs through ``torch.autograd.grad``."""
     F = torch.nn.functional
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    cases = [((8192, 2048), bf16, f32, False, "train"),
+    cases = [((8192, 2048), bf16, f32, False, ("train",) + PP_LLAMA_PATHS),
              ((8192, 3584), bf16, f32, False, "train"), ((32768, 128), bf16, f32, False, "train"),
              ((48000, 384), bf16, f32, False, "whisper_train"),
              ((8192, 6144), bf16, f32, False, "internvl2_train"),
-             ((4096, 5120), bf16, f32, False, "mamba2_train"),
+             ((4096, 2560), bf16, f32, False, ("mamba2_train", "pipeline_d")),
+             ((4096, 5120), bf16, f32, False, ("mamba2_train", "pipeline_d")),
              ((4096, 7168), bf16, f32, False, "zamba2_train"),
              ((4096, 2048), bf16, f32, False, "parallel"),
-             ((8192, 2048), f32, f32, False, None), ((300, 333), f32, f32, False, None),
+             ((8192, 2048), f32, f32, False, PP_LLAMA_PATHS),
+             ((4096, 2560), f32, f32, False, "pipeline_d"), ((300, 333), f32, f32, False, None),
              ((8192, 2048), bf16, f32, True, None)]
     for shape, dtype, sdtype, mis, path in cases:
         name = str(dtype).replace("torch.", "")
@@ -1231,7 +1261,7 @@ def check_ssd_autograd(torch, ssd_ops, ssd_ref, gen):
     rows = []
     for label, Bs, S, H, P, G, N, path in (
             ("mamba2 train B2 S2048 H80 P64 G1 N128", 2, SSM_TRAIN_SEQ, 80, 64, 1, 128,
-             "mamba2_train"),
+             ("mamba2_train", "pipeline_d")),
             ("zamba2 train B2 S2048 H112 P64 G2 N64", 2, SSM_TRAIN_SEQ, 112, 64, 2, 64,
              "zamba2_train"),
             ("ragged B1 S1000 H80 P64 G1 N128", 1, 1000, 80, 64, 1, 128, None),
@@ -4365,6 +4395,344 @@ def ssm_parallel_phase(torch) -> dict:
     return {label: ranks[0]["runs"][label]["launches"][-1] for label in cases}
 
 
+# --------------------------------------------------------------------------
+# 28. pipeline parallelism: two stages sharing the card over gloo
+# --------------------------------------------------------------------------
+
+#: llama3.2-1b and mamba2-2.7b at full width cut to 4 layers (2 a stage),
+#: 8 sequences a step in 4 microbatches of 2, 2 steps a case
+PP_LAYERS, PP_BATCH, PP_ACCUM, PP_STEPS = 4, 8, 4, 2
+PP_MESH = ((2, 1, 1), ("pod", "data", "model"))   # launch.mesh.train_mesh_spec(2, pp=2)
+PP_FP32_SEQ = 256              # the fp32 checks: 8 x 256 a step, grad_accum 4
+
+
+def pp_cases() -> dict:
+    """label -> (arch, schedule, interleave, sequence, what): llama3.2-1b
+    under (a) gpipe, (b) 1f1b (2 windows of 2), (c) interleaved v 2 (stage
+    0 holds layers 0 and 2, stage 1 layers 1 and 3), at 4096 tokens a
+    sequence; (d) mamba2-2.7b under 1f1b at 2048, K3 under autograd in both
+    stages; every case ``selective``."""
+    return {"a": ("llama3.2-1b", "gpipe", 1, TRAIN_SEQ, "llama3.2-1b, gpipe"),
+            "b": ("llama3.2-1b", "1f1b", 1, TRAIN_SEQ, "llama3.2-1b, 1f1b (2 windows of 2)"),
+            "c": ("llama3.2-1b", "interleaved", 2, TRAIN_SEQ,
+                  "llama3.2-1b, interleaved v 2 (stage 0: layers 0 and 2)"),
+            "d": ("mamba2-2.7b", "1f1b", 1, SSM_TRAIN_SEQ, "mamba2-2.7b, 1f1b")}
+
+
+def pp_config(arch: str):
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=PP_LAYERS)
+
+
+def pp_plan(cfg, schedule: str, interleave: int, mesh: bool = True):
+    """A phase 28 plan on ``PP_MESH`` (pp 2, ``selective``, grad_accum
+    ``PP_ACCUM``), or one rank's (``mesh=False``: the same remat and
+    microbatches, no pipeline)."""
+    from repro_torch.core.strategy import ExecutionPlan, LayerStrategy, uniform_plan
+
+    strategy = LayerStrategy(remat="selective")
+    if not mesh:
+        return uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers, strategy,
+                            grad_accum=PP_ACCUM)
+    shape, axes = PP_MESH
+    return ExecutionPlan(arch=cfg.name, shape="train", mesh_axes=axes, mesh_shape=shape,
+                         pp=shape[0], pp_schedule=schedule, pp_interleave=interleave,
+                         grad_accum=PP_ACCUM, layer_strategies=[strategy] * cfg.num_layers,
+                         default_strategy=strategy)
+
+
+def pp_launches(cfg, plan, stage: int) -> dict:
+    """Kernel launches per step of one stage: each of its layers in every
+    microbatch — a llama layer's forward K1 once and K2 twice, again in its
+    backward (``selective`` recomputes them), K2's backward twice; a
+    mamba2 layer's K3 (under ``ssd_autograd``) once and K2 twice (the
+    layer norm and the gate norm, composed under autograd), again in its
+    backward, K2's backward twice — and on the last stage the final norm's
+    K2 and its backward once a microbatch."""
+    M = max(plan.grad_accum, plan.pp)
+    Ls = cfg.num_layers // plan.pp
+    again = int(plan.default_strategy.remat != "none")
+    last = int(stage == plan.pp - 1)
+    ssm = cfg.family == "ssm"
+    return {"flash_attention_fwd": 0 if ssm else M * Ls * (1 + again),
+            "rmsnorm": M * (2 * Ls * (1 + again) + last), "rmsnorm_gated": 0,
+            "rmsnorm_bwd": M * (2 * Ls + last),
+            "ssd": M * Ls * (1 + again) if ssm else 0,
+            "ssd_autograd": M * Ls * (1 + again) if ssm else 0}
+
+
+def pp_shapes(cfg, seq: int) -> dict:
+    """What a stage's kernels see: K1's (batch, Sq, Sk, heads, KV heads) —
+    the llama training row — and K3's (batch, S, heads, groups) — mamba2's
+    training row — at a microbatch of ``PP_BATCH / PP_ACCUM`` sequences."""
+    mb = PP_BATCH // PP_ACCUM
+    if cfg.family == "ssm":
+        H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        return {"k1": [], "k3": [[mb, seq, H, cfg.ssm_groups]]}
+    return {"k1": [[mb, seq, seq, cfg.num_heads, cfg.num_kv_heads]], "k3": []}
+
+
+def pipeline_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
+    """One stage of phase 28 (``chip_smoke.py --pp-rank RANK WORLD DIR``):
+    device 0, gloo over a ``FileStore`` in DIR; once DIR/payload.json is
+    there (the parent's oracle done), each case of ``pp_cases`` trained
+    ``PP_STEPS`` steps through ``PipelineTrainer`` (losses, times, launches,
+    the shapes K1 and K3 see, ``max_in_flight``, the boundary bytes, the
+    collectives by name, peak); then each case in fp32 at ``PP_FP32_SEQ``:
+    ``value_and_grad`` on the same seed-0 weights, its grad shards against
+    the same shards of the parent's one-rank grads; writes its record to
+    DIR."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train_pp import PipelineTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    used = collections.Counter()
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        def counted(out, *a, _run=getattr(dist, name), _name=name, **kw):
+            used[f"{_name} {out.device.type} {str(out.dtype).split('.')[-1]}"] += 1
+            return _run(out, *a, **kw)
+        setattr(dist, name, counted)
+    seen = {"k1": set(), "k3": set()}
+    autograd_k1, ssd_kernel = flash_ops.flash_attention, ssd_ops._ssd_kernel
+
+    def k1(q, k, v, causal=True):
+        seen["k1"].add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2]))
+        return autograd_k1(q, k, v, causal=causal)
+
+    def k3(x, dt, A, B, C, **kw):
+        seen["k3"].add((x.shape[0], x.shape[1], x.shape[2], B.shape[2]))
+        return ssd_kernel(x, dt, A, B, C, **kw)
+
+    flash_ops.flash_attention, ssd_ops._ssd_kernel = k1, k3
+    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(*PP_MESH, device=dev, backend="gloo")
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    record = {"runs": {}, "fp32": {}, "ready": time.perf_counter() - T_START}
+    while not (tmp / "payload.json").is_file():     # the parent's oracle runs meanwhile
+        time.sleep(0.05)
+    for label, (arch, schedule, v, seq, _) in pp_cases().items():
+        t_case = time.perf_counter()
+        cfg = pp_config(arch)
+        ds = SyntheticDataset(cfg, seq_len=seq, global_batch=PP_BATCH, seed=0)
+        tr = PipelineTrainer(build_model(cfg), pp_plan(cfg, schedule, v), mesh)
+        params = tr.init_params(gen())
+        opt = tr.init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        used.clear()
+        for x in seen.values():
+            x.clear()
+        run = {"losses": [], "grad_norms": [], "times": [], "launches": [], "in_flight": []}
+        for step in range(PP_STEPS):
+            b = ds.batch(step)
+            zero_counts(counters)
+            tr.hop.bytes.update(sent=0, received=0, host_copies=0)
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, m = tr.train_step(params, opt, b)
+            torch.cuda.synchronize()
+            run["times"].append(time.perf_counter() - t0)
+            run["launches"].append(read_counts(counters))
+            run["losses"].append(float(m["loss"]))
+            run["grad_norms"].append(float(m["grad_norm"]))
+            run["in_flight"].append(tr.max_in_flight)
+        run.update(peak=torch.cuda.max_memory_allocated(), ops=dict(used), stage=tr.stage,
+                   hop=dict(tr.hop.bytes), seconds=time.perf_counter() - t_case,
+                   **{k: sorted(list(t) for t in x) for k, x in seen.items()})
+        record["runs"][label] = run
+        del tr, params, opt, m, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_fp32 = time.perf_counter()
+    for label, (arch, schedule, v, _, _) in pp_cases().items():
+        t_run = time.perf_counter()
+        cfg = pp_config(arch)
+        batch = SyntheticDataset(cfg, seq_len=PP_FP32_SEQ, global_batch=PP_BATCH,
+                                 seed=0).batch(0)
+        ref = torch.load(tmp / f"fp32_{arch}.pt", map_location=dev)
+        tr = PipelineTrainer(build_model(cfg), pp_plan(cfg, schedule, v), mesh)
+        loss, _, grads = tr.value_and_grad(tr.init_params(gen()), batch, torch.float32)
+        errs = []
+        for g, rg, spec in zip(tree_leaves(grads), tree_leaves(tr.group(ref["grads"])),
+                               tree_leaves(tr.grad_specs)):
+            mine = shd.shard_leaf(rg, spec, mesh)
+            errs.append(float((g - mine).abs().max()) / max(float(rg.abs().max()), 1e-30))
+        worst = torch.tensor(errs, device=dev)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        i = int(worst.argmax())
+        record["fp32"][label] = {"loss": float(loss), "ref_loss": float(ref["loss"]),
+                                 "grad_err": float(worst[i]),
+                                 "grad_err_leaf": ".".join(tree_paths(grads)[i][0]),
+                                 "seconds": time.perf_counter() - t_run}
+        del tr, grads, ref, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["fp32_seconds"] = time.perf_counter() - t_fp32
+    (tmp / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def pipeline_phase(torch) -> dict:
+    """Phase 28: ``PipelineTrainer`` on two stages sharing the card over
+    gloo (``pp_cases``), each case held to one rank's full-batch loss on
+    the same seed-0 weights and batches, computed here while the stages
+    start (``mesh=None`` at the same 4 microbatches: the batch masks no
+    label, so the mean of the microbatch means is the token mean): bf16
+    losses within ``PAR_LOSS_TOL``; in fp32 at ``PP_FP32_SEQ`` the loss
+    within ``PAR_FP32_LOSS_RTOL`` relative and every grad's shards within
+    ``PAR_FP32_GRAD_TOL`` of its leaf's scale, against one rank's
+    ``value_and_grad`` at grad_accum 1.  Each stage's K1, K2, K2-backward
+    and K3 launches per step are pinned (``pp_launches``), the shapes K1
+    and K3 see are the training rows (``pp_shapes``), and ``max_in_flight``
+    is M under gpipe and at most S otherwise.  Logs each stage's peak and
+    their sum against the card, the boundary bytes, the step times
+    (labelled: gloo through the host, no interconnect) and the collectives
+    called.  Returns each case's launches, both stages' last step summed."""
+    import math
+    import tempfile
+
+    from repro_torch.models import build_model
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    t_phase = time.perf_counter()
+    cases = pp_cases()
+    oracle = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--pp-rank", str(r), "2", str(tmp)],
+                                  env=dict(os.environ), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+            for arch, seq in {(c[0], c[3]) for c in cases.values()}:
+                cfg = pp_config(arch)
+                ds = SyntheticDataset(cfg, seq_len=seq, global_batch=PP_BATCH, seed=0)
+                hp = construct_hybrid_parallel_model(build_model(cfg),
+                                                     pp_plan(cfg, "gpipe", 1, mesh=False))
+                params = hp.init_params(gen())
+                opt = hp.init_opt_state(params)
+                torch.cuda.reset_peak_memory_stats()
+                losses, times = [], []
+                for step in range(PP_STEPS):
+                    b = ds.batch(step)
+                    valid = (b["labels"] >= 0).reshape(PP_ACCUM, -1).sum(axis=1)
+                    require(len(set(valid.tolist())) == 1,
+                            f"pipeline oracle: microbatch token counts {valid.tolist()}")
+                    t0 = time.perf_counter()
+                    params, opt, m = hp.train_step(params, opt, b)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    losses.append(float(m["loss"]))
+                oracle[arch] = (losses, times, torch.cuda.max_memory_allocated())
+                del hp, params, opt, m
+                one = dataclasses.replace(pp_plan(cfg, "gpipe", 1, mesh=False), grad_accum=1)
+                hp = construct_hybrid_parallel_model(build_model(cfg), one)
+                loss, _, grads = hp.value_and_grad(
+                    hp.init_params(gen()), SyntheticDataset(
+                        cfg, seq_len=PP_FP32_SEQ, global_batch=PP_BATCH, seed=0).batch(0),
+                    torch.float32)
+                torch.save({"loss": float(loss), "grads": grads}, tmp / f"fp32_{arch}.pt")
+                del hp, loss, grads
+                gc.collect()
+                torch.cuda.empty_cache()
+            (tmp / "payload.tmp").write_text(json.dumps({"go": True}))
+            os.replace(tmp / "payload.tmp", tmp / "payload.json")
+            t_ranks = time.perf_counter()
+            outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"pipeline stage {r} exited {p.returncode}:\n"
+                    + "\n".join(out.splitlines()[-40:]))
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    log(f"pipeline: the oracle {t_ranks - t_phase:.1f} s beside the stages' start (rank 0 "
+        f"ready {ranks[0]['ready']:.1f} s after its process began); each case (init and "
+        f"{PP_STEPS} steps) {[round(run['seconds'], 1) for run in ranks[0]['runs'].values()]} "
+        f"s; fp32 {ranks[0]['fp32_seconds']:.1f} s; the stages "
+        f"{time.perf_counter() - t_ranks:.1f} s after the payload")
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for label, (arch, schedule, v, seq, what) in cases.items():
+        cfg = pp_config(arch)
+        plan = pp_plan(cfg, schedule, v)
+        runs = [rk["runs"][label] for rk in ranks]
+        ref_losses, ref_times, ref_peak = oracle[arch]
+        losses = runs[0]["losses"]
+        require(all(math.isfinite(x) for x in losses), f"pipeline ({label}): losses {losses}")
+        require(runs[0]["losses"] == runs[1]["losses"],
+                f"pipeline ({label}): the stages report different losses")
+        delta = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        require(delta <= PAR_LOSS_TOL, f"pipeline ({label}): losses {losses} vs one rank "
+                f"{ref_losses} (|delta| {delta:.4g} > {PAR_LOSS_TOL})")
+        shapes = pp_shapes(cfg, seq)
+        M, S = max(plan.grad_accum, plan.pp), plan.pp
+        for run in runs:
+            want = pp_launches(cfg, plan, run["stage"])
+            for step, got in enumerate(run["launches"]):
+                require(got == want, f"pipeline ({label}) stage {run['stage']} step {step}: "
+                        f"launches {got}, expected {want}")
+            got_shapes = {k: run[k] for k in shapes}
+            require(got_shapes == shapes, f"pipeline ({label}) stage {run['stage']}: kernel "
+                    f"shapes {got_shapes}, expected {shapes}")
+            most = max(run["in_flight"])
+            require(most == M if schedule == "gpipe" else most <= S,
+                    f"pipeline ({label}) stage {run['stage']}: {most} microbatches in flight")
+        peaks = [run["peak"] for run in runs]
+        require(sum(peaks) <= card, f"pipeline ({label}): peaks {peaks} past the card")
+        log(f"pipeline ({label}) {what}, full width cut to {PP_LAYERS} layers, {PP_BATCH} x "
+            f"{seq} a step in {M} microbatches, selective: losses {losses} (one rank "
+            f"{ref_losses}, |delta| {delta:.4g}), grad norms {runs[0]['grad_norms']}; step "
+            f"times stage 0 {[round(t, 4) for t in runs[0]['times']]} s, stage 1 "
+            f"{[round(t, 4) for t in runs[1]['times']]} s ({NO_INTERCONNECT}; one rank "
+            f"{[round(t, 4) for t in ref_times]} s, peak {ref_peak / 2**30:.2f} GiB); in "
+            f"flight {[max(run['in_flight']) for run in runs]}; boundary bytes a step "
+            f"(stage 0, stage 1) {[run['hop'] for run in runs]}; peak memory "
+            f"{[round(x / 2**30, 2) for x in peaks]} GiB, sum {sum(peaks) / 2**30:.2f} of "
+            f"{card / 2**30:.2f} GiB; launches per step stage 0 "
+            f"{ {k: n for k, n in pp_launches(cfg, plan, 0).items() if n} }, stage 1 "
+            f"{ {k: n for k, n in pp_launches(cfg, plan, 1).items() if n} }; kernel shapes "
+            f"{shapes}; collectives per stage over {PP_STEPS} steps "
+            f"{[run['ops'] for run in runs]}")
+        out[label] = {k: runs[0]["launches"][-1][k] + runs[1]["launches"][-1][k]
+                      for k in runs[0]["launches"][-1]}
+    for label in cases:
+        got = ranks[0]["fp32"][label]
+        rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+        log(f"pipeline fp32 ({label}, {PP_LAYERS} layers, {PP_BATCH} x {PP_FP32_SEQ}, "
+            f"grad_accum {PP_ACCUM}): loss {got['loss']} vs one rank at grad_accum 1 "
+            f"{got['ref_loss']} (relative {rel:.3g}); largest grad error {got['grad_err']:.3g} "
+            f"of its leaf's scale ({got['grad_err_leaf']})")
+        require(rel <= PAR_FP32_LOSS_RTOL, f"pipeline fp32 ({label}): loss relative {rel}")
+        require(got["grad_err"] <= PAR_FP32_GRAD_TOL,
+                f"pipeline fp32 ({label}): grad error {got['grad_err']}")
+    log(f"pipeline: phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     # growable segments, for every phase: moonshot's training (phase 14)
     # runs out of memory without them, asking for its 5 GiB of fp32 logits
@@ -4585,6 +4953,13 @@ def main() -> int:
             **n, "rmsnorm_split_fwd": n["rmsnorm_split_sumsq"] + n["rmsnorm_split"],
             "rmsnorm_split_bwd": n["rmsnorm_split_dot"] + n["rmsnorm_split_backward"]}
 
+    mark("28")
+    # 28. pipeline parallelism: two stages sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, n in pipeline_phase(torch).items():
+        par_launches[f"pipeline_{label}"] = n
+
     mark("24")
     # 24. results
     kernels = []
@@ -4609,20 +4984,25 @@ def main() -> int:
              "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
              "src/repro/models/norms.py:24")):
         for r in rows:
-            launches = {"llama": llama_launches, "train": train_launches,
-                        "moonshot": moe_launches, "moonshot_train": moe_train_launches,
-                        "whisper": whisper_serve_launches,
-                        "whisper_train": whisper_train_launches, "internvl2": vlm_launches,
-                        "internvl2_train": vlm_train_launches,
-                        "mamba2_train": mamba2_train_launches,
-                        "zamba2_train": zamba2_train_launches, **par_launches,
-                        **static_launches}[r["path"]]
-            kernels.append({"name": f"{name} [{r['label']}]", "route": "cuda",
-                            "source": source, "replaces": replaces,
-                            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                            "ms": r["ms"], "plain_ms": r["plain_ms"],
-                            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                            "library_ms": r["library_ms"]})
+            # a row measured once may stand for several paths (the pipeline's
+            # stages see the training rows): one entry each, launches its own
+            paths = r["path"] if isinstance(r["path"], tuple) else (r["path"],)
+            for path in paths:
+                launches = {"llama": llama_launches, "train": train_launches,
+                            "moonshot": moe_launches, "moonshot_train": moe_train_launches,
+                            "whisper": whisper_serve_launches,
+                            "whisper_train": whisper_train_launches, "internvl2": vlm_launches,
+                            "internvl2_train": vlm_train_launches,
+                            "mamba2_train": mamba2_train_launches,
+                            "zamba2_train": zamba2_train_launches, **par_launches,
+                            **static_launches}[path]
+                label = r["label"] if path == paths[0] else f"{r['label']}, {path}"
+                kernels.append({"name": f"{name} [{label}]", "route": "cuda",
+                                "source": source, "replaces": replaces,
+                                "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                                "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4639,5 +5019,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--ssm-parallel-rank"]:
         ssm_parallel_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--pp-rank"]:
+        pipeline_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Phase 25, 26 or 27 of ``chip_smoke.py`` alone, on one CUDA GPU: the
+"""Phase 25, 26, 27 or 28 of ``chip_smoke.py`` alone, on one CUDA GPU: the
 parallel runtime on two ranks sharing the card over gloo, each plan held to
 one rank's step (see ``chip_smoke.parallel_phase``,
-``chip_smoke.moe_parallel_phase`` and ``chip_smoke.ssm_parallel_phase``).
+``chip_smoke.moe_parallel_phase``, ``chip_smoke.ssm_parallel_phase`` and
+``chip_smoke.pipeline_phase``).
 
     python3 scripts/chip_parallel.py            # phase 25 (llama), about three minutes
     python3 scripts/chip_parallel.py --moe      # phase 26 (moonshot on a mesh)
     python3 scripts/chip_parallel.py --ssm      # phase 27 (mamba2, zamba2, whisper at tp 2)
+    python3 scripts/chip_parallel.py --pp       # phase 28 (llama and mamba2 in 2 stages)
     python3 scripts/chip_parallel.py --probe    # the backends, about half a minute
 
 ``--probe`` asks each process-group backend for two ranks on device 0:
@@ -15,11 +17,17 @@ ranks' output), then gloo on CUDA tensors with ``all_reduce``,
 ``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``broadcast`` and
 ``all_to_all_single`` (uneven splits) in fp32, the gather, all-reduce,
 reduce-scatter and all-to-all in bf16, and the gather and all-to-all in
-int64 (the MoE counts and slots); it prints each rank's answer per op,
+int64 (the MoE counts and slots), point-to-point (``send`` / ``recv`` and
+``batch_isend_irecv``) on CPU tensors; it prints each rank's answer per op,
 then gloo's all-reduce fit (``measure_allreduce``, 1 to 64 MiB) on CUDA
-tensors, and the same fit of all-reduces on CPU tensors: the host's rate,
-no interconnect.  Exits non-zero without a GPU.
+tensors, the same fit of all-reduces on CPU tensors (the host's rate, no
+interconnect), a 64 MiB fp32 hop staged through pinned host buffers (the
+pipeline's transport under gloo on the card), and last point-to-point on
+CUDA tensors in fp32 and bf16, and each rank's exit code (gloo fails to
+send a CUDA tensor: "writev ... Bad address", or the sender dies).  Exits
+non-zero without a GPU.
 """
+import datetime
 import os
 import pathlib
 import subprocess
@@ -40,7 +48,7 @@ def probe_rank(rank: int, world: int, store: str, backend: str) -> None:
 
     torch.cuda.set_device(0)
     dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
     dev = torch.device("cuda", 0)
     x = torch.full((8,), float(rank + 1), device=dev)
     ops = {"all_reduce": lambda: dist.all_reduce(x.clone()),
@@ -71,6 +79,33 @@ def probe_rank(rank: int, world: int, store: str, backend: str) -> None:
         ops[f"all_to_all_single {name}"] = a2a
     ops["all_gather_into_tensor int64"] = lambda: dist.all_gather_into_tensor(
         torch.empty(8 * world, device=dev, dtype=torch.int64), x.long())
+    # the pipeline's stage hop: point-to-point between the two ranks, last
+    # (a refused hop may leave its peer waiting until the group's timeout)
+    peer = 1 - rank
+
+    def p2p(dtype, batched, device):
+        mine = torch.full((8,), float(rank + 1), device=device).to(dtype)
+        got = torch.zeros_like(mine)
+        if batched:
+            for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, mine, peer),
+                                               dist.P2POp(dist.irecv, got, peer)]):
+                req.wait()
+        elif rank == 0:
+            dist.send(mine, peer)
+            dist.recv(got, peer)
+        else:
+            dist.recv(got, peer)
+            dist.send(mine, peer)
+        if not torch.equal(got.float().cpu(), torch.full((8,), float(peer + 1))):
+            raise ValueError(f"wrong values {got.tolist()}")
+    ops["send/recv float32 cpu"] = lambda: p2p(torch.float32, False, "cpu")
+    ops["batch_isend_irecv float32 cpu"] = lambda: p2p(torch.float32, True, "cpu")
+    on_card = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for batched in (False, True):
+            kind = "batch_isend_irecv" if batched else "send/recv"
+            on_card[f"{kind} {name} cuda"] = (lambda d=dtype, b=batched: p2p(d, b, dev))
     for name in ops:
         try:
             ops[name]()
@@ -104,6 +139,43 @@ def probe_rank(rank: int, world: int, store: str, backend: str) -> None:
         beta, alpha = np.polyfit(xs, ys, 1)
         print(f"probe gloo rank {rank} all_reduce fp32 on cpu tensors, 1-64 MiB: alpha "
               f"{alpha:.6g} s, beta {beta:.6g} s/B ({1 / beta / 1e9:.4g} GB/s)", flush=True)
+        # a pipeline hop's size at full llama width (2 x 4096 x 2048 fp32):
+        # rank 0 sends, rank 1 returns it, 4 round trips, on CUDA tensors
+        # directly and staged through pinned host buffers
+        hop = torch.ones(1 << 24, device=dev)
+        for how in ("pinned host buffers",):
+            try:
+                host = torch.empty(hop.shape, pin_memory=True)
+                ts = []
+                for _ in range(5):
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    for turn in (0, 1):
+                        if rank == turn:
+                            host.copy_(hop)
+                            dist.send(host, 1 - rank)
+                        else:
+                            dist.recv(host, 1 - rank)
+                            hop.copy_(host)
+                    torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t0)
+                s_hop = sorted(ts[1:])[1] / 2
+                print(f"probe gloo rank {rank} hop of 64 MiB fp32 through {how}: "
+                      f"{s_hop * 1e3:.2f} ms ({hop.numel() * 4 / s_hop / 1e9:.3g} GB/s)",
+                      flush=True)
+            except Exception as e:
+                print(f"probe gloo rank {rank} hop through {how}: {type(e).__name__}: "
+                      f"{str(e).splitlines()[0][:300]}", flush=True)
+    # point-to-point on CUDA tensors last: a rank that dies here (gloo may)
+    # takes only these answers with it
+    for name, op in on_card.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            answer = "ok"
+        except Exception as e:
+            answer = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+        print(f"probe {backend} rank {rank} {name}: {answer}", flush=True)
     dist.destroy_process_group()
 
 
@@ -123,6 +195,7 @@ def probe() -> int:
                     out = p.communicate()[0] + "\n(no answer in 180 s)"
                 lines = [ln for ln in out.splitlines()
                          if ln.startswith("probe ") or "NCCL WARN" in ln or "Duplicate" in ln]
+                lines.append(f"probe {backend} rank {procs.index(p)} exited {p.returncode}")
                 print("\n".join(lines), flush=True)
     return 0
 
@@ -152,6 +225,8 @@ def main() -> int:
         cs.moe_parallel_phase(torch)
     elif sys.argv[1:2] == ["--ssm"]:
         cs.ssm_parallel_phase(torch)
+    elif sys.argv[1:2] == ["--pp"]:
+        cs.pipeline_phase(torch)
     else:
         cs.parallel_phase(torch)
     return 0

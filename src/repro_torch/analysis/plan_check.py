@@ -43,9 +43,9 @@ code  slug                      invariant
                                 beyond the reserved null page
 ====  ========================  ========================================
 
-GALV040 has nothing to compare while the port has no pipeline runtime
-(``repro_torch.parallel.pipeline``), and returns no diagnostic.  Every code
-keeps the JAX verifier's failing/passing pair (``tests/test_plan_verifier.py``),
+GALV040 compares the cost model's bytes per boundary element with
+``repro_torch.parallel.pipeline.BOUNDARY_DTYPE``, the dtype the pipeline's
+stage hop moves.  Every code keeps the JAX verifier's failing/passing pair (``tests/test_plan_verifier.py``),
 held against the port in ``tests/test_torch_planner.py``.
 """
 from __future__ import annotations
@@ -534,11 +534,8 @@ def _boundary_dtype_diag() -> Optional[Diagnostic]:
     """GALV040: the cost model's bytes-per-element for pipeline boundary p2p
     must agree with the dtype the runtime actually permutes."""
     from repro_torch.core.cost_model import PIPELINE_BOUNDARY_BYTES_PER_ELEM
+    from repro_torch.parallel.pipeline import BOUNDARY_DTYPE
 
-    try:
-        from repro_torch.parallel.pipeline import BOUNDARY_DTYPE
-    except ModuleNotFoundError:  # no pipeline runtime ported yet: nothing to check
-        return None
     runtime_bytes = float(BOUNDARY_DTYPE.itemsize)
     if runtime_bytes != float(PIPELINE_BOUNDARY_BYTES_PER_ELEM):
         return Diagnostic(

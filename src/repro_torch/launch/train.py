@@ -19,7 +19,7 @@ kernels); ``--device cpu`` runs the plain versions.
 Under ``torchrun`` (``WORLD_SIZE`` n > 1) it follows JAX's multi-device
 branch: the mesh ``train_mesh_spec(n)``, a ``SearchEngine`` over it on an
 n-card H100 cluster (``H100_NODE8`` with ``chips=n``, ``intra_size=min(n,
-8)``) with ``pp_options=[1]``, the plan line printed by rank 0 alone, then
+8)``) with ``pp_options=[--pp]``, the plan line printed by rank 0 alone, then
 the mesh (NCCL on CUDA, gloo on the CPU), ``construct_hybrid_parallel_model``
 and training, every rank building the same global ``SyntheticDataset``
 batch and taking its rows of it; the moe family too (its layers route
@@ -30,9 +30,19 @@ searched plan on that cluster and exits 0 or 1.
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \
         --reduced --device cpu --steps 2 --seq 32 --batch 8
 
-Pipeline (``--pp``) and context parallelism (``--cp``), checkpoints,
-resume, elastic resize, the compiled-step audit and run sinks wait for
-later slices.
+``--pp N`` (with ``--pp-schedule {searched,gpipe,1f1b,interleaved}`` and
+``--pp-interleave v``) takes JAX's pipeline branch: the mesh
+``train_mesh_spec(n, pp=N)`` = (pod N, data, model), the search over
+``pp_options=[N]`` and the schedule asked for, JAX's ``SystemExit`` when no
+feasible plan has that pp, and ``runtime.train_pp.PipelineTrainer`` for a
+plan with pp > 1; one device keeps the single-device branch, which
+ignores ``--pp`` as JAX's does.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \
+        --reduced --device cpu --steps 2 --seq 32 --batch 8 --pp 2 --pp-schedule 1f1b
+
+Context parallelism (``--cp``), checkpoints, resume, elastic resize, the
+compiled-step audit and run sinks wait for later slices.
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ from repro_torch.models.common import tree_leaves
 from repro_torch.obs.drift import DRIFT_RATIO_THRESHOLD
 from repro_torch.runtime.data import SyntheticDataset
 from repro_torch.runtime.train import construct_hybrid_parallel_model
+from repro_torch.runtime.train_pp import PipelineTrainer
 
 PRESET_100M = ModelConfig(
     name="llama-100m", family="dense", num_layers=12, d_model=640,
@@ -135,13 +146,15 @@ def main(argv=None) -> int:
                     help="torch device (cuda: the CUDA kernels; cpu: the "
                          "plain versions)")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages (waits for Queue 1 item 4's pipeline PR)")
+                    help="pipeline stages (>1 stages the block stack over a pod axis)")
+    ap.add_argument("--pp-schedule", default="searched",
+                    choices=["searched", "gpipe", "1f1b", "interleaved"],
+                    help="pipeline schedule; 'searched' lets the engine pick")
+    ap.add_argument("--pp-interleave", type=int, default=2,
+                    help="virtual stages per physical stage (interleaved only)")
     ap.add_argument("--cp", type=int, default=1,
                     help="context-parallel degree (waits for Queue 1 item 4's context PR)")
     args = ap.parse_args(argv)
-    if args.pp > 1:
-        raise SystemExit("--pp waits for Queue 1 item 4's pipeline PR "
-                         "(parallel/pipeline.py, runtime/train_pp.py)")
     if args.cp > 1:
         raise SystemExit("--cp waits for Queue 1 item 4's context PR (parallel/context.py)")
 
@@ -240,15 +253,33 @@ def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
         torch.cuda.set_device(device)
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     try:
-        shape, axes = mesh_lib.train_mesh_spec(world)
+        try:
+            shape, axes = mesh_lib.train_mesh_spec(world, pp=args.pp)
+        except ValueError as e:
+            raise SystemExit(str(e))
         cluster = dataclasses.replace(H100_NODE8, chips=world, intra_size=min(world, 8))
+        sched_opts = None
+        if args.pp_schedule != "searched":
+            v = args.pp_interleave if args.pp_schedule == "interleaved" else 1
+            sched_opts = [(args.pp_schedule, v)]
         res = SearchEngine(cfg, cluster=cluster, calibration=calibration).search(
-            args.seq, args.batch, mesh_shape=shape, mesh_axes=axes, pp_options=[1],
-            arch=cfg.name)
+            args.seq, args.batch, mesh_shape=shape, mesh_axes=axes, pp_options=[args.pp],
+            pp_schedule_options=sched_opts, arch=cfg.name)
+        if args.pp > 1 and (not res.feasible or res.plan.pp != args.pp):
+            # JAX's: the search falls back to a pp=1 plan when nothing fits;
+            # train nothing other than what was asked
+            raise SystemExit(
+                f"no feasible pp={args.pp} cp={args.cp} plan for "
+                f"--pp-schedule {args.pp_schedule} ({cfg.num_layers} layers, "
+                f"{world} devices; interleaved needs num_layers % "
+                f"(pp*interleave) == 0, cp needs seq % (2*cp) == 0)")
         plan = res.plan
         say = print if rank == 0 else (lambda *a, **k: None)
         note = plan.notes.split("|")[-1].strip() if plan.notes else ""
-        say(f"plan[search]: {plan.default_strategy.short()} ga={plan.grad_accum} "
+        sched = (f" pp={plan.pp}/{plan.pp_schedule}"
+                 + (f"x{plan.pp_interleave}" if plan.pp_interleave > 1 else "")
+                 if plan.pp > 1 else "")
+        say(f"plan[search]: {plan.default_strategy.short()} ga={plan.grad_accum}{sched} "
             f"mesh={plan.mesh_shape} groups={len(plan.groups())}" + (f" ({note})" if note
                                                                      else ""))
         b = _predicted_breakdown(plan, cfg, args.seq, args.batch, calibration, cluster)
@@ -264,7 +295,11 @@ def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
             return 0 if report.ok() else 1
 
         mesh = mesh_lib.make_mesh(shape, axes, device=device)
-        hp = construct_hybrid_parallel_model(build_model(cfg, device=device), plan, mesh)
+        model = build_model(cfg, device=device)
+        if plan.pp > 1:
+            hp = PipelineTrainer(model, plan, mesh)
+        else:
+            hp = construct_hybrid_parallel_model(model, plan, mesh)
         params = hp.init_params(torch.Generator(device=device).manual_seed(0))
         opt = hp.init_opt_state(params)
         say(f"model: {cfg.name} on {world} ranks of {mesh.backend} ({device.type}), "

@@ -270,6 +270,15 @@ class Mamba2LM(nn.Module):
         """Fresh parameters on the model's device (``generator`` lives there)."""
         return init_params(self.param_defs(), generator, self.device, dtype)
 
+    def block_apply(self, params: dict, x: torch.Tensor, *, mode: str = "train",
+                    cache: Optional[dict] = None, cache_index=None, kv_len=None):
+        """The uniform block interface JAX's pipeline calls: (x, the layer's
+        new state or None, an fp32 zero for the side loss), through
+        ``mamba_block_apply``; ``cache_index`` and ``kv_len`` are unused."""
+        out, state = mamba_block_apply(params, x, self.cfg, mode=mode, state=cache,
+                                       impl=self.impl)
+        return out, state, torch.zeros((), dtype=torch.float32, device=x.device)
+
     def _layers(self, params: dict) -> list[dict]:
         """Each layer's params: views of the stacked ``blocks`` (one unbind
         per leaf, so a backward stacks the layer grads once)."""

@@ -42,6 +42,19 @@ region is computed replicated and only the sequence moves.
 of the work (the norm scales under sequence parallelism, qk-norm scales and
 replicated K/V projections beside sharded query heads): identity forward,
 grad all-reduced over the model axis.
+
+``StageHop`` is the pipeline's stage hop: point-to-point between this rank
+and the ranks that share its coordinates on the other stages of the pod
+axis, the wrap from the last stage to the first included.  It is not an
+autograd function: the pipeline's schedule drives each backward itself
+(``torch.autograd.backward(out, grad)``) and moves the cotangents with the
+same hop.  Its transport follows the mesh's backend and device, never a
+caught error: NCCL and gloo on CPU tensors take ``batch_isend_irecv``
+directly; gloo cannot send a CUDA tensor point to point (its ``writev``
+of the device address fails and the pair's connection closes, or the
+sending process dies: ``scripts/chip_parallel.py --probe`` on an H100), so
+under gloo on CUDA each hop is copied through pinned host buffers and
+those copies' bytes are counted.
 """
 from __future__ import annotations
 
@@ -401,3 +414,79 @@ def relayout(x: torch.Tensor, src: str, dst: str, group) -> torch.Tensor:
     if dst != "rep":
         x = split(x, SEQ_DIM if dst == "seq" else 0, group)
     return x
+
+
+# --------------------------------------------------------------------------
+# the pipeline's stage hop
+# --------------------------------------------------------------------------
+
+#: The mesh axis that holds the pipeline's stages (``core.strategy`` drops
+#: it from the batch group when pp > 1; ``launch.mesh.train_mesh_spec``
+#: puts it first).
+PIPE_AXIS = "pod"
+
+
+class StageHop:
+    """Point-to-point over the ``PIPE_AXIS`` group of ``mesh`` (a
+    ``launch.mesh.ProcessMesh``): this rank is stage ``stage`` of
+    ``stages``, and stage i is the rank at this rank's coordinates with
+    the pipe axis at i.  ``bytes`` counts what ``exchange`` sent and
+    received and what it copied between the card and pinned host buffers."""
+
+    def __init__(self, mesh):
+        group = mesh.group(PIPE_AXIS)
+        self.stage, self.stages = group.index, group.size
+        at = list(mesh.axis_names).index(PIPE_AXIS)
+        coords = [mesh.coords[a] for a in mesh.axis_names]
+        self._ranks = [mesh.rank_of(coords[:at] + [i] + coords[at + 1:])
+                       for i in range(self.stages)]
+        self.device = mesh.device
+        # gloo sends host memory only (see the module note)
+        self.through_host = mesh.backend == "gloo" and mesh.device.type == "cuda"
+        self._pinned: dict = {}
+        self.bytes = {"sent": 0, "received": 0, "host_copies": 0}
+
+    def _host(self, key, like_shape, dtype) -> torch.Tensor:
+        if key not in self._pinned:
+            self._pinned[key] = torch.empty(like_shape, dtype=dtype, pin_memory=True)
+        return self._pinned[key]
+
+    def exchange(self, sends: list, recvs: list) -> list:
+        """Post every send ``(stage, tensor)`` and every receive ``(stage,
+        shape, dtype)`` together, wait for all of them, and return the
+        tensors received, in ``recvs``' order, on this rank's device.  Both
+        sides of a pair must post it in the same call: the pipeline's
+        schedule makes every tick one such call on every rank."""
+        ops, out, landed = [], [], []
+        for i, (stage, x) in enumerate(sends):
+            x = x.contiguous()
+            if self.through_host:
+                host = self._host(("send", i, tuple(x.shape), x.dtype), x.shape, x.dtype)
+                host.copy_(x)
+                self.bytes["host_copies"] += x.numel() * x.element_size()
+                x = host
+            ops.append(dist.P2POp(dist.isend, x, self._ranks[stage]))
+            self.bytes["sent"] += x.numel() * x.element_size()
+        for i, (stage, shape, dtype) in enumerate(recvs):
+            if self.through_host:
+                buf = self._host(("recv", i, tuple(shape), dtype), shape, dtype)
+            else:
+                buf = torch.empty(shape, dtype=dtype, device=self.device)
+            ops.append(dist.P2POp(dist.irecv, buf, self._ranks[stage]))
+            landed.append(buf)
+            self.bytes["received"] += buf.numel() * buf.element_size()
+        for req in (dist.batch_isend_irecv(ops) if ops else []):
+            req.wait()
+        for buf in landed:
+            if self.through_host:
+                self.bytes["host_copies"] += buf.numel() * buf.element_size()
+                buf = buf.to(self.device, copy=True)
+            out.append(buf)
+        return out
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """One step round the ring: ``x`` to the next stage (the last
+        stage's to the first) and, in the same ``exchange``, the tensor of
+        ``x``'s shape and dtype that the previous stage sends here."""
+        return self.exchange([((self.stage + 1) % self.stages, x)],
+                             [((self.stage - 1) % self.stages, x.shape, x.dtype)])[0]

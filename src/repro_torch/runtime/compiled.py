@@ -35,9 +35,15 @@ counters keep counting device launches, the warm-up's included.
 On a CPU device the same plumbing runs, static buffers and all, with a
 direct call of ``fn`` on them in place of the replay (no warm-up, no
 capture): the CPU tests cover everything but the capture itself.
+
+Python's cyclic collector stays off during a capture: a graph of an
+earlier step left in a reference cycle, freed there, would destroy its
+executable inside the capture, which CUDA refuses and which invalidates
+the capture (a later cuBLAS call then fails).
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Optional
 
@@ -241,6 +247,8 @@ class CompiledStep:
             self.pool = torch.cuda.graph_pool_handle()
         before = _read_counts()
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()                        # see the module note
         try:
             with torch.cuda.stream(stream):
                 graph.capture_begin(pool=self.pool)
@@ -251,6 +259,8 @@ class CompiledStep:
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture of {self.name} failed: {exc}") from exc
         finally:
+            if collecting:
+                gc.enable()
             after = _read_counts()
             _set_counts(before)
         current.wait_stream(stream)

@@ -38,12 +38,14 @@ to each rank's loss at 1 / (the group's size) of its value and at its whole
 grad (each rank's grad is that rank's share), and the summed loss and
 grads count it once, as JAX's step does.
 
-Refused, each naming its Queue 1 item: pipeline (pp > 1) and context
-(cp > 1); ep > 1 is an error where GALV006 fails or no layer has experts,
-and so is a tp that does not divide a Mamba2 layer's heads or whose ranks'
-heads straddle its B/C groups.  Nothing is compiled
-(``jit_train_step`` returns the eager step), and the checkpoint hooks wait
-for the checkpointing slice.
+A plan with pp > 1 is refused here, naming ``runtime.train_pp.PipelineTrainer``,
+which the launcher picks for it as JAX's does (that trainer reuses this
+one's layout, collectives and update on its staged trees); context
+parallelism (cp > 1) is refused naming its Queue 1 item; ep > 1 is an
+error where GALV006 fails or no layer has experts, and so is a tp that
+does not divide a Mamba2 layer's heads or whose ranks' heads straddle its
+B/C groups.  Nothing is compiled (``jit_train_step`` returns the eager
+step), and the checkpoint hooks wait for the checkpointing slice.
 """
 from __future__ import annotations
 
@@ -74,7 +76,8 @@ Z_LOSS_WEIGHT = 1e-4
 # loss
 # --------------------------------------------------------------------------
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, vocab=None, dp=None):
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, vocab=None, dp=None,
+                 count=None):
     """logits (B,S,V) fp32; labels (B,S) int, -1 = masked.  Returns (mean
     nll + z-loss, metrics dict).  The label logit is a ``gather`` at the
     clamped label, then masked: on one device this is exactly the JAX
@@ -85,7 +88,9 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, vocab=None, dp=N
     says: the max and the sum of exponentials are all-reduced over
     ``group`` for the lse, and the label logit is the masked local gather,
     all-reduced.  ``dp``: the group the batch is split over; the mean is
-    over its global valid-token count, so the ranks' losses sum to it."""
+    over its global valid-token count, so the ranks' losses sum to it;
+    ``count`` gives that count instead (the pipeline reads the step's
+    before its forward, and normalises each microbatch by it)."""
     valid = (labels >= 0).float()
     if vocab is None:
         lse = torch.logsumexp(logits, dim=-1)
@@ -101,7 +106,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, vocab=None, dp=N
         ll = torch.gather(logits, -1, local.clamp(0, width - 1).unsqueeze(-1)).squeeze(-1)
         ll = collectives.reduce_from(ll * inside, group)
     nll = (lse - ll) * valid
-    count = collectives.all_reduce(valid.sum(), dp)
+    if count is None:
+        count = collectives.all_reduce(valid.sum(), dp)
     denom = torch.clamp(count, min=1.0)
     loss = nll.sum() / denom
     zloss = Z_LOSS_WEIGHT * torch.sum(torch.square(lse) * valid) / denom
@@ -179,15 +185,24 @@ _ITEM = "Queue 1 item 4"
 
 
 def check_supported(model, plan: ExecutionPlan, mesh) -> None:
-    """Refuse what later PRs bring, each naming its Queue 1 item, a plan
-    over more than one device without a mesh, and a tp whose Mamba2 layout
-    the port cannot nest (``mamba2.check_tp``: tp must divide the SSM
-    heads, and tp | G or G | tp; GSPMD would reshard such a layer)."""
+    """Refuse a pipelined plan (``runtime.train_pp.PipelineTrainer`` runs
+    it), then ``check_layout``."""
+    if plan.pp > 1:
+        raise NotImplementedError(
+            f"pipeline parallelism (pp {plan.pp}): construct_hybrid_parallel_model does "
+            "not pipeline; runtime.train_pp.PipelineTrainer(model, plan, mesh) runs the "
+            "plan, as the launcher picks it")
+    check_layout(model, plan, mesh)
+
+
+def check_layout(model, plan: ExecutionPlan, mesh) -> None:
+    """Refuse what later PRs bring, naming its Queue 1 item (context
+    parallelism), a plan over more than one device without a mesh, a mesh
+    that is not the plan's, and a tp whose Mamba2 layout the port cannot
+    nest (``mamba2.check_tp``: tp must divide the SSM heads, and tp | G or
+    G | tp; GSPMD would reshard such a layer)."""
     strategies = list(plan.layer_strategies) + [plan.default_strategy]
     family = model.cfg.family
-    if plan.pp > 1:
-        raise NotImplementedError(f"pipeline parallelism (pp {plan.pp}) waits for {_ITEM}'s "
-                                  "pipeline PR (parallel/pipeline.py, runtime/train_pp.py)")
     if any(s.cp > 1 for s in strategies):
         raise NotImplementedError(f"context parallelism (cp > 1) waits for {_ITEM}'s "
                                   "context PR (parallel/context.py)")
@@ -252,7 +267,7 @@ class HybridParallelModel:
     def _layout(self) -> None:
         """Spec trees, and per leaf the groups that move it between them."""
         model, plan, mesh = self.model, self.plan, self.mesh
-        spec = lambda **kw: shd.param_spec_tree(model, plan, mesh, **kw)
+        spec = self._spec_tree
         self.param_specs = spec(kind="param")
         self.grad_specs = spec(kind="grad")
         self.opt_specs = spec(kind="opt")
@@ -281,6 +296,14 @@ class HybridParallelModel:
         self._default_rules = shd.act_rules(plan, default, mesh)
         self._batch_group = mesh.group(plan.dp_axes_for(default))
         self._whole_model_gather = not self._supports_grouping
+
+    def _spec_tree(self, **kw) -> dict:
+        """A spec tree of this trainer's layout (``param_spec_tree``'s
+        keywords)."""
+        return shd.param_spec_tree(self.model, self.plan, self.mesh, **kw)
+
+    #: leading dims of a ``blocks`` leaf before a layer's own dims (its layer)
+    _stacked_dims = 1
 
     def _grad_reduction(self, state: tuple, param: tuple, grad: tuple):
         """How a leaf's local grad (``param`` layout, partial over the state
@@ -356,7 +379,7 @@ class HybridParallelModel:
         if shd.is_grouped(blocks):
             blocks, casts = blocks[f"g{i:03d}"], casts[f"g{i:03d}"]
         return self._gather_sum(layer_params, tree_map(
-            lambda ds: [(d - 1, g) for d, g in ds], blocks), casts, dtype)
+            lambda ds: [(d - self._stacked_dims, g) for d, g in ds], blocks), casts, dtype)
 
     @staticmethod
     def _gather_sum(tree: dict, dims: dict, casts: dict, dtype) -> dict:

@@ -13,7 +13,8 @@ The rank-side functions below train one case on a mesh: ``place_params``
 from the canonical weights, ``value_and_grad`` and one ``train_step`` on
 the global batch, and the results gathered back to the canonical trees;
 they also collect the runtime's refusals and an all-reduce fit, and
-compare a one-rank mesh's steps with ``mesh=None``'s.
+compare a one-rank mesh's steps with ``mesh=None``'s; ``pipeline_cases``
+does the same for ``PipelineTrainer`` under each schedule.
 ``references`` builds a case and its two single-device references in the
 test process (the only function here that imports JAX).
 """
@@ -152,6 +153,94 @@ def train_cases(payload: dict) -> dict:
         if case.get("naive_groups"):
             res["naive_loss"] = naive_groups_loss(hp, params, batch, dtype)
         out[case["name"]] = res if dist.get_rank() == 0 else None
+    return out
+
+
+def pipeline_cases(payload: dict) -> dict:
+    """Every case of ``payload["cases"]`` under each of its schedules on a
+    (pod, data, model) mesh of ``case["mesh"]``: ``PipelineTrainer``'s
+    (loss, grads) of ``value_and_grad`` and (loss, grad norm, new params) of
+    one ``train_step``, in fp32, gathered to canonical trees (rank 0), and
+    on every rank its stage's ``max_in_flight``; then the message each plan
+    of ``payload["refused"]`` raises, and with ``payload["ring"]`` a ring
+    shift of the stage hop on (2, 1, 2) (``shift`` and ``exchange``, the
+    wrap included).  ``payload["device"]`` and
+    ``["backend"]`` as ``train_cases``'."""
+    import torch.distributed as dist
+
+    from repro_torch.core.strategy import ExecutionPlan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.parallel.collectives import StageHop
+    from repro_torch.runtime.train_pp import PipelineTrainer
+
+    axes = ("pod", "data", "model")
+    meshes: dict = {}
+    device = torch.device(payload.get("device", "cpu"))
+    if device.type == "cuda":                       # every rank on the one card
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, axes, device=device,
+                                      backend=payload.get("backend"))
+        return meshes[shape]
+
+    def plan_of(cfg, shape, strategy, schedule, v, ga):
+        return ExecutionPlan(arch=cfg.name, shape="train", mesh_axes=axes,
+                             mesh_shape=tuple(shape), pp=shape[0], pp_schedule=schedule,
+                             pp_interleave=v, grad_accum=ga,
+                             layer_strategies=[strategy] * cfg.num_layers,
+                             default_strategy=strategy)
+
+    cpu = lambda tree: tree_map(lambda x: x.detach().cpu(), tree)
+    out = {"runs": {}, "in_flight": {}, "refused": {}}
+    for case in payload["cases"]:
+        cfg, shape = case["cfg"], tuple(case["mesh"])
+        for schedule, v in case["schedules"]:
+            key = f"{case['name']}/{schedule}"
+            plan = plan_of(cfg, shape, case["strategies"][0], schedule, v, case["grad_accum"])
+            tr = PipelineTrainer(build_model(cfg, device=device), plan, mesh_of(shape),
+                                 payload.get("opt"))
+            params = tr.place_params(tree_map(lambda x: x.to(device), case["params"]))
+            loss, _, grads = tr.value_and_grad(params, case["batch"], torch.float32)
+            applied, _, _ = tr.apply_grads(params, grads, tr.init_opt_state(params))
+            grads = tr.gather_params(grads, tr.grad_specs)
+            new, _, metrics = tr.train_step(params, tr.init_opt_state(params), case["batch"],
+                                            torch.float32)
+            applied_is_step = all(torch.equal(a, b) for a, b in zip(_flat(applied).values(),
+                                                                    _flat(new).values()))
+            back, new = cpu(tr.gather_params(params)), tr.gather_params(new)
+            roundtrip = (_flat(back).keys() == _flat(case["params"]).keys() and all(
+                torch.equal(a, b) for a, b in zip(_flat(back).values(),
+                                                  _flat(case["params"]).values())))
+            out["in_flight"][key] = (tr.stage, tr.max_in_flight,
+                                     tr.window_schedule.max_in_flight(tr.stage), tr.windows)
+            if dist.get_rank() == 0:
+                out["runs"][key] = {
+                    "vg_loss": float(loss), "grads": cpu(grads),
+                    "step_loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]), "new": cpu(new),
+                    "roundtrip": roundtrip, "applied_is_step": applied_is_step,
+                    "local_shapes": {k: tuple(x.shape) for k, x in _flat(params).items()},
+                    "hop_bytes": dict(tr.hop.bytes)}
+    for name, (cfg, shape, strategy, schedule, v) in payload.get("refused", {}).items():
+        try:
+            PipelineTrainer(build_model(cfg, device="cpu"),
+                            plan_of(cfg, shape, strategy, schedule, v, 1), mesh_of(shape))
+            out["refused"][name] = None
+        except Exception as e:          # the test reads each refusal's type and text
+            out["refused"][name] = (type(e).__name__, str(e))
+    if not payload.get("ring"):
+        return out
+    hop = StageHop(mesh_of((2, 1, 2)))
+    mine = torch.full((3,), float(dist.get_rank()))
+    got = hop.shift(mine)
+    both = hop.exchange([((hop.stage + 1) % 2, mine + 10)], [((hop.stage - 1) % 2, (3,),
+                                                              torch.float32)])[0]
+    out["ring"] = (hop.stage, float(got[0]), float(both[0]))
     return out
 
 
@@ -319,12 +408,13 @@ def refusals_and_fit(payload: dict) -> dict:
 
 def references(name: str, arch: str, strategies, grad_accum: int = 1, batch: int = 8,
                seq: int = 32, eps: float = 1e-4,
-               overrides: dict | None = None) -> tuple[dict, dict]:
+               overrides: dict | None = None, masked: int = 3) -> tuple[dict, dict]:
     """(case, refs): the case for ``train_cases`` on JAX-initialised
-    (perturbed) weights and a seeded batch with masked labels, and its
-    references: JAX's fp32 ``value_and_grad`` of its ``loss_fn`` formula and
-    the port's single-device ``value_and_grad`` and ``train_step``.
-    ``overrides`` replace fields of the reduced config in both packages."""
+    (perturbed) weights and a seeded batch whose row 1 has its first
+    ``masked`` labels masked, and its references: JAX's fp32
+    ``value_and_grad`` of its ``loss_fn`` formula and the port's
+    single-device ``value_and_grad`` and ``train_step``.  ``overrides``
+    replace fields of the reduced config in both packages."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -351,7 +441,7 @@ def references(name: str, arch: str, strategies, grad_accum: int = 1, batch: int
     text = seq - (cfg.vis_tokens if cfg.family == "vlm" else 0)
     toks = rng.integers(0, cfg.vocab_size, (batch, text + 1)).astype(np.int32)
     labels = toks[:, 1:].copy()
-    labels[1, :3] = -1
+    labels[1, :masked] = -1
     side = {}
     if cfg.family == "vlm":
         side["vis_embeds"] = rng.standard_normal((batch, cfg.vis_tokens, cfg.d_model)

@@ -8,7 +8,7 @@ the planner's block measurement (its forward, grad and full-remat grad
 graphed, against the eager steps) and a calibration fitted from it; the
 parallel runtime on a one-rank NCCL mesh (bitwise the single-device step:
 dense, MoE, mamba2, whisper) and on two gloo ranks sharing the card (tp 2
-+ sp against one rank); K2's split-row form against its plain passes and
++ sp against one rank; two pipeline stages against one rank); K2's split-row form against its plain passes and
 the whole-row K2.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
@@ -1402,6 +1402,47 @@ def test_cuda_two_gloo_ranks_sharing_the_card_hold_tp2_sp_to_one_rank(cuda_devic
         want = ref[path].cpu() - init[path]
         err = float((a - ref[path].cpu()).abs().max())
         assert err <= 2e-3 * float(want.abs().max()), (path, err)
+
+
+def test_cuda_two_gloo_ranks_pipeline_pp2_holds_to_one_rank(cuda_device, tmp_path):
+    """Two pipeline stages on the one card over gloo (each hop through
+    pinned host buffers: gloo sends host memory only), reduced llama cut to
+    4 layers at pp 2 under 1f1b, grad_accum 4, fp32: ``train_step`` through
+    K1 and K2 in each stage against one rank's ``mesh=None`` step at
+    grad_accum 1 on the same weights and batch: the loss within 1e-4
+    relative, every updated param within 2e-3 of its leaf's update scale
+    (AdamW eps 1e-4); at most 2 microbatches in flight."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist_helpers", pathlib.Path(__file__).with_name("_torch_dist.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), num_layers=4)
+    opt_cfg = AdamWConfig(eps=1e-4)
+    batch = SyntheticDataset(cfg, 64, 8, seed=5).batch(0)
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    plan = uniform_plan(cfg.name, "t", (1,), ("data",), cfg.num_layers, LayerStrategy())
+    hp = construct_hybrid_parallel_model(build_model(cfg), plan, None, opt_cfg)
+    live = tree_map(lambda x: x.to(cuda_device), params)
+    new, _, m = hp.train_step(live, hp.init_opt_state(live), batch, torch.float32)
+    case = dict(name="pp2", cfg=cfg, strategies=[LayerStrategy()], params=params, batch=batch,
+                mesh=(2, 1, 1), schedules=[("1f1b", 1)], grad_accum=4)
+    payload = {"cases": [case], "opt": opt_cfg, "device": "cuda", "backend": "gloo"}
+    ranks = helpers.run_ranks(2, "pipeline_cases", payload, tmp_path)
+    got = ranks[0]["runs"]["pp2/1f1b"]
+    np.testing.assert_allclose(got["step_loss"], float(m["loss"]), rtol=1e-4)
+    ref, init = dict(tree_paths(new)), dict(tree_paths(params))
+    for path, a in tree_paths(got["new"]):
+        want = ref[path].cpu() - init[path]
+        err = float((a - ref[path].cpu()).abs().max())
+        assert err <= 2e-3 * float(want.abs().max()), (path, err)
+    assert got["hop_bytes"]["host_copies"] == got["hop_bytes"]["sent"] * 2 > 0
+    assert all(r["in_flight"]["pp2/1f1b"][1] <= 2 for r in ranks)
 
 
 def test_cuda_distributed_slots_are_one_ranks_routing(cuda_device):

@@ -5,7 +5,7 @@ sequence), mamba2 at dp 4 with ZeRO-1 and ``full`` remat (K3's plain
 version under the runner), and whisper at dp 4 with ZeRO-2 (its ``frames``
 split with the batch), each on four ranks against the port's single-device
 step and JAX's ``value_and_grad``.  Then, on two ranks: the runtime's
-refusals, each naming its Queue 1 item, its errors for plans that are not
+refusals of context parallelism, naming its Queue 1 item, its errors for plans that are not
 valid (ep on a family with no experts, a tp whose ranks' SSM heads
 straddle B/C groups), and ``measure_allreduce``'s fit;
 and the launcher under ``torchrun`` on four CPU ranks, which searches a
@@ -31,13 +31,10 @@ CASES = {
     "whisper_dp4_zero2": ("whisper-tiny", [LayerStrategy(zero=2)], 1),
 }
 
+# pipelined plans (pp > 1) run: tests/test_torch_parallel_pp.py
 REFUSED = {
-    "mamba2_pp2": ("mamba2-2.7b", (2, 1), LayerStrategy(), 2,
-                   "NotImplementedError", "pipeline PR"),
     "mamba2_cp2": ("mamba2-2.7b", (2, 1), LayerStrategy(cp=2), 1,
                    "NotImplementedError", "context PR"),
-    "llama_pp2": ("llama3.2-1b", (2, 1), LayerStrategy(), 2,
-                  "NotImplementedError", "pipeline PR"),
     "llama_cp2": ("llama3.2-1b", (2, 1), LayerStrategy(cp=2), 1,
                   "NotImplementedError", "context PR"),
 }

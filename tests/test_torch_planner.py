@@ -347,12 +347,20 @@ def test_galv020_in_flight_memory_matches_jax():
         assert t.error_codes() == (["GALV020"] if sched == "gpipe" else [])
 
 
-def test_galv040_has_no_pipeline_runtime_to_compare():
+def test_boundary_dtype_mismatch_detected(monkeypatch):
+    """GALV040 (the mirror of JAX's test of that name): the cost model's
+    boundary bytes per element against the pipeline's ``BOUNDARY_DTYPE`` —
+    none at 4 B, an error once the cost model's constant drifts to 2."""
+    from repro_torch.core import cost_model as tcm
+
     plan = tst.uniform_plan("qwen3-14b", "t", (2, 8, 16), ("pod", "data", "model"), 40,
                             tst.LayerStrategy(tp=16), pp=2, grad_accum=2)
+    check = lambda: tpc.check_plan(plan, tcluster.ClusterSpec(**dataclasses.asdict(POD)),
+                                   tget("qwen3-14b"), seq_len=SEQ)
     assert tpc._boundary_dtype_diag() is None
-    assert "GALV040" not in tpc.check_plan(plan, tcluster.ClusterSpec(
-        **dataclasses.asdict(POD)), tget("qwen3-14b"), seq_len=SEQ).codes()
+    assert "GALV040" not in check().codes()
+    monkeypatch.setattr(tcm, "PIPELINE_BOUNDARY_BYTES_PER_ELEM", 2.0)
+    assert "GALV040" in check().error_codes()
 
 
 # ---------------------------------------------------------------- search_serve

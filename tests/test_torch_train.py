@@ -374,7 +374,7 @@ def test_entry_points_refuse_what_one_device_cannot_run(pair):
         ttrain.construct_hybrid_parallel_model(pair["tm"], dp2)
     pp2 = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
                        LayerStrategy(), pp=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4's pipeline"):
+    with pytest.raises(NotImplementedError, match="runtime.train_pp.PipelineTrainer"):
         ttrain.construct_hybrid_parallel_model(pair["tm"], pp2)
     z3 = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
                       LayerStrategy(zero=3))
