@@ -30,8 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
    B8 S1280, a decode step B8 Sq1 Sk1344 at per-slot kv_len and the
    training shape B2 S4096; zamba2's training shape B2 S2048 at hd 112;
    the parallel rigs' ranks (phase 25: llama at tp 2 and dp 2; phase 26:
-   moonshot at B1 S4096 H16 under ep 2 and dp 2, B2 S4096 H8 under tp 2):
-   fp32 1e-4,
+   moonshot at B1 S4096 H16 under ep 2 and dp 2, B2 S4096 H8 under tp 2;
+   phase 29: a cp rank's ring at llama3.2-1b-long's heads, step 0 causal
+   B1 S8192 at rank 0's zig-zag positions of 16 384, the later steps
+   non-causal B1 Sq8192 Sk4096 and Sq4096 Sk8192): fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
    holds rows over thousands of keys, whose values are ~1e-2; the llama
@@ -237,11 +239,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``selective``, the state donated (updated in place); K1 16, K2 36 and
    K2-backward 20 launches a step pinned; phase 10's kernel-vs-plain
    parity on one microbatch with seeded non-zero patch embeddings;
-21. mamba2 train — mamba2-2.7b at full width cut to 16 of 64 layers
-   (``MAMBA2_TRAIN_LAYERS``: the whole run's time limit),
+21. mamba2 train — mamba2-2.7b at full width cut to 8 of 64 layers
+   (``MAMBA2_TRAIN_LAYERS``: the whole run's time limit; 16 until phase 29
+   came),
    3 steps of 8 x 2048 tokens in 4 microbatches under ``selective``, the
-   state donated: K3 under autograd (128 launches a step: the forward and
-   the selective recompute), K2 260 and K2-backward 132 pinned; MFU with the scan's
+   state donated: K3 under autograd (64 launches a step: the forward and
+   the selective recompute), K2 132 and K2-backward 68 pinned; MFU with the scan's
    FLOPs (``ssm_train_flops``); one step profiled with the ``ssd_vjp`` and
    ``optimizer`` spans; phase 10's kernel-vs-plain parity at 2 layers;
 22. zamba2 train — full width cut to 13 layers (two shared-block sites and
@@ -268,8 +271,9 @@ Phases (any failure exits non-zero and prints no result line):
    --arch moonshot-v1-16b-a3b --seq 4096 --batch 8 --grad-accum 4 --remat
    selective --validate-only`` exits 1 on GALV020;
 25. the parallel runtime (run after phase 22, before the results) —
-   llama3.2-1b at full width cut to 4 of 16 layers (``PAR_LAYERS``: the
-   whole run's time limit) on two ranks sharing the card: NCCL
+   llama3.2-1b at full width cut to 2 of 16 layers (``PAR_LAYERS``: the
+   whole run's time limit; 4 until phase 29 came) on two ranks sharing the
+   card: NCCL
    refuses two ranks on one device, so they join over gloo (a
    ``FileStore``), each a ``chip_smoke.py --parallel-rank`` process that
    loads the library the parent built, on the mesh ``train_mesh_spec(2)``
@@ -300,9 +304,10 @@ Phases (any failure exits non-zero and prints no result line):
    here while the ranks start), each rank's K1 / K2 / K2-backward launches
    per step pinned and K1's local heads checked; the kept share per layer
    against one rank's, the exchange's bytes, peaks and step times (no
-   interconnect measured); then each plan's fp32 ``value_and_grad`` at 2 x
-   1024 against one rank's (``mesh=None``, on each rank): the loss within
-   1e-4 relative, every grad's shards within 2e-3 of its leaf's scale,
+   interconnect measured); then (a)'s and (b)'s fp32 ``value_and_grad`` at
+   2 x 1024 (``MPAR_FP32_PLANS``; (c)'s repeat cut for phase 29) against
+   one rank's (``mesh=None``, on each rank): the loss within 1e-4 relative,
+   every grad's shards within 2e-3 of its leaf's scale,
    each layer's routing decisions that differ from one rank's logged;
 27. tensor parallelism in the SSM, hybrid and audio families (run after
    phase 26, before the results) — two ranks sharing the card over gloo
@@ -340,14 +345,36 @@ Phases (any failure exits non-zero and prints no result line):
    and K3 see (the llama and mamba2 training rows), ``max_in_flight`` (4
    under gpipe, at most 2 otherwise); peaks against the card, boundary
    bytes, step times (gloo, no interconnect) and collectives logged; then
-   each case in fp32 at 8 x 256 against one rank's ``value_and_grad`` at
+   (a), (c) and (d) in fp32 at 8 x 256 (``PP_FP32_CASES``; (b)'s repeat cut
+   for phase 29) against one rank's ``value_and_grad`` at
    grad_accum 1: the loss within 1e-4 relative, every grad's shards within
    2e-3 of its leaf's scale;
+29. context parallelism (run after phase 28, before the results) — two
+   ranks of the cp ring sharing the card over gloo (``chip_smoke.py
+   --cp-rank``, as phase 25; every hop staged through pinned host buffers)
+   on ``train_mesh_spec(2, cp=2)`` = (cp 2, data 1, model 1), through
+   ``construct_hybrid_parallel_model``: llama3.2-1b-long at full width cut
+   to 2 layers (``CP_LAYERS``), 2 steps of 2 x 16 384 tokens in 2
+   microbatches (each rank a microbatch's zig-zag half, 8 192 tokens; 32 768
+   would double each rank's fp32 head), bf16 compute, fp32 masters, ZeRO-1
+   (states over dp·cp), ``selective``; the losses within 5e-2 of one rank's
+   full-sequence loss on the same seed-0 weights and batches (computed
+   before the ranks train, and freed), each rank's K1 / K2 / K2-backward
+   launches a step pinned (``cp_launches``: K1 once a ring step, in the
+   forward and the recompute), the shapes K1 sees (phase 3's ring rows,
+   ``cp_ring_rows``), the ring's bytes a step (``cp_ring_bytes``); peaks
+   against the card, step times (gloo, no interconnect) and collectives
+   logged; then fp32 at 2 x 1024 against one rank's ``value_and_grad`` at
+   grad_accum 1: the loss within 1e-4 relative, every grad's shards within
+   2e-3 of its leaf's scale.  Paid for by cuts in depth (phase 21's mamba2
+   from 16 to 8 layers, phase 25's llama from 4 to 2) and of three fp32
+   repeats (phase 25's (c), phase 26's (c), phase 28's (b));
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated``,
    ``rmsnorm_bwd``, ``rmsnorm_split_fwd`` and ``rmsnorm_split_bwd`` rows for
    K2, ``ssd`` and ``ssd_autograd`` for K3; a row phase 28's stages also
-   run stands again for each ``pipeline_*`` path with its launches), then
-   the device line last.
+   run stands again for each ``pipeline_*`` path with its launches; the
+   ring's K1 rows under the path ``context_parallel``, with phase 29's
+   launches), then the device line last.
 """
 from __future__ import annotations
 
@@ -573,7 +600,9 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     and dp 2 (32 and 8 heads, 1 sequence); a moonshot rank's in phase 26:
     ep 2 and dp 2 (16 heads, 1 sequence), tp 2 (8 heads, 2 sequences); a
     rank's in phase 27: zamba2's shared block at 16 heads (b), whisper's
-    encoder, cross- and self-attention at 3 heads over 32 windows (c)."""
+    encoder, cross- and self-attention at 3 heads over 32 windows (c); a
+    rank's three K1 calls in phase 29's cp ring (``cp_ring_rows``), the
+    causal one at the rank's zig-zag positions."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -720,6 +749,18 @@ def check_flash(torch, flash_ops, flash_ref, gen):
                       "hd64 bfloat16", True, flash_case(
                           torch, gen, B=WHISPER_MICRO, Sq=Sq, Sk=Sk, H=3, hd=64,
                           dtype=torch.bfloat16, causal=causal, path="ssm_parallel_c")))
+    # phase 29: a rank's K1 calls in the cp ring at llama3.2-1b-long's heads,
+    # step 0 at rank 0's zig-zag positions over the 16 384-token sequence
+    from repro_torch.parallel.context import zigzag_positions
+
+    for B, Sq, Sk, causal in cp_ring_rows():
+        c = flash_case(torch, gen, B=B, Sq=Sq, Sk=Sk, H=32, KV=8, hd=64, dtype=torch.bfloat16,
+                       causal=causal, path="context_parallel")
+        what = "step 0 causal at zig-zag positions" if causal else "later step non-causal"
+        if causal:
+            c["q_pos"] = c["k_pos"] = zigzag_positions(CP_SEQ, CP_MESH[0][0], 0, "cuda")
+        cases.append((f"context parallel {what} B{B} Sq{Sq} Sk{Sk} H32 KV8 hd64 bfloat16",
+                      True, c))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -3197,9 +3238,10 @@ SSM_TRAIN_SEQ = 2048
 ZAMBA2_TRAIN_LAYERS = 13
 #: mamba2's kernel-vs-plain training parity: full width cut to 2 layers
 SSM_PARITY_LAYERS = 2
-#: mamba2 trained at full width cut to 16 of its 64 layers, to keep the
-#: whole run inside its time limit on a slow host (phase 27 came after it)
-MAMBA2_TRAIN_LAYERS = 16
+#: mamba2 trained at full width cut to 8 of its 64 layers, to keep the
+#: whole run inside its time limit on a slow host (16 from phase 27's
+#: arrival, 8 since phase 29's)
+MAMBA2_TRAIN_LAYERS = 8
 
 
 def ssm_train_flops(cfg, batch: int, seq: int) -> tuple[int, float, float, float]:
@@ -3324,12 +3366,16 @@ def allocator_report(torch, label: str) -> None:
 # --------------------------------------------------------------------------
 
 PAR_SEQ, PAR_BATCH, PAR_ACCUM, PAR_STEPS = 4096, 4, 2, 2
-#: llama3.2-1b at full width cut to 4 of its 16 layers, to keep the whole
-#: run inside its time limit on a slow host (phase 27 came after it)
-PAR_LAYERS = 4
+#: llama3.2-1b at full width cut to 2 of its 16 layers, to keep the whole
+#: run inside its time limit on a slow host (4 from phase 27's arrival, 2
+#: since phase 29's)
+PAR_LAYERS = 2
 PAR_MESH = ((1, 2), ("data", "model"))          # launch.mesh.train_mesh_spec(2)
 PAR_LOSS_TOL = 5e-2            # JAX's bf16 bound on a sharded step (tests/test_parallel_mp.py:53)
 PAR_FP32_LAYERS = 2
+#: the plans checked again in fp32: (c)'s repeat (the searched plan, tp 1
+#: ZeRO-2, as the CPU tests hold) was cut to pay for phase 29
+PAR_FP32_PLANS = ("a", "b")
 PAR_FP32_BATCH = 2             # x PAR_SEQ tokens, one microbatch: a row per rank under (b)
 PAR_FP32_LOSS_RTOL = 1e-4
 PAR_FP32_UPDATE_TOL = 2e-3     # x the largest |update| of the leaf on one rank
@@ -3522,7 +3568,8 @@ def parallel_phase(torch) -> dict:
     ``PAR_LAYERS`` layers on two ranks sharing the card over gloo
     (``par_plans``), held to one rank's
     ``mesh=None`` step on the same seed-0 weights and batches: bf16 losses
-    within ``PAR_LOSS_TOL``, and, for every plan, at ``PAR_FP32_LAYERS``
+    within ``PAR_LOSS_TOL``, and, for each of ``PAR_FP32_PLANS``, at
+    ``PAR_FP32_LAYERS``
     layers in fp32 the loss within ``PAR_FP32_LOSS_RTOL`` relative, every
     grad within ``PAR_FP32_GRAD_TOL`` of its leaf's grad scale and every
     updated param within ``PAR_FP32_UPDATE_TOL`` of its leaf's update
@@ -3587,7 +3634,8 @@ def parallel_phase(torch) -> dict:
                 f"{ref_losses}, step times {[round(t, 4) for t in ref_times]} s; fp32 at "
                 f"{PAR_FP32_LAYERS} layers, {PAR_FP32_BATCH} x {PAR_SEQ}: loss {ref32_loss}")
             (tmp / "payload.tmp").write_text(json.dumps({
-                "plans": {k: p.to_json() for k, (p, _) in plans.items()}, "fp32": list(plans)}))
+                "plans": {k: p.to_json() for k, (p, _) in plans.items()},
+                "fp32": list(PAR_FP32_PLANS)}))
             os.replace(tmp / "payload.tmp", tmp / "payload.json")
             t_ranks = time.perf_counter()
             outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
@@ -3637,7 +3685,7 @@ def parallel_phase(torch) -> dict:
         if label == "a":
             require(all(run["k1_heads"] == [[16, 4]] for run in runs),
                     f"parallel (a): K1 heads {[run['k1_heads'] for run in runs]}, not 16 / 4")
-    for label in plans:
+    for label in PAR_FP32_PLANS:
         got = ranks[0]["fp32"][label]
         rel = abs(got["loss"] - ref32_loss) / abs(ref32_loss)
         err, g_err = got["update_err"], got["grad_err"]
@@ -3661,6 +3709,9 @@ def parallel_phase(torch) -> dict:
 #: the whole run inside its time limit on a slow host
 MPAR_LAYERS = 1
 MPAR_FP32_SEQ, MPAR_FP32_BATCH = 1024, 2     # one microbatch: C = 240
+#: the plans checked again in fp32: (c)'s repeat (dp 2 ZeRO-3, whose MoE
+#: grads the CPU tests hold in fp32) was cut to pay for phase 29
+MPAR_FP32_PLANS = ("a", "b")
 
 
 def moe_par_plans(cfg) -> dict:
@@ -3828,9 +3879,9 @@ def moe_parallel_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
     routes["fp32_one"] = first(rlog)
     del hp, params, loss
     record["fp32_ref_seconds"] = time.perf_counter() - t_fp32
-    for label, text in payload["plans"].items():
+    for label in MPAR_FP32_PLANS:
         t_run = time.perf_counter()
-        full = ExecutionPlan.from_json(text)
+        full = ExecutionPlan.from_json(payload["plans"][label])
         plan = uniform_plan(cfg.name, "t", full.mesh_shape, full.mesh_axes, MPAR_LAYERS,
                             full.default_strategy)
         mesh = meshes[tuple(plan.mesh_shape)]
@@ -4010,7 +4061,8 @@ def moe_parallel_phase(torch) -> dict:
             require(all(run["bytes"][0] > 0 for run in runs),
                     f"moe parallel ({label}): no expert exchange under ep {s.ep}")
     one_fp32 = routes[0]["fp32_one"]
-    for label, (plan, _) in plans.items():
+    for label in MPAR_FP32_PLANS:
+        plan = plans[label][0]
         got = ranks[0]["fp32"][label]
         rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
         tp = plan.default_strategy.tp == 2
@@ -4404,6 +4456,9 @@ def ssm_parallel_phase(torch) -> dict:
 PP_LAYERS, PP_BATCH, PP_ACCUM, PP_STEPS = 4, 8, 4, 2
 PP_MESH = ((2, 1, 1), ("pod", "data", "model"))   # launch.mesh.train_mesh_spec(2, pp=2)
 PP_FP32_SEQ = 256              # the fp32 checks: 8 x 256 a step, grad_accum 4
+#: the cases checked again in fp32: (b)'s repeat (1f1b, whose grads the CPU
+#: tests hold in fp32) was cut to pay for phase 29
+PP_FP32_CASES = ("a", "c", "d")
 
 
 def pp_cases() -> dict:
@@ -4479,7 +4534,7 @@ def pipeline_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
     there (the parent's oracle done), each case of ``pp_cases`` trained
     ``PP_STEPS`` steps through ``PipelineTrainer`` (losses, times, launches,
     the shapes K1 and K3 see, ``max_in_flight``, the boundary bytes, the
-    collectives by name, peak); then each case in fp32 at ``PP_FP32_SEQ``:
+    collectives by name, peak); then each of ``PP_FP32_CASES`` in fp32 at ``PP_FP32_SEQ``:
     ``value_and_grad`` on the same seed-0 weights, its grad shards against
     the same shards of the parent's one-rank grads; writes its record to
     DIR."""
@@ -4562,7 +4617,8 @@ def pipeline_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     t_fp32 = time.perf_counter()
-    for label, (arch, schedule, v, _, _) in pp_cases().items():
+    for label in PP_FP32_CASES:
+        arch, schedule, v, _, _ = pp_cases()[label]
         t_run = time.perf_counter()
         cfg = pp_config(arch)
         batch = SyntheticDataset(cfg, seq_len=PP_FP32_SEQ, global_batch=PP_BATCH,
@@ -4719,7 +4775,7 @@ def pipeline_phase(torch) -> dict:
             f"{[run['ops'] for run in runs]}")
         out[label] = {k: runs[0]["launches"][-1][k] + runs[1]["launches"][-1][k]
                       for k in runs[0]["launches"][-1]}
-    for label in cases:
+    for label in PP_FP32_CASES:
         got = ranks[0]["fp32"][label]
         rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
         log(f"pipeline fp32 ({label}, {PP_LAYERS} layers, {PP_BATCH} x {PP_FP32_SEQ}, "
@@ -4731,6 +4787,313 @@ def pipeline_phase(torch) -> dict:
                 f"pipeline fp32 ({label}): grad error {got['grad_err']}")
     log(f"pipeline: phase 28 took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# --------------------------------------------------------------------------
+# 29. context parallelism: two ranks of the cp ring sharing the card
+# --------------------------------------------------------------------------
+
+#: llama3.2-1b-long (the config that exists for cp) at full width cut to 2
+#: layers, 2 sequences of 16 384 tokens a step in 2 microbatches of 1 (each
+#: rank 8 192 tokens of each: train_32k's 32 768 would double each rank's
+#: fp32 head), 2 steps
+CP_ARCH = "llama3.2-1b-long"
+CP_LAYERS, CP_SEQ, CP_BATCH, CP_ACCUM, CP_STEPS = 2, 16384, 2, 2, 2
+CP_MESH = ((2, 1, 1), ("cp", "data", "model"))     # launch.mesh.train_mesh_spec(2, cp=2)
+CP_FP32_SEQ = 1024             # the fp32 checks: 2 x 1024, one microbatch
+
+
+def cp_ring_rows() -> list:
+    """(batch, Sq, Sk, causal) of each K1 call of a phase 29 rank's ring: step
+    0, causal at the rank's zig-zag positions over its 8 192 tokens; a
+    later step non-causal, the whole shard against an earlier rank's early
+    chunk (8 192 x 4 096) or the late chunk against a later rank's whole
+    shard (4 096 x 8 192)."""
+    cp = CP_MESH[0][0]
+    Sl = CP_SEQ // cp
+    mb = CP_BATCH // CP_ACCUM
+    return [(mb, Sl, Sl, True), (mb, Sl, Sl // 2, False), (mb, Sl // 2, Sl, False)]
+
+
+def cp_plan(cfg, mesh: bool = True, grad_accum: int = CP_ACCUM):
+    """Phase 29's plan on ``CP_MESH`` (cp 2, ZeRO-1: states over dp·cp,
+    ``selective``), or one rank's (``mesh=False``: the same remat and
+    microbatches, the whole sequence)."""
+    from repro_torch.core.strategy import ExecutionPlan, LayerStrategy, uniform_plan
+
+    if not mesh:
+        return uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
+                            LayerStrategy(remat="selective"), grad_accum=grad_accum)
+    shape, axes = CP_MESH
+    strategy = LayerStrategy(cp=shape[0], zero=1, remat="selective")
+    return ExecutionPlan(arch=cfg.name, shape="train", mesh_axes=axes, mesh_shape=shape,
+                         grad_accum=grad_accum, layer_strategies=[strategy] * cfg.num_layers,
+                         default_strategy=strategy)
+
+
+def cp_launches(plan, layers: int) -> dict:
+    """Kernel launches per step of one rank: phase 25's count
+    (``par_launches``: K2 twice a layer and again in its recompute, the
+    final norm, K2's backward once a norm) with K1 once for each of the
+    ring's cp steps, in every layer's forward and again in its recompute
+    (the ring's backward is plain torch)."""
+    cp = plan.default_strategy.cp
+    out = par_launches(plan, layers)
+    out["flash_attention_fwd"] *= cp
+    return out
+
+
+def cp_ring_bytes(cfg, plan, seq: int, batch: int) -> int:
+    """The bytes a rank's ring sends a step: per layer and microbatch its
+    bf16 K and V block once in the forward and once in the recompute, then
+    in the backward K and V with their fp32 dk / dv, and the dk / dv home
+    (cp = 2: one hop each)."""
+    cp = plan.default_strategy.cp
+    kv = (batch // plan.grad_accum) * (seq // cp) * cfg.num_kv_heads * cfg.resolved_head_dim
+    hops = cp - 1
+    per = hops * (2 * 2 * kv + 2 * 2 * kv + (2 * 2 * kv + 2 * 4 * kv)) + 2 * 4 * kv
+    return plan.grad_accum * cfg.num_layers * per
+
+
+def cp_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
+    """One rank of phase 29 (``chip_smoke.py --cp-rank RANK WORLD DIR``):
+    device 0, gloo over a ``FileStore`` in DIR; once DIR/payload.json is
+    there (the parent's oracle done), ``CP_STEPS`` bf16 steps of
+    ``cp_plan`` (losses, times, launches, the K1 calls' shapes, the ring's
+    bytes a step, the collectives by name, peak), then fp32
+    ``value_and_grad`` at ``CP_FP32_SEQ`` on the same seed-0 weights, its
+    grad shards against the same shards of the parent's one-rank grads;
+    writes its record to DIR."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.parallel import context
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    used = collections.Counter()
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        def counted(out, *a, _run=getattr(dist, name), _name=name, **kw):
+            used[f"{_name} {out.device.type} {str(out.dtype).split('.')[-1]}"] += 1
+            return _run(out, *a, **kw)
+        setattr(dist, name, counted)
+    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    # the shapes of the ring's K1 calls, one per step
+    seen = set()
+    step_partial = context._flash_partial
+
+    def recorded(impl):
+        partial = step_partial(impl)
+
+        def call(q, k, v, causal, pos=None):
+            seen.add((q.shape[0], q.shape[1], k.shape[1], bool(causal)))
+            return partial(q, k, v, causal, pos)
+        return call
+
+    context._flash_partial = recorded
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(*CP_MESH, device=dev, backend="gloo")
+    hop = mesh.hop("cp")
+    cfg = dataclasses.replace(get_config(CP_ARCH), num_layers=CP_LAYERS)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    record = {"ready": time.perf_counter() - T_START}
+    while not (tmp / "payload.json").is_file():     # the parent's oracle runs meanwhile
+        time.sleep(0.05)
+    t_run = time.perf_counter()
+    ds = SyntheticDataset(cfg, seq_len=CP_SEQ, global_batch=CP_BATCH, seed=0)
+    hp = construct_hybrid_parallel_model(build_model(cfg), cp_plan(cfg), mesh)
+    params = hp.init_params(gen())
+    opt = hp.init_opt_state(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = {"losses": [], "grad_norms": [], "times": [], "launches": [], "ring": []}
+    for step in range(CP_STEPS):
+        b = ds.batch(step)
+        zero_counts(counters)
+        hop.bytes.update(sent=0, received=0, host_copies=0)
+        dist.barrier()
+        t0 = time.perf_counter()
+        params, opt, m = hp.train_step(params, opt, b)
+        torch.cuda.synchronize()
+        run["times"].append(time.perf_counter() - t0)
+        run["launches"].append(read_counts(counters))
+        run["ring"].append(dict(hop.bytes))
+        run["losses"].append(float(m["loss"]))
+        run["grad_norms"].append(float(m["grad_norm"]))
+    run.update(peak=torch.cuda.max_memory_allocated(), ops=dict(used), index=hop.stage,
+               k1=sorted(list(s) for s in seen), seconds=time.perf_counter() - t_run)
+    del hp, params, opt, m, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_fp32 = time.perf_counter()
+    batch = SyntheticDataset(cfg, seq_len=CP_FP32_SEQ, global_batch=CP_BATCH,
+                             seed=0).batch(0)
+    ref = torch.load(tmp / "fp32.pt", map_location=dev)
+    hp = construct_hybrid_parallel_model(build_model(cfg), cp_plan(cfg, grad_accum=1), mesh)
+    loss, _, grads = hp.value_and_grad(hp.init_params(gen()), batch, torch.float32)
+    errs = []
+    for g, rg, spec in zip(tree_leaves(grads), tree_leaves(hp.group(ref["grads"])),
+                           tree_leaves(hp.grad_specs)):
+        mine = shd.shard_leaf(rg, spec, mesh)
+        errs.append(float((g - mine).abs().max()) / max(float(rg.abs().max()), 1e-30))
+    worst = torch.tensor(errs, device=dev)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    i = int(worst.argmax())
+    run["fp32"] = {"loss": float(loss), "ref_loss": float(ref["loss"]),
+                   "grad_err": float(worst[i]),
+                   "grad_err_leaf": ".".join(tree_paths(grads)[i][0]),
+                   "seconds": time.perf_counter() - t_fp32}
+    record["run"] = run
+    (tmp / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def cp_phase(torch) -> dict:
+    """Phase 29: ``construct_hybrid_parallel_model`` on ``CP_MESH``, two
+    ranks of the cp ring sharing the card over gloo (``chip_smoke.py
+    --cp-rank``; every hop staged through pinned host buffers), held to one
+    rank's full-sequence loss on the same seed-0 weights and batches,
+    computed here before the ranks train and freed (``mesh=None`` at the
+    same microbatches): bf16 losses within ``PAR_LOSS_TOL``; in fp32 at
+    ``CP_FP32_SEQ`` the loss within ``PAR_FP32_LOSS_RTOL`` relative and
+    every grad's shards within ``PAR_FP32_GRAD_TOL`` of its leaf's scale,
+    against one rank's ``value_and_grad`` at grad_accum 1.  Each rank's
+    K1, K2 and K2-backward launches per step are pinned (``cp_launches``),
+    the shapes K1 sees are phase 3's ring rows (``cp_ring_rows``), and the
+    ring's bytes a step are ``cp_ring_bytes``.  Logs each rank's peak and
+    their sum against the card, the step times (labelled: gloo through the
+    host, no interconnect) and the collectives called.  Returns both
+    ranks' last-step launches summed."""
+    import math
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(CP_ARCH), num_layers=CP_LAYERS)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--cp-rank", str(r), "2", str(tmp)],
+                                  env=dict(os.environ), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            ds = SyntheticDataset(cfg, seq_len=CP_SEQ, global_batch=CP_BATCH, seed=0)
+            hp = construct_hybrid_parallel_model(build_model(cfg), cp_plan(cfg, mesh=False))
+            params = hp.init_params(gen())
+            opt = hp.init_opt_state(params)
+            torch.cuda.reset_peak_memory_stats()
+            ref_losses, ref_times = [], []
+            for step in range(CP_STEPS):
+                b = ds.batch(step)
+                valid = (b["labels"] >= 0).reshape(CP_ACCUM, -1).sum(axis=1)
+                require(len(set(valid.tolist())) == 1,
+                        f"cp oracle: microbatch token counts {valid.tolist()}")
+                t0 = time.perf_counter()
+                params, opt, m = hp.train_step(params, opt, b)
+                torch.cuda.synchronize()
+                ref_times.append(time.perf_counter() - t0)
+                ref_losses.append(float(m["loss"]))
+            ref_peak = torch.cuda.max_memory_allocated()
+            del hp, params, opt, m
+            hp = construct_hybrid_parallel_model(build_model(cfg),
+                                                 cp_plan(cfg, mesh=False, grad_accum=1))
+            loss, _, grads = hp.value_and_grad(
+                hp.init_params(gen()), SyntheticDataset(
+                    cfg, seq_len=CP_FP32_SEQ, global_batch=CP_BATCH, seed=0).batch(0),
+                torch.float32)
+            torch.save({"loss": float(loss), "grads": grads}, tmp / "fp32.pt")
+            del hp, loss, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            (tmp / "payload.tmp").write_text(json.dumps({"go": True}))
+            os.replace(tmp / "payload.tmp", tmp / "payload.json")
+            t_ranks = time.perf_counter()
+            outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"cp rank {r} exited {p.returncode}:\n"
+                    + "\n".join(out.splitlines()[-40:]))
+        runs = [json.loads((tmp / f"rank{r}.json").read_text())["run"] for r in range(2)]
+    log(f"context parallel: the oracle {t_ranks - t_phase:.1f} s beside the ranks' start; "
+        f"the ranks' runs {[round(run['seconds'], 1) for run in runs]} s, fp32 "
+        f"{[round(run['fp32']['seconds'], 1) for run in runs]} s; the ranks "
+        f"{time.perf_counter() - t_ranks:.1f} s after the payload")
+    card = torch.cuda.get_device_properties(0).total_memory
+    plan = cp_plan(cfg)
+    losses = runs[0]["losses"]
+    require(all(math.isfinite(x) for x in losses), f"context parallel: losses {losses}")
+    require(runs[0]["losses"] == runs[1]["losses"],
+            "context parallel: the ranks report different losses")
+    delta = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    require(delta <= PAR_LOSS_TOL, f"context parallel: losses {losses} vs one rank "
+            f"{ref_losses} (|delta| {delta:.4g} > {PAR_LOSS_TOL})")
+    want = cp_launches(plan, cfg.num_layers)
+    ring = cp_ring_bytes(cfg, plan, CP_SEQ, CP_BATCH)
+    rows = cp_ring_rows()
+    for run in runs:
+        for step, (got, hop) in enumerate(zip(run["launches"], run["ring"])):
+            require(got == want, f"context parallel rank {run['index']} step {step}: "
+                    f"launches {got}, expected {want}")
+            require(hop["sent"] == hop["received"] == ring
+                    and hop["host_copies"] == 2 * ring,
+                    f"context parallel rank {run['index']} step {step}: ring bytes {hop}, "
+                    f"expected {ring} each way")
+        # step 0 on every rank; rank 0's later step sees rank 1's shard (its
+        # late rows), rank 1's sees rank 0's early chunk
+        mine = sorted([list(rows[0]), list(rows[2 if run["index"] == 0 else 1])])
+        require(run["k1"] == mine, f"context parallel rank {run['index']}: K1 shapes "
+                f"(batch, Sq, Sk, causal) {run['k1']}, expected {mine}")
+    peaks = [run["peak"] for run in runs]
+    require(sum(peaks) <= card, f"context parallel: peaks {peaks} past the card")
+    log(f"context parallel {CP_ARCH}, full width cut to {CP_LAYERS} layers, cp 2 on "
+        f"{dict(zip(CP_MESH[1], CP_MESH[0]))}, ZeRO-1, selective, {CP_BATCH} x {CP_SEQ} a "
+        f"step in {CP_ACCUM} microbatches: losses {losses} (one rank {ref_losses}, |delta| "
+        f"{delta:.4g}), grad norms {runs[0]['grad_norms']}; step times rank 0 "
+        f"{[round(t, 4) for t in runs[0]['times']]} s, rank 1 "
+        f"{[round(t, 4) for t in runs[1]['times']]} s ({NO_INTERCONNECT}; one rank "
+        f"{[round(t, 4) for t in ref_times]} s, peak {ref_peak / 2**30:.2f} GiB); ring bytes "
+        f"a rank a step {runs[0]['ring'][-1]}; peak memory "
+        f"{[round(x / 2**30, 2) for x in peaks]} GiB, sum {sum(peaks) / 2**30:.2f} of "
+        f"{card / 2**30:.2f} GiB; launches per rank per step "
+        f"{ {k: n for k, n in want.items() if n} }; K1 (batch, Sq, Sk, causal) rank 0 "
+        f"{runs[0]['k1']}, rank 1 {runs[1]['k1']}; collectives per rank over {CP_STEPS} "
+        f"steps {runs[0]['ops']}")
+    got = runs[0]["fp32"]
+    rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+    log(f"context parallel fp32 ({CP_LAYERS} layers, {CP_BATCH} x {CP_FP32_SEQ}, grad_accum "
+        f"1): loss {got['loss']} vs one rank {got['ref_loss']} (relative {rel:.3g}); largest "
+        f"grad error {got['grad_err']:.3g} of its leaf's scale ({got['grad_err_leaf']})")
+    require(rel <= PAR_FP32_LOSS_RTOL, f"context parallel fp32: loss relative {rel}")
+    require(got["grad_err"] <= PAR_FP32_GRAD_TOL,
+            f"context parallel fp32: grad error {got['grad_err']}")
+    log(f"context parallel: phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: runs[0]["launches"][-1][k] + runs[1]["launches"][-1][k]
+            for k in runs[0]["launches"][-1]}
 
 
 def main() -> int:
@@ -4960,6 +5323,12 @@ def main() -> int:
     for label, n in pipeline_phase(torch).items():
         par_launches[f"pipeline_{label}"] = n
 
+    mark("29")
+    # 29. context parallelism: two ranks of the cp ring sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    par_launches["context_parallel"] = cp_phase(torch)
+
     mark("24")
     # 24. results
     kernels = []
@@ -5022,5 +5391,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--pp-rank"]:
         pipeline_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--cp-rank"]:
+        cp_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

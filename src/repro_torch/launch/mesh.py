@@ -65,6 +65,7 @@ class ProcessMesh(MeshShape):
             for sub in itertools.combinations(range(n), k):
                 groups[tuple(self.axis_names[i] for i in sub)] = self._new_group(sub, coords)
         object.__setattr__(self, "_groups", groups)
+        object.__setattr__(self, "_hops", {})
 
     def coords_of(self, rank: int) -> tuple:
         out = []
@@ -108,13 +109,27 @@ class ProcessMesh(MeshShape):
         return AxisGroup(axes, size, index, mine)
 
     def group(self, axes) -> AxisGroup:
-        """The group of ``axes`` (a name or a tuple of names in mesh order)
-        that holds this rank."""
+        """The group of ``axes`` (a name or a tuple of distinct names) that
+        holds this rank.  Its ranks and this rank's index follow mesh order
+        whatever order ``axes`` names them in: ZeRO under context
+        parallelism shards states over ``("data", "cp")`` on a mesh that
+        puts ``cp`` first, and its shards and gathers use the one group."""
         axes = axes if isinstance(axes, tuple) else (axes,)
-        if axes not in self._groups:
+        key = tuple(a for a in self.axis_names if a in axes)
+        if len(set(axes)) != len(axes) or len(key) != len(axes):
             raise KeyError(f"no group over {axes}: the axes must be distinct axes of "
-                           f"{self.axis_names}, in that order")
-        return self._groups[axes]
+                           f"{self.axis_names}")
+        return self._groups[key]
+
+    def hop(self, axis: str):
+        """The point-to-point hop over ``axis``
+        (``parallel.collectives.StageHop``), made on first use and kept:
+        its pinned host buffers serve every later call."""
+        if axis not in self._hops:
+            from repro_torch.parallel.collectives import StageHop
+
+            self._hops[axis] = StageHop(self, axis)
+        return self._hops[axis]
 
     def __repr__(self) -> str:
         return (f"ProcessMesh({dict(self.shape)}, rank {self.rank}, {self.device}, "

@@ -41,8 +41,19 @@ ignores ``--pp`` as JAX's does.
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \
         --reduced --device cpu --steps 2 --seq 32 --batch 8 --pp 2 --pp-schedule 1f1b
 
-Context parallelism (``--cp``), checkpoints, resume, elastic resize, the
-compiled-step audit and run sinks wait for later slices.
+``--cp N`` takes JAX's context-parallel branch for the dense family: the
+mesh ``train_mesh_spec(n, cp=N)`` = (cp N, data, model), the search over
+``cp_options=[N]``, and ``construct_hybrid_parallel_model``, whose
+attention runs the ring over the cp axis.  ``--seq`` must split into 2·N
+zig-zag chunks and the arch must be dense (JAX's ``SystemExit``s); one
+device prints a warning and ignores ``--cp``, as JAX's does; ``--pp`` with
+``--cp`` is refused (pp x cp waits for Queue 1 item 4).
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch llama3.2-1b \
+        --reduced --device cpu --steps 2 --seq 32 --batch 4 --cp 2
+
+Checkpoints, resume, elastic resize, the compiled-step audit and run sinks
+wait for later slices.
 """
 from __future__ import annotations
 
@@ -56,6 +67,7 @@ import time
 import torch
 
 from repro_torch.analysis import plan_check
+from repro_torch.analysis.invariants import cp_seq_divisible
 from repro_torch.configs.registry import ARCH_IDS, ModelConfig, get_config
 from repro_torch.core import calibrate
 from repro_torch.core import cost_model as cm
@@ -153,10 +165,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pp-interleave", type=int, default=2,
                     help="virtual stages per physical stage (interleaved only)")
     ap.add_argument("--cp", type=int, default=1,
-                    help="context-parallel degree (waits for Queue 1 item 4's context PR)")
+                    help="context-parallel degree (>1 runs attention as a ring over a cp "
+                         "mesh axis; needs seq %% (2*cp) == 0)")
     args = ap.parse_args(argv)
-    if args.cp > 1:
-        raise SystemExit("--cp waits for Queue 1 item 4's context PR (parallel/context.py)")
 
     calibration = calibrate.DEFAULT_CALIBRATION
     if args.profile_cache:
@@ -172,8 +183,20 @@ def main(argv=None) -> int:
 
     cfg = resolve_cfg(args)
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.cp > 1:             # JAX's checks, in its order
+        if not cp_seq_divisible(args.seq, args.cp):
+            raise SystemExit(f"--cp {args.cp} needs --seq % (2*cp) == 0 "
+                             f"(zig-zag split); got seq {args.seq}")
+        if cfg.family != "dense":
+            raise SystemExit(f"--cp supports dense-family archs; "
+                             f"{cfg.name} is {cfg.family}")
+        if world > 1 and args.pp > 1:
+            raise SystemExit(f"--pp {args.pp} with --cp {args.cp}: pp x cp waits for "
+                             "Queue 1 item 4 (runtime.train_pp.PipelineTrainer runs no ring)")
     if world > 1:
         return _main_ranks(args, cfg, calibration, world)
+    if args.cp > 1:
+        print(f"warning: --cp {args.cp} ignored on a single device")
     model = build_model(cfg, device=args.device)
     # the JAX launcher's plan on one device: one strategy for every layer
     plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
@@ -254,7 +277,7 @@ def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     try:
         try:
-            shape, axes = mesh_lib.train_mesh_spec(world, pp=args.pp)
+            shape, axes = mesh_lib.train_mesh_spec(world, pp=args.pp, cp=args.cp)
         except ValueError as e:
             raise SystemExit(str(e))
         cluster = dataclasses.replace(H100_NODE8, chips=world, intra_size=min(world, 8))
@@ -264,8 +287,9 @@ def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
             sched_opts = [(args.pp_schedule, v)]
         res = SearchEngine(cfg, cluster=cluster, calibration=calibration).search(
             args.seq, args.batch, mesh_shape=shape, mesh_axes=axes, pp_options=[args.pp],
-            pp_schedule_options=sched_opts, arch=cfg.name)
-        if args.pp > 1 and (not res.feasible or res.plan.pp != args.pp):
+            pp_schedule_options=sched_opts,
+            cp_options=[args.cp] if args.cp > 1 else None, arch=cfg.name)
+        if (args.pp > 1 or args.cp > 1) and (not res.feasible or res.plan.pp != args.pp):
             # JAX's: the search falls back to a pp=1 plan when nothing fits;
             # train nothing other than what was asked
             raise SystemExit(

@@ -43,6 +43,15 @@ dispatches:
     backward recomputes it one query block at a time, as JAX recomputes it
     under ``jax.checkpoint``.
 
+Under context parallelism (``parallel.axes.ring_context``: the runtime's
+rules under a cp > 1 plan) a train-mode self-attention block holds this
+rank's zig-zag shard of the sequence: RoPE takes the shard's global
+positions and the attention is the ring over the ``cp`` group
+(``parallel.context.ring_attention_local``), whose every step is a K1
+call on CUDA tensors under ``impl="kernel"`` and the plain version's
+otherwise.  A shard that is not S / cp of a sequence splitting into 2·cp
+chunks raises, and so does any other mode under a ring.
+
 The q/k/v and output projections are 2-D matmuls on reshaped weights, so
 they reach ``aten.mm`` (what the selective remat policy saves) while the
 attention products stay batched ``bmm``.
@@ -61,7 +70,8 @@ from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.models.common import ParamDef
 from repro_torch.models.norms import head_rmsnorm
 from repro_torch.models.rotary import apply_rope, rope_angles
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, context
+from repro_torch.parallel.axes import ring_context
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 INT32_MAX = int(np.iinfo(np.int32).max)
@@ -452,6 +462,10 @@ def attention_block(
             out = attention_math(q, ke, ve, causal=False, kv_len=kv_len)
         return _out_proj(params, out, x.dtype), cache
 
+    ring = ring_context()
+    if ring is not None and (mode != "train" or cross):
+        raise NotImplementedError(f"context parallelism runs train-mode self-attention "
+                                  f"alone, not {'cross-attention' if cross else mode!r}")
     tp = collectives.tp_state() if mode in ("train", "encoder") else None
     sharded = False
     if tp is not None:
@@ -467,9 +481,18 @@ def attention_block(
         local_q = q.shape[2]
         k, v = _select_kv(k, v, local_kv_heads(cfg.num_heads, cfg.num_kv_heads,
                                                tp.group.index * local_q, local_q))
+    if ring is not None:
+        context.validate_cp(ring.seq_len, ring.cp)
+        if Sq * ring.cp != ring.seq_len:
+            raise ValueError(f"a ring shard of {Sq} tokens is not 1/{ring.cp} of the "
+                             f"microbatch's {ring.seq_len}")
     if not cross:                   # RoPE on self-attention only
-        pos_q = (_q_positions(cache_index, Sq, x.device) if mode == "decode"
-                 else torch.arange(Sq, device=x.device))
+        if mode == "decode":
+            pos_q = _q_positions(cache_index, Sq, x.device)
+        elif ring is not None:      # the shard's global positions
+            pos_q = context.zigzag_positions(ring.seq_len, ring.cp, ring.index, x.device)
+        else:
+            pos_q = torch.arange(Sq, device=x.device)
         cos_q, sin_q = rope_angles(pos_q, cfg.resolved_head_dim, cfg.rope_theta)
         q = apply_rope(q, cos_q, sin_q)
         k = apply_rope(k, cos_q, sin_q)
@@ -493,7 +516,10 @@ def attention_block(
     else:
         causal = mode != "encoder" and not cross
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
-        if kernel:
+        if ring is not None:
+            out = context.ring_attention_local(q, k, v, pos_q, causal=True, hop=ring.hop,
+                                               impl="kernel" if kernel else "ref")
+        elif kernel:
             out = _flash_full(q, k, v, causal=causal, kv_len=kv_len)
         else:
             q, ke, ve = expand_and_pad(q, k, v)

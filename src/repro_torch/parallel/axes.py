@@ -19,8 +19,11 @@ operators of ``parallel.collectives``.
 this rank's sequence shard of a value replicated over the model axis when
 the rules put ``seq`` there (sequence parallelism); every other dim is
 already laid out: the batch by the runtime's data split, heads and ff by
-the shard shapes of the weights.  ``ring_context`` waits for context
-parallelism.
+the shard shapes of the weights.  Under context parallelism the runtime
+has already handed each rank its zig-zag shard of the sequence, so ``lc``
+splits that shard over the model axis alone; ``ring_context`` tells
+attention to run the ring over the ``cp`` process group
+(``parallel.context``).
 """
 from __future__ import annotations
 
@@ -82,12 +85,14 @@ class MeshRules:
     """Mapping from logical axis names to mesh axis names (or None).
 
     ``ring`` names the mesh axis carrying context parallelism for the
-    active layer group, as in JAX; the port refuses cp > 1 until the
-    context-parallel slice."""
+    active layer group, as in JAX.  ``seq_len`` is the port's addition: the
+    global sequence length of the microbatch being run, which the runtime
+    sets under context parallelism (a rank holds S / cp of it)."""
 
     rules: dict = field(default_factory=dict)
     mesh: Optional[MeshShape] = None
     ring: Optional[str] = None
+    seq_len: Optional[int] = None
 
     def spec(self, logical_axes: Sequence[str | None]) -> Spec:
         used: set[str] = set()
@@ -156,6 +161,37 @@ def axis_rules(rules: Optional[MeshRules]):
 
 def current_rules() -> Optional[MeshRules]:
     return getattr(_CTX, "rules", None)
+
+
+@dataclass(frozen=True)
+class RingContext:
+    """An active context-parallelism site: attention runs as a ring over the
+    ``cp`` sequence shards of ``group`` (``parallel.context``), this rank
+    its ``index``, the microbatch ``seq_len`` tokens long in all; ``hop``
+    is the ring's point-to-point hop over the same ranks."""
+
+    group: object          # launch.mesh.AxisGroup of the ring's axis
+    hop: object            # parallel.collectives.StageHop over that axis
+    index: int
+    cp: int
+    seq_len: int
+
+
+def ring_context() -> Optional[RingContext]:
+    """The ring of the active rules, or None: no rules, rules with no ring
+    axis, an abstract mesh (no process groups) or a ring of one rank.  The
+    runtime sets the rules' ``seq_len`` wherever it sets a ring."""
+    rules = current_rules()
+    if rules is None or not rules.ring or not hasattr(rules.mesh, "group"):
+        return None
+    group = rules.mesh.group(rules.ring)
+    if group.size == 1:
+        return None
+    if rules.seq_len is None:
+        raise RuntimeError(f"rules with a ring over {rules.ring!r} carry no seq_len: the "
+                           "runtime sets the microbatch's global sequence length")
+    return RingContext(group, rules.mesh.hop(rules.ring), group.index, group.size,
+                       rules.seq_len)
 
 
 def lc(x, *logical_axes: str | None):

@@ -54,7 +54,15 @@ directly; gloo cannot send a CUDA tensor point to point (its ``writev``
 of the device address fails and the pair's connection closes, or the
 sending process dies: ``scripts/chip_parallel.py --probe`` on an H100), so
 under gloo on CUDA each hop is copied through pinned host buffers and
-those copies' bytes are counted.
+those copies' bytes are counted.  The context-parallel ring
+(``parallel.context``) goes round the ``cp`` axis on the same hop;
+``ring_shift`` is the hop under autograd, whose backward shifts the grads
+the other way.
+
+Sequence parallelism nests inside a context-parallel shard: the rules give
+``seq`` to ``("cp", "model")``, and the runtime hands each rank its cp
+shard of the tokens, so ``lc``, ``region_in`` / ``region_out`` and
+``relayout`` split and gather the sequence over the model axis alone.
 """
 from __future__ import annotations
 
@@ -427,16 +435,18 @@ PIPE_AXIS = "pod"
 
 
 class StageHop:
-    """Point-to-point over the ``PIPE_AXIS`` group of ``mesh`` (a
-    ``launch.mesh.ProcessMesh``): this rank is stage ``stage`` of
-    ``stages``, and stage i is the rank at this rank's coordinates with
-    the pipe axis at i.  ``bytes`` counts what ``exchange`` sent and
-    received and what it copied between the card and pinned host buffers."""
+    """Point-to-point over the ``axis`` group of ``mesh`` (a
+    ``launch.mesh.ProcessMesh``; the pipe axis by default, the ``cp`` axis
+    for the context-parallel ring, ``mesh.hop("cp")``): this rank is stage
+    ``stage`` of ``stages``, and stage i is the rank at this rank's
+    coordinates with ``axis`` at i.  ``bytes`` counts what ``exchange``
+    sent and received and what it copied between the card and pinned host
+    buffers."""
 
-    def __init__(self, mesh):
-        group = mesh.group(PIPE_AXIS)
+    def __init__(self, mesh, axis: str = PIPE_AXIS):
+        group = mesh.group(axis)
         self.stage, self.stages = group.index, group.size
-        at = list(mesh.axis_names).index(PIPE_AXIS)
+        at = list(mesh.axis_names).index(axis)
         coords = [mesh.coords[a] for a in mesh.axis_names]
         self._ranks = [mesh.rank_of(coords[:at] + [i] + coords[at + 1:])
                        for i in range(self.stages)]
@@ -484,9 +494,34 @@ class StageHop:
             out.append(buf)
         return out
 
+    def rotate(self, xs, step: int = 1) -> list:
+        """``step`` stages round the ring in one ``exchange``: every tensor
+        of ``xs`` to the stage ``step`` on (the last stage's to the first),
+        and those the stage ``step`` back sends here, of the same shapes and
+        dtypes, received."""
+        to, frm = (self.stage + step) % self.stages, (self.stage - step) % self.stages
+        return self.exchange([(to, x) for x in xs], [(frm, x.shape, x.dtype) for x in xs])
+
     def shift(self, x: torch.Tensor) -> torch.Tensor:
-        """One step round the ring: ``x`` to the next stage (the last
-        stage's to the first) and, in the same ``exchange``, the tensor of
-        ``x``'s shape and dtype that the previous stage sends here."""
-        return self.exchange([((self.stage + 1) % self.stages, x)],
-                             [((self.stage - 1) % self.stages, x.shape, x.dtype)])[0]
+        """One step round the ring: ``x`` to the next stage and the previous
+        stage's tensor received (``rotate`` of one tensor)."""
+        return self.rotate([x])[0]
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hop, *xs):
+        ctx.hop = hop
+        return tuple(hop.rotate(xs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ctx.hop.rotate([g.contiguous() for g in grads], -1))
+
+
+def ring_shift(hop, *xs) -> tuple:
+    """``hop.shift`` of several tensors in one exchange, under autograd: the
+    grads go back the other way round the ring."""
+    if hop.stages == 1:
+        return xs
+    return _RingShift.apply(hop, *xs)

@@ -22,8 +22,8 @@ leaves back together (both per spec tree, on a ``launch.mesh.ProcessMesh``);
 moves a shard between two layouts of one leaf (under expert parallelism
 the MoE router's ZeRO layout shards ``embed`` where its compute layout
 shards ``experts``: ``MeshRules.spec``'s dedup).
-``cache_spec_tree`` waits for the serving mesh, ``ring_context`` for
-context parallelism.
+``cache_spec_tree`` waits for the serving mesh.  ``act_rules`` sets the
+ring (``ring=cp``) that ``axes.ring_context`` reads.
 """
 from __future__ import annotations
 

@@ -32,6 +32,18 @@ router under expert parallelism), it moves between them by
 sp, or a tp 1 group absorbing the model axis into dp), the residual stream
 changes layout at the boundary (``collectives.relayout``).
 
+Context parallelism (cp > 1, the dense family, as JAX limits it: GALV031)
+splits each rank's rows of a microbatch once more, over the ``cp`` axis,
+into its zig-zag shard of the sequence (``parallel.context.zigzag_shard``;
+the labels are already shifted, so tokens and labels split together keep
+every loss term), and every layer's rules carry the microbatch's global
+length (``MeshRules.seq_len``), so attention runs the ring over the ``cp``
+group with RoPE at the shard's global positions.  The loss is normalised
+by the valid tokens over the batch and cp axes together, and the ranks'
+losses sum over both.  cp is a state axis (``ExecutionPlan.
+state_axes_for``): every leaf's grad is summed over it with the batch axes,
+and ZeRO shards states over dp·cp.
+
 The MoE family routes the global microbatch (``models/moe.py``): its aux
 loss has one value on every rank of a batch group, so ``loss_fn`` adds it
 to each rank's loss at 1 / (the group's size) of its value and at its whole
@@ -40,8 +52,9 @@ grads count it once, as JAX's step does.
 
 A plan with pp > 1 is refused here, naming ``runtime.train_pp.PipelineTrainer``,
 which the launcher picks for it as JAX's does (that trainer reuses this
-one's layout, collectives and update on its staged trees); context
-parallelism (cp > 1) is refused naming its Queue 1 item; ep > 1 is an
+one's layout, collectives and update on its staged trees); a plan mixing
+cp = 1 and cp > 1 is refused naming its Queue 1 item, and cp on a family
+other than dense is an error (GALV031); ep > 1 is an
 error where GALV006 fails or no layer has experts, and so is a tp that
 does not divide a Mamba2 layer's heads or whose ranks' heads straddle its
 B/C groups.  Nothing is compiled (``jit_train_step`` returns the eager
@@ -63,8 +76,9 @@ from repro_torch.models.common import tree_leaves, tree_map, unstack_layers
 from repro_torch.models.mamba2 import check_tp as check_mamba2_tp
 from repro_torch.models.transformer import default_layer_runner
 from repro_torch.parallel import collectives
+from repro_torch.parallel import context
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.axes import axis_rules
+from repro_torch.parallel.axes import axis_rules, current_rules
 from repro_torch.parallel.remat import apply_remat
 from repro_torch.runtime import optimizer as opt_lib
 
@@ -149,6 +163,9 @@ def make_layer_runner(plan: ExecutionPlan, mesh=None, gather=None):
     model_axis = mesh.group("model") if "model" in mesh.shape else None
 
     def runner(blocks, x, apply_block):
+        # the microbatch's global length, which a ring reads (loss_fn sets it)
+        outer = current_rules()
+        seq_len = None if outer is None else outer.seq_len
         if shd.is_grouped(blocks):
             items = [(blocks[f"g{i:03d}"], i, g.strategy) for i, g in enumerate(groups)]
         else:
@@ -157,7 +174,7 @@ def make_layer_runner(plan: ExecutionPlan, mesh=None, gather=None):
         extra = torch.zeros((), dtype=torch.float32, device=x.device)
         layout = home
         for stacked_params, i, strat in items:
-            rules = shd.act_rules(plan, strat, mesh)
+            rules = dataclasses.replace(shd.act_rules(plan, strat, mesh), seq_len=seq_len)
             target = shd.residual_layout(plan, strat, mesh)
             x = collectives.relayout(x, layout, target, model_axis)
             layout = target
@@ -196,16 +213,27 @@ def check_supported(model, plan: ExecutionPlan, mesh) -> None:
 
 
 def check_layout(model, plan: ExecutionPlan, mesh) -> None:
-    """Refuse what later PRs bring, naming its Queue 1 item (context
-    parallelism), a plan over more than one device without a mesh, a mesh
-    that is not the plan's, and a tp whose Mamba2 layout the port cannot
-    nest (``mamba2.check_tp``: tp must divide the SSM heads, and tp | G or
-    G | tp; GSPMD would reshard such a layer)."""
+    """Refuse what later PRs bring, naming its Queue 1 item (a plan mixing
+    cp = 1 and cp > 1, or whose default strategy's cp is not its groups':
+    a relayout over ``cp`` between batch and zig-zag sequence shards), and
+    reject cp on a family other than dense (GALV031, as JAX's verifier),
+    a plan over more than one device without a mesh, a mesh that is not
+    the plan's (a cp that is not its ``cp`` axis: GALV032), and a tp whose
+    Mamba2 layout the port cannot nest (``mamba2.check_tp``: tp must
+    divide the SSM heads, and tp | G or G | tp; GSPMD would reshard such a
+    layer)."""
     strategies = list(plan.layer_strategies) + [plan.default_strategy]
     family = model.cfg.family
-    if any(s.cp > 1 for s in strategies):
-        raise NotImplementedError(f"context parallelism (cp > 1) waits for {_ITEM}'s "
-                                  "context PR (parallel/context.py)")
+    cps = {s.cp for s in strategies}
+    if max(cps) > 1:
+        if family != "dense":
+            raise ValueError(f"GALV031: cp {max(cps)} on the {family} family: context "
+                             "parallelism runs dense attention blocks alone, as JAX's")
+        if len(cps) > 1:
+            raise NotImplementedError(
+                f"a plan mixing cp = 1 and cp > 1 (cp {sorted(cps)} over its groups and "
+                f"default strategy) waits for {_ITEM}'s relayout over cp between batch "
+                "and zig-zag sequence shards")
     for s in strategies:
         if s.ep == 1:
             continue
@@ -219,11 +247,11 @@ def check_layout(model, plan: ExecutionPlan, mesh) -> None:
             raise ValueError(f"ep {s.ep} shards the experts over the data axis, and mesh "
                              f"{mesh.shape} has none")
     if mesh is None:
-        if plan.num_devices > 1 or any(s.tp > 1 or s.ep > 1 for s in strategies):
+        if plan.num_devices > 1 or any(max(s.tp, s.ep, s.cp) > 1 for s in strategies):
             raise ValueError(f"a plan over mesh {plan.mesh_shape} with tp up to "
-                             f"{max(s.tp for s in strategies)} and ep up to "
-                             f"{max(s.ep for s in strategies)} needs a mesh "
-                             "(repro_torch.launch.mesh.make_mesh)")
+                             f"{max(s.tp for s in strategies)}, ep up to "
+                             f"{max(s.ep for s in strategies)} and cp up to {max(cps)} "
+                             "needs a mesh (repro_torch.launch.mesh.make_mesh)")
         return
     if not hasattr(mesh, "group"):
         raise TypeError(f"mesh must be a repro_torch.launch.mesh.ProcessMesh, got "
@@ -232,6 +260,9 @@ def check_layout(model, plan: ExecutionPlan, mesh) -> None:
                                                       tuple(plan.mesh_shape)):
         raise ValueError(f"plan mesh {plan.mesh_axes} {plan.mesh_shape} vs mesh "
                          f"{mesh.axis_names} {mesh.sizes}")
+    cp = max(cps)
+    if cp > 1 and mesh.shape.get("cp") != cp:
+        raise ValueError(f"GALV032: cp {cp} needs a 'cp' axis of {cp} ranks, mesh {mesh.shape}")
     for s in strategies:
         if s.tp == 1:
             continue
@@ -295,6 +326,12 @@ class HybridParallelModel:
                                      self.grad_specs)
         self._default_rules = shd.act_rules(plan, default, mesh)
         self._batch_group = mesh.group(plan.dp_axes_for(default))
+        # under cp the default strategy's cp is every group's (check_layout)
+        self._cp = default.cp
+        self._cp_group = mesh.group("cp") if self._cp > 1 else None
+        # the ranks whose losses sum to the global one: batch and cp axes
+        self._loss_group = (mesh.group(plan.dp_axes_for(default) + ("cp",))
+                            if self._cp > 1 else self._batch_group)
         self._whole_model_gather = not self._supports_grouping
 
     def _spec_tree(self, **kw) -> dict:
@@ -424,7 +461,10 @@ class HybridParallelModel:
             loss, metrics = softmax_xent(logits, batch["labels"])
             metrics["aux"] = extra
             return loss + AUX_LOSS_WEIGHT * extra, metrics
-        with axis_rules(self._default_rules):
+        rules = self._default_rules
+        if self._cp > 1:            # this rank holds 1 / cp of each sequence
+            rules = dataclasses.replace(rules, seq_len=batch["tokens"].shape[1] * self._cp)
+        with axis_rules(rules):
             # the blocks are gathered a layer at a time by the runner, or
             # here, whole, for a model that runs its layers itself (zamba2)
             live = {k: (v if k == "blocks" and not self._whole_model_gather else
@@ -442,11 +482,11 @@ class HybridParallelModel:
             if tp is not None and logits.shape[-1] < self.model.cfg.vocab_size:
                 vocab = (tp.group, tp.group.index * logits.shape[-1])
             loss, metrics = softmax_xent(logits, batch["labels"], vocab=vocab,
-                                         dp=self._batch_group)
+                                         dp=self._loss_group)
         metrics["aux"] = extra
         # the ranks' losses are summed: the aux value counts once over them,
         # its grad whole on each rank (that rank's share; see the module note)
-        once = extra + extra.detach() * (1.0 / self._batch_group.size - 1.0)
+        once = extra + extra.detach() * (1.0 / self._loss_group.size - 1.0)
         return loss + AUX_LOSS_WEIGHT * once, metrics
 
     def _local_value_and_grad(self, params, batch, dtype):
@@ -460,8 +500,12 @@ class HybridParallelModel:
 
     def _local_rows(self, batch: dict) -> dict:
         """This rank's rows of a (micro)batch: its shard over the default
-        strategy's dp axes."""
-        return {k: collectives.take_shard(v, 0, self._batch_group) for k, v in batch.items()}
+        strategy's dp axes, and under cp its zig-zag shard of the sequence."""
+        rows = {k: collectives.take_shard(v, 0, self._batch_group) for k, v in batch.items()}
+        if self._cp > 1:
+            rows = {k: context.zigzag_shard(v, 1, self._cp_group.index, self._cp)
+                    for k, v in rows.items()}
+        return rows
 
     def _reduce_grads(self, grads):
         """Local grads -> the ``grad_specs`` layout, summed over the state
@@ -491,13 +535,13 @@ class HybridParallelModel:
         loss, metrics, grads = self._local_value_and_grad(params, self._local_rows(batch),
                                                           dtype)
         metrics = self._sum_metrics(metrics)
-        return (collectives.all_reduce(loss, self._batch_group), metrics,
+        return (collectives.all_reduce(loss, self._loss_group), metrics,
                 self._reduce_grads(tree_map(lambda g: g.float(), grads)))
 
     def _sum_metrics(self, metrics: dict) -> dict:
         out = dict(metrics)
         for k in ("nll", "zloss"):
-            out[k] = collectives.all_reduce(out[k], self._batch_group)
+            out[k] = collectives.all_reduce(out[k], self._loss_group)
         return out
 
     def train_step(self, params, opt_state: opt_lib.AdamWState, batch: dict,
@@ -537,7 +581,7 @@ class HybridParallelModel:
             grads = tree_map(lambda g: g.div_(k), grads)
         loss = loss / k
         if self.mesh is not None:
-            loss = collectives.all_reduce(loss, self._batch_group)
+            loss = collectives.all_reduce(loss, self._loss_group)
             metrics = self._sum_metrics(metrics)
             grads = self._reduce_grads(grads)
         new_params, new_opt, stats = self.apply_grads(params, grads, opt_state, donate=donate)
@@ -595,8 +639,9 @@ def construct_hybrid_parallel_model(
     hybrid, and the encoder-decoder (whose batches carry ``frames``);
     ``loss_fn`` adds the MoE router's aux loss at ``AUX_LOSS_WEIGHT``.  On
     a ``launch.mesh.ProcessMesh``: DP, ZeRO 1-3, TP and SP per layer group
-    for every family, with expert parallelism (ep > 1) for the moe family;
-    the rest is refused (``check_supported``)."""
+    for every family, with expert parallelism (ep > 1) for the moe family
+    and context parallelism (cp > 1, on the mesh's ``cp`` axis) for the
+    dense family; the rest is refused (``check_supported``)."""
     check_supported(model, plan, mesh)
     hp = HybridParallelModel(model=model, plan=plan, opt_cfg=opt_cfg or opt_lib.AdamWConfig(),
                              mesh=mesh)

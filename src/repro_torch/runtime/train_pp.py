@@ -68,8 +68,8 @@ from repro_torch.runtime.train import (HybridParallelModel, _to_device, check_la
 
 def check_pipeline(model, plan: ExecutionPlan, mesh) -> None:
     """JAX's refusals with its exception types (a ``ValueError`` where JAX
-    asserts), context parallelism naming its Queue 1 item, then the mesh
-    against the plan (``check_layout``)."""
+    asserts), context parallelism (pp x cp) naming its Queue 1 item, then
+    the mesh against the plan (``check_layout``)."""
     cfg = model.cfg
     if plan.pp <= 1:
         raise ValueError(f"PipelineTrainer needs pp > 1, got pp {plan.pp} "
@@ -88,6 +88,11 @@ def check_pipeline(model, plan: ExecutionPlan, mesh) -> None:
         raise ValueError(f"{L} layers do not split into {S} stages x {v} virtual chunks")
     if L % S:
         raise ValueError(f"{L} layers do not split into {S} stages")
+    cp = max(s.cp for s in list(plan.layer_strategies) + [plan.default_strategy])
+    if cp > 1:
+        raise NotImplementedError(
+            f"pipeline with context parallelism (pp {S} x cp {cp}) waits for Queue 1 item "
+            "4's pp x cp entry: construct_hybrid_parallel_model runs cp at pp 1")
     check_layout(model, plan, mesh)         # a plan over pp > 1 devices needs a mesh
     if mesh.shape.get(PIPE_AXIS) != S:
         raise ValueError(f"pp {S} needs a {PIPE_AXIS!r} axis of {S} ranks, mesh {mesh.shape}")

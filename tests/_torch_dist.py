@@ -14,12 +14,15 @@ from the canonical weights, ``value_and_grad`` and one ``train_step`` on
 the global batch, and the results gathered back to the canonical trees;
 they also collect the runtime's refusals and an all-reduce fit, and
 compare a one-rank mesh's steps with ``mesh=None``'s; ``pipeline_cases``
-does the same for ``PipelineTrainer`` under each schedule.
+does the same for ``PipelineTrainer`` under each schedule.  A case may run
+on a (cp, data, model) mesh, and with a context-parallel fault brought in
+(``inject_fault``); ``ring_ops`` runs the cp ring alone.
 ``references`` builds a case and its two single-device references in the
 test process (the only function here that imports JAX).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pathlib
@@ -87,15 +90,16 @@ def _child() -> None:
 # rank side
 # --------------------------------------------------------------------------
 
-def plan_of(arch: str, num_layers: int, mesh_shape, strategies, grad_accum: int = 1):
-    """An ExecutionPlan over ("data", "model") with one strategy per layer
-    (the first is the default, as a uniform plan's)."""
+def plan_of(arch: str, num_layers: int, mesh_shape, strategies, grad_accum: int = 1,
+            axes=("data", "model")):
+    """An ExecutionPlan over ``axes`` with one strategy per layer (the first
+    is the default, as a uniform plan's)."""
     from repro_torch.core.strategy import ExecutionPlan
 
     strategies = list(strategies)
     if len(strategies) == 1:
         strategies = strategies * num_layers
-    return ExecutionPlan(arch=arch, shape="train", mesh_axes=("data", "model"),
+    return ExecutionPlan(arch=arch, shape="train", mesh_axes=tuple(axes),
                          mesh_shape=tuple(mesh_shape), grad_accum=grad_accum,
                          layer_strategies=strategies, default_strategy=strategies[0])
 
@@ -106,7 +110,9 @@ def train_cases(payload: dict) -> dict:
     params) of one ``train_step``, in the case's ``dtype`` (fp32 unless
     given), gathered to canonical trees; at one microbatch, whether
     ``apply_grads`` on those grads gives the step's params bitwise.
-    Rank 0 returns them; the others return None."""
+    Rank 0 returns them; the others return None.  A case may name its own
+    ``mesh`` and ``axes`` (default ``payload["mesh"]`` over ("data",
+    "model")), and a ``fault`` (``inject_fault``)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh
@@ -119,22 +125,32 @@ def train_cases(payload: dict) -> dict:
     if device.type == "cuda":                       # every rank on the one card
         device = torch.device("cuda", device.index or 0)
         torch.cuda.set_device(device)
-    mesh = make_mesh(payload["mesh"], ("data", "model"), device=device,
-                     backend=payload.get("backend"))
+    meshes: dict = {}
+
+    def mesh_of(shape, axes):
+        if (shape, axes) not in meshes:
+            meshes[shape, axes] = make_mesh(shape, axes, device=device,
+                                            backend=payload.get("backend"))
+        return meshes[shape, axes]
+
     out = {}
     for case in payload["cases"]:
         cfg = case["cfg"]
-        plan = plan_of(cfg.name, cfg.num_layers, payload["mesh"], case["strategies"],
-                       case.get("grad_accum", 1))
+        shape = tuple(case.get("mesh", payload.get("mesh")))
+        axes = tuple(case.get("axes", ("data", "model")))
+        mesh = mesh_of(shape, axes)
+        plan = plan_of(cfg.name, cfg.num_layers, shape, case["strategies"],
+                       case.get("grad_accum", 1), axes)
         hp = construct_hybrid_parallel_model(build_model(cfg, device=device), plan, mesh,
                                              payload.get("opt"))
         params = hp.place_params(tree_map(lambda x: x.to(device), case["params"]))
         batch = case["batch"]
         dtype = case.get("dtype", torch.float32)
-        loss, _, grads = hp.value_and_grad(params, batch, dtype)
-        applied, _, _ = hp.apply_grads(params, grads, hp.init_opt_state(params))
-        grads = hp.gather_params(grads, hp.grad_specs)
-        new, _, metrics = hp.train_step(params, hp.init_opt_state(params), batch, dtype)
+        with (inject_fault(hp, case["fault"]) if case.get("fault") else contextlib.nullcontext()):
+            loss, _, grads = hp.value_and_grad(params, batch, dtype)
+            applied, _, _ = hp.apply_grads(params, grads, hp.init_opt_state(params))
+            grads = hp.gather_params(grads, hp.grad_specs)
+            new, _, metrics = hp.train_step(params, hp.init_opt_state(params), batch, dtype)
         # at one microbatch the step is value_and_grad, then apply_grads
         applied_is_step = (all(torch.equal(a, b) for a, b in zip(_flat(applied).values(),
                                                                  _flat(new).values()))
@@ -153,6 +169,79 @@ def train_cases(payload: dict) -> dict:
         if case.get("naive_groups"):
             res["naive_loss"] = naive_groups_loss(hp, params, batch, dtype)
         out[case["name"]] = res if dist.get_rank() == 0 else None
+    return out
+
+
+@contextlib.contextmanager
+def inject_fault(hp, fault: str):
+    """A context-parallel fault, for the tests that must see it: ``"count"``
+    normalises the loss by the valid tokens of the batch axes alone (cp
+    dropped from the count); ``"rope"`` gives RoPE (and the ring's step 0)
+    the shard's local ``arange`` in place of its global positions;
+    ``"contiguous"`` hands each rank a contiguous S/cp block of the tokens
+    and labels, at that block's positions, to the zig-zag ring."""
+    import numpy as np
+
+    from repro_torch.parallel import context
+    from repro_torch.runtime import train as rt
+
+    kept = (rt.softmax_xent, context.zigzag_positions, context.zigzag_shard)
+    if fault == "count":
+        rt.softmax_xent = lambda *a, dp=None, **kw: kept[0](*a, dp=hp._batch_group, **kw)
+    elif fault == "rope":
+        context.zigzag_positions = lambda S, cp, index, device=None: torch.arange(
+            S // cp, dtype=torch.int32, device=device)
+    elif fault == "contiguous":
+        def positions(S, cp, index, device=None):
+            n = S // cp
+            return torch.from_numpy(np.arange(index * n, (index + 1) * n, dtype=np.int32)
+                                    ).to(device)
+
+        def shard(x, dim, index, cp):
+            n = x.shape[dim] // cp
+            return x.narrow(dim, index * n, n).contiguous()
+
+        context.zigzag_positions, context.zigzag_shard = positions, shard
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        rt.softmax_xent, context.zigzag_positions, context.zigzag_shard = kept
+
+
+def ring_ops(payload: dict) -> dict:
+    """On a (cp, 1, 1) mesh of every rank: this rank's zig-zag shard of
+    seeded (B, S, H, hd) q and compact k / v (``payload``: shape, KV,
+    causal) through ``context.ring_attention_local`` (``impl="ref"``) and
+    ``context.positional_ring_local`` (JAX's positional form over
+    ``collectives.ring_shift``): each one's output and its grads at a
+    seeded cotangent, and the hop's bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import context
+
+    cp = dist.get_world_size()
+    mesh = make_mesh((cp, 1, 1), ("cp", "data", "model"), device="cpu")
+    hop = mesh.hop("cp")
+    B, S, H, hd = payload["shape"]
+    gen = torch.Generator().manual_seed(payload.get("seed", 0))
+    q = torch.randn(B, S, H, hd, generator=gen)
+    k, v = (torch.randn(B, S, payload["kv"], hd, generator=gen) for _ in range(2))
+    g = torch.randn(B, S, H, hd, generator=gen)
+    mine = lambda a: context.zigzag_shard(a, 1, hop.stage, cp)
+    pos = context.zigzag_positions(S, cp, hop.stage)
+    out = {}
+    for name, fn in (("half", lambda *a: context.ring_attention_local(
+            *a, pos, causal=payload["causal"], hop=hop, impl="ref")),
+                     ("positional", lambda *a: context.positional_ring_local(
+                         *a, pos, causal=payload["causal"], hop=hop))):
+        qs, ks, vs = (mine(a).requires_grad_() for a in (q, k, v))
+        hop.bytes.update(sent=0, received=0, host_copies=0)
+        y = fn(qs, ks, vs)
+        grads = torch.autograd.grad((y * mine(g)).sum(), (qs, ks, vs))
+        out[name] = {"out": y.detach(), "grads": grads, "bytes": dict(hop.bytes)}
     return out
 
 
@@ -376,8 +465,9 @@ def one_rank_steps(payload: dict) -> dict:
 
 def refusals_and_fit(payload: dict) -> dict:
     """On 2 ranks: the message each refused plan raises (``payload["refused"]``:
-    name -> (arch, mesh shape, strategy, pp[, overrides of the reduced
-    config])), and ``measure_allreduce``."""
+    name -> (arch, mesh shape, strategy or one strategy a layer, pp[,
+    overrides of the reduced config]); a 3-d mesh is (cp, data, model), a
+    2-d one (data, model)), and ``measure_allreduce``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import profiler_hw
     from repro_torch.core.strategy import ExecutionPlan
@@ -389,12 +479,13 @@ def refusals_and_fit(payload: dict) -> dict:
     meshes = {}
     for name, (arch, shape, strategy, pp, *more) in payload["refused"].items():
         cfg = dataclasses.replace(get_config(arch).reduced(), **(more[0] if more else {}))
+        axes = ("cp", "data", "model") if len(shape) == 3 else ("data", "model")
         if shape not in meshes:
-            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
-        plan = ExecutionPlan(arch=arch, shape="train", mesh_axes=("data", "model"),
-                             mesh_shape=shape, pp=pp,
-                             layer_strategies=[strategy] * cfg.num_layers,
-                             default_strategy=strategy)
+            meshes[shape] = make_mesh(shape, axes, device="cpu")
+        layers = strategy if isinstance(strategy, list) else [strategy] * cfg.num_layers
+        plan = ExecutionPlan(arch=arch, shape="train", mesh_axes=axes,
+                             mesh_shape=shape, pp=pp, layer_strategies=layers,
+                             default_strategy=layers[0])
         try:
             construct_hybrid_parallel_model(build_model(cfg, device="cpu"), plan,
                                             meshes[shape])
@@ -464,7 +555,8 @@ def references(name: str, arch: str, strategies, grad_accum: int = 1, batch: int
               **{k: torch.from_numpy(v) for k, v in side.items()}}
     opt = AdamWConfig(eps=eps)
     plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
-                        dataclasses.replace(strategies[0], tp=1, sp=False, zero=0, ep=1),
+                        dataclasses.replace(strategies[0], tp=1, sp=False, zero=0, ep=1,
+                                            cp=1),
                         grad_accum=grad_accum)
     hp = construct_hybrid_parallel_model(build_model(cfg, device="cpu"), plan, None, opt)
     loss, _, grads = hp.value_and_grad(params, tbatch, torch.float32)

@@ -8,8 +8,10 @@ the planner's block measurement (its forward, grad and full-remat grad
 graphed, against the eager steps) and a calibration fitted from it; the
 parallel runtime on a one-rank NCCL mesh (bitwise the single-device step:
 dense, MoE, mamba2, whisper) and on two gloo ranks sharing the card (tp 2
-+ sp against one rank; two pipeline stages against one rank); K2's split-row form against its plain passes and
-the whole-row K2.
++ sp against one rank; two pipeline stages against one rank; two ranks of
+the cp ring against one rank); K2's split-row form against its plain
+passes and the whole-row K2; the cp ring's K1 partials at zig-zag shapes
+and its hand-written backward against autograd through the plain ring.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -1627,3 +1629,99 @@ def test_cuda_exchange_is_a_plain_gather_on_gloo_ranks_sharing_the_card(cuda_dev
     for rank in got:
         for dtype, res in rank.items():
             assert res["rows"] and res["grad"] and res["padding"] == 0.0, (dtype, res)
+
+
+# ---------------------------------------------------------------- context parallelism
+
+@pytest.mark.parametrize("S,cp", [(1024, 2), (768, 4)])
+def test_cuda_ring_k1_partials_at_zigzag_shapes(cuda_device, S, cp):
+    """The K1 calls of a rank's cp ring (parallel/context.py) at two small
+    zig-zag shapes, llama's heads (32 over 8, hd 64): step 0 causal at the
+    rank's zig-zag positions, a later step non-causal over the whole shard
+    and an early chunk, or the late chunk over a whole shard; each against
+    the plain version with residuals (fp32 1e-4, bf16 3e-2, m and l 1e-5)."""
+    from repro_torch.parallel import context
+
+    Sl = S // cp
+    g = torch.Generator(device=cuda_device).manual_seed(S + cp)
+    for index in range(cp):
+        pos = context.zigzag_positions(S, cp, index, cuda_device)
+        for Sq, Sk, causal in ((Sl, Sl, True), (Sl, Sl // 2, False), (Sl // 2, Sl, False)):
+            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+                q = torch.randn((1, Sq, 32, 64), generator=g, device=cuda_device).to(dtype)
+                k, v = (torch.randn((1, Sk, 8, 64), generator=g, device=cuda_device).to(dtype)
+                        for _ in range(2))
+                kw = dict(causal=causal, q_pos=pos if causal else None,
+                          k_pos=pos if causal else None)
+                out, m, l = flash_ops.flash_attention_fwd(q, k, v, return_residuals=True, **kw)
+                ref, rm, rl = flash_ref.flash_attention_fwd(q, k, v, return_residuals=True,
+                                                            **kw)
+                torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+                torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
+                torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_autograd_ring_grads_match_the_plain_serial_ring(cuda_device, cp, causal):
+    """Every rank's half-block ring on K1 partials in one process
+    (``ring_attention(use_flash=True)``, its hand-written backward going
+    round the ring again) against ``torch.autograd.grad`` through the plain
+    serial ring, fp32 (3e-4, JAX's grad tolerance), compact K/V at g = 4;
+    K1 runs cp times a rank."""
+    from repro_torch.parallel import context
+
+    g = torch.Generator(device=cuda_device).manual_seed(cp + 10 * causal)
+    B, S, H, KV, hd = 2, 512, 8, 2, 64
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda_device)
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=cuda_device) for _ in range(2))
+    w = torch.randn((B, S, H, hd), generator=g, device=cuda_device)
+    runs = []
+    for use_flash in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n = flash_ops.flash_attention_fwd.launches
+        out = context.ring_attention(*leaves, causal=causal, cp=cp, use_flash=use_flash)
+        if use_flash:
+            assert flash_ops.flash_attention_fwd.launches == n + cp * cp
+        runs.append((out, torch.autograd.grad((out * w).sum(), leaves)))
+    (out, grads), (ref, ref_grads) = runs
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, atol=3e-4, rtol=3e-4)
+
+
+def test_cuda_two_gloo_ranks_cp2_hold_to_one_rank(cuda_device, tmp_path):
+    """Two ranks of the cp ring on the one card over gloo (each hop through
+    pinned host buffers), reduced llama on (cp 2, data 1, model 1), ZeRO-1,
+    fp32: one ``train_step`` through K1's ring partials and K2 against one
+    rank's ``mesh=None`` step on the same weights and batch: the loss
+    within 1e-4 relative, every updated param within 2e-3 of its leaf's
+    update scale (AdamW eps 1e-4)."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist_helpers", pathlib.Path(__file__).with_name("_torch_dist.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    cfg = get_config("llama3.2-1b").reduced()
+    opt_cfg = AdamWConfig(eps=1e-4)
+    batch = SyntheticDataset(cfg, 256, 4, seed=5).batch(0)
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    plan = uniform_plan(cfg.name, "t", (1,), ("data",), cfg.num_layers, LayerStrategy())
+    hp = construct_hybrid_parallel_model(build_model(cfg), plan, None, opt_cfg)
+    live = tree_map(lambda x: x.to(cuda_device), params)
+    new, _, m = hp.train_step(live, hp.init_opt_state(live), batch, torch.float32)
+    case = dict(name="cp2", cfg=cfg, strategies=[LayerStrategy(cp=2, zero=1)], params=params,
+                batch=batch, mesh=(2, 1, 1), axes=("cp", "data", "model"))
+    payload = {"cases": [case], "opt": opt_cfg, "device": "cuda", "backend": "gloo"}
+    got = helpers.run_ranks(2, "train_cases", payload, tmp_path)[0]["cp2"]
+    np.testing.assert_allclose(got["step_loss"], float(m["loss"]), rtol=1e-4)
+    ref, init = dict(tree_paths(new)), dict(tree_paths(params))
+    for path, a in tree_paths(got["new"]):
+        want = ref[path].cpu() - init[path]
+        err = float((a - ref[path].cpu()).abs().max())
+        assert err <= 2e-3 * float(want.abs().max()), (path, err)

@@ -5,7 +5,8 @@ sequence), mamba2 at dp 4 with ZeRO-1 and ``full`` remat (K3's plain
 version under the runner), and whisper at dp 4 with ZeRO-2 (its ``frames``
 split with the batch), each on four ranks against the port's single-device
 step and JAX's ``value_and_grad``.  Then, on two ranks: the runtime's
-refusals of context parallelism, naming its Queue 1 item, its errors for plans that are not
+refusals of context parallelism (a plan mixing cp = 1 and cp > 1, naming its Queue 1
+item, and cp on mamba2, which JAX's verifier rejects too), its errors for plans that are not
 valid (ep on a family with no experts, a tp whose ranks' SSM heads
 straddle B/C groups), and ``measure_allreduce``'s fit;
 and the launcher under ``torchrun`` on four CPU ranks, which searches a
@@ -31,12 +32,15 @@ CASES = {
     "whisper_dp4_zero2": ("whisper-tiny", [LayerStrategy(zero=2)], 1),
 }
 
-# pipelined plans (pp > 1) run: tests/test_torch_parallel_pp.py
+# pipelined plans (pp > 1) run: tests/test_torch_parallel_pp.py; dense
+# plans with cp > 1: tests/test_torch_parallel_cp.py.  The last entry of
+# each names the Queue 1 item its message must name, or None where JAX
+# refuses the plan too (cp on a family other than dense: GALV031)
 REFUSED = {
-    "mamba2_cp2": ("mamba2-2.7b", (2, 1), LayerStrategy(cp=2), 1,
-                   "NotImplementedError", "context PR"),
-    "llama_cp2": ("llama3.2-1b", (2, 1), LayerStrategy(cp=2), 1,
-                  "NotImplementedError", "context PR"),
+    "mamba2_cp2": ("mamba2-2.7b", (2, 1, 1), LayerStrategy(cp=2), 1,
+                   "ValueError", "GALV031", None),
+    "llama_cp2": ("llama3.2-1b", (2, 1, 1), [LayerStrategy(cp=2), LayerStrategy()], 1,
+                  "NotImplementedError", "mixing cp = 1 and cp > 1", "Queue 1 item 4"),
 }
 
 
@@ -83,10 +87,10 @@ def test_sharded_grads_match_jax_value_and_grad(results, name):
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_runtime_refuses_what_later_items_bring(two_ranks, name):
-    kind, words = REFUSED[name][4:]
+    kind, words, item = REFUSED[name][4:]
     got = two_ranks[name]
     assert got is not None, name
-    assert got[0] == kind and words in got[1] and "Queue 1 item 4" in got[1], got
+    assert got[0] == kind and words in got[1] and (item is None or item in got[1]), got
 
 
 @pytest.mark.parametrize("name", list(INVALID))

@@ -214,7 +214,7 @@ def test_refusals_keep_jaxs_exception_types(name):
 
 def test_refusals_of_cp_pp1_and_no_mesh():
     cfg, plan, _, _ = _plans("llama3.2-1b", LayerStrategy(cp=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4's context PR"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4's pp x cp entry"):
         PipelineTrainer(build_model(cfg, device="cpu"), plan, None)
     cfg, plan, _, _ = _plans("llama3.2-1b", LayerStrategy())
     with pytest.raises(ValueError, match="needs a mesh"):

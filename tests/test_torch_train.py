@@ -372,6 +372,10 @@ def test_entry_points_refuse_what_one_device_cannot_run(pair):
     dp2 = uniform_plan(cfg.name, "train_4k", (2,), ("data",), cfg.num_layers, LayerStrategy())
     with pytest.raises(ValueError, match="needs a mesh"):
         ttrain.construct_hybrid_parallel_model(pair["tm"], dp2)
+    cp2 = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
+                       LayerStrategy(cp=2))
+    with pytest.raises(ValueError, match="cp up to 2 needs a mesh"):
+        ttrain.construct_hybrid_parallel_model(pair["tm"], cp2)
     pp2 = uniform_plan(cfg.name, "train_4k", (1,), ("data",), cfg.num_layers,
                        LayerStrategy(), pp=2)
     with pytest.raises(NotImplementedError, match="runtime.train_pp.PipelineTrainer"):
