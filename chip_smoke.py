@@ -33,7 +33,9 @@ Phases (any failure exits non-zero and prints no result line):
    moonshot at B1 S4096 H16 under ep 2 and dp 2, B2 S4096 H8 under tp 2;
    phase 29: a cp rank's ring at llama3.2-1b-long's heads, step 0 causal
    B1 S8192 at rank 0's zig-zag positions of 16 384, the later steps
-   non-causal B1 Sq8192 Sk4096 and Sq4096 Sk8192): fp32 1e-4,
+   non-causal B1 Sq8192 Sk4096 and Sq4096 Sk8192; phase 30: the same ring
+   inside a pipeline stage at S 8 192, step 0 causal B1 S4096, later steps
+   B1 Sq4096 Sk2048 and Sq2048 Sk4096): fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
    holds rows over thousands of keys, whose values are ~1e-2; the llama
@@ -136,8 +138,9 @@ Phases (any failure exits non-zero and prints no result line):
    sites and a trailing Mamba layer);
 10. train — full-width llama3.2-1b (16 layers, random fp32 master weights
    from seed 0) through ``construct_hybrid_parallel_model(model, plan)
-   .train_step``: 3 steps of 8 x 4096 tokens in 4 microbatches under each
-   remat policy (selective, full, none), fresh state each; losses (finite,
+   .train_step``: 8 x 4096 tokens a step in 4 microbatches under each
+   remat policy, fresh state each: 3 steps of selective, 2 of full and of
+   none (3 until phase 30 came); losses (finite,
    the first within 1 of ln V), grad norms, median step time, tokens/s,
    peak memory and MFU against the model FLOPs the script reckons; K1, K2
    and K2-backward launches per step pinned (``TRAIN_LAUNCHES``: the
@@ -277,7 +280,8 @@ Phases (any failure exits non-zero and prints no result line):
    refuses two ranks on one device, so they join over gloo (a
    ``FileStore``), each a ``chip_smoke.py --parallel-rank`` process that
    loads the library the parent built, on the mesh ``train_mesh_spec(2)``
-   = (data 1, model 2); each trains 2 steps of 4 x 4096 tokens (bf16
+   = (data 1, model 2); each trains 1 step (2 until phase 30 came) of
+   4 x 4096 tokens (bf16
    compute, fp32 masters) under (a) tp 2 + sp, ZeRO-1, selective, (b) tp 1
    (dp 2 through the absorbed model axis), ZeRO-3, selective, (c) the
    search's plan for a 2-card H100 cluster at half a card per rank; the
@@ -295,7 +299,8 @@ Phases (any failure exits non-zero and prints no result line):
    the card over gloo (``chip_smoke.py --moe-parallel-rank``, as phase 25):
    first the routing of 8 192 seeded fp32 router logits split over the
    ranks (``moe.distributed_slots`` from the all-gathered counts) against
-   one rank's ``assign_slots``, integer-exact; then 2 steps of 4 x 4096 in
+   one rank's ``assign_slots``, integer-exact; then 1 step (2 until phase
+   30 came) of 4 x 4096 in
    2 microbatches (bf16 compute, fp32 masters; C = 960 a global
    microbatch) under (a) (data 2, model 1), ep 2, ZeRO-1, selective (the
    expert exchange), (b) (1, 2), tp 2 + sp, ZeRO-1, selective, (c) (1, 2),
@@ -312,7 +317,8 @@ Phases (any failure exits non-zero and prints no result line):
 27. tensor parallelism in the SSM, hybrid and audio families (run after
    phase 26, before the results) — two ranks sharing the card over gloo
    (``chip_smoke.py --ssm-parallel-rank``, as phase 25) on mesh (data 1,
-   model 2), 2 steps each in 2 microbatches (bf16 compute, fp32 masters):
+   model 2), 1 step each (2 until phase 30 came) in 2 microbatches (bf16
+   compute, fp32 masters):
    (a) mamba2-2.7b at full width cut to 4 layers, tp 2 without SP, ZeRO-1,
    selective, 4 x 2048 a step (K3 at 40 heads, the split K2 at 2560 of
    5120 columns); (b) zamba2-7b at full width cut to 6 layers (one
@@ -333,7 +339,8 @@ Phases (any failure exits non-zero and prints no result line):
    pipeline stages sharing the card over gloo (``chip_smoke.py --pp-rank``,
    as phase 25; every hop staged through pinned host buffers) on
    ``train_mesh_spec(2, pp=2)`` = (pod 2, data 1, model 1), through
-   ``runtime.train_pp.PipelineTrainer``, 2 steps each of 8 sequences in 4
+   ``runtime.train_pp.PipelineTrainer``, 1 step each (2 until phase 30
+   came) of 8 sequences in 4
    microbatches (bf16 compute, fp32 masters, ``selective``): llama3.2-1b
    at full width cut to 4 layers (``PP_LAYERS``), 8 x 4096, under (a)
    gpipe, (b) 1f1b (2 windows of 2), (c) interleaved v 2 (stage 0 holds
@@ -354,7 +361,8 @@ Phases (any failure exits non-zero and prints no result line):
    --cp-rank``, as phase 25; every hop staged through pinned host buffers)
    on ``train_mesh_spec(2, cp=2)`` = (cp 2, data 1, model 1), through
    ``construct_hybrid_parallel_model``: llama3.2-1b-long at full width cut
-   to 2 layers (``CP_LAYERS``), 2 steps of 2 x 16 384 tokens in 2
+   to 2 layers (``CP_LAYERS``), 1 step (2 until phase 30 came) of 2 x
+   16 384 tokens in 2
    microbatches (each rank a microbatch's zig-zag half, 8 192 tokens; 32 768
    would double each rank's fp32 head), bf16 compute, fp32 masters, ZeRO-1
    (states over dp·cp), ``selective``; the losses within 5e-2 of one rank's
@@ -369,18 +377,47 @@ Phases (any failure exits non-zero and prints no result line):
    2e-3 of its leaf's scale.  Paid for by cuts in depth (phase 21's mamba2
    from 16 to 8 layers, phase 25's llama from 4 to 2) and of three fp32
    repeats (phase 25's (c), phase 26's (c), phase 28's (b));
+30. pipeline x context parallelism (run after phase 29, before the
+   results) — four ranks sharing the card over gloo (``chip_smoke.py
+   --ppcp-rank``, as phase 25; every hop staged through pinned host
+   buffers) on ``train_mesh_spec(4, pp=2, cp=2)`` = (pod 2, cp 2, data 1,
+   model 1), through ``runtime.train_pp.PipelineTrainer`` with the cp ring
+   inside every stage: llama3.2-1b-long at full width cut to 4 layers
+   (``PPCP_LAYERS``; 2 a stage), 2 steps of 4 x 8 192 tokens in 4
+   microbatches (each rank a microbatch's zig-zag half, 4 096 tokens: two
+   last-stage ranks each hold one microbatch's fp32 head), bf16 compute,
+   fp32 masters, ZeRO-1 (states over dp·cp), ``selective``, under (e)
+   1f1b (2 windows of 2) and (f) interleaved v 2 (stage 0 holds layers 0
+   and 2); the losses within 5e-2 of one rank's full-batch loss on the
+   same seed-0 weights and batches (computed before the ranks train, and
+   freed), each rank's K1 / K2 / K2-backward launches a step pinned
+   (``ppcp_launches``: K1 once a ring step in the forward and the
+   recompute, 32 a rank), the shapes K1 sees (phase 3's
+   ``pipeline_context`` rows), ``max_in_flight`` at most 2, the ring's
+   bytes a step and the stage hop's boundary bytes, which must be the cost
+   model's ``pipeline_boundary_bytes`` (32 MiB a microbatch a hop) times
+   the hops (``ppcp_boundary_bytes``); peaks per rank and their sum
+   against the card, step times (gloo, no interconnect) and collectives
+   logged; then (e) in fp32 at 4 x 512 against one rank's
+   ``value_and_grad`` at grad_accum 1: the loss within 1e-4 relative,
+   every grad's shards within 2e-3 of its leaf's scale.  Paid for by cuts
+   in steps: phases 25-29 run one step a plan or case where they ran two
+   (``PAR_STEPS``, ``PP_STEPS``, ``CP_STEPS``), phase 10's full and none
+   policies two where they ran three (``TRAIN_POLICY_STEPS``);
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated``,
    ``rmsnorm_bwd``, ``rmsnorm_split_fwd`` and ``rmsnorm_split_bwd`` rows for
    K2, ``ssd`` and ``ssd_autograd`` for K3; a row phase 28's stages also
    run stands again for each ``pipeline_*`` path with its launches; the
    ring's K1 rows under the path ``context_parallel``, with phase 29's
-   launches), then the device line last.
+   launches, and under ``pipeline_context``, with phase 30's), then the
+   device line last.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -602,7 +639,8 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     rank's in phase 27: zamba2's shared block at 16 heads (b), whisper's
     encoder, cross- and self-attention at 3 heads over 32 windows (c); a
     rank's three K1 calls in phase 29's cp ring (``cp_ring_rows``), the
-    causal one at the rank's zig-zag positions."""
+    causal one at the rank's zig-zag positions, and in phase 30's ring
+    inside a pipeline stage (path ``pipeline_context``)."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -760,6 +798,16 @@ def check_flash(torch, flash_ops, flash_ref, gen):
         if causal:
             c["q_pos"] = c["k_pos"] = zigzag_positions(CP_SEQ, CP_MESH[0][0], 0, "cuda")
         cases.append((f"context parallel {what} B{B} Sq{Sq} Sk{Sk} H32 KV8 hd64 bfloat16",
+                      True, c))
+    # phase 30: a rank's K1 calls in the ring inside a pipeline stage, step 0
+    # at rank 0's zig-zag positions over the 8 192-token sequence
+    for B, Sq, Sk, causal in cp_ring_rows(PPCP_SEQ, PPCP_BATCH // PPCP_ACCUM):
+        c = flash_case(torch, gen, B=B, Sq=Sq, Sk=Sk, H=32, KV=8, hd=64, dtype=torch.bfloat16,
+                       causal=causal, path="pipeline_context")
+        what = "step 0 causal at zig-zag positions" if causal else "later step non-causal"
+        if causal:
+            c["q_pos"] = c["k_pos"] = zigzag_positions(PPCP_SEQ, PPCP_MESH[0][1], 0, "cuda")
+        cases.append((f"pipeline context {what} B{B} Sq{Sq} Sk{Sk} H32 KV8 hd64 bfloat16",
                       True, c))
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
@@ -2002,6 +2050,9 @@ def parity_step_engine(torch, np, serving, build_model, small_cfg, engine, param
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 8, 4, 3
 TRAIN_POLICIES = ("selective", "full", "none")
+#: steps under each policy: selective's TRAIN_STEPS give phase 11 its
+#: median and spread; full and none took 3 until phase 30 came
+TRAIN_POLICY_STEPS = {"selective": TRAIN_STEPS, "full": 2, "none": 2}
 
 
 def train_launches(layers: int, policy: str, accum: int = TRAIN_ACCUM) -> dict:
@@ -2293,8 +2344,8 @@ def train_phase(torch, counters) -> tuple[dict, float]:
         f"{flops / PEAK_FLOPS['bfloat16']:.4f} s")
     launches = selective = None
     for policy in TRAIN_POLICIES:
-        record, (hp, params, opt, ds) = train_policy(torch, counters, policy, TRAIN_STEPS,
-                                                     flops)
+        record, (hp, params, opt, ds) = train_policy(torch, counters, policy,
+                                                     TRAIN_POLICY_STEPS[policy], flops)
         if policy == "selective":
             launches = record["launches"]
             selective = record["times"]
@@ -3365,7 +3416,9 @@ def allocator_report(torch, label: str) -> None:
 # 25. the parallel runtime: two ranks sharing the card over gloo
 # --------------------------------------------------------------------------
 
-PAR_SEQ, PAR_BATCH, PAR_ACCUM, PAR_STEPS = 4096, 4, 2, 2
+#: one step a plan in phases 25-27 (2 until phase 30 came: the run's time
+#: limit; phase 25's fp32 check holds the sharded update)
+PAR_SEQ, PAR_BATCH, PAR_ACCUM, PAR_STEPS = 4096, 4, 2, 1
 #: llama3.2-1b at full width cut to 2 of its 16 layers, to keep the whole
 #: run inside its time limit on a slow host (4 from phase 27's arrival, 2
 #: since phase 29's)
@@ -4452,8 +4505,9 @@ def ssm_parallel_phase(torch) -> dict:
 # --------------------------------------------------------------------------
 
 #: llama3.2-1b and mamba2-2.7b at full width cut to 4 layers (2 a stage),
-#: 8 sequences a step in 4 microbatches of 2, 2 steps a case
-PP_LAYERS, PP_BATCH, PP_ACCUM, PP_STEPS = 4, 8, 4, 2
+#: 8 sequences a step in 4 microbatches of 2, 1 step a case (2 until phase
+#: 30 came, whose two steps hold a staged update)
+PP_LAYERS, PP_BATCH, PP_ACCUM, PP_STEPS = 4, 8, 4, 1
 PP_MESH = ((2, 1, 1), ("pod", "data", "model"))   # launch.mesh.train_mesh_spec(2, pp=2)
 PP_FP32_SEQ = 256              # the fp32 checks: 8 x 256 a step, grad_accum 4
 #: the cases checked again in fp32: (b)'s repeat (1f1b, whose grads the CPU
@@ -4796,22 +4850,21 @@ def pipeline_phase(torch) -> dict:
 #: llama3.2-1b-long (the config that exists for cp) at full width cut to 2
 #: layers, 2 sequences of 16 384 tokens a step in 2 microbatches of 1 (each
 #: rank 8 192 tokens of each: train_32k's 32 768 would double each rank's
-#: fp32 head), 2 steps
+#: fp32 head), 1 step (2 until phase 30 came)
 CP_ARCH = "llama3.2-1b-long"
-CP_LAYERS, CP_SEQ, CP_BATCH, CP_ACCUM, CP_STEPS = 2, 16384, 2, 2, 2
+CP_LAYERS, CP_SEQ, CP_BATCH, CP_ACCUM, CP_STEPS = 2, 16384, 2, 2, 1
 CP_MESH = ((2, 1, 1), ("cp", "data", "model"))     # launch.mesh.train_mesh_spec(2, cp=2)
 CP_FP32_SEQ = 1024             # the fp32 checks: 2 x 1024, one microbatch
 
 
-def cp_ring_rows() -> list:
-    """(batch, Sq, Sk, causal) of each K1 call of a phase 29 rank's ring: step
-    0, causal at the rank's zig-zag positions over its 8 192 tokens; a
-    later step non-causal, the whole shard against an earlier rank's early
-    chunk (8 192 x 4 096) or the late chunk against a later rank's whole
-    shard (4 096 x 8 192)."""
-    cp = CP_MESH[0][0]
-    Sl = CP_SEQ // cp
-    mb = CP_BATCH // CP_ACCUM
+def cp_ring_rows(seq: int = CP_SEQ, mb: int = CP_BATCH // CP_ACCUM, cp: int = 2) -> list:
+    """(batch, Sq, Sk, causal) of each K1 call of a cp 2 rank's ring over
+    microbatches of ``mb`` sequences of ``seq`` tokens (phase 29's by
+    default: 8 192 tokens a rank): step 0, causal at the rank's zig-zag
+    positions over its shard; a later step non-causal, the whole shard
+    against an earlier rank's early chunk (8 192 x 4 096) or the late chunk
+    against a later rank's whole shard (4 096 x 8 192)."""
+    Sl = seq // cp
     return [(mb, Sl, Sl, True), (mb, Sl, Sl // 2, False), (mb, Sl // 2, Sl, False)]
 
 
@@ -4843,16 +4896,17 @@ def cp_launches(plan, layers: int) -> dict:
     return out
 
 
-def cp_ring_bytes(cfg, plan, seq: int, batch: int) -> int:
-    """The bytes a rank's ring sends a step: per layer and microbatch its
-    bf16 K and V block once in the forward and once in the recompute, then
-    in the backward K and V with their fp32 dk / dv, and the dk / dv home
-    (cp = 2: one hop each)."""
+def cp_ring_bytes(cfg, plan, seq: int, batch: int, layers=None) -> int:
+    """The bytes a rank's ring sends a step: per layer it runs (``layers``,
+    all of ``cfg``'s by default) and microbatch its bf16 K and V block once
+    in the forward and once in the recompute, then in the backward K and V
+    with their fp32 dk / dv, and the dk / dv home (cp = 2: one hop each)."""
     cp = plan.default_strategy.cp
-    kv = (batch // plan.grad_accum) * (seq // cp) * cfg.num_kv_heads * cfg.resolved_head_dim
+    M = max(plan.grad_accum, plan.pp)
+    kv = (batch // M) * (seq // cp) * cfg.num_kv_heads * cfg.resolved_head_dim
     hops = cp - 1
     per = hops * (2 * 2 * kv + 2 * 2 * kv + (2 * 2 * kv + 2 * 4 * kv)) + 2 * 4 * kv
-    return plan.grad_accum * cfg.num_layers * per
+    return M * (cfg.num_layers if layers is None else layers) * per
 
 
 def cp_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
@@ -5096,6 +5150,350 @@ def cp_phase(torch) -> dict:
             for k in runs[0]["launches"][-1]}
 
 
+# --------------------------------------------------------------------------
+# 30. pipeline x context parallelism: four ranks sharing the card
+# --------------------------------------------------------------------------
+
+#: llama3.2-1b-long at full width cut to 4 layers (2 a stage; interleaved
+#: v 2 needs L % 4 == 0), 4 sequences of 8 192 tokens a step in 4
+#: microbatches of 1 (each rank a microbatch's zig-zag half, 4 096 tokens:
+#: a last-stage rank holds one microbatch's fp32 head at that length, and
+#: two of them share the card with two first-stage ranks), 2 steps a case
+PPCP_LAYERS, PPCP_SEQ, PPCP_BATCH, PPCP_ACCUM, PPCP_STEPS = 4, 8192, 4, 4, 2
+#: launch.mesh.train_mesh_spec(4, pp=2, cp=2)
+PPCP_MESH = ((2, 2, 1, 1), ("pod", "cp", "data", "model"))
+PPCP_FP32_SEQ = 512            # the fp32 check of case (e): 4 x 512, grad_accum 4
+
+
+def ppcp_cases() -> dict:
+    """label -> (schedule, interleave, what): (e) 1f1b in two windows of 2,
+    (f) interleaved v 2 (stage 0 holds layers 0 and 2); both ZeRO-1 (states
+    over dp·cp) and ``selective``."""
+    return {"e": ("1f1b", 1, "1f1b (2 windows of 2)"),
+            "f": ("interleaved", 2, "interleaved v 2 (stage 0: layers 0 and 2)")}
+
+
+def ppcp_config():
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(CP_ARCH), num_layers=PPCP_LAYERS)
+
+
+def ppcp_plan(cfg, schedule: str, interleave: int):
+    """A phase 30 plan on ``PPCP_MESH``: pp 2 under ``schedule``, cp 2,
+    ZeRO-1, ``selective``, grad_accum ``PPCP_ACCUM``."""
+    from repro_torch.core.strategy import ExecutionPlan, LayerStrategy
+
+    shape, axes = PPCP_MESH
+    strategy = LayerStrategy(cp=shape[1], zero=1, remat="selective")
+    return ExecutionPlan(arch=cfg.name, shape="train", mesh_axes=axes, mesh_shape=shape,
+                         pp=shape[0], pp_schedule=schedule, pp_interleave=interleave,
+                         grad_accum=PPCP_ACCUM, layer_strategies=[strategy] * cfg.num_layers,
+                         default_strategy=strategy)
+
+
+def ppcp_launches(cfg, plan, stage: int) -> dict:
+    """Kernel launches per step of one rank: its stage's (``pp_launches``:
+    its layers' K2 twice and again in the recompute, K2's backward, the
+    final norm on the last stage, each microbatch) with K1 once for each
+    of the ring's cp steps, in the forward and again in the recompute."""
+    out = pp_launches(cfg, plan, stage)
+    out["flash_attention_fwd"] *= plan.default_strategy.cp
+    return out
+
+
+def ppcp_boundary_bytes(cfg, plan) -> tuple[int, int]:
+    """(the cost model's bytes of one microbatch's boundary block a rank,
+    the bytes a rank's stage hop sends a step, and receives): each
+    microbatch crosses S·v - 1 chunk boundaries forward and as many back,
+    each a send on one stage, shared evenly by the S stages (S = 2: a
+    rank sends and receives one block a microbatch under 1f1b, three
+    under interleaved v 2)."""
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.cluster import H100_NODE8
+    from repro_torch.core.profiler_model import profile_model
+
+    S = plan.pp
+    v = plan.pp_interleave if plan.pp_schedule == "interleaved" else 1
+    M = max(plan.grad_accum, S)
+    devices = math.prod(plan.mesh_shape) // S
+    env = cm.CostEnv(cluster=H100_NODE8, devices=devices, pp=S, micro_batch=PPCP_BATCH // M,
+                     grad_accum=M, pp_schedule=plan.pp_schedule, pp_interleave=v)
+    block = int(cm.pipeline_boundary_bytes(profile_model(cfg, PPCP_SEQ), env,
+                                           plan.default_strategy))
+    return block, block * M * 2 * (S * v - 1) // S
+
+
+def ppcp_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
+    """One rank of phase 30 (``chip_smoke.py --ppcp-rank RANK WORLD DIR``):
+    device 0, gloo over a ``FileStore`` in DIR; once DIR/payload.json is
+    there (the parent's oracle done), each case of ``ppcp_cases`` trained
+    ``PPCP_STEPS`` steps through ``PipelineTrainer`` (losses, times,
+    launches, the K1 calls' shapes, ``max_in_flight``, the stage hop's and
+    the ring's bytes a step, the collectives by name, peak); then case (e)
+    in fp32 at ``PPCP_FP32_SEQ``: ``value_and_grad`` on the same seed-0
+    weights, its grad shards against the same shards of the parent's
+    one-rank grads; writes its record to DIR."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.parallel import context
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train_pp import PipelineTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    used = collections.Counter()
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        def counted(out, *a, _run=getattr(dist, name), _name=name, **kw):
+            used[f"{_name} {out.device.type} {str(out.dtype).split('.')[-1]}"] += 1
+            return _run(out, *a, **kw)
+        setattr(dist, name, counted)
+    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    seen = set()                 # the shapes of the ring's K1 calls
+    step_partial = context._flash_partial
+
+    def recorded(impl):
+        partial = step_partial(impl)
+
+        def call(q, k, v, causal, pos=None):
+            seen.add((q.shape[0], q.shape[1], k.shape[1], bool(causal)))
+            return partial(q, k, v, causal, pos)
+        return call
+
+    context._flash_partial = recorded
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(*PPCP_MESH, device=dev, backend="gloo")
+    ring = mesh.hop("cp")
+    cfg = ppcp_config()
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    record = {"runs": {}, "ready": time.perf_counter() - T_START, "index": ring.stage}
+    while not (tmp / "payload.json").is_file():     # the parent's oracle runs meanwhile
+        time.sleep(0.05)
+    for label, (schedule, v, _) in ppcp_cases().items():
+        t_case = time.perf_counter()
+        ds = SyntheticDataset(cfg, seq_len=PPCP_SEQ, global_batch=PPCP_BATCH, seed=0)
+        tr = PipelineTrainer(build_model(cfg), ppcp_plan(cfg, schedule, v), mesh)
+        params = tr.init_params(gen())
+        opt = tr.init_opt_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        used.clear()
+        seen.clear()
+        run = {"losses": [], "grad_norms": [], "times": [], "launches": [], "in_flight": [],
+               "hop": [], "ring": []}
+        for step in range(PPCP_STEPS):
+            b = ds.batch(step)
+            zero_counts(counters)
+            for hop in (tr.hop, ring):
+                hop.bytes.update(sent=0, received=0, host_copies=0)
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, m = tr.train_step(params, opt, b)
+            torch.cuda.synchronize()
+            run["times"].append(time.perf_counter() - t0)
+            run["launches"].append(read_counts(counters))
+            run["hop"].append(dict(tr.hop.bytes))
+            run["ring"].append(dict(ring.bytes))
+            run["losses"].append(float(m["loss"]))
+            run["grad_norms"].append(float(m["grad_norm"]))
+            run["in_flight"].append(tr.max_in_flight)
+        run.update(peak=torch.cuda.max_memory_allocated(), ops=dict(used), stage=tr.stage,
+                   k1=sorted(list(x) for x in seen), seconds=time.perf_counter() - t_case)
+        record["runs"][label] = run
+        del tr, params, opt, m, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_fp32 = time.perf_counter()
+    batch = SyntheticDataset(cfg, seq_len=PPCP_FP32_SEQ, global_batch=PPCP_BATCH,
+                             seed=0).batch(0)
+    ref = torch.load(tmp / "fp32.pt", map_location=dev)
+    schedule, v, _ = ppcp_cases()["e"]
+    tr = PipelineTrainer(build_model(cfg), ppcp_plan(cfg, schedule, v), mesh)
+    loss, _, grads = tr.value_and_grad(tr.init_params(gen()), batch, torch.float32)
+    errs = []
+    for g, rg, spec in zip(tree_leaves(grads), tree_leaves(tr.group(ref["grads"])),
+                           tree_leaves(tr.grad_specs)):
+        mine = shd.shard_leaf(rg, spec, mesh)
+        errs.append(float((g - mine).abs().max()) / max(float(rg.abs().max()), 1e-30))
+    worst = torch.tensor(errs, device=dev)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    i = int(worst.argmax())
+    record["fp32"] = {"loss": float(loss), "ref_loss": float(ref["loss"]),
+                      "grad_err": float(worst[i]),
+                      "grad_err_leaf": ".".join(tree_paths(grads)[i][0]),
+                      "seconds": time.perf_counter() - t_fp32}
+    (tmp / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def ppcp_phase(torch) -> dict:
+    """Phase 30: ``PipelineTrainer`` on ``PPCP_MESH``, four ranks sharing the
+    card over gloo (``chip_smoke.py --ppcp-rank``; every hop staged through
+    pinned host buffers), two stages each running the cp ring, held to one
+    rank's full-batch loss on the same seed-0 weights and batches, computed
+    here before the ranks train and freed (``mesh=None`` at the same 4
+    microbatches): bf16 losses within ``PAR_LOSS_TOL``; case (e) in fp32 at
+    ``PPCP_FP32_SEQ`` the loss within ``PAR_FP32_LOSS_RTOL`` relative and
+    every grad's shards within ``PAR_FP32_GRAD_TOL`` of its leaf's scale,
+    against one rank's ``value_and_grad`` at grad_accum 1.  Each rank's K1,
+    K2 and K2-backward launches per step are pinned (``ppcp_launches``),
+    the shapes K1 sees are phase 3's ``pipeline_context`` rows, the most
+    microbatches in flight is at most S, the ring's bytes a step are
+    ``cp_ring_bytes`` over the stage's layers, and the stage hop's are the
+    cost model's ``pipeline_boundary_bytes`` (``ppcp_boundary_bytes``).
+    Logs each rank's peak and their sum against the card, the step times
+    (labelled: gloo through the host, no interconnect) and the collectives
+    called.  Returns both cases' last-step launches summed over the ranks."""
+    import tempfile
+
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models import build_model
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    t_phase = time.perf_counter()
+    cfg = ppcp_config()
+    world = math.prod(PPCP_MESH[0])
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    one = lambda ga: uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
+                                  LayerStrategy(remat="selective"), grad_accum=ga)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                   "--ppcp-rank", str(r), str(world), str(tmp)],
+                                  env=dict(os.environ), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        try:
+            ds = SyntheticDataset(cfg, seq_len=PPCP_SEQ, global_batch=PPCP_BATCH, seed=0)
+            hp = construct_hybrid_parallel_model(build_model(cfg), one(PPCP_ACCUM))
+            params = hp.init_params(gen())
+            opt = hp.init_opt_state(params)
+            torch.cuda.reset_peak_memory_stats()
+            ref_losses, ref_times = [], []
+            for step in range(PPCP_STEPS):
+                b = ds.batch(step)
+                valid = (b["labels"] >= 0).reshape(PPCP_ACCUM, -1).sum(axis=1)
+                require(len(set(valid.tolist())) == 1,
+                        f"pp x cp oracle: microbatch token counts {valid.tolist()}")
+                t0 = time.perf_counter()
+                params, opt, m = hp.train_step(params, opt, b)
+                torch.cuda.synchronize()
+                ref_times.append(time.perf_counter() - t0)
+                ref_losses.append(float(m["loss"]))
+            ref_peak = torch.cuda.max_memory_allocated()
+            del hp, params, opt, m
+            hp = construct_hybrid_parallel_model(build_model(cfg), one(1))
+            loss, _, grads = hp.value_and_grad(
+                hp.init_params(gen()), SyntheticDataset(
+                    cfg, seq_len=PPCP_FP32_SEQ, global_batch=PPCP_BATCH, seed=0).batch(0),
+                torch.float32)
+            torch.save({"loss": float(loss), "grads": grads}, tmp / "fp32.pt")
+            del hp, loss, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            (tmp / "payload.tmp").write_text(json.dumps({"go": True}))
+            os.replace(tmp / "payload.tmp", tmp / "payload.json")
+            t_ranks = time.perf_counter()
+            outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"pp x cp rank {r} exited {p.returncode}:\n"
+                    + "\n".join(out.splitlines()[-40:]))
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    log(f"pp x cp: the oracle {t_ranks - t_phase:.1f} s beside the ranks' start (rank 0 ready "
+        f"{ranks[0]['ready']:.1f} s after its process began); each case (init and "
+        f"{PPCP_STEPS} steps) {[round(run['seconds'], 1) for run in ranks[0]['runs'].values()]}"
+        f" s; fp32 {ranks[0]['fp32']['seconds']:.1f} s; the ranks "
+        f"{time.perf_counter() - t_ranks:.1f} s after the payload")
+    card = torch.cuda.get_device_properties(0).total_memory
+    rows = cp_ring_rows(PPCP_SEQ, PPCP_BATCH // PPCP_ACCUM)
+    out = {}
+    for label, (schedule, v, what) in ppcp_cases().items():
+        plan = ppcp_plan(cfg, schedule, v)
+        runs = [rk["runs"][label] for rk in ranks]
+        losses = runs[0]["losses"]
+        require(all(math.isfinite(x) for x in losses), f"pp x cp ({label}): losses {losses}")
+        require(all(run["losses"] == losses for run in runs),
+                f"pp x cp ({label}): the ranks report different losses")
+        delta = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        require(delta <= PAR_LOSS_TOL, f"pp x cp ({label}): losses {losses} vs one rank "
+                f"{ref_losses} (|delta| {delta:.4g} > {PAR_LOSS_TOL})")
+        block, hop_bytes = ppcp_boundary_bytes(cfg, plan)
+        ring_bytes = cp_ring_bytes(cfg, plan, PPCP_SEQ, PPCP_BATCH,
+                                   layers=cfg.num_layers // plan.pp)
+        for rk, run in zip(ranks, runs):
+            who = f"pp x cp ({label}) stage {run['stage']} cp {rk['index']}"
+            want = ppcp_launches(cfg, plan, run["stage"])
+            for step, got in enumerate(run["launches"]):
+                require(got == want, f"{who} step {step}: launches {got}, expected {want}")
+            for step, (hop, rh) in enumerate(zip(run["hop"], run["ring"])):
+                require(hop["sent"] == hop["received"] == hop_bytes
+                        and hop["host_copies"] == 2 * hop_bytes,
+                        f"{who} step {step}: boundary bytes {hop}, expected {hop_bytes} each "
+                        f"way ({block} a microbatch a hop, the cost model's)")
+                require(rh["sent"] == rh["received"] == ring_bytes
+                        and rh["host_copies"] == 2 * ring_bytes,
+                        f"{who} step {step}: ring bytes {rh}, expected {ring_bytes} each way")
+            # step 0 on every rank; cp rank 0's later step sees rank 1's shard
+            # (its late rows), cp rank 1's sees rank 0's early chunk
+            mine = sorted([list(rows[0]), list(rows[2 if rk["index"] == 0 else 1])])
+            require(run["k1"] == mine, f"{who}: K1 shapes (batch, Sq, Sk, causal) "
+                    f"{run['k1']}, expected {mine}")
+            most = max(run["in_flight"])
+            require(most <= plan.pp, f"{who}: {most} microbatches in flight")
+        peaks = [run["peak"] for run in runs]
+        require(sum(peaks) <= card, f"pp x cp ({label}): peaks {peaks} past the card")
+        M = max(plan.grad_accum, plan.pp)
+        log(f"pp x cp ({label}) {CP_ARCH}, {what}, full width cut to {PPCP_LAYERS} layers, pp "
+            f"2 x cp 2 on {dict(zip(PPCP_MESH[1], PPCP_MESH[0]))}, ZeRO-1, selective, "
+            f"{PPCP_BATCH} x {PPCP_SEQ} a step in {M} microbatches: losses {losses} (one rank "
+            f"{ref_losses}, |delta| {delta:.4g}), grad norms {runs[0]['grad_norms']}; step "
+            f"times by rank {[[round(t, 4) for t in run['times']] for run in runs]} s "
+            f"({NO_INTERCONNECT}; one rank {[round(t, 4) for t in ref_times]} s, peak "
+            f"{ref_peak / 2**30:.2f} GiB); in flight {[max(run['in_flight']) for run in runs]}; "
+            f"boundary bytes a rank a step {runs[0]['hop'][-1]} (the cost model's block "
+            f"{block} x {M} microbatches x {hop_bytes // (block * M)} hops each way); ring "
+            f"bytes a rank a step {runs[0]['ring'][-1]}; peak memory by rank "
+            f"{[round(x / 2**30, 2) for x in peaks]} GiB, sum {sum(peaks) / 2**30:.2f} of "
+            f"{card / 2**30:.2f} GiB; launches per step stage 0 "
+            f"{ {k: n for k, n in ppcp_launches(cfg, plan, 0).items() if n} }, stage 1 "
+            f"{ {k: n for k, n in ppcp_launches(cfg, plan, 1).items() if n} }; K1 (batch, Sq, "
+            f"Sk, causal) by rank {[run['k1'] for run in runs]}; collectives by rank over "
+            f"{PPCP_STEPS} steps {[run['ops'] for run in runs]}")
+        out[label] = {k: sum(run["launches"][-1][k] for run in runs)
+                      for k in runs[0]["launches"][-1]}
+    got = ranks[0]["fp32"]
+    rel = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+    log(f"pp x cp fp32 (e, {PPCP_LAYERS} layers, {PPCP_BATCH} x {PPCP_FP32_SEQ}, grad_accum "
+        f"{PPCP_ACCUM}): loss {got['loss']} vs one rank at grad_accum 1 {got['ref_loss']} "
+        f"(relative {rel:.3g}); largest grad error {got['grad_err']:.3g} of its leaf's scale "
+        f"({got['grad_err_leaf']})")
+    require(all(rk["fp32"]["loss"] == got["loss"] for rk in ranks),
+            "pp x cp fp32: the ranks report different losses")
+    require(rel <= PAR_FP32_LOSS_RTOL, f"pp x cp fp32: loss relative {rel}")
+    require(got["grad_err"] <= PAR_FP32_GRAD_TOL, f"pp x cp fp32: grad error {got['grad_err']}")
+    log(f"pp x cp: phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: out["e"][k] + out["f"][k] for k in out["e"]}
+
+
 def main() -> int:
     # growable segments, for every phase: moonshot's training (phase 14)
     # runs out of memory without them, asking for its 5 GiB of fp32 logits
@@ -5329,6 +5727,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     par_launches["context_parallel"] = cp_phase(torch)
 
+    mark("30")
+    # 30. pipeline x context parallelism: four ranks sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    par_launches["pipeline_context"] = ppcp_phase(torch)
+
     mark("24")
     # 24. results
     kernels = []
@@ -5394,5 +5798,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--cp-rank"]:
         cp_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ppcp-rank"]:
+        ppcp_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

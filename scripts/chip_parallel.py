@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Phase 25, 26, 27, 28 or 29 of ``chip_smoke.py`` alone, on one CUDA GPU:
-the parallel runtime on two ranks sharing the card over gloo, each plan
-held to one rank's step (see ``chip_smoke.parallel_phase``,
-``chip_smoke.moe_parallel_phase``, ``chip_smoke.ssm_parallel_phase``,
-``chip_smoke.pipeline_phase`` and ``chip_smoke.cp_phase``).
+"""Phase 25, 26, 27, 28, 29 or 30 of ``chip_smoke.py`` alone, on one CUDA
+GPU: the parallel runtime on two ranks (four in phase 30) sharing the card
+over gloo, each plan held to one rank's step (see
+``chip_smoke.parallel_phase``, ``chip_smoke.moe_parallel_phase``,
+``chip_smoke.ssm_parallel_phase``, ``chip_smoke.pipeline_phase``,
+``chip_smoke.cp_phase`` and ``chip_smoke.ppcp_phase``).
 
     python3 scripts/chip_parallel.py            # phase 25 (llama), about three minutes
     python3 scripts/chip_parallel.py --moe      # phase 26 (moonshot on a mesh)
     python3 scripts/chip_parallel.py --ssm      # phase 27 (mamba2, zamba2, whisper at tp 2)
     python3 scripts/chip_parallel.py --pp       # phase 28 (llama and mamba2 in 2 stages)
     python3 scripts/chip_parallel.py --cp       # phase 29 (llama3.2-1b-long, cp 2 ring)
+    python3 scripts/chip_parallel.py --ppcp     # phase 30 (pp 2 x cp 2 on four ranks)
     python3 scripts/chip_parallel.py --probe    # the backends, about half a minute
 
 ``--probe`` asks each process-group backend for two ranks on device 0:
@@ -230,6 +232,8 @@ def main() -> int:
         cs.pipeline_phase(torch)
     elif sys.argv[1:2] == ["--cp"]:
         cs.cp_phase(torch)
+    elif sys.argv[1:2] == ["--ppcp"]:
+        cs.ppcp_phase(torch)
     else:
         cs.parallel_phase(torch)
     return 0

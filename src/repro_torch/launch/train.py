@@ -46,11 +46,16 @@ mesh ``train_mesh_spec(n, cp=N)`` = (cp N, data, model), the search over
 ``cp_options=[N]``, and ``construct_hybrid_parallel_model``, whose
 attention runs the ring over the cp axis.  ``--seq`` must split into 2·N
 zig-zag chunks and the arch must be dense (JAX's ``SystemExit``s); one
-device prints a warning and ignores ``--cp``, as JAX's does; ``--pp`` with
-``--cp`` is refused (pp x cp waits for Queue 1 item 4).
+device prints a warning and ignores ``--cp``, as JAX's does.  ``--pp`` with
+``--cp`` builds ``train_mesh_spec(n, pp=N, cp=M)`` = (pod N, cp M, data,
+model), searches with both pinned, and trains the plan through
+``PipelineTrainer``, each stage running the ring; a searched plan whose pp
+or cp is not the one asked for exits as JAX's does.
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch llama3.2-1b \
         --reduced --device cpu --steps 2 --seq 32 --batch 4 --cp 2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \
+        --reduced --device cpu --steps 2 --seq 32 --batch 8 --pp 2 --cp 2
 
 Checkpoints, resume, elastic resize, the compiled-step audit and run sinks
 wait for later slices.
@@ -190,9 +195,6 @@ def main(argv=None) -> int:
         if cfg.family != "dense":
             raise SystemExit(f"--cp supports dense-family archs; "
                              f"{cfg.name} is {cfg.family}")
-        if world > 1 and args.pp > 1:
-            raise SystemExit(f"--pp {args.pp} with --cp {args.cp}: pp x cp waits for "
-                             "Queue 1 item 4 (runtime.train_pp.PipelineTrainer runs no ring)")
     if world > 1:
         return _main_ranks(args, cfg, calibration, world)
     if args.cp > 1:
@@ -289,7 +291,10 @@ def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
             args.seq, args.batch, mesh_shape=shape, mesh_axes=axes, pp_options=[args.pp],
             pp_schedule_options=sched_opts,
             cp_options=[args.cp] if args.cp > 1 else None, arch=cfg.name)
-        if (args.pp > 1 or args.cp > 1) and (not res.feasible or res.plan.pp != args.pp):
+        searched_cp = max(s.cp for s in res.plan.layer_strategies
+                          + [res.plan.default_strategy])
+        if (args.pp > 1 or args.cp > 1) and (not res.feasible or res.plan.pp != args.pp
+                                             or searched_cp != args.cp):
             # JAX's: the search falls back to a pp=1 plan when nothing fits;
             # train nothing other than what was asked
             raise SystemExit(

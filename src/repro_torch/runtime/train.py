@@ -52,7 +52,8 @@ grads count it once, as JAX's step does.
 
 A plan with pp > 1 is refused here, naming ``runtime.train_pp.PipelineTrainer``,
 which the launcher picks for it as JAX's does (that trainer reuses this
-one's layout, collectives and update on its staged trees); a plan mixing
+one's layout, collectives and update on its staged trees, and under cp
+its rows, ring rules and loss group: pp x cp runs there); a plan mixing
 cp = 1 and cp > 1 is refused naming its Queue 1 item, and cp on a family
 other than dense is an error (GALV031); ep > 1 is an
 error where GALV006 fails or no layer has experts, and so is a tp that
@@ -461,10 +462,7 @@ class HybridParallelModel:
             loss, metrics = softmax_xent(logits, batch["labels"])
             metrics["aux"] = extra
             return loss + AUX_LOSS_WEIGHT * extra, metrics
-        rules = self._default_rules
-        if self._cp > 1:            # this rank holds 1 / cp of each sequence
-            rules = dataclasses.replace(rules, seq_len=batch["tokens"].shape[1] * self._cp)
-        with axis_rules(rules):
+        with axis_rules(self._rules_for(batch)):
             # the blocks are gathered a layer at a time by the runner, or
             # here, whole, for a model that runs its layers itself (zamba2)
             live = {k: (v if k == "blocks" and not self._whole_model_gather else
@@ -488,6 +486,15 @@ class HybridParallelModel:
         # its grad whole on each rank (that rank's share; see the module note)
         once = extra + extra.detach() * (1.0 / self._loss_group.size - 1.0)
         return loss + AUX_LOSS_WEIGHT * once, metrics
+
+    def _rules_for(self, rows: dict):
+        """The default strategy's activation rules for this rank's rows of a
+        microbatch: under cp they carry the microbatch's global length (the
+        rank holds 1 / cp of each sequence), which the ring reads."""
+        if self._cp == 1:
+            return self._default_rules
+        return dataclasses.replace(self._default_rules,
+                                   seq_len=rows["tokens"].shape[1] * self._cp)
 
     def _local_value_and_grad(self, params, batch, dtype):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)

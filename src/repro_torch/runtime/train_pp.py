@@ -12,6 +12,23 @@ collectives, runner and update of ``runtime/train.py``'s
 dim; every other leaf replicated over it).  The dense, vlm and ssm
 families run; MoE, hybrid and audio are refused as JAX refuses them.
 
+Context parallelism (cp > 1, the dense family, GALV031) runs inside every
+stage, as JAX's ``pipeline_forward(seq_axis="cp")``: each rank's rows of a
+microbatch are its zig-zag shard of the sequence (``_local_rows``), so the
+boundary block is (b, S/cp, d), or (b, S/(cp·tp), d) under SP, and every
+attention layer of the stage runs the ring of ``parallel/context.py`` over
+the stage's ``cp`` group, in the forward, the remat recompute and the
+explicit backward alike, under rules carrying the microbatch's global length
+(``_rules_for``).  The ring's hop (``mesh.hop("cp")``) and the stage hop
+(``mesh.hop("pod")``) post on disjoint pairs of ranks, and every rank of a
+stage walks the same tick table, so the two cp peers of a stage reach
+each ring call together.  The valid-token count and the loss totals sum
+over the batch and cp axes (``_loss_group``), and cp is a state axis: the
+grads sum over it and ZeRO shards states over dp·cp, as at pp 1.  Refused:
+cp on a family other than dense (GALV031), a plan whose layers' cp is
+not its default strategy's (the pipeline applies its default strategy to
+every layer), and a mesh without a ``cp`` axis of that width (GALV032).
+
 A step (``value_and_grad``) cuts the global batch into M = max(grad_accum,
 S) microbatches, each into this rank's rows, and runs the schedule window
 by window (``pipeline.run_window``):
@@ -27,8 +44,9 @@ by window (``pipeline.run_window``):
   that microbatch's backward: only one microbatch's logits are ever live;
 * every microbatch's loss is normalised by the step's global valid-token
   count, read from the labels before the forward and all-reduced over the
-  batch group: the token mean over the whole batch that JAX's windows give
-  by re-weighting each window's mean by its tokens (the same function);
+  batch (and cp) group: the token mean over the whole batch that JAX's
+  windows give by re-weighting each window's mean by its tokens (the same
+  function);
 * the backward is driven explicitly, ``torch.autograd.backward(out, grad)``
   with the cotangent received from the next stage, and the grads of every
   microbatch accumulate in fp32 in the master leaves.
@@ -68,8 +86,9 @@ from repro_torch.runtime.train import (HybridParallelModel, _to_device, check_la
 
 def check_pipeline(model, plan: ExecutionPlan, mesh) -> None:
     """JAX's refusals with its exception types (a ``ValueError`` where JAX
-    asserts), context parallelism (pp x cp) naming its Queue 1 item, then
-    the mesh against the plan (``check_layout``)."""
+    asserts), a plan whose layers' cp is not its default strategy's (the
+    pipeline applies the default to every layer), then the mesh against
+    the plan (``check_layout``: cp on a non-dense family, GALV032)."""
     cfg = model.cfg
     if plan.pp <= 1:
         raise ValueError(f"PipelineTrainer needs pp > 1, got pp {plan.pp} "
@@ -88,12 +107,13 @@ def check_pipeline(model, plan: ExecutionPlan, mesh) -> None:
         raise ValueError(f"{L} layers do not split into {S} stages x {v} virtual chunks")
     if L % S:
         raise ValueError(f"{L} layers do not split into {S} stages")
-    cp = max(s.cp for s in list(plan.layer_strategies) + [plan.default_strategy])
-    if cp > 1:
+    cps = sorted({s.cp for s in plan.layer_strategies} | {plan.default_strategy.cp})
+    if len(cps) > 1 and cfg.family == "dense":
         raise NotImplementedError(
-            f"pipeline with context parallelism (pp {S} x cp {cp}) waits for Queue 1 item "
-            "4's pp x cp entry: construct_hybrid_parallel_model runs cp at pp 1")
-    check_layout(model, plan, mesh)         # a plan over pp > 1 devices needs a mesh
+            f"pipeline over layers with cp {cps}: the pipeline applies its default "
+            f"strategy (cp {plan.default_strategy.cp}) to every layer, as JAX's does; a plan "
+            "that mixes cp degrees waits for Queue 1 item 4's mixed-cp entry")
+    check_layout(model, plan, mesh)         # GALV031; a plan over pp > 1 devices needs a mesh
     if mesh.shape.get(PIPE_AXIS) != S:
         raise ValueError(f"pp {S} needs a {PIPE_AXIS!r} axis of {S} ranks, mesh {mesh.shape}")
 
@@ -130,7 +150,7 @@ class PipelineTrainer(HybridParallelModel):
         self.interleave = plan.pp_interleave if self.schedule == "interleaved" else 1
         self.strategy = plan.default_strategy
         self._layout()
-        self.hop = collectives.StageHop(mesh)
+        self.hop = mesh.hop(PIPE_AXIS)      # the stage hop; a ring has mesh.hop("cp")
         self.stage = self.hop.stage
         self._pod = mesh.group(PIPE_AXIS)
         M = self.num_micro
@@ -215,8 +235,9 @@ class PipelineTrainer(HybridParallelModel):
         return h.grad, parts
 
     def _boundary_shape(self, rows: dict) -> tuple:
-        """This rank's local boundary tensor of a microbatch: its rows, the
-        sequence (cut over the model axis under SP), d_model."""
+        """This rank's local boundary tensor of a microbatch: its rows, its
+        sequence (its zig-zag shard under cp, cut again over the model axis
+        under SP), d_model."""
         b, seq = rows["tokens"].shape
         if "vis_embeds" in rows:
             seq += rows["vis_embeds"].shape[1]
@@ -237,8 +258,8 @@ class PipelineTrainer(HybridParallelModel):
                              f"{M} microbatches (max(grad_accum, pp))")
         rows = [self._local_rows({k: v.reshape((M, B // M) + tuple(v.shape[1:]))[m]
                                   for k, v in batch.items()}) for m in range(M)]
-        count = collectives.all_reduce(
-            sum((r["labels"] >= 0).sum() for r in rows).float(), self._batch_group)
+        count = self._valid_tokens(rows)
+        rules = self._rules_for(rows[0])   # the ring's global length under cp
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         runner = make_layer_runner(self.plan, self.mesh,
                                    functools.partial(self._gather_layer, dtype=dtype))
@@ -253,7 +274,7 @@ class PipelineTrainer(HybridParallelModel):
 
         def forward(a, m, got):
             inp = None
-            with axis_rules(self._default_rules):
+            with axis_rules(rules):
                 if got is None:
                     x = self._embed(live, rows[m], dtype)
                 else:
@@ -268,7 +289,7 @@ class PipelineTrainer(HybridParallelModel):
         def backward(a, m, got):
             inp, out = saved.pop((m, a.chunk))
             if a.recv is None:                    # the last chunk: the head first
-                with axis_rules(self._default_rules):
+                with axis_rules(rules):
                     got, parts = self._head(live, out, rows[m]["labels"], count, dtype)
                 totals.add_(parts)
             torch.autograd.backward(out, got)
@@ -290,12 +311,22 @@ class PipelineTrainer(HybridParallelModel):
                 grads[key] = tree_map(lambda g: collectives.all_reduce(g, self._pod),
                                       grads[key])
         grads = self._reduce_grads(grads)
-        # the last stage's sums; the others add zeros
-        totals = collectives.all_reduce(collectives.all_reduce(totals, self._pod),
-                                        self._batch_group)
-        loss, nll, zloss = totals.unbind(0)
+        loss, nll, zloss = self._step_totals(totals).unbind(0)
         metrics = {"nll": nll, "zloss": zloss, "tokens": count, "aux": torch.zeros_like(nll)}
         return loss, metrics, grads
+
+    def _valid_tokens(self, rows: list) -> torch.Tensor:
+        """The step's valid-token count: this rank's rows of every
+        microbatch, summed over the batch and cp axes (``_loss_group``)."""
+        return collectives.all_reduce(
+            sum((r["labels"] >= 0).sum() for r in rows).float(), self._loss_group)
+
+    def _step_totals(self, totals: torch.Tensor) -> torch.Tensor:
+        """The step's (loss, nll, zloss): the last stage's sums over its
+        microbatches (the other stages add zeros) summed over the pod axis,
+        then over the batch and cp axes."""
+        return collectives.all_reduce(collectives.all_reduce(totals, self._pod),
+                                      self._loss_group)
 
     def train_step(self, params, opt_state: opt_lib.AdamWState, batch: dict,
                    dtype=torch.bfloat16, *, donate: bool = False):

@@ -14,8 +14,9 @@ from the canonical weights, ``value_and_grad`` and one ``train_step`` on
 the global batch, and the results gathered back to the canonical trees;
 they also collect the runtime's refusals and an all-reduce fit, and
 compare a one-rank mesh's steps with ``mesh=None``'s; ``pipeline_cases``
-does the same for ``PipelineTrainer`` under each schedule.  A case may run
-on a (cp, data, model) mesh, and with a context-parallel fault brought in
+does the same for ``PipelineTrainer`` under each schedule, on a (pod,
+data, model) or a (pod, cp, data, model) mesh.  A case may run on a (cp,
+data, model) mesh, and with a context-parallel fault brought in
 (``inject_fault``); ``ring_ops`` runs the cp ring alone.
 ``references`` builds a case and its two single-device references in the
 test process (the only function here that imports JAX).
@@ -176,18 +177,32 @@ def train_cases(payload: dict) -> dict:
 def inject_fault(hp, fault: str):
     """A context-parallel fault, for the tests that must see it: ``"count"``
     normalises the loss by the valid tokens of the batch axes alone (cp
-    dropped from the count); ``"rope"`` gives RoPE (and the ring's step 0)
-    the shard's local ``arange`` in place of its global positions;
-    ``"contiguous"`` hands each rank a contiguous S/cp block of the tokens
-    and labels, at that block's positions, to the zig-zag ring."""
+    dropped from the count; a ``PipelineTrainer`` reads its count before
+    the forward, in ``_valid_tokens``); ``"rope"`` gives RoPE (and the
+    ring's step 0) the shard's local ``arange`` in place of its global
+    positions; ``"contiguous"`` hands each rank a contiguous S/cp block of
+    the tokens and labels, at that block's positions, to the zig-zag ring;
+    ``"seq_len"`` gives the ring's rules the shard's local length in place
+    of the microbatch's global one (``_rules_for``); ``"totals"`` sums a
+    ``PipelineTrainer``'s (loss, nll, zloss) over the pod and batch axes
+    alone (cp dropped; ``_step_totals``)."""
     import numpy as np
 
-    from repro_torch.parallel import context
+    from repro_torch.parallel import collectives, context
     from repro_torch.runtime import train as rt
 
     kept = (rt.softmax_xent, context.zigzag_positions, context.zigzag_shard)
     if fault == "count":
         rt.softmax_xent = lambda *a, dp=None, **kw: kept[0](*a, dp=hp._batch_group, **kw)
+        if hasattr(hp, "_valid_tokens"):
+            hp._valid_tokens = lambda rows: collectives.all_reduce(
+                sum((r["labels"] >= 0).sum() for r in rows).float(), hp._batch_group)
+    elif fault == "seq_len":
+        hp._rules_for = lambda rows: dataclasses.replace(hp._default_rules,
+                                                         seq_len=rows["tokens"].shape[1])
+    elif fault == "totals":
+        hp._step_totals = lambda t: collectives.all_reduce(collectives.all_reduce(t, hp._pod),
+                                                           hp._batch_group)
     elif fault == "rope":
         context.zigzag_positions = lambda S, cp, index, device=None: torch.arange(
             S // cp, dtype=torch.int32, device=device)
@@ -208,6 +223,8 @@ def inject_fault(hp, fault: str):
         yield
     finally:
         rt.softmax_xent, context.zigzag_positions, context.zigzag_shard = kept
+        for name in ("_valid_tokens", "_rules_for", "_step_totals"):
+            hp.__dict__.pop(name, None)
 
 
 def ring_ops(payload: dict) -> dict:
@@ -247,14 +264,18 @@ def ring_ops(payload: dict) -> dict:
 
 def pipeline_cases(payload: dict) -> dict:
     """Every case of ``payload["cases"]`` under each of its schedules on a
-    (pod, data, model) mesh of ``case["mesh"]``: ``PipelineTrainer``'s
+    mesh of ``case["mesh"]`` over ``case["axes"]`` ((pod, data, model) by
+    default; (pod, cp, data, model) for pp x cp): ``PipelineTrainer``'s
     (loss, grads) of ``value_and_grad`` and (loss, grad norm, new params) of
-    one ``train_step``, in fp32, gathered to canonical trees (rank 0), and
-    on every rank its stage's ``max_in_flight``; then the message each plan
-    of ``payload["refused"]`` raises, and with ``payload["ring"]`` a ring
+    one ``train_step``, in fp32, gathered to canonical trees (rank 0), the
+    stage hop's bytes over both and the local boundary shape, and on every
+    rank its stage's ``max_in_flight`` and its (cp index, valid tokens of
+    its rows of the batch); a case may name a ``fault``
+    (``inject_fault``).  Then the message each plan of
+    ``payload["refused"]`` raises (its strategy, or one a layer), and with ``payload["ring"]`` a ring
     shift of the stage hop on (2, 1, 2) (``shift`` and ``exchange``, the
-    wrap included).  ``payload["device"]`` and
-    ``["backend"]`` as ``train_cases``'."""
+    wrap included).  ``payload["device"]`` and ``["backend"]`` as
+    ``train_cases``'."""
     import torch.distributed as dist
 
     from repro_torch.core.strategy import ExecutionPlan
@@ -264,41 +285,46 @@ def pipeline_cases(payload: dict) -> dict:
     from repro_torch.parallel.collectives import StageHop
     from repro_torch.runtime.train_pp import PipelineTrainer
 
-    axes = ("pod", "data", "model")
+    pp_axes = ("pod", "data", "model")
     meshes: dict = {}
     device = torch.device(payload.get("device", "cpu"))
     if device.type == "cuda":                       # every rank on the one card
         device = torch.device("cuda", 0)
         torch.cuda.set_device(device)
 
-    def mesh_of(shape):
-        if shape not in meshes:
-            meshes[shape] = make_mesh(shape, axes, device=device,
-                                      backend=payload.get("backend"))
-        return meshes[shape]
+    def mesh_of(shape, axes=pp_axes):
+        if (shape, axes) not in meshes:
+            meshes[shape, axes] = make_mesh(shape, axes, device=device,
+                                            backend=payload.get("backend"))
+        return meshes[shape, axes]
 
-    def plan_of(cfg, shape, strategy, schedule, v, ga):
+    def plan_of(cfg, shape, strategy, schedule, v, ga, axes=pp_axes):
+        layers = strategy if isinstance(strategy, list) else [strategy] * cfg.num_layers
         return ExecutionPlan(arch=cfg.name, shape="train", mesh_axes=axes,
                              mesh_shape=tuple(shape), pp=shape[0], pp_schedule=schedule,
-                             pp_interleave=v, grad_accum=ga,
-                             layer_strategies=[strategy] * cfg.num_layers,
-                             default_strategy=strategy)
+                             pp_interleave=v, grad_accum=ga, layer_strategies=layers,
+                             default_strategy=layers[0])
 
     cpu = lambda tree: tree_map(lambda x: x.detach().cpu(), tree)
-    out = {"runs": {}, "in_flight": {}, "refused": {}}
+    out = {"runs": {}, "in_flight": {}, "counts": {}, "refused": {}}
     for case in payload["cases"]:
         cfg, shape = case["cfg"], tuple(case["mesh"])
+        axes = tuple(case.get("axes", pp_axes))
         for schedule, v in case["schedules"]:
             key = f"{case['name']}/{schedule}"
-            plan = plan_of(cfg, shape, case["strategies"][0], schedule, v, case["grad_accum"])
-            tr = PipelineTrainer(build_model(cfg, device=device), plan, mesh_of(shape),
+            plan = plan_of(cfg, shape, case["strategies"][0], schedule, v, case["grad_accum"],
+                           axes)
+            tr = PipelineTrainer(build_model(cfg, device=device), plan, mesh_of(shape, axes),
                                  payload.get("opt"))
             params = tr.place_params(tree_map(lambda x: x.to(device), case["params"]))
-            loss, _, grads = tr.value_and_grad(params, case["batch"], torch.float32)
-            applied, _, _ = tr.apply_grads(params, grads, tr.init_opt_state(params))
-            grads = tr.gather_params(grads, tr.grad_specs)
-            new, _, metrics = tr.train_step(params, tr.init_opt_state(params), case["batch"],
-                                            torch.float32)
+            tr.hop.bytes.update(sent=0, received=0, host_copies=0)
+            with (inject_fault(tr, case["fault"]) if case.get("fault")
+                  else contextlib.nullcontext()):
+                loss, _, grads = tr.value_and_grad(params, case["batch"], torch.float32)
+                applied, _, _ = tr.apply_grads(params, grads, tr.init_opt_state(params))
+                grads = tr.gather_params(grads, tr.grad_specs)
+                new, _, metrics = tr.train_step(params, tr.init_opt_state(params),
+                                                case["batch"], torch.float32)
             applied_is_step = all(torch.equal(a, b) for a, b in zip(_flat(applied).values(),
                                                                     _flat(new).values()))
             back, new = cpu(tr.gather_params(params)), tr.gather_params(new)
@@ -307,6 +333,13 @@ def pipeline_cases(payload: dict) -> dict:
                                                   _flat(case["params"]).values())))
             out["in_flight"][key] = (tr.stage, tr.max_in_flight,
                                      tr.window_schedule.max_in_flight(tr.stage), tr.windows)
+            local = tr._local_rows({k: torch.as_tensor(x).to(device)
+                                    for k, x in case["batch"].items()})
+            out["counts"][key] = (tr._cp_group.index if tr._cp_group else 0,
+                                  int((local["labels"] >= 0).sum()))
+            M = tr.num_micro
+            first = tr._local_rows({k: torch.as_tensor(x).to(device)[:x.shape[0] // M]
+                                    for k, x in case["batch"].items()})
             if dist.get_rank() == 0:
                 out["runs"][key] = {
                     "vg_loss": float(loss), "grads": cpu(grads),
@@ -314,11 +347,14 @@ def pipeline_cases(payload: dict) -> dict:
                     "grad_norm": float(metrics["grad_norm"]), "new": cpu(new),
                     "roundtrip": roundtrip, "applied_is_step": applied_is_step,
                     "local_shapes": {k: tuple(x.shape) for k, x in _flat(params).items()},
-                    "hop_bytes": dict(tr.hop.bytes)}
-    for name, (cfg, shape, strategy, schedule, v) in payload.get("refused", {}).items():
+                    "hop_bytes": dict(tr.hop.bytes),
+                    "boundary_shape": tr._boundary_shape(first)}
+    for name, (cfg, shape, strategy, schedule, v, *axes) in payload.get("refused", {}).items():
+        axes = tuple(axes[0]) if axes else pp_axes
         try:
             PipelineTrainer(build_model(cfg, device="cpu"),
-                            plan_of(cfg, shape, strategy, schedule, v, 1), mesh_of(shape))
+                            plan_of(cfg, shape, strategy, schedule, v, 1, axes),
+                            mesh_of(shape, axes))
             out["refused"][name] = None
         except Exception as e:          # the test reads each refusal's type and text
             out["refused"][name] = (type(e).__name__, str(e))

@@ -7,11 +7,14 @@ graphs) of every family against their eager steps;
 the planner's block measurement (its forward, grad and full-remat grad
 graphed, against the eager steps) and a calibration fitted from it; the
 parallel runtime on a one-rank NCCL mesh (bitwise the single-device step:
-dense, MoE, mamba2, whisper) and on two gloo ranks sharing the card (tp 2
+dense, MoE, mamba2, whisper) and on gloo ranks sharing the card (tp 2
 + sp against one rank; two pipeline stages against one rank; two ranks of
-the cp ring against one rank); K2's split-row form against its plain
+the cp ring against one rank; two stages of two cp ranks each against one
+rank); K2's split-row form against its plain
 passes and the whole-row K2; the cp ring's K1 partials at zig-zag shapes
-and its hand-written backward against autograd through the plain ring.
+(phase 29's and, at llama3.2-1b-long's S 8 192, the ``pipeline_context``
+rows of a ring inside a pipeline stage) and its hand-written backward
+against autograd through the plain ring.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -1447,6 +1450,52 @@ def test_cuda_two_gloo_ranks_pipeline_pp2_holds_to_one_rank(cuda_device, tmp_pat
     assert all(r["in_flight"]["pp2/1f1b"][1] <= 2 for r in ranks)
 
 
+def test_cuda_four_gloo_ranks_pp2_cp2_hold_to_one_rank(cuda_device, tmp_path):
+    """Two pipeline stages of two cp ranks each on the one card over gloo
+    (the stage hop and the ring's through pinned host buffers), reduced
+    llama cut to 4 layers at pp 2 x cp 2, ZeRO-1, ``selective``, under 1f1b
+    and interleaved v 2, grad_accum 4, fp32: ``train_step`` through K1's
+    ring partials and K2 in each stage against one rank's ``mesh=None`` step
+    at grad_accum 1 on the same weights and batch: the loss within 1e-4
+    relative, every updated param within 2e-3 of its leaf's update scale
+    (AdamW eps 1e-4); the boundary block a rank's zig-zag half."""
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.optimizer import AdamWConfig
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist_helpers", pathlib.Path(__file__).with_name("_torch_dist.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(), num_layers=4)
+    opt_cfg = AdamWConfig(eps=1e-4)
+    batch = SyntheticDataset(cfg, 64, 8, seed=5).batch(0)
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    plan = uniform_plan(cfg.name, "t", (1,), ("data",), cfg.num_layers, LayerStrategy())
+    hp = construct_hybrid_parallel_model(build_model(cfg), plan, None, opt_cfg)
+    live = tree_map(lambda x: x.to(cuda_device), params)
+    new, _, m = hp.train_step(live, hp.init_opt_state(live), batch, torch.float32)
+    case = dict(name="ppcp", cfg=cfg, params=params, batch=batch, mesh=(2, 2, 1, 1),
+                axes=("pod", "cp", "data", "model"), grad_accum=4,
+                strategies=[LayerStrategy(cp=2, zero=1, remat="selective")],
+                schedules=[("1f1b", 1), ("interleaved", 2)])
+    payload = {"cases": [case], "opt": opt_cfg, "device": "cuda", "backend": "gloo"}
+    ranks = helpers.run_ranks(4, "pipeline_cases", payload, tmp_path)
+    ref, init = dict(tree_paths(new)), dict(tree_paths(params))
+    for key in ("ppcp/1f1b", "ppcp/interleaved"):
+        got = ranks[0]["runs"][key]
+        np.testing.assert_allclose(got["step_loss"], float(m["loss"]), rtol=1e-4)
+        for path, a in tree_paths(got["new"]):
+            want = ref[path].cpu() - init[path]
+            err = float((a - ref[path].cpu()).abs().max())
+            assert err <= 2e-3 * float(want.abs().max()), (key, path, err)
+        assert got["boundary_shape"] == (2, 32, cfg.d_model)
+        assert got["hop_bytes"]["host_copies"] == got["hop_bytes"]["sent"] * 2 > 0
+        assert all(r["in_flight"][key][1] <= 2 for r in ranks)
+
+
 def test_cuda_distributed_slots_are_one_ranks_routing(cuda_device):
     """moonshot's routing of 8 192 seeded fp32 router logits on the card,
     split over 1 to 4 ranks and evaluated rank by rank from every rank's
@@ -1659,6 +1708,32 @@ def test_cuda_ring_k1_partials_at_zigzag_shapes(cuda_device, S, cp):
                 torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
                 torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
                 torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [(4096, 4096, True), (4096, 2048, False),
+                                          (2048, 4096, False)])
+def test_cuda_pipeline_context_k1_rows(cuda_device, Sq, Sk, causal):
+    """The K1 calls of a rank's cp ring inside a pipeline stage (the
+    ``pipeline_context`` rows: llama3.2-1b-long's heads, 32 over 8, hd 64,
+    at S 8 192 and cp 2): step 0 causal at each rank's zig-zag positions,
+    the later steps non-causal over the whole shard and an early chunk, or
+    the late chunk over a whole shard; each against the plain version with
+    residuals (fp32 1e-4, bf16 3e-2, m and l 1e-5)."""
+    from repro_torch.parallel import context
+
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk)
+    for index in range(2 if causal else 1):
+        pos = context.zigzag_positions(8192, 2, index, cuda_device) if causal else None
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            q = torch.randn((1, Sq, 32, 64), generator=g, device=cuda_device).to(dtype)
+            k, v = (torch.randn((1, Sk, 8, 64), generator=g, device=cuda_device).to(dtype)
+                    for _ in range(2))
+            kw = dict(causal=causal, q_pos=pos, k_pos=pos)
+            out, m, l = flash_ops.flash_attention_fwd(q, k, v, return_residuals=True, **kw)
+            ref, rm, rl = flash_ref.flash_attention_fwd(q, k, v, return_residuals=True, **kw)
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+            torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("cp", [2, 4])

@@ -24,7 +24,8 @@ positional form, differentiated through ``collectives.ring_shift``), rank
 by rank against the serial ring, and the hop's bytes a call.  Then the
 launcher: ``--cp 2`` under ``torchrun`` on two CPU ranks searches and
 trains a cp plan; on one device it warns and ignores ``--cp``; an odd
-``--seq``, a non-dense arch and ``--pp`` beside ``--cp`` are refused.
+``--seq`` and a non-dense arch are refused; ``--pp 2 --cp 2`` on four
+ranks searches and trains a pp x cp plan.
 """
 import os
 import pathlib
@@ -178,8 +179,14 @@ def test_launcher_cp_on_one_device(args, words):
     assert words in (run.stdout if warned else run.stderr), run.stdout + run.stderr
 
 
-def test_launcher_refuses_pp_with_cp():
-    run = _launch("--seq", "32", "--batch", "8", "--pp", "2", "--cp", "2", ranks=2)
-    assert run.returncode != 0, run.stdout + run.stderr
-    assert "pp x cp waits for Queue 1 item 4" in run.stderr, run.stdout + run.stderr
-    assert not any(ln.startswith("step ") for ln in run.stdout.splitlines())
+def test_launcher_trains_a_pp_cp_plan_on_four_ranks():
+    """``--pp 2 --cp 2`` under ``torchrun``: the search pins both, and
+    ``PipelineTrainer`` trains the plan with the ring in every stage."""
+    run = _launch("--steps", "2", "--log-every", "1", "--seq", "32", "--batch", "8",
+                  "--pp", "2", "--cp", "2", ranks=4)
+    assert run.returncode == 0, run.stdout + run.stderr
+    plan = [ln for ln in run.stdout.splitlines() if ln.startswith("plan[search]:")]
+    assert len(plan) == 1 and "pp=2" in plan[0] and "-cp2-" in plan[0], run.stdout
+    assert "mesh=(2, 2, 1, 1)" in plan[0], run.stdout
+    steps = [ln for ln in run.stdout.splitlines() if ln.startswith("step ")]
+    assert len(steps) == 2 and "done" in run.stdout, run.stdout

@@ -13,7 +13,8 @@
   reduced width in fp32, train and prefill;
 * the refusals, with JAX's exception types where JAX raises (a
   ``ValueError`` where it asserts): MoE, the hybrid and audio families,
-  L % S, an interleave that cannot be realised, and cp > 1.
+  L % S, an interleave that cannot be realised, cp on a non-dense family
+  and a cp plan without a mesh.
 """
 import dataclasses
 
@@ -213,8 +214,14 @@ def test_refusals_keep_jaxs_exception_types(name):
 
 
 def test_refusals_of_cp_pp1_and_no_mesh():
+    """The cp refusals that stay under pp x cp: cp on mamba2 (GALV031, as
+    JAX's verifier), a dense cp plan without a mesh; then pp 1 and a plan
+    without a mesh."""
+    cfg, plan, _, _ = _plans("mamba2-2.7b", LayerStrategy(cp=2))
+    with pytest.raises(ValueError, match="GALV031"):
+        PipelineTrainer(build_model(cfg, device="cpu"), plan, None)
     cfg, plan, _, _ = _plans("llama3.2-1b", LayerStrategy(cp=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4's pp x cp entry"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         PipelineTrainer(build_model(cfg, device="cpu"), plan, None)
     cfg, plan, _, _ = _plans("llama3.2-1b", LayerStrategy())
     with pytest.raises(ValueError, match="needs a mesh"):
