@@ -404,13 +404,32 @@ Phases (any failure exits non-zero and prints no result line):
    in steps: phases 25-29 run one step a plan or case where they ran two
    (``PAR_STEPS``, ``PP_STEPS``, ``CP_STEPS``), phase 10's full and none
    policies two where they ran three (``TRAIN_POLICY_STEPS``);
+31. checkpointing (run after phase 30, before the results) — llama3.2-1b
+   at full width cut to 2 layers (``CKPT_LAYERS``: the canonical state is
+   384 M parameters x 12 bytes of fp32 params, m and v, 4.6 GB) trained
+   under ``selective`` on 4 x 4096 tokens a step in 2 microbatches (K1 and
+   K2 under autograd, K2's backward kernel), every step donated: (a) 3
+   steps straight; (b) 2 steps from the same seed, then (c) a synchronous
+   ``checkpoint.save`` of the step-2 state (codec ``raw``, format v2),
+   then ``CheckpointWriter.save_async`` of it into a second directory,
+   step 3 run in place while the writer works (its snapshot is pinned host
+   copies queued ahead of the step), ``close()``; a fresh model and trainer
+   restore (b)'s step 2 and run step 3.  Both step-3 results — (b)'s in
+   place and the restored one — must be bitwise (a)'s: the loss and every
+   leaf of params, m and v.  (c)'s index, MANIFEST and blobs must be
+   byte-identical to (b)'s, and the async ``blocked_seconds`` below the
+   sync save's time.  Logs the bytes written, the sync save's GB/s and
+   seconds, the async blocked seconds and the writer's drain, the restore
+   time; K1, K2 and K2-backward launches pinned (``train_launches`` at 2
+   layers, grad_accum 2, 7 steps); both directories deleted;
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated``,
    ``rmsnorm_bwd``, ``rmsnorm_split_fwd`` and ``rmsnorm_split_bwd`` rows for
    K2, ``ssd`` and ``ssd_autograd`` for K3; a row phase 28's stages also
    run stands again for each ``pipeline_*`` path with its launches; the
    ring's K1 rows under the path ``context_parallel``, with phase 29's
-   launches, and under ``pipeline_context``, with phase 30's), then the
-   device line last.
+   launches, and under ``pipeline_context``, with phase 30's; the llama
+   training rows stand again for the path ``checkpoint`` with phase 31's
+   launches), then the device line last.
 """
 from __future__ import annotations
 
@@ -431,6 +450,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 #: phase 28's llama stages (cases a-c) see phase 3's llama training rows
 PP_LLAMA_PATHS = ("pipeline_a", "pipeline_b", "pipeline_c")
+#: ... and so do phase 10's steps and phase 31's (a 2 x 4096 microbatch)
+LLAMA_TRAIN_PATHS = ("train",) + PP_LLAMA_PATHS + ("checkpoint",)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # per (b, s, h) row of K1's output: the largest error against the fp32 plain
@@ -644,7 +665,7 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
-        path=("train",) + PP_LLAMA_PATHS))]
+        path=LLAMA_TRAIN_PATHS))]
     # the many-row split path: past 256 key tiles, blocks of 64 rows split too
     long_kv = torch.tensor([20000], device="cuda")
     for dtype in (torch.bfloat16, torch.float32):
@@ -947,7 +968,7 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     which the models now run gated)."""
     rows = []
     shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 2560), "mamba2"),
-              ((4, 2560), "mamba2"), ((8192, 2048), ("train",) + PP_LLAMA_PATHS),
+              ((4, 2560), "mamba2"), ((8192, 2048), LLAMA_TRAIN_PATHS),
               ((8192, 3584), "zamba2"),
               ((24000, 384), "whisper"), ((16, 384), "whisper"), ((48000, 384), "whisper_train"),
               ((10240, 6144), "internvl2"), ((8192, 6144), "internvl2_train"),
@@ -1062,7 +1083,7 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     F = torch.nn.functional
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    cases = [((8192, 2048), bf16, f32, False, ("train",) + PP_LLAMA_PATHS),
+    cases = [((8192, 2048), bf16, f32, False, LLAMA_TRAIN_PATHS),
              ((8192, 3584), bf16, f32, False, "train"), ((32768, 128), bf16, f32, False, "train"),
              ((48000, 384), bf16, f32, False, "whisper_train"),
              ((8192, 6144), bf16, f32, False, "internvl2_train"),
@@ -5494,6 +5515,137 @@ def ppcp_phase(torch) -> dict:
     return {k: out["e"][k] + out["f"][k] for k in out["e"]}
 
 
+# ---------------------------------------------------------------- phase 31
+
+CKPT_LAYERS = 2
+CKPT_SEQ, CKPT_BATCH, CKPT_ACCUM = 4096, 4, 2
+#: the steps of the phase: (a) 3, (b) 3, the restored trainer's step 3
+CKPT_STEPS = 7
+
+
+def _file_digests(directory: pathlib.Path) -> dict:
+    """{relative path: SHA-256 of its bytes} of every file under
+    ``directory``, read by 8 threads."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    files = [f for f in sorted(directory.rglob("*")) if f.is_file()]
+
+    def digest(f):
+        with open(f, "rb") as fh:
+            return hashlib.file_digest(fh, "sha256").hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip((str(f.relative_to(directory)) for f in files), pool.map(digest, files)))
+
+
+def checkpoint_phase(torch, counters) -> dict:
+    """Phase 31 (see the module note): (a) 3 donated steps straight; (b) 2
+    steps, (c) a sync ``save`` of step 2, an async save of it with step 3
+    run in place while the writer works, and a fresh trainer's restore of
+    step 2 and its step 3; both step 3s bitwise (a)'s, (c)'s files
+    byte-identical to (b)'s, async blocking below the sync save.  Returns
+    the phase's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.data import SyntheticDataset
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=CKPT_LAYERS)
+    plan = dataclasses.replace(_uniform_plan(cfg, "selective"), grad_accum=CKPT_ACCUM)
+    ds = SyntheticDataset(cfg, seq_len=CKPT_SEQ, global_batch=CKPT_BATCH, seed=0)
+    batches = [ds.batch(i) for i in range(3)]
+    flat = lambda p, o: ckpt._flatten((p, o))
+
+    def steps(hp, params, opt, which):
+        for i in which:
+            params, opt, metrics = hp.train_step(params, opt, batches[i], donate=True)
+        torch.cuda.synchronize()
+        return params, opt, metrics
+
+    def bitwise(label, loss, state, want_loss, want):
+        differ = [k for k in want if not torch.equal(state[k], want[k])]
+        log(f"checkpoint: {label} step 3 loss {float(loss)!r} vs (a) {float(want_loss)!r}; "
+            f"{len(want) - len(differ)} of {len(want)} leaves bitwise (a)'s"
+            + (f"; differing: {differ[:8]}" if differ else ""))
+        require(torch.equal(loss, want_loss) and not differ,
+                f"checkpoint: {label} step 3 is not bitwise the uninterrupted run's")
+
+    zero_counts(counters)
+    # (a) the uninterrupted run
+    hp, params = _train_bundle(torch, cfg, plan)
+    params, opt, metrics = steps(hp, params, hp.init_opt_state(params), range(3))
+    want_loss, want = metrics["loss"], flat(params, opt)
+    nbytes = sum(x.numel() * x.element_size() for x in want.values())
+    del hp, params, opt, metrics
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ckpt-phase-"))
+    free = shutil.disk_usage(root).free
+    log(f"checkpoint: canonical state {len(want)} leaves, {nbytes / 1e9:.3f} GB; "
+        f"{free / 1e9:.1f} GB free under {root}; (a) took {time.perf_counter() - t_phase:.1f} s")
+    require(free > 3 * nbytes, f"checkpoint: {free} bytes free under {root}, the two "
+            f"directories need {2 * nbytes}")
+    try:
+        # (b) 2 steps; (c) the sync save of step 2; the async save, step 3 in place
+        hp, params = _train_bundle(torch, cfg, plan)
+        params, opt, _ = steps(hp, params, hp.init_opt_state(params), range(2))
+        t0 = time.perf_counter()
+        ckpt.save(root / "sync", 2, *hp.checkpoint_state(params, opt), plan, codec="raw")
+        sync_s = time.perf_counter() - t0
+        writer = ckpt.CheckpointWriter()
+        t0 = time.perf_counter()
+        writer.save_async(root / "async", 2, *hp.checkpoint_state(params, opt), plan,
+                          codec="raw")
+        params, opt, metrics = hp.train_step(params, opt, batches[2], donate=True)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        writer.close()
+        drain_s = time.perf_counter() - t0
+        bitwise("(b) in place", metrics["loss"], flat(params, opt), want_loss, want)
+        del hp, params, opt, metrics
+        written = sum(f.stat().st_size for f in (root / "async").rglob("*") if f.is_file())
+        log(f"checkpoint: sync save {sync_s:.3f} s for {written} bytes "
+            f"({written / sync_s / 1e9:.3f} GB/s); async blocked {writer.blocked_seconds:.3f} s, "
+            f"step 3 done {step_s:.3f} s and the writer drained {drain_s:.3f} s after "
+            f"save_async")
+        require(writer.blocked_seconds < sync_s, f"checkpoint: async blocked "
+                f"{writer.blocked_seconds} s, not below the sync save's {sync_s} s")
+        t0 = time.perf_counter()
+        files = _file_digests(root / "sync")
+        require(files == _file_digests(root / "async"),
+                "checkpoint: the sync and async directories differ")
+        log(f"checkpoint: (c)'s {len(files)} files byte-identical to (b)'s (compared in "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+        # a fresh model and trainer restore (b)'s step 2 and run step 3
+        hp, params = _train_bundle(torch, cfg, plan, seed=1)
+        opt = hp.init_opt_state(params)
+        t0 = time.perf_counter()
+        out = ckpt.restore(root / "async", 2, **dict(zip(("params_like", "opt_like"),
+                                                          hp.checkpoint_state(params, opt))))
+        del params, opt
+        params, opt = hp.place_params(out["params"]), hp.place_opt_state(out["opt"])
+        del out
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        params, opt, metrics = steps(hp, params, opt, [2])
+        bitwise("restored", metrics["loss"], flat(params, opt), want_loss, want)
+        log(f"checkpoint: restore {restore_s:.3f} s ({nbytes / restore_s / 1e9:.3f} GB/s)")
+        del hp, params, opt, metrics
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = read_counts(counters)
+    expected = {k: n * CKPT_STEPS
+                for k, n in train_launches(CKPT_LAYERS, "selective", CKPT_ACCUM).items()}
+    require(launches == expected, f"checkpoint launched {launches}, expected {expected}")
+    log(f"checkpoint: phase 31 took {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{ {k: n for k, n in launches.items() if n} } over {CKPT_STEPS} steps")
+    return launches
+
+
 def main() -> int:
     # growable segments, for every phase: moonshot's training (phase 14)
     # runs out of memory without them, asking for its 5 GiB of fp32 logits
@@ -5732,6 +5884,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     par_launches["pipeline_context"] = ppcp_phase(torch)
+
+    mark("31")
+    # 31. checkpointing: save, async save under a donated step, restore
+    gc.collect()
+    torch.cuda.empty_cache()
+    par_launches["checkpoint"] = checkpoint_phase(torch, counters)
 
     mark("24")
     # 24. results

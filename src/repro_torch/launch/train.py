@@ -57,8 +57,30 @@ or cp is not the one asked for exits as JAX's does.
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \
         --reduced --device cpu --steps 2 --seq 32 --batch 8 --pp 2 --cp 2
 
-Checkpoints, resume, elastic resize, the compiled-step audit and run sinks
-wait for later slices.
+``--ckpt-dir DIR`` saves the canonical state (``runtime/checkpoint.py``,
+JAX's format v2, readable by either package) every ``--ckpt-every`` steps
+and once at the end, skipping a final save that repeats the last periodic
+one; ``--ckpt-async on`` (the default) writes on a background thread
+(``CheckpointWriter``), ``off`` synchronously, byte-identical either way.
+``--resume`` restores the latest step of ``DIR``: GALV050 refuses a
+checkpoint of another model (arch or layer count) before any array is
+read, then the trainer places the canonical state (``place_params`` /
+``place_opt_state``) and training continues from the saved step up to
+``--steps`` on ``SyntheticDataset.batch(step)``.  Under ``torchrun`` every
+rank takes part in ``checkpoint_state``'s gathers, rank 0 writes while the
+others wait at a barrier, and every rank reads the checkpoint on resume.
+A checkpoint whose keys are not this trainer's canonical ones (JAX's
+pre-resize grouped layout) is refused.
+
+    python -m repro_torch.launch.train --arch llama3.2-1b --reduced --device cpu \
+        --steps 4 --seq 32 --batch 4 --ckpt-dir /tmp/ck --ckpt-every 2
+    python -m repro_torch.launch.train ... --ckpt-dir /tmp/ck --resume --steps 6
+
+Every rank reaches one barrier before the process group is torn down, on
+each path that returns and on the ``SystemExit``s every rank raises alike,
+so a rank that finishes first cannot close its connections while a slower
+one still builds its own.  Elastic resize, the compiled-step audit and run
+sinks wait for later slices.
 """
 from __future__ import annotations
 
@@ -68,6 +90,7 @@ import os
 import statistics
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -85,6 +108,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import build_model
 from repro_torch.models.common import tree_leaves
 from repro_torch.obs.drift import DRIFT_RATIO_THRESHOLD
+from repro_torch.runtime import checkpoint as ckpt_lib
 from repro_torch.runtime.data import SyntheticDataset
 from repro_torch.runtime.train import construct_hybrid_parallel_model
 from repro_torch.runtime.train_pp import PipelineTrainer
@@ -133,6 +157,106 @@ def _predicted_breakdown(plan: ExecutionPlan, cfg: ModelConfig, seq_len: int,
             "predicted_memory_bytes": plan.predicted_memory}
 
 
+def _resume_step(args, plan: ExecutionPlan, say=print) -> Optional[int]:
+    """The step ``--resume`` continues from: the latest in ``--ckpt-dir``,
+    or None when there is none (JAX's: train from step 0).  GALV050 is
+    checked on the saved plan before any param is drawn or read (each
+    diagnostic printed, then exit 1)."""
+    if not (args.resume and args.ckpt_dir
+            and ckpt_lib.latest_step(args.ckpt_dir) is not None):
+        return None
+    saved = ckpt_lib.restore(args.ckpt_dir)           # the step index alone
+    if saved["plan"] is not None:
+        incompat = plan_check.check_checkpoint_compat(saved["plan"], plan)
+        if incompat:
+            for d in incompat:
+                say(d)
+            raise SystemExit(1)
+    return saved["step"]
+
+
+def _restore(args, hp, step: int, params, opt, say=print):
+    """(params, opt) of ``step`` in ``--ckpt-dir``, laid out for ``hp``:
+    the canonical state restored on the templates ``hp.checkpoint_state``
+    gives, then ``place_params`` / ``place_opt_state``."""
+    canon_p, canon_o = hp.checkpoint_state(params, opt)
+    try:
+        restored = ckpt_lib.restore(args.ckpt_dir, step, params_like=canon_p,
+                                    opt_like=canon_o)
+    except KeyError as e:
+        raise SystemExit(f"--resume: step {step} of {args.ckpt_dir} has no leaf {e} of "
+                         "this trainer's canonical state (a checkpoint in JAX's "
+                         "pre-resize grouped layout is not read by the port)")
+    del canon_p, canon_o, params, opt
+    params = hp.place_params(restored["params"])
+    opt = hp.place_opt_state(restored["opt"])
+    say(f"resumed from step {step}")
+    return params, opt
+
+
+class _Checkpoints:
+    """``--ckpt-dir``'s saves, as JAX's ``save_checkpoint``: the canonical
+    state at a step (every rank gathers it), written by rank 0, async or
+    sync; on a mesh the other ranks wait at a barrier."""
+
+    def __init__(self, args, hp, plan: ExecutionPlan, rank: int = 0, barrier=None):
+        self.args, self.hp, self.plan, self.rank = args, hp, plan, rank
+        self.barrier = barrier or (lambda: None)
+        self.writer = (ckpt_lib.CheckpointWriter()
+                       if args.ckpt_async == "on" and rank == 0 else None)
+        self.last = -1
+
+    def save(self, step: int, params, opt) -> None:
+        if step == self.last:                 # final save == last periodic save
+            return
+        self.last = step
+        canon_p, canon_o = self.hp.checkpoint_state(params, opt)
+        if self.rank == 0:
+            if self.writer is not None:
+                self.writer.save_async(self.args.ckpt_dir, step, canon_p, canon_o, self.plan)
+                print(f"checkpoint queued (async) step {step}")
+            else:
+                path = ckpt_lib.save(self.args.ckpt_dir, step, canon_p, canon_o, self.plan)
+                print(f"checkpoint -> {path}")
+        self.barrier()
+
+    def close(self) -> None:
+        """Drain the writer (raising its error); every rank then waits for
+        rank 0's last file."""
+        if self.writer is not None:
+            path = self.writer.close()
+            print(f"checkpoint -> {path} (async writer: {self.writer.saves_completed} "
+                  f"saves, {self.writer.blocked_seconds * 1e3:.1f} ms total step-loop stall)")
+        self.barrier()
+
+
+def _train_loop(args, hp, params, opt, start: int, ckpts, step_fn, say, sync) -> list:
+    """Steps ``start`` .. ``--steps - 1`` on ``SyntheticDataset.batch(step)``,
+    a checkpoint every ``--ckpt-every`` steps and one at the end; returns
+    the step times."""
+    cfg = hp.model.cfg
+    ds = SyntheticDataset(cfg, seq_len=args.seq, global_batch=args.batch)
+    tokens = args.batch * args.seq
+    times = []
+    for step in range(start, args.steps):
+        batch = ds.batch(step)
+        sync()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            say(f"step {step} loss {float(metrics['loss']):.6f} grad_norm "
+                f"{float(metrics['grad_norm']):.6f} step_time "
+                f"{times[-1] * 1e3:.1f} ms tok/s {tokens / times[-1]:,.1f}")
+        if ckpts is not None and (step + 1) % args.ckpt_every == 0:
+            ckpts.save(step + 1, params, opt)
+    if ckpts is not None:
+        ckpts.save(args.steps, params, opt)
+        ckpts.close()
+    return times
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -172,6 +296,14 @@ def main(argv=None) -> int:
     ap.add_argument("--cp", type=int, default=1,
                     help="context-parallel degree (>1 runs attention as a ring over a cp "
                          "mesh axis; needs seq %% (2*cp) == 0)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-async", default="on", choices=["on", "off"],
+                    help="'on' (default) writes checkpoints on a background "
+                         "writer thread (the step loop only ever blocks on "
+                         "the previous save); 'off' writes synchronously — "
+                         "byte-identical output either way")
+    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
 
     calibration = calibrate.DEFAULT_CALIBRATION
@@ -225,34 +357,31 @@ def main(argv=None) -> int:
         print(report.format_table())
         return 0 if report.ok() else 1
 
+    resume = _resume_step(args, plan)
     hp = construct_hybrid_parallel_model(model, plan)
     dev = model.device
     params = hp.init_params(torch.Generator(device=dev).manual_seed(0))
     opt = hp.init_opt_state(params)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"model: {cfg.name} {n_params / 1e6:.1f}M params on {dev}")
+    start = 0
+    if resume is not None:
+        params, opt = _restore(args, hp, resume, params, opt)
+        start = resume
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    ds = SyntheticDataset(cfg, seq_len=args.seq, global_batch=args.batch)
-    step_fn = hp.jit_train_step(donate=False)
-    tokens = args.batch * args.seq
-    times = []
-    for step in range(args.steps):
-        batch = ds.batch(step)
-        sync()
-        t0 = time.perf_counter()
-        params, opt, metrics = step_fn(params, opt, batch)
-        sync()
-        times.append(time.perf_counter() - t0)
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step} loss {float(metrics['loss']):.6f} grad_norm "
-                  f"{float(metrics['grad_norm']):.6f} step_time "
-                  f"{times[-1] * 1e3:.1f} ms tok/s {tokens / times[-1]:,.1f}")
+    ckpts = _Checkpoints(args, hp, plan) if args.ckpt_dir else None
+    times = _train_loop(args, hp, params, opt, start, ckpts, hp.jit_train_step(donate=False),
+                        print, sync)
     if dev.type == "cuda":
         print(f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    if not times:
+        print(f"no step to run: resumed at step {start} of --steps {args.steps}")
+        print("done")
+        return 0
 
     median = statistics.median(times)
     report = plan_check.check_plan(plan, H100_1, cfg, seq_len=args.seq,
@@ -278,83 +407,98 @@ def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
         torch.cuda.set_device(device)
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     try:
-        try:
-            shape, axes = mesh_lib.train_mesh_spec(world, pp=args.pp, cp=args.cp)
-        except ValueError as e:
-            raise SystemExit(str(e))
-        cluster = dataclasses.replace(H100_NODE8, chips=world, intra_size=min(world, 8))
-        sched_opts = None
-        if args.pp_schedule != "searched":
-            v = args.pp_interleave if args.pp_schedule == "interleaved" else 1
-            sched_opts = [(args.pp_schedule, v)]
-        res = SearchEngine(cfg, cluster=cluster, calibration=calibration).search(
-            args.seq, args.batch, mesh_shape=shape, mesh_axes=axes, pp_options=[args.pp],
-            pp_schedule_options=sched_opts,
-            cp_options=[args.cp] if args.cp > 1 else None, arch=cfg.name)
-        searched_cp = max(s.cp for s in res.plan.layer_strategies
-                          + [res.plan.default_strategy])
-        if (args.pp > 1 or args.cp > 1) and (not res.feasible or res.plan.pp != args.pp
-                                             or searched_cp != args.cp):
-            # JAX's: the search falls back to a pp=1 plan when nothing fits;
-            # train nothing other than what was asked
-            raise SystemExit(
-                f"no feasible pp={args.pp} cp={args.cp} plan for "
-                f"--pp-schedule {args.pp_schedule} ({cfg.num_layers} layers, "
-                f"{world} devices; interleaved needs num_layers % "
-                f"(pp*interleave) == 0, cp needs seq % (2*cp) == 0)")
-        plan = res.plan
-        say = print if rank == 0 else (lambda *a, **k: None)
-        note = plan.notes.split("|")[-1].strip() if plan.notes else ""
-        sched = (f" pp={plan.pp}/{plan.pp_schedule}"
-                 + (f"x{plan.pp_interleave}" if plan.pp_interleave > 1 else "")
-                 if plan.pp > 1 else "")
-        say(f"plan[search]: {plan.default_strategy.short()} ga={plan.grad_accum}{sched} "
-            f"mesh={plan.mesh_shape} groups={len(plan.groups())}" + (f" ({note})" if note
-                                                                     else ""))
-        b = _predicted_breakdown(plan, cfg, args.seq, args.batch, calibration, cluster)
-        say(f"predicted ({cluster.name} x{world}, {calibration.source} calibration): "
-            f"compute {b['compute_s']:.6g} s, comm {b['comm_s']:.6g} s per step; plan step "
-            f"{b['predicted_step_time_s']:.6g} s, memory "
-            f"{b['predicted_memory_bytes'] / 1e9:.6g} GB per device")
-        if args.validate_only:
-            report = plan_check.check_plan(
-                plan, cluster, cfg, seq_len=args.seq, global_batch=args.batch,
-                profile=profile_model(cfg, args.seq), calibration=calibration)
-            say(report.format_table())
-            return 0 if report.ok() else 1
-
-        mesh = mesh_lib.make_mesh(shape, axes, device=device)
-        model = build_model(cfg, device=device)
-        if plan.pp > 1:
-            hp = PipelineTrainer(model, plan, mesh)
-        else:
-            hp = construct_hybrid_parallel_model(model, plan, mesh)
-        params = hp.init_params(torch.Generator(device=device).manual_seed(0))
-        opt = hp.init_opt_state(params)
-        say(f"model: {cfg.name} on {world} ranks of {mesh.backend} ({device.type}), "
-            f"groups {[g.strategy.short() for g in plan.groups()]}")
-        ds = SyntheticDataset(cfg, seq_len=args.seq, global_batch=args.batch)
-        times = []
-        for step in range(args.steps):
-            batch = ds.batch(step)
-            dist.barrier()
-            t0 = time.perf_counter()
-            params, opt, metrics = hp.train_step(params, opt, batch)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            times.append(time.perf_counter() - t0)
-            if step % args.log_every == 0 or step == args.steps - 1:
-                say(f"step {step} loss {float(metrics['loss']):.6f} grad_norm "
-                    f"{float(metrics['grad_norm']):.6f} step_time {times[-1] * 1e3:.1f} ms")
-        if device.type == "cuda":
-            say(f"peak memory (rank 0) "
-                f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
-        say(f"median step {statistics.median(times) * 1e3:.1f} ms vs predicted "
-            f"{plan.predicted_step_time * 1e3:.1f} ms")
-        say("done")
-        return 0
+        rc = _run_ranks(args, cfg, calibration, world, rank, device)
+    except SystemExit:
+        dist.barrier()               # every rank raises these alike
+        raise
+    else:
+        dist.barrier()
+        return rc
     finally:
         dist.destroy_process_group()
+
+
+def _run_ranks(args, cfg: ModelConfig, calibration, world: int, rank: int,
+               device: torch.device) -> int:
+    """``_main_ranks``' body, inside the initialised process group."""
+    import torch.distributed as dist
+
+    try:
+        shape, axes = mesh_lib.train_mesh_spec(world, pp=args.pp, cp=args.cp)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    cluster = dataclasses.replace(H100_NODE8, chips=world, intra_size=min(world, 8))
+    sched_opts = None
+    if args.pp_schedule != "searched":
+        v = args.pp_interleave if args.pp_schedule == "interleaved" else 1
+        sched_opts = [(args.pp_schedule, v)]
+    res = SearchEngine(cfg, cluster=cluster, calibration=calibration).search(
+        args.seq, args.batch, mesh_shape=shape, mesh_axes=axes, pp_options=[args.pp],
+        pp_schedule_options=sched_opts,
+        cp_options=[args.cp] if args.cp > 1 else None, arch=cfg.name)
+    searched_cp = max(s.cp for s in res.plan.layer_strategies
+                      + [res.plan.default_strategy])
+    if (args.pp > 1 or args.cp > 1) and (not res.feasible or res.plan.pp != args.pp
+                                         or searched_cp != args.cp):
+        # JAX's: the search falls back to a pp=1 plan when nothing fits;
+        # train nothing other than what was asked
+        raise SystemExit(
+            f"no feasible pp={args.pp} cp={args.cp} plan for "
+            f"--pp-schedule {args.pp_schedule} ({cfg.num_layers} layers, "
+            f"{world} devices; interleaved needs num_layers % "
+            f"(pp*interleave) == 0, cp needs seq % (2*cp) == 0)")
+    plan = res.plan
+    say = print if rank == 0 else (lambda *a, **k: None)
+    note = plan.notes.split("|")[-1].strip() if plan.notes else ""
+    sched = (f" pp={plan.pp}/{plan.pp_schedule}"
+             + (f"x{plan.pp_interleave}" if plan.pp_interleave > 1 else "")
+             if plan.pp > 1 else "")
+    say(f"plan[search]: {plan.default_strategy.short()} ga={plan.grad_accum}{sched} "
+        f"mesh={plan.mesh_shape} groups={len(plan.groups())}" + (f" ({note})" if note
+                                                                 else ""))
+    b = _predicted_breakdown(plan, cfg, args.seq, args.batch, calibration, cluster)
+    say(f"predicted ({cluster.name} x{world}, {calibration.source} calibration): "
+        f"compute {b['compute_s']:.6g} s, comm {b['comm_s']:.6g} s per step; plan step "
+        f"{b['predicted_step_time_s']:.6g} s, memory "
+        f"{b['predicted_memory_bytes'] / 1e9:.6g} GB per device")
+    if args.validate_only:
+        report = plan_check.check_plan(
+            plan, cluster, cfg, seq_len=args.seq, global_batch=args.batch,
+            profile=profile_model(cfg, args.seq), calibration=calibration)
+        say(report.format_table())
+        return 0 if report.ok() else 1
+
+    resume = _resume_step(args, plan, say)
+    mesh = mesh_lib.make_mesh(shape, axes, device=device)
+    model = build_model(cfg, device=device)
+    if plan.pp > 1:
+        hp = PipelineTrainer(model, plan, mesh)
+    else:
+        hp = construct_hybrid_parallel_model(model, plan, mesh)
+    params = hp.init_params(torch.Generator(device=device).manual_seed(0))
+    opt = hp.init_opt_state(params)
+    say(f"model: {cfg.name} on {world} ranks of {mesh.backend} ({device.type}), "
+        f"groups {[g.strategy.short() for g in plan.groups()]}")
+    start = 0
+    if resume is not None:
+        params, opt = _restore(args, hp, resume, params, opt, say)
+        start = resume
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dist.barrier()
+
+    ckpts = _Checkpoints(args, hp, plan, rank, dist.barrier) if args.ckpt_dir else None
+    times = _train_loop(args, hp, params, opt, start, ckpts, hp.train_step, say, sync)
+    if device.type == "cuda":
+        say(f"peak memory (rank 0) "
+            f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+    if times:
+        say(f"median step {statistics.median(times) * 1e3:.1f} ms vs predicted "
+            f"{plan.predicted_step_time * 1e3:.1f} ms")
+    say("done")
+    return 0
 
 
 if __name__ == "__main__":

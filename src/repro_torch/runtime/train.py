@@ -59,7 +59,14 @@ other than dense is an error (GALV031); ep > 1 is an
 error where GALV006 fails or no layer has experts, and so is a tp that
 does not divide a Mamba2 layer's heads or whose ranks' heads straddle its
 B/C groups.  Nothing is compiled (``jit_train_step`` returns the eager
-step), and the checkpoint hooks wait for the checkpointing slice.
+step).
+
+Checkpoints hold the canonical trees (``runtime/checkpoint.py``):
+``checkpoint_state`` gathers every leaf whole on every rank (the params
+under ``param_specs``, m and v under ``opt_specs``, beside the step
+scalar), and ``place_params`` / ``place_opt_state`` cut this rank's shards
+of a restored canonical state, so a checkpoint saved under one plan
+restores under another.
 """
 from __future__ import annotations
 
@@ -81,6 +88,7 @@ from repro_torch.parallel import context
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.axes import axis_rules, current_rules
 from repro_torch.parallel.remat import apply_remat
+from repro_torch.runtime import checkpoint as ckpt_lib
 from repro_torch.runtime import optimizer as opt_lib
 
 AUX_LOSS_WEIGHT = 0.01
@@ -386,10 +394,28 @@ class HybridParallelModel:
         return self.place_params(canonical)
 
     def place_params(self, canonical: dict) -> dict:
-        """This rank's shards (``param_specs``) of a canonical tree."""
-        if self.mesh is None:
-            return canonical
-        return shd.place_params(self.group(canonical), self.param_specs, self.mesh)
+        """This rank's shards (``param_specs``) of a canonical tree, on this
+        trainer's device (a restored tree lies on the CPU)."""
+        return self._place(canonical, self.param_specs)
+
+    def place_opt_state(self, canonical_opt: opt_lib.AdamWState) -> opt_lib.AdamWState:
+        """This rank's optimizer state (m and v cut by ``opt_specs``) from a
+        canonical one, as ``checkpoint_state`` gives it and a checkpoint
+        restores it."""
+        step = torch.as_tensor(canonical_opt.step).to(self.device)
+        return opt_lib.AdamWState(step=step, m=self._place(canonical_opt.m, self.opt_specs),
+                                  v=self._place(canonical_opt.v, self.opt_specs))
+
+    def _place(self, canonical: dict, specs) -> dict:
+        if self.mesh is not None:
+            canonical = shd.place_params(self.group(canonical), specs, self.mesh)
+        return tree_map(lambda x: x.to(self.device), canonical)
+
+    def checkpoint_state(self, params, opt_state=None):
+        """The canonical (params, optimizer state) a checkpoint stores
+        (``checkpoint.canonical_checkpoint_state``): on a mesh every rank
+        takes part in the gathers and holds the whole trees."""
+        return ckpt_lib.canonical_checkpoint_state(self, params, opt_state)
 
     def gather_params(self, params: dict, specs=None) -> dict:
         """The canonical tree (every leaf whole) from this rank's shards of a

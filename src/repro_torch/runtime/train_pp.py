@@ -58,8 +58,11 @@ and every grad is reduced within the stage as ``HybridParallelModel``
 reduces it.  The loss and metrics are the last stage's, the same on every
 rank.  ``apply_grads`` is AdamW in the ``optimizer`` span on the staged
 trees (the grad norm summed over every stage's blocks).  Nothing is
-compiled: ``jit_train_step`` returns the eager step.  ``place_opt_state``
-and ``checkpoint_state`` wait for Queue 1 items 5 and 6.
+compiled: ``jit_train_step`` returns the eager step.  The checkpoint hooks
+are ``HybridParallelModel``'s on the staged spec trees: ``checkpoint_state``
+gathers every leaf whole over the stage axis too and unstages the blocks
+(``ungroup``: ``unstage_stack``), and ``place_params`` / ``place_opt_state``
+stage a canonical tree and cut this rank's shards of it.
 """
 from __future__ import annotations
 
@@ -183,14 +186,6 @@ class PipelineTrainer(HybridParallelModel):
         out = dict(params)
         out["blocks"] = unstage_stack(params["blocks"], self.interleave)
         return out
-
-    def place_opt_state(self, canonical_opt):
-        raise NotImplementedError("placing a canonical optimizer state waits for Queue 1 "
-                                  "items 5 and 6 (checkpointing, elastic resize)")
-
-    def checkpoint_state(self, params, opt_state=None):
-        raise NotImplementedError("the checkpoint hand-off waits for Queue 1 item 5 "
-                                  "(runtime/checkpoint.py)")
 
     def loss_fn(self, params, batch, dtype=torch.bfloat16):
         raise NotImplementedError("the pipeline takes its loss inside value_and_grad, "

@@ -17,7 +17,8 @@ compare a one-rank mesh's steps with ``mesh=None``'s; ``pipeline_cases``
 does the same for ``PipelineTrainer`` under each schedule, on a (pod,
 data, model) or a (pod, cp, data, model) mesh.  A case may run on a (cp,
 data, model) mesh, and with a context-parallel fault brought in
-(``inject_fault``); ``ring_ops`` runs the cp ring alone.
+(``inject_fault``); ``ring_ops`` runs the cp ring alone; ``checkpoint_cases``
+saves a checkpoint under one plan and restores it under others.
 ``references`` builds a case and its two single-device references in the
 test process (the only function here that imports JAX).
 """
@@ -367,6 +368,71 @@ def pipeline_cases(payload: dict) -> dict:
                                                               torch.float32)])[0]
     out["ring"] = (hop.stage, float(got[0]), float(both[0]))
     return out
+
+
+def checkpoint_cases(payload: dict) -> dict:
+    """A checkpoint saved under one plan and restored under others, on 2
+    ranks in fp32: (a) one ``train_step`` under tp 2 + sp, ZeRO-1 on (data
+    1, model 2) from ``payload["params"]`` on ``payload["batches"][0]``,
+    its ``checkpoint_state`` saved by rank 0 into ``payload["dir"]`` at
+    step 1 while rank 1 waits at a barrier; (b) that step restored under
+    ZeRO-3 on (data 2, model 1), ``checkpoint_state`` of the placed state
+    against the restored trees, then one ``train_step`` on
+    ``batches[1]``; (c) the restored state placed on a ``PipelineTrainer``
+    at pp 2 / 1f1b on (pod 2, data 1, model 1) and given back by its
+    ``checkpoint_state``.  Rank 0 returns the saved canonical state, (b)'s
+    loss, grad norm and canonical state after its step, and whether (b)
+    and (c) gave the restored state back bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.core.strategy import ExecutionPlan, LayerStrategy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+    from repro_torch.runtime.train_pp import PipelineTrainer
+
+    cfg, opt_cfg, directory = payload["cfg"], payload["opt"], payload["dir"]
+    b0, b1 = payload["batches"]
+    L = cfg.num_layers
+    host = lambda *trees: {k: v.detach().clone() for k, v in ckpt._flatten(trees).items()}
+    same = lambda a, b: a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+    def trainer(shape, strategy):
+        plan = plan_of(cfg.name, L, shape, [strategy])
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        return construct_hybrid_parallel_model(build_model(cfg, device="cpu"), plan, mesh,
+                                               opt_cfg), plan
+
+    hp, plan = trainer((1, 2), LayerStrategy(tp=2, sp=True, zero=1))
+    params = hp.place_params(payload["params"])
+    params, opt, _ = hp.train_step(params, hp.init_opt_state(params), b0, torch.float32)
+    saved = hp.checkpoint_state(params, opt)
+    if dist.get_rank() == 0:
+        ckpt.save(directory, 1, *saved, plan)
+    dist.barrier()
+
+    hp, _ = trainer((2, 1), LayerStrategy(zero=3))
+    restored = ckpt.restore(directory, params_like=saved[0], opt_like=saved[1])
+    want = host(restored["params"], restored["opt"])
+    params, opt = hp.place_params(restored["params"]), hp.place_opt_state(restored["opt"])
+    zero3_back = same(host(*hp.checkpoint_state(params, opt)), want)
+    new, new_opt, metrics = hp.train_step(params, opt, b1, torch.float32)
+    after = host(*hp.checkpoint_state(new, new_opt))
+
+    pp_plan = ExecutionPlan(arch=cfg.name, shape="train", mesh_axes=("pod", "data", "model"),
+                            mesh_shape=(2, 1, 1), pp=2, pp_schedule="1f1b", grad_accum=2,
+                            layer_strategies=[LayerStrategy()] * L,
+                            default_strategy=LayerStrategy())
+    tr = PipelineTrainer(build_model(cfg, device="cpu"), pp_plan,
+                         make_mesh((2, 1, 1), ("pod", "data", "model"), device="cpu"), opt_cfg)
+    staged = tr.place_params(restored["params"]), tr.place_opt_state(restored["opt"])
+    pp_back = same(host(*tr.checkpoint_state(*staged)), want)
+    if dist.get_rank() != 0:
+        return None
+    return {"saved": host(*saved), "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "after": after,
+            "zero3_back": zero3_back, "pp_back": pp_back}
 
 
 def aux_runs(hp, params, batch, dtype, weights) -> dict:

@@ -14,7 +14,9 @@ rank); K2's split-row form against its plain
 passes and the whole-row K2; the cp ring's K1 partials at zig-zag shapes
 (phase 29's and, at llama3.2-1b-long's S 8 192, the ``pipeline_context``
 rows of a ring inside a pipeline stage) and its hand-written backward
-against autograd through the plain ring.
+against autograd through the plain ring; the checkpoint writer's snapshot
+of CUDA leaves (pinned host copies fenced by an event, ahead of an
+in-place update) and a bf16 state through the card.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -1800,3 +1802,56 @@ def test_cuda_two_gloo_ranks_cp2_hold_to_one_rank(cuda_device, tmp_path):
         want = ref[path].cpu() - init[path]
         err = float((a - ref[path].cpu()).abs().max())
         assert err <= 2e-3 * float(want.abs().max()), (path, err)
+
+
+def test_cuda_checkpoint_snapshot_is_fenced_before_an_in_place_update(cuda_device, tmp_path):
+    """``save_async`` of CUDA leaves, then at once a long queue of kernels
+    and an in-place update of every leaf: the written checkpoint holds the
+    values at the call (the snapshot's pinned copies run ahead of the
+    update on the stream, and the writer waits on their event)."""
+    from repro_torch.runtime import checkpoint as ckpt
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"w": torch.randn(4096, 4096, generator=g, device=cuda_device),
+            "b": torch.randn(4096, generator=g, device=cuda_device).to(torch.bfloat16)}
+    want = {k: v.cpu() for k, v in tree.items()}
+    with ckpt.CheckpointWriter() as w:
+        w.save_async(tmp_path, 1, tree)
+        torch.cuda._sleep(int(2e8))                # keep the stream busy
+        for x in tree.values():
+            x.mul_(-3.0).add_(1.0)
+    out = ckpt.restore(tmp_path, params_like=want)["params"]
+    for k in want:
+        assert out[k].dtype == want[k].dtype and torch.equal(out[k], want[k]), k
+    assert not torch.equal(tree["w"].cpu(), want["w"])
+
+
+def test_cuda_checkpoint_bf16_round_trips_through_the_card(cuda_device, tmp_path):
+    """A bf16 optimizer state on the card: saved sync and async (the same
+    bytes), restored, placed back on the card bitwise, its index naming the
+    leaves ``bfloat16``."""
+    import json
+
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.optimizer import AdamWState
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    m = {"embed": {"tok": torch.randn(1000, 64, generator=g, device=cuda_device)
+                   .to(torch.bfloat16)}}
+    opt = AdamWState(step=torch.tensor(5, dtype=torch.int32, device=cuda_device), m=m,
+                     v={"embed": {"tok": m["embed"]["tok"].square()}})
+    params = {"embed": {"tok": torch.randn(1000, 64, generator=g, device=cuda_device)}}
+    ckpt.save(tmp_path / "sync", 5, params, opt)
+    with ckpt.CheckpointWriter() as w:
+        w.save_async(tmp_path / "async", 5, params, opt)
+    for name in ("step000000005.json", "MANIFEST"):
+        assert ((tmp_path / "sync" / name).read_bytes()
+                == (tmp_path / "async" / name).read_bytes())
+    shards = json.loads((tmp_path / "sync" / "step000000005.json").read_text())["shards"]
+    assert shards["opt/.m/embed/tok"]["dtype"] == "bfloat16"
+    out = ckpt.restore(tmp_path / "async", params_like=params, opt_like=opt)
+    back = out["opt"].m["embed"]["tok"].to(cuda_device)
+    assert back.dtype == torch.bfloat16 and torch.equal(back, m["embed"]["tok"])
+    assert torch.equal(out["opt"].v["embed"]["tok"].to(cuda_device), opt.v["embed"]["tok"])
+    assert out["opt"].step.shape == () and int(out["opt"].step) == 5
+    assert torch.equal(out["params"]["embed"]["tok"].to(cuda_device), params["embed"]["tok"])
