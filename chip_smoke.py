@@ -383,7 +383,8 @@ Phases (any failure exits non-zero and prints no result line):
    buffers) on ``train_mesh_spec(4, pp=2, cp=2)`` = (pod 2, cp 2, data 1,
    model 1), through ``runtime.train_pp.PipelineTrainer`` with the cp ring
    inside every stage: llama3.2-1b-long at full width cut to 4 layers
-   (``PPCP_LAYERS``; 2 a stage), 2 steps of 4 x 8 192 tokens in 4
+   (``PPCP_LAYERS``; 2 a stage), 1 step (2 until phase 32 came) of 4 x
+   8 192 tokens in 4
    microbatches (each rank a microbatch's zig-zag half, 4 096 tokens: two
    last-stage ranks each hold one microbatch's fp32 head), bf16 compute,
    fp32 masters, ZeRO-1 (states over dp·cp), ``selective``, under (e)
@@ -421,7 +422,36 @@ Phases (any failure exits non-zero and prints no result line):
    sync save's time.  Logs the bytes written, the sync save's GB/s and
    seconds, the async blocked seconds and the writer's drain, the restore
    time; K1, K2 and K2-backward launches pinned (``train_launches`` at 2
-   layers, grad_accum 2, 7 steps); both directories deleted;
+   layers, grad_accum 2, 7 steps); the async writer logs to a
+   ``repro_torch.obs.RunSink`` in the temporary directory, whose log must
+   hold one ``queued`` and one ``written`` ``ckpt`` event for the save and
+   whose default timeline the ``ckpt_host_copy`` and ``ckpt_enqueue``
+   spans; both directories deleted;
+32. telemetry (run after phase 31, before the results; one card, no gloo;
+   every log read with ``repro_torch.obs.read_run``) — (a) the fence: a
+   ``StepTimer`` around 64 bf16 8192 x 8192 products, fenced by
+   ``obs.fence``, reads within 5 % + 1 ms of CUDA events recorded inside
+   its interval and not below them, and with a no-op fence under half of
+   them; (b) ``obs.span("telemetry_probe")`` around one K2 launch appears
+   by name in ``torch.profiler``'s ``key_averages()`` and in the timeline;
+   (c) full-width, full-depth llama3.2-1b through ``serving.build(...,
+   metrics=, sink=)`` with phase 4's pool (8 slots, page 16, chunk 256,
+   bf16, graphed; a warm-up request captures the graphs with the hooks
+   off), 8 requests of 512 + 16 tokens: 8 each of ``request_start``,
+   ``first_token`` and ``request_end``, each event's TTFT / TPOT its
+   request's, the histograms at 8, K1 and K2 launched (their serving rows
+   stand again for the path ``telemetry``); the registry's p50 TTFT and
+   TPOT and the emits' summed time logged, and the median TTFT and TPOT of
+   the same 8 requests served with the hooks off before and after; (d) ``python -m
+   repro_torch.launch.train`` at full width and depth, 4 steps of 4 x 2048
+   in 2 microbatches under ``selective`` with ``--run-dir``, as a
+   subprocess (which prints its launches after the launcher returns): the
+   log holds ``run_start`` (schema 1), ``plan``, ``memory``, 4 ``step``
+   events and ``run_end``, each step's tokens/s and MFU recomputed from its
+   step time and this phase's FLOP count (6N x tokens against 989 TFLOP/s)
+   agree to 1e-6, its launches are ``train_launches``' a step (path
+   ``telemetry_train``: K1's own row at 2 x 2048, phase 25's 4 096 x 2048
+   K2 and K2-backward rows); the median step, tokens/s and MFU logged;
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated``,
    ``rmsnorm_bwd``, ``rmsnorm_split_fwd`` and ``rmsnorm_split_bwd`` rows for
    K2, ``ssd`` and ``ssd_autograd`` for K3; a row phase 28's stages also
@@ -429,7 +459,10 @@ Phases (any failure exits non-zero and prints no result line):
    ring's K1 rows under the path ``context_parallel``, with phase 29's
    launches, and under ``pipeline_context``, with phase 30's; the llama
    training rows stand again for the path ``checkpoint`` with phase 31's
-   launches), then the device line last.
+   launches, the llama serving rows for ``telemetry`` with phase 32's (c),
+   and K1's 2 x 2048 row and phase 25's 4 096 x 2048 K2 rows for
+   ``telemetry_train`` with (d)'s),
+   then the device line last.
 """
 from __future__ import annotations
 
@@ -452,6 +485,12 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PP_LLAMA_PATHS = ("pipeline_a", "pipeline_b", "pipeline_c")
 #: ... and so do phase 10's steps and phase 31's (a 2 x 4096 microbatch)
 LLAMA_TRAIN_PATHS = ("train",) + PP_LLAMA_PATHS + ("checkpoint",)
+#: phase 4's serving shapes (a 256-token prefill chunk, an 8-slot decode)
+#: are phase 32's too
+LLAMA_SERVE_PATHS = ("llama", "telemetry")
+#: a parallel-rig rank's 4 096 rows x 2048 over the fp32 master scale are
+#: also a microbatch of phase 32's train launcher (2 x 2048, one device)
+PAR_TRAIN_PATHS = ("parallel", "telemetry_train")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # per (b, s, h) row of K1's output: the largest error against the fp32 plain
@@ -661,11 +700,18 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     encoder, cross- and self-attention at 3 heads over 32 windows (c); a
     rank's three K1 calls in phase 29's cp ring (``cp_ring_rows``), the
     causal one at the rank's zig-zag positions, and in phase 30's ring
-    inside a pipeline stage (path ``pipeline_context``)."""
+    inside a pipeline stage (path ``pipeline_context``); phase 32's train
+    launcher's microbatch, 2 x 2048 (path ``telemetry_train``)."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
-        path=LLAMA_TRAIN_PATHS))]
+        path=LLAMA_TRAIN_PATHS)),
+             # phase 32 (d): the train launcher's microbatch of 2 x 2048
+             (f"train causal B{TELEMETRY_TRAIN_BATCH // TELEMETRY_TRAIN_ACCUM} "
+              f"S{TELEMETRY_TRAIN_SEQ} H32 KV8 hd64 bfloat16", True, flash_case(
+                 torch, gen, B=TELEMETRY_TRAIN_BATCH // TELEMETRY_TRAIN_ACCUM,
+                 Sq=TELEMETRY_TRAIN_SEQ, Sk=TELEMETRY_TRAIN_SEQ, H=32, KV=8, hd=64,
+                 dtype=torch.bfloat16, path="telemetry_train"))]
     # the many-row split path: past 256 key tiles, blocks of 64 rows split too
     long_kv = torch.tensor([20000], device="cuda")
     for dtype in (torch.bfloat16, torch.float32):
@@ -687,10 +733,10 @@ def check_flash(torch, flash_ops, flash_ref, gen):
         cases.append((f"prefill chunk B1 Sq256 Sk1280 H32 KV8 hd64 {name}", True,
                       flash_case(torch, gen, B=1, Sq=256, Sk=1280, H=32, KV=8, hd=64,
                                  dtype=dtype, q_off=torch.tensor([512], device="cuda"),
-                                 kv_len=kv)))
+                                 kv_len=kv, path=LLAMA_SERVE_PATHS)))
         cases.append((f"decode B8 Sq1 Sk1025 H32 KV8 hd64 {name}", True, flash_case(
             torch, gen, B=8, Sq=1, Sk=1025, H=32, KV=8, hd=64, dtype=dtype, q_off=lens - 1,
-            kv_len=lens)))
+            kv_len=lens, path=LLAMA_SERVE_PATHS)))
         cases.append((f"causal B1 S256 H32 KV8 hd64 {name}", False, flash_case(
             torch, gen, B=1, Sq=256, Sk=256, H=32, KV=8, hd=64, dtype=dtype)))
         cases.append((f"non-causal B2 Sq200 Sk333 H4 hd128 {name}", False, flash_case(
@@ -963,11 +1009,13 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     width and at the gate norm's, which training runs ungated, composed
     under autograd; parallel: a rank's 4 096 rows x 2048 in the parallel
     rig, sequence-sharded under tp 2 + sp or a dp 2 rank's sequence, with
-    the fp32 master scale the model passes); "check" rows are timed
+    the fp32 master scale the model passes, and telemetry_train: phase 32's
+    train launcher's microbatch of 2 x 2048 rows); "check" rows are timed
     and logged but belong to no path (the gate norms' widths 5120 and 7168,
     which the models now run gated)."""
     rows = []
-    shapes = [((8, 2048), "llama"), ((256, 2048), "llama"), ((8192, 2560), "mamba2"),
+    shapes = [((8, 2048), LLAMA_SERVE_PATHS), ((256, 2048), LLAMA_SERVE_PATHS),
+              ((8192, 2560), "mamba2"),
               ((4, 2560), "mamba2"), ((8192, 2048), LLAMA_TRAIN_PATHS),
               ((8192, 3584), "zamba2"),
               ((24000, 384), "whisper"), ((16, 384), "whisper"), ((48000, 384), "whisper_train"),
@@ -975,7 +1023,7 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
               ((4096, 2560), ("mamba2_train", "pipeline_d")),
               ((4096, 5120), ("mamba2_train", "pipeline_d")),
               ((4096, 3584), "zamba2_train"), ((4096, 7168), "zamba2_train"),
-              ((4096, 2048, "fp32 scale"), "parallel"), ((8192, 5120), "check"),
+              ((4096, 2048, "fp32 scale"), PAR_TRAIN_PATHS), ((8192, 5120), "check"),
               ((8192, 7168), "check"), ((8192, 64), None),
               ((32768, 128), None), ((64, 14336), None), ((6, 40000), None), ((7, 333), None),
               ((8192, 3584, "misaligned"), None), ((300, 1000, "misaligned"), None)]
@@ -1072,7 +1120,8 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     fp32), 8192 x 3584, qk-norm rows 32768 x 128, whisper's encoder rows of
     a microbatch 48000 x 384, internvl2's 8192 x 6144, mamba2's layer norm
     and the Mamba2 gate norms of a training microbatch (4096 x 2560, 4096 x
-    5120 and 4096 x 7168), a parallel-rig rank's 4096 x 2048 (phase 25),
+    5120 and 4096 x 7168), a parallel-rig rank's 4096 x 2048 (phase 25,
+    and phase 32's train launcher's microbatch),
     the pipeline's final norms on the fp32 boundary output (8192 x 2048 and
     4096 x 2560 fp32: the latter takes the fp32 two-pass template), an odd
     width, a misaligned view (the scalar two-pass template).  Timed rows
@@ -1090,7 +1139,7 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
              ((4096, 2560), bf16, f32, False, ("mamba2_train", "pipeline_d")),
              ((4096, 5120), bf16, f32, False, ("mamba2_train", "pipeline_d")),
              ((4096, 7168), bf16, f32, False, "zamba2_train"),
-             ((4096, 2048), bf16, f32, False, "parallel"),
+             ((4096, 2048), bf16, f32, False, PAR_TRAIN_PATHS),
              ((8192, 2048), f32, f32, False, PP_LLAMA_PATHS),
              ((4096, 2560), f32, f32, False, "pipeline_d"), ((300, 333), f32, f32, False, None),
              ((8192, 2048), bf16, f32, True, None)]
@@ -5180,7 +5229,7 @@ def cp_phase(torch) -> dict:
 #: microbatches of 1 (each rank a microbatch's zig-zag half, 4 096 tokens:
 #: a last-stage rank holds one microbatch's fp32 head at that length, and
 #: two of them share the card with two first-stage ranks), 2 steps a case
-PPCP_LAYERS, PPCP_SEQ, PPCP_BATCH, PPCP_ACCUM, PPCP_STEPS = 4, 8192, 4, 4, 2
+PPCP_LAYERS, PPCP_SEQ, PPCP_BATCH, PPCP_ACCUM, PPCP_STEPS = 4, 8192, 4, 4, 1
 #: launch.mesh.train_mesh_spec(4, pp=2, cp=2)
 PPCP_MESH = ((2, 2, 1, 1), ("pod", "cp", "data", "model"))
 PPCP_FP32_SEQ = 512            # the fp32 check of case (e): 4 x 512, grad_accum 4
@@ -5549,6 +5598,7 @@ def checkpoint_phase(torch, counters) -> dict:
     import shutil
     import tempfile
 
+    from repro_torch import obs
     from repro_torch.configs.registry import get_config
     from repro_torch.runtime import checkpoint as ckpt
     from repro_torch.runtime.data import SyntheticDataset
@@ -5595,7 +5645,9 @@ def checkpoint_phase(torch, counters) -> dict:
         t0 = time.perf_counter()
         ckpt.save(root / "sync", 2, *hp.checkpoint_state(params, opt), plan, codec="raw")
         sync_s = time.perf_counter() - t0
-        writer = ckpt.CheckpointWriter()
+        sink = obs.RunSink.create(root / "run")
+        spans = len(obs.default_tracer().timeline())
+        writer = ckpt.CheckpointWriter(sink=sink)
         t0 = time.perf_counter()
         writer.save_async(root / "async", 2, *hp.checkpoint_state(params, opt), plan,
                           codec="raw")
@@ -5604,6 +5656,16 @@ def checkpoint_phase(torch, counters) -> dict:
         step_s = time.perf_counter() - t0
         writer.close()
         drain_s = time.perf_counter() - t0
+        sink.close()
+        events = [e for e in obs.read_run(root / "run" / "run.jsonl") if e["event"] == "ckpt"]
+        new_spans = [r["name"] for r in obs.default_tracer().timeline()[spans:]]
+        log(f"checkpoint: the writer's sink events {[(e['phase'], e['step']) for e in events]}, "
+            f"spans {new_spans}")
+        require(sorted((e["phase"], e["step"]) for e in events)
+                == [("queued", 2), ("written", 2)],
+                "checkpoint: the async save did not log one queued and one written event")
+        require({"ckpt_host_copy", "ckpt_enqueue"} <= set(new_spans),
+                "checkpoint: the timeline holds no ckpt_host_copy / ckpt_enqueue span")
         bitwise("(b) in place", metrics["loss"], flat(params, opt), want_loss, want)
         del hp, params, opt, metrics
         written = sum(f.stat().st_size for f in (root / "async").rglob("*") if f.is_file())
@@ -5643,6 +5705,295 @@ def checkpoint_phase(torch, counters) -> dict:
     require(launches == expected, f"checkpoint launched {launches}, expected {expected}")
     log(f"checkpoint: phase 31 took {time.perf_counter() - t_phase:.1f} s, launches "
         f"{ {k: n for k, n in launches.items() if n} } over {CKPT_STEPS} steps")
+    return launches
+
+
+TELEMETRY_MATMULS, TELEMETRY_DIM = 64, 8192       # 64 bf16 8192^3 products
+#: the fenced timer against CUDA events around the same work: at most 5 % +
+#: 1 ms above them, never below
+TELEMETRY_FENCE_REL, TELEMETRY_FENCE_ABS = 0.05, 1e-3
+TELEMETRY_REQUESTS, TELEMETRY_PROMPT, TELEMETRY_NEW = 8, 512, 16
+TELEMETRY_TRAIN_STEPS, TELEMETRY_TRAIN_SEQ, TELEMETRY_TRAIN_BATCH = 4, 2048, 4
+TELEMETRY_TRAIN_ACCUM = 2
+TELEMETRY_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--seq", str(TELEMETRY_TRAIN_SEQ), "--batch",
+                        str(TELEMETRY_TRAIN_BATCH), "--grad-accum", str(TELEMETRY_TRAIN_ACCUM),
+                        "--remat", "selective", "--steps", str(TELEMETRY_TRAIN_STEPS),
+                        "--log-every", "1"]
+#: ``python -m repro_torch.launch.train ARGS`` as it runs, then this
+#: process's kernel launches on a last line (the launcher prints none)
+TELEMETRY_TRAIN_RUNNER = (
+    "import json, runpy, sys\n"
+    "sys.argv[0] = 'repro_torch.launch.train'\n"
+    "try:\n"
+    "    runpy.run_module('repro_torch.launch.train', run_name='__main__', alter_sys=True)\n"
+    "    rc = 0\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code or 0\n"
+    "import chip_smoke as cs\n"
+    "from repro_torch.kernels.flash_attention import ops as f\n"
+    "from repro_torch.kernels.rmsnorm import ops as r\n"
+    "from repro_torch.kernels.ssd import ops as s\n"
+    "print('launches ' + json.dumps(cs.read_counts(cs.launch_counters(f, r, s))), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def telemetry_fence(torch, obs) -> None:
+    """(a) A ``StepTimer`` around a fixed device workload (``TELEMETRY_MATMULS``
+    bf16 products of two ``TELEMETRY_DIM`` squares), fenced by ``obs.fence``
+    and with a no-op fence, each against CUDA events recorded inside the
+    timer's interval: the fenced reading within 5 % + 1 ms of the events and
+    not below them, the unfenced one under half of them."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    a, b = (torch.randn(TELEMETRY_DIM, TELEMETRY_DIM, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    c = torch.empty_like(a)
+
+    def work():
+        for _ in range(TELEMETRY_MATMULS):
+            torch.mm(a, b, out=c)
+        return {"out": c}
+
+    work()                             # cuBLAS's handle and workspace, the clocks up
+    torch.cuda.synchronize()
+    got = {}
+    for label, fence_fn in (("fenced", obs.fence), ("unfenced", lambda outputs: None)):
+        timer = obs.StepTimer(obs.MetricsRegistry(), fence_fn=fence_fn)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        timer.start()
+        start.record()
+        out = work()
+        end.record()
+        rec = timer.stop(0, out)
+        end.synchronize()
+        got[label] = (rec.step_time_s, start.elapsed_time(end) / 1e3)
+    flops = 2.0 * TELEMETRY_DIM ** 3 * TELEMETRY_MATMULS
+    (f_s, f_ev), (u_s, u_ev) = got["fenced"], got["unfenced"]
+    log(f"telemetry: (a) {TELEMETRY_MATMULS} bf16 {TELEMETRY_DIM}^3 products "
+        f"({flops / f_ev / 1e12:.1f} TFLOP/s by the events): fenced StepTimer {f_s * 1e3:.3f} ms "
+        f"vs CUDA events {f_ev * 1e3:.3f} ms (+{(f_s - f_ev) * 1e3:.3f} ms, "
+        f"{100 * (f_s / f_ev - 1):.2f} %); unfenced {u_s * 1e3:.3f} ms vs events "
+        f"{u_ev * 1e3:.3f} ms ({100 * u_s / u_ev:.2f} %)")
+    require(f_ev <= f_s <= f_ev * (1 + TELEMETRY_FENCE_REL) + TELEMETRY_FENCE_ABS,
+            f"telemetry: the fenced timer read {f_s} s against CUDA events' {f_ev} s")
+    require(u_s < 0.5 * u_ev, f"telemetry: the unfenced timer read {u_s} s, not under half "
+            f"the events' {u_ev} s: the fence is not what makes the reading")
+
+
+def telemetry_spans(torch, obs, rms_ops) -> None:
+    """(b) ``obs.span("telemetry_probe")`` around one K2 launch under
+    ``torch.profiler.profile``: the span is in ``key_averages()`` by name
+    and closed in the default tracer's timeline."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    x = torch.randn(256, 2048, generator=gen, device="cuda", dtype=torch.bfloat16)
+    scale = torch.randn(2048, generator=gen, device="cuda", dtype=torch.bfloat16)
+    rms_ops.rmsnorm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with obs.span("telemetry_probe"):
+            rms_ops.rmsnorm(x, scale, 1e-5)
+        torch.cuda.synchronize()
+    # the annotation's rows: the host range, and (where the profiler keys
+    # them apart) its range on the device timeline
+    rows = [e for e in prof.key_averages() if e.key == "telemetry_probe"]
+    spans = [r for r in obs.default_tracer().timeline() if r["name"] == "telemetry_probe"]
+    require(rows, "telemetry: the span is not in the profile's key_averages()")
+    require(len(spans) == 1 and spans[0]["t1"] is not None,
+            f"telemetry: the timeline holds {spans} for the span")
+    log(f"telemetry: (b) span telemetry_probe around one K2 launch: key_averages rows "
+        + "; ".join(f"{r.device_type} count {r.count} host {r.cpu_time_total:.1f} us device "
+                    f"{getattr(r, 'device_time_total', 'not measured')} us" for r in rows)
+        + f"; timeline {(spans[0]['t1'] - spans[0]['t0']) * 1e6:.1f} us")
+
+
+def telemetry_serve(torch, np, serving, obs, counters, root: pathlib.Path) -> dict:
+    """(c) ``serving.build`` at full llama3.2-1b width and depth with
+    phase 4's pool (8 slots, page 16, chunk 256, bf16, graphed) and
+    ``metrics=`` / ``sink=``; a warm-up request (the graphs' captures) with
+    the scheduler's hooks off, then ``TELEMETRY_REQUESTS`` of
+    ``TELEMETRY_PROMPT`` + ``TELEMETRY_NEW`` tokens: the log holds 8 each of
+    ``request_start``, ``first_token`` and ``request_end`` whose TTFT / TPOT
+    are their requests', the histograms count 8.  The same requests are
+    served before and after the logged run with the hooks off, and the
+    three runs' median TTFT and TPOT (from their ``Request``s) logged side
+    by side: what the metrics and the sink cost a request.  Returns the
+    logged run's launches."""
+    config = serving.ServeConfig(
+        arch=TRAIN_ARCH, reduced=False, device="cuda",
+        cache=serving.CacheConfig(max_context=1024, page_size=16),
+        scheduler=serving.SchedulerConfig(num_slots=8, prefill_chunk=256))
+    registry = obs.MetricsRegistry()
+    sink = obs.RunSink.create(root / "serve", meta={"arch": TRAIN_ARCH, "mode": "serve",
+                                                     "batch": TELEMETRY_REQUESTS})
+    emit_s, emitted, raw_emit = [0.0], [0], sink.emit
+
+    def timed_emit(event, **fields):
+        t0 = time.perf_counter()
+        try:
+            return raw_emit(event, **fields)
+        finally:
+            emit_s[0] += time.perf_counter() - t0
+            emitted[0] += 1
+
+    sink.emit = timed_emit
+    finite = []
+
+    def greedy(logits, request, rng):
+        finite.append(bool(np.isfinite(logits).all()))
+        return int(np.argmax(logits))
+
+    session = serving.build(config, metrics=registry, sink=sink, sample_fn=greedy)
+    sched = session.scheduler
+    rng = np.random.default_rng(32)
+    vocab = config.model_config().vocab_size
+    sched.metrics, sched.sink = None, None          # the warm-up request is not logged
+    session.submit(serving.Request(prompt=rng.integers(0, vocab, 300, dtype=np.int32),
+                                   max_new=3))
+    session.run_until_drained()
+    prompts = rng.integers(0, vocab, (TELEMETRY_REQUESTS, TELEMETRY_PROMPT), dtype=np.int32)
+
+    def serve_all() -> tuple[dict, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = {r.rid: r for r in (session.submit(serving.Request(
+            prompt=p, max_new=TELEMETRY_NEW)).request for p in prompts)}
+        session.run_until_drained()
+        torch.cuda.synchronize()
+        return reqs, time.perf_counter() - t0
+
+    def medians(reqs) -> str:
+        return (f"ttft p50 {statistics.median(r.ttft_s for r in reqs.values()) * 1e3:.2f} ms, "
+                f"tpot p50 {statistics.median(r.tpot_s for r in reqs.values()) * 1e3:.3f} ms")
+
+    before, _ = serve_all()                         # the hooks still off
+    sched.metrics, sched.sink = registry, sink
+    zero_counts(counters)
+    finite.clear()
+    reqs, wall = serve_all()
+    launches = read_counts(counters)
+    n_finite = list(finite)
+    sched.metrics, sched.sink = None, None
+    after, _ = serve_all()
+    sink.close()
+    events = obs.read_run(root / "serve" / "run.jsonl")
+    by: dict = {}
+    for e in events:
+        by.setdefault(e["event"], []).append(e)
+    counts = {k: len(v) for k, v in by.items()}
+    require(counts == {"run_start": 1, "request_start": TELEMETRY_REQUESTS,
+                       "first_token": TELEMETRY_REQUESTS, "request_end": TELEMETRY_REQUESTS},
+            f"telemetry: the serving log holds {counts}")
+    require(all(len(r.tokens) == TELEMETRY_NEW for r in reqs.values()) and all(n_finite)
+            and len(n_finite) == TELEMETRY_REQUESTS * TELEMETRY_NEW,
+            "telemetry: a request did not return its tokens, or a logits row was not finite")
+    for e in by["first_token"] + by["request_end"]:
+        r = reqs[e["rid"]]
+        require(e["ttft_s"] == r.ttft_s and e.get("tpot_s", r.tpot_s) == r.tpot_s,
+                f"telemetry: {e['event']} of request {e['rid']} logs another TTFT/TPOT "
+                f"than its Request's")
+    snap = registry.snapshot()
+    require(snap["ttft_s"]["count"] == TELEMETRY_REQUESTS
+            and snap["tpot_s"]["count"] == TELEMETRY_REQUESTS
+            and snap["requests"] == TELEMETRY_REQUESTS
+            and snap["generated_tokens"] == TELEMETRY_REQUESTS * TELEMETRY_NEW,
+            f"telemetry: the registry holds {snap}")
+    require(launches["flash_attention_fwd"] > 0 and launches["rmsnorm"] > 0,
+            f"telemetry: the serve run launched no K1 or no K2: {launches}")
+    tokens = TELEMETRY_REQUESTS * TELEMETRY_NEW
+    log(f"telemetry: (c) served {TELEMETRY_REQUESTS} x ({TELEMETRY_PROMPT} + {TELEMETRY_NEW}) "
+        f"tokens in {wall:.3f} s ({tokens / wall:.1f} tok/s); registry ttft p50 "
+        f"{snap['ttft_s']['p50'] * 1e3:.2f} ms (p90 {snap['ttft_s']['p90'] * 1e3:.2f}), tpot p50 "
+        f"{snap['tpot_s']['p50'] * 1e3:.3f} ms (p90 {snap['tpot_s']['p90'] * 1e3:.3f}); "
+        f"{emitted[0]} emits took {emit_s[0] * 1e3:.3f} ms in all "
+        f"({100 * emit_s[0] / wall:.3f} % of the run); launches {launches}")
+    log(f"telemetry: (c) the same requests from their Requests: hooks off before "
+        f"{medians(before)}; with metrics and sink {medians(reqs)}; hooks off after "
+        f"{medians(after)}")
+    del session, sched
+    return launches
+
+
+def telemetry_train(root: pathlib.Path) -> dict:
+    """(d) ``python -m repro_torch.launch.train`` at full llama3.2-1b width
+    and depth (``TELEMETRY_TRAIN_ARGS``) with ``--run-dir``, as a
+    subprocess: its log holds run_start (schema 1), plan, memory, one step
+    event a step and run_end; each step's tokens/s and MFU recomputed from
+    its step time and this phase's FLOP count agree to 1e-6; its K1, K2 and
+    K2-backward launches are ``train_launches``' a step.  Returns them."""
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.profiler_model import profile_model
+
+    run_dir = root / "train"
+    cmd = [sys.executable, "-c", TELEMETRY_TRAIN_RUNNER, *TELEMETRY_TRAIN_ARGS,
+           "--run-dir", str(run_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=_src_env(), capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  | {line}")
+    require(proc.returncode == 0, f"telemetry: the train launcher exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    launches = json.loads(proc.stdout.strip().splitlines()[-1].split(" ", 1)[1])
+    want = {k: n * TELEMETRY_TRAIN_STEPS for k, n in
+            train_launches(16, "selective", TELEMETRY_TRAIN_ACCUM).items()}
+    require(launches == want, f"telemetry: the launcher launched {launches}, expected {want}")
+    events = obs.read_run(run_dir / "run.jsonl")
+    kinds = [e["event"] for e in events]
+    require(kinds == ["run_start", "plan", "memory"] + ["step"] * TELEMETRY_TRAIN_STEPS
+            + ["run_end"], f"telemetry: the training log holds {kinds}")
+    require(events[0]["schema"] == obs.SCHEMA_VERSION and events[1]["reason"] == "search",
+            "telemetry: the log's run_start or plan event is not JAX's")
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TELEMETRY_TRAIN_SEQ * TELEMETRY_TRAIN_BATCH
+    flops = profile_model(cfg, TELEMETRY_TRAIN_SEQ).model_flops_per_token() * tokens
+    steps = [e for e in events if e["event"] == "step"]
+    for e in steps:
+        dt = e["step_time_s"]
+        require(dt > 0 and math.isfinite(e["loss"]), f"telemetry: step event {e}")
+        for key, value in (("tokens_per_sec", tokens / dt),
+                           ("mfu", flops / dt / PEAK_FLOPS["bfloat16"])):
+            require(abs(e[key] - value) <= 1e-6 * value,
+                    f"telemetry: step {e['step']}'s {key} {e[key]} is not {value}")
+    end = events[-1]
+    require(end["metrics"]["step_time_s"]["count"] == TELEMETRY_TRAIN_STEPS
+            and end["steps"] == TELEMETRY_TRAIN_STEPS,
+            f"telemetry: run_end counts {end['metrics']['step_time_s']}")
+    median = statistics.median(e["step_time_s"] for e in steps)
+    log(f"telemetry: (d) the launcher ({wall:.1f} s of wall, {TELEMETRY_TRAIN_STEPS} steps of "
+        f"{TELEMETRY_TRAIN_BATCH} x {TELEMETRY_TRAIN_SEQ}, grad_accum {TELEMETRY_TRAIN_ACCUM}, "
+        f"selective): step times {[round(e['step_time_s'], 4) for e in steps]} s, median "
+        f"{median:.4f} s, {tokens / median:.1f} tok/s, MFU {100 * flops / median / PEAK_FLOPS['bfloat16']:.3f} % "
+        f"(6N x tokens = {flops:.6e} FLOP a step against 989 TFLOP/s); peak "
+        f"{events[2]['peak_hbm_bytes'] / 1e9:.2f} GB after step 0; run_end spans "
+        f"{len(end['spans'])}; launches {launches}")
+    return launches
+
+
+def telemetry_phase(torch, np, serving, rms_ops, counters) -> dict:
+    """Phase 32 (see the module note): (a) the fence, (b) a span in a
+    profile, (c) serving with metrics and a sink, (d) the train launcher
+    with ``--run-dir``; every log read with ``repro_torch.obs.read_run``.
+    Returns the launches of (c) (path ``telemetry``) and of (d) (path
+    ``telemetry_train``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="telemetry-phase-"))
+    try:
+        telemetry_fence(torch, obs)
+        telemetry_spans(torch, obs, rms_ops)
+        launches = {"telemetry": telemetry_serve(torch, np, serving, obs, counters, root)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["telemetry_train"] = telemetry_train(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"telemetry: phase 32 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -5890,6 +6241,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     par_launches["checkpoint"] = checkpoint_phase(torch, counters)
+
+    mark("32")
+    # 32. telemetry: the fence, spans, serving and the train launcher logged
+    gc.collect()
+    torch.cuda.empty_cache()
+    par_launches.update(telemetry_phase(torch, np, serving, rms_ops, counters))
 
     mark("24")
     # 24. results

@@ -17,7 +17,14 @@ and prefill steps replayed as captured CUDA graphs, as JAX jits them);
 ``SearchEngine.search_serve`` picks (tp, num_slots, page_size) for one H100
 and a context window under an SLO and prints the roofline's predictions
 without touching any device memory.  ``serve.py profile ...`` is the
-``profile`` subcommand.  ``--run-dir`` telemetry waits for the ``obs`` slice.
+``profile`` subcommand.
+
+``--run-dir DIR`` writes the run's JSONL log as JAX's does
+(``repro_torch.obs.RunSink``, ``DIR/run.jsonl``): ``run_start`` with the
+meta ``{arch, mode: "serve", batch}``, then the scheduler's per-request
+events (``request_start``, ``first_token``, ``request_end``,
+``request_evicted``); ``scripts/render_run.py DIR`` renders its serving
+section (TTFT/TPOT percentiles, queue depth).
 
     python -m repro_torch.launch.serve search --arch qwen3-14b --max-context 4096
 """
@@ -93,9 +100,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda: the CUDA kernels; cpu: the "
                          "plain versions)")
+    ap.add_argument("--run-dir", default="",
+                    help="directory for the JSONL run log (repro_torch.obs "
+                         "RunSink) — per-request TTFT/TPOT events land there")
     args = ap.parse_args(argv)
 
-    from repro_torch import serving
+    from repro_torch import obs, serving
+
+    sink = (obs.RunSink.create(args.run_dir,
+                               meta={"arch": args.arch, "mode": "serve",
+                                     "batch": args.batch})
+            if args.run_dir else obs.NullSink())
+    metrics = obs.MetricsRegistry()
 
     need = args.prompt_len + args.max_new
     max_context = args.max_context or -(-need // args.page_size) * args.page_size
@@ -107,7 +123,7 @@ def main(argv=None):
             num_slots=args.num_slots or args.batch,
             prefill_chunk=args.prefill_chunk,
             temperature=args.temperature))
-    engine = serving.build(config)
+    engine = serving.build(config, metrics=metrics, sink=sink)
     vocab = config.model_config().vocab_size
     sync = (torch.cuda.synchronize if engine.model.device.type == "cuda"
             else (lambda: None))
@@ -123,6 +139,7 @@ def main(argv=None):
     engine.run_until_drained()
     sync()
     wall = time.perf_counter() - t0
+    sink.close()
 
     reqs = [s.request for s in streams]
     tokens = sum(len(r.tokens) for r in reqs)

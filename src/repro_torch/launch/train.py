@@ -76,11 +76,41 @@ pre-resize grouped layout) is refused.
         --steps 4 --seq 32 --batch 4 --ckpt-dir /tmp/ck --ckpt-every 2
     python -m repro_torch.launch.train ... --ckpt-dir /tmp/ck --resume --steps 6
 
+``--run-dir DIR`` writes the run's JSONL log (``repro_torch.obs.RunSink``,
+``DIR/run.jsonl``, JAX's schema and bytes) as JAX's ``main`` does:
+``run_start`` with ``{arch, seq, batch, steps, devices}``, one ``plan``
+event (reason ``search``, the predicted breakdown; ``search_rejections``
+on the mesh branch), a ``step`` event every ``--log-every`` steps and at
+the last (the ``StepTimer``'s record — step time, tokens/s and MFU against
+989 TFLOP/s, the peak of the H100 the plan was priced on, times the
+devices — plus ``loss`` and ``grad_norm``), ``drift`` events while the
+``DriftMonitor`` sees the step time off the prediction (GALV070's warning
+and a ``DriftReplanAdvisor`` ``replan_signal`` when sustained), ``ckpt``
+events (``queued`` / ``written`` from the async writer, ``written`` for a
+sync save), and ``run_end`` with the metrics' snapshot and the span
+timeline.  ``scripts/render_run.py DIR`` renders it.  Three departures
+from JAX: the ``memory`` event is ``torch.cuda.max_memory_allocated`` after
+the first step, on CUDA only (JAX reads its compiled step's memory
+analysis before it); under ``torchrun`` rank 0 alone opens the sink (the
+others hold a ``NullSink``) and the timer's fence is synchronize plus a
+barrier, so a step's time is the slowest rank's; the printed step line
+keeps the port's form (``step N loss … grad_norm … step_time … ms tok/s
+…``, which its tests and chip_smoke parse) with the record's MFU appended,
+where JAX prints ``obs.format_live_line`` of the same record.  As in
+JAX, ``run_end``'s ``spans`` is the whole process's
+``obs.default_tracer()`` timeline, never cleared: a process that calls
+``main`` twice, or ran the step engine or a writer before, logs those
+spans too.
+
+    python -m repro_torch.launch.train --arch llama3.2-1b --reduced --device cpu \
+        --steps 4 --seq 32 --batch 4 --log-every 2 --run-dir results/runs/r0
+    PYTHONPATH=src python scripts/render_run.py results/runs/r0
+
 Every rank reaches one barrier before the process group is torn down, on
 each path that returns and on the ``SystemExit``s every rank raises alike,
 so a rank that finishes first cannot close its connections while a slower
-one still builds its own.  Elastic resize, the compiled-step audit and run
-sinks wait for later slices.
+one still builds its own.  Elastic resize and the compiled-step audit wait
+for later slices.
 """
 from __future__ import annotations
 
@@ -90,10 +120,12 @@ import os
 import statistics
 import sys
 import time
+import warnings
 from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.analysis import plan_check
 from repro_torch.analysis.invariants import cp_seq_divisible
 from repro_torch.configs.registry import ARCH_IDS, ModelConfig, get_config
@@ -107,9 +139,9 @@ from repro_torch.core.strategy import ExecutionPlan, LayerStrategy, uniform_plan
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import build_model
 from repro_torch.models.common import tree_leaves
-from repro_torch.obs.drift import DRIFT_RATIO_THRESHOLD
 from repro_torch.runtime import checkpoint as ckpt_lib
 from repro_torch.runtime.data import SyntheticDataset
+from repro_torch.runtime.elastic import DriftReplanAdvisor
 from repro_torch.runtime.train import construct_hybrid_parallel_model
 from repro_torch.runtime.train_pp import PipelineTrainer
 
@@ -157,6 +189,37 @@ def _predicted_breakdown(plan: ExecutionPlan, cfg: ModelConfig, seq_len: int,
             "predicted_memory_bytes": plan.predicted_memory}
 
 
+def _emit_plan(sink, reason: str, plan: ExecutionPlan, *, breakdown: Optional[dict] = None,
+               rejections: Optional[dict] = None, say=print) -> None:
+    """JAX's ``_emit_plan``: the plan line, then one structured ``plan``
+    event (and ``search_rejections`` when the search reported them)."""
+    sched = (f" pp={plan.pp}/{plan.pp_schedule}"
+             + (f"x{plan.pp_interleave}" if plan.pp_interleave > 1 else "")
+             if plan.pp > 1 else "")
+    note = plan.notes.split("|")[-1].strip() if plan.notes else ""
+    say(f"plan[{reason}]: {plan.default_strategy.short()} ga={plan.grad_accum}{sched} "
+        f"mesh={plan.mesh_shape} groups={len(plan.groups())}" + (f" ({note})" if note else ""))
+    fields = dict(
+        reason=reason, strategy=plan.default_strategy.short(),
+        mesh_shape=list(plan.mesh_shape), mesh_axes=list(plan.mesh_axes),
+        grad_accum=plan.grad_accum, pp=plan.pp, pp_schedule=plan.pp_schedule,
+        predicted_step_time_s=plan.predicted_step_time, notes=note)
+    if breakdown:
+        fields["predicted_breakdown"] = breakdown
+    sink.emit("plan", **fields)
+    if rejections:
+        sink.emit("search_rejections", counts={k: int(v) for k, v in rejections.items()})
+
+
+def _open_sink(args, cfg: ModelConfig, devices: int, rank: int = 0):
+    """``--run-dir``'s ``RunSink`` on rank 0 (JAX's meta), else a ``NullSink``."""
+    if not args.run_dir or rank != 0:
+        return obs.NullSink()
+    return obs.RunSink.create(args.run_dir, meta={
+        "arch": cfg.name, "seq": args.seq, "batch": args.batch, "steps": args.steps,
+        "devices": devices})
+
+
 def _resume_step(args, plan: ExecutionPlan, say=print) -> Optional[int]:
     """The step ``--resume`` continues from: the latest in ``--ckpt-dir``,
     or None when there is none (JAX's: train from step 0).  GALV050 is
@@ -196,15 +259,18 @@ def _restore(args, hp, step: int, params, opt, say=print):
 
 class _Checkpoints:
     """``--ckpt-dir``'s saves, as JAX's ``save_checkpoint``: the canonical
-    state at a step (every rank gathers it), written by rank 0, async or
-    sync; on a mesh the other ranks wait at a barrier."""
+    state at a step (every rank gathers it), written by rank 0, async
+    (``CheckpointWriter(sink=sink)``) or sync (a ``ckpt`` event each); on a
+    mesh the other ranks wait at a barrier.  ``stall_seconds`` sums the
+    sync saves and the writer's blocking."""
 
-    def __init__(self, args, hp, plan: ExecutionPlan, rank: int = 0, barrier=None):
-        self.args, self.hp, self.plan, self.rank = args, hp, plan, rank
+    def __init__(self, args, hp, plan: ExecutionPlan, sink, rank: int = 0, barrier=None):
+        self.args, self.hp, self.plan, self.sink, self.rank = args, hp, plan, sink, rank
         self.barrier = barrier or (lambda: None)
-        self.writer = (ckpt_lib.CheckpointWriter()
+        self.writer = (ckpt_lib.CheckpointWriter(sink=sink)
                        if args.ckpt_async == "on" and rank == 0 else None)
         self.last = -1
+        self.sync_seconds = 0.0
 
     def save(self, step: int, params, opt) -> None:
         if step == self.last:                 # final save == last periodic save
@@ -216,7 +282,12 @@ class _Checkpoints:
                 self.writer.save_async(self.args.ckpt_dir, step, canon_p, canon_o, self.plan)
                 print(f"checkpoint queued (async) step {step}")
             else:
+                t0 = time.perf_counter()
                 path = ckpt_lib.save(self.args.ckpt_dir, step, canon_p, canon_o, self.plan)
+                dt = time.perf_counter() - t0
+                self.sync_seconds += dt
+                self.sink.emit("ckpt", phase="written", step=step, stall_seconds=dt,
+                               queue_depth=0, path=str(path))
                 print(f"checkpoint -> {path}")
         self.barrier()
 
@@ -229,31 +300,78 @@ class _Checkpoints:
                   f"saves, {self.writer.blocked_seconds * 1e3:.1f} ms total step-loop stall)")
         self.barrier()
 
+    @property
+    def stall_seconds(self) -> float:
+        return self.sync_seconds + (self.writer.blocked_seconds if self.writer else 0.0)
 
-def _train_loop(args, hp, params, opt, start: int, ckpts, step_fn, say, sync) -> list:
-    """Steps ``start`` .. ``--steps - 1`` on ``SyntheticDataset.batch(step)``,
-    a checkpoint every ``--ckpt-every`` steps and one at the end; returns
-    the step times."""
-    cfg = hp.model.cfg
-    ds = SyntheticDataset(cfg, seq_len=args.seq, global_batch=args.batch)
+
+def _step_timer(args, cfg: ModelConfig, cluster: ClusterSpec, devices: int,
+                fence_fn=obs.fence) -> obs.StepTimer:
+    """JAX's ``StepTimer``: ``--batch`` x ``--seq`` tokens a step, the
+    model's 6N FLOPs a token, MFU against ``cluster``'s per-card peak (the
+    cluster the plan was priced on) times ``devices``."""
     tokens = args.batch * args.seq
+    return obs.StepTimer(
+        obs.MetricsRegistry(), tokens_per_step=tokens,
+        flops_per_step=profile_model(cfg, args.seq).model_flops_per_token() * tokens,
+        peak_flops=cluster.peak_flops * devices, fence_fn=fence_fn)
+
+
+def _train_loop(args, hp, params, opt, start: int, ckpts, step_fn, say, sync, sink,
+                timer: obs.StepTimer) -> list:
+    """Steps ``start`` .. ``--steps - 1`` on ``SyntheticDataset.batch(step)``
+    under JAX's telemetry (see the module note), a checkpoint every
+    ``--ckpt-every`` steps and one at the end; emits ``run_end`` and
+    returns the step times."""
+    cfg, plan, device = hp.model.cfg, hp.plan, hp.model.device
+    ds = SyntheticDataset(cfg, seq_len=args.seq, global_batch=args.batch)
+    registry = timer.registry
+    drift = obs.DriftMonitor(plan.predicted_step_time)
+    advisor = DriftReplanAdvisor(sink)
+    drift_was_sustained = False
+    t_start = time.perf_counter()
     times = []
     for step in range(start, args.steps):
         batch = ds.batch(step)
         sync()
-        t0 = time.perf_counter()
+        timer.start()
         params, opt, metrics = step_fn(params, opt, batch)
-        sync()
-        times.append(time.perf_counter() - t0)
+        rec = timer.stop(step, (params, opt, metrics))
+        times.append(rec.step_time_s)
+        if step == start and device.type == "cuda":
+            peak = float(torch.cuda.max_memory_allocated(device))
+            registry.gauge("peak_hbm_bytes").set(peak)
+            sink.emit("memory", step=step, peak_hbm_bytes=peak)
+        verdict = drift.observe(step, rec.step_time_s)
+        if verdict is not None and (verdict.drifting or drift_was_sustained):
+            sink.emit("drift", **verdict.as_dict())
+            if verdict.sustained and not drift_was_sustained:
+                warnings.warn(
+                    f"GALV070 cost-model-drift: measured step-time EMA "
+                    f"{verdict.measured_ema * 1e3:.1f} ms is {verdict.ratio:.2f}x the "
+                    f"plan's predicted {verdict.predicted * 1e3:.1f} ms — re-profile and "
+                    f"re-search recommended", stacklevel=2)
+            advisor.observe(verdict)
+            drift_was_sustained = verdict.sustained
         if step % args.log_every == 0 or step == args.steps - 1:
-            say(f"step {step} loss {float(metrics['loss']):.6f} grad_norm "
-                f"{float(metrics['grad_norm']):.6f} step_time "
-                f"{times[-1] * 1e3:.1f} ms tok/s {tokens / times[-1]:,.1f}")
+            # ONE device read for both numbers
+            loss, gnorm = torch.stack([metrics["loss"].float(),
+                                       metrics["grad_norm"].float()]).tolist()
+            step_rec = {**rec.as_dict(), "loss": loss, "grad_norm": gnorm}
+            sink.emit("step", **step_rec)
+            say(f"step {step} loss {loss:.6f} grad_norm {gnorm:.6f} step_time "
+                f"{rec.step_time_s * 1e3:.1f} ms tok/s {rec.tokens_per_sec:,.1f} "
+                f"mfu {rec.mfu * 100:.2f}%")
         if ckpts is not None and (step + 1) % args.ckpt_every == 0:
             ckpts.save(step + 1, params, opt)
     if ckpts is not None:
         ckpts.save(args.steps, params, opt)
         ckpts.close()
+    sink.emit("run_end", steps=timer.steps.value, tokens=timer.tokens_per_step * len(times),
+              wall_seconds=time.perf_counter() - t_start,
+              ckpt_stall_seconds=ckpts.stall_seconds if ckpts is not None else 0.0,
+              drift_sustained=drift_was_sustained, metrics=registry.snapshot(),
+              spans=obs.default_tracer().timeline())
     return times
 
 
@@ -304,6 +422,11 @@ def main(argv=None) -> int:
                          "the previous save); 'off' writes synchronously — "
                          "byte-identical output either way")
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--run-dir", default="",
+                    help="directory for the JSONL run log (repro_torch.obs "
+                         "RunSink; e.g. results/runs/<run_id>) — step "
+                         "metrics, plan/ckpt/drift events; render a report "
+                         "with scripts/render_run.py")
     args = ap.parse_args(argv)
 
     calibration = calibrate.DEFAULT_CALIBRATION
@@ -332,6 +455,12 @@ def main(argv=None) -> int:
     if args.cp > 1:
         print(f"warning: --cp {args.cp} ignored on a single device")
     model = build_model(cfg, device=args.device)
+    with _open_sink(args, cfg, 1) as sink:
+        return _run_single(args, cfg, calibration, model, sink)
+
+
+def _run_single(args, cfg: ModelConfig, calibration, model, sink) -> int:
+    """``main``'s single-device path (see the module note)."""
     # the JAX launcher's plan on one device: one strategy for every layer
     plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
                         LayerStrategy(remat=args.remat or "none"),
@@ -341,10 +470,10 @@ def main(argv=None) -> int:
                                       grad_accum=plan.grad_accum,
                                       calibration=calibration)
     plan = dataclasses.replace(plan, predicted_step_time=step_s, predicted_memory=mem)
-    # the JAX launcher's plan line; nothing is searched on one device
-    print(f"plan[uniform]: {plan.default_strategy.short()} ga={plan.grad_accum} "
-          f"mesh={plan.mesh_shape} groups={len(plan.groups())}")
+    # JAX's plan line and event, reason "search" on one device too (where
+    # neither launcher searches)
     b = _predicted_breakdown(plan, cfg, args.seq, args.batch, calibration)
+    _emit_plan(sink, "search", plan, breakdown=b)
     print(f"predicted ({H100_1.name}, {calibration.source} calibration): compute "
           f"{b['compute_s']:.6g} s, comm {b['comm_s']:.6g} s per step; plan step "
           f"{b['predicted_step_time_s']:.6g} s, memory "
@@ -373,9 +502,9 @@ def main(argv=None) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    ckpts = _Checkpoints(args, hp, plan) if args.ckpt_dir else None
+    ckpts = _Checkpoints(args, hp, plan, sink) if args.ckpt_dir else None
     times = _train_loop(args, hp, params, opt, start, ckpts, hp.jit_train_step(donate=False),
-                        print, sync)
+                        print, sync, sink, _step_timer(args, cfg, H100_1, 1))
     if dev.type == "cuda":
         print(f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     if not times:
@@ -390,7 +519,7 @@ def main(argv=None) -> int:
     print(f"GALV070: median step {median * 1e3:.1f} ms vs predicted "
           f"{plan.predicted_step_time * 1e3:.1f} ms (ratio "
           f"{median / plan.predicted_step_time:.3f}, band "
-          f"{DRIFT_RATIO_THRESHOLD}x either way): "
+          f"{obs.DRIFT_RATIO_THRESHOLD}x either way): "
           + (str(drift[0]) if drift else "within the band"))
     print("done")
     return 0
@@ -447,58 +576,56 @@ def _run_ranks(args, cfg: ModelConfig, calibration, world: int, rank: int,
             f"--pp-schedule {args.pp_schedule} ({cfg.num_layers} layers, "
             f"{world} devices; interleaved needs num_layers % "
             f"(pp*interleave) == 0, cp needs seq % (2*cp) == 0)")
-    plan = res.plan
     say = print if rank == 0 else (lambda *a, **k: None)
-    note = plan.notes.split("|")[-1].strip() if plan.notes else ""
-    sched = (f" pp={plan.pp}/{plan.pp_schedule}"
-             + (f"x{plan.pp_interleave}" if plan.pp_interleave > 1 else "")
-             if plan.pp > 1 else "")
-    say(f"plan[search]: {plan.default_strategy.short()} ga={plan.grad_accum}{sched} "
-        f"mesh={plan.mesh_shape} groups={len(plan.groups())}" + (f" ({note})" if note
-                                                                 else ""))
-    b = _predicted_breakdown(plan, cfg, args.seq, args.batch, calibration, cluster)
-    say(f"predicted ({cluster.name} x{world}, {calibration.source} calibration): "
-        f"compute {b['compute_s']:.6g} s, comm {b['comm_s']:.6g} s per step; plan step "
-        f"{b['predicted_step_time_s']:.6g} s, memory "
-        f"{b['predicted_memory_bytes'] / 1e9:.6g} GB per device")
-    if args.validate_only:
-        report = plan_check.check_plan(
-            plan, cluster, cfg, seq_len=args.seq, global_batch=args.batch,
-            profile=profile_model(cfg, args.seq), calibration=calibration)
-        say(report.format_table())
-        return 0 if report.ok() else 1
+    with _open_sink(args, cfg, world, rank) as sink:
+        plan = res.plan
+        b = _predicted_breakdown(plan, cfg, args.seq, args.batch, calibration, cluster)
+        _emit_plan(sink, "search", plan, breakdown=b, rejections=res.rejections, say=say)
+        say(f"predicted ({cluster.name} x{world}, {calibration.source} calibration): "
+            f"compute {b['compute_s']:.6g} s, comm {b['comm_s']:.6g} s per step; plan step "
+            f"{b['predicted_step_time_s']:.6g} s, memory "
+            f"{b['predicted_memory_bytes'] / 1e9:.6g} GB per device")
+        if args.validate_only:
+            report = plan_check.check_plan(
+                plan, cluster, cfg, seq_len=args.seq, global_batch=args.batch,
+                profile=profile_model(cfg, args.seq), calibration=calibration)
+            say(report.format_table())
+            return 0 if report.ok() else 1
 
-    resume = _resume_step(args, plan, say)
-    mesh = mesh_lib.make_mesh(shape, axes, device=device)
-    model = build_model(cfg, device=device)
-    if plan.pp > 1:
-        hp = PipelineTrainer(model, plan, mesh)
-    else:
-        hp = construct_hybrid_parallel_model(model, plan, mesh)
-    params = hp.init_params(torch.Generator(device=device).manual_seed(0))
-    opt = hp.init_opt_state(params)
-    say(f"model: {cfg.name} on {world} ranks of {mesh.backend} ({device.type}), "
-        f"groups {[g.strategy.short() for g in plan.groups()]}")
-    start = 0
-    if resume is not None:
-        params, opt = _restore(args, hp, resume, params, opt, say)
-        start = resume
+        resume = _resume_step(args, plan, say)
+        mesh = mesh_lib.make_mesh(shape, axes, device=device)
+        model = build_model(cfg, device=device)
+        if plan.pp > 1:
+            hp = PipelineTrainer(model, plan, mesh)
+        else:
+            hp = construct_hybrid_parallel_model(model, plan, mesh)
+        params = hp.init_params(torch.Generator(device=device).manual_seed(0))
+        opt = hp.init_opt_state(params)
+        say(f"model: {cfg.name} on {world} ranks of {mesh.backend} ({device.type}), "
+            f"groups {[g.strategy.short() for g in plan.groups()]}")
+        start = 0
+        if resume is not None:
+            params, opt = _restore(args, hp, resume, params, opt, say)
+            start = resume
 
-    def sync():
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dist.barrier()
+
+        ckpts = _Checkpoints(args, hp, plan, sink, rank, dist.barrier) if args.ckpt_dir else None
+        # a step's time is the slowest rank's: synchronize, then a barrier
+        timer = _step_timer(args, cfg, cluster, world, fence_fn=lambda outputs: sync())
+        times = _train_loop(args, hp, params, opt, start, ckpts, hp.train_step, say, sync, sink,
+                            timer)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dist.barrier()
-
-    ckpts = _Checkpoints(args, hp, plan, rank, dist.barrier) if args.ckpt_dir else None
-    times = _train_loop(args, hp, params, opt, start, ckpts, hp.train_step, say, sync)
-    if device.type == "cuda":
-        say(f"peak memory (rank 0) "
-            f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
-    if times:
-        say(f"median step {statistics.median(times) * 1e3:.1f} ms vs predicted "
-            f"{plan.predicted_step_time * 1e3:.1f} ms")
-    say("done")
-    return 0
+            say(f"peak memory (rank 0) "
+                f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+        if times:
+            say(f"median step {statistics.median(times) * 1e3:.1f} ms vs predicted "
+                f"{plan.predicted_step_time * 1e3:.1f} ms")
+        say("done")
+        return 0
 
 
 if __name__ == "__main__":

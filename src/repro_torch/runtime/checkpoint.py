@@ -75,9 +75,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.strategy import ExecutionPlan
+from repro_torch.obs import span
 from repro_torch.runtime import compression
 
 MAGIC = b"GVCK"
@@ -576,7 +576,12 @@ class CheckpointWriter:
     also stops the thread.  Usable as a context manager.
     ``blocked_seconds`` sums the time ``save_async`` held its caller.
 
-    ``sink`` is accepted and unused: the run sink is Queue 1 item 7.
+    ``sink`` (a ``repro_torch.obs`` RunSink-shaped object) receives JAX's
+    ``ckpt`` events, one pair per save: phase ``queued`` from
+    ``save_async`` with the stall this save cost its caller and the queue
+    depth, phase ``written`` from the writer thread when the step lands.
+    The snapshot and the enqueue run in the ``ckpt_host_copy`` and
+    ``ckpt_enqueue`` spans (``obs.span``: the timeline and a profile).
     """
 
     def __init__(self, max_pending: int = 1, *, sink=None):
@@ -605,10 +610,14 @@ class CheckpointWriter:
                 if job is self._stop:
                     return
                 directory, step, snapshot, kw = job
+                t0 = time.perf_counter()
                 path = _write_step(directory, step, _host_arrays(*snapshot.wait()), **kw)
                 with self._lock:
                     self._last_path = path
                     self.saves_completed += 1
+                if self._sink is not None:
+                    self._sink.emit("ckpt", phase="written", step=step,
+                                    write_seconds=time.perf_counter() - t0, path=str(path))
             except BaseException as e:  # noqa: BLE001 — surfaced on wait()
                 with self._lock:
                     if self._error is None:
@@ -641,15 +650,19 @@ class CheckpointWriter:
         and a writer slot is free, i.e. blocks only on the previous save."""
         self._raise_pending()
         t0 = time.perf_counter()
-        with record_function("ckpt_host_copy"):
+        with span("ckpt_host_copy"):
             job = (pathlib.Path(directory), step, begin_host_snapshot(params, opt_state),
                    dict(plan=plan, keep=keep, extra_meta=extra_meta, codec=codec,
                         version=version))
         self._ensure_thread()
-        with record_function("ckpt_enqueue"):
+        with span("ckpt_enqueue"):
             self._queue.put(job)           # blocks iff previous still pending
         self.saves_started += 1
-        self.blocked_seconds += time.perf_counter() - t0
+        stalled = time.perf_counter() - t0
+        self.blocked_seconds += stalled
+        if self._sink is not None:
+            self._sink.emit("ckpt", phase="queued", step=step, stall_seconds=stalled,
+                            queue_depth=self.queue_depth)
 
     @property
     def queue_depth(self) -> int:

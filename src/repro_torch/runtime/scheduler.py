@@ -37,8 +37,15 @@ request; generation restarts on re-admission and replays the same tokens
 Sampling is a per-request hook: ``temperature <= 0`` is greedy argmax;
 ``temperature > 0`` draws from the softmax with a per-request RNG.  A
 scheduler-level ``sample_fn(logits, request, rng)`` overrides both.
-Telemetry sinks wait for the port of ``repro.obs``; requests keep their
-timestamps (``ttft_s`` / ``tpot_s``).
+
+Telemetry (optional), as JAX's: a ``repro_torch.obs.MetricsRegistry``
+(``metrics``) receives the ``ttft_s`` / ``tpot_s`` histograms, the
+``queue_depth`` gauge and the ``requests`` / ``generated_tokens``
+counters; a run sink (``sink``) receives ``request_start`` /
+``first_token`` / ``request_end`` / ``request_evicted`` events, each with
+``rid`` and ``queue_depth`` (``scripts/render_run.py`` renders the
+percentiles).  The hooks run on the host between the steps, never inside a
+captured one.
 """
 from __future__ import annotations
 
@@ -153,6 +160,7 @@ class ContinuousBatchingScheduler:
     def __init__(self, model: Any, params: Any, cache_cfg: PagedCacheConfig,
                  *, prefill_chunk: int = 32, dtype=torch.bfloat16,
                  sample_fn: Optional[Callable] = None,
+                 metrics: Any = None, sink: Any = None,
                  clock: Callable[[], float] = time.perf_counter, compiled: bool = True):
         self.model = model
         self.params = params
@@ -160,6 +168,8 @@ class ContinuousBatchingScheduler:
         self.device = model.device
         self.cache = PagedKVCache(cache_cfg, dtype, self.device)
         self.prefill_chunk = int(prefill_chunk)
+        self.metrics = metrics
+        self.sink = sink
         self._clock = clock
         self._sample = sample_fn or _default_sample
         self._queue: collections.deque[Request] = collections.deque()
@@ -252,6 +262,9 @@ class ContinuousBatchingScheduler:
         request.t_submit = self._clock()
         request.state = QUEUED
         self._queue.append(request)
+        self._emit("request_start", request,
+                   prompt_tokens=int(len(request.prompt)),
+                   max_new=int(request.max_new))
         return TokenStream(self, request)
 
     def tick(self) -> dict:
@@ -317,6 +330,7 @@ class ContinuousBatchingScheduler:
         req.state = QUEUED
         self._queue.appendleft(req)
         self._evicted += 1
+        self._emit("request_evicted", req)
 
     def _ensure_with_eviction(self, req: Request, n_tokens: int) -> bool:
         """Grow ``req``'s allocation, preempting the youngest
@@ -398,6 +412,9 @@ class ContinuousBatchingScheduler:
         if first:
             req.state = DECODING
             req.t_first = self._clock()
+            if self.metrics is not None:
+                self.metrics.histogram("ttft_s").observe(req.ttft_s)
+            self._emit("first_token", req, ttft_s=req.ttft_s)
         if len(req.tokens) >= req.max_new:
             self._finish(req)
 
@@ -409,3 +426,19 @@ class ContinuousBatchingScheduler:
         self._admit_order.remove(req)
         self._rngs.pop(req.rid, None)
         self._finished += 1
+        if self.metrics is not None:
+            self.metrics.histogram("tpot_s").observe(req.tpot_s)
+            self.metrics.counter("requests").inc()
+            self.metrics.counter("generated_tokens").inc(len(req.tokens))
+        self._emit("request_end", req,
+                   prompt_tokens=int(len(req.prompt)),
+                   generated_tokens=len(req.tokens),
+                   ttft_s=req.ttft_s, tpot_s=req.tpot_s,
+                   total_s=req.t_end - req.t_submit)
+
+    def _emit(self, event: str, req: Request, **fields) -> None:
+        depth = len(self._queue)
+        if self.metrics is not None:
+            self.metrics.gauge("queue_depth").set(depth)
+        if self.sink is not None:
+            self.sink.emit(event, rid=req.rid, queue_depth=depth, **fields)

@@ -28,11 +28,15 @@ nested cache (the hybrid's ``{"mamba", "attn"}``, the encoder-decoder's
 ``vis_embeds``, or None) are fed.  ``greedy_generate_reference`` stays
 eager, as JAX's does: it is their oracle.
 
-Only a single device for now: a ``mesh`` raises ``NotImplementedError``
-(the parallel runtime is a later slice), and the telemetry hooks of the JAX
-engine wait for the port of ``repro.obs`` — the reference loop keeps its
-fenced latencies in ``latencies`` instead of histograms.  Construct through
-``repro_torch.serving.step_engine``.
+Telemetry as JAX's: with ``metrics`` (a ``repro_torch.obs.MetricsRegistry``)
+``greedy_generate_reference`` records its fenced prefill and per-token
+decode latencies into the ``prefill_latency_s`` / ``decode_latency_s``
+histograms and the ``requests`` / ``generated_tokens`` counters, inside the
+``prefill`` / ``decode`` spans; ``latencies`` keeps the same times as lists.
+``greedy_generate`` hands ``metrics`` to its scheduler.
+
+Only a single device for now: a ``mesh`` raises ``NotImplementedError``.
+Construct through ``repro_torch.serving.step_engine``.
 """
 from __future__ import annotations
 
@@ -44,13 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.strategy import ExecutionPlan
+from repro_torch.obs import fence, span
 from repro_torch.runtime.compiled import compile_step
-
-
-def _fence(t: torch.Tensor) -> None:
-    """Wait for the device work behind ``t`` (the JAX loop's ``fence``)."""
-    if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
 
 
 @dataclasses.dataclass
@@ -61,6 +60,7 @@ class ServingEngine:
     batch: int = 0                 # request batch
     max_len: int = 0               # cache capacity
     dtype: torch.dtype = torch.bfloat16   # compute dtype of the forward passes
+    metrics: Any = None            # optional repro_torch.obs.MetricsRegistry
     latencies: dict = dataclasses.field(
         default_factory=lambda: {"prefill_s": [], "decode_s": []})
     _graph_pool: Any = dataclasses.field(default=None, init=False, repr=False)
@@ -72,8 +72,10 @@ class ServingEngine:
 
     @classmethod
     def for_plan(cls, model: Any, plan: ExecutionPlan, mesh: Any = None, *, batch: int = 0,
-                 max_len: int = 0, dtype: torch.dtype = torch.bfloat16) -> "ServingEngine":
-        return cls(model, plan, mesh, batch=batch, max_len=max_len, dtype=dtype)
+                 max_len: int = 0, dtype: torch.dtype = torch.bfloat16,
+                 metrics: Any = None) -> "ServingEngine":
+        return cls(model, plan, mesh, batch=batch, max_len=max_len, dtype=dtype,
+                   metrics=metrics)
 
     # ------------------------------------------------------------ steps
     def prefill_step(self, params, tokens, extras=None):
@@ -153,7 +155,8 @@ class ServingEngine:
         B, S = prompts.shape
         cache_cfg = PagedCacheConfig.for_model(
             self.model.cfg, num_slots=B, page_size=min(16, max(S, 1)), max_context=max_len)
-        sched = ContinuousBatchingScheduler(self.model, params, cache_cfg, dtype=self.dtype)
+        sched = ContinuousBatchingScheduler(self.model, params, cache_cfg, dtype=self.dtype,
+                                            metrics=self.metrics)
         reqs = [sched.submit(Request(prompt=prompts[b], max_new=max_new)).request
                 for b in range(B)]
         sched.run_until_drained()
@@ -164,21 +167,33 @@ class ServingEngine:
                                   max_len: int) -> torch.Tensor:
         """Reference generation loop: one ``forward_prefill``, then one
         synchronous ``forward_decode`` per token.  Each step's fenced host
-        time is appended to ``latencies["prefill_s"]`` / ``["decode_s"]``."""
+        time is appended to ``latencies["prefill_s"]`` / ``["decode_s"]`` and,
+        with ``metrics``, observed in ``prefill_latency_s`` /
+        ``decode_latency_s``."""
         tokens = torch.as_tensor(prompt_tokens).to(self.model.device, torch.long)
         B, S = tokens.shape
         self.max_len = max_len
         t0 = time.perf_counter()
-        logits, cache = self.prefill_step(params, tokens)
-        _fence(logits)
-        self.latencies["prefill_s"].append(time.perf_counter() - t0)
+        with span("prefill"):
+            logits, cache = self.prefill_step(params, tokens)
+            fence(logits)
+        self._observe("prefill", time.perf_counter() - t0)
         out = [logits[:, -1, :].argmax(dim=-1).to(torch.int32)]
         kv_len = torch.full((B,), S, dtype=torch.long, device=tokens.device)
         for i in range(max_new - 1):
             t0 = time.perf_counter()
-            logits, cache = self.decode_step(params, out[-1][:, None].long(), cache, S + i,
-                                             kv_len=kv_len + i + 1)
-            _fence(logits)
-            self.latencies["decode_s"].append(time.perf_counter() - t0)
+            with span("decode"):
+                logits, cache = self.decode_step(params, out[-1][:, None].long(), cache,
+                                                 S + i, kv_len=kv_len + i + 1)
+                fence(logits)
+            self._observe("decode", time.perf_counter() - t0)
             out.append(logits[:, -1, :].argmax(dim=-1).to(torch.int32))
+        if self.metrics is not None:
+            self.metrics.counter("requests").inc()
+            self.metrics.counter("generated_tokens").inc(B * max_new)
         return torch.stack(out, dim=1)
+
+    def _observe(self, kind: str, seconds: float) -> None:
+        self.latencies[f"{kind}_s"].append(seconds)
+        if self.metrics is not None:
+            self.metrics.histogram(f"{kind}_latency_s").observe(seconds)

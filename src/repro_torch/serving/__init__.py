@@ -35,7 +35,13 @@ zamba2, whisper)::
 
 Its ``jit_prefill_step()`` and ``jit_decode_step(donate=True)`` are the
 compiled steps (CUDA graphs; dense, vlm and ssm families).  Mesh-sharded
-engines and telemetry sinks are not ported yet.
+engines are not ported yet.
+
+Telemetry as JAX's: ``build(config, metrics=..., sink=...)`` hands a
+``repro_torch.obs.MetricsRegistry`` and a ``RunSink`` to the scheduler
+(TTFT/TPOT histograms, per-request events), and
+``step_engine(..., metrics=...)`` to the step engine (prefill/decode
+latency histograms).
 """
 from __future__ import annotations
 
@@ -181,6 +187,7 @@ class ServeSession:
 
 def build(config: ServeConfig, *, model: Any = None, params: Any = None,
           dtype: torch.dtype = torch.bfloat16,
+          metrics: Any = None, sink: Any = None,
           sample_fn: Optional[Callable] = None,
           clock: Optional[Callable[[], float]] = None) -> ServeSession:
     """Stand up a :class:`ServeSession` on ``config.device``.
@@ -189,7 +196,9 @@ def build(config: ServeConfig, *, model: Any = None, params: Any = None,
     CUDA kernels on a CUDA device); ``params`` to a fresh init from a
     ``torch.Generator`` seeded with ``config.init_seed`` on that device.
     Params are cast to ``dtype`` (bf16, the serving dtype; fp32 for exact
-    comparisons), which is also the pool's and the forward passes' dtype."""
+    comparisons), which is also the pool's and the forward passes' dtype.
+    ``metrics`` (a MetricsRegistry) and ``sink`` (a RunSink) wire the
+    TTFT/TPOT histograms and the per-request JSONL events."""
     from repro_torch.models import build_model
     from repro_torch.models.common import cast_tree
 
@@ -209,23 +218,24 @@ def build(config: ServeConfig, *, model: Any = None, params: Any = None,
     scheduler = ContinuousBatchingScheduler(
         model, params, config.cache_config(),
         prefill_chunk=config.scheduler.prefill_chunk, dtype=dtype,
-        sample_fn=sample_fn, **kw)
+        sample_fn=sample_fn, metrics=metrics, sink=sink, **kw)
     return ServeSession(config, scheduler, model, params)
 
 
 def step_engine(model: Any, plan: ExecutionPlan, mesh=None, *, batch: int = 0,
                 max_len: int = 0, dtype: torch.dtype = torch.bfloat16,
-                device: str = "cuda"):
+                device: str = "cuda", metrics: Any = None):
     """The sanctioned constructor of the step-level ``ServingEngine``.
 
     ``device`` (the card by default; raises without a GPU) must be the
     model's; ``dtype`` is the forward passes' compute dtype (bf16, the
-    serving dtype; fp32 for exact comparisons).  A ``mesh`` raises: only the
-    single-device engine is ported."""
+    serving dtype; fp32 for exact comparisons).  ``metrics`` (a
+    MetricsRegistry) receives the engine's latency histograms.  A ``mesh``
+    raises: only the single-device engine is ported."""
     from repro_torch.runtime.serve import ServingEngine
 
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"step_engine: the model lives on {model.device}, not {dev}")
     return ServingEngine.for_plan(model, plan, mesh, batch=batch, max_len=max_len,
-                                  dtype=dtype)
+                                  dtype=dtype, metrics=metrics)

@@ -1855,3 +1855,96 @@ def test_cuda_checkpoint_bf16_round_trips_through_the_card(cuda_device, tmp_path
     assert torch.equal(out["opt"].v["embed"]["tok"].to(cuda_device), opt.v["embed"]["tok"])
     assert out["opt"].step.shape == () and int(out["opt"].step) == 5
     assert torch.equal(out["params"]["embed"]["tok"].to(cuda_device), params["embed"]["tok"])
+
+
+def test_cuda_fence_waits_for_queued_work(cuda_device):
+    """``obs.fence`` on a tree holding a CUDA tensor: a ``StepTimer``
+    fenced by it reads at least the CUDA-event time of the same matmul
+    loop; with a no-op fence it reads less (the launches alone)."""
+    from repro_torch import obs
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a, b = (torch.randn(4096, 4096, generator=g, device=cuda_device, dtype=torch.bfloat16)
+            for _ in range(2))
+    c = torch.empty_like(a)
+
+    def work():
+        for _ in range(32):
+            torch.mm(a, b, out=c)
+        return {"out": [c], "host": torch.zeros(1)}
+
+    work()
+    torch.cuda.synchronize()
+    got = {}
+    for label, fence_fn in (("fenced", obs.fence), ("unfenced", lambda outputs: None)):
+        timer = obs.StepTimer(obs.MetricsRegistry(), fence_fn=fence_fn)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        timer.start()
+        start.record()
+        out = work()
+        end.record()
+        rec = timer.stop(0, out)
+        end.synchronize()
+        got[label] = (rec.step_time_s, start.elapsed_time(end) / 1e3)
+    assert got["fenced"][0] >= got["fenced"][1] > 0
+    assert got["unfenced"][0] < got["unfenced"][1]
+
+
+def test_cuda_scheduler_with_telemetry_replays_its_graphs_bitwise(cuda_device):
+    """Reduced llama in bf16 through the graphed scheduler with and without
+    ``metrics`` / ``sink``: the hooks run on the host around the replays, so
+    the tokens are bitwise the same, both graphs are captured once, and the
+    log and the histograms count every request."""
+    from repro_torch import obs
+    from repro_torch.runtime.scheduler import ContinuousBatchingScheduler
+
+    config = serving.ServeConfig(
+        arch="llama3.2-1b", reduced=True, device="cuda",
+        cache=serving.CacheConfig(max_context=48, page_size=8),
+        scheduler=serving.SchedulerConfig(num_slots=3, prefill_chunk=8))
+    cfg = config.model_config()
+    model = build_model(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(6), torch.bfloat16)
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab_size, (4, 19), dtype=np.int32)
+    tokens, logged = {}, []
+
+    class Sink:
+        def emit(self, event, **fields):
+            logged.append(event)
+
+    for telemetry in (False, True):
+        reg = obs.MetricsRegistry() if telemetry else None
+        sched = ContinuousBatchingScheduler(model, params, config.cache_config(),
+                                            prefill_chunk=8, dtype=torch.bfloat16,
+                                            metrics=reg, sink=Sink() if telemetry else None)
+        reqs = [sched.submit(serving.Request(prompt=p, max_new=7)).request for p in prompts]
+        sched.run_until_drained()
+        steps = (sched._decode_fn, sched._prefill_fn)
+        assert all(len(f.entries) == 1 and next(iter(f.entries.values())).graph is not None
+                   for f in steps)
+        tokens[telemetry] = [r.tokens for r in reqs]
+    assert tokens[True] == tokens[False]
+    assert logged.count("request_end") == 4 and reg.snapshot()["tpot_s"]["count"] == 4
+
+
+def test_cuda_checkpoint_writer_logs_to_its_sink(cuda_device, tmp_path):
+    """``CheckpointWriter(sink=RunSink)`` saving CUDA leaves: one ``queued``
+    and one ``written`` event a save, JAX's fields, and the writer's spans
+    in the default timeline."""
+    from repro_torch import obs
+    from repro_torch.runtime import checkpoint as ckpt
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    tree = {"w": torch.randn(1024, 1024, generator=g, device=cuda_device)}
+    before = len(obs.default_tracer().timeline())
+    with obs.RunSink.create(tmp_path / "run") as sink, ckpt.CheckpointWriter(sink=sink) as w:
+        for step in (1, 2):
+            w.save_async(tmp_path / "ck", step, tree)
+    events = [e for e in obs.read_run(tmp_path / "run" / "run.jsonl") if e["event"] == "ckpt"]
+    assert sorted((e["phase"], e["step"]) for e in events) == [
+        ("queued", 1), ("queued", 2), ("written", 1), ("written", 2)]
+    keys = {e["phase"]: set(e) for e in events}
+    assert keys["queued"] == {"event", "ts", "phase", "step", "stall_seconds", "queue_depth"}
+    assert keys["written"] == {"event", "ts", "phase", "step", "write_seconds", "path"}
+    names = [r["name"] for r in obs.default_tracer().timeline()[before:]]
+    assert names.count("ckpt_host_copy") == names.count("ckpt_enqueue") == 2
