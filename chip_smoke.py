@@ -452,6 +452,29 @@ Phases (any failure exits non-zero and prints no result line):
    agree to 1e-6, its launches are ``train_launches``' a step (path
    ``telemetry_train``: K1's own row at 2 x 2048, phase 25's 4 096 x 2048
    K2 and K2-backward rows); the median step, tokens/s and MFU logged;
+33. elastic resize (run after phase 32, before the results) — four ranks
+   sharing the card over gloo (``chip_smoke.py --elastic-rank``, as phase
+   25: NCCL refuses ranks on one card) train llama3.2-1b at full width cut
+   to 2 layers (``ELASTIC_LAYERS``; fp32 masters, bf16 compute; the 4.6 GB
+   canonical state of phase 31) on 4 x 4096 tokens a step, every plan the
+   port's ``runtime.elastic`` search gives (the first its plan for 4
+   devices): step 0 on 4 ranks; before step 1 rank 0's
+   ``replan_and_diff`` for 2 devices (broadcast, logged with its migration
+   spec), the mesh over the first 2 ranks, and the state moved from the
+   same old state by both ``resize.migrate`` and
+   ``resize.migrate_via_checkpoint`` (codec ``raw``), which must agree
+   bitwise on every rank (params, m, v, step), training going on with the
+   in-memory state while ranks 2 and 3 idle; before step 2 the grow back
+   to 4 (the joining ranks receive the canonical trees by broadcast, or
+   read the checkpoint), then step 2.  Each post-resize step's loss is
+   held within 5e-2 of one rank's loss on the same canonical state
+   (``mesh=None``, row by row, computed by rank 0 and excluded from the
+   counts); each rank's K1 / K2 / K2-backward launches a step are pinned
+   (``par_launches`` of the running plan) and the shapes K1 sees must be
+   phase 3's rows (path ``elastic``: 1 x 4096 at 4 ranks, 2 x 4096 at 2);
+   each migration's seconds on both paths, the bytes moved (every leaf
+   whole; gloo through the host, no interconnect) and each rank's peak are
+   logged;
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated``,
    ``rmsnorm_bwd``, ``rmsnorm_split_fwd`` and ``rmsnorm_split_bwd`` rows for
    K2, ``ssd`` and ``ssd_autograd`` for K3; a row phase 28's stages also
@@ -461,7 +484,9 @@ Phases (any failure exits non-zero and prints no result line):
    training rows stand again for the path ``checkpoint`` with phase 31's
    launches, the llama serving rows for ``telemetry`` with phase 32's (c),
    and K1's 2 x 2048 row and phase 25's 4 096 x 2048 K2 rows for
-   ``telemetry_train`` with (d)'s),
+   ``telemetry_train`` with (d)'s; K1's 2 x 4096 and phase 25's dp 2 1 x
+   4096 rows, the 8 192 x 2048 K2 row over the fp32 master scale and the
+   two K2-backward rows for ``elastic`` with phase 33's),
    then the device line last.
 """
 from __future__ import annotations
@@ -485,12 +510,15 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PP_LLAMA_PATHS = ("pipeline_a", "pipeline_b", "pipeline_c")
 #: ... and so do phase 10's steps and phase 31's (a 2 x 4096 microbatch)
 LLAMA_TRAIN_PATHS = ("train",) + PP_LLAMA_PATHS + ("checkpoint",)
+#: K1 and K2's backward of a phase 33 rank on 2 ranks (2 x 4096) are theirs too
+ELASTIC_2X4096_PATHS = LLAMA_TRAIN_PATHS + ("elastic",)
 #: phase 4's serving shapes (a 256-token prefill chunk, an 8-slot decode)
 #: are phase 32's too
 LLAMA_SERVE_PATHS = ("llama", "telemetry")
 #: a parallel-rig rank's 4 096 rows x 2048 over the fp32 master scale are
-#: also a microbatch of phase 32's train launcher (2 x 2048, one device)
-PAR_TRAIN_PATHS = ("parallel", "telemetry_train")
+#: also a microbatch of phase 32's train launcher (2 x 2048, one device) and
+#: a phase 33 rank's on 4 ranks (1 x 4096)
+PAR_TRAIN_PATHS = ("parallel", "telemetry_train", "elastic")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # per (b, s, h) row of K1's output: the largest error against the fp32 plain
@@ -705,7 +733,7 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
-        path=LLAMA_TRAIN_PATHS)),
+        path=ELASTIC_2X4096_PATHS)),
              # phase 32 (d): the train launcher's microbatch of 2 x 2048
              (f"train causal B{TELEMETRY_TRAIN_BATCH // TELEMETRY_TRAIN_ACCUM} "
               f"S{TELEMETRY_TRAIN_SEQ} H32 KV8 hd64 bfloat16", True, flash_case(
@@ -832,10 +860,13 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     cases.append((f"zamba2 train causal B2 S{SSM_TRAIN_SEQ} H32 KV32 hd112 bfloat16", True,
                   flash_case(torch, gen, B=2, Sq=SSM_TRAIN_SEQ, Sk=SSM_TRAIN_SEQ, H=32, hd=112,
                              dtype=torch.bfloat16, path="zamba2_train")))
+    # phase 33: a rank on 4 ranks holds phase 25's dp 2 rank's shape
     for par, B, H, KV in (("tp2", 2, 16, 4), ("dp2", 1, 32, 8)):
         cases.append((f"parallel {par} causal B{B} S{PAR_SEQ} H{H} KV{KV} hd64 bfloat16", True,
                       flash_case(torch, gen, B=B, Sq=PAR_SEQ, Sk=PAR_SEQ, H=H, KV=KV, hd=64,
-                                 dtype=torch.bfloat16, path=f"parallel_{par}")))
+                                 dtype=torch.bfloat16,
+                                 path=("parallel_dp2", "elastic") if par == "dp2"
+                                 else f"parallel_{par}")))
     # phase 26: a moonshot rank's local heads, (a) ep 2 and (c) dp 2 / (b) tp 2
     for par, B, H in (("ep2/dp2", 1, 16), ("tp2", 2, 8)):
         cases.append((f"moe parallel {par} causal B{B} S{PAR_SEQ} H{H} KV{H} hd128 bfloat16",
@@ -1010,7 +1041,8 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     under autograd; parallel: a rank's 4 096 rows x 2048 in the parallel
     rig, sequence-sharded under tp 2 + sp or a dp 2 rank's sequence, with
     the fp32 master scale the model passes, and telemetry_train: phase 32's
-    train launcher's microbatch of 2 x 2048 rows); "check" rows are timed
+    train launcher's microbatch of 2 x 2048 rows; elastic: a phase 33 rank's
+    2 x 4096 rows on 2 ranks over the fp32 master scale); "check" rows are timed
     and logged but belong to no path (the gate norms' widths 5120 and 7168,
     which the models now run gated)."""
     rows = []
@@ -1023,7 +1055,8 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
               ((4096, 2560), ("mamba2_train", "pipeline_d")),
               ((4096, 5120), ("mamba2_train", "pipeline_d")),
               ((4096, 3584), "zamba2_train"), ((4096, 7168), "zamba2_train"),
-              ((4096, 2048, "fp32 scale"), PAR_TRAIN_PATHS), ((8192, 5120), "check"),
+              ((4096, 2048, "fp32 scale"), PAR_TRAIN_PATHS),
+              ((8192, 2048, "fp32 scale"), "elastic"), ((8192, 5120), "check"),
               ((8192, 7168), "check"), ((8192, 64), None),
               ((32768, 128), None), ((64, 14336), None), ((6, 40000), None), ((7, 333), None),
               ((8192, 3584, "misaligned"), None), ((300, 1000, "misaligned"), None)]
@@ -1132,7 +1165,7 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     F = torch.nn.functional
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    cases = [((8192, 2048), bf16, f32, False, LLAMA_TRAIN_PATHS),
+    cases = [((8192, 2048), bf16, f32, False, ELASTIC_2X4096_PATHS),
              ((8192, 3584), bf16, f32, False, "train"), ((32768, 128), bf16, f32, False, "train"),
              ((48000, 384), bf16, f32, False, "whisper_train"),
              ((8192, 6144), bf16, f32, False, "internvl2_train"),
@@ -5997,6 +6030,281 @@ def telemetry_phase(torch, np, serving, rms_ops, counters) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 33
+
+ELASTIC_LAYERS = 2
+#: 4 sequences of 4 096 tokens a step: one a rank on 4 ranks, two on 2
+ELASTIC_SEQ, ELASTIC_BATCH, ELASTIC_WORLD, ELASTIC_STEPS = 4096, 4, 4, 3
+#: (step, devices): the shrink to 2 ranks before step 1, the grow back before step 2
+ELASTIC_EVENTS = ((1, 2), (2, 4))
+
+
+def elastic_config():
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(TRAIN_ARCH), num_layers=ELASTIC_LAYERS)
+
+
+def _plan_line(plan) -> str:
+    return (f"{plan.default_strategy.short()} ga={plan.grad_accum} pp={plan.pp} "
+            f"mesh={dict(zip(plan.mesh_axes, plan.mesh_shape))} remat "
+            f"{sorted({s.remat for s in plan.layer_strategies})}")
+
+
+def elastic_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
+    """One rank of phase 33 (``chip_smoke.py --elastic-rank RANK WORLD DIR``):
+    device 0, gloo over a ``FileStore`` in DIR.  Started before phase 31,
+    so that its imports and set-up overlap phases 31 and 32: once ready it
+    waits for DIR/go (and exits if the process that started it is gone).
+    Then it trains ``ELASTIC_STEPS``
+    steps; before each step of ``ELASTIC_EVENTS`` rank 0 replans
+    (``replan_and_diff`` on the cluster of ``world`` H100s) and broadcasts
+    the plan, every rank builds its mesh over the plan's first ranks, and
+    the state moves by ``migrate`` and ``migrate_via_checkpoint`` from the
+    same old state (compared leaf by leaf on every new rank), training
+    going on from the in-memory one; rank 0 then takes one rank's loss on
+    the migrated canonical params.  Records per step its loss, time,
+    launches and the K1 shapes, per event the plan, spec, both paths'
+    seconds and bytes, the differing leaves and the peak; writes it to
+    DIR."""
+    parent = os.getppid()
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core.cluster import H100_NODE8
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime import resize
+    from repro_torch.runtime.data import SyntheticDataset
+    from repro_torch.runtime.elastic import ElasticEvent, replan, replan_and_diff
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    marks = {"imports": time.perf_counter() - T_START}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    marks["cuda"] = time.perf_counter() - T_START
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    marks["group"] = time.perf_counter() - T_START
+    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    seen = set()                 # K1's (batch, seq, query heads, KV heads) under autograd
+    autograd_k1 = flash_ops.flash_attention
+
+    def k1(q, k, v, causal=True):
+        seen.add((q.shape[0], q.shape[1], q.shape[2], k.shape[2]))
+        return autograd_k1(q, k, v, causal=causal)
+
+    flash_ops.flash_attention = k1
+    dev = torch.device("cuda", 0)
+    cfg = elastic_config()
+    cluster = dataclasses.replace(H100_NODE8, chips=world, intra_size=min(world, 8))
+    model = build_model(cfg)
+    ds = SyntheticDataset(cfg, seq_len=ELASTIC_SEQ, global_batch=ELASTIC_BATCH, seed=0)
+    record = {"marks": marks, "ready": time.perf_counter() - T_START, "steps": {}, "events": []}
+    while not (tmp / "go").is_file():           # phases 31 and 32 run meanwhile
+        if os.getppid() != parent:
+            sys.exit(1)
+        time.sleep(0.05)
+    record["go"] = time.perf_counter() - T_START
+
+    def shared(obj):
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def runtime(plan):
+        mesh = make_mesh(plan.mesh_shape, plan.mesh_axes, device=dev, backend="gloo",
+                         ranks=plan.num_devices)
+        return resize.make_trainer(model, plan, mesh)
+
+    def one_rank_loss(canon_p, batch) -> float:
+        """``mesh=None``'s bf16 loss of the batch on the canonical params,
+        a row at a time (every row holds all its labels: the mean of the
+        rows' losses is the batch's)."""
+        one = construct_hybrid_parallel_model(model, uniform_plan(
+            cfg.name, "train", (1,), ("data",), cfg.num_layers, LayerStrategy()))
+        with torch.no_grad():
+            rows = [float(one.loss_fn(canon_p, {k: torch.as_tensor(v[i:i + 1]).to(dev)
+                                                 for k, v in batch.items()})[0])
+                    for i in range(ELASTIC_BATCH)]
+        return sum(rows) / len(rows)
+
+    plan = shared(replan(cfg, ElasticEvent(world, world, "start"), ELASTIC_SEQ, ELASTIC_BATCH,
+                         cluster=cluster, arch=cfg.name) if rank == 0 else None)
+    hp = runtime(plan)
+    params = hp.init_params(torch.Generator(device=dev).manual_seed(0))
+    opt = hp.init_opt_state(params)
+    host_rng = torch.Generator().manual_seed(0)
+    record["plan0"] = _plan_line(plan)
+    events = dict(ELASTIC_EVENTS)
+    for step in range(ELASTIC_STEPS):
+        batch = ds.batch(step)
+        if step in events:
+            t0 = time.perf_counter()
+            event = ElasticEvent(hp.plan.num_devices, events[step], "simulated")
+            new_plan, spec = shared(replan_and_diff(
+                cfg, event, ELASTIC_SEQ, ELASTIC_BATCH, hp.plan, cluster=cluster,
+                arch=cfg.name) if rank == 0 else None)
+            new = runtime(new_plan)
+            rec = {"step": step, "plan": _plan_line(new_plan), "notes": new_plan.notes,
+                   "spec": spec.summary(), "replan_s": time.perf_counter() - t0,
+                   "member": resize.holds_state(new)}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            carry = resize.CarryState(step=step, samples_seen=step * ELASTIC_BATCH, rng=host_rng)
+            p_mem, o_mem, carried, mem = resize.migrate(hp, new, params, opt, carry)
+            p_ck, o_ck, _, ck = resize.migrate_via_checkpoint(hp, new, params, opt, carry,
+                                                              step=step, codec="raw")
+            rec.update(mem_s=mem.seconds, ck_s=ck.seconds, mem_bytes=mem.bytes_moved,
+                       ck_bytes=ck.bytes_moved, summary=mem.summary(),
+                       peak=torch.cuda.max_memory_allocated(), carried=carried.step)
+            del params, opt
+            if resize.holds_state(new):
+                got, want = ckpt._flatten((p_mem, o_mem)), ckpt._flatten((p_ck, o_ck))
+                rec["leaves"] = len(want)
+                rec["differ"] = [k for k in want
+                                 if got.keys() != want.keys() or not torch.equal(got[k], want[k])]
+                canon_p = new.gather_params(p_mem)
+                if rank == 0:
+                    rec["one_rank_loss"] = one_rank_loss(canon_p, batch)
+                del canon_p, got, want
+            params, opt, hp, host_rng = p_mem, o_mem, new, carried.rng
+            del p_ck, o_ck, p_mem, o_mem
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["seconds"] = time.perf_counter() - t0
+            record["events"].append(rec)
+        if not resize.holds_state(hp):
+            continue                 # outside the shrunk mesh: idle until the grow
+        zero_counts(counters)
+        seen.clear()
+        dist.barrier(group=hp.mesh.group(hp.mesh.axis_names).pg)
+        t0 = time.perf_counter()
+        params, opt, m = hp.train_step(params, opt, batch, donate=True)
+        torch.cuda.synchronize()
+        record["steps"][step] = {
+            "loss": float(m["loss"]), "seconds": time.perf_counter() - t0,
+            "launches": read_counts(counters), "k1": sorted(list(x) for x in seen),
+            "want": par_launches(hp.plan, cfg.num_layers), "devices": hp.plan.num_devices}
+    record["peak"] = torch.cuda.max_memory_allocated()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def elastic_start():
+    """Starts phase 33's four ``--elastic-rank`` processes, which set up and
+    wait for ``elastic_phase``: (the processes, their temporary directory)."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--elastic-rank",
+                               str(r), str(ELASTIC_WORLD), tmp.name], env=dict(os.environ),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(ELASTIC_WORLD)]
+    return procs, tmp
+
+
+def elastic_stop(started) -> None:
+    """Kills whatever ``elastic_start``'s processes left running and removes
+    their directory."""
+    procs, tmp = started
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    tmp.cleanup()
+
+
+def elastic_phase(torch, started=None) -> dict:
+    """Phase 33 (see the module note): four ``--elastic-rank`` processes
+    sharing the card over gloo (``started`` by ``elastic_start``, or started
+    here), let go.  Checks every rank's record: the two paths
+    bitwise at each event, each post-resize loss within ``PAR_LOSS_TOL`` of
+    rank 0's one-rank loss, the launches a step ``par_launches``' of the
+    running plan, the K1 shapes phase 3's rows (1 or 2 x 4096), the peaks'
+    sum within the card.  Returns the launches summed over ranks and
+    steps."""
+    t_phase = time.perf_counter()
+    world = ELASTIC_WORLD
+    started = started or elastic_start()
+    procs, tmp = started[0], pathlib.Path(started[1].name)
+    try:
+        (tmp / "go").write_text("go")
+        outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"elastic rank {r} exited {p.returncode}:\n"
+                    + "\n".join(out.splitlines()[-40:]))
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+    finally:
+        elastic_stop(started)
+    marks = ranks[0]["marks"]
+    log(f"elastic: start plan {ranks[0]['plan0']}; rank 0 (since its process began) imported "
+        f"at {marks['imports']:.1f} s, held the card at {marks['cuda']:.1f} s, joined the group "
+        f"at {marks['group']:.1f} s, was ready at {ranks[0]['ready']:.1f} s and let go at "
+        f"{ranks[0]['go']:.1f} s")
+    for i, (step, devices) in enumerate(ELASTIC_EVENTS):
+        recs = [rk["events"][i] for rk in ranks]
+        head = recs[0]
+        require(all(r["plan"] == head["plan"] for r in recs), "elastic: the ranks built "
+                f"different plans at step {step}: {[r['plan'] for r in recs]}")
+        log(f"elastic: step {step}: replan for {devices} devices: {head['plan']} "
+            f"({head['notes'].split('|')[-1].strip()}); migration spec: {head['spec']}; "
+            f"replanned and built in {head['replan_s']:.3f} s on rank 0")
+        for r, rec in enumerate(recs):
+            if not rec["member"]:
+                continue
+            require(not rec["differ"], f"elastic: step {step} rank {r}: in-memory and "
+                    f"checkpoint migrations differ in {rec['differ'][:8]}")
+            require(rec["carried"] == step, f"elastic: step {step} rank {r}: carried step "
+                    f"{rec['carried']}")
+        members = [r for r, rec in enumerate(recs) if rec["member"]]
+        require(members == list(range(devices)), f"elastic: step {step}: members {members}")
+        loss = ranks[0]["steps"][str(step)]["loss"]
+        ref = head["one_rank_loss"]
+        require(math.isfinite(loss) and abs(loss - ref) <= PAR_LOSS_TOL,
+                f"elastic: step {step} loss {loss} vs one rank {ref} on the same canonical "
+                f"state (|delta| > {PAR_LOSS_TOL})")
+        log(f"elastic: step {step}: in-memory and checkpoint migrations bitwise on ranks "
+            f"{members} ({head['leaves']} leaves); seconds by rank in-memory "
+            f"{[round(r['mem_s'], 3) for r in recs]}, checkpoint "
+            f"{[round(r['ck_s'], 3) for r in recs]} (event total "
+            f"{[round(r['seconds'], 1) for r in recs]}); bytes moved {head['mem_bytes']} "
+            f"({head['mem_bytes'] / 1e9:.3f} GB, every leaf whole; {NO_INTERCONNECT}); peak "
+            f"by rank during the migrations {[round(r['peak'] / 2**30, 2) for r in recs]} GiB; "
+            f"step {step} loss {loss!r} vs one rank {ref!r} (|delta| {abs(loss - ref):.4g})")
+    launches = {}
+    card = torch.cuda.get_device_properties(0).total_memory
+    for r, rk in enumerate(ranks):
+        for step, rec in rk["steps"].items():
+            who = f"elastic rank {r} step {step}"
+            require(rec["launches"] == rec["want"], f"{who}: launches {rec['launches']}, "
+                    f"expected {rec['want']}")
+            rows = ELASTIC_BATCH // rec["devices"]
+            require(rec["k1"] == [[rows, ELASTIC_SEQ, 32, 8]],
+                    f"{who}: K1 shapes {rec['k1']}, expected phase 3's [{rows}, {ELASTIC_SEQ}, "
+                    "32, 8]")
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    steps = {s: [rk["steps"].get(str(s)) for rk in ranks] for s in range(ELASTIC_STEPS)}
+    require(all(len({r["loss"] for r in recs if r}) == 1 for recs in steps.values()),
+            "elastic: the ranks of a step report different losses")
+    peaks = [rk["peak"] for rk in ranks]
+    require(sum(peaks) <= card, f"elastic: peaks {peaks} past the card")
+    log(f"elastic: losses {[steps[s][0]['loss'] for s in steps]}; step seconds by rank "
+        f"{[[round(r['seconds'], 3) if r else None for r in recs] for recs in steps.values()]}"
+        f" ({NO_INTERCONNECT}); peak by rank {[round(x / 2**30, 2) for x in peaks]} GiB; "
+        f"launches over the phase {launches}")
+    log(f"elastic: phase 33 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     # growable segments, for every phase: moonshot's training (phase 14)
     # runs out of memory without them, asking for its 5 GiB of fp32 logits
@@ -6236,17 +6544,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     par_launches["pipeline_context"] = ppcp_phase(torch)
 
-    mark("31")
-    # 31. checkpointing: save, async save under a donated step, restore
-    gc.collect()
-    torch.cuda.empty_cache()
-    par_launches["checkpoint"] = checkpoint_phase(torch, counters)
+    # phase 33's ranks set up while phases 31 and 32 run
+    elastic = elastic_start()
+    try:
+        mark("31")
+        # 31. checkpointing: save, async save under a donated step, restore
+        gc.collect()
+        torch.cuda.empty_cache()
+        par_launches["checkpoint"] = checkpoint_phase(torch, counters)
 
-    mark("32")
-    # 32. telemetry: the fence, spans, serving and the train launcher logged
-    gc.collect()
-    torch.cuda.empty_cache()
-    par_launches.update(telemetry_phase(torch, np, serving, rms_ops, counters))
+        mark("32")
+        # 32. telemetry: the fence, spans, serving and the train launcher logged
+        gc.collect()
+        torch.cuda.empty_cache()
+        par_launches.update(telemetry_phase(torch, np, serving, rms_ops, counters))
+
+        mark("33")
+        # 33. elastic resize: four ranks sharing the card over gloo, 4 -> 2 -> 4
+        gc.collect()
+        torch.cuda.empty_cache()
+        par_launches["elastic"] = elastic_phase(torch, elastic)
+    finally:
+        elastic_stop(elastic)
 
     mark("24")
     # 24. results
@@ -6316,5 +6635,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--ppcp-rank"]:
         ppcp_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--elastic-rank"]:
+        elastic_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
         sys.exit(0)
     sys.exit(main())

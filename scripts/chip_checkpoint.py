@@ -11,37 +11,17 @@ blocking less than the sync one (see ``chip_smoke.checkpoint_phase``).
 About a minute of command time with the kernels' build.  Exits non-zero
 without a GPU.
 """
-import os
-import pathlib
-import subprocess
 import sys
-import time
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+from chip_phase import setup
 
 
 def main() -> int:
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_checkpoint: needs one CUDA GPU", file=sys.stderr)
+    ready = setup("chip_checkpoint")
+    if ready is None:
         return 1
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    import chip_smoke as cs
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.ssd import ops as ssd_ops
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    cs.log(smi.stdout.strip().splitlines()[0])
-    t0 = time.perf_counter()
-    _build.library()
-    cs.log(f"build: {time.perf_counter() - t0:.1f} s")
-    cs.checkpoint_phase(torch, cs.launch_counters(flash_ops, rms_ops, ssd_ops))
+    torch, cs, counters = ready
+    cs.checkpoint_phase(torch, counters)
     return 0
 
 

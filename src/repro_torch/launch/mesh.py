@@ -8,12 +8,20 @@ alone and every combination of them (the dp axes of a tp = 1 layer absorb
 the model axis, so one group may span several axes).  Every rank creates
 every group with ``torch.distributed.new_group``, in one fixed order.
 
+A mesh may hold a prefix of the world's ranks (``ranks=n``, JAX's
+``devices=jax.devices()[:n]``): ranks 0 .. n - 1, so a mesh rank is its
+global rank and the rules and ``StageHop`` read it unchanged.  Every rank
+of the default group still calls ``new_group`` for every group of the
+mesh, in the same order, as torch requires; a rank outside the prefix
+holds a mesh whose ``member`` is False, with no coordinates and no group
+(``group`` and ``hop`` raise).  Elastic resize (``runtime/resize.py``)
+builds a shrunk plan's mesh this way, leaving the departed ranks idle.
+
 ``make_production_mesh`` (single pod: (data 16, model 16); multi-pod: (pod
 2, data 16, model 16)) raises unless that many ranks exist.
 ``train_mesh_spec`` is JAX's, copied.  The backend follows the device: NCCL
 for CUDA, gloo for the CPU; ``backend=`` exists so that ranks sharing one
-card (which NCCL refuses) can ask for gloo.  Device subsets (elastic
-resize) wait for Queue 1 item 6.
+card (which NCCL refuses) can ask for gloo.
 """
 from __future__ import annotations
 
@@ -41,30 +49,39 @@ class AxisGroup:
 
 class ProcessMesh(MeshShape):
     """A mesh of ranks; see the module note.  ``device`` is this rank's
-    torch device."""
+    torch device; ``ranks`` (default: the world) is how many leading ranks
+    the mesh holds, and ``member`` whether this rank is one of them."""
 
-    def __init__(self, shape, axes, *, device, backend: Optional[str] = None):
+    def __init__(self, shape, axes, *, device, backend: Optional[str] = None,
+                 ranks: Optional[int] = None):
         super().__init__(tuple(axes), tuple(int(s) for s in shape))
         if not dist.is_initialized():
             raise RuntimeError("a ProcessMesh needs the default process group: call "
                                "torch.distributed.init_process_group first")
         world, rank = dist.get_world_size(), dist.get_rank()
-        if self.size != world:
-            raise ValueError(f"mesh {dict(self.shape)} holds {self.size} ranks; the "
-                             f"process group has {world}")
+        if ranks is None:
+            if self.size != world:
+                raise ValueError(f"mesh {dict(self.shape)} holds {self.size} ranks; the "
+                                 f"process group has {world}")
+        elif self.size != ranks or not 1 <= ranks <= world:
+            raise ValueError(f"mesh {dict(self.shape)} holds {self.size} ranks; asked for the "
+                             f"first {ranks} of {world}")
         device = torch.device(device)
+        member = rank < self.size
         object.__setattr__(self, "device", device)
         object.__setattr__(self, "rank", rank)
+        object.__setattr__(self, "member", member)
         object.__setattr__(self, "backend",
                            backend or ("nccl" if device.type == "cuda" else "gloo"))
-        coords = self.coords_of(rank)
-        object.__setattr__(self, "coords", dict(zip(self.axis_names, coords)))
+        coords = self.coords_of(rank) if member else None
+        object.__setattr__(self, "coords",
+                           dict(zip(self.axis_names, coords)) if member else None)
         groups = {(): AxisGroup((), 1, 0)}
         n = len(self.axis_names)
         for k in range(1, n + 1):
             for sub in itertools.combinations(range(n), k):
                 groups[tuple(self.axis_names[i] for i in sub)] = self._new_group(sub, coords)
-        object.__setattr__(self, "_groups", groups)
+        object.__setattr__(self, "_groups", groups if member else {})
         object.__setattr__(self, "_hops", {})
 
     def coords_of(self, rank: int) -> tuple:
@@ -80,16 +97,17 @@ class ProcessMesh(MeshShape):
             r = r * s + c
         return r
 
-    def _new_group(self, sub: tuple, coords: tuple) -> AxisGroup:
+    def _new_group(self, sub: tuple, coords: Optional[tuple]) -> AxisGroup:
         """Every rank creates every group over the axes ``sub`` (one per
-        coordinate of the other axes, in order) and keeps its own."""
+        coordinate of the other axes, in order) and keeps its own (a rank
+        outside the mesh, ``coords`` None, keeps none)."""
         axes = tuple(self.axis_names[i] for i in sub)
         size = 1
         for i in sub:
             size *= self.sizes[i]
         index = 0
         for i in sub:
-            index = index * self.sizes[i] + coords[i]
+            index = index * self.sizes[i] + (coords[i] if coords is not None else 0)
         if size == 1:
             return AxisGroup(axes, 1, 0)
         rest = [i for i in range(len(self.sizes)) if i not in sub]
@@ -115,6 +133,8 @@ class ProcessMesh(MeshShape):
         parallelism shards states over ``("data", "cp")`` on a mesh that
         puts ``cp`` first, and its shards and gathers use the one group."""
         axes = axes if isinstance(axes, tuple) else (axes,)
+        if not self.member:
+            raise self._outside()
         key = tuple(a for a in self.axis_names if a in axes)
         if len(set(axes)) != len(axes) or len(key) != len(axes):
             raise KeyError(f"no group over {axes}: the axes must be distinct axes of "
@@ -125,26 +145,34 @@ class ProcessMesh(MeshShape):
         """The point-to-point hop over ``axis``
         (``parallel.collectives.StageHop``), made on first use and kept:
         its pinned host buffers serve every later call."""
+        if not self.member:
+            raise self._outside()
         if axis not in self._hops:
             from repro_torch.parallel.collectives import StageHop
 
             self._hops[axis] = StageHop(self, axis)
         return self._hops[axis]
 
+    def _outside(self) -> ValueError:
+        return ValueError(f"rank {self.rank} is not in mesh {dict(self.shape)} (ranks 0 .. "
+                          f"{self.size - 1}): it owns no group")
+
     def __repr__(self) -> str:
-        return (f"ProcessMesh({dict(self.shape)}, rank {self.rank}, {self.device}, "
-                f"{self.backend})")
+        where = f"rank {self.rank}" + ("" if self.member else " (outside the mesh)")
+        return f"ProcessMesh({dict(self.shape)}, {where}, {self.device}, {self.backend})"
 
 
-def make_mesh(shape, axes, *, device=None, backend: Optional[str] = None) -> ProcessMesh:
-    """A mesh of the given shape over the default process group; ``device``
+def make_mesh(shape, axes, *, device=None, backend: Optional[str] = None,
+              ranks: Optional[int] = None) -> ProcessMesh:
+    """A mesh of the given shape over the default process group (over its
+    first ``ranks`` ranks when given; see the module note); ``device``
     defaults to card ``rank % device_count()``, or the CPU without one."""
     if device is None:
         if torch.cuda.is_available():
             device = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
         else:
             device = torch.device("cpu")
-    return ProcessMesh(shape, axes, device=device, backend=backend)
+    return ProcessMesh(shape, axes, device=device, backend=backend, ranks=ranks)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None,

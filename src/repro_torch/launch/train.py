@@ -106,11 +106,45 @@ spans too.
         --steps 4 --seq 32 --batch 4 --log-every 2 --run-dir results/runs/r0
     PYTHONPATH=src python scripts/render_run.py results/runs/r0
 
+``--simulate-failure-at-step S1,S2,...`` (alias ``--simulate-failure-at``)
+with ``--resize-to N1,N2,...`` is JAX's live elastic resize, under
+``torchrun``: at step Si rank 0 replans for Ni devices
+(``runtime.elastic.replan_and_diff`` on the cluster it searched on) and
+broadcasts the plan (``broadcast_object_list``), every rank builds the
+plan's mesh over the first Ni ranks (``make_mesh(..., ranks=Ni)``, so
+every rank makes every group) and its trainer, and the state moves
+(``runtime.resize.migrate``, or ``migrate_via_checkpoint`` under
+``--elastic-mode checkpoint``; both bitwise the same) with the step, the
+data cursor and the host generator carried; training goes on from step Si.
+Each resize logs JAX's ``plan`` event (reason ``resize``, with the
+``migration`` spec and its ``migration spec:`` line) and ``resize`` event,
+then the step timer's peak counts the new plan's devices and the drift
+monitor takes its prediction.  A rank outside the new mesh is idle: it
+runs no step, takes part only in the resize events (the plan's broadcast,
+``new_group``, the migration's gathers, broadcast and barriers), and
+reaches the world's barrier at the end; the step fence, the checkpoints'
+barrier and their gathers use the running mesh's group.  ``--digest``
+prints JAX's ``digest params=… opt_m=… loss=…``: the canonical params'
+and m's absolute sums in float64 and the last step's loss, so two runs'
+states can be compared.  Events before a resumed step are dropped with
+JAX's warning.  On one device ``--resize-to`` exits as JAX's does (its
+text names ``torchrun`` where JAX's names ``XLA_FLAGS``), and
+``--simulate-failure-at-step`` alone is JAX's legacy advisory: the plan
+for 192 of 256 devices, printed and logged (reason ``replan-advisory``).
+A replanned plan the runtime refuses (one mixing cp degrees:
+``check_layout``) raises on every rank; nothing falls back.  NCCL refuses
+ranks that share one card, so ``chip_smoke.py`` holds the resize on gloo
+ranks through the library, and the launcher's run is held on the CPU.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \\
+        --reduced --device cpu --steps 6 --seq 32 --batch 8 \\
+        --simulate-failure-at-step 2,4 --resize-to 2,4 --digest
+
 Every rank reaches one barrier before the process group is torn down, on
 each path that returns and on the ``SystemExit``s every rank raises alike,
 so a rank that finishes first cannot close its connections while a slower
-one still builds its own.  Elastic resize and the compiled-step audit wait
-for later slices.
+one still builds its own.  The compiled-step audit waits for a later
+slice.
 """
 from __future__ import annotations
 
@@ -140,10 +174,11 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import build_model
 from repro_torch.models.common import tree_leaves
 from repro_torch.runtime import checkpoint as ckpt_lib
+from repro_torch.runtime import resize as resize_lib
 from repro_torch.runtime.data import SyntheticDataset
-from repro_torch.runtime.elastic import DriftReplanAdvisor
+from repro_torch.runtime.elastic import (DriftReplanAdvisor, ElasticEvent, replan,
+                                         replan_and_diff)
 from repro_torch.runtime.train import construct_hybrid_parallel_model
-from repro_torch.runtime.train_pp import PipelineTrainer
 
 PRESET_100M = ModelConfig(
     name="llama-100m", family="dense", num_layers=12, d_model=640,
@@ -157,6 +192,72 @@ def resolve_cfg(args) -> ModelConfig:
     cfg = get_config(args.arch)
     return cfg.reduced() if args.reduced else cfg
 
+
+def _int_list(text: str) -> list[int]:
+    return [int(tok) for tok in str(text).split(",") if tok.strip()]
+
+
+def _parse_events(args, n_dev: int) -> list[tuple[int, int]]:
+    """[(fire_step, new_device_count), ...] from --simulate-failure-at-step /
+    --resize-to, validated against the live device pool (JAX's, with its
+    texts)."""
+    steps = _int_list(args.simulate_failure_at_step or "")
+    sizes = _int_list(args.resize_to or "")
+    if not steps:
+        if sizes:
+            raise SystemExit("--resize-to needs --simulate-failure-at-step "
+                             "entries naming when each resize fires")
+        return []
+    if sizes and len(sizes) != len(steps):
+        raise SystemExit("--resize-to needs one device count per "
+                         "--simulate-failure-at-step entry")
+    events = list(zip(steps, sizes)) if sizes else [(s, 0) for s in steps]
+    if any(b <= a for a, b in zip(steps, steps[1:])):
+        raise SystemExit("--simulate-failure-at-step entries must be "
+                         "strictly increasing")
+    for _, n in events:
+        if sizes and n < 1:
+            raise SystemExit(f"--resize-to {n} is not a device count")
+        if n > n_dev:
+            raise SystemExit(f"--resize-to {n} exceeds the live device pool "
+                             f"({n_dev}); grow events can only reuse devices "
+                             "this process already sees")
+    return events
+
+
+class _Run:
+    """What this rank trains: the trainer (an ``OutsideMesh`` on a rank a
+    shrink left idle), its params and optimizer state, and the last step's
+    metrics.  ``barrier`` and ``sync`` span the running mesh's ranks; a
+    resize rebinds the rest."""
+
+    def __init__(self, hp, params, opt):
+        self.last_metrics = None
+        self.rebind(hp, params, opt)
+
+    def rebind(self, hp, params, opt) -> None:
+        self.hp, self.params, self.opt = hp, params, opt
+
+    @property
+    def plan(self) -> ExecutionPlan:
+        return self.hp.plan
+
+    @property
+    def member(self) -> bool:
+        return resize_lib.holds_state(self.hp)
+
+    def barrier(self) -> None:
+        mesh = self.hp.mesh
+        if mesh is not None and mesh.member and mesh.size > 1:
+            import torch.distributed as dist
+
+            dist.barrier(group=mesh.group(mesh.axis_names).pg)
+
+    def sync(self) -> None:
+        device = self.hp.model.device if self.hp.mesh is None else self.hp.mesh.device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.barrier()
 
 def _predicted_breakdown(plan: ExecutionPlan, cfg: ModelConfig, seq_len: int,
                          global_batch: int, calibration,
@@ -190,15 +291,20 @@ def _predicted_breakdown(plan: ExecutionPlan, cfg: ModelConfig, seq_len: int,
 
 
 def _emit_plan(sink, reason: str, plan: ExecutionPlan, *, breakdown: Optional[dict] = None,
+               spec: "Optional[resize_lib.MigrationSpec]" = None,
                rejections: Optional[dict] = None, say=print) -> None:
-    """JAX's ``_emit_plan``: the plan line, then one structured ``plan``
-    event (and ``search_rejections`` when the search reported them)."""
+    """JAX's ``_emit_plan``: the plan line (and ``migration spec:`` after a
+    resize), then one structured ``plan`` event (with the spec's
+    ``migration``; and ``search_rejections`` when the search reported
+    them)."""
     sched = (f" pp={plan.pp}/{plan.pp_schedule}"
              + (f"x{plan.pp_interleave}" if plan.pp_interleave > 1 else "")
              if plan.pp > 1 else "")
     note = plan.notes.split("|")[-1].strip() if plan.notes else ""
     say(f"plan[{reason}]: {plan.default_strategy.short()} ga={plan.grad_accum}{sched} "
         f"mesh={plan.mesh_shape} groups={len(plan.groups())}" + (f" ({note})" if note else ""))
+    if spec is not None:
+        say(f"   migration spec: {spec.summary()}")
     fields = dict(
         reason=reason, strategy=plan.default_strategy.short(),
         mesh_shape=list(plan.mesh_shape), mesh_axes=list(plan.mesh_axes),
@@ -206,6 +312,8 @@ def _emit_plan(sink, reason: str, plan: ExecutionPlan, *, breakdown: Optional[di
         predicted_step_time_s=plan.predicted_step_time, notes=note)
     if breakdown:
         fields["predicted_breakdown"] = breakdown
+    if spec is not None:
+        fields["migration"] = spec.summary()
     sink.emit("plan", **fields)
     if rejections:
         sink.emit("search_rejections", counts={k: int(v) for k, v in rejections.items()})
@@ -259,37 +367,39 @@ def _restore(args, hp, step: int, params, opt, say=print):
 
 class _Checkpoints:
     """``--ckpt-dir``'s saves, as JAX's ``save_checkpoint``: the canonical
-    state at a step (every rank gathers it), written by rank 0, async
-    (``CheckpointWriter(sink=sink)``) or sync (a ``ckpt`` event each); on a
-    mesh the other ranks wait at a barrier.  ``stall_seconds`` sums the
-    sync saves and the writer's blocking."""
+    state of ``run`` at a step (every rank of its mesh gathers it), written
+    by rank 0 with ``run``'s plan, async (``CheckpointWriter(sink=sink)``)
+    or sync (a ``ckpt`` event each); on a mesh the mesh's other ranks wait
+    at its barrier.  ``run`` is read at each save, so a save after a resize
+    takes the new trainer and plan.  ``stall_seconds`` sums the sync saves
+    and the writer's blocking."""
 
-    def __init__(self, args, hp, plan: ExecutionPlan, sink, rank: int = 0, barrier=None):
-        self.args, self.hp, self.plan, self.sink, self.rank = args, hp, plan, sink, rank
-        self.barrier = barrier or (lambda: None)
+    def __init__(self, args, run: _Run, sink, rank: int = 0):
+        self.args, self.run, self.sink, self.rank = args, run, sink, rank
         self.writer = (ckpt_lib.CheckpointWriter(sink=sink)
                        if args.ckpt_async == "on" and rank == 0 else None)
         self.last = -1
         self.sync_seconds = 0.0
 
-    def save(self, step: int, params, opt) -> None:
+    def save(self, step: int) -> None:
         if step == self.last:                 # final save == last periodic save
             return
         self.last = step
-        canon_p, canon_o = self.hp.checkpoint_state(params, opt)
+        run = self.run
+        canon_p, canon_o = run.hp.checkpoint_state(run.params, run.opt)
         if self.rank == 0:
             if self.writer is not None:
-                self.writer.save_async(self.args.ckpt_dir, step, canon_p, canon_o, self.plan)
+                self.writer.save_async(self.args.ckpt_dir, step, canon_p, canon_o, run.plan)
                 print(f"checkpoint queued (async) step {step}")
             else:
                 t0 = time.perf_counter()
-                path = ckpt_lib.save(self.args.ckpt_dir, step, canon_p, canon_o, self.plan)
+                path = ckpt_lib.save(self.args.ckpt_dir, step, canon_p, canon_o, run.plan)
                 dt = time.perf_counter() - t0
                 self.sync_seconds += dt
                 self.sink.emit("ckpt", phase="written", step=step, stall_seconds=dt,
                                queue_depth=0, path=str(path))
                 print(f"checkpoint -> {path}")
-        self.barrier()
+        run.barrier()
 
     def close(self) -> None:
         """Drain the writer (raising its error); every rank then waits for
@@ -298,7 +408,7 @@ class _Checkpoints:
             path = self.writer.close()
             print(f"checkpoint -> {path} (async writer: {self.writer.saves_completed} "
                   f"saves, {self.writer.blocked_seconds * 1e3:.1f} ms total step-loop stall)")
-        self.barrier()
+        self.run.barrier()
 
     @property
     def stall_seconds(self) -> float:
@@ -317,27 +427,44 @@ def _step_timer(args, cfg: ModelConfig, cluster: ClusterSpec, devices: int,
         peak_flops=cluster.peak_flops * devices, fence_fn=fence_fn)
 
 
-def _train_loop(args, hp, params, opt, start: int, ckpts, step_fn, say, sync, sink,
-                timer: obs.StepTimer) -> list:
+def _train_loop(args, run: _Run, start: int, ckpts, say, sink, timer: obs.StepTimer,
+                cluster: ClusterSpec, events=(), on_event=None) -> list:
     """Steps ``start`` .. ``--steps - 1`` on ``SyntheticDataset.batch(step)``
     under JAX's telemetry (see the module note), a checkpoint every
     ``--ckpt-every`` steps and one at the end; emits ``run_end`` and
-    returns the step times."""
-    cfg, plan, device = hp.model.cfg, hp.plan, hp.model.device
+    returns the step times.  At each event's step (``events``: JAX's
+    ``(step, devices)`` pairs) ``on_event(step, devices)`` runs first; when
+    it reports a live resize the drift monitor takes the new plan's
+    prediction and the timer's peak its devices (``cluster``'s per-card
+    peak).  A rank a resize left outside the mesh runs no step."""
+    cfg = run.hp.model.cfg
     ds = SyntheticDataset(cfg, seq_len=args.seq, global_batch=args.batch)
     registry = timer.registry
-    drift = obs.DriftMonitor(plan.predicted_step_time)
+    drift = obs.DriftMonitor(run.plan.predicted_step_time)
     advisor = DriftReplanAdvisor(sink)
     drift_was_sustained = False
     t_start = time.perf_counter()
     times = []
+    pending = [e for e in events if e[0] >= start]
+    if len(pending) != len(events):
+        say(f"warning: dropping {len(events) - len(pending)} resize event(s) "
+            f"before resumed step {start}")
     for step in range(start, args.steps):
+        if pending and step == pending[0][0]:
+            _, new_dev = pending.pop(0)
+            if on_event(step, new_dev):
+                drift.reset(run.plan.predicted_step_time)
+                timer.peak_flops = cluster.peak_flops * run.plan.num_devices
+        if not run.member:
+            continue
         batch = ds.batch(step)
-        sync()
+        run.sync()
         timer.start()
-        params, opt, metrics = step_fn(params, opt, batch)
-        rec = timer.stop(step, (params, opt, metrics))
+        run.params, run.opt, metrics = run.hp.train_step(run.params, run.opt, batch)
+        rec = timer.stop(step, (run.params, run.opt, metrics))
+        run.last_metrics = metrics
         times.append(rec.step_time_s)
+        device = run.hp.device
         if step == start and device.type == "cuda":
             peak = float(torch.cuda.max_memory_allocated(device))
             registry.gauge("peak_hbm_bytes").set(peak)
@@ -363,9 +490,9 @@ def _train_loop(args, hp, params, opt, start: int, ckpts, step_fn, say, sync, si
                 f"{rec.step_time_s * 1e3:.1f} ms tok/s {rec.tokens_per_sec:,.1f} "
                 f"mfu {rec.mfu * 100:.2f}%")
         if ckpts is not None and (step + 1) % args.ckpt_every == 0:
-            ckpts.save(step + 1, params, opt)
-    if ckpts is not None:
-        ckpts.save(args.steps, params, opt)
+            ckpts.save(step + 1)
+    if ckpts is not None and run.member:
+        ckpts.save(args.steps)
         ckpts.close()
     sink.emit("run_end", steps=timer.steps.value, tokens=timer.tokens_per_step * len(times),
               wall_seconds=time.perf_counter() - t_start,
@@ -373,6 +500,34 @@ def _train_loop(args, hp, params, opt, start: int, ckpts, step_fn, say, sync, si
               drift_sustained=drift_was_sustained, metrics=registry.snapshot(),
               spans=obs.default_tracer().timeline())
     return times
+
+
+def _advisory_replan(args, cfg: ModelConfig, sink, say=print) -> None:
+    """JAX's legacy event (a failure step with no ``--resize-to``, or one
+    device): the plan for 192 of 256 devices, printed and logged; nothing
+    moves."""
+    say("!! simulated node failure: re-searching plan for 75% capacity")
+    event = ElasticEvent(old_devices=256, new_devices=192)
+    new_plan = replan(get_config(args.arch) if not args.preset else cfg, event, args.seq,
+                      args.batch)
+    _emit_plan(sink, "replan-advisory", new_plan, say=say)
+
+
+def _digest(run: _Run, say=print) -> None:
+    """JAX's ``--digest`` line: the canonical params' and m's absolute sums
+    in float64 and the last step's loss (every rank of the mesh gathers;
+    rank 0 prints)."""
+    if not run.member:
+        return
+    import numpy as np
+
+    canon_p, canon_o = resize_lib.canonical_state(run.hp, run.params, run.opt)
+    total = lambda tree: sum(float(np.abs(x.detach().cpu().double().numpy()).sum())
+                             for x in tree_leaves(tree))
+    p_sum, m_sum = total(canon_p), total(canon_o.m)
+    m = run.last_metrics
+    last_loss = float(m["loss"]) if m else float("nan")
+    say(f"digest params={p_sum:.6e} opt_m={m_sum:.6e} loss={last_loss:.8f}")
 
 
 def main(argv=None) -> int:
@@ -422,11 +577,29 @@ def main(argv=None) -> int:
                          "the previous save); 'off' writes synchronously — "
                          "byte-identical output either way")
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--simulate-failure-at-step", "--simulate-failure-at",
+                    dest="simulate_failure_at_step", default="",
+                    help="comma-separated steps at which to fire a simulated "
+                         "membership change (with --resize-to: live resize; "
+                         "without: legacy replan-and-print)")
+    ap.add_argument("--resize-to", default="",
+                    help="comma-separated surviving device counts, one per "
+                         "--simulate-failure-at-step entry; each event "
+                         "replans + migrates live state onto the new mesh")
+    ap.add_argument("--elastic-mode", default="live", choices=["live", "checkpoint"],
+                    help="how a resize event moves state: 'live' = in-memory "
+                         "migration (gathers, the grow broadcast, the new "
+                         "trainer's placement); 'checkpoint' = save/restore "
+                         "round trip (the fallback path / equivalence oracle)")
+    ap.add_argument("--digest", action="store_true",
+                    help="print a deterministic state digest at the end "
+                         "(params/opt sums + final loss) — lets two runs be "
+                         "compared for bitwise-equivalent training state")
     ap.add_argument("--run-dir", default="",
                     help="directory for the JSONL run log (repro_torch.obs "
                          "RunSink; e.g. results/runs/<run_id>) — step "
-                         "metrics, plan/ckpt/drift events; render a report "
-                         "with scripts/render_run.py")
+                         "metrics, plan/resize/ckpt/drift events; render a "
+                         "report with scripts/render_run.py")
     args = ap.parse_args(argv)
 
     calibration = calibrate.DEFAULT_CALIBRATION
@@ -443,6 +616,7 @@ def main(argv=None) -> int:
 
     cfg = resolve_cfg(args)
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    events = _parse_events(args, world)
     if args.cp > 1:             # JAX's checks, in its order
         if not cp_seq_divisible(args.seq, args.cp):
             raise SystemExit(f"--cp {args.cp} needs --seq % (2*cp) == 0 "
@@ -451,15 +625,18 @@ def main(argv=None) -> int:
             raise SystemExit(f"--cp supports dense-family archs; "
                              f"{cfg.name} is {cfg.family}")
     if world > 1:
-        return _main_ranks(args, cfg, calibration, world)
+        return _main_ranks(args, cfg, calibration, world, events)
     if args.cp > 1:
         print(f"warning: --cp {args.cp} ignored on a single device")
+    if any(n for _, n in events):
+        raise SystemExit("--resize-to needs a multi-device pool "
+                         "(run the launcher under torchrun --nproc-per-node N)")
     model = build_model(cfg, device=args.device)
     with _open_sink(args, cfg, 1) as sink:
-        return _run_single(args, cfg, calibration, model, sink)
+        return _run_single(args, cfg, calibration, model, sink, events)
 
 
-def _run_single(args, cfg: ModelConfig, calibration, model, sink) -> int:
+def _run_single(args, cfg: ModelConfig, calibration, model, sink, events=()) -> int:
     """``main``'s single-device path (see the module note)."""
     # the JAX launcher's plan on one device: one strategy for every layer
     plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
@@ -498,15 +675,15 @@ def _run_single(args, cfg: ModelConfig, calibration, model, sink) -> int:
         params, opt = _restore(args, hp, resume, params, opt)
         start = resume
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    ckpts = _Checkpoints(args, hp, plan, sink) if args.ckpt_dir else None
-    times = _train_loop(args, hp, params, opt, start, ckpts, hp.jit_train_step(donate=False),
-                        print, sync, sink, _step_timer(args, cfg, H100_1, 1))
+    run = _Run(hp, params, opt)
+    ckpts = _Checkpoints(args, run, sink) if args.ckpt_dir else None
+    advisory = lambda step, devices: _advisory_replan(args, cfg, sink)
+    times = _train_loop(args, run, start, ckpts, print, sink,
+                        _step_timer(args, cfg, H100_1, 1), H100_1, events, advisory)
     if dev.type == "cuda":
         print(f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    if args.digest:
+        _digest(run)
     if not times:
         print(f"no step to run: resumed at step {start} of --steps {args.steps}")
         print("done")
@@ -525,7 +702,7 @@ def _run_single(args, cfg: ModelConfig, calibration, model, sink) -> int:
     return 0
 
 
-def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
+def _main_ranks(args, cfg: ModelConfig, calibration, world: int, events=()) -> int:
     """The multi-device branch under ``torchrun`` (see the module note)."""
     import torch.distributed as dist
 
@@ -536,7 +713,7 @@ def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
         torch.cuda.set_device(device)
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     try:
-        rc = _run_ranks(args, cfg, calibration, world, rank, device)
+        rc = _run_ranks(args, cfg, calibration, world, rank, device, events)
     except SystemExit:
         dist.barrier()               # every rank raises these alike
         raise
@@ -547,11 +724,47 @@ def _main_ranks(args, cfg: ModelConfig, calibration, world: int) -> int:
         dist.destroy_process_group()
 
 
-def _run_ranks(args, cfg: ModelConfig, calibration, world: int, rank: int,
-               device: torch.device) -> int:
-    """``_main_ranks``' body, inside the initialised process group."""
+def _apply_resize(cfg: ModelConfig, args, event: ElasticEvent, run: _Run,
+                  carry: "resize_lib.CarryState", sink, cluster: ClusterSpec, calibration,
+                  device: torch.device, say=print) -> "resize_lib.CarryState":
+    """JAX's ``_apply_resize`` on every rank: rank 0 replans for the
+    survivors and diffs the plan against the running one, the plan goes to
+    every rank by broadcast, every rank builds its mesh over the plan's
+    first ranks and its trainer (a plan the runtime refuses raises here, on
+    every rank alike), then the state migrates and ``run`` takes the new
+    runtime.  Returns the carried state, the loop's resume point."""
     import torch.distributed as dist
 
+    box = [None]
+    if dist.get_rank() == 0:
+        box[0] = replan_and_diff(cfg, event, args.seq, args.batch, run.plan, cluster=cluster,
+                                 arch=cfg.name, calibration=calibration)
+    dist.broadcast_object_list(box, src=0)
+    new_plan, spec = box[0]
+    _emit_plan(sink, "resize", new_plan, spec=spec, say=say)
+    mesh = mesh_lib.make_mesh(new_plan.mesh_shape, new_plan.mesh_axes, device=device,
+                              ranks=new_plan.num_devices)
+    new_hp = resize_lib.make_trainer(run.hp.model, new_plan, mesh)
+    with obs.span("resize_migrate"):
+        if args.elastic_mode == "checkpoint":
+            params, opt, carry, report = resize_lib.migrate_via_checkpoint(
+                run.hp, new_hp, run.params, run.opt, carry, step=carry.step,
+                async_write=args.ckpt_async == "on")
+        else:
+            params, opt, carry, report = resize_lib.migrate(run.hp, new_hp, run.params,
+                                                            run.opt, carry)
+    say(f"   {report.summary()}")
+    sink.emit("resize", step=carry.step, old_devices=event.old_devices,
+              new_devices=event.new_devices, reason=event.reason, path=report.path,
+              seconds=report.seconds, bytes_moved=report.bytes_moved,
+              migration=spec.summary())
+    run.rebind(new_hp, params, opt)
+    return carry
+
+
+def _run_ranks(args, cfg: ModelConfig, calibration, world: int, rank: int,
+               device: torch.device, events=()) -> int:
+    """``_main_ranks``' body, inside the initialised process group."""
     try:
         shape, axes = mesh_lib.train_mesh_spec(world, pp=args.pp, cp=args.cp)
     except ValueError as e:
@@ -594,11 +807,7 @@ def _run_ranks(args, cfg: ModelConfig, calibration, world: int, rank: int,
 
         resume = _resume_step(args, plan, say)
         mesh = mesh_lib.make_mesh(shape, axes, device=device)
-        model = build_model(cfg, device=device)
-        if plan.pp > 1:
-            hp = PipelineTrainer(model, plan, mesh)
-        else:
-            hp = construct_hybrid_parallel_model(model, plan, mesh)
+        hp = resize_lib.make_trainer(build_model(cfg, device=device), plan, mesh)
         params = hp.init_params(torch.Generator(device=device).manual_seed(0))
         opt = hp.init_opt_state(params)
         say(f"model: {cfg.name} on {world} ranks of {mesh.backend} ({device.type}), "
@@ -608,22 +817,38 @@ def _run_ranks(args, cfg: ModelConfig, calibration, world: int, rank: int,
             params, opt = _restore(args, hp, resume, params, opt, say)
             start = resume
 
-        def sync():
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            dist.barrier()
-
-        ckpts = _Checkpoints(args, hp, plan, sink, rank, dist.barrier) if args.ckpt_dir else None
+        run = _Run(hp, params, opt)
+        ckpts = _Checkpoints(args, run, sink, rank) if args.ckpt_dir else None
         # a step's time is the slowest rank's: synchronize, then a barrier
-        timer = _step_timer(args, cfg, cluster, world, fence_fn=lambda outputs: sync())
-        times = _train_loop(args, hp, params, opt, start, ckpts, hp.train_step, say, sync, sink,
-                            timer)
+        timer = _step_timer(args, cfg, cluster, world, fence_fn=lambda outputs: run.sync())
+        host_rng = torch.Generator().manual_seed(0)     # the run's host generator
+        devices = world
+
+        def on_event(step: int, new_dev: int) -> bool:
+            nonlocal host_rng, devices
+            if not new_dev:
+                _advisory_replan(args, cfg, sink, say)
+                return False
+            say(f"!! simulated membership change at step {step}: {devices} -> {new_dev} "
+                f"devices ({args.elastic_mode})")
+            event = ElasticEvent(old_devices=devices, new_devices=new_dev, reason="simulated")
+            carry = resize_lib.CarryState(step=step, samples_seen=step * args.batch,
+                                          rng=host_rng)
+            carry = _apply_resize(cfg, args, event, run, carry, sink, cluster, calibration,
+                                  device, say)
+            host_rng, devices = carry.rng, new_dev      # resume exactly where it stopped
+            return True
+
+        times = _train_loop(args, run, start, ckpts, say, sink, timer, cluster, events,
+                            on_event)
         if device.type == "cuda":
             say(f"peak memory (rank 0) "
                 f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
         if times:
             say(f"median step {statistics.median(times) * 1e3:.1f} ms vs predicted "
-                f"{plan.predicted_step_time * 1e3:.1f} ms")
+                f"{run.plan.predicted_step_time * 1e3:.1f} ms")
+        if args.digest:
+            _digest(run, say)
         say("done")
         return 0
 

@@ -18,7 +18,9 @@ does the same for ``PipelineTrainer`` under each schedule, on a (pod,
 data, model) or a (pod, cp, data, model) mesh.  A case may run on a (cp,
 data, model) mesh, and with a context-parallel fault brought in
 (``inject_fault``); ``ring_ops`` runs the cp ring alone; ``checkpoint_cases``
-saves a checkpoint under one plan and restores it under others.
+saves a checkpoint under one plan and restores it under others;
+``elastic_cases`` checks a mesh over a prefix of the ranks and migrates a
+training state through a shrink, a grow and a pipeline restage.
 ``references`` builds a case and its two single-device references in the
 test process (the only function here that imports JAX).
 """
@@ -433,6 +435,158 @@ def checkpoint_cases(payload: dict) -> dict:
     return {"saved": host(*saved), "loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"]), "after": after,
             "zero3_back": zero3_back, "pp_back": pp_back}
+
+
+def _prefix_mesh() -> dict:
+    """A (data 1, model 2) mesh over the first 2 ranks: this rank's
+    membership, its groups' (size, index), the sum of ``rank + 1`` over the
+    model group (members), the error a non-member's ``group`` raises and
+    its repr, and the refusals of a prefix that is not the mesh's size."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu", ranks=2)
+    out = {"member": mesh.member, "coords": mesh.coords, "repr": repr(mesh)}
+    if mesh.member:
+        out["groups"] = {k: (g.size, g.index) for k, g in mesh._groups.items()}
+        x = torch.tensor([float(dist.get_rank() + 1)])
+        dist.all_reduce(x, group=mesh.group("model").pg)
+        out["model_sum"] = float(x)
+    else:
+        try:
+            mesh.group("model")
+        except ValueError as e:
+            out["group_error"] = str(e)
+    refused = []
+    for shape, ranks in (((1, 2), 3), ((1, 4), 5)):
+        try:
+            make_mesh(shape, ("data", "model"), device="cpu", ranks=ranks)
+        except ValueError as e:
+            refused.append(str(e))
+    out["refused"] = refused
+    return out
+
+
+def _digests(tree_pair) -> dict:
+    """{leaf key: SHA-256 of its bytes} of a (params, opt) pair."""
+    import hashlib
+
+    from repro_torch.runtime import checkpoint as ckpt
+
+    out = {}
+    for k, x in ckpt._flatten(tree_pair).items():
+        x = x.detach().cpu().contiguous()
+        out[k] = hashlib.sha256(x.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+    return out
+
+
+def elastic_cases(payload: dict) -> dict:
+    """On 4 ranks in fp32: ``_prefix_mesh``; then one ``train_step`` under
+    ``payload["plans"][0]`` from ``payload["params"]``, and for each later
+    (name, plan) of ``payload["plans"]`` a migration onto it (every plan's
+    mesh over the first ranks it needs): ``migrate`` and
+    ``migrate_via_checkpoint`` (async and sync in turn) from the same
+    state, whether they agree bitwise on this rank, the canonical state's
+    digests before (old mesh) and after (new mesh), then on the new mesh
+    ``value_and_grad`` and a donated ``train_step`` of the in-memory state
+    on the next batch against an undonated step of the checkpoint state
+    (bitwise), training going on from the former.  Rank 0 also returns the
+    canonical state before each migration (CPU) and, after it, the loss,
+    the canonical grads, the step's loss and the canonical params after
+    it.  Last, the launcher's ``_apply_resize`` onto a plan mixing cp 1 and
+    cp 2 (``payload["mixed"]``): the exception each rank raises, and
+    whether its running trainer is unchanged."""
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.core.cluster import H100_NODE8
+    from repro_torch.core.strategy import ExecutionPlan
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime import resize
+    from repro_torch.runtime.elastic import ElasticEvent
+
+    rank = dist.get_rank()
+    cfg, opt_cfg, batches = payload["cfg"], payload["opt"], payload["batches"]
+    model = build_model(cfg, device="cpu")
+    cpu = lambda tree: tree_map(lambda x: x.detach().clone(), tree)
+
+    def trainer(spec):
+        shape, axes, strategy, pp, schedule, ga = spec
+        plan = ExecutionPlan(arch=cfg.name, shape="train", mesh_axes=axes, mesh_shape=shape,
+                             pp=pp, pp_schedule=schedule, grad_accum=ga,
+                             layer_strategies=[strategy] * cfg.num_layers,
+                             default_strategy=strategy)
+        n = 1
+        for s in shape:
+            n *= s
+        return resize.make_trainer(model, plan, make_mesh(shape, axes, device="cpu", ranks=n),
+                                   opt_cfg)
+
+    out = {"mesh": _prefix_mesh(), "events": {}}
+    (_, first), *later = payload["plans"]
+    hp = trainer(first)
+    params = hp.place_params(payload["params"])
+    params, opt, _ = hp.train_step(params, hp.init_opt_state(params), batches[0], torch.float32)
+    gen = torch.Generator().manual_seed(5)
+    for i, (name, spec) in enumerate(later):
+        new = trainer(spec)
+        rec = {"old_member": resize.holds_state(hp), "new_member": resize.holds_state(new)}
+        if resize.holds_state(hp):
+            before = hp.checkpoint_state(params, opt)
+            rec["before"] = _digests(before)
+            if rank == 0:
+                rec["state"] = cpu(before[0]), type(before[1])(
+                    step=before[1].step.clone(), m=cpu(before[1].m), v=cpu(before[1].v))
+            del before
+        carry = resize.CarryState(step=i + 1, samples_seen=8 * (i + 1), rng=gen)
+        p_mem, o_mem, carried, rep = resize.migrate(hp, new, params, opt, carry)
+        p_ck, o_ck, _, rep_ck = resize.migrate_via_checkpoint(hp, new, params, opt, carry,
+                                                              step=i + 1,
+                                                              async_write=i % 2 == 0)
+        rec.update(spec=rep.spec.summary(), restage=rep.spec.restage,
+                   paths=(rep.path, rep_ck.path), moved=(rep.bytes_moved, rep_ck.bytes_moved),
+                   carried=(carried.step, carried.samples_seen, carried.rng is not gen))
+        if resize.holds_state(new):
+            rec["bitwise"] = _digests((p_mem, o_mem)) == _digests((p_ck, o_ck))
+            rec["after"] = _digests(new.checkpoint_state(p_mem, o_mem))
+            batch = batches[i + 1]
+            loss, _, grads = new.value_and_grad(p_mem, batch, torch.float32)
+            grads = new.gather_params(grads, new.grad_specs)
+            p_mem, o_mem, m_mem = new.train_step(p_mem, o_mem, batch, torch.float32,
+                                                 donate=True)
+            p_ck, o_ck, m_ck = new.train_step(p_ck, o_ck, batch, torch.float32)
+            rec["step_bitwise"] = (torch.equal(m_mem["loss"], m_ck["loss"])
+                                   and _digests((p_mem, o_mem)) == _digests((p_ck, o_ck)))
+            stepped = new.gather_params(p_mem)
+            if rank == 0:
+                rec.update(vg_loss=float(loss), grads=cpu(grads),
+                           step_loss=float(m_mem["loss"]), new=cpu(stepped))
+        params, opt, hp = p_mem, o_mem, new
+        del p_ck, o_ck
+        out["events"][name] = rec
+
+    mixed = payload["mixed"]
+    run = launcher._Run(hp, params, opt)
+    kept = launcher.replan_and_diff
+    launcher.replan_and_diff = lambda *a, **k: (mixed, resize.diff_plans(run.plan, mixed))
+    args = types.SimpleNamespace(seq=32, batch=8, elastic_mode="live", ckpt_async="on")
+    try:
+        launcher._apply_resize(cfg, args, ElasticEvent(run.plan.num_devices, 4, "simulated"),
+                               run, resize.CarryState(step=len(later) + 1), obs.NullSink(),
+                               H100_NODE8, None, torch.device("cpu"), say=lambda *a: None)
+        out["mixed"] = None
+    except Exception as e:          # the test reads the refusal's type and text
+        out["mixed"] = (type(e).__name__, str(e))
+    finally:
+        launcher.replan_and_diff = kept
+    out["mixed_kept"] = run.hp is hp and run.params is params
+    return out
 
 
 def aux_runs(hp, params, batch, dtype, weights) -> dict:
