@@ -35,7 +35,11 @@ Phases (any failure exits non-zero and prints no result line):
    B1 S8192 at rank 0's zig-zag positions of 16 384, the later steps
    non-causal B1 Sq8192 Sk4096 and Sq4096 Sk8192; phase 30: the same ring
    inside a pipeline stage at S 8 192, step 0 causal B1 S4096, later steps
-   B1 Sq4096 Sk2048 and Sq2048 Sk4096): fp32 1e-4,
+   B1 Sq4096 Sk2048 and Sq2048 Sk4096; phase 34: a serving-mesh rank's
+   qwen2.5-3b prefill B2 S512 on 8 query heads over 1 KV head and its
+   decode partial B2 Sq1 over a 272-key slice at key offset 272 on 16 over
+   2 (g = 8, hd 128, per-slot positions, residuals, split-K), and the same
+   with a slot that sees none of the slice's keys): fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
    holds rows over thousands of keys, whose values are ~1e-2; the llama
@@ -475,6 +479,27 @@ Phases (any failure exits non-zero and prints no result line):
    each migration's seconds on both paths, the bytes moved (every leaf
    whole; gloo through the host, no interconnect) and each rank's peak are
    logged;
+34. serving on a mesh (run after phase 33, whose run hides its ranks'
+   start-up; before the results) — four ranks sharing the card over gloo
+   (``chip_smoke.py --serve-mesh-rank``) on a (data 2, model 2) mesh, plan
+   tp 2 ZeRO-0, serve qwen2.5-3b at full width through
+   ``serving.step_engine(model, plan, mesh, ...)``: (a) bf16 at full depth
+   (36 layers; the canonical tree drawn on the card in bf16 from one seed,
+   3.1 GB of shards a rank), 4 x 512 prompt tokens and 16 greedy tokens
+   through ``greedy_generate`` in a cache of 544 positions, 272 a rank of
+   the model axis (flash-decode: K1's partials over every rank's slice,
+   merged), the greedy tokens the same on every rank and their agreement
+   with one rank's single-device engine logged, each rank's launches pinned
+   (``serve_mesh_launches``) and its K1 shapes phase 3's rows; then a
+   prefill and 15 decode steps fed the single-device tokens, each step's
+   logits no further from the fp32 plain path than twice the plain bf16
+   path's error; (b) full width cut to 4 layers in fp32, the same run's
+   logits within 1e-3 of their scale of one rank's and the gathered cache
+   within 1e-5; (c) the same at ``max_len`` 543, whose positions do not
+   split: the whole cache on every rank, 2 decode steps, the same checks
+   ((b)'s and (c)'s launches pinned too, (c)'s K1 shapes phase 3's rows);
+   each rank's prefill and decode latency (gloo through the host of one
+   card, not an interconnect) and peak are logged;
 24. a ``{"kernels": [...]}`` line (``rmsnorm``, ``rmsnorm_gated``,
    ``rmsnorm_bwd``, ``rmsnorm_split_fwd`` and ``rmsnorm_split_bwd`` rows for
    K2, ``ssd`` and ``ssd_autograd`` for K3; a row phase 28's stages also
@@ -486,7 +511,11 @@ Phases (any failure exits non-zero and prints no result line):
    and K1's 2 x 2048 row and phase 25's 4 096 x 2048 K2 rows for
    ``telemetry_train`` with (d)'s; K1's 2 x 4096 and phase 25's dp 2 1 x
    4096 rows, the 8 192 x 2048 K2 row over the fp32 master scale and the
-   two K2-backward rows for ``elastic`` with phase 33's),
+   two K2-backward rows for ``elastic`` with phase 33's; phase 34's K1
+   decode partial and prefill rows and the 2 x 2048 and 1 024 x 2048 K2
+   rows for ``serve_mesh`` with (a)'s ``greedy_generate`` launches over its
+   ranks, its prefill, whole-cache decode and K2 rows for
+   ``serve_mesh_whole`` with (c)'s),
    then the device line last.
 """
 from __future__ import annotations
@@ -519,6 +548,9 @@ LLAMA_SERVE_PATHS = ("llama", "telemetry")
 #: also a microbatch of phase 32's train launcher (2 x 2048, one device) and
 #: a phase 33 rank's on 4 ranks (1 x 4096)
 PAR_TRAIN_PATHS = ("parallel", "telemetry_train", "elastic")
+#: a phase 34 rank's prefill (K1 and K2) and its decode rows' K2 are the same
+#: shapes in (a)'s sequence-sharded cache and (c)'s whole one
+SERVE_MESH_PATHS = ("serve_mesh", "serve_mesh_whole")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # per (b, s, h) row of K1's output: the largest error against the fp32 plain
@@ -613,6 +645,13 @@ def build_report(text: str) -> tuple[list[str], list[str]]:
 
 # ---------------------------------------------------------------- timing
 
+def on_path(path, only) -> bool:
+    """Whether a row's ``path`` and ``only`` (each one name or a tuple)
+    share a name."""
+    names = lambda x: set(x) if isinstance(x, tuple) else {x}
+    return bool(names(path) & names(only))
+
+
 def device_ms(fn, torch, inner: int = 10, reps: int = 15) -> float:
     """Median device time of one call of ``fn``.  The launches are queued
     behind a device-side sleep longer than their enqueue time, so the CUDA
@@ -649,12 +688,15 @@ def bound(bytes_moved: float, flops: float, dtype_name: str) -> tuple[float, str
 # ---------------------------------------------------------------- phase 3
 
 def flash_case(torch, gen, *, B, Sq, Sk, H, hd, dtype, KV=None, q_off=None, kv_len=None,
-               causal=True, k_shift=None, path="llama"):
+               causal=True, k_shift=None, k_off=0, path="llama", residuals=False):
     """Inputs of one flash-attention call, as the model's dispatch builds
     them: compact k/v with ``KV`` heads (default H); with ``q_off``/``kv_len``
-    the decode positions (``q_pos = q_off + arange(Sq)``, keys at or past
-    ``kv_len`` at INT32_MAX); with ``k_shift`` index positions whose keys sit
-    ``k_shift`` later, so the first ``k_shift`` rows see no key."""
+    the decode positions (``q_pos = q_off + arange(Sq)``, ``k_pos = k_off +
+    arange(Sk)``: a rank's slice of a sequence-sharded cache, keys at or
+    past ``kv_len`` at INT32_MAX); with ``k_shift`` index positions whose
+    keys sit ``k_shift`` later, so the first ``k_shift`` rows see no key.
+    ``residuals``: the path asks for (m, l) too (the cp ring, flash-decode),
+    and the row is timed so."""
     KV = KV or H
     q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=gen, device="cuda").to(dtype)
@@ -663,14 +705,15 @@ def flash_case(torch, gen, *, B, Sq, Sk, H, hd, dtype, KV=None, q_off=None, kv_l
     if q_off is not None:
         q_pos = (q_off.reshape(-1, 1) + torch.arange(Sq, device="cuda")).to(torch.int32)
         q_pos = q_pos.expand(B, Sq).contiguous()
-        k_pos = torch.arange(Sk, dtype=torch.int32, device="cuda").expand(B, Sk)
-        k_pos = torch.where(torch.arange(Sk, device="cuda")[None] < kv_len[:, None], k_pos,
+        k_pos = torch.arange(k_off, k_off + Sk, dtype=torch.int32, device="cuda").expand(B, Sk)
+        k_pos = torch.where(k_pos < kv_len[:, None], k_pos,
                             torch.full((), INT32_MAX, dtype=torch.int32, device="cuda"))
         k_pos = k_pos.contiguous()
     elif k_shift is not None:
         q_pos = torch.arange(Sq, dtype=torch.int32, device="cuda")
         k_pos = torch.arange(Sk, dtype=torch.int32, device="cuda") + k_shift
-    return dict(q=q, k=k, v=v, causal=causal, q_pos=q_pos, k_pos=k_pos, path=path)
+    return dict(q=q, k=k, v=v, causal=causal, q_pos=q_pos, k_pos=k_pos, path=path,
+                residuals=residuals)
 
 
 def flash_mask(torch, c):
@@ -714,7 +757,7 @@ def flash_row_err(out, ref32) -> float:
     return float((err / ref32.abs().amax(dim=-1).clamp_min(1e-30)).max())
 
 
-def check_flash(torch, flash_ops, flash_ref, gen):
+def check_flash(torch, flash_ops, flash_ref, gen, only=None):
     """Every flash-attention case against the plain version; returns the
     JSON rows of the timed bf16 cases: the two llama serving shapes (compact
     KV = 8), the g = 5 / hd 112 check shapes, the llama training shape,
@@ -729,7 +772,10 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     rank's three K1 calls in phase 29's cp ring (``cp_ring_rows``), the
     causal one at the rank's zig-zag positions, and in phase 30's ring
     inside a pipeline stage (path ``pipeline_context``); phase 32's train
-    launcher's microbatch, 2 x 2048 (path ``telemetry_train``)."""
+    launcher's microbatch, 2 x 2048 (path ``telemetry_train``); a phase 34
+    rank's prefill, decode partial over its cache slice (``serve_mesh``) and
+    decode over a whole cache (``serve_mesh_whole``).  ``only``: one path's
+    rows, or several paths' (a tuple)."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -891,7 +937,7 @@ def check_flash(torch, flash_ops, flash_ref, gen):
 
     for B, Sq, Sk, causal in cp_ring_rows():
         c = flash_case(torch, gen, B=B, Sq=Sq, Sk=Sk, H=32, KV=8, hd=64, dtype=torch.bfloat16,
-                       causal=causal, path="context_parallel")
+                       causal=causal, path="context_parallel", residuals=True)
         what = "step 0 causal at zig-zag positions" if causal else "later step non-causal"
         if causal:
             c["q_pos"] = c["k_pos"] = zigzag_positions(CP_SEQ, CP_MESH[0][0], 0, "cuda")
@@ -901,12 +947,47 @@ def check_flash(torch, flash_ops, flash_ref, gen):
     # at rank 0's zig-zag positions over the 8 192-token sequence
     for B, Sq, Sk, causal in cp_ring_rows(PPCP_SEQ, PPCP_BATCH // PPCP_ACCUM):
         c = flash_case(torch, gen, B=B, Sq=Sq, Sk=Sk, H=32, KV=8, hd=64, dtype=torch.bfloat16,
-                       causal=causal, path="pipeline_context")
+                       causal=causal, path="pipeline_context", residuals=True)
         what = "step 0 causal at zig-zag positions" if causal else "later step non-causal"
         if causal:
             c["q_pos"] = c["k_pos"] = zigzag_positions(PPCP_SEQ, PPCP_MESH[0][1], 0, "cuda")
         cases.append((f"pipeline context {what} B{B} Sq{Sq} Sk{Sk} H32 KV8 hd64 bfloat16",
                       True, c))
+    # phase 34: a serving-mesh rank's K1 calls (qwen2.5-3b, tp 2 of 16 query
+    # heads over 2 KV heads, g = 8, hd 128, 2 of 4 batch rows): its prefill on
+    # 8 heads and 1 KV head ((a), (b) and (c)), a decode partial on every head
+    # over its 272-key slice at rank 1's key offset (per-slot positions,
+    # residuals, split-K; (a) and (b)), one slot's keys all past its kv_len
+    # in the untimed rows, and (c)'s decode over the whole 543-position
+    # cache on its 8 heads and 1 KV head (per-slot positions, a ragged last
+    # key tile, no residuals)
+    m_len = torch.tensor([SERVE_MESH_PROMPT + 9, SERVE_MESH_PROMPT + 1], device="cuda")
+    w_len = torch.tensor([SERVE_MESH_PROMPT + 2, SERVE_MESH_PROMPT + 1], device="cuda")
+    slice_len = SERVE_MESH_LEN // SERVE_MESH_SHAPE[1]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cases.append((f"serve mesh decode partial B2 Sq1 Sk{slice_len} H16 KV2 hd128 key offset "
+                      f"{slice_len} per-slot residuals {name}", True, flash_case(
+                          torch, gen, B=2, Sq=1, Sk=slice_len, H=16, KV=2, hd=128, dtype=dtype,
+                          q_off=m_len - 1, kv_len=m_len, k_off=slice_len, path="serve_mesh",
+                          residuals=True)))
+        cases.append((f"serve mesh decode partial, a slot with no visible key, B2 Sq1 "
+                      f"Sk{slice_len} H16 KV2 hd128 {name}", False, flash_case(
+                          torch, gen, B=2, Sq=1, Sk=slice_len, H=16, KV=2, hd=128, dtype=dtype,
+                          q_off=torch.tensor([200, 530], device="cuda"),
+                          kv_len=torch.tensor([201, 531], device="cuda"), k_off=slice_len,
+                          path="serve_mesh", residuals=True)))
+        cases.append((f"serve mesh prefill causal B2 S{SERVE_MESH_PROMPT} H8 KV1 hd128 {name}",
+                      True, flash_case(torch, gen, B=2, Sq=SERVE_MESH_PROMPT,
+                                       Sk=SERVE_MESH_PROMPT, H=8, KV=1, hd=128, dtype=dtype,
+                                       path=SERVE_MESH_PATHS)))
+        cases.append((f"serve mesh whole-cache decode B2 Sq1 Sk{SERVE_MESH_WHOLE_LEN} H8 KV1 "
+                      f"hd128 per-slot {name}", True, flash_case(
+                          torch, gen, B=2, Sq=1, Sk=SERVE_MESH_WHOLE_LEN, H=8, KV=1, hd=128,
+                          dtype=dtype, q_off=w_len - 1, kv_len=w_len,
+                          path="serve_mesh_whole")))
+    if only is not None:            # one phase's rows (a one-phase script)
+        cases = [case for case in cases if on_path(case[2]["path"], only)]
     for label, timed, c in cases:
         name = str(c["q"].dtype).replace("torch.", "")
         kw = dict(causal=c["causal"], q_pos=c["q_pos"], k_pos=c["k_pos"])
@@ -934,6 +1015,8 @@ def check_flash(torch, flash_ops, flash_ref, gen):
         if not (timed and name == "bfloat16"):
             continue
         q, k, v = c["q"], c["k"], c["v"]
+        # timed as the path calls it: with (m, l) where it asks for them
+        kw["return_residuals"] = c["residuals"]
         ms = device_ms(lambda: flash_ops.flash_attention_fwd(q, k, v, **kw), torch)
         # the plain version at 3 calls a group, 7 groups: it takes up to 43 ms a call
         plain = device_ms(lambda: flash_ref.flash_attention_fwd(q, k, v, **kw), torch, inner=3,
@@ -1024,7 +1107,7 @@ def _rms_close(torch, out, ref, tol) -> tuple[float, bool]:
     return err, bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
 
 
-def check_rmsnorm(torch, rms_ops, rms_ref, gen):
+def check_rmsnorm(torch, rms_ops, rms_ref, gen, only=None):
     """K2's forward at every template — vector packs from 1 to 8 a thread,
     rows per warp to rows over warps, the two-pass loop, the scalar template
     on an odd width and on misaligned views — against its plain version; the
@@ -1042,7 +1125,9 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
     rig, sequence-sharded under tp 2 + sp or a dp 2 rank's sequence, with
     the fp32 master scale the model passes, and telemetry_train: phase 32's
     train launcher's microbatch of 2 x 2048 rows; elastic: a phase 33 rank's
-    2 x 4096 rows on 2 ranks over the fp32 master scale); "check" rows are timed
+    2 x 4096 rows on 2 ranks over the fp32 master scale; serve_mesh and
+    serve_mesh_whole: a phase 34 rank's 2 decode rows and its prefill's
+    1 024 rows x 2048); "check" rows are timed
     and logged but belong to no path (the gate norms' widths 5120 and 7168,
     which the models now run gated)."""
     rows = []
@@ -1056,10 +1141,14 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen):
               ((4096, 5120), ("mamba2_train", "pipeline_d")),
               ((4096, 3584), "zamba2_train"), ((4096, 7168), "zamba2_train"),
               ((4096, 2048, "fp32 scale"), PAR_TRAIN_PATHS),
-              ((8192, 2048, "fp32 scale"), "elastic"), ((8192, 5120), "check"),
+              ((8192, 2048, "fp32 scale"), "elastic"), ((2, 2048), SERVE_MESH_PATHS),
+              ((1024, 2048), SERVE_MESH_PATHS),
+              ((8192, 5120), "check"),
               ((8192, 7168), "check"), ((8192, 64), None),
               ((32768, 128), None), ((64, 14336), None), ((6, 40000), None), ((7, 333), None),
               ((8192, 3584, "misaligned"), None), ((300, 1000, "misaligned"), None)]
+    if only is not None:            # one path's rows (a one-phase script)
+        shapes = [(shape, path) for shape, path in shapes if on_path(path, only)]
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         for shape, path in shapes:
@@ -6212,8 +6301,8 @@ def elastic_start():
 
 
 def elastic_stop(started) -> None:
-    """Kills whatever ``elastic_start``'s processes left running and removes
-    their directory."""
+    """Kills whatever ``elastic_start``'s (or ``serve_mesh_start``'s)
+    processes left running and removes their directory."""
     procs, tmp = started
     for p in procs:
         if p.poll() is None:
@@ -6302,6 +6391,343 @@ def elastic_phase(torch, started=None) -> dict:
         f" ({NO_INTERCONNECT}); peak by rank {[round(x / 2**30, 2) for x in peaks]} GiB; "
         f"launches over the phase {launches}")
     log(f"elastic: phase 33 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 34
+
+SERVE_MESH_ARCH = "qwen2.5-3b"
+SERVE_MESH_SHAPE, SERVE_MESH_WORLD = (2, 2), 4          # (data, model)
+#: 4 prompts of 512 tokens, 16 greedy tokens, in a cache of 544 positions:
+#: 272 a rank of the model axis (flash-decode); 543 does not split
+SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_NEW = 4, 512, 16
+SERVE_MESH_LEN = 544
+SERVE_MESH_WHOLE_LEN, SERVE_MESH_WHOLE_STEPS = 543, 2
+#: (b) and (c): full width cut to 4 of the 36 layers, in fp32
+SERVE_MESH_FP32_LAYERS = 4
+SERVE_MESH_CACHE_TOL = 1e-5          # the gathered fp32 cache, of its scale
+
+
+def serve_mesh_config(layers=None):
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(SERVE_MESH_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def serve_mesh_launches(cfg, new: int) -> dict:
+    """A rank's launches over ``greedy_generate`` of ``new`` tokens: a
+    prefill and ``new - 1`` decode steps, each one K1 call and two K2 calls
+    a layer and the final norm's K2 call."""
+    layers = cfg.num_layers
+    return {"flash_attention_fwd": layers * new, "rmsnorm": (2 * layers + 1) * new}
+
+
+#: the K1 calls of a rank (batch rows 2 of 4, tp 2 of 16 query heads over 2
+#: KV heads): the prefill on its 8 heads and 1 KV head, a decode partial on
+#: every head over its 272-key slice; (q shape, Sk, KV heads)
+SERVE_MESH_K1 = [[2, 1, 16, 128, 272, 2], [2, 512, 8, 128, 512, 1]]
+
+
+def serve_mesh_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
+    """One rank of phase 34 (``chip_smoke.py --serve-mesh-rank RANK WORLD
+    DIR``): device 0, gloo over a ``FileStore`` in DIR; once set up it waits
+    for DIR/go (and exits if the process that started it is gone).  On a
+    (data 2, model 2) mesh, plan tp 2 ZeRO-0: (a) qwen2.5-3b at full width
+    and depth in bf16 (the canonical tree drawn on the card in bf16 from one
+    seed, this rank's shards cut from it): ``greedy_generate`` of 16 tokens
+    (launches and K1 shapes recorded), then a prefill and 15 decode steps
+    fed rank 0's single-device tokens; (b) full width cut to 4 layers in
+    fp32, the same teacher-forced run and its gathered cache; (c) the same
+    model at ``max_len`` 543 (a whole cache), 2 decode steps.  Rank 0 also
+    runs the single-device engine (kernel path) and, for (a), the plain path
+    in bf16 and fp32 on the same tokens, and records the errors.  Writes its
+    record to DIR."""
+    parent = os.getppid()
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch import serving
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cast_tree, tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
+                            rank=rank, world_size=world)
+    # K1's shapes: the wrapper the model calls carries the launch counter
+    # (the kernel's wrapper counts on the module's name)
+    seen = set()
+    fwd = flash_ops.flash_attention_fwd
+
+    def k1(q, k, v, **kw):
+        seen.add(tuple(q.shape) + (k.shape[1], k.shape[2]))
+        return fwd(q, k, v, **kw)
+
+    k1.launches = 0
+    flash_ops.flash_attention_fwd = k1
+    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    mesh = make_mesh(SERVE_MESH_SHAPE, ("data", "model"), device=torch.device("cuda", 0),
+                     backend="gloo")
+    B, S = SERVE_MESH_BATCH, SERVE_MESH_PROMPT
+    cfg = serve_mesh_config()
+    prompts = torch.from_numpy(np.random.default_rng(34).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int64)).cuda()
+    record = {"ready": time.perf_counter() - T_START}
+    while not (tmp / "go").is_file():
+        if os.getppid() != parent:
+            sys.exit(1)
+        time.sleep(0.05)
+    t_go = time.perf_counter()
+
+    def shared(tokens):
+        box = [None if tokens is None else tokens.cpu().tolist()]
+        dist.broadcast_object_list(box, src=0)
+        return torch.tensor(box[0], device="cuda")
+
+    def mesh_engine(model, max_len, dtype):
+        plan = uniform_plan(model.cfg.name, "serve", SERVE_MESH_SHAPE, ("data", "model"),
+                            model.cfg.num_layers, LayerStrategy(tp=2, zero=0))
+        return serving.step_engine(model, plan, mesh, batch=B, max_len=max_len, dtype=dtype)
+
+    def one_engine(model, max_len, dtype):
+        return serving.step_engine(model, serving.single_device_plan(model.cfg), batch=B,
+                                   max_len=max_len, dtype=dtype)
+
+    def run(eng, params, n, feed=None):
+        """A prefill and n - 1 decode steps fed ``feed``'s tokens (or each
+        step's argmax): (each step's last-position fp32 logits (n, B, V),
+        each step's argmax (B, n), the last cache)."""
+        logits, cache = eng.prefill_step(params, prompts)
+        outs, toks = [logits[:, -1]], [logits[:, -1].argmax(-1)]
+        kv = torch.full((B,), S, dtype=torch.long, device="cuda")
+        for i in range(n - 1):
+            tok = (toks[-1] if feed is None else feed[:, i])[:, None]
+            logits, cache = eng.decode_step(params, tok, cache, S + i, kv_len=kv + i + 1)
+            outs.append(logits[:, -1])
+            toks.append(logits[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        return torch.stack(outs), torch.stack(toks, dim=1), cache
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.abs().max()))
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) bf16, full depth
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    canonical = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    eng = mesh_engine(model, SERVE_MESH_LEN, torch.bfloat16)
+    local = eng.place_params(canonical)
+    if rank:
+        del canonical
+    free()
+    record["a_setup_s"] = time.perf_counter() - t0
+    record["local_bytes"] = sum(x.numel() * x.element_size() for x in tree_leaves(local))
+    ref = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        ref = run(one_engine(model, SERVE_MESH_LEN, torch.bfloat16), canonical, SERVE_MESH_NEW)
+        record["a_single_s"] = time.perf_counter() - t0
+    ref_tokens = shared(None if ref is None else ref[1])
+    zero_counts(counters)
+    seen.clear()
+    dist.barrier()
+    t0 = time.perf_counter()
+    tokens = eng.greedy_generate(local, prompts, SERVE_MESH_NEW, SERVE_MESH_LEN)
+    torch.cuda.synchronize()
+    record["a_greedy_s"] = time.perf_counter() - t0
+    record["launches"] = read_counts(counters)
+    record["want"] = serve_mesh_launches(cfg, SERVE_MESH_NEW)
+    record["k1"] = sorted(list(x) for x in seen)
+    record["tokens"] = tokens.cpu().tolist()
+    record["latency"] = {k: list(v) for k, v in eng.latencies.items()}
+    record["specs"] = [list(eng.cache_specs["k"])]
+    t0 = time.perf_counter()
+    mesh_logits, _, cache = run(eng, local, SERVE_MESH_NEW, feed=ref_tokens)
+    record["a_forced_s"] = time.perf_counter() - t0
+    record["local_cache"] = [list(cache["k"].shape)]
+    del local, eng, cache
+    free()
+    if rank == 0:
+        t0 = time.perf_counter()
+        plain = build_model(cfg, impl="ref")
+        plain16 = run(one_engine(plain, SERVE_MESH_LEN, torch.bfloat16), canonical,
+                      SERVE_MESH_NEW, feed=ref_tokens)[0]
+        canonical = cast_tree(canonical, torch.float32)
+        free()
+        plain32 = run(one_engine(plain, SERVE_MESH_LEN, torch.float32), canonical,
+                      SERVE_MESH_NEW, feed=ref_tokens)[0]
+        record["a_plain_s"] = time.perf_counter() - t0
+        err = lambda x: [float((x[i] - plain32[i]).abs().max()) for i in range(len(x))]
+        record["a"] = {
+            "mesh_vs_fp32": err(mesh_logits), "plain_vs_fp32": err(plain16),
+            "single_vs_fp32": err(ref[0]),
+            "mesh_vs_single": [float((mesh_logits[i] - ref[0][i]).abs().max())
+                               for i in range(SERVE_MESH_NEW)],
+            "scale": float(plain32.abs().max()),
+            "top1_vs_fp32": float((mesh_logits.argmax(-1) == plain32.argmax(-1)).float().mean()),
+            "token_agreement": float((tokens == ref_tokens).float().mean()),
+            "ref_tokens": ref_tokens.cpu().tolist(),
+            "finite": bool(torch.isfinite(mesh_logits).all())}
+        del canonical, plain16, plain32, ref
+    del mesh_logits
+    free()
+
+    # (b) fp32, full width cut to 4 layers; (c) its whole cache at 543
+    small = build_model(serve_mesh_config(SERVE_MESH_FP32_LAYERS))
+    canonical = small.init(torch.Generator(device="cuda").manual_seed(1), torch.float32)
+    for part, max_len, n in (("b", SERVE_MESH_LEN, SERVE_MESH_NEW),
+                             ("c", SERVE_MESH_WHOLE_LEN, SERVE_MESH_WHOLE_STEPS + 1)):
+        t0 = time.perf_counter()
+        eng = mesh_engine(small, max_len, torch.float32)
+        local = eng.place_params(canonical)
+        one = run(one_engine(small, max_len, torch.float32), canonical, n) if rank == 0 else None
+        feed = shared(None if one is None else one[1])
+        seen.clear()
+        zero_counts(counters)
+        logits, _, cache = run(eng, local, n, feed=feed)
+        record[f"{part}_launches"] = read_counts(counters)
+        record[f"{part}_want"] = serve_mesh_launches(small.cfg, n)
+        whole = eng.gather_cache(cache)
+        record[f"{part}_s"] = time.perf_counter() - t0
+        record["specs"].append(list(eng.cache_specs["k"]))
+        record["local_cache"].append(list(cache["k"].shape))
+        record[f"{part}_k1"] = sorted(list(x) for x in seen)
+        if rank == 0:
+            scale = max(1.0, float(one[0].abs().max()))
+            record[part] = {
+                "logits": [float((logits[i] - one[0][i]).abs().max()) / scale
+                           for i in range(n)],
+                "cache": max(rel(whole[k], one[2][k]) for k in ("k", "v")),
+                "finite": bool(torch.isfinite(logits).all())}
+        del eng, local, one, logits, cache, whole
+        free()
+    record["seconds"] = time.perf_counter() - t_go
+    record["peak"] = torch.cuda.max_memory_allocated()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def serve_mesh_start():
+    """Starts phase 34's four ``--serve-mesh-rank`` processes, which set up
+    and wait for ``serve_mesh_phase``: (the processes, their temporary
+    directory)."""
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--serve-mesh-rank", str(r), str(SERVE_MESH_WORLD), tmp.name],
+                              env=dict(os.environ), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(SERVE_MESH_WORLD)]
+    return procs, tmp
+
+
+def serve_mesh_phase(torch, started=None) -> dict:
+    """Phase 34 (see the module note): four ``--serve-mesh-rank`` processes
+    sharing the card over gloo (``started`` by ``serve_mesh_start``, or
+    started here), let go.  Checks every rank's record: the greedy tokens
+    the same on every rank, its launches ``serve_mesh_launches``' and its K1
+    shapes phase 3's rows; rank 0's (a) every teacher-forced step's bf16
+    logits no further from the fp32 plain path than twice the plain bf16
+    path's error, (b) and (c) each step's fp32 logits within 1e-3 of their
+    scale of one rank's and the gathered cache within 1e-5, their launches
+    pinned too; the peaks' sum within the card.  Returns, summed over the
+    ranks, the launches of (a)'s ``greedy_generate`` (path ``serve_mesh``)
+    and of (c)'s run (path ``serve_mesh_whole``)."""
+    t_phase = time.perf_counter()
+    started = started or serve_mesh_start()
+    procs, tmp = started[0], pathlib.Path(started[1].name)
+    try:
+        (tmp / "go").write_text("go")
+        outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"serve mesh rank {r} exited {p.returncode}:\n"
+                    + "\n".join(out.splitlines()[-40:]))
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(SERVE_MESH_WORLD)]
+    finally:
+        elastic_stop(started)
+    head = ranks[0]
+    cfg = serve_mesh_config()
+    log(f"serve mesh: {SERVE_MESH_ARCH} on (data 2, model 2), plan tp 2 ZeRO-0, "
+        f"{SERVE_MESH_BATCH} x {SERVE_MESH_PROMPT} prompt tokens, {SERVE_MESH_NEW} new; rank 0 "
+        f"ready {head['ready']:.1f} s after its process began; each rank holds "
+        f"{[round(r['local_bytes'] / 1e9, 3) for r in ranks]} GB of bf16 leaves; cache specs "
+        f"(a, b, c) {head['specs']}, local k shapes {head['local_cache']}")
+    require(head["specs"] == [[None, "data", "model"]] * 2 + [[None, "data"]],
+            f"serve mesh: cache specs {head['specs']}")
+    require(all(r["tokens"] == head["tokens"] for r in ranks),
+            "serve mesh: the ranks' greedy tokens differ")
+    launches = {"serve_mesh": {}, "serve_mesh_whole": {}}
+    for r, rk in enumerate(ranks):
+        for run_, got, want in (("a", rk["launches"], rk["want"]),
+                                ("b", rk["b_launches"], rk["b_want"]),
+                                ("c", rk["c_launches"], rk["c_want"])):
+            require(all(got[k] == n for k, n in want.items()),
+                    f"serve mesh rank {r} ({run_}): launches {got}, expected {want}")
+        require(rk["k1"] == SERVE_MESH_K1, f"serve mesh rank {r}: K1 shapes {rk['k1']}, "
+                f"expected phase 3's {SERVE_MESH_K1}")
+        require(rk["b_k1"] == SERVE_MESH_K1, f"serve mesh rank {r}: (b)'s K1 shapes "
+                f"{rk['b_k1']}")
+        require(rk["c_k1"] == [[2, 1, 8, 128, SERVE_MESH_WHOLE_LEN, 1],
+                               [2, 512, 8, 128, 512, 1]],
+                f"serve mesh rank {r}: (c)'s K1 shapes {rk['c_k1']}")
+        for path, got in (("serve_mesh", rk["launches"]), ("serve_mesh_whole", rk["c_launches"])):
+            for k, n in got.items():
+                launches[path][k] = launches[path].get(k, 0) + n
+        lat = rk["latency"]
+        log(f"serve mesh rank {r}: launches {rk['launches']} over greedy_generate, (c) "
+            f"{rk['c_launches']}; prefill "
+            f"{lat['prefill_s'][0]:.4f} s, decode median "
+            f"{statistics.median(lat['decode_s']):.4f} s a step ({NO_INTERCONNECT}); "
+            f"(a) set-up {rk['a_setup_s']:.1f} s, greedy {rk['a_greedy_s']:.2f} s, "
+            f"teacher-forced {rk['a_forced_s']:.2f} s; (b) {rk['b_s']:.2f} s, (c) "
+            f"{rk['c_s']:.2f} s; peak {rk['peak'] / 2**30:.2f} GiB")
+    a = head["a"]
+    require(a["finite"], "serve mesh (a): non-finite logits")
+    worst = max(m / max(p, 1e-30) for m, p in zip(a["mesh_vs_fp32"], a["plain_vs_fp32"]))
+    log(f"serve mesh (a) bf16, {cfg.num_layers} layers: greedy tokens {head['tokens'][0][:8]}... "
+        f"agree with one rank's on {a['token_agreement']:.4f}; teacher-forced logits vs the "
+        f"fp32 plain path by step: mesh {[f'{x:.3e}' for x in a['mesh_vs_fp32']]}, plain "
+        f"bf16 {[f'{x:.3e}' for x in a['plain_vs_fp32']]}, one rank's kernel path "
+        f"{[f'{x:.3e}' for x in a['single_vs_fp32']]} (max |logit| {a['scale']:.3f}); mesh "
+        f"vs one rank {max(a['mesh_vs_single']):.3e}; top-1 vs fp32 {a['top1_vs_fp32']:.4f}; "
+        f"worst mesh / plain error ratio {worst:.3f}; rank 0's single-device run "
+        f"{head['a_single_s']:.2f} s, plain runs {head['a_plain_s']:.2f} s")
+    require(all(m <= 2.0 * p for m, p in zip(a["mesh_vs_fp32"], a["plain_vs_fp32"])),
+            "serve mesh (a): a step's logits are further from fp32 than the plain bf16 "
+            "path's error x2")
+    for part in ("b", "c"):
+        res = head[part]
+        log(f"serve mesh ({part}) fp32, {SERVE_MESH_FP32_LAYERS} layers, max_len "
+            f"{SERVE_MESH_LEN if part == 'b' else SERVE_MESH_WHOLE_LEN}: logits vs one rank "
+            f"by step (of their scale) {[f'{x:.2e}' for x in res['logits']]}; gathered cache "
+            f"{res['cache']:.2e}")
+        require(res["finite"] and max(res["logits"]) <= SSD_TOL,
+                f"serve mesh ({part}): fp32 logits differ from one rank's by more than "
+                f"{SSD_TOL} of their scale")
+        require(res["cache"] <= SERVE_MESH_CACHE_TOL,
+                f"serve mesh ({part}): the gathered cache differs from one rank's by "
+                f"{res['cache']:.3e}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    peaks = [rk["peak"] for rk in ranks]
+    require(sum(peaks) <= card, f"serve mesh: peaks {peaks} past the card")
+    log(f"serve mesh: launches over (a)'s greedy_generate and (c)'s run {launches}; "
+        f"phase 34 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -6545,7 +6971,7 @@ def main() -> int:
     par_launches["pipeline_context"] = ppcp_phase(torch)
 
     # phase 33's ranks set up while phases 31 and 32 run
-    elastic = elastic_start()
+    elastic, serve_mesh = elastic_start(), None
     try:
         mark("31")
         # 31. checkpointing: save, async save under a donated step, restore
@@ -6560,12 +6986,22 @@ def main() -> int:
         par_launches.update(telemetry_phase(torch, np, serving, rms_ops, counters))
 
         mark("33")
-        # 33. elastic resize: four ranks sharing the card over gloo, 4 -> 2 -> 4
+        # 33. elastic resize: four ranks sharing the card over gloo, 4 -> 2 -> 4;
+        # phase 34's ranks set up meanwhile
         gc.collect()
         torch.cuda.empty_cache()
+        serve_mesh = serve_mesh_start()
         par_launches["elastic"] = elastic_phase(torch, elastic)
+
+        mark("34")
+        # 34. serving on a mesh: four ranks sharing the card over gloo, DP x TP
+        gc.collect()
+        torch.cuda.empty_cache()
+        par_launches.update(serve_mesh_phase(torch, serve_mesh))
     finally:
         elastic_stop(elastic)
+        if serve_mesh is not None:
+            elastic_stop(serve_mesh)
 
     mark("24")
     # 24. results
@@ -6635,6 +7071,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--ppcp-rank"]:
         ppcp_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--serve-mesh-rank"]:
+        serve_mesh_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))
         sys.exit(0)
     if sys.argv[1:2] == ["--elastic-rank"]:
         elastic_rank(int(sys.argv[2]), int(sys.argv[3]), pathlib.Path(sys.argv[4]))

@@ -3,7 +3,8 @@ cross-attention.
 
 K/V are stored compact (``num_kv_heads``).  Query heads are never padded
 for tensor parallelism: under it (``collectives.tp_state``: the training
-modes, ``"train"`` self- and cross-attention and ``"encoder"``) the head
+modes, ``"train"`` self- and cross-attention and ``"encoder"``, and the
+serving modes' self-attention, ``"prefill"`` and ``"decode"``) the head
 counts are read from the shard shapes.  ``wq`` / ``wo`` hold this
 rank's contiguous block of query heads and ``wk`` / ``wv`` its KV heads, or
 every KV head where ``spec_for_shape`` left them whole (fewer KV heads than
@@ -43,6 +44,24 @@ dispatches:
     backward recomputes it one query block at a time, as JAX recomputes it
     under ``jax.checkpoint``.
 
+On a serving mesh (the step engine's rules, ``runtime/serve.py``) the KV
+cache is laid out as ``sharding.cache_spec_tree`` says: every KV head on
+every rank of the model axis (a K/V projection sharded over it is
+all-gathered, ``collectives.gather_heads``), and its positions either whole
+or split over the model axis (``collectives.cache_seq_group``).  A prefill
+attends this rank's query heads as training does and returns that cache
+(``forward_prefill`` keeps this rank's slice of the positions).  A decode
+step over a whole cache writes every KV head and attends this rank's query
+heads; over a sequence-sharded cache it is flash-decode: every rank
+gathers every query head, writes the new token only where its slice holds
+the position (``write_cache_shard``, per slot, never reading a tensor index
+on the host), runs K1 with residuals over its slice at explicit positions
+(``flash_positions(..., k_offset=...)``; K1's plain version on CPU tensors
+and under ``impl="ref"``), gathers the group's ``(o, m, l)`` and folds them
+in fp32 with ``context.merge_partials``, then keeps its own heads for the
+row-parallel out-projection.  Cross-attention on a serving mesh is the
+audio family's, which serves on one device.
+
 Under context parallelism (``parallel.axes.ring_context``: the runtime's
 rules under a cp > 1 plan) a train-mode self-attention block holds this
 rank's zig-zag shard of the sequence: RoPE takes the shard's global
@@ -58,6 +77,7 @@ attention products stay batched ``bmm``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -104,6 +124,15 @@ def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
         defs["q_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
         defs["k_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
     return defs
+
+
+def abstract_kv_cache(cfg: ModelConfig, batch: int, max_len: int, layers: int,
+                      dtype=torch.bfloat16) -> dict:
+    """The stacked KV cache {"k", "v": (layers, batch, max_len, KV, hd)} as
+    tensors on the ``meta`` device: shapes and dtype, nothing allocated."""
+    shape = (layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta")}
 
 
 # --------------------------------------------------------------------------
@@ -278,12 +307,16 @@ def valid_lengths(cache_index, Sq: int, B: int, kv_len, device) -> torch.Tensor:
 
 
 def flash_positions(q_offset, Sq: int, Sk: int, kv_len, B: int, device, *,
-                    causal: bool = True):
+                    causal: bool = True, k_offset: int = 0):
     """The kernel's explicit ``(q_pos, k_pos)`` int32 for a query offset and
     valid lengths, or None where the plain index mask is already exact
-    (offset 0, no ``kv_len``).  Non-causal calls with ``kv_len`` see every
-    in-range key: their ``q_pos`` is ``INT32_MAX - 1``."""
-    if kv_len is None and not isinstance(q_offset, torch.Tensor) and q_offset == 0:
+    (offsets 0, no ``kv_len``).  Non-causal calls with ``kv_len`` see every
+    in-range key: their ``q_pos`` is ``INT32_MAX - 1``.  ``k_offset`` is the
+    global position of the first key (a rank's slice of a sequence-sharded
+    cache): ``k_pos = k_offset + arange(Sk)``, each at or past ``kv_len[b]``
+    moved to ``INT32_MAX``."""
+    if (kv_len is None and not isinstance(q_offset, torch.Tensor) and q_offset == 0
+            and k_offset == 0):
         return None
     if causal:
         q_pos = _q_positions(q_offset, Sq, device).to(torch.int32)
@@ -292,7 +325,7 @@ def flash_positions(q_offset, Sq: int, Sk: int, kv_len, B: int, device, *,
         q_pos = q_pos.contiguous()
     else:
         q_pos = torch.full((Sq,), INT32_MAX - 1, dtype=torch.int32, device=device)
-    k_pos = torch.arange(Sk, dtype=torch.int32, device=device)
+    k_pos = torch.arange(k_offset, k_offset + Sk, dtype=torch.int32, device=device)
     if kv_len is not None:
         k_pos = torch.where(k_pos[None, :] < kv_len.to(device)[:, None], k_pos, INT32_MAX)
     return q_pos, k_pos.contiguous()
@@ -371,6 +404,64 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, cache_index) -> None:
     if ci < 0 or ci + Sq > cache.shape[1]:
         raise IndexError(f"cache write [{ci}, {ci + Sq}) outside [0, {cache.shape[1]})")
     cache[:, ci:ci + Sq] = new
+
+
+def write_cache_shard(cache: torch.Tensor, new: torch.Tensor, cache_index,
+                      offset: int) -> None:
+    """Write new (B, Sq, KV, hd) at global positions ``cache_index + i`` into
+    this rank's slice (B, S_l, KV, hd) of a sequence-sharded cache, which
+    holds positions ``[offset, offset + S_l)``; positions outside it are not
+    written.  An int ``cache_index`` writes the overlap; a 0-d or (B,) tensor
+    is never read on the host: each of the Sq positions is one write a slot,
+    of the new row inside the slice and of the row already there outside it
+    (one index a slot, so no two writes of a call meet)."""
+    B, Sq = new.shape[:2]
+    S_l = cache.shape[1]
+    new = new.to(cache.dtype)
+    if not isinstance(cache_index, torch.Tensor):
+        ci = int(cache_index)
+        lo, hi = max(ci, offset), min(ci + Sq, offset + S_l)
+        if lo < hi:
+            cache[:, lo - offset:hi - offset] = new[:, lo - ci:hi - ci]
+        return
+    pos = _q_positions(cache_index, Sq, cache.device).reshape(-1, Sq).expand(B, Sq) - offset
+    rows = torch.arange(B, device=cache.device)
+    for i in range(Sq):
+        inside = ((pos[:, i] >= 0) & (pos[:, i] < S_l))[:, None, None]
+        at = pos[:, i].clamp(0, S_l - 1)
+        cache[rows, at] = torch.where(inside, new[:, i], cache[rows, at])
+
+
+def _flash_decode(q, k, v, cache: dict, cache_index, kv_len, positions, group,
+                  impl: str) -> torch.Tensor:
+    """A decode step over a cache whose sequence is sharded over ``group``
+    (flash-decode): q holds every query head, k/v the new token's every KV
+    head.  The new k/v go into this rank's slice where it holds their
+    position; K1 (its plain version on CPU tensors or under ``impl="ref"``)
+    attends every query head over the slice at explicit positions (keys at
+    ``offset + arange(S_l)``, those at or past ``kv_len`` at ``INT32_MAX``)
+    and returns its online-softmax partial; the group's partials are
+    gathered and folded in fp32 by ``context.merge_partials``.  A rank whose
+    slice holds no visible key returns the mean of v with the finite
+    ``m = NEG_INF``: its weight vanishes beside rank 0's, which holds
+    position 0.  Returns (B, Sq, H, hd) in q's dtype."""
+    ck, cv = cache["k"], cache["v"]
+    B, Sq = q.shape[:2]
+    offset = group.index * ck.shape[1]
+    write_cache_shard(ck, k, cache_index, offset)
+    write_cache_shard(cv, v, cache_index, offset)
+    if positions is None:
+        positions = flash_positions(cache_index, Sq, ck.shape[1],
+                                    valid_lengths(cache_index, Sq, B, kv_len, q.device), B,
+                                    q.device, k_offset=offset)
+    q_pos, k_pos = positions
+    fwd = flash_ops.flash_attention_fwd if impl == "kernel" else flash_ref.flash_attention_fwd
+    o, m, l = fwd(q.contiguous(), ck.to(q.dtype).contiguous(), cv.to(q.dtype).contiguous(),
+                  causal=True, q_pos=q_pos, k_pos=k_pos, return_residuals=True)
+    o, m, l = collectives.gather_stacked([o.float(), m, l], group)
+    out, _, _ = functools.reduce(lambda a, b: context.merge_partials(*a, *b),
+                                 zip(o, m.transpose(-1, -2), l.transpose(-1, -2)))
+    return out.to(q.dtype)
 
 
 def _tp_params(params: dict, cfg: ModelConfig) -> dict:
@@ -466,7 +557,10 @@ def attention_block(
     if ring is not None and (mode != "train" or cross):
         raise NotImplementedError(f"context parallelism runs train-mode self-attention "
                                   f"alone, not {'cross-attention' if cross else mode!r}")
-    tp = collectives.tp_state() if mode in ("train", "encoder") else None
+    # the serving passes run self-attention under TP too; cross-attention on
+    # a serving mesh is the audio family's, which serves on one device
+    tp = collectives.tp_state() if mode in ("train", "encoder") or not cross else None
+    serving = tp is not None and mode in ("prefill", "decode")
     sharded = False
     if tp is not None:
         sharded = params["wq"].shape[1] < cfg.num_heads
@@ -477,8 +571,9 @@ def attention_block(
         if sharded:
             params = _tp_params(params, cfg)
     q, k, v = _project_qkv(params, x, kv_source if cross else x, cfg, impl)
-    if sharded and k.shape[2] == cfg.num_kv_heads:      # KV heads held whole
-        local_q = q.shape[2]
+    local_q = q.shape[2]
+    if sharded and not serving and k.shape[2] == cfg.num_kv_heads:
+        # KV heads held whole: this rank's query heads read their own
         k, v = _select_kv(k, v, local_kv_heads(cfg.num_heads, cfg.num_kv_heads,
                                                tp.group.index * local_q, local_q))
     if ring is not None:
@@ -497,25 +592,53 @@ def attention_block(
         q = apply_rope(q, cos_q, sin_q)
         k = apply_rope(k, cos_q, sin_q)
 
+    seq = collectives.cache_seq_group() if serving and mode == "decode" else None
+    new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    if serving:
+        # the cache holds every KV head on every rank of the model axis, and
+        # a flash-decode step attends every query head over its slice
+        gather_q = seq is not None and sharded
+        parts = ([q] if gather_q else []) + ([k, v] if k.shape[2] < cfg.num_kv_heads else [])
+        if parts:
+            got = collectives.gather_heads(parts, tp.group)
+            if gather_q:
+                q, got = got[0], got[1:]
+            if got:
+                k, v = got
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v}
+            if sharded:             # this rank's query heads read their own KV heads
+                k, v = _select_kv(k, v, local_kv_heads(cfg.num_heads, cfg.num_kv_heads,
+                                                       tp.group.index * local_q, local_q))
+
     if mode == "decode":
         ck, cv = cache["k"], cache["v"]
-        write_cache(ck, k, cache_index)
-        write_cache(cv, v, cache_index)
         new_cache = cache
-        if kernel:
-            if positions is None:
-                positions = flash_positions(cache_index, Sq, ck.shape[1],
-                                            valid_lengths(cache_index, Sq, B, kv_len, x.device),
-                                            B, x.device)
-            out = _flash(q.contiguous(), ck.to(q.dtype).contiguous(),
-                         cv.to(q.dtype).contiguous(), causal=True, positions=positions)
+        if seq is not None:
+            out = _flash_decode(q, k, v, cache, cache_index, kv_len, positions, seq, impl)
+            if sharded:             # this rank's query heads
+                first = tp.group.index * local_q
+                out = out[:, :, first:first + local_q]
         else:
-            valid = valid_lengths(cache_index, Sq, B, kv_len, x.device)
-            q, ke, ve = expand_and_pad(q, ck.to(q.dtype), cv.to(q.dtype))
-            out = attention_math(q, ke, ve, causal=True, q_offset=cache_index, kv_len=valid)
+            write_cache(ck, k, cache_index)
+            write_cache(cv, v, cache_index)
+            if sharded:             # a whole cache: this rank's heads, as training
+                ck, cv = _select_kv(ck, cv, local_kv_heads(cfg.num_heads, cfg.num_kv_heads,
+                                                           tp.group.index * local_q, local_q))
+            if kernel:
+                if positions is None:
+                    positions = flash_positions(
+                        cache_index, Sq, ck.shape[1],
+                        valid_lengths(cache_index, Sq, B, kv_len, x.device), B, x.device)
+                out = _flash(q.contiguous(), ck.to(q.dtype).contiguous(),
+                             cv.to(q.dtype).contiguous(), causal=True, positions=positions)
+            else:
+                valid = valid_lengths(cache_index, Sq, B, kv_len, x.device)
+                q, ke, ve = expand_and_pad(q, ck.to(q.dtype), cv.to(q.dtype))
+                out = attention_math(q, ke, ve, causal=True, q_offset=cache_index,
+                                     kv_len=valid)
     else:
         causal = mode != "encoder" and not cross
-        new_cache = {"k": k, "v": v} if mode == "prefill" else None
         if ring is not None:
             out = context.ring_attention_local(q, k, v, pos_q, causal=True, hop=ring.hop,
                                                impl="kernel" if kernel else "ref")

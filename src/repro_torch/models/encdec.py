@@ -167,6 +167,18 @@ class EncDecLM(nn.Module):
 
         return {"self": kv(max_len), "cross": kv(cfg.enc_frames)}
 
+    def abstract_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+        cfg = self.cfg
+        return {
+            "self": attn.abstract_kv_cache(cfg, batch, max_len, cfg.num_layers, dtype),
+            "cross": attn.abstract_kv_cache(cfg, batch, cfg.enc_frames, cfg.num_layers, dtype),
+        }
+
+    def cache_logical_axes(self) -> dict:
+        kv = {"k": ("layers", "batch", "seq", "kv_heads", None),
+              "v": ("layers", "batch", "seq", "kv_heads", None)}
+        return {"self": kv, "cross": dict(kv)}
+
     @torch.no_grad()
     def forward_prefill(self, params: dict, tokens: torch.Tensor, *, frames=None,
                         max_len: Optional[int] = None, dtype=torch.bfloat16):

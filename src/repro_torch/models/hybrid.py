@@ -126,6 +126,17 @@ class HybridLM(Mamba2LM):
                 "attn": {k: torch.zeros(shape, dtype=dtype, device=self.device)
                          for k in ("k", "v")}}
 
+    def abstract_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+        return {"mamba": super().abstract_cache(batch, max_len, dtype),
+                "attn": attn.abstract_kv_cache(self.cfg, batch, max_len, self.n_apps, dtype)}
+
+    def cache_logical_axes(self) -> dict:
+        return {
+            "mamba": super().cache_logical_axes(),
+            "attn": {"k": ("layers", "batch", "seq", "kv_heads", None),
+                     "v": ("layers", "batch", "seq", "kv_heads", None)},
+        }
+
     @torch.no_grad()
     def forward_prefill(self, params: dict, tokens: torch.Tensor, *,
                         max_len: Optional[int] = None, dtype=torch.bfloat16):

@@ -331,6 +331,19 @@ class Mamba2LM(nn.Module):
         return {k: torch.zeros(s, dtype=d, device=self.device)
                 for k, (s, d) in self._state_shapes(batch).items()}
 
+    def abstract_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+        """The decode state's shapes and dtypes on the ``meta`` device."""
+        return {k: torch.empty(s, dtype=d, device="meta")
+                for k, (s, d) in self._state_shapes(batch).items()}
+
+    def cache_logical_axes(self) -> dict:
+        return {
+            "conv_x": ("layers", "batch", None, "ssm_inner"),
+            "conv_B": ("layers", "batch", None, "ssm_groups"),
+            "conv_C": ("layers", "batch", None, "ssm_groups"),
+            "ssm": ("layers", "batch", "ssm_heads", None, None),
+        }
+
     @torch.no_grad()
     def forward_prefill(self, params: dict, tokens: torch.Tensor, *,
                         max_len: Optional[int] = None, dtype=torch.bfloat16):

@@ -33,6 +33,13 @@ under sequence parallelism, where the norms' scales get their grads summed
 over the model axis (``collectives.seq_partial``).  ``forward_train`` moves
 the embedding to that layout (``lc``: JAX's ``lc(x, "batch", "seq",
 "embed")``), and the head back to the whole sequence.
+
+On a serving mesh (the step engine's rules, ``runtime/serve.py``) the
+serving passes run the same regions on this rank's batch rows: both
+look tokens up in the vocab-sharded table, the head's logits stay
+vocab-sharded (the engine gathers them), and the caches they build or
+read are this rank's shards in ``cache_spec_tree``'s layout (see
+``models/attention.py``; ``init_cache`` sizes one).
 """
 from __future__ import annotations
 
@@ -49,6 +56,22 @@ from repro_torch.models.common import (init_params, resolve_device, stacked, tak
 from repro_torch.models.norms import rmsnorm, rmsnorm_defs
 from repro_torch.parallel import collectives
 from repro_torch.parallel.axes import lc
+
+
+def _local_cache_dims(batch: int, max_len: int) -> tuple[int, int]:
+    """(rows, positions) of this rank's shard of a batch x max_len serving
+    cache under the active rules: the rows over the batch axes where they
+    divide, the positions over ``cache_seq``; both whole off a mesh."""
+    rows = collectives.batch_group()
+    if rows is not None and batch % rows.size == 0:
+        batch //= rows.size
+    seq = collectives.cache_seq_group()
+    if seq is not None:
+        if max_len % seq.size:
+            raise ValueError(f"a cache of {max_len} positions does not split over "
+                             f"{seq.size} ranks")
+        max_len //= seq.size
+    return batch, max_len
 
 
 def default_layer_runner(stacked_params: dict, x: torch.Tensor, apply_block):
@@ -170,8 +193,21 @@ class DenseTransformerLM(nn.Module):
         return embedding.lm_head(params["embed"], x, self.cfg), extra
 
     # ------------------------------------------------------------ serving
+    def cache_logical_axes(self) -> dict:
+        return {"k": ("layers", "batch", "seq", "kv_heads", None),
+                "v": ("layers", "batch", "seq", "kv_heads", None)}
+
+    def abstract_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+        """The cache's shapes and dtype on the ``meta`` device."""
+        return attn.abstract_kv_cache(self.cfg, batch, max_len, self.cfg.num_layers, dtype)
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+        """A zero cache of ``batch`` x ``max_len``; under a serving mesh's
+        rules this rank's shard of it (``cache_spec_tree``'s layout: the
+        batch over the rules' batch axes where it divides, the positions
+        over ``cache_seq``)."""
         cfg = self.cfg
+        batch, max_len = _local_cache_dims(batch, max_len)
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
@@ -184,18 +220,21 @@ class DenseTransformerLM(nn.Module):
         ``max_len``).  ``vis_embeds`` (B, Sv, D) takes the first Sv
         positions, so the cache must hold Sv + S + the tokens to decode.
         Returns (last-position fp32 logits (B, 1, V), cache {"k","v": (L, B,
-        max_len, KV, hd)})."""
+        max_len, KV, hd)}).  Under a serving mesh's rules the logits are
+        this rank's vocab columns and the cache this rank's slice of the
+        positions where ``cache_seq`` shards them, every KV head in it."""
         cfg = self.cfg
         x = self._embed_inputs(params, tokens, vis_embeds, dtype)
         S = x.shape[1]
         max_len = max_len or S
+        seq = collectives.cache_seq_group()
         ks, vs = [], []
         for layer in range(cfg.num_layers):
             x, kv, _ = self.block_apply(take_layer(params["blocks"], layer), x,
                                         mode="prefill")
             pad = (0, 0, 0, 0, 0, max_len - S)
-            ks.append(torch.nn.functional.pad(kv["k"], pad))
-            vs.append(torch.nn.functional.pad(kv["v"], pad))
+            ks.append(collectives.take_shard(torch.nn.functional.pad(kv["k"], pad), 1, seq))
+            vs.append(collectives.take_shard(torch.nn.functional.pad(kv["v"], pad), 1, seq))
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps, self.impl)
         logits = embedding.lm_head(params["embed"], x[:, -1:, :], cfg)
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -205,17 +244,20 @@ class DenseTransformerLM(nn.Module):
                        kv_len: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
         """tokens (B, Sq) at write position ``cache_index`` (int, 0-d or (B,)),
         cache {"k","v": (L, B, S_max, KV, hd)}.  The new k/v are written into
-        ``cache`` in place; returns (fp32 logits (B, Sq, V), cache).  On the
-        kernel path the attention kernel's positions are built once here and
-        shared by every layer."""
+        ``cache`` in place; returns (fp32 logits (B, Sq, V), cache).  K1's
+        positions are built once here and shared by every layer: on the
+        kernel path, and over a sequence-sharded cache (a serving mesh's
+        flash-decode, whose keys start at this rank's slice) on either."""
         cfg = self.cfg
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, cfg.vocab_size)
         positions = None
-        if attn.uses_kernel(self.impl, x):
+        seq = collectives.cache_seq_group()
+        if attn.uses_kernel(self.impl, x) or seq is not None:
             B, Sq = tokens.shape
+            S_l = cache["k"].shape[2]
             positions = attn.flash_positions(
-                cache_index, Sq, cache["k"].shape[2],
-                attn.valid_lengths(cache_index, Sq, B, kv_len, x.device), B, x.device)
+                cache_index, Sq, S_l, attn.valid_lengths(cache_index, Sq, B, kv_len, x.device),
+                B, x.device, k_offset=seq.index * S_l if seq is not None else 0)
         for layer in range(cfg.num_layers):
             layer_cache = {"k": cache["k"][layer], "v": cache["v"][layer]}
             x, _, _ = self.block_apply(take_layer(params["blocks"], layer), x,

@@ -149,6 +149,29 @@ def take_shard(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x.narrow(dim, group.index * size, size).contiguous()
 
 
+def gather_stacked(xs: list, group) -> list:
+    """Every rank's ``xs`` (tensors of one dtype), each stacked over the
+    group on a new leading dim in shard order, ``(group.size, *x.shape)``:
+    one all-gather for all of them."""
+    if _trivial(group):
+        return [x[None] for x in xs]
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    out = all_gather(flat, 0, group).view(group.size, -1)
+    res, start = [], 0
+    for x in xs:
+        res.append(out[:, start:start + x.numel()].reshape(group.size, *x.shape))
+        start += x.numel()
+    return res
+
+
+def gather_heads(xs: list, group) -> list:
+    """``all_gather(x, 2, group)`` of several (B, S, heads, hd) tensors of
+    one dtype (a serving step's query and KV heads) in one message."""
+    if _trivial(group):
+        return list(xs)
+    return [s.movedim(0, 2).flatten(2, 3).contiguous() for s in gather_stacked(xs, group)]
+
+
 # --------------------------------------------------------------------------
 # autograd operators
 # --------------------------------------------------------------------------
@@ -344,6 +367,18 @@ def batch_group():
     if rules is None or not hasattr(rules.mesh, "group"):
         return None
     return rules.mesh.group(tuple(rules.rules.get("batch") or ()))
+
+
+def cache_seq_group():
+    """The ranks a serving KV cache's sequence dim is sharded over (the
+    active rules' ``cache_seq`` axis, which the serving engine sets where
+    ``sharding.cache_spec_tree`` shards it), or None."""
+    rules = current_rules()
+    target = None if rules is None else rules.rules.get("cache_seq")
+    if target is None or not hasattr(rules.mesh, "group"):
+        return None
+    group = rules.mesh.group(target)
+    return None if group.size == 1 else group
 
 
 def experts_group():

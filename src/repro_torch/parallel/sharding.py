@@ -22,8 +22,14 @@ leaves back together (both per spec tree, on a ``launch.mesh.ProcessMesh``);
 moves a shard between two layouts of one leaf (under expert parallelism
 the MoE router's ZeRO layout shards ``embed`` where its compute layout
 shards ``experts``: ``MeshRules.spec``'s dedup).
-``cache_spec_tree`` waits for the serving mesh.  ``act_rules`` sets the
-ring (``ring=cp``) that ``axes.ring_context`` reads.
+``act_rules`` sets the ring (``ring=cp``) that ``axes.ring_context`` reads.
+
+``cache_spec_tree`` is JAX's: the serving cache's batch over the DP axes,
+an attention cache's positions over the model axis and SSM states' heads
+and channels over it under TP, each left whole where it does not divide.
+The serving engine (``runtime/serve.py``) holds its caches in that layout
+as local shards: a sequence-sharded KV cache is served by flash-decode
+(``models/attention.py``), every rank holding every KV head.
 """
 from __future__ import annotations
 
@@ -183,6 +189,27 @@ def batch_spec(plan: ExecutionPlan, global_batch: Optional[int] = None,
         if global_batch % n != 0:
             return P(None, None)
     return P(dp if len(dp) > 1 else dp[0], None)
+
+
+def cache_spec_tree(model, plan: ExecutionPlan, mesh: Optional[MeshShape],
+                    batch: int = 0, max_len: int = 0) -> dict:
+    """KV/SSM cache specs for serving: batch over DP; attention-cache seq over
+    the model axis (ring/flash-decode style — no padding waste for any
+    kv-head count); SSM state heads over the model axis.  Divisibility-checked
+    against the concrete cache shapes when batch/max_len are given."""
+    logical = model.cache_logical_axes()
+    strategy = plan.default_strategy
+    rules_map: dict = {"batch": plan.dp_axes_for(strategy)}
+    if strategy.tp > 1:
+        rules_map["seq"] = plan.tp_axis
+        rules_map["ssm_heads"] = plan.tp_axis
+        rules_map["ssm_inner"] = plan.tp_axis
+    rules = MeshRules(rules=rules_map, mesh=mesh)
+    if batch and max_len:
+        abstract = model.abstract_cache(batch, max_len)
+        return tree_map(lambda axes, arr: rules.spec_for_shape(axes, arr.shape),
+                        logical, abstract)
+    return tree_map(rules.spec, logical)
 
 
 # --------------------------------------------------------------------------

@@ -35,8 +35,32 @@ histograms and the ``requests`` / ``generated_tokens`` counters, inside the
 ``prefill`` / ``decode`` spans; ``latencies`` keeps the same times as lists.
 ``greedy_generate`` hands ``metrics`` to its scheduler.
 
-Only a single device for now: a ``mesh`` raises ``NotImplementedError``.
-Construct through ``repro_torch.serving.step_engine``.
+On a mesh (a ``launch.mesh.ProcessMesh`` under ``torch.distributed``) the
+engine serves the dense and vlm families under data parallelism over the
+batch and tensor parallelism over heads, ff and vocab, as JAX's
+``ServingEngine`` does under GSPMD: ``param_specs`` (``param_spec_tree``),
+``cache_specs`` (``cache_spec_tree`` at the engine's ``batch`` and
+``max_len``) and the activation rules of the plan's default strategy,
+under which ``prefill_step`` and ``decode_step`` run.  Each rank holds
+local shards: ``place_params`` cuts them from the canonical tree, and
+``gather_cache`` puts a cache back together.  The steps take JAX's global
+arrays (tokens, ``kv_len``, ``extras`` and a per-slot ``cache_index``, the
+same on every rank), run this rank's batch rows (``batch_spec``: whole
+where the batch does not divide) and return the global fp32 logits on every
+rank, gathered over the vocab shards and the batch group, with this rank's
+cache: where ``cache_specs`` shards its positions over the model axis, each
+rank's slice holds every KV head and a decode step is flash-decode (K1's
+partials over every rank's slice, merged; ``models/attention.py``).
+``greedy_generate`` takes ``greedy_generate_reference`` on a mesh, as JAX
+routes it; every rank takes the argmax of the same gathered logits, so
+the ranks feed the same tokens.  ``jit_prefill_step`` / ``jit_decode_step``
+return the eager sharded steps (``.compiled`` None): a gloo collective reads
+the host, and NCCL refuses ranks that share one card.
+
+Every other family on a mesh, and a plan with sequence or context
+parallelism, pipeline or expert parallelism, ZeRO-3 or layers of different
+tp, raises ``NotImplementedError`` naming ``Queue 1 item 4``.  Construct
+through ``repro_torch.serving.step_engine``.
 """
 from __future__ import annotations
 
@@ -48,8 +72,42 @@ import numpy as np
 import torch
 
 from repro_torch.core.strategy import ExecutionPlan
+from repro_torch.models.common import tree_map
 from repro_torch.obs import fence, span
+from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.axes import axis_rules
 from repro_torch.runtime.compiled import compile_step
+
+_ITEM = "Queue 1 item 4"
+#: the families a serving mesh holds (the dense serving passes)
+MESH_FAMILIES = ("dense", "vlm")
+
+
+def check_mesh_serving(model: Any, plan: ExecutionPlan, mesh: Any) -> None:
+    """Refuse, naming its Queue 1 item, what a serving mesh does not hold
+    yet: a family other than dense and vlm, and a plan with sequence or
+    context parallelism, pipeline or expert parallelism, ZeRO-3 or layers
+    of different tp; then the trainer's layout checks (a ``ProcessMesh``
+    whose axes are the plan's, tp the model axis)."""
+    from repro_torch.runtime.train import check_layout
+
+    family = model.cfg.family
+    if family not in MESH_FAMILIES:
+        raise NotImplementedError(f"serving the {family} family on a mesh waits for {_ITEM} "
+                                  f"(a serving mesh holds the {' and '.join(MESH_FAMILIES)} "
+                                  "families)")
+    strategies = [plan.default_strategy, *plan.layer_strategies]
+    for what, refused in (
+            ("sequence parallelism", any(s.sp for s in strategies)),
+            ("context parallelism", any(s.cp > 1 for s in strategies)),
+            ("pipeline parallelism", plan.pp > 1),
+            ("expert parallelism", any(s.ep > 1 for s in strategies)),
+            ("ZeRO-3", any(s.zero >= 3 for s in strategies)),
+            ("layers of different tp", len({s.tp for s in strategies}) > 1)):
+        if refused:
+            raise NotImplementedError(f"a serving mesh under {what} waits for {_ITEM}")
+    check_layout(model, plan, mesh)
 
 
 @dataclasses.dataclass
@@ -66,9 +124,32 @@ class ServingEngine:
     _graph_pool: Any = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine: mesh-sharded serving is not ported yet (single device only)")
+        self._rules = None
+        if self.mesh is None:
+            return
+        check_mesh_serving(self.model, self.plan, self.mesh)
+        if not (self.batch and self.max_len):
+            raise ValueError("a serving mesh lays its cache out at the engine's batch and "
+                             f"max_len: got batch {self.batch}, max_len {self.max_len}")
+        self.param_specs = shd.param_spec_tree(self.model, self.plan, self.mesh, kind="param")
+        self._layout()
+
+    def _layout(self) -> None:
+        """``cache_specs`` at the engine's batch and max_len, and the
+        activation rules the steps run under: the default strategy's, with
+        ``cache_seq`` where the cache's positions are sharded."""
+        plan, mesh = self.plan, self.mesh
+        self.cache_specs = shd.cache_spec_tree(self.model, plan, mesh, self.batch,
+                                               self.max_len)
+        k = tuple(self.cache_specs["k"]) + (None,) * 3
+        rules = shd.act_rules(plan, plan.default_strategy, mesh)
+        if k[2] is not None:
+            rules = dataclasses.replace(rules, rules={**rules.rules, "cache_seq": k[2]})
+        self._rules = rules
+        self._batch_group = mesh.group(plan.dp_axes_for(plan.default_strategy))
+        self._split_rows = k[1] is not None
+        self._tp_group = (mesh.group(plan.tp_axis) if plan.default_strategy.tp > 1
+                          else None)
 
     @classmethod
     def for_plan(cls, model: Any, plan: ExecutionPlan, mesh: Any = None, *, batch: int = 0,
@@ -77,17 +158,76 @@ class ServingEngine:
         return cls(model, plan, mesh, batch=batch, max_len=max_len, dtype=dtype,
                    metrics=metrics)
 
+    # ------------------------------------------------------------ mesh
+    def place_params(self, canonical: dict) -> dict:
+        """This rank's shards (``param_specs``) of a canonical tree, on the
+        mesh's device; the tree itself off a mesh."""
+        if self.mesh is None:
+            return canonical
+        return tree_map(lambda x: x.to(self.mesh.device),
+                        shd.place_params(canonical, self.param_specs, self.mesh))
+
+    def gather_cache(self, local: dict) -> dict:
+        """The canonical cache from every rank's shard (``cache_specs``), as
+        new tensors: every rank takes part and holds it whole."""
+        if self.mesh is None:
+            return local
+
+        def whole(x, spec):
+            out = shd.unshard_leaf(x, spec, self.mesh)
+            return out.clone() if out is x else out
+
+        return tree_map(whole, local, self.cache_specs)
+
+    def _rows(self, x):
+        """This rank's batch rows of a global array (on the mesh's device):
+        its shard over the batch axes, or every row where the batch does not
+        divide."""
+        x = torch.as_tensor(x).to(self.mesh.device)
+        if x.shape[0] != self.batch:
+            raise ValueError(f"the engine serves a batch of {self.batch}, got "
+                             f"{x.shape[0]} rows")
+        return collectives.take_shard(x, 0, self._batch_group) if self._split_rows else x
+
+    def _global_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's (rows, vocab columns) of the logits -> the global
+        fp32 logits, the same on every rank."""
+        if logits.shape[-1] < self.model.cfg.vocab_size:
+            logits = collectives.all_gather(logits, logits.dim() - 1, self._tp_group)
+        if self._split_rows:
+            logits = collectives.all_gather(logits, 0, self._batch_group)
+        return logits
+
     # ------------------------------------------------------------ steps
     def prefill_step(self, params, tokens, extras=None):
         """``extras``: an optional dict of side inputs to ``forward_prefill``
         (``frames`` of the encoder-decoder, ``vis_embeds`` of the VLM), as
         in JAX."""
-        return self.model.forward_prefill(params, tokens, max_len=self.max_len or None,
-                                          dtype=self.dtype, **(extras or {}))
+        if self.mesh is None:
+            return self.model.forward_prefill(params, tokens, max_len=self.max_len or None,
+                                              dtype=self.dtype, **(extras or {}))
+        tokens = self._rows(tokens)
+        extras = {k: self._rows(v) for k, v in (extras or {}).items()}
+        with axis_rules(self._rules):
+            logits, cache = self.model.forward_prefill(params, tokens, max_len=self.max_len,
+                                                       dtype=self.dtype, **extras)
+            return self._global_logits(logits), cache
 
     def decode_step(self, params, tokens, cache, cache_index, kv_len=None):
-        return self.model.forward_decode(params, tokens, cache, cache_index, kv_len=kv_len,
-                                         dtype=self.dtype)
+        if self.mesh is None:
+            return self.model.forward_decode(params, tokens, cache, cache_index, kv_len=kv_len,
+                                             dtype=self.dtype)
+        tokens = self._rows(tokens)
+        if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+            cache_index = self._rows(cache_index)
+        elif isinstance(cache_index, torch.Tensor):
+            cache_index = cache_index.to(self.mesh.device)
+        if kv_len is not None:
+            kv_len = self._rows(kv_len)
+        with axis_rules(self._rules):
+            logits, cache = self.model.forward_decode(params, tokens, cache, cache_index,
+                                                      kv_len=kv_len, dtype=self.dtype)
+            return self._global_logits(logits), cache
 
     # ------------------------------------------------------------ jit
     def _compiled_device(self) -> torch.device:
@@ -98,6 +238,17 @@ class ServingEngine:
             self._graph_pool = torch.cuda.graph_pool_handle()
         return device
 
+    @staticmethod
+    def _eager(step):
+        """A mesh's "compiled" step: the eager sharded step itself, with no
+        graph (``.compiled`` None; see the module note)."""
+
+        def run(*args, **kwargs):
+            return step(*args, **kwargs)
+
+        run.compiled = None
+        return run
+
     def jit_decode_step(self, donate: bool = True):
         """``decode_step`` compiled: ``(params, tokens, cache, cache_index,
         kv_len=None) -> (logits, cache)``.  ``cache_index`` and ``kv_len``
@@ -107,6 +258,8 @@ class ServingEngine:
         itself) and its logits the graph's static output, valid until the
         next call; pass the returned cache back.  ``donate=False`` copies the
         cache in and returns clones, leaving the argument as it was."""
+        if self.mesh is not None:
+            return self._eager(self.decode_step)
         device = self._compiled_device()
         step = compile_step(self.decode_step, device, held=(0,),
                             donated=(2,) if donate else (), pool=self._graph_pool,
@@ -125,6 +278,8 @@ class ServingEngine:
         (logits, cache)``, returned as fresh tensors (JAX's outputs are new
         arrays; the graph's own stay in the pool).  A graph per ``max_len``
         of the engine, which sizes the cache."""
+        if self.mesh is not None:
+            return self._eager(self.prefill_step)
         device = self._compiled_device()
         steps: dict = {}
 
@@ -144,9 +299,9 @@ class ServingEngine:
                         max_len: int) -> torch.Tensor:
         """Greedy generation for one static batch of equal-length prompts
         (B, S) -> tokens (B, max_new) int32 on the model's device.  A dense
-        model goes through the paged scheduler, every other model through
-        :meth:`greedy_generate_reference`."""
-        if self.model.cfg.family != "dense":
+        model off a mesh goes through the paged scheduler, every other model
+        and every mesh through :meth:`greedy_generate_reference`."""
+        if self.mesh is not None or self.model.cfg.family != "dense":
             return self.greedy_generate_reference(params, prompt_tokens, max_new, max_len)
         from repro_torch.runtime.kv_cache import PagedCacheConfig
         from repro_torch.runtime.scheduler import ContinuousBatchingScheduler, Request
@@ -170,9 +325,13 @@ class ServingEngine:
         time is appended to ``latencies["prefill_s"]`` / ``["decode_s"]`` and,
         with ``metrics``, observed in ``prefill_latency_s`` /
         ``decode_latency_s``."""
-        tokens = torch.as_tensor(prompt_tokens).to(self.model.device, torch.long)
+        device = self.model.device if self.mesh is None else self.mesh.device
+        tokens = torch.as_tensor(prompt_tokens).to(device, torch.long)
         B, S = tokens.shape
         self.max_len = max_len
+        if self.mesh is not None:           # the cache laid out at this batch and max_len
+            self.batch = B
+            self._layout()
         t0 = time.perf_counter()
         with span("prefill"):
             logits, cache = self.prefill_step(params, tokens)

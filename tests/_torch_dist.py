@@ -20,7 +20,8 @@ data, model) mesh, and with a context-parallel fault brought in
 (``inject_fault``); ``ring_ops`` runs the cp ring alone; ``checkpoint_cases``
 saves a checkpoint under one plan and restores it under others;
 ``elastic_cases`` checks a mesh over a prefix of the ranks and migrates a
-training state through a shrink, a grow and a pipeline restage.
+training state through a shrink, a grow and a pipeline restage;
+``serve_cases`` serves through the step engine on a mesh.
 ``references`` builds a case and its two single-device references in the
 test process (the only function here that imports JAX).
 """
@@ -750,6 +751,48 @@ def refusals_and_fit(payload: dict) -> dict:
             out[name] = (type(e).__name__, str(e))
     fit = profiler_hw.measure_allreduce(iters=3)
     out["fit"] = (fit.alpha, fit.beta, fit.r2)
+    return out
+
+
+def serve_cases(payload: dict) -> dict:
+    """Every case of ``payload["cases"]`` through the serving engine on a
+    mesh of ranks (a case names its ``mesh`` over ("data", "model") and its
+    ``tp``, ZeRO 0), fp32 on the CPU: the prefill's global logits and the
+    gathered cache, each teacher-forced decode step's logits (the case's
+    ``steps``: tokens, ``cache_index``, ``kv_len``), the gathered cache after
+    them, ``greedy_generate``'s tokens, ``cache_specs``, this rank's local
+    cache shape and the one ``init_cache`` gives under the engine's rules.
+    Every rank returns its results."""
+    from repro_torch import serving
+    from repro_torch.core.strategy import LayerStrategy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel.axes import axis_rules
+
+    meshes: dict = {}
+    out = {}
+    for case in payload["cases"]:
+        cfg, shape = case["cfg"], tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+        plan = plan_of(cfg.name, cfg.num_layers, shape, [LayerStrategy(tp=case["tp"], zero=0)])
+        B = case["tokens"].shape[0]
+        eng = serving.step_engine(build_model(cfg, device="cpu"), plan, meshes[shape], batch=B,
+                                  max_len=case["max_len"], dtype=torch.float32, device="cpu")
+        params = eng.place_params(case["params"])
+        logits, cache = eng.prefill_step(params, case["tokens"], case.get("extras"))
+        with axis_rules(eng._rules):             # the local cache init_cache sizes
+            sized = tuple(eng.model.init_cache(B, case["max_len"])["k"].shape)
+        res = {"prefill": logits, "prefill_cache": eng.gather_cache(cache),
+               "specs": eng.cache_specs, "local": tuple(cache["k"].shape), "sized": sized,
+               "steps": []}
+        for tokens, cache_index, kv_len in case["steps"]:
+            logits, cache = eng.decode_step(params, tokens, cache, cache_index, kv_len)
+            res["steps"].append(logits)
+        res["cache"] = eng.gather_cache(cache)
+        res["greedy"] = eng.greedy_generate(params, case["tokens"], case["max_new"],
+                                            case["max_len"])
+        out[case["name"]] = res
     return out
 
 

@@ -16,7 +16,9 @@ passes and the whole-row K2; the cp ring's K1 partials at zig-zag shapes
 rows of a ring inside a pipeline stage) and its hand-written backward
 against autograd through the plain ring; the checkpoint writer's snapshot
 of CUDA leaves (pinned host copies fenced by an event, ahead of an
-in-place update) and a bf16 state through the card.
+in-place update) and a bf16 state through the card; a serving-mesh rank's
+K1 decode partial (g = 8, a key offset, residuals, split-K) and K1
+partials over cache slices merged into the whole call.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -1710,6 +1712,73 @@ def test_cuda_ring_k1_partials_at_zigzag_shapes(cuda_device, S, cp):
                 torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
                 torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
                 torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------- serving on a mesh
+
+@pytest.mark.parametrize("offset,kv_len", [(0, (520, 300)), (272, (520, 300)),
+                                           (272, (200, 513))])
+def test_cuda_flash_decode_partial_at_g8(cuda_device, offset, kv_len):
+    """A serving-mesh rank's K1 decode partial (qwen2.5-3b on tp 2: every
+    query head, 16 over 2 KV heads, g = 8, hd 128, over its 272-key slice
+    of a 544-position cache): per-slot positions at the slice's key offset
+    (``flash_positions(..., k_offset=...)``), residuals, on the split-K
+    route; rank 1's slice with a slot that sees none of its keys (the mean
+    of v, m = NEG_INF) included.  Against the plain version: o fp32 1e-4,
+    bf16 3e-2; m and l 1e-5."""
+    B, Sq, H, KV, hd, S_l = 2, 1, 16, 2, 128, 272
+    kv = torch.tensor(kv_len, device=cuda_device)
+    q_pos, k_pos = t_attn.flash_positions(kv - 1, Sq, S_l, kv, B, cuda_device, k_offset=offset)
+    assert flash_ops.num_splits(B, KV, (H // KV) * Sq, S_l, flash_ops._sm_count(0)) > 1
+    g = torch.Generator(device=cuda_device).manual_seed(offset + kv_len[1])
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        q = torch.randn((B, Sq, H, hd), generator=g, device=cuda_device).to(dtype)
+        k, v = (torch.randn((B, S_l, KV, hd), generator=g, device=cuda_device).to(dtype)
+                for _ in range(2))
+        kw = dict(causal=True, q_pos=q_pos, k_pos=k_pos, return_residuals=True)
+        out, m, l = flash_ops.flash_attention_fwd(q, k, v, **kw)
+        ref, rm, rl = flash_ref.flash_attention_fwd(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_merged_k1_partials_are_the_whole_call(cuda_device, n):
+    """One K1 decode call over a 544-key cache (g = 8, hd 128, per-slot
+    positions) against K1's partials over its n slices, folded in fp32 by
+    ``context.merge_partials`` as flash-decode folds them: o within
+    1e-5 (fp32) and 3e-2 (bf16), the merged m and l within 1e-5 of the
+    whole call's (fp32)."""
+    from repro_torch.parallel import context
+
+    B, Sq, H, KV, hd, S = 2, 1, 16, 2, 128, 544
+    S_l = S // n
+    kv = torch.tensor([530, 100], device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        q = torch.randn((B, Sq, H, hd), generator=g, device=cuda_device).to(dtype)
+        k, v = (torch.randn((B, S, KV, hd), generator=g, device=cuda_device).to(dtype)
+                for _ in range(2))
+        q_pos, k_pos = t_attn.flash_positions(kv - 1, Sq, S, kv, B, cuda_device)
+        out, m, l = flash_ops.flash_attention_fwd(q, k, v, causal=True, q_pos=q_pos,
+                                                  k_pos=k_pos, return_residuals=True)
+        parts = []
+        for r in range(n):
+            qp, kp = t_attn.flash_positions(kv - 1, Sq, S_l, kv, B, cuda_device,
+                                            k_offset=r * S_l)
+            o_r, m_r, l_r = flash_ops.flash_attention_fwd(
+                q, k[:, r * S_l:(r + 1) * S_l].contiguous(),
+                v[:, r * S_l:(r + 1) * S_l].contiguous(), causal=True, q_pos=qp, k_pos=kp,
+                return_residuals=True)
+            parts.append((o_r.float(), m_r.transpose(-1, -2), l_r.transpose(-1, -2)))
+        merged, gm, gl = parts[0]
+        for p in parts[1:]:
+            merged, gm, gl = context.merge_partials(merged, gm, gl, *p)
+        torch.testing.assert_close(merged, out.float(), atol=tol, rtol=tol)
+        if dtype == torch.float32:
+            torch.testing.assert_close(gm.transpose(-1, -2), m, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(gl.transpose(-1, -2), l, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("Sq,Sk,causal", [(4096, 4096, True), (4096, 2048, False),
