@@ -7,8 +7,8 @@ stable ``GALV***`` code, a severity and a fix hint.  The search engine runs
 it on every winning candidate, and ``launch/train.py`` exposes it as
 ``--validate-only``.  The port's copy of ``repro.analysis.plan_check``.
 
-The catalog of the codes the port emits (the JAX package's, less the
-compiled-artifact auditor's GALV09x):
+The catalog of the codes the port emits (the JAX package's, less GALV094:
+an eager step has no loop whose trip count could go unread):
 
 ====  ========================  ========================================
 code  slug                      invariant
@@ -41,7 +41,19 @@ code  slug                      invariant
 082   serve-slots-pages-insufficient
                                 every decode slot can hold >= 1 page
                                 beyond the reserved null page
+090   comm-mismatch             the traced step's per-axis collective
+                                bytes within a band of the cost model's
+                                census; no unplanned all-gather
+091   dtype-drift               no f32 x f32 matmul in a bf16 plan
+092   remat-missing             remat != none implies a checkpointed
+                                forward that runs a matmul
+093   host-callback-in-step     the step reads nothing on the host
 ====  ========================  ========================================
+
+The GALV09x codes are emitted by the step auditor
+(``repro_torch.analysis.step_audit`` / ``op_audit``) from a traced step
+(``analysis/step_trace.py``): the same ``Diagnostic`` type, its evidence
+the collectives and aten ops the step dispatched.
 
 GALV040 compares the cost model's bytes per boundary element with
 ``repro_torch.parallel.pipeline.BOUNDARY_DTYPE``, the dtype the pipeline's
@@ -125,6 +137,32 @@ CATALOG: dict[str, tuple[str, str, str]] = {
                 "page (page 0 is the reserved null page)"),
 }
 
+#: The step auditor's codes (JAX's slugs and severities; the hints name the
+#: port's evidence).  Kept apart from ``CATALOG``, which is the plan
+#: verifier's alone, as JAX's verifier emits none of these.
+AUDIT_CATALOG: dict[str, tuple[str, str, str]] = {
+    "GALV090": ("comm-mismatch", ERROR,
+                "the traced step's collective traffic deviates from the "
+                "cost model's per-axis census — check the layout rules (an "
+                "unplanned all-gather is a layout the runtime repaired by "
+                "gathering) or recalibrate the comm model"),
+    "GALV091": ("dtype-drift", ERROR,
+                "f32 matmuls in a bf16 plan — pass the plan's compute dtype "
+                "to forward_train; the searched memory/cost ranking assumed "
+                "half-width activations"),
+    "GALV092": ("remat-missing", ERROR,
+                "plan declares remat but the step checkpoints no matmul — "
+                "ensure the layer runner wraps block apply in "
+                "parallel/remat.apply_remat with the plan's policy"),
+    "GALV093": ("host-callback-in-step", ERROR,
+                "remove host reads (.item(), .tolist(), .cpu(), nonzero) "
+                "from the step — every step would synchronize with Python"),
+}
+
+
+def _entry(code: str) -> tuple:
+    return CATALOG[code] if code in CATALOG else AUDIT_CATALOG[code]
+
 
 @dataclasses.dataclass(frozen=True)
 class Diagnostic:
@@ -134,18 +172,18 @@ class Diagnostic:
     severity: str = ""           # filled from CATALOG when empty
 
     def __post_init__(self):
-        if self.code not in CATALOG:
+        if self.code not in CATALOG and self.code not in AUDIT_CATALOG:
             raise ValueError(f"unknown diagnostic code {self.code!r}")
         if not self.severity:
-            object.__setattr__(self, "severity", CATALOG[self.code][1])
+            object.__setattr__(self, "severity", _entry(self.code)[1])
 
     @property
     def slug(self) -> str:
-        return CATALOG[self.code][0]
+        return _entry(self.code)[0]
 
     @property
     def hint(self) -> str:
-        return CATALOG[self.code][2]
+        return _entry(self.code)[2]
 
     def __str__(self) -> str:
         loc = f" [{self.where}]" if self.where else ""

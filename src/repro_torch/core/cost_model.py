@@ -288,6 +288,133 @@ def head_time(model_profile: ModelProfile, strat: LayerStrategy, env: CostEnv) -
 
 
 # --------------------------------------------------------------------------
+# predicted collective census (machine-comparable; the audit's ground truth)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CommCensusEntry:
+    """One (mesh-axis-label, collective-kind) bucket of predicted traffic.
+
+    ``bytes`` is the TOTAL operand bytes per optimizer step for the bucket —
+    the same operand-byte convention :mod:`repro_torch.analysis.comm_census` records
+    from a traced step (all-gather charges the per-device shard, reduce-scatter
+    the full pre-scatter array), so predicted and measured censuses compare
+    directly.  ``axis`` uses the same labels as
+    :meth:`repro_torch.analysis.comm_census.CommCensus.axis_census`: mesh axis names joined by
+    ``"+"`` in mesh order for multi-axis groups (a dp·cp state reduction on a
+    ``("cp", "data", "model")`` mesh is ``"cp+data"``)."""
+
+    axis: str
+    kind: str
+    count: float
+    bytes: float
+
+
+def predicted_comm_census(profile: ModelProfile,
+                          layer_strategies: list[LayerStrategy], *,
+                          devices: int, micro_batch: float, grad_accum: int,
+                          pp: int = 1, mesh_axes=("data", "model"),
+                          ) -> list[CommCensusEntry]:
+    """Per-axis collective census the cost model's comm formulas imply.
+
+    Mirrors ``tp/dp/cp/ep_comm_time`` byte-for-byte but returns volumes
+    instead of times — the static half of the GALV070 drift loop: the
+    step auditor (:mod:`repro_torch.analysis.step_audit`) compares this
+    against the census of the collectives a traced step issues
+    (:mod:`repro_torch.analysis.comm_census`).  ``devices`` is the per-pipeline-stage device count
+    (dp·tp·cp), ``micro_batch`` the global samples per microbatch.  Only the
+    traffic the cost model prices is predicted — the runtime's small moves
+    (scalar loss/grad-norm reductions, layout changes) are below the
+    auditor's byte floor by design."""
+    mesh_axes = tuple(mesh_axes)
+
+    def label(axes: set) -> str:
+        return "+".join(ax for ax in mesh_axes if ax in axes) or "none"
+
+    acc: dict = {}
+
+    def add(axes: set, kind: str, count: float, nbytes_each: float) -> None:
+        if count <= 0 or nbytes_each <= 0:
+            return
+        cell = acc.setdefault((label(axes), kind), [0.0, 0.0])
+        cell[0] += count
+        cell[1] += count * nbytes_each
+
+    for lp, strat in zip(profile.layers, layer_strategies):
+        tp, cp = max(strat.tp, 1), max(strat.cp, 1)
+        dp = max(devices // max(strat.tp * strat.cp, 1), 1)
+        state_dp = dp * cp
+        local = max(micro_batch / dp, 1e-9)
+        state_axes = {"data"} | ({"cp"} if cp > 1 else set())
+
+        if tp > 1:
+            act = lp.seq_len * local * _d_model(lp) * 2.0 / cp
+            n = lp.tp_collectives * 2.0
+            if strat.remat == "full":
+                n += lp.tp_collectives
+            n *= grad_accum
+            if strat.sp:
+                # Megatron SP: each all-reduce splits into an all-gather
+                # (operand = shard) + reduce-scatter (operand = full array)
+                add({"model"}, "all-gather", n / 2.0, act / tp)
+                add({"model"}, "reduce-scatter", n - n / 2.0, act)
+            else:
+                add({"model"}, "all-reduce", n, act)
+
+        if state_dp > 1:
+            tp_share = lp.param_count_tp / tp + (
+                lp.param_count - lp.param_count_tp - lp.expert_param_count)
+            ep_share = lp.expert_param_count / max(strat.ep * tp, 1)
+            p_local = tp_share + ep_share
+            grad_bytes = p_local * GRAD_BYTES
+            if strat.zero <= 1:
+                add(state_axes, "all-reduce", 1.0, grad_bytes)
+                if strat.zero == 1:
+                    # ZeRO-1: optimizer state is dp-sharded, so each rank
+                    # updates only its 1/state_dp param shard and the fp32
+                    # result is re-gathered (operand = the updated shard)
+                    add(state_axes, "all-gather", 1.0,
+                        p_local * GRAD_BYTES / state_dp)
+            elif strat.zero == 2:
+                add(state_axes, "reduce-scatter", 1.0, grad_bytes)
+                add(state_axes, "all-gather", 1.0, p_local * 2.0 / state_dp)
+            else:
+                n_ag = 2.0 + (1.0 if strat.remat == "full" else 0.0)
+                add(state_axes, "all-gather", grad_accum * n_ag,
+                    p_local * 2.0 / state_dp)
+                add(state_axes, "reduce-scatter", 1.0, grad_bytes)
+
+        if cp > 1 and lp.cp_ring_bytes:
+            hop_bytes = local * lp.cp_ring_bytes / cp / tp
+            add({"cp"}, "collective-permute",
+                3.0 * (cp - 1) * grad_accum, hop_bytes)
+
+        if strat.ep > 1 and lp.ep_a2a_bytes:
+            add({"data"}, "all-to-all", 2.0 * grad_accum,
+                lp.ep_a2a_bytes * local)
+
+    if layer_strategies:
+        # vocab-parallel lm head: the runtime materializes full fp32 logits,
+        # so a tp-sharded embedding implies a logits-sized all-reduce over
+        # the model axis in fwd and its mirror in bwd (head_time prices no
+        # comm — the census must, or every tp plan trips the gather band)
+        strat = layer_strategies[0]
+        dp = max(devices // max(strat.tp * strat.cp, 1), 1)
+        local = max(micro_batch / dp, 1e-9)
+        if strat.tp > 1:
+            add({"model"}, "all-reduce", 2.0 * grad_accum,
+                profile.logits_bytes * local)
+        if pp > 1:
+            act = (profile.d_model * profile.seq_len * micro_batch
+                   / dp / max(strat.cp, 1) * PIPELINE_BOUNDARY_BYTES_PER_ELEM)
+            add({"pod"}, "collective-permute",
+                2.0 * max(grad_accum, pp) * (pp - 1), act)
+
+    return [CommCensusEntry(ax, kind, c, b)
+            for (ax, kind), (c, b) in sorted(acc.items())]
+
+
+# --------------------------------------------------------------------------
 # serving decode roofline (continuous batching — tokens, not steps)
 # --------------------------------------------------------------------------
 

@@ -32,7 +32,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _fake
 from repro_torch.kernels.flash_attention import ref as _ref
 
 NEG_INF = _ref.NEG_INF
@@ -75,6 +75,24 @@ def num_splits(B: int, KV: int, rows: int, Sk: int, sms: int) -> int:
     return -(-tiles // per)
 
 
+def fake_work(q, k, causal: bool, q_pos=None, k_pos=None) -> tuple[float, float]:
+    """(flops, bytes) of one call as the bound counts them: 4·hd per
+    (row, key) pair a query head attends to, and q, out, the compact K/V
+    and the positions once each.  Under positions the pairs are data the
+    trace does not hold, so every pair counts (the most the call could
+    need); causal without them, row i sees keys 0 .. i."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if causal and q_pos is None:
+        inside = min(Sq, Sk)
+        pairs = inside * (inside + 1) // 2 + (Sq - inside) * Sk
+    else:
+        pairs = Sq * Sk
+    e = q.element_size()
+    nbytes = 2 * B * Sq * H * hd * e + 2 * B * Sk * KV * hd * e + _fake.nbytes(q_pos, k_pos)
+    return 4.0 * hd * H * B * pairs, float(nbytes)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
                         return_residuals: bool = False):
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) with ``H % KV == 0`` (query
@@ -89,7 +107,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
         return _ref.flash_attention_fwd(q, k, v, causal=causal, q_pos=q_pos, k_pos=k_pos,
                                         return_residuals=return_residuals)
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    fake = _fake.is_fake(*tensors)          # no data: allocate and record, no launch
+    if (dev.type != "cuda" and not fake) or any(t.device != dev for t in tensors):
         raise ValueError("flash_attention_fwd: q, k, v must share one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -107,7 +126,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
         raise ValueError(f"flash_attention_fwd: head_dim {hd} not in {HEAD_DIMS}")
     if min(B, Sq, Sk, H) < 1:
         raise ValueError("flash_attention_fwd: empty input")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors):
+    if not all(t.is_contiguous() and (fake or t.data_ptr() % 16 == 0) for t in tensors):
         raise ValueError("flash_attention_fwd: the kernel takes contiguous, 16-byte "
                          "aligned q/k/v")
     positional = causal and q_pos is not None
@@ -123,13 +142,16 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_pos=None, k_pos=None,
     if return_residuals:
         m = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
         l = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    sms = _sm_count(dev.index or 0)
+    sms = _fake.H100_SMS if fake else _sm_count(dev.index or 0)
     nsplit = num_splits(B, KV, (H // KV) * Sq, Sk, sms)
     part_o = part_m = part_l = None
     if nsplit > 1:
         rows = B * H * Sq
         part = torch.empty(nsplit * rows * (hd + 2), dtype=torch.float32, device=dev)
         part_o, part_m, part_l = part.split([nsplit * rows * hd, nsplit * rows, nsplit * rows])
+    if fake:
+        _fake.record("flash_attention_fwd", (q, k, v), *fake_work(q, k, causal, qp, kp))
+        return (out, m, l) if return_residuals else out
     fn = _build.function("repro_flash_attention_fwd", _ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(qp), ptr(kp),

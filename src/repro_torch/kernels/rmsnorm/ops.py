@@ -47,7 +47,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _fake
 from repro_torch.kernels.rmsnorm.ref import (gated_rmsnorm_reference, rmsnorm_backward_reference,
                                              rmsnorm_reference, rmsnorm_split_backward_reference,
                                              rmsnorm_split_dot_reference,
@@ -119,7 +119,8 @@ def _check(name: str, x: torch.Tensor, scale: torch.Tensor, *like_x: torch.Tenso
     """The kernels' input rules; returns D.  ``like_x``: tensors that must
     match x (the gate, the output grad)."""
     tensors = (x, scale, *like_x)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+    on_card = x.device.type == "cuda" or _fake.is_fake(*tensors)
+    if not on_card or any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}; the kernel "
                          "takes them all on one CUDA device")
     if x.dtype not in _DTYPE_CODES or scale.dtype not in _DTYPE_CODES:
@@ -149,6 +150,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
     out = torch.empty_like(x)
     rows = x.numel() // D if D else 0
     if rows == 0:
+        return out
+    if _fake.is_fake(x, scale, *extra):
+        flops = rows * D * (4.0 if gate is None else 9.0)
+        _fake.record("rmsnorm", (x, scale, *extra), flops, _fake.nbytes(x, scale, out, *extra))
         return out
     ptrs = [t.data_ptr() for t in (x, scale, out, *extra)]
     tpl = _template(D, x.dtype, *ptrs, gated=gate is not None)
@@ -196,6 +201,15 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     if rows == 0:
         return dx, dscale.zero_()
     x_code, s_code = _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype]
+    if _fake.is_fake(x, scale, g):
+        # the workspace, its grid from an H100's SMs at one block of 2048 /
+        # tpr threads each (the launch asks the device's occupancy)
+        tpl = _template(D, x.dtype, backward=True)
+        torch.empty((_grid(rows, tpl.tpr, _fake.H100_SMS), D), dtype=torch.float32,
+                    device=x.device)
+        _fake.record("rmsnorm_backward", (x, scale, g), 8.0 * rows * D,
+                     _fake.nbytes(x, scale, g, dx, dscale))
+        return dx, dscale
     tpl = _template(D, x.dtype, *(t.data_ptr() for t in (x, scale, g, dx)), backward=True)
     grid = _bwd_grid(x.device.index, rows, D, x_code, s_code, tpl)
     partial = torch.empty((grid, D), dtype=torch.float32, device=x.device)
@@ -272,7 +286,8 @@ def rmsnorm_split_sumsq(x: torch.Tensor) -> torch.Tensor:
     shape ``x.shape[:-1]``."""
     if _on_cpu(x):
         return rmsnorm_split_sumsq_reference(x)
-    if x.device.type != "cuda" or x.dtype not in _DTYPE_CODES or not x.is_contiguous():
+    on_card = x.device.type == "cuda" or _fake.is_fake(x)
+    if not on_card or x.dtype not in _DTYPE_CODES or not x.is_contiguous():
         raise ValueError(f"rmsnorm split sumsq: x {x.dtype} on {x.device}; the kernel takes "
                          "a contiguous float32, bfloat16 or float16 CUDA tensor")
     D = x.shape[-1]
@@ -280,6 +295,9 @@ def rmsnorm_split_sumsq(x: torch.Tensor) -> torch.Tensor:
     rows = ss.numel()
     if rows == 0 or D == 0:
         return ss.zero_()
+    if _fake.is_fake(x):
+        _fake.record("rmsnorm_split_sumsq", (x,), 2.0 * rows * D, _fake.nbytes(x, ss))
+        return ss
     tpl = _template(D, x.dtype, x.data_ptr())
     fn = _build.function("repro_rmsnorm_split_sumsq", _SUMSQ_ARGTYPES)
     _build.check(fn(x.data_ptr(), ss.data_ptr(), rows, D, _DTYPE_CODES[x.dtype], tpl.vec,
@@ -302,6 +320,10 @@ def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, stat: torch.Tensor, widt
     out = torch.empty_like(x)
     rows = stat.numel()
     if rows == 0 or D == 0:
+        return out
+    if _fake.is_fake(x, scale, stat):
+        _fake.record("rmsnorm_split", (x, scale, stat), 3.0 * rows * D,
+                     _fake.nbytes(x, scale, stat, out))
         return out
     tpl = _template(D, x.dtype, x.data_ptr(), scale.data_ptr(), out.data_ptr())
     fn = _build.function("repro_rmsnorm_split_fwd", _SPLIT_FWD_ARGTYPES)
@@ -326,6 +348,10 @@ def rmsnorm_split_dot(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     rows = dot.numel()
     if rows == 0 or D == 0:
         return dot.zero_()
+    if _fake.is_fake(x, scale, g, stat):
+        _fake.record("rmsnorm_split_dot", (x, scale, g, stat), 4.0 * rows * D,
+                     _fake.nbytes(x, scale, g, stat, dot))
+        return dot
     tpl = _template(D, x.dtype, x.data_ptr(), scale.data_ptr(), g.data_ptr(), backward=True)
     fn = _build.function("repro_rmsnorm_split_dot", _SPLIT_DOT_ARGTYPES)
     _build.check(fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), stat.data_ptr(),
@@ -336,11 +362,10 @@ def rmsnorm_split_dot(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     return dot
 
 
-def _split_grid(device: int, rows: int, tpr: int) -> int:
+def _grid(rows: int, tpr: int, sms: int) -> int:
     """Blocks (= dscale partial rows) of one split backward launch: one row
-    group of ``tpr`` threads a block, as many as fill the SMs' 2048 threads
-    once, at most one a row."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    group of ``tpr`` threads a block, as many as fill ``sms`` SMs' 2048
+    threads once, at most one a row."""
     return max(1, min(rows, sms * max(1, 2048 // tpr)))
 
 
@@ -361,8 +386,16 @@ def rmsnorm_split_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor
     rows = stat.numel()
     if rows == 0 or D == 0:
         return dx, dscale.zero_()
+    if _fake.is_fake(x, scale, g, stat, dot):
+        tpl = _template(D, x.dtype, backward=True)
+        torch.empty((_grid(rows, tpl.tpr, _fake.H100_SMS), D), dtype=torch.float32,
+                    device=x.device)
+        _fake.record("rmsnorm_split_backward", (x, scale, g, stat, dot), 8.0 * rows * D,
+                     _fake.nbytes(x, scale, g, stat, dot, dx, dscale))
+        return dx, dscale
     tpl = _template(D, x.dtype, *(t.data_ptr() for t in (x, scale, g, dx)), backward=True)
-    grid = _split_grid(x.device.index, rows, tpl.tpr)
+    sms = torch.cuda.get_device_properties(x.device.index).multi_processor_count
+    grid = _grid(rows, tpl.tpr, sms)
     partial = torch.empty((grid, D), dtype=torch.float32, device=x.device)
     fn = _build.function("repro_rmsnorm_split_bwd", _SPLIT_BWD_ARGTYPES)
     _build.check(fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), stat.data_ptr(),

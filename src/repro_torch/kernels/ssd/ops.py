@@ -51,7 +51,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _fake
 from repro_torch.kernels.ssd import ref as _ref
 
 CHUNK = 64                                  # the kernel's chunk length (kQ)
@@ -119,10 +119,28 @@ def ssd(x, dt, A, B, C, *, chunk: int = CHUNK, impl: str = "kernel",
     return _ssd_kernel(x, dt, A, B, C, chunk=chunk, initial_state=initial_state)
 
 
+def fake_work(x, dt, A, B) -> tuple[float, float]:
+    """(flops, bytes) of one call as the bound counts them: x, dt, A, B and
+    C read once, y and the fp32 final state written once; per chunk 2·N per
+    unmasked pair once per group (C·Bᵀ), 2·P per pair per head (M·x), and
+    4·N·P per position per head (the inter-chunk product and the state
+    update)."""
+    Bs, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    e = x.element_size()
+    nbytes = 2 * x.numel() * e + 2 * B.numel() * e + 4 * (dt.numel() + A.numel()) \
+        + 4 * Bs * H * N * P
+    full, rem = divmod(S, CHUNK)
+    pairs = full * CHUNK * (CHUNK + 1) // 2 + rem * (rem + 1) // 2
+    flops = 2.0 * N * pairs * Bs * G + 2.0 * P * pairs * Bs * H + 4.0 * S * N * P * Bs * H
+    return flops, float(nbytes)
+
+
 def _ssd_kernel(x, dt, A, B, C, *, chunk, initial_state):
     tensors = (x, dt, A, B, C)
     dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    fake = _fake.is_fake(*tensors)          # no data: allocate and record, no launch
+    if (dev.type != "cuda" and not fake) or any(t.device != dev for t in tensors):
         raise ValueError("ssd: x, dt, A, B, C must share one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
     if initial_state is not None:
@@ -148,11 +166,14 @@ def _ssd_kernel(x, dt, A, B, C, *, chunk, initial_state):
     check_shape(x.dtype, N, P)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd: the kernel takes contiguous inputs")
-    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B, C)):
+    if x.dtype == torch.bfloat16 and not fake and any(t.data_ptr() % 16 for t in (x, B, C)):
         raise ValueError("ssd: the bf16 kernel copies x, B and C in 16-byte pieces; their "
                          "data must start on a 16-byte boundary")
     y = torch.empty_like(x)
     final = torch.empty((Bs, H, N, P), dtype=torch.float32, device=dev)
+    if fake:
+        _fake.record("ssd", tensors, *fake_work(x, dt, A, B))
+        return y, final
     fn = _build.function("repro_ssd_fwd", _ARGTYPES)
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             y.data_ptr(), final.data_ptr(), Bs, S, H, G, N, P, _DTYPE_CODES[x.dtype],
@@ -179,7 +200,8 @@ class _SSD(torch.autograd.Function):
         if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
             return _ref.ssd_chunked(x, dt, A, B, C, chunk=CHUNK)
         out = _ssd_kernel(x, dt, A, B, C, chunk=CHUNK, initial_state=None)
-        ssd_autograd.launches += 1
+        if not _fake.is_fake(x):
+            ssd_autograd.launches += 1
         return out
 
     @staticmethod

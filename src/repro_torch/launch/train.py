@@ -143,8 +143,25 @@ ranks through the library, and the launcher's run is held on the CPU.
 Every rank reaches one barrier before the process group is torn down, on
 each path that returns and on the ``SystemExit``s every rank raises alike,
 so a rank that finishes first cannot close its connections while a slower
-one still builds its own.  The compiled-step audit waits for a later
-slice.
+one still builds its own.
+
+``--audit`` is JAX's ``_run_audit`` on the port's evidence: before the first
+step, and after every resize's rebuild, each rank traces its own step
+(``analysis/step_trace.py``) on fake tensors of its own shapes
+(``hp.abstract_params()`` / ``abstract_opt_state()`` and the global batch's
+``input_specs``) over the run's real mesh — a collective on a fake tensor
+sends nothing, a kernel launches nothing; on one card, with no collective
+to trace, a trainer of the same plan on ``meta`` tensors, which take the
+kernels' route at half the host time — and audits it against the plan
+(``analysis/step_audit.py``: GALV090-093).  Rank 0 emits JAX's ``audit``
+event and every rank's rank-0 printer shows ``format_table()``; audit
+errors raise ``SystemExit`` with JAX's text on every rank, before any real
+step.  The ``memory`` event stays the measured peak; with ``--audit`` the
+launcher also prints the traced peak (arguments plus temp) beside it after
+the first step.
+
+    python -m repro_torch.launch.train --arch llama3.2-1b --reduced --device cpu \
+        --steps 2 --seq 32 --batch 4 --audit --run-dir results/runs/a0
 """
 from __future__ import annotations
 
@@ -427,6 +444,42 @@ def _step_timer(args, cfg: ModelConfig, cluster: ClusterSpec, devices: int,
         peak_flops=cluster.peak_flops * devices, fence_fn=fence_fn)
 
 
+def _run_audit(args, run: _Run, sink, say=print):
+    """Trace this rank's step on fake tensors over the run's mesh, audit it
+    against the plan, emit the ``audit`` event and print the table; raise
+    JAX's ``SystemExit`` on audit errors.  Returns the trace."""
+    from repro_torch.analysis.step_audit import audit_step
+    from repro_torch.analysis.step_trace import materialize, trace_step, tracing
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.runtime.data import input_specs
+
+    hp, cfg = run.hp, run.hp.model.cfg
+    device = hp.device
+    if hp.mesh is None and device.type == "cuda":
+        # one card, no collective: a trainer of the same plan on meta tensors
+        # takes the kernels' route as CUDA tensors do (their fake paths), at
+        # about half a fake CUDA trace's host time
+        device = torch.device("meta")
+        hp = construct_hybrid_parallel_model(build_model(cfg, impl=hp.model.impl,
+                                                         device=device), hp.plan)
+    spec = ShapeSpec("launch", "train", args.seq, args.batch)
+    with tracing(device):
+        params = materialize(hp.abstract_params(), device)
+        opt = materialize(hp.abstract_opt_state(), device)
+        batch = materialize(input_specs(cfg, spec, hp.model), device)
+        trace = trace_step(lambda: hp.train_step(params, opt, batch, donate=True),
+                           (params, opt, batch), hp.mesh)
+    say(f"step traced on {device.type} tensors in {trace.seconds:.1f} s")
+    report = audit_step(run.plan, cfg, seq_len=args.seq, global_batch=args.batch,
+                        trace=trace)
+    sink.emit("audit", **report.to_event())
+    say(report.format_table())
+    if not report.ok():
+        raise SystemExit("step audit failed: " + ", ".join(report.error_codes())
+                         + " — the traced step does not match the plan")
+    return trace
+
+
 def _train_loop(args, run: _Run, start: int, ckpts, say, sink, timer: obs.StepTimer,
                 cluster: ClusterSpec, events=(), on_event=None) -> list:
     """Steps ``start`` .. ``--steps - 1`` on ``SyntheticDataset.batch(step)``
@@ -449,14 +502,18 @@ def _train_loop(args, run: _Run, start: int, ckpts, say, sink, timer: obs.StepTi
     if len(pending) != len(events):
         say(f"warning: dropping {len(events) - len(pending)} resize event(s) "
             f"before resumed step {start}")
+    audit_due, traced = args.audit, None
     for step in range(start, args.steps):
         if pending and step == pending[0][0]:
             _, new_dev = pending.pop(0)
             if on_event(step, new_dev):
                 drift.reset(run.plan.predicted_step_time)
                 timer.peak_flops = cluster.peak_flops * run.plan.num_devices
+                audit_due = args.audit              # the rebuilt step
         if not run.member:
             continue
+        if audit_due:
+            traced, audit_due = _run_audit(args, run, sink, say), False
         batch = ds.batch(step)
         run.sync()
         timer.start()
@@ -469,6 +526,10 @@ def _train_loop(args, run: _Run, start: int, ckpts, say, sink, timer: obs.StepTi
             peak = float(torch.cuda.max_memory_allocated(device))
             registry.gauge("peak_hbm_bytes").set(peak)
             sink.emit("memory", step=step, peak_hbm_bytes=peak)
+            if traced is not None:
+                say(f"peak memory: traced {(traced.argument_bytes + traced.temp_bytes) / 1e9:.3f}"
+                    f" GB (arguments {traced.argument_bytes / 1e9:.3f} + temp "
+                    f"{traced.temp_bytes / 1e9:.3f}), measured {peak / 1e9:.3f} GB")
         verdict = drift.observe(step, rec.step_time_s)
         if verdict is not None and (verdict.drifting or drift_was_sustained):
             sink.emit("drift", **verdict.as_dict())
@@ -595,6 +656,12 @@ def main(argv=None) -> int:
                     help="print a deterministic state digest at the end "
                          "(params/opt sums + final loss) — lets two runs be "
                          "compared for bitwise-equivalent training state")
+    ap.add_argument("--audit", action="store_true",
+                    help="audit the traced step against the plan before the first "
+                         "step (repro_torch.analysis.step_audit, GALV090-093: "
+                         "per-axis collective census vs the cost model, dtype drift, "
+                         "remat presence, host reads); writes an `audit` event to the "
+                         "run sink and exits on audit errors")
     ap.add_argument("--run-dir", default="",
                     help="directory for the JSONL run log (repro_torch.obs "
                          "RunSink; e.g. results/runs/<run_id>) — step "

@@ -289,10 +289,11 @@ class _ChunkedAttention(torch.autograd.Function):
 
 def uses_kernel(impl: str, x: torch.Tensor) -> bool:
     """Whether attention goes to the flash kernel: ``impl="kernel"`` on a
-    CUDA tensor."""
+    CUDA tensor, or on a ``meta`` one (the dry run's stand-in for a CUDA
+    tensor on a torch without CUDA; the kernel's fake path takes it)."""
     if impl not in ("kernel", "ref"):
         raise ValueError(f"unknown impl {impl!r}")
-    return impl == "kernel" and x.is_cuda
+    return impl == "kernel" and (x.is_cuda or x.device.type == "meta")
 
 
 def valid_lengths(cache_index, Sq: int, B: int, kv_len, device) -> torch.Tensor:

@@ -135,6 +135,13 @@ def init_params(defs: ParamTree, generator: torch.Generator, device,
     return _nest(defs, values, ())
 
 
+def abstract_params(defs: ParamTree, dtype: torch.dtype = torch.float32) -> ParamTree:
+    """``init_params``' tree as tensors on the ``meta`` device: each leaf's
+    shape in ``dtype`` (the fp32 masters by default), nothing allocated or
+    drawn.  The dry run builds its traced inputs from it."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), defs)
+
+
 def _nest(defs: ParamTree, values: dict, prefix: tuple[str, ...]) -> ParamTree:
     """``defs``' nesting with the leaf at each path taken from ``values``.
     A module-level function: a nested one that calls itself sits in a

@@ -57,7 +57,9 @@ under gloo on CUDA each hop is copied through pinned host buffers and
 those copies' bytes are counted.  The context-parallel ring
 (``parallel.context``) goes round the ``cp`` axis on the same hop;
 ``ring_shift`` is the hop under autograd, whose backward shifts the grads
-the other way.
+the other way.  A hop traced on fake tensors (``kernels/_fake.py``: the dry
+run, ``--audit``) neither takes nor keeps a pinned buffer, and counts no
+bytes.
 
 Sequence parallelism nests inside a context-parallel shard: the rules give
 ``seq`` to ``("cp", "model")``, and the runtime hands each rank its cp
@@ -74,6 +76,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import _fake
 from repro_torch.parallel.axes import current_rules
 
 def _trivial(group) -> bool:
@@ -503,31 +506,38 @@ class StageHop:
         sides of a pair must post it in the same call: the pipeline's
         schedule makes every tick one such call on every rank."""
         ops, out, landed = [], [], []
+        fake = _fake.active()
+        count = (lambda *_: None) if fake else self._count
+        host = (lambda key, shape, dtype: torch.empty(shape, dtype=dtype)) if fake \
+            else self._host
         for i, (stage, x) in enumerate(sends):
             x = x.contiguous()
             if self.through_host:
-                host = self._host(("send", i, tuple(x.shape), x.dtype), x.shape, x.dtype)
-                host.copy_(x)
-                self.bytes["host_copies"] += x.numel() * x.element_size()
-                x = host
+                buf = host(("send", i, tuple(x.shape), x.dtype), x.shape, x.dtype)
+                buf.copy_(x)
+                count("host_copies", x)
+                x = buf
             ops.append(dist.P2POp(dist.isend, x, self._ranks[stage]))
-            self.bytes["sent"] += x.numel() * x.element_size()
+            count("sent", x)
         for i, (stage, shape, dtype) in enumerate(recvs):
             if self.through_host:
-                buf = self._host(("recv", i, tuple(shape), dtype), shape, dtype)
+                buf = host(("recv", i, tuple(shape), dtype), shape, dtype)
             else:
                 buf = torch.empty(shape, dtype=dtype, device=self.device)
             ops.append(dist.P2POp(dist.irecv, buf, self._ranks[stage]))
             landed.append(buf)
-            self.bytes["received"] += buf.numel() * buf.element_size()
+            count("received", buf)
         for req in (dist.batch_isend_irecv(ops) if ops else []):
             req.wait()
         for buf in landed:
             if self.through_host:
-                self.bytes["host_copies"] += buf.numel() * buf.element_size()
+                count("host_copies", buf)
                 buf = buf.to(self.device, copy=True)
             out.append(buf)
         return out
+
+    def _count(self, what: str, x: torch.Tensor) -> None:
+        self.bytes[what] += x.numel() * x.element_size()
 
     def rotate(self, xs, step: int = 1) -> list:
         """``step`` stages round the ring in one ``exchange``: every tensor

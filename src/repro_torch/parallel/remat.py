@@ -17,9 +17,17 @@ random numbers, so the checkpoint keeps no RNG state
 (``preserve_rng_state=False``: the same numbers) and a grad through it
 touches no generator when it is captured as a CUDA graph
 (``core/profiler_model.block_steps``).
+
+Each recomputing policy marks its region's forward through ``checkpoint``'s
+forward context: ``in_region()`` is true while a checkpointed forward runs
+and ``REGIONS.entered`` counts the forwards entered, which the step audit
+(``analysis/op_audit.py``, GALV092) reads as JAX's audit reads the staged
+``remat2`` equations.  The mark is a counter and nothing else: what the
+policies save and recompute does not change.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -42,15 +50,50 @@ def selective_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+class _Regions:
+    """The checkpointed forwards running now (``depth``) and entered so far
+    (``entered``)."""
+
+    def __init__(self):
+        self.depth = 0
+        self.entered = 0
+
+    @contextlib.contextmanager
+    def forward(self, inner):
+        self.depth += 1
+        self.entered += 1
+        try:
+            with inner:
+                yield
+        finally:
+            self.depth -= 1
+
+
+REGIONS = _Regions()
+
+
+def in_region() -> bool:
+    """True inside the forward of a checkpointed region."""
+    return REGIONS.depth > 0
+
+
+def _full_contexts():
+    return REGIONS.forward(contextlib.nullcontext()), contextlib.nullcontext()
+
+
+def _selective_contexts():
+    fwd, recompute = create_selective_checkpoint_contexts(selective_policy)
+    return REGIONS.forward(fwd), recompute
+
+
 def apply_remat(fn, policy: str):
     """``fn`` wrapped so that its activations follow ``policy``."""
     if policy == "none":
         return fn
     if policy == "full":
-        kw = {}
+        kw = {"context_fn": _full_contexts}
     elif policy == "selective":
-        kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
-                                              selective_policy)}
+        kw = {"context_fn": _selective_contexts}
     else:
         raise ValueError(f"unknown remat policy {policy!r}")
 

@@ -9,7 +9,9 @@ batch.  Tokens and labels are numpy int32 arrays; the embedding inputs
 bfloat16 tensors, rounded to nearest even from fp32 by ``Tensor.to`` (the
 JAX package rounds with ``ml_dtypes``; the port does not need it).
 
-``input_specs`` (the dry-run's abstract shapes) waits for the dry-run slice.
+``input_specs`` is JAX's: every model input of a (config x shape) cell as a
+tensor on the ``meta`` device (shapes and dtypes, nothing allocated), what
+the dry run traces against.
 """
 from __future__ import annotations
 
@@ -33,6 +35,36 @@ def _text_len(cfg: ModelConfig, seq_len: int) -> int:
     if cfg.family == "vlm":
         return seq_len - cfg.vis_tokens
     return seq_len
+
+
+def _spec(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape, model=None) -> dict:
+    """Abstract inputs of a train, prefill or decode step (JAX's
+    ``input_specs``; ``shape`` a ``configs.shapes.ShapeSpec``): the global
+    batch's tokens and labels, ``vis_embeds`` / ``frames`` where the family
+    takes them, and for decode the model's cache (``abstract_cache``),
+    ``cache_index`` and ``kv_len``."""
+    B, S = shape.global_batch, shape.seq_len
+    side = {}
+    if cfg.family == "vlm":
+        side["vis_embeds"] = _spec((B, cfg.vis_tokens, cfg.d_model), EMBED_DTYPE)
+    if cfg.family == "audio":
+        side["frames"] = _spec((B, cfg.enc_frames, cfg.d_model), EMBED_DTYPE)
+    st = _text_len(cfg, S)
+    if shape.kind == "train":
+        return {"tokens": _spec((B, st), torch.int32), "labels": _spec((B, st), torch.int32),
+                **side}
+    if shape.kind == "prefill":
+        return {"tokens": _spec((B, st), torch.int32), **side}
+    if shape.kind == "decode":
+        if model is None:
+            raise ValueError("decode specs need the model for its cache tree")
+        return {"tokens": _spec((B, 1), torch.int32), "cache": model.abstract_cache(B, S),
+                "cache_index": _spec((), torch.int32), "kv_len": _spec((B,), torch.int32)}
+    raise ValueError(shape.kind)
 
 
 @dataclasses.dataclass

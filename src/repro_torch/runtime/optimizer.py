@@ -18,7 +18,8 @@ sharded on, so a leaf held whole counts once, and the update takes that
 norm (``gnorm=``) instead of the local one.  The rank rule reads the
 shard's rank, which is the leaf's.
 
-``abstract_adamw_state`` waits for the dry-run slice.
+``abstract_adamw_state`` is JAX's: the state's shapes and dtypes as tensors
+on the ``meta`` device, for the dry run.
 """
 from __future__ import annotations
 
@@ -54,6 +55,16 @@ def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
     zeros = lambda dt: tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      m=zeros(cfg.m_dtype), v=zeros(cfg.v_dtype))
+
+
+def abstract_adamw_state(abstract_params, cfg: AdamWConfig) -> AdamWState:
+    """``adamw_init``'s state for a tree of parameter shapes (any tensors;
+    meta ones from ``models.common.abstract_params``) as tensors on the
+    ``meta`` device."""
+    zeros = lambda dt: tree_map(lambda p: torch.empty(p.shape, dtype=dt, device="meta"),
+                                abstract_params)
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
                       m=zeros(cfg.m_dtype), v=zeros(cfg.v_dtype))
 
 

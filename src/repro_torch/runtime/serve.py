@@ -72,7 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.strategy import ExecutionPlan
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import abstract_params, tree_map
 from repro_torch.obs import fence, span
 from repro_torch.parallel import collectives
 from repro_torch.parallel import sharding as shd
@@ -157,6 +157,15 @@ class ServingEngine:
                  metrics: Any = None) -> "ServingEngine":
         return cls(model, plan, mesh, batch=batch, max_len=max_len, dtype=dtype,
                    metrics=metrics)
+
+    def abstract_params(self) -> dict:
+        """The serving params' shapes on the ``meta`` device: floating
+        leaves in bf16 (no fp32 masters at inference, as JAX's), this rank's
+        ``param_specs`` shards on a mesh."""
+        tree = abstract_params(self.model.param_defs(), torch.bfloat16)
+        if self.mesh is None:
+            return tree
+        return shd.place_params(tree, self.param_specs, self.mesh)
 
     # ------------------------------------------------------------ mesh
     def place_params(self, canonical: dict) -> dict:

@@ -80,7 +80,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch.core.strategy import ExecutionPlan
-from repro_torch.models.common import tree_leaves, tree_map, unstack_layers
+from repro_torch.models.common import abstract_params, tree_leaves, tree_map, unstack_layers
 from repro_torch.models.mamba2 import check_tp as check_mamba2_tp
 from repro_torch.models.transformer import default_layer_runner
 from repro_torch.parallel import collectives
@@ -425,6 +425,23 @@ class HybridParallelModel:
             return params
         specs = self.param_specs if specs is None else specs
         return self.ungroup(shd.gather_params(params, specs, self.mesh))
+
+    def abstract_params(self) -> dict:
+        """``init_params``' tree as tensors on the ``meta`` device: this
+        rank's local shapes (``param_specs``) on a mesh, the canonical
+        shapes off one."""
+        canonical = abstract_params(self.model.param_defs())
+        if self.mesh is None:
+            return canonical
+        return shd.place_params(self.group(canonical), self.param_specs, self.mesh)
+
+    def abstract_opt_state(self) -> opt_lib.AdamWState:
+        """``init_opt_state``'s state on the ``meta`` device: m and v of this
+        rank's ``opt_specs`` shards on a mesh."""
+        canonical = abstract_params(self.model.param_defs())
+        if self.mesh is not None:
+            canonical = shd.place_params(self.group(canonical), self.opt_specs, self.mesh)
+        return opt_lib.abstract_adamw_state(canonical, self.opt_cfg)
 
     def init_opt_state(self, params) -> opt_lib.AdamWState:
         if self.mesh is None:

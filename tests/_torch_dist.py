@@ -796,6 +796,87 @@ def serve_cases(payload: dict) -> dict:
     return out
 
 
+def _shapes_of(tree) -> dict:
+    """{path: (shape, dtype)} of a nested dict / NamedTuple of tensors."""
+    out = {}
+
+    def walk(x, prefix):
+        if isinstance(x, torch.Tensor):
+            out["/".join(prefix)] = (tuple(x.shape), str(x.dtype))
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, prefix + (str(k),))
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            for k, v in zip(x._fields, x):
+                walk(v, prefix + (k,))
+    walk(tree, ())
+    return out
+
+
+def audit_cases(payload: dict) -> dict:
+    """Each case of ``payload["cases"]`` ((name, mesh shape, axes, plan
+    fields)) on this gloo rank: the trainer's abstract trees' shapes against
+    ``init_params`` / ``init_opt_state``'s, and for the cases named in
+    ``payload["census"]`` the collective census of one real ``train_step``
+    (``donate=True``) on the global batch; then, with the gloo group torn
+    down, the same rank of a fake world traces the same step on fake tensors
+    and records its census.  Every rank returns its own."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.comm_census import CommCensus
+    from repro_torch.analysis.step_trace import materialize, trace_step
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.strategy import ExecutionPlan, LayerStrategy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime.data import SyntheticDataset, input_specs
+    from repro_torch.runtime.resize import make_trainer
+
+    cfg = get_config("llama3.2-1b").reduced()
+    seq, batch_size = payload["seq"], payload["batch"]
+    batch = SyntheticDataset(cfg, seq, batch_size).batch(0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def trainer(case, backend=None):
+        _, shape, axes, fields = case
+        strategy = LayerStrategy(**fields["strategy"])
+        plan = ExecutionPlan(arch=cfg.name, shape="train", mesh_axes=tuple(axes),
+                             mesh_shape=tuple(shape), layer_strategies=[strategy] * cfg.num_layers,
+                             default_strategy=strategy,
+                             **{k: v for k, v in fields.items() if k != "strategy"})
+        mesh = make_mesh(shape, axes, device="cpu", backend=backend)
+        return make_trainer(build_model(cfg, device="cpu"), plan, mesh)
+
+    out = {"abstract": {}, "real": {}, "fake": {}}
+    for case in payload["cases"]:
+        hp = trainer(case)
+        params = hp.init_params(torch.Generator().manual_seed(0))
+        opt = hp.init_opt_state(params)
+        out["abstract"][case[0]] = (_shapes_of(hp.abstract_params()) == _shapes_of(params),
+                                    _shapes_of(hp.abstract_opt_state()) == _shapes_of(opt))
+        if case[0] not in payload["census"]:
+            continue
+        with CommCensus(hp.mesh) as census:
+            hp.train_step(params, opt, batch, donate=True)
+        out["real"][case[0]] = census.axis_census().rows()
+    dist.destroy_process_group()
+    dryrun.fake_world(world, rank)
+    spec = ShapeSpec("audit", "train", seq, batch_size)
+    for case in (c for c in payload["cases"] if c[0] in payload["census"]):
+        hp = trainer(case, backend=dryrun.FAKE_BACKEND)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            params = materialize(hp.abstract_params(), "cpu")
+            opt = materialize(hp.abstract_opt_state(), "cpu")
+            fake_batch = materialize(input_specs(cfg, spec, hp.model), "cpu")
+            tr = trace_step(lambda: hp.train_step(params, opt, fake_batch, donate=True),
+                            (params, opt, fake_batch), hp.mesh)
+        out["fake"][case[0]] = tr.census.axis_census().rows()
+    return out
+
+
 def references(name: str, arch: str, strategies, grad_accum: int = 1, batch: int = 8,
                seq: int = 32, eps: float = 1e-4,
                overrides: dict | None = None, masked: int = 3) -> tuple[dict, dict]:

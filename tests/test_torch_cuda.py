@@ -2017,3 +2017,81 @@ def test_cuda_checkpoint_writer_logs_to_its_sink(cuda_device, tmp_path):
     assert keys["written"] == {"event", "ts", "phase", "step", "write_seconds", "path"}
     names = [r["name"] for r in obs.default_tracer().timeline()[before:]]
     assert names.count("ckpt_host_copy") == names.count("ckpt_enqueue") == 2
+
+
+# --------------------------------------------------------------------------
+# the dry run's trace beside real steps
+# --------------------------------------------------------------------------
+
+def _small_trainer(policy: str, device="cuda"):
+    from repro_torch.core.strategy import LayerStrategy, uniform_plan
+    from repro_torch.runtime.train import construct_hybrid_parallel_model
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
+    plan = uniform_plan(cfg.name, "train", (1,), ("data",), cfg.num_layers,
+                        LayerStrategy(remat=policy), grad_accum=2)
+    return cfg, construct_hybrid_parallel_model(build_model(cfg, device=device), plan)
+
+
+def test_cuda_launch_counters_rise_after_a_fake_trace(cuda_device):
+    """A step traced on fake CUDA tensors launches and counts nothing; the
+    same process's real step on the card then launches every kernel and
+    counts each launch as before."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.step_trace import materialize, trace_step
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.runtime.data import SyntheticDataset, input_specs
+
+    cfg, hp = _small_trainer("selective")
+    spec = ShapeSpec("t", "train", 512, 4)
+    before = _counts()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = materialize(hp.abstract_params(), cuda_device)
+        opt = materialize(hp.abstract_opt_state(), cuda_device)
+        batch = materialize(input_specs(cfg, spec, hp.model), cuda_device)
+        tr = trace_step(lambda: hp.train_step(params, opt, batch), (params, opt, batch))
+    assert _counts() == before
+    assert tr.kernel_counts()["flash_attention_fwd"] > 0
+    real = hp.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    out = hp.train_step(real, hp.init_opt_state(real), SyntheticDataset(cfg, 512, 4).batch(0))
+    assert torch.isfinite(out[2]["loss"])
+    moved = _moved(before)            # K1, K2, gated K2, K2's backward, ...
+    assert moved[0] == tr.kernel_counts()["flash_attention_fwd"]
+    assert moved[1] == tr.kernel_counts()["rmsnorm"]
+    assert moved[3] == tr.kernel_counts()["rmsnorm_backward"]
+
+
+@pytest.mark.parametrize("policy", ["none", "selective", "full"])
+def test_cuda_traced_temp_is_the_measured_step_peak(cuda_device, policy):
+    """A small real step's peak above its arguments (``max_memory_allocated``
+    after ``reset_peak_memory_stats`` minus ``memory_allocated`` before the
+    step) within 10 % of its trace's temp on meta tensors; the arguments'
+    bytes equal."""
+    from repro_torch.analysis.step_trace import materialize, trace_step
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime.data import SyntheticDataset, input_specs
+
+    cfg, hp = _small_trainer(policy)
+    spec = ShapeSpec("t", "train", 1024, 4)
+    meta_hp = _small_trainer(policy, "meta")[1]
+    params = materialize(meta_hp.abstract_params(), "meta")
+    opt = materialize(meta_hp.abstract_opt_state(), "meta")
+    batch = materialize(input_specs(cfg, spec, meta_hp.model), "meta")
+    tr = trace_step(lambda: meta_hp.train_step(params, opt, batch), (params, opt, batch),
+                    memory_only=True)
+    real = hp.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    ropt = hp.init_opt_state(real)
+    rbatch = {k: torch.as_tensor(v).to(cuda_device)
+              for k, v in SyntheticDataset(cfg, 1024, 4).batch(0).items()}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(real) + tree_leaves(ropt.m)
+                 + tree_leaves(ropt.v) + [ropt.step] + list(rbatch.values()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    hp.train_step(real, ropt, rbatch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - before
+    assert tr.argument_bytes == nbytes
+    assert abs(tr.temp_bytes - measured) <= 0.10 * measured, (tr.temp_bytes, measured)

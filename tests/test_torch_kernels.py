@@ -193,13 +193,22 @@ def test_cpu_route_takes_plain_version_without_counting():
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     """Only a CPU tensor takes the plain version: any other device must
-    launch the kernel or raise — never fall back quietly."""
+    launch the kernel or raise — never fall back quietly.  A ``meta``
+    tensor, which holds no data, takes the kernel's fake path (the dry
+    run's: ``kernels/_fake.py``): the kernel's outputs on ``meta``, one
+    kernel event, no launch counted, never the plain version."""
+    from repro_torch.kernels import _fake
+
+    events = []
+    counts = (rms_ops.rmsnorm.launches, flash_ops.flash_attention_fwd.launches)
     x = torch.empty(2, 64, device="meta")
-    with pytest.raises(ValueError):
-        rms_ops.rmsnorm(x, torch.empty(64, device="meta"))
     q = torch.empty(1, 4, 2, 32, device="meta")
-    with pytest.raises(ValueError):
-        flash_ops.flash_attention_fwd(q, q, q)
+    with _fake.listen(events.append):
+        out = rms_ops.rmsnorm(x, torch.empty(64, device="meta"))
+        o = flash_ops.flash_attention_fwd(q, q, q)
+    assert out.device.type == "meta" and o.device.type == "meta"
+    assert [e.name for e in events] == ["rmsnorm", "flash_attention_fwd"]
+    assert (rms_ops.rmsnorm.launches, flash_ops.flash_attention_fwd.launches) == counts
     with pytest.raises(ValueError):          # mixed devices
         rms_ops.rmsnorm(torch.ones(2, 64), torch.empty(64, device="meta"))
 
