@@ -39,7 +39,10 @@ Phases (any failure exits non-zero and prints no result line):
    qwen2.5-3b prefill B2 S512 on 8 query heads over 1 KV head and its
    decode partial B2 Sq1 over a 272-key slice at key offset 272 on 16 over
    2 (g = 8, hd 128, per-slot positions, residuals, split-K), and the same
-   with a slot that sees none of the slice's keys): fp32 1e-4,
+   with a slot that sees none of the slice's keys; and at zamba2's shared
+   block, a prefill B2 S512 on 16 query heads over 16 KV heads and a
+   decode partial B2 Sq1 over the 272-key slice on 32 over 32, hd 112):
+   fp32 1e-4,
    bf16 3e-2, residuals 1e-5, and per (b, s, h) row against the fp32 plain
    version 1e-4 (fp32) or 2^-6 (bf16) of the row's largest |value|, which
    holds rows over thousands of keys, whose values are ~1e-2; the llama
@@ -73,11 +76,16 @@ Phases (any failure exits non-zero and prints no result line):
    width, a misaligned view; bf16 and fp32): each half's passes, the row
    statistics summed by hand, against the plain passes and, concatenated,
    against the whole-row K2 and its backward, the bf16 halves' forward and
-   backward pairs timed beside the whole-row K2 at the same width; SSD scan: max |err| <= 1e-3 *
+   backward pairs timed beside the whole-row K2 at the same width; phase
+   34's serving rows, the forward alone over a bf16 scale: a tp 2 rank's
+   prefill (1 024 rows) and decode (2 rows) of mamba2's 5120 and zamba2's
+   7168; SSD scan: max |err| <= 1e-3 *
    max(1, max |plain|) for
    y and the final state, plus one bf16 step (2^-7 |y|) for a bf16 y, at
-   the mamba2 prefill shape, a ragged S, G = 2 and zamba2's prefill (112
-   heads over G 2, N 64), each in fp32 and in bf16
+   the mamba2 prefill shape, a ragged S, G = 2, zamba2's prefill (112
+   heads over G 2, N 64) and a phase 34 rank's prefill on its heads and
+   the one group they read (mamba2 B2 S512 H40 G1 N128, zamba2 H56 G1
+   N64), each in fp32 and in bf16
    (the dtype the model passes; the tensor-core template), and against the
    step-by-step scan; each template's shared memory per block and blocks
    per SM at N 128, P 64 are logged); the scan under autograd
@@ -492,21 +500,37 @@ Phases (any failure exits non-zero and prints no result line):
    tp 2 ZeRO-0, serve qwen2.5-3b at full width through
    ``serving.step_engine(model, plan, mesh, ...)``: (a) bf16 at full depth
    (36 layers; the canonical tree drawn on the card in bf16 from one seed,
-   3.1 GB of shards a rank), 4 x 512 prompt tokens and 16 greedy tokens
-   through ``greedy_generate`` in a cache of 544 positions, 272 a rank of
-   the model axis (flash-decode: K1's partials over every rank's slice,
-   merged), the greedy tokens the same on every rank and their agreement
-   with one rank's single-device engine logged, each rank's launches pinned
-   (``serve_mesh_launches``) and its K1 shapes phase 3's rows; then a
-   prefill and 15 decode steps fed the single-device tokens, each step's
-   logits no further from the fp32 plain path than twice the plain bf16
-   path's error; (b) full width cut to 4 layers in fp32, the same run's
-   logits within 1e-3 of their scale of one rank's and the gathered cache
-   within 1e-5; (c) the same at ``max_len`` 543, whose positions do not
+   3.4 GB of shards a rank), 4 x 512 prompt tokens and 8 greedy tokens
+   through ``greedy_generate`` in a cache of 544
+   positions, 272 a rank of the model axis (flash-decode: K1's partials
+   over every rank's slice, merged), the greedy tokens the same on every
+   rank and their agreement with one rank's single-device engine logged,
+   each rank's launches pinned (``serve_mesh_launches``) and its K1 shapes
+   phase 3's rows; then a prefill and 7 decode steps fed
+   the single-device tokens, each step's logits no further from the fp32
+   plain path than twice the plain bf16 path's error; (b) full width cut
+   to 4 layers in fp32, 16 steps, the same run's logits within 1e-3 of
+   their scale of one rank's and the gathered cache within 1e-5; (c) the
+   same at ``max_len`` 543, whose positions do not
    split: the whole cache on every rank, 2 decode steps, the same checks
    ((b)'s and (c)'s launches pinned too, (c)'s K1 shapes phase 3's rows);
-   each rank's prefill and decode latency (gloo through the host of one
-   card, not an interconnect) and peak are logged;
+   (d) mamba2-2.7b at full width and depth (64 layers) and (e) zamba2-7b
+   at full width cut to 12 of its 81 layers (2 shared-block sites), bf16,
+   each as (a) at ``max_len`` 544 with 16 greedy tokens and the same 8
+   teacher-forced steps: the SSD state sharded by heads, K3 on
+   each rank's 40 / 56 heads and the one group they read, the gate norm
+   through K2's split-row passes, zamba2's sites by flash-decode (K1 at hd
+   112, g = 1, over each rank's 272 positions), each rank's launches
+   pinned and the shapes K1, K3 and the split K2 see phase 3's rows; (f)
+   mamba2 cut to 2 layers and zamba2 to 6 (the least depth with a site) in
+   fp32, as (b) but each cache leaf within 1e-3 of its scale, as the
+   logits (1e-5 holds the Mamba leaves, not zamba2's K/V: fp32 rounding
+   through 6 Mamba layers), one rank's own kernel-vs-plain distance logged
+   beside it; in every part an SSM
+   state's B / C conv buffers bitwise
+   the same on every rank of the model axis; each rank's prefill and
+   decode latency (gloo through the host of one card, not an
+   interconnect) and peak are logged;
 35. the dry run (host only; after phase 34, before the results) — the dry
    run job (``chip_smoke.py --dryrun-job``, a process started with phase 2
    at a lower priority, whose first part is phase 10's traces) runs ``python
@@ -531,7 +555,10 @@ Phases (any failure exits non-zero and prints no result line):
    decode partial and prefill rows and the 2 x 2048 and 1 024 x 2048 K2
    rows for ``serve_mesh`` with (a)'s ``greedy_generate`` launches over its
    ranks, its prefill, whole-cache decode and K2 rows for
-   ``serve_mesh_whole`` with (c)'s),
+   ``serve_mesh_whole`` with (c)'s; the K2, split K2 and K3 rows of a
+   phase 34 rank's (d) for ``serve_mesh_ssm`` and its K1, K2, split K2 and
+   K3 rows of (e) for ``serve_mesh_hybrid``, with their
+   ``greedy_generate``'s launches over the ranks),
    then the device line last.
 """
 from __future__ import annotations
@@ -567,6 +594,8 @@ PAR_TRAIN_PATHS = ("parallel", "telemetry_train", "elastic")
 #: a phase 34 rank's prefill (K1 and K2) and its decode rows' K2 are the same
 #: shapes in (a)'s sequence-sharded cache and (c)'s whole one
 SERVE_MESH_PATHS = ("serve_mesh", "serve_mesh_whole")
+#: ... and with (d)'s mamba2 and (e)'s zamba2, every path of phase 34
+SERVE_MESH_ALL_PATHS = SERVE_MESH_PATHS + ("serve_mesh_ssm", "serve_mesh_hybrid")
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # per (b, s, h) row of K1's output: the largest error against the fp32 plain
@@ -790,8 +819,9 @@ def check_flash(torch, flash_ops, flash_ref, gen, only=None):
     inside a pipeline stage (path ``pipeline_context``); phase 32's train
     launcher's microbatch, 2 x 2048 (path ``telemetry_train``); a phase 34
     rank's prefill, decode partial over its cache slice (``serve_mesh``) and
-    decode over a whole cache (``serve_mesh_whole``).  ``only``: one path's
-    rows, or several paths' (a tuple)."""
+    decode over a whole cache (``serve_mesh_whole``), and its prefill and
+    decode partial at zamba2's shared block (``serve_mesh_hybrid``).
+    ``only``: one path's rows, or several paths' (a tuple)."""
     rows = []
     cases = [("train causal B2 S4096 H32 KV8 hd64 bfloat16", True, flash_case(
         torch, gen, B=2, Sq=4096, Sk=4096, H=32, KV=8, hd=64, dtype=torch.bfloat16,
@@ -1002,6 +1032,21 @@ def check_flash(torch, flash_ops, flash_ref, gen, only=None):
                           torch, gen, B=2, Sq=1, Sk=SERVE_MESH_WHOLE_LEN, H=8, KV=1, hd=128,
                           dtype=dtype, q_off=w_len - 1, kv_len=w_len,
                           path="serve_mesh_whole")))
+    # phase 34 (e) and (f): a serving-mesh rank's K1 calls at zamba2's shared
+    # block (tp 2 of 32 query heads over 32 KV heads, g = 1, hd 112): its
+    # prefill on 16 heads and the 16 KV heads they read, a decode partial on
+    # every head over its 272-key slice at rank 1's key offset
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        cases.append((f"serve mesh hybrid decode partial B2 Sq1 Sk{slice_len} H32 KV32 hd112 "
+                      f"key offset {slice_len} per-slot residuals {name}", True, flash_case(
+                          torch, gen, B=2, Sq=1, Sk=slice_len, H=32, hd=112, dtype=dtype,
+                          q_off=m_len - 1, kv_len=m_len, k_off=slice_len,
+                          path="serve_mesh_hybrid", residuals=True)))
+        cases.append((f"serve mesh hybrid prefill causal B2 S{SERVE_MESH_PROMPT} H16 KV16 hd112 "
+                      f"{name}", True, flash_case(torch, gen, B=2, Sq=SERVE_MESH_PROMPT,
+                                                  Sk=SERVE_MESH_PROMPT, H=16, hd=112,
+                                                  dtype=dtype, path="serve_mesh_hybrid")))
     if only is not None:            # one phase's rows (a one-phase script)
         cases = [case for case in cases if on_path(case[2]["path"], only)]
     for label, timed, c in cases:
@@ -1143,7 +1188,9 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen, only=None):
     train launcher's microbatch of 2 x 2048 rows; elastic: a phase 33 rank's
     2 x 4096 rows on 2 ranks over the fp32 master scale; serve_mesh and
     serve_mesh_whole: a phase 34 rank's 2 decode rows and its prefill's
-    1 024 rows x 2048); "check" rows are timed
+    1 024 rows x 2048; serve_mesh_ssm and serve_mesh_hybrid: the same rows
+    of (d)'s mamba2 (2560) and (e)'s zamba2 (3584), whole rows: the layer,
+    shared-block and final norms); "check" rows are timed
     and logged but belong to no path (the gate norms' widths 5120 and 7168,
     which the models now run gated)."""
     rows = []
@@ -1159,6 +1206,8 @@ def check_rmsnorm(torch, rms_ops, rms_ref, gen, only=None):
               ((4096, 2048, "fp32 scale"), PAR_TRAIN_PATHS),
               ((8192, 2048, "fp32 scale"), "elastic"), ((2, 2048), SERVE_MESH_PATHS),
               ((1024, 2048), SERVE_MESH_PATHS),
+              ((1024, 2560), "serve_mesh_ssm"), ((2, 2560), "serve_mesh_ssm"),
+              ((1024, 3584), "serve_mesh_hybrid"), ((2, 3584), "serve_mesh_hybrid"),
               ((8192, 5120), "check"),
               ((8192, 7168), "check"), ((8192, 64), None),
               ((32768, 128), None), ((64, 14336), None), ((6, 40000), None), ((7, 333), None),
@@ -1336,7 +1385,7 @@ def check_rmsnorm_backward(torch, rms_ops, rms_ref, gen):
     return rows
 
 
-def check_rmsnorm_split(torch, rms_ops, rms_ref, gen):
+def check_rmsnorm_split(torch, rms_ops, rms_ref, gen, only=None):
     """K2's split-row form (phase 27's gate norms: 4096 rows of mamba2's
     d_inner 5120 and zamba2's 7168, split over two ranks) in bf16 and fp32,
     no process group: each half's pass 1, the two sums added by hand, each
@@ -1349,20 +1398,34 @@ def check_rmsnorm_split(torch, rms_ops, rms_ref, gen):
     one rank's half): the forward's two passes and the backward's two
     passes beside their plain versions and the whole-row K2 (and its
     backward) at the same local width; ``library_ms`` null: no PyTorch call
-    takes an external row statistic."""
+    takes an external row statistic.  Phase 34's serving ranks (tp 2, no
+    grad) run the forward alone, over the bf16 scale of a bf16 model: a
+    prefill's 2 x 512 rows and a decode step's 2, of mamba2's 5120 (path
+    ``serve_mesh_ssm``) and zamba2's 7168 (``serve_mesh_hybrid``), forward
+    rows only (fp32 at the same shapes: (f)'s, checked, not timed).
+    ``only``: one path's rows, or several paths' (a tuple)."""
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    cases = [((4096, 5120), bf16, "ssm_parallel_a"), ((4096, 7168), bf16, "ssm_parallel_b"),
-             ((4096, 5120), f32, None), ((4096, 7168), f32, None), ((300, 666), f32, None),
-             ((300, 666), bf16, None), ((512, 1024, "misaligned"), bf16, None)]
-    for shape, dtype, path in cases:
+    both, fwd_only = ("forward", "backward"), ("forward",)
+    cases = [((4096, 5120), bf16, "ssm_parallel_a", both, f32),
+             ((4096, 7168), bf16, "ssm_parallel_b", both, f32),
+             ((4096, 5120), f32, None, both, f32), ((4096, 7168), f32, None, both, f32),
+             ((300, 666), f32, None, both, f32), ((300, 666), bf16, None, both, f32),
+             ((512, 1024, "misaligned"), bf16, None, both, f32)]
+    for width, path in ((5120, "serve_mesh_ssm"), (7168, "serve_mesh_hybrid")):
+        for R in (2 * SERVE_MESH_PROMPT, SERVE_MESH_BATCH // SERVE_MESH_SHAPE[0]):
+            cases += [((R, width), bf16, path, fwd_only, bf16),
+                      ((R, width), f32, None, fwd_only, f32)]
+    if only is not None:            # one path's rows (a one-phase script)
+        cases = [c for c in cases if c[2] is not None and on_path(c[2], only)]
+    for shape, dtype, path, kinds, scale_dtype in cases:
         mis = shape[-1] == "misaligned"
         R, W = shape[:2]
         name = str(dtype).replace("torch.", "")
         tol = RMSNORM_TOL[name]
         x = (3.0 * torch.randn((R, W), generator=gen, device="cuda")).to(dtype)
         g = torch.randn((R, W), generator=gen, device="cuda").to(dtype)
-        scale = 1 + 0.3 * torch.randn((W,), generator=gen, device="cuda")
+        scale = (1 + 0.3 * torch.randn((W,), generator=gen, device="cuda")).to(scale_dtype)
         halves = [t.contiguous() for t in x.chunk(2, -1)]
         g_halves = [t.contiguous() for t in g.chunk(2, -1)]
         if mis:
@@ -1385,34 +1448,21 @@ def check_rmsnorm_split(torch, rms_ops, rms_ref, gen):
 
         stat, outs = forward()
         rstat, routs = forward(plain=True)
-        grads, grads2 = backward(stat), backward(stat)
-        rgrads = backward(rstat, plain=True)
         whole = rms_ops.rmsnorm(x, scale, 1e-5)
-        wdx, wds = rms_ops.rmsnorm_backward(x, scale, g, 1e-5)
         torch.cuda.synchronize()
         closes = [_rms_close(torch, o, r, tol) for o, r in zip(outs, routs)]
         err_f, ok_f = max(e for e, _ in closes), all(ok for _, ok in closes)
         err_w, ok_w = _rms_close(torch, torch.cat(outs, -1), whole, tol)
-        dx, ds = torch.cat([a for a, _ in grads], -1), torch.cat([b for _, b in grads])
-        rdx, rds = torch.cat([a for a, _ in rgrads], -1), torch.cat([b for _, b in rgrads])
-        tol_dx = tol * max(1.0, float(rdx.float().abs().max()))
-        tol_ds = (1e-4 if dtype == f32 else tol) * float(rds.abs().max())
-        err_dx = float((dx.float() - rdx.float()).abs().max())
-        err_ds = float((ds - rds).abs().max())
-        werr_dx = float((dx.float() - wdx.float()).abs().max())
-        werr_ds = float((ds - wds).abs().max())
-        same = all(torch.equal(a, c) and torch.equal(b, d) for (a, b), (c, d) in zip(grads, grads2))
         label = f"{R}x{W // 2} of {W} {name}{' misaligned view' if mis else ''}"
-        tpl_f = _rms_template(rms_ops, halves[0], s_halves[0])
-        tpl_b = _rms_template(rms_ops, halves[0], s_halves[0], g_halves[0], backward=True)
-        log(f"K2 split [{label}] templates {tpl_f} / {tpl_b}: forward max_abs_err {err_f:.3e} "
-            f"vs plain, {err_w:.3e} vs the whole-row K2 (atol and rtol {tol}, as the forward's "
-            f"check); backward dx {err_dx:.3e} / {werr_dx:.3e} (tol {tol_dx:.3e}), dscale "
-            f"{err_ds:.3e} / {werr_ds:.3e} (tol {tol_ds:.3e}); two calls bitwise equal: {same}")
-        require(ok_f and ok_w, f"split rmsnorm forward disagrees: {label}")
-        require(max(err_dx, werr_dx) <= tol_dx and max(err_ds, werr_ds) <= tol_ds,
-                f"split rmsnorm backward disagrees: {label}")
-        require(same, f"split rmsnorm backward is not deterministic: {label}")
+        if "backward" not in kinds:
+            log(f"K2 split [{label}, scale {str(scale_dtype).replace('torch.', '')}] template "
+                f"{_rms_template(rms_ops, halves[0], s_halves[0])}: forward max_abs_err "
+                f"{err_f:.3e} vs plain, {err_w:.3e} vs the whole-row K2 (atol and rtol {tol})")
+            require(ok_f and ok_w, f"split rmsnorm forward disagrees: {label}")
+        else:
+            err_b = check_split_backward(torch, rms_ops, x, scale, g, stat, rstat, backward, label,
+                                         tol, dtype, halves, s_halves, g_halves,
+                                         max(err_f, err_w), ok_f and ok_w)
         if path is None:
             continue
         h, sc, q = halves[0], s_halves[0], g_halves[0]
@@ -1430,27 +1480,60 @@ def check_rmsnorm_split(torch, rms_ops, rms_ref, gen):
             dot = rms_ops.rmsnorm_split_dot(h, sc, q, stat, W)
             return rms_ops.rmsnorm_split_backward(h, sc, q, stat, dot, W)
 
-        e = h.element_size()
-        for kind, fn, nbytes, flops, whole_fn, err in (
-                ("forward", fwd_pair, 2 * h.numel() * e + 4 * sc.numel() + 8 * R, 4.0 * h.numel(),
-                 lambda: rms_ops.rmsnorm(h, sc, 1e-5), max(err_f, err_w)),
-                ("backward", bwd_pair, 3 * h.numel() * e + 8 * sc.numel() + 12 * R,
-                 10.0 * h.numel(), lambda: rms_ops.rmsnorm_backward(h, sc, q, 1e-5),
-                 max(err_dx, werr_dx, err_ds, werr_ds))):
+        e, se = h.element_size(), sc.element_size()
+        timed = [("forward", fwd_pair, 2 * h.numel() * e + se * sc.numel() + 8 * R,
+                  4.0 * h.numel(), lambda: rms_ops.rmsnorm(h, sc, 1e-5), max(err_f, err_w))]
+        if "backward" in kinds:
+            timed.append(("backward", bwd_pair, 3 * h.numel() * e + 2 * se * sc.numel() + 12 * R,
+                          10.0 * h.numel(), lambda: rms_ops.rmsnorm_backward(h, sc, q, 1e-5),
+                          err_b))
+        for kind, fn, nbytes, flops, whole_fn, err in timed:
             ms = device_ms(fn, torch)
             plain = device_ms(lambda: fn(plain=True), torch, inner=3, reps=7)
             whole_ms = device_ms(whole_fn, torch)
             b_ms, b_by = bound(nbytes, flops, name)
-            log(f"K2 split {kind} [{label}, fp32 scale] two passes {ms:.5f} ms  plain "
-                f"{plain:.4f} ms  the whole-row K2 {kind} at the same {W // 2} columns "
-                f"{whole_ms:.5f} ms  bound {b_ms:.6f} ms ({b_by}, {100 * b_ms / ms:.1f} %); "
-                "library: none (no PyTorch call takes an external row statistic)")
+            log(f"K2 split {kind} [{label}, {str(sc.dtype).replace('torch.', '')} scale] two "
+                f"passes {ms:.5f} ms  plain {plain:.4f} ms  the whole-row K2 {kind} at the same "
+                f"{W // 2} columns {whole_ms:.5f} ms  bound {b_ms:.6f} ms ({b_by}, "
+                f"{100 * b_ms / ms:.1f} %); library: none (no PyTorch call takes an external "
+                "row statistic)")
             rows.append(dict(label=f"{label} {kind}, two passes", path=path, kind=kind,
                              max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
                              bound_ms=b_ms, bound_by=b_by, whole_ms=whole_ms))
-        del x, g, halves, g_halves, outs, routs, grads, grads2, rgrads, whole, wdx
+        del x, g, halves, g_halves, outs, routs, whole
     torch.cuda.empty_cache()
     return rows
+
+
+def check_split_backward(torch, rms_ops, x, scale, g, stat, rstat, backward, label, tol, dtype,
+                         halves, s_halves, g_halves, err_fwd, ok_fwd) -> float:
+    """The split backward's checks of ``check_rmsnorm_split`` (see there),
+    logged with the forward's: against the plain passes and the whole-row
+    K2's backward, and bitwise over two calls; returns its largest error."""
+    grads, grads2 = backward(stat), backward(stat)
+    rgrads = backward(rstat, plain=True)
+    wdx, wds = rms_ops.rmsnorm_backward(x, scale, g, 1e-5)
+    torch.cuda.synchronize()
+    dx, ds = torch.cat([a for a, _ in grads], -1), torch.cat([b for _, b in grads])
+    rdx, rds = torch.cat([a for a, _ in rgrads], -1), torch.cat([b for _, b in rgrads])
+    tol_dx = tol * max(1.0, float(rdx.float().abs().max()))
+    tol_ds = (1e-4 if dtype == torch.float32 else tol) * float(rds.abs().max())
+    err_dx = float((dx.float() - rdx.float()).abs().max())
+    err_ds = float((ds - rds).abs().max())
+    werr_dx = float((dx.float() - wdx.float()).abs().max())
+    werr_ds = float((ds - wds).abs().max())
+    same = all(torch.equal(a, c) and torch.equal(b, d) for (a, b), (c, d) in zip(grads, grads2))
+    tpl_f = _rms_template(rms_ops, halves[0], s_halves[0])
+    tpl_b = _rms_template(rms_ops, halves[0], s_halves[0], g_halves[0], backward=True)
+    log(f"K2 split [{label}] templates {tpl_f} / {tpl_b}: forward max_abs_err {err_fwd:.3e} "
+        f"(vs plain and the whole-row K2, atol and rtol {tol}, as the forward's check); "
+        f"backward dx {err_dx:.3e} / {werr_dx:.3e} (tol {tol_dx:.3e}), dscale "
+        f"{err_ds:.3e} / {werr_ds:.3e} (tol {tol_ds:.3e}); two calls bitwise equal: {same}")
+    require(ok_fwd, f"split rmsnorm forward disagrees: {label}")
+    require(max(err_dx, werr_dx) <= tol_dx and max(err_ds, werr_ds) <= tol_ds,
+            f"split rmsnorm backward disagrees: {label}")
+    require(same, f"split rmsnorm backward is not deterministic: {label}")
+    return max(err_dx, werr_dx, err_ds, werr_ds)
 
 
 def ssd_bound(x, dt, A, B) -> tuple[float, str]:
@@ -1469,8 +1552,12 @@ def ssd_bound(x, dt, A, B) -> tuple[float, str]:
     return bound(nbytes, flops, str(x.dtype).replace("torch.", ""))
 
 
-def check_ssd(torch, ssd_ops, ssd_ref, gen):
-    """The SSD scan kernel against its plain versions; every case timed."""
+def check_ssd(torch, ssd_ops, ssd_ref, gen, only=None):
+    """The SSD scan kernel against its plain versions; every case of a path
+    timed (phase 34's serving ranks: a tp 2 rank's prefill on its heads and
+    the group they read, mamba2's 40 of 80 and zamba2's 56 of 112, in bf16;
+    fp32 at the same shapes, (f)'s, checked, not timed).  ``only``: one
+    path's rows, or several paths' (a tuple)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (label, B, S, H, P, G, N, dtype, plain, path)
         ("mamba2 prefill B4 S2048 H80 P64 G1 N128 float32", 4, 2048, 80, 64, 1, 128, f32,
@@ -1495,6 +1582,15 @@ def check_ssd(torch, ssd_ops, ssd_ref, gen):
         ("zamba2 prefill B4 S2048 H112 P64 G2 N64 float32", 4, 2048, 112, 64, 2, 64, f32,
          "chunked", "zamba2"),
     ]
+    R, S = SERVE_MESH_BATCH // SERVE_MESH_SHAPE[0], SERVE_MESH_PROMPT
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        cases += [
+            (f"serve mesh mamba2 rank B{R} S{S} H40 P64 G1 N128 {name}", R, S, 40, 64, 1, 128,
+             dtype, "chunked", "serve_mesh_ssm" if dtype == bf16 else None),
+            (f"serve mesh zamba2 rank B{R} S{S} H56 P64 G1 N64 {name}", R, S, 56, 64, 1, 64,
+             dtype, "chunked", "serve_mesh_hybrid" if dtype == bf16 else None)]
+    if only is not None:            # one path's rows (a one-phase script)
+        cases = [c for c in cases if c[-1] is not None and on_path(c[-1], only)]
     for dtype in (f32, bf16):
         smem, blocks = ssd_ops.occupancy(dtype, 128, 64)
         log(f"K3 ssd {str(dtype).replace('torch.', '')} at N 128, P 64: {smem} bytes of "
@@ -1529,6 +1625,8 @@ def check_ssd(torch, ssd_ops, ssd_ref, gen):
         require(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
                 f"ssd produced non-finite values: {label}")
         require(y_ok and err_s <= tol_s, f"ssd disagrees with its plain version: {label}")
+        if path is None:
+            continue
         ms = device_ms(lambda: ssd_ops.ssd(x, dt, A, B, C), torch)
         plain_ms = device_ms(lambda: plain_fn(x, dt, A, B, C), torch,
                              inner=2 if plain == "naive" else 10, reps=5)
@@ -6458,32 +6556,67 @@ SERVE_MESH_SHAPE, SERVE_MESH_WORLD = (2, 2), 4          # (data, model)
 #: 4 prompts of 512 tokens, 16 greedy tokens, in a cache of 544 positions:
 #: 272 a rank of the model axis (flash-decode); 543 does not split
 SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_NEW = 4, 512, 16
+#: what pays for (d)-(f): (a)'s greedy_generate makes 8 tokens, and the
+#: teacher-forced runs of (a), (d) and (e) (and rank 0's plain runs beside
+#: them) a prefill and 7 decode steps
+SERVE_MESH_A_NEW, SERVE_MESH_FORCED = 8, 8
 SERVE_MESH_LEN = 544
 SERVE_MESH_WHOLE_LEN, SERVE_MESH_WHOLE_STEPS = 543, 2
 #: (b) and (c): full width cut to 4 of the 36 layers, in fp32
 SERVE_MESH_FP32_LAYERS = 4
 SERVE_MESH_CACHE_TOL = 1e-5          # the gathered fp32 cache, of its scale
+#: (d) mamba2-2.7b at full width and depth; (e) zamba2-7b at full width cut
+#: to 12 of its 81 layers (2 shared-block sites); (f) each in fp32, mamba2
+#: cut to 2 layers and zamba2 to 6 (the least depth with a site)
+SERVE_MESH_SSM_ARCH, SERVE_MESH_HYBRID_ARCH = "mamba2-2.7b", "zamba2-7b"
+SERVE_MESH_STATE_PARTS = {"d": (SERVE_MESH_SSM_ARCH, None), "e": (SERVE_MESH_HYBRID_ARCH, 12),
+                          f"f_{SERVE_MESH_SSM_ARCH}": (SERVE_MESH_SSM_ARCH, 2),
+                          f"f_{SERVE_MESH_HYBRID_ARCH}": (SERVE_MESH_HYBRID_ARCH, 6)}
+#: the parts whose greedy_generate (or, for (c), its run) phase 3's paths count
+SERVE_MESH_PART_PATHS = {"a": "serve_mesh", "c": "serve_mesh_whole", "d": "serve_mesh_ssm",
+                         "e": "serve_mesh_hybrid"}
 
 
-def serve_mesh_config(layers=None):
+def serve_mesh_config(layers=None, arch: str = SERVE_MESH_ARCH):
     from repro_torch.configs.registry import get_config
 
-    cfg = get_config(SERVE_MESH_ARCH)
+    cfg = get_config(arch)
     return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
 
 
 def serve_mesh_launches(cfg, new: int) -> dict:
     """A rank's launches over ``greedy_generate`` of ``new`` tokens: a
-    prefill and ``new - 1`` decode steps, each one K1 call and two K2 calls
-    a layer and the final norm's K2 call."""
+    prefill and ``new - 1`` decode steps.  Dense: each one K1 call and two
+    K2 calls a layer and the final norm's K2 call.  ssm and hybrid: each
+    forward the whole-row K2 once a Mamba layer (its norm), twice a
+    shared-block site and once for the final norm, the split K2's two
+    passes once a Mamba layer (the gate norm, its row split over the model
+    axis), K1 once a site; K3 once a Mamba layer of the prefill (a decode
+    step's ``ssd_step`` is plain torch)."""
     layers = cfg.num_layers
-    return {"flash_attention_fwd": layers * new, "rmsnorm": (2 * layers + 1) * new}
+    if cfg.family == "dense":
+        return {"flash_attention_fwd": layers * new, "rmsnorm": (2 * layers + 1) * new}
+    sites = layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    return {"flash_attention_fwd": sites * new, "rmsnorm": (layers + 2 * sites + 1) * new,
+            "rmsnorm_gated": 0, "ssd": layers, "rmsnorm_split_sumsq": layers * new,
+            "rmsnorm_split": layers * new}
 
 
 #: the K1 calls of a rank (batch rows 2 of 4, tp 2 of 16 query heads over 2
 #: KV heads): the prefill on its 8 heads and 1 KV head, a decode partial on
 #: every head over its 272-key slice; (q shape, Sk, KV heads)
 SERVE_MESH_K1 = [[2, 1, 16, 128, 272, 2], [2, 512, 8, 128, 512, 1]]
+#: what (d)'s / (e)'s (and (f)'s) kernels see on a rank: K1 as above
+#: (zamba2's sites: 16 of 32 query heads over the 16 KV heads they read at
+#: prefill, every head over the 272-key slice at decode); K3 (x shape, G, N):
+#: the rank's heads and the group they read; the split K2 (rows, columns,
+#: width): the prefill's 2 x 512 rows and a decode step's 2
+SERVE_MESH_STATE_SHAPES = {
+    SERVE_MESH_SSM_ARCH: {"k1": [], "k3": [[2, 512, 40, 64, 1, 128]],
+                          "split": [[2, 2560, 5120], [1024, 2560, 5120]]},
+    SERVE_MESH_HYBRID_ARCH: {"k1": [[2, 1, 32, 112, 272, 32], [2, 512, 16, 112, 512, 16]],
+                             "k3": [[2, 512, 56, 64, 1, 64]],
+                             "split": [[2, 3584, 7168], [1024, 3584, 7168]]}}
 
 
 def serve_mesh_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
@@ -6493,14 +6626,20 @@ def serve_mesh_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
     (data 2, model 2) mesh, plan tp 2 ZeRO-0: (a) qwen2.5-3b at full width
     and depth in bf16 (the canonical tree drawn on the card in bf16 from one
     seed, this rank's shards cut from it): ``greedy_generate`` of 16 tokens
-    (launches and K1 shapes recorded), then a prefill and 15 decode steps
-    fed rank 0's single-device tokens; (b) full width cut to 4 layers in
-    fp32, the same teacher-forced run and its gathered cache; (c) the same
-    model at ``max_len`` 543 (a whole cache), 2 decode steps.  Rank 0 also
-    runs the single-device engine (kernel path) and, for (a), the plain path
-    in bf16 and fp32 on the same tokens, and records the errors.  Writes its
-    record to DIR."""
+    (launches and the shapes K1, K3 and the split K2 see recorded), then a
+    prefill and 15 decode steps fed rank 0's single-device tokens; (b) full
+    width cut to 4 layers in fp32, the same teacher-forced run and its
+    gathered cache; (c) the same model at ``max_len`` 543 (a whole cache), 2
+    decode steps; (d) mamba2-2.7b at full width and depth and (e) zamba2-7b
+    at full width cut to 12 layers, each as (a); (f) each in fp32 cut to
+    ``SERVE_MESH_STATE_PARTS``, as (b).  Rank 0 also runs the
+    single-device engine (kernel path) and, for (a), (d) and (e), the plain
+    path in bf16 and fp32 on the same tokens, and records the errors.  Each
+    rank records digests of its own B / C conv buffers (an SSM state's,
+    whole on every rank of the model axis).  Writes its record to DIR."""
     parent = os.getppid()
+    import hashlib
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6513,7 +6652,7 @@ def serve_mesh_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
-    from repro_torch.models.common import cast_tree, tree_leaves
+    from repro_torch.models.common import cast_tree, tree_leaves, tree_paths
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6521,25 +6660,33 @@ def serve_mesh_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
     torch.zeros(1, device="cuda")
     dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world),
                             rank=rank, world_size=world)
-    # K1's shapes: the wrapper the model calls carries the launch counter
-    # (the kernel's wrapper counts on the module's name)
-    seen = set()
-    fwd = flash_ops.flash_attention_fwd
+    # the shapes K1, K3 and the split K2 see: each wrapper the model calls
+    # carries its launch counter (a kernel's wrapper counts on its module's
+    # name)
+    seen = {"k1": set(), "k3": set(), "split": set()}
+    fwd, scan, split = flash_ops.flash_attention_fwd, ssd_ops.ssd, rms_ops.rmsnorm_split
 
     def k1(q, k, v, **kw):
-        seen.add(tuple(q.shape) + (k.shape[1], k.shape[2]))
+        seen["k1"].add(tuple(q.shape) + (k.shape[1], k.shape[2]))
         return fwd(q, k, v, **kw)
 
-    k1.launches = 0
-    flash_ops.flash_attention_fwd = k1
-    counters = launch_counters(flash_ops, rms_ops, ssd_ops)
+    def k3(x, dt, A, B, C, **kw):
+        seen["k3"].add(tuple(x.shape) + tuple(B.shape[2:]))
+        return scan(x, dt, A, B, C, **kw)
+
+    def k2_split(x, scale, stat, width, *args, **kw):
+        seen["split"].add((x.numel() // x.shape[-1], x.shape[-1], width))
+        return split(x, scale, stat, width, *args, **kw)
+
+    for wrapper, module, name in ((k1, flash_ops, "flash_attention_fwd"), (k3, ssd_ops, "ssd"),
+                                  (k2_split, rms_ops, "rmsnorm_split")):
+        wrapper.launches = 0
+        setattr(module, name, wrapper)
+    counters = {**launch_counters(flash_ops, rms_ops, ssd_ops), **split_counters(rms_ops)}
     mesh = make_mesh(SERVE_MESH_SHAPE, ("data", "model"), device=torch.device("cuda", 0),
                      backend="gloo")
     B, S = SERVE_MESH_BATCH, SERVE_MESH_PROMPT
-    cfg = serve_mesh_config()
-    prompts = torch.from_numpy(np.random.default_rng(34).integers(
-        0, cfg.vocab_size, (B, S)).astype(np.int64)).cuda()
-    record = {"ready": time.perf_counter() - T_START}
+    record = {"ready": time.perf_counter() - T_START, "data": mesh.coords["data"]}
     while not (tmp / "go").is_file():
         if os.getppid() != parent:
             sys.exit(1)
@@ -6560,7 +6707,7 @@ def serve_mesh_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
         return serving.step_engine(model, serving.single_device_plan(model.cfg), batch=B,
                                    max_len=max_len, dtype=dtype)
 
-    def run(eng, params, n, feed=None):
+    def run(eng, params, prompts, n, feed=None):
         """A prefill and n - 1 decode steps fed ``feed``'s tokens (or each
         step's argmax): (each step's last-position fp32 logits (n, B, V),
         each step's argmax (B, n), the last cache)."""
@@ -6582,96 +6729,148 @@ def serve_mesh_rank(rank: int, world: int, tmp: pathlib.Path) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # (a) bf16, full depth
-    t0 = time.perf_counter()
-    model = build_model(cfg)
-    canonical = model.init(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
-    eng = mesh_engine(model, SERVE_MESH_LEN, torch.bfloat16)
-    local = eng.place_params(canonical)
-    if rank:
-        del canonical
-    free()
-    record["a_setup_s"] = time.perf_counter() - t0
-    record["local_bytes"] = sum(x.numel() * x.element_size() for x in tree_leaves(local))
-    ref = None
-    if rank == 0:
-        t0 = time.perf_counter()
-        ref = run(one_engine(model, SERVE_MESH_LEN, torch.bfloat16), canonical, SERVE_MESH_NEW)
-        record["a_single_s"] = time.perf_counter() - t0
-    ref_tokens = shared(None if ref is None else ref[1])
-    zero_counts(counters)
-    seen.clear()
-    dist.barrier()
-    t0 = time.perf_counter()
-    tokens = eng.greedy_generate(local, prompts, SERVE_MESH_NEW, SERVE_MESH_LEN)
-    torch.cuda.synchronize()
-    record["a_greedy_s"] = time.perf_counter() - t0
-    record["launches"] = read_counts(counters)
-    record["want"] = serve_mesh_launches(cfg, SERVE_MESH_NEW)
-    record["k1"] = sorted(list(x) for x in seen)
-    record["tokens"] = tokens.cpu().tolist()
-    record["latency"] = {k: list(v) for k, v in eng.latencies.items()}
-    record["specs"] = [list(eng.cache_specs["k"])]
-    t0 = time.perf_counter()
-    mesh_logits, _, cache = run(eng, local, SERVE_MESH_NEW, feed=ref_tokens)
-    record["a_forced_s"] = time.perf_counter() - t0
-    record["local_cache"] = [list(cache["k"].shape)]
-    del local, eng, cache
-    free()
-    if rank == 0:
-        t0 = time.perf_counter()
-        plain = build_model(cfg, impl="ref")
-        plain16 = run(one_engine(plain, SERVE_MESH_LEN, torch.bfloat16), canonical,
-                      SERVE_MESH_NEW, feed=ref_tokens)[0]
-        canonical = cast_tree(canonical, torch.float32)
-        free()
-        plain32 = run(one_engine(plain, SERVE_MESH_LEN, torch.float32), canonical,
-                      SERVE_MESH_NEW, feed=ref_tokens)[0]
-        record["a_plain_s"] = time.perf_counter() - t0
-        err = lambda x: [float((x[i] - plain32[i]).abs().max()) for i in range(len(x))]
-        record["a"] = {
-            "mesh_vs_fp32": err(mesh_logits), "plain_vs_fp32": err(plain16),
-            "single_vs_fp32": err(ref[0]),
-            "mesh_vs_single": [float((mesh_logits[i] - ref[0][i]).abs().max())
-                               for i in range(SERVE_MESH_NEW)],
-            "scale": float(plain32.abs().max()),
-            "top1_vs_fp32": float((mesh_logits.argmax(-1) == plain32.argmax(-1)).float().mean()),
-            "token_agreement": float((tokens == ref_tokens).float().mean()),
-            "ref_tokens": ref_tokens.cpu().tolist(),
-            "finite": bool(torch.isfinite(mesh_logits).all())}
-        del canonical, plain16, plain32, ref
-    del mesh_logits
-    free()
+    def start_counts():
+        zero_counts(counters)
+        for shapes in seen.values():
+            shapes.clear()
 
-    # (b) fp32, full width cut to 4 layers; (c) its whole cache at 543
-    small = build_model(serve_mesh_config(SERVE_MESH_FP32_LAYERS))
-    canonical = small.init(torch.Generator(device="cuda").manual_seed(1), torch.float32)
-    for part, max_len, n in (("b", SERVE_MESH_LEN, SERVE_MESH_NEW),
-                             ("c", SERVE_MESH_WHOLE_LEN, SERVE_MESH_WHOLE_STEPS + 1)):
+    def counts(cfg, n) -> dict:
+        return {"launches": read_counts(counters), "want": serve_mesh_launches(cfg, n),
+                **{k: sorted(list(x) for x in v) for k, v in seen.items()}}
+
+    def layout(eng, cache) -> dict:
+        """The cache's specs and this rank's local shapes, leaf by leaf, and
+        digests of its own B / C conv buffers."""
+        return {"specs": {"/".join(p): list(sp) for p, sp in tree_paths(eng.cache_specs)},
+                "local_cache": {"/".join(p): list(x.shape) for p, x in tree_paths(cache)},
+                "conv": {"/".join(p): hashlib.sha256(x.contiguous().view(torch.uint8).cpu()
+                                                     .numpy().tobytes()).hexdigest()
+                         for p, x in tree_paths(cache) if p[-1] in ("conv_B", "conv_C")}}
+
+    def prompts_for(cfg):
+        return torch.from_numpy(np.random.default_rng(34).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int64)).cuda()
+
+    def full_width(cfg, seed, new) -> dict:
+        """(a)'s run of a bf16 model at ``cfg``: ``greedy_generate`` of
+        ``new`` tokens, then ``SERVE_MESH_FORCED`` teacher-forced steps (see
+        the function's note)."""
+        rec = {}
+        forced = SERVE_MESH_FORCED
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        prompts = prompts_for(cfg)
+        canonical = model.init(torch.Generator(device="cuda").manual_seed(seed), torch.bfloat16)
+        eng = mesh_engine(model, SERVE_MESH_LEN, torch.bfloat16)
+        local = eng.place_params(canonical)
+        if rank:
+            del canonical
+        free()
+        rec["setup_s"] = time.perf_counter() - t0
+        rec["local_bytes"] = sum(x.numel() * x.element_size() for x in tree_leaves(local))
+        ref = None
+        if rank == 0:
+            t0 = time.perf_counter()
+            ref = run(one_engine(model, SERVE_MESH_LEN, torch.bfloat16), canonical, prompts,
+                      new)
+            rec["single_s"] = time.perf_counter() - t0
+        ref_tokens = shared(None if ref is None else ref[1])
+        start_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        tokens = eng.greedy_generate(local, prompts, new, SERVE_MESH_LEN)
+        torch.cuda.synchronize()
+        rec["greedy_s"] = time.perf_counter() - t0
+        rec.update(counts(cfg, new))
+        rec["tokens"] = tokens.cpu().tolist()
+        rec["latency"] = {k: list(v) for k, v in eng.latencies.items()}
+        t0 = time.perf_counter()
+        mesh_logits, _, cache = run(eng, local, prompts, forced, feed=ref_tokens)
+        rec["forced_s"] = time.perf_counter() - t0
+        rec.update(layout(eng, cache))
+        del local, eng, cache
+        free()
+        if rank == 0:
+            t0 = time.perf_counter()
+            plain = build_model(cfg, impl="ref")
+            plain16 = run(one_engine(plain, SERVE_MESH_LEN, torch.bfloat16), canonical, prompts,
+                          forced, feed=ref_tokens)[0]
+            canonical = cast_tree(canonical, torch.float32)
+            free()
+            plain32 = run(one_engine(plain, SERVE_MESH_LEN, torch.float32), canonical, prompts,
+                          forced, feed=ref_tokens)[0]
+            rec["plain_s"] = time.perf_counter() - t0
+            err = lambda x: [float((x[i] - plain32[i]).abs().max()) for i in range(len(x))]
+            rec["errors"] = {
+                "mesh_vs_fp32": err(mesh_logits), "plain_vs_fp32": err(plain16),
+                "single_vs_fp32": err(ref[0][:forced]),
+                "mesh_vs_single": [float((mesh_logits[i] - ref[0][i]).abs().max())
+                                   for i in range(forced)],
+                "scale": float(plain32.abs().max()),
+                "top1_vs_fp32": float((mesh_logits.argmax(-1) == plain32.argmax(-1))
+                                      .float().mean()),
+                "token_agreement": float((tokens == ref_tokens).float().mean()),
+                "finite": bool(torch.isfinite(mesh_logits).all())}
+            del canonical, plain16, plain32, ref
+        del mesh_logits
+        free()
+        return rec
+
+    def against_one_rank(cfg, seed, max_len, n, plain_floor=False) -> dict:
+        """(b)'s run of an fp32 model at ``cfg``: the mesh's teacher-forced
+        logits and gathered cache against one rank's engine; with
+        ``plain_floor`` also rank 0's kernel-path cache against its plain
+        path's on the same tokens (the rounding the port already takes
+        between its two routes)."""
+        rec = {}
+        small = build_model(cfg)
+        prompts = prompts_for(cfg)
+        canonical = small.init(torch.Generator(device="cuda").manual_seed(seed), torch.float32)
         t0 = time.perf_counter()
         eng = mesh_engine(small, max_len, torch.float32)
         local = eng.place_params(canonical)
-        one = run(one_engine(small, max_len, torch.float32), canonical, n) if rank == 0 else None
+        one = (run(one_engine(small, max_len, torch.float32), canonical, prompts, n)
+               if rank == 0 else None)
         feed = shared(None if one is None else one[1])
-        seen.clear()
-        zero_counts(counters)
-        logits, _, cache = run(eng, local, n, feed=feed)
-        record[f"{part}_launches"] = read_counts(counters)
-        record[f"{part}_want"] = serve_mesh_launches(small.cfg, n)
+        start_counts()
+        logits, _, cache = run(eng, local, prompts, n, feed=feed)
+        rec.update(counts(cfg, n))
         whole = eng.gather_cache(cache)
-        record[f"{part}_s"] = time.perf_counter() - t0
-        record["specs"].append(list(eng.cache_specs["k"]))
-        record["local_cache"].append(list(cache["k"].shape))
-        record[f"{part}_k1"] = sorted(list(x) for x in seen)
+        rec["seconds"] = time.perf_counter() - t0
+        rec.update(layout(eng, cache))
         if rank == 0:
             scale = max(1.0, float(one[0].abs().max()))
-            record[part] = {
+            mine = dict(tree_paths(one[2]))
+            rec["errors"] = {
                 "logits": [float((logits[i] - one[0][i]).abs().max()) / scale
                            for i in range(n)],
-                "cache": max(rel(whole[k], one[2][k]) for k in ("k", "v")),
+                "cache": {"/".join(p): rel(x, mine[p]) for p, x in tree_paths(whole)},
                 "finite": bool(torch.isfinite(logits).all())}
-        del eng, local, one, logits, cache, whole
+            if plain_floor:
+                plain = run(one_engine(build_model(cfg, impl="ref"), max_len, torch.float32),
+                            canonical, prompts, n, feed=one[1])[2]
+                rec["errors"]["plain_cache"] = {
+                    "/".join(p): rel(mine[p], x) for p, x in tree_paths(plain)}
+                del plain
+        del eng, local, one, logits, cache, whole, canonical, small
         free()
+        return rec
+
+    # (a) qwen2.5-3b bf16 at full depth
+    record["a"] = full_width(serve_mesh_config(), 0, SERVE_MESH_A_NEW)
+    # (b) fp32, full width cut to 4 layers; (c) its whole cache at 543
+    small = serve_mesh_config(SERVE_MESH_FP32_LAYERS)
+    record["b"] = against_one_rank(small, 1, SERVE_MESH_LEN, SERVE_MESH_NEW)
+    record["c"] = against_one_rank(small, 1, SERVE_MESH_WHOLE_LEN, SERVE_MESH_WHOLE_STEPS + 1)
+    # (d) mamba2 at full width and depth, (e) zamba2 at full width cut to 12
+    # layers, bf16: the SSD state by heads, the gate norm split, zamba2's
+    # sites by flash-decode over a position-sharded cache; (f) each in fp32
+    # at a few layers, against one rank
+    for part, (arch, layers) in SERVE_MESH_STATE_PARTS.items():
+        cfg = serve_mesh_config(layers, arch)
+        record[part] = (full_width(cfg, 0, SERVE_MESH_NEW) if part in ("d", "e") else
+                        against_one_rank(cfg, 1, SERVE_MESH_LEN, SERVE_MESH_NEW,
+                                         plain_floor=True))
     record["seconds"] = time.perf_counter() - t_go
     record["peak"] = torch.cuda.max_memory_allocated()
     (tmp / f"rank{rank}.json").write_text(json.dumps(record))
@@ -6696,15 +6895,20 @@ def serve_mesh_start():
 def serve_mesh_phase(torch, started=None) -> dict:
     """Phase 34 (see the module note): four ``--serve-mesh-rank`` processes
     sharing the card over gloo (``started`` by ``serve_mesh_start``, or
-    started here), let go.  Checks every rank's record: the greedy tokens
-    the same on every rank, its launches ``serve_mesh_launches``' and its K1
-    shapes phase 3's rows; rank 0's (a) every teacher-forced step's bf16
-    logits no further from the fp32 plain path than twice the plain bf16
-    path's error, (b) and (c) each step's fp32 logits within 1e-3 of their
-    scale of one rank's and the gathered cache within 1e-5, their launches
-    pinned too; the peaks' sum within the card.  Returns, summed over the
-    ranks, the launches of (a)'s ``greedy_generate`` (path ``serve_mesh``)
-    and of (c)'s run (path ``serve_mesh_whole``)."""
+    started here), let go.  Checks every rank's record: for each part the
+    greedy tokens the same on every rank, its launches
+    ``serve_mesh_launches``' and the shapes K1, K3 and the split K2 see
+    phase 3's rows, the cache specs ``cache_spec_tree``'s, the B / C conv
+    buffers of an SSM state bitwise the same on every rank of the model
+    axis; rank 0's (a), (d) and (e) every teacher-forced step's bf16 logits
+    no further from the fp32 plain path than twice the plain bf16 path's
+    error, (b), (c) and (f) each step's fp32 logits within 1e-3 of their
+    scale of one rank's and the gathered cache within 1e-5 ((f): within
+    1e-3, as its logits, one rank's own kernel-vs-plain distance logged
+    beside it); the peaks' sum within the card.  Returns, summed over the ranks, the launches of
+    (a)'s, (d)'s and (e)'s ``greedy_generate`` (paths ``serve_mesh``,
+    ``serve_mesh_ssm``, ``serve_mesh_hybrid``) and of (c)'s run
+    (``serve_mesh_whole``); a split K2 row counts both its passes."""
     t_phase = time.perf_counter()
     started = started or serve_mesh_start()
     procs, tmp = started[0], pathlib.Path(started[1].name)
@@ -6719,72 +6923,101 @@ def serve_mesh_phase(torch, started=None) -> dict:
     finally:
         elastic_stop(started)
     head = ranks[0]
-    cfg = serve_mesh_config()
-    log(f"serve mesh: {SERVE_MESH_ARCH} on (data 2, model 2), plan tp 2 ZeRO-0, "
-        f"{SERVE_MESH_BATCH} x {SERVE_MESH_PROMPT} prompt tokens, {SERVE_MESH_NEW} new; rank 0 "
-        f"ready {head['ready']:.1f} s after its process began; each rank holds "
-        f"{[round(r['local_bytes'] / 1e9, 3) for r in ranks]} GB of bf16 leaves; cache specs "
-        f"(a, b, c) {head['specs']}, local k shapes {head['local_cache']}")
-    require(head["specs"] == [[None, "data", "model"]] * 2 + [[None, "data"]],
-            f"serve mesh: cache specs {head['specs']}")
-    require(all(r["tokens"] == head["tokens"] for r in ranks),
-            "serve mesh: the ranks' greedy tokens differ")
-    launches = {"serve_mesh": {}, "serve_mesh_whole": {}}
-    for r, rk in enumerate(ranks):
-        for run_, got, want in (("a", rk["launches"], rk["want"]),
-                                ("b", rk["b_launches"], rk["b_want"]),
-                                ("c", rk["c_launches"], rk["c_want"])):
+    seq, whole = ["None", "data", "model"], ["None", "data"]
+    state = {"conv_x": ["None", "data", "None", "model"], "conv_B": whole, "conv_C": whole,
+             "ssm": seq}
+    dense_specs = lambda spec: {"k": spec, "v": spec}
+    parts = {  # part -> (its arch, layers (None: full depth), want specs, K1, K3, split)
+        "a": (SERVE_MESH_ARCH, None, dense_specs(seq), SERVE_MESH_K1, [], []),
+        "b": (SERVE_MESH_ARCH, SERVE_MESH_FP32_LAYERS, dense_specs(seq), SERVE_MESH_K1, [], []),
+        "c": (SERVE_MESH_ARCH, SERVE_MESH_FP32_LAYERS, dense_specs(whole),
+              [[2, 1, 8, 128, SERVE_MESH_WHOLE_LEN, 1], [2, 512, 8, 128, 512, 1]], [], [])}
+    for part, (arch, layers) in SERVE_MESH_STATE_PARTS.items():
+        specs = state if arch == SERVE_MESH_SSM_ARCH else {
+            **{f"mamba/{k}": v for k, v in state.items()}, "attn/k": seq, "attn/v": seq}
+        shapes = SERVE_MESH_STATE_SHAPES[arch]
+        parts[part] = (arch, layers, specs, shapes["k1"], shapes["k3"], shapes["split"])
+    log(f"serve mesh: on (data 2, model 2), plan tp 2 ZeRO-0, {SERVE_MESH_BATCH} x "
+        f"{SERVE_MESH_PROMPT} prompt tokens, {SERVE_MESH_A_NEW} greedy tokens in (a), "
+        f"{SERVE_MESH_NEW} in (d) and (e), {SERVE_MESH_FORCED} teacher-forced steps; rank 0 "
+        f"ready {head['ready']:.1f} s after its process began")
+    launches = {}
+    for part, (arch, layers, specs, k1, k3, split) in parts.items():
+        cfg = serve_mesh_config(layers, arch)
+        rec = head[part]
+        log(f"serve mesh ({part}) {arch} at {cfg.num_layers} layers: cache specs "
+            f"{rec['specs']}, rank 0's local shapes {rec['local_cache']}"
+            + (f"; each rank holds {[round(r[part]['local_bytes'] / 1e9, 3) for r in ranks]} "
+               "GB of bf16 leaves" if "local_bytes" in rec else ""))
+        norm = lambda d: {k: [str(x) for x in v] for k, v in d.items()}
+        require(norm(rec["specs"]) == specs, f"serve mesh ({part}): cache specs {rec['specs']}")
+        if "tokens" in rec:
+            require(all(r[part]["tokens"] == rec["tokens"] for r in ranks),
+                    f"serve mesh ({part}): the ranks' greedy tokens differ")
+        for r, rk in enumerate(ranks):
+            got, want = rk[part]["launches"], rk[part]["want"]
             require(all(got[k] == n for k, n in want.items()),
-                    f"serve mesh rank {r} ({run_}): launches {got}, expected {want}")
-        require(rk["k1"] == SERVE_MESH_K1, f"serve mesh rank {r}: K1 shapes {rk['k1']}, "
-                f"expected phase 3's {SERVE_MESH_K1}")
-        require(rk["b_k1"] == SERVE_MESH_K1, f"serve mesh rank {r}: (b)'s K1 shapes "
-                f"{rk['b_k1']}")
-        require(rk["c_k1"] == [[2, 1, 8, 128, SERVE_MESH_WHOLE_LEN, 1],
-                               [2, 512, 8, 128, 512, 1]],
-                f"serve mesh rank {r}: (c)'s K1 shapes {rk['c_k1']}")
-        for path, got in (("serve_mesh", rk["launches"]), ("serve_mesh_whole", rk["c_launches"])):
-            for k, n in got.items():
-                launches[path][k] = launches[path].get(k, 0) + n
-        lat = rk["latency"]
-        log(f"serve mesh rank {r}: launches {rk['launches']} over greedy_generate, (c) "
-            f"{rk['c_launches']}; prefill "
-            f"{lat['prefill_s'][0]:.4f} s, decode median "
-            f"{statistics.median(lat['decode_s']):.4f} s a step ({NO_INTERCONNECT}); "
-            f"(a) set-up {rk['a_setup_s']:.1f} s, greedy {rk['a_greedy_s']:.2f} s, "
-            f"teacher-forced {rk['a_forced_s']:.2f} s; (b) {rk['b_s']:.2f} s, (c) "
-            f"{rk['c_s']:.2f} s; peak {rk['peak'] / 2**30:.2f} GiB")
-    a = head["a"]
-    require(a["finite"], "serve mesh (a): non-finite logits")
-    worst = max(m / max(p, 1e-30) for m, p in zip(a["mesh_vs_fp32"], a["plain_vs_fp32"]))
-    log(f"serve mesh (a) bf16, {cfg.num_layers} layers: greedy tokens {head['tokens'][0][:8]}... "
-        f"agree with one rank's on {a['token_agreement']:.4f}; teacher-forced logits vs the "
-        f"fp32 plain path by step: mesh {[f'{x:.3e}' for x in a['mesh_vs_fp32']]}, plain "
-        f"bf16 {[f'{x:.3e}' for x in a['plain_vs_fp32']]}, one rank's kernel path "
-        f"{[f'{x:.3e}' for x in a['single_vs_fp32']]} (max |logit| {a['scale']:.3f}); mesh "
-        f"vs one rank {max(a['mesh_vs_single']):.3e}; top-1 vs fp32 {a['top1_vs_fp32']:.4f}; "
-        f"worst mesh / plain error ratio {worst:.3f}; rank 0's single-device run "
-        f"{head['a_single_s']:.2f} s, plain runs {head['a_plain_s']:.2f} s")
-    require(all(m <= 2.0 * p for m, p in zip(a["mesh_vs_fp32"], a["plain_vs_fp32"])),
-            "serve mesh (a): a step's logits are further from fp32 than the plain bf16 "
-            "path's error x2")
-    for part in ("b", "c"):
-        res = head[part]
-        log(f"serve mesh ({part}) fp32, {SERVE_MESH_FP32_LAYERS} layers, max_len "
-            f"{SERVE_MESH_LEN if part == 'b' else SERVE_MESH_WHOLE_LEN}: logits vs one rank "
-            f"by step (of their scale) {[f'{x:.2e}' for x in res['logits']]}; gathered cache "
-            f"{res['cache']:.2e}")
-        require(res["finite"] and max(res["logits"]) <= SSD_TOL,
-                f"serve mesh ({part}): fp32 logits differ from one rank's by more than "
-                f"{SSD_TOL} of their scale")
-        require(res["cache"] <= SERVE_MESH_CACHE_TOL,
-                f"serve mesh ({part}): the gathered cache differs from one rank's by "
-                f"{res['cache']:.3e}")
+                    f"serve mesh rank {r} ({part}): launches {got}, expected {want}")
+            for what, shapes in (("k1", k1), ("k3", k3), ("split", split)):
+                require(rk[part][what] == shapes, f"serve mesh rank {r} ({part}): {what} shapes "
+                        f"{rk[part][what]}, expected phase 3's {shapes}")
+            twin = next(o for o in ranks if o["data"] == rk["data"])
+            require(rk[part]["conv"] == twin[part]["conv"],
+                    f"serve mesh rank {r} ({part}): its B / C conv buffers differ from its "
+                    "model axis'")
+        path = SERVE_MESH_PART_PATHS.get(part)
+        if path is not None:
+            total = {k: sum(rk[part]["launches"][k] for rk in ranks)
+                     for k in rec["launches"]}
+            total["rmsnorm_split_fwd"] = total["rmsnorm_split_sumsq"] + total["rmsnorm_split"]
+            launches[path] = total
+        if "latency" in rec:
+            for r, rk in enumerate(ranks):
+                lat, q = rk[part]["latency"], rk[part]
+                log(f"serve mesh rank {r} ({part}): launches {q['launches']} over "
+                    f"greedy_generate; prefill {lat['prefill_s'][0]:.4f} s, decode median "
+                    f"{statistics.median(lat['decode_s']):.4f} s a step ({NO_INTERCONNECT}); "
+                    f"set-up {q['setup_s']:.1f} s, greedy {q['greedy_s']:.2f} s, "
+                    f"teacher-forced {q['forced_s']:.2f} s")
+            e = rec["errors"]
+            require(e["finite"], f"serve mesh ({part}): non-finite logits")
+            worst = max(m / max(p, 1e-30) for m, p in zip(e["mesh_vs_fp32"], e["plain_vs_fp32"]))
+            log(f"serve mesh ({part}) bf16, {cfg.num_layers} layers: greedy tokens "
+                f"{rec['tokens'][0][:8]}... agree with one rank's on "
+                f"{e['token_agreement']:.4f}; teacher-forced logits vs the fp32 plain path by "
+                f"step: mesh {[f'{x:.3e}' for x in e['mesh_vs_fp32']]}, plain bf16 "
+                f"{[f'{x:.3e}' for x in e['plain_vs_fp32']]}, one rank's kernel path "
+                f"{[f'{x:.3e}' for x in e['single_vs_fp32']]} (max |logit| {e['scale']:.3f}); "
+                f"mesh vs one rank {max(e['mesh_vs_single']):.3e}; top-1 vs fp32 "
+                f"{e['top1_vs_fp32']:.4f}; worst mesh / plain error ratio {worst:.3f}; rank 0's "
+                f"single-device run {rec['single_s']:.2f} s, plain runs {rec['plain_s']:.2f} s")
+            require(all(m <= 2.0 * p for m, p in zip(e["mesh_vs_fp32"], e["plain_vs_fp32"])),
+                    f"serve mesh ({part}): a step's logits are further from fp32 than the plain "
+                    "bf16 path's error x2")
+        else:
+            e = rec["errors"]
+            # (f): each leaf within the part's fp32 logits rule (SSD_TOL of its
+            # scale); one rank's own kernel-vs-plain distance logged beside it
+            floor = e.get("plain_cache", {})
+            tol = {k: SSD_TOL if floor else SERVE_MESH_CACHE_TOL for k in e["cache"]}
+            log(f"serve mesh ({part}) fp32, {cfg.num_layers} layers: logits vs one rank by "
+                f"step (of their scale) {[f'{x:.2e}' for x in e['logits']]}; gathered cache by "
+                f"leaf {({k: f'{x:.2e}' for k, x in e['cache'].items()})}"
+                + (f", one rank's kernel vs plain path {({k: f'{x:.2e}' for k, x in floor.items()})}"
+                   if floor else "") + f"; {rec['seconds']:.2f} s")
+            require(e["finite"] and max(e["logits"]) <= SSD_TOL,
+                    f"serve mesh ({part}): fp32 logits differ from one rank's by more than "
+                    f"{SSD_TOL} of their scale")
+            require(all(x <= tol[k] for k, x in e["cache"].items()),
+                    f"serve mesh ({part}): the gathered cache differs from one rank's by "
+                    f"{e['cache']}, past {tol}")
     card = torch.cuda.get_device_properties(0).total_memory
     peaks = [rk["peak"] for rk in ranks]
+    log(f"serve mesh: peaks {[round(x / 2**30, 2) for x in peaks]} GiB; ranks' phase "
+        f"{[round(rk['seconds'], 1) for rk in ranks]} s")
     require(sum(peaks) <= card, f"serve mesh: peaks {peaks} past the card")
-    log(f"serve mesh: launches over (a)'s greedy_generate and (c)'s run {launches}; "
-        f"phase 34 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"serve mesh: launches over (a)'s, (d)'s and (e)'s greedy_generate and (c)'s run "
+        f"{launches}; phase 34 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

@@ -21,6 +21,17 @@ the new state and K/V into ``cache`` in place, builds the flash kernel's
 positions once per step and hands them to every site.  Prompts shorter than
 ``conv_width - 1`` keep ``Mamba2LM``'s left-padded conv buffers.
 
+On a serving mesh (the step engine's rules, ``runtime/serve.py``) the
+Mamba layers are ``Mamba2LM``'s serving regions and the shared block's
+sites ``decoder_block_apply``'s, whose attention is a TP region; each
+site's cache is laid out as the dense family's is: every KV head on every
+rank of the model axis, its positions split over it where they divide
+(``collectives.cache_seq_group``).  ``forward_prefill`` then keeps this
+rank's slice of each site's positions, ``forward_decode`` builds K1's
+positions with the slice's key offset and every site decodes by
+flash-decode (``models/attention.py``), and ``init_cache`` sizes this
+rank's shard of both halves.
+
 Neither pass reads a tensor on the host (a 0-d tensor ``cache_index`` goes
 to the positions and every site's cache write as a tensor), so
 ``jit_prefill_step`` / ``jit_decode_step`` capture them as CUDA graphs, K3
@@ -40,7 +51,8 @@ from repro_torch.models import embedding
 from repro_torch.models.common import stacked, tree_map
 from repro_torch.models.mamba2 import Mamba2LM, mamba_block_apply, mamba_block_defs, stack_states
 from repro_torch.models.norms import rmsnorm, rmsnorm_defs
-from repro_torch.models.transformer import decoder_block_apply, decoder_block_defs
+from repro_torch.models.transformer import (decoder_block_apply, decoder_block_defs,
+                                             local_cache_dims)
 from repro_torch.parallel import collectives
 from repro_torch.parallel.axes import lc
 
@@ -120,8 +132,10 @@ class HybridLM(Mamba2LM):
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
         """Zero decode state: ``Mamba2LM``'s per-layer state and one K/V
-        cache per site in ``dtype``."""
-        shape = self._kv_shape(batch, max_len)
+        cache per site in ``dtype``; under a serving mesh's rules this
+        rank's shard of both (the sites' rows and positions as
+        ``DenseTransformerLM.init_cache`` cuts them)."""
+        shape = self._kv_shape(*local_cache_dims(batch, max_len))
         return {"mamba": super().init_cache(batch, max_len, dtype),
                 "attn": {k: torch.zeros(shape, dtype=dtype, device=self.device)
                          for k in ("k", "v")}}
@@ -142,10 +156,18 @@ class HybridLM(Mamba2LM):
                         max_len: Optional[int] = None, dtype=torch.bfloat16):
         """Full-prompt pass.  Returns (last-position fp32 logits (B, 1, V),
         cache {"mamba": the (L, B, ...) states, "attn": {"k","v": (sites, B,
-        max_len, KV, hd)} in ``dtype``, rows past the prompt zero})."""
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        max_len, KV, hd)} in ``dtype``, rows past the prompt zero}).  Under a
+        serving mesh's rules the logits are this rank's vocab columns and
+        the cache its shard: each site's slice of the positions where
+        ``cache_seq`` splits them."""
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, self.cfg.vocab_size)
         B, S = tokens.shape
-        kv = {k: torch.zeros(self._kv_shape(B, max_len or S), dtype=x.dtype, device=x.device)
+        seq = collectives.cache_seq_group()
+        positions = max_len or S
+        if seq is not None:
+            positions //= seq.size
+        offset = 0 if seq is None else seq.index * positions
+        kv = {k: torch.zeros(self._kv_shape(B, positions), dtype=x.dtype, device=x.device)
               for k in ("k", "v")}
         states = []
         for layer, bp in enumerate(self._layers(params)):
@@ -155,7 +177,7 @@ class HybridLM(Mamba2LM):
             if site is not None:
                 x, new = self._shared_apply(params, x, mode="prefill")
                 for k in ("k", "v"):
-                    kv[k][site, :, :S] = new[k]
+                    attn.write_cache_shard(kv[k][site], new[k], 0, offset)
         return self._head(params, x[:, -1:, :]), {"mamba": stack_states(states), "attn": kv}
 
     @torch.no_grad()
@@ -164,15 +186,20 @@ class HybridLM(Mamba2LM):
         """One token per row, tokens (B, 1), written at ``cache_index`` (int
         or (B,)) with per-row valid lengths ``kv_len`` (default
         ``cache_index + 1``).  The new state and K/V are written into
-        ``cache`` in place; returns (fp32 logits (B, 1, V), cache)."""
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        ``cache`` in place; returns (fp32 logits (B, 1, V), cache).  K1's
+        positions are built once and shared by every site: on the kernel
+        path, and over a sequence-sharded cache (flash-decode, keys from this
+        rank's slice on) on either."""
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, self.cfg.vocab_size)
         kcache, vcache = cache["attn"]["k"], cache["attn"]["v"]
         positions = None
-        if attn.uses_kernel(self.impl, x):
+        seq = collectives.cache_seq_group()
+        if attn.uses_kernel(self.impl, x) or seq is not None:
             B, Sq = tokens.shape
+            S_l = kcache.shape[2]
             positions = attn.flash_positions(
-                cache_index, Sq, kcache.shape[2],
-                attn.valid_lengths(cache_index, Sq, B, kv_len, x.device), B, x.device)
+                cache_index, Sq, S_l, attn.valid_lengths(cache_index, Sq, B, kv_len, x.device),
+                B, x.device, k_offset=seq.index * S_l if seq is not None else 0)
         for layer, bp in enumerate(self._layers(params)):
             x = self._decode_layer(bp, x, cache["mamba"], layer)
             site = self._site(layer)

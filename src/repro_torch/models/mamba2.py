@@ -26,6 +26,18 @@ the residual stream between layers holds the boundary layout (sequence
 shards under sequence parallelism, where ``ln`` and ``final_norm`` take
 ``seq_partial``), as the dense family's does.
 
+On a serving mesh (the step engine's rules, ``runtime/serve.py``) the
+prefill and decode passes run the same region on this rank's batch rows,
+and the decode state is this rank's shard in ``cache_spec_tree``'s layout
+(``init_cache`` sizes one): the SSD state's heads and ``conv_x``'s
+``d_inner`` channels over the model axis, ``conv_B`` / ``conv_C`` whole
+(``ssm_groups`` is not a cache rule).  So a rank projects and convolves
+the whole B and C, keeps their whole conv buffers (the same on every rank
+of the model axis), and cuts the groups its heads read (``local_groups``)
+for K3 at prefill and ``ssd_step`` at decode.  Both passes look tokens up
+in the vocab-sharded table, and the head's logits stay vocab-sharded (the
+engine gathers them).
+
 Decode state per layer: the conv ring buffer (the last W-1 inputs of each
 conv channel) and the SSD state (B, H, N, P) fp32.  Two departures from the
 JAX model, both on purpose:
@@ -57,7 +69,7 @@ from repro_torch.models import embedding
 from repro_torch.models.common import (ParamDef, init_params, resolve_device, stacked,
                                        unstack_layers)
 from repro_torch.models.norms import gated_rmsnorm, rmsnorm, rmsnorm_defs
-from repro_torch.models.transformer import default_layer_runner
+from repro_torch.models.transformer import default_layer_runner, local_rows
 from repro_torch.parallel import collectives
 from repro_torch.parallel.axes import lc
 
@@ -151,6 +163,25 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
     local_groups(H, G, tp, 0)
 
 
+def _own_groups(v: torch.Tensor, groups: Optional[tuple[int, int]], N: int) -> torch.Tensor:
+    """The columns of groups ``[g0, g1)`` of a whole B or C (…, G·N), made
+    contiguous (K3 takes contiguous inputs), or ``v`` itself where
+    ``groups`` is None."""
+    return v if groups is None else v[..., groups[0] * N:groups[1] * N].contiguous()
+
+
+def local_state_dims(cfg: ModelConfig, batch: int) -> tuple[int, int, int]:
+    """(rows, SSM heads, ``d_inner`` channels) of this rank's shard of a
+    serving decode state under the active rules, as ``cache_spec_tree``
+    lays it out: the rows over the batch axes where they divide, the heads
+    and channels over the model axis (which divides the heads: ``check_tp``);
+    all whole off a mesh.  ``conv_B`` / ``conv_C`` stay whole."""
+    d_inner, H, _, _, _ = _dims(cfg)
+    tp = collectives.tp_state()
+    n = 1 if tp is None else tp.group.size
+    return local_rows(batch), H // n, d_inner // n
+
+
 def _tp_params(params: dict, N: int, H: int, G: int, group) -> dict:
     """A sharded layer's params on this rank: B and C's projections and
     convolutions cut to the groups its heads read (``local_groups``), their
@@ -171,30 +202,35 @@ def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     {"conv_x","conv_B","conv_C","ssm"} of this layer).  Returns (x + block
     output, new state or None).
 
-    Under tensor parallelism (training on a mesh) the layer is a region, as
-    JAX's ``lc`` sites lay it out: ``w_z`` / ``w_x`` / ``conv_x`` hold this
-    rank's ``d_inner`` columns, ``w_dt``, ``A_log``, ``D`` and ``dt_bias``
-    its heads and ``w_out`` its rows; the region sees the whole sequence
-    (``region_in`` gathers it under sequence parallelism), K3 runs on the
-    local heads and the groups they read, the gate norm on the split row,
-    and ``region_out`` sums the row-parallel ``w_out`` (a reduce-scatter to
-    sequence shards under SP)."""
+    Under tensor parallelism (training or serving on a mesh) the layer is a
+    region, as JAX's ``lc`` sites lay it out: ``w_z`` / ``w_x`` /
+    ``conv_x`` hold this rank's ``d_inner`` columns, ``w_dt``, ``A_log``,
+    ``D`` and ``dt_bias`` its heads and ``w_out`` its rows; the region sees
+    the whole sequence (``region_in`` gathers it under sequence
+    parallelism), K3 (or ``ssd_step``) runs on the local heads and the
+    groups they read, the gate norm on the split row, and ``region_out``
+    sums the row-parallel ``w_out`` (a reduce-scatter to sequence shards
+    under SP).  Training cuts B and C's params to those groups; the serving
+    modes project and convolve them whole, since the conv buffers of
+    ``state`` hold every group, and cut the groups after the conv."""
     d_inner, H, G, N, P = _dims(cfg)
-    tp = collectives.tp_state() if mode == "train" else None
+    tp = collectives.tp_state()
     ln = params["ln"]
-    sharded = False
+    sharded, groups = False, None
     if tp is not None:
         sharded = params["w_x"].shape[-1] < d_inner
         ln = collectives.seq_partial(ln)
     h = rmsnorm(ln, x, cfg.norm_eps, impl)
     if tp is not None:
         h = collectives.region_in(h, sharded)
-        if sharded:
+        if sharded and mode == "train":
             params = _tp_params(params, N, H, G, tp.group)
+        elif sharded:
+            groups = local_groups(H, G, tp.group.size, tp.group.index)
     Bsz, S, _ = h.shape
     z, xv, Bv, Cv, dt_raw = _projections(params, h)
     width = xv.shape[-1]                    # d_inner, or this rank's columns of it
-    H_loc, G_loc = dt_raw.shape[-1], Bv.shape[-1] // N
+    H_loc = dt_raw.shape[-1]
 
     A = -torch.exp(params["A_log"].float())
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
@@ -204,18 +240,21 @@ def mamba_block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         cbx, ox = _conv_step(state["conv_x"], xv[:, 0], params["conv_x"].to(xv.dtype))
         cbB, oB = _conv_step(state["conv_B"], Bv[:, 0], params["conv_B"].to(xv.dtype))
         cbC, oC = _conv_step(state["conv_C"], Cv[:, 0], params["conv_C"].to(xv.dtype))
-        ox, oB, oC = F.silu(ox), F.silu(oB), F.silu(oC)
-        xh = ox.reshape(Bsz, H, P).float()
-        Bt = _expand_groups(oB.reshape(Bsz, 1, G, N), H)[:, 0].float()
-        Ct = _expand_groups(oC.reshape(Bsz, 1, G, N), H)[:, 0].float()
+        ox = F.silu(ox)
+        oB, oC = (_own_groups(F.silu(o), groups, N) for o in (oB, oC))
+        G_loc = oB.shape[-1] // N
+        xh = ox.reshape(Bsz, H_loc, P).float()
+        Bt = _expand_groups(oB.reshape(Bsz, 1, G_loc, N), H_loc)[:, 0].float()
+        Ct = _expand_groups(oC.reshape(Bsz, 1, G_loc, N), H_loc)[:, 0].float()
         ssm, y_t = ssd_ops.ssd_step(state["ssm"], xh, dt[:, 0], A, Bt, Ct)
         y = y_t[:, None].to(x.dtype)                                   # (B,1,H,P)
         y = y + params["D"].to(x.dtype)[None, None, :, None] * xh[:, None].to(x.dtype)
         new_state = {"conv_x": cbx, "conv_B": cbB, "conv_C": cbC, "ssm": ssm}
     elif mode in ("train", "prefill"):
         ox = F.silu(_causal_conv(xv, params["conv_x"].to(xv.dtype)))
-        oB = F.silu(_causal_conv(Bv, params["conv_B"].to(xv.dtype)))
-        oC = F.silu(_causal_conv(Cv, params["conv_C"].to(xv.dtype)))
+        oB, oC = (_own_groups(F.silu(_causal_conv(v, params[k].to(xv.dtype))), groups, N)
+                  for v, k in ((Bv, "conv_B"), (Cv, "conv_C")))
+        G_loc = oB.shape[-1] // N
         xh = ox.reshape(Bsz, S, H_loc, P)
         Bm = oB.reshape(Bsz, S, G_loc, N)
         Cm = oC.reshape(Bsz, S, G_loc, N)
@@ -313,10 +352,14 @@ class Mamba2LM(nn.Module):
         return embedding.lm_head(params["embed"], x, self.cfg), extra
 
     # ------------------------------------------------------------ serving
-    def _state_shapes(self, batch: int):
+    def _state_shapes(self, batch: int, local: bool = False):
+        """Each leaf's (shape, dtype): the whole state, or with ``local``
+        this rank's shard of it under the active rules (``local_state_dims``)."""
         cfg = self.cfg
         d_inner, H, G, N, P = _dims(cfg)
         W, L = cfg.conv_width, cfg.num_layers
+        if local:
+            batch, H, d_inner = local_state_dims(cfg, batch)
         return {
             "conv_x": ((L, batch, W - 1, d_inner), torch.bfloat16),
             "conv_B": ((L, batch, W - 1, G * N), torch.bfloat16),
@@ -327,9 +370,10 @@ class Mamba2LM(nn.Module):
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
         """Zero decode state, as the JAX model makes it: conv buffers bf16
         and the SSD state fp32 whatever ``dtype`` says; ``max_len`` and
-        ``dtype`` are kept for the uniform interface."""
+        ``dtype`` are kept for the uniform interface.  Under a serving
+        mesh's rules this rank's shard of it (``local_state_dims``)."""
         return {k: torch.zeros(s, dtype=d, device=self.device)
-                for k, (s, d) in self._state_shapes(batch).items()}
+                for k, (s, d) in self._state_shapes(batch, local=True).items()}
 
     def abstract_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
         """The decode state's shapes and dtypes on the ``meta`` device."""
@@ -350,8 +394,9 @@ class Mamba2LM(nn.Module):
         """Full-prompt pass.  Returns (last-position fp32 logits (B, 1, V),
         cache {"conv_x","conv_B","conv_C": (L, B, W-1, C) in ``dtype``,
         "ssm": (L, B, H, N, P) fp32}); ``max_len`` is unused (the state is
-        constant in context length)."""
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        constant in context length).  Under a serving mesh's rules the
+        logits are this rank's vocab columns and the state its shard."""
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, self.cfg.vocab_size)
         states = []
         for bp in self._layers(params):
             x, st = mamba_block_apply(bp, x, self.cfg, mode="prefill", impl=self.impl)
@@ -366,7 +411,7 @@ class Mamba2LM(nn.Module):
         """One token per row, tokens (B, 1).  The new state is written into
         ``cache`` in place; ``cache_index`` and ``kv_len`` are unused (the
         state carries the position).  Returns (fp32 logits (B, 1, V), cache)."""
-        x = embedding.embed_tokens(params["embed"], tokens, dtype)
+        x = embedding.embed_tokens(params["embed"], tokens, dtype, self.cfg.vocab_size)
         for layer, bp in enumerate(self._layers(params)):
             x = self._decode_layer(bp, x, cache, layer)
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps, self.impl)

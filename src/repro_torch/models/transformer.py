@@ -58,13 +58,20 @@ from repro_torch.parallel import collectives
 from repro_torch.parallel.axes import lc
 
 
-def _local_cache_dims(batch: int, max_len: int) -> tuple[int, int]:
+def local_rows(batch: int) -> int:
+    """This rank's rows of a serving cache of ``batch`` rows under the
+    active rules: its shard over the batch axes where they divide, else
+    every row (and every row off a mesh)."""
+    rows = collectives.batch_group()
+    return batch // rows.size if rows is not None and batch % rows.size == 0 else batch
+
+
+def local_cache_dims(batch: int, max_len: int) -> tuple[int, int]:
     """(rows, positions) of this rank's shard of a batch x max_len serving
     cache under the active rules: the rows over the batch axes where they
-    divide, the positions over ``cache_seq``; both whole off a mesh."""
-    rows = collectives.batch_group()
-    if rows is not None and batch % rows.size == 0:
-        batch //= rows.size
+    divide (``local_rows``), the positions over ``cache_seq``; both whole
+    off a mesh."""
+    batch = local_rows(batch)
     seq = collectives.cache_seq_group()
     if seq is not None:
         if max_len % seq.size:
@@ -207,7 +214,7 @@ class DenseTransformerLM(nn.Module):
         batch over the rules' batch axes where it divides, the positions
         over ``cache_seq``)."""
         cfg = self.cfg
-        batch, max_len = _local_cache_dims(batch, max_len)
+        batch, max_len = local_cache_dims(batch, max_len)
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}

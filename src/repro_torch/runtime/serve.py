@@ -36,30 +36,38 @@ histograms and the ``requests`` / ``generated_tokens`` counters, inside the
 ``greedy_generate`` hands ``metrics`` to its scheduler.
 
 On a mesh (a ``launch.mesh.ProcessMesh`` under ``torch.distributed``) the
-engine serves the dense and vlm families under data parallelism over the
-batch and tensor parallelism over heads, ff and vocab, as JAX's
-``ServingEngine`` does under GSPMD: ``param_specs`` (``param_spec_tree``),
-``cache_specs`` (``cache_spec_tree`` at the engine's ``batch`` and
-``max_len``) and the activation rules of the plan's default strategy,
-under which ``prefill_step`` and ``decode_step`` run.  Each rank holds
-local shards: ``place_params`` cuts them from the canonical tree, and
-``gather_cache`` puts a cache back together.  The steps take JAX's global
+engine serves the dense, vlm, ssm and hybrid families under data
+parallelism over the batch and tensor parallelism over heads, ff, vocab
+and the SSM heads and channels, as JAX's ``ServingEngine`` does under
+GSPMD: ``param_specs`` (``param_spec_tree``), ``cache_specs``
+(``cache_spec_tree`` at the engine's ``batch`` and ``max_len``) and the
+activation rules of the plan's default strategy, under which
+``prefill_step`` and ``decode_step`` run.  Each rank holds local shards:
+``place_params`` cuts them from the canonical tree, and ``gather_cache``
+puts a cache (flat or nested) back together.  The steps take JAX's global
 arrays (tokens, ``kv_len``, ``extras`` and a per-slot ``cache_index``, the
 same on every rank), run this rank's batch rows (``batch_spec``: whole
 where the batch does not divide) and return the global fp32 logits on every
 rank, gathered over the vocab shards and the batch group, with this rank's
-cache: where ``cache_specs`` shards its positions over the model axis, each
-rank's slice holds every KV head and a decode step is flash-decode (K1's
-partials over every rank's slice, merged; ``models/attention.py``).
+cache: where ``cache_specs`` shards an attention cache's positions over the
+model axis, each rank's slice holds every KV head and a decode step is
+flash-decode (K1's partials over every rank's slice, merged;
+``models/attention.py``); an SSM state holds this rank's heads and
+``d_inner`` channels, its B / C conv buffers whole (``models/mamba2.py``).
+The batch split and ``cache_seq`` are read off the cache's logical axes
+(``batch`` and ``seq``), so a flat dense cache, an SSM state and the
+hybrid's nested ``{"mamba", "attn"}`` take one rule, and a cache whose
+SSM leaves are split where the layer's params are not (or the reverse)
+raises ``ValueError`` naming the leaf (``check_state_layout``).
 ``greedy_generate`` takes ``greedy_generate_reference`` on a mesh, as JAX
 routes it; every rank takes the argmax of the same gathered logits, so
 the ranks feed the same tokens.  ``jit_prefill_step`` / ``jit_decode_step``
 return the eager sharded steps (``.compiled`` None): a gloo collective reads
 the host, and NCCL refuses ranks that share one card.
 
-Every other family on a mesh, and a plan with sequence or context
-parallelism, pipeline or expert parallelism, ZeRO-3 or layers of different
-tp, raises ``NotImplementedError`` naming ``Queue 1 item 4``.  Construct
+The moe and audio families on a mesh, and a plan with sequence or
+context parallelism, pipeline or expert parallelism, ZeRO-3 or layers of
+different tp, raise ``NotImplementedError`` naming ``Queue 1 item 4``.  Construct
 through ``repro_torch.serving.step_engine``.
 """
 from __future__ import annotations
@@ -72,7 +80,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.strategy import ExecutionPlan
-from repro_torch.models.common import abstract_params, tree_map
+from repro_torch.models.common import abstract_params, tree_map, tree_paths
 from repro_torch.obs import fence, span
 from repro_torch.parallel import collectives
 from repro_torch.parallel import sharding as shd
@@ -80,23 +88,27 @@ from repro_torch.parallel.axes import axis_rules
 from repro_torch.runtime.compiled import compile_step
 
 _ITEM = "Queue 1 item 4"
-#: the families a serving mesh holds (the dense serving passes)
-MESH_FAMILIES = ("dense", "vlm")
+#: the families a serving mesh holds (the dense serving passes, the Mamba2
+#: state sharded by heads, and both in the hybrid)
+MESH_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+#: the logical axes of the SSM state that its layer's params share
+_STATE_AXES = ("ssm_heads", "ssm_inner", "ssm_groups")
 
 
 def check_mesh_serving(model: Any, plan: ExecutionPlan, mesh: Any) -> None:
     """Refuse, naming its Queue 1 item, what a serving mesh does not hold
-    yet: a family other than dense and vlm, and a plan with sequence or
-    context parallelism, pipeline or expert parallelism, ZeRO-3 or layers
-    of different tp; then the trainer's layout checks (a ``ProcessMesh``
-    whose axes are the plan's, tp the model axis)."""
+    yet: the moe and audio families, and a plan with sequence or context
+    parallelism, pipeline or expert parallelism, ZeRO-3 or layers of
+    different tp; then the trainer's layout checks (a ``ProcessMesh``
+    whose axes are the plan's, tp the model axis, a tp that divides the
+    SSM heads into whole groups)."""
     from repro_torch.runtime.train import check_layout
 
     family = model.cfg.family
     if family not in MESH_FAMILIES:
         raise NotImplementedError(f"serving the {family} family on a mesh waits for {_ITEM} "
-                                  f"(a serving mesh holds the {' and '.join(MESH_FAMILIES)} "
-                                  "families)")
+                                  f"(a serving mesh holds the {', '.join(MESH_FAMILIES[:-1])} "
+                                  f"and {MESH_FAMILIES[-1]} families)")
     strategies = [plan.default_strategy, *plan.layer_strategies]
     for what, refused in (
             ("sequence parallelism", any(s.sp for s in strategies)),
@@ -108,6 +120,50 @@ def check_mesh_serving(model: Any, plan: ExecutionPlan, mesh: Any) -> None:
         if refused:
             raise NotImplementedError(f"a serving mesh under {what} waits for {_ITEM}")
     check_layout(model, plan, mesh)
+
+
+def _axis_entries(axes_tree: dict, spec_tree: dict):
+    """(leaf path, logical axis, mesh axes or None) of every dim of every
+    leaf: ``axes_tree``'s logical axes beside ``spec_tree``'s specs."""
+    specs = dict(tree_paths(spec_tree))
+    for path, axes in tree_paths(axes_tree):
+        spec = tuple(specs[path]) + (None,) * (len(axes) - len(specs[path]))
+        for ax, entry in zip(axes, spec):
+            yield path, ax, entry
+
+
+def check_state_layout(model: Any, param_specs: dict, cache_specs: dict) -> None:
+    """Raise ``ValueError`` naming the cache leaf where a dim of an SSM
+    state (logical axes ``ssm_heads``, ``ssm_inner``, ``ssm_groups``) is
+    split otherwise than that axis in the layers' params (``param_specs``'
+    ``blocks``): a layer computes on its params' shards and would write
+    them into a state laid out otherwise."""
+    defs = model.param_defs().get("blocks")
+    blocks = param_specs.get("blocks")
+    if defs is None or blocks is None:
+        return
+    logical = tree_map(lambda d: d.logical_axes, defs)
+    params: dict = {}
+    for group in (blocks.values() if shd.is_grouped(blocks) else [blocks]):
+        for _, ax, entry in _axis_entries(logical, group):
+            if ax in _STATE_AXES:
+                params.setdefault(ax, set()).add(entry)
+    for path, ax, entry in _axis_entries(model.cache_logical_axes(), cache_specs):
+        if ax in params and params[ax] != {entry}:
+            raise ValueError(f"cache leaf {'/'.join(path)}: its {ax} dim is split over {entry}, "
+                             f"the layers' params over {sorted(map(str, params[ax]))}; a "
+                             "serving mesh computes on one layout")
+
+
+def cache_layout(model: Any, cache_specs: dict) -> tuple:
+    """(the mesh axes the cache's rows are split over, those its positions
+    are split over), each None where whole: the entries of its leaves'
+    ``batch`` and ``seq`` dims (``cache_logical_axes``), one rule for a
+    flat or nested cache; an SSM state has no ``seq`` dim."""
+    found: dict = {}
+    for _, ax, entry in _axis_entries(model.cache_logical_axes(), cache_specs):
+        found.setdefault(ax, entry)
+    return found.get("batch"), found.get("seq")
 
 
 @dataclasses.dataclass
@@ -137,17 +193,19 @@ class ServingEngine:
     def _layout(self) -> None:
         """``cache_specs`` at the engine's batch and max_len, and the
         activation rules the steps run under: the default strategy's, with
-        ``cache_seq`` where the cache's positions are sharded."""
+        ``cache_seq`` where an attention cache's positions are sharded
+        (``cache_layout``)."""
         plan, mesh = self.plan, self.mesh
         self.cache_specs = shd.cache_spec_tree(self.model, plan, mesh, self.batch,
                                                self.max_len)
-        k = tuple(self.cache_specs["k"]) + (None,) * 3
+        check_state_layout(self.model, self.param_specs, self.cache_specs)
+        rows, seq = cache_layout(self.model, self.cache_specs)
         rules = shd.act_rules(plan, plan.default_strategy, mesh)
-        if k[2] is not None:
-            rules = dataclasses.replace(rules, rules={**rules.rules, "cache_seq": k[2]})
+        if seq is not None:
+            rules = dataclasses.replace(rules, rules={**rules.rules, "cache_seq": seq})
         self._rules = rules
         self._batch_group = mesh.group(plan.dp_axes_for(plan.default_strategy))
-        self._split_rows = k[1] is not None
+        self._split_rows = rows is not None
         self._tp_group = (mesh.group(plan.tp_axis) if plan.default_strategy.tp > 1
                           else None)
 

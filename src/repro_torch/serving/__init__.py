@@ -37,14 +37,15 @@ Its ``jit_prefill_step()`` and ``jit_decode_step(donate=True)`` are the
 compiled steps (CUDA graphs; every family).
 
 On a mesh (``launch.mesh.ProcessMesh`` under ``torch.distributed``)
-``step_engine(model, plan, mesh, batch=B, max_len=L)`` serves the dense and
-vlm families under DP over the batch and TP over heads, ff and vocab, the
-KV cache in ``parallel.sharding.cache_spec_tree``'s layout (its positions
-over the model axis where they divide: flash-decode); ``engine.place_params``
-cuts this rank's shards, the steps return the global logits on every rank,
-and ``greedy_generate`` runs the reference loop.  The other families, and
-plans with sp, cp, pp, ep or ZeRO-3, raise ``NotImplementedError`` naming
-Queue 1 item 4.
+``step_engine(model, plan, mesh, batch=B, max_len=L)`` serves the dense,
+vlm, ssm and hybrid families under DP over the batch and TP over heads, ff,
+vocab and the SSM heads and channels, the cache in
+``parallel.sharding.cache_spec_tree``'s layout (a KV cache's positions over
+the model axis where they divide: flash-decode; an SSM state by heads, its
+B / C conv buffers whole); ``engine.place_params`` cuts this rank's shards,
+the steps return the global logits on every rank, and ``greedy_generate``
+runs the reference loop.  The moe and audio families, and plans with sp,
+cp, pp, ep or ZeRO-3, raise ``NotImplementedError`` naming Queue 1 item 4.
 
 Telemetry as JAX's: ``build(config, metrics=..., sink=...)`` hands a
 ``repro_torch.obs.MetricsRegistry`` and a ``RunSink`` to the scheduler
@@ -240,9 +241,9 @@ def step_engine(model: Any, plan: ExecutionPlan, mesh=None, *, batch: int = 0,
     model's; ``dtype`` is the forward passes' compute dtype (bf16, the
     serving dtype; fp32 for exact comparisons).  ``metrics`` (a
     MetricsRegistry) receives the engine's latency histograms.  A ``mesh``
-    (a ``ProcessMesh`` of the plan's axes) serves the dense and vlm
-    families at ``batch`` and ``max_len`` (see the module note); any other
-    family or a plan with sp, cp, pp, ep or ZeRO-3 raises
+    (a ``ProcessMesh`` of the plan's axes) serves the dense, vlm, ssm and
+    hybrid families at ``batch`` and ``max_len`` (see the module note); the
+    moe and audio families or a plan with sp, cp, pp, ep or ZeRO-3 raise
     ``NotImplementedError`` naming Queue 1 item 4."""
     from repro_torch.runtime.serve import ServingEngine
 

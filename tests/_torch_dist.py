@@ -761,38 +761,73 @@ def serve_cases(payload: dict) -> dict:
     gathered cache, each teacher-forced decode step's logits (the case's
     ``steps``: tokens, ``cache_index``, ``kv_len``), the gathered cache after
     them, ``greedy_generate``'s tokens, ``cache_specs``, this rank's local
-    cache shape and the one ``init_cache`` gives under the engine's rules.
-    Every rank returns its results."""
+    cache shapes and the ones ``init_cache`` gives under the engine's rules
+    ({leaf path: shape}, a flat or nested cache alike), and this rank's own
+    ``conv_B`` / ``conv_C`` after the prefill and after the steps (an SSM
+    state's, which every rank of the model axis holds whole).  A case with
+    ``naive_groups`` also prefills with every rank handed all of a Mamba2
+    layer's B/C groups (``naive_groups``' logits).  ``payload["device"]``
+    (default the CPU) is where the ranks compute (the kernels on a card,
+    their plain versions on the CPU), ``payload["backend"]`` the mesh's
+    (default ``make_mesh``'s: gloo on the CPU, NCCL on a card, which
+    refuses ranks that share one).  Every rank returns its results, on the
+    CPU."""
     from repro_torch import serving
     from repro_torch.core.strategy import LayerStrategy
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, mamba2
+    from repro_torch.models.common import tree_paths
     from repro_torch.parallel.axes import axis_rules
 
+    def shapes(tree):
+        return {"/".join(path): tuple(x.shape) for path, x in tree_paths(tree)}
+
+    def own_conv(tree):
+        return {"/".join(path): x.clone() for path, x in tree_paths(tree)
+                if path[-1] in ("conv_B", "conv_C")}
+
+    def cpu(x):
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cpu(v) for v in x]
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    device = payload.get("device", "cpu")
     meshes: dict = {}
     out = {}
     for case in payload["cases"]:
         cfg, shape = case["cfg"], tuple(case["mesh"])
         if shape not in meshes:
-            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+            meshes[shape] = make_mesh(shape, ("data", "model"), device=device,
+                                      backend=payload.get("backend"))
         plan = plan_of(cfg.name, cfg.num_layers, shape, [LayerStrategy(tp=case["tp"], zero=0)])
         B = case["tokens"].shape[0]
-        eng = serving.step_engine(build_model(cfg, device="cpu"), plan, meshes[shape], batch=B,
-                                  max_len=case["max_len"], dtype=torch.float32, device="cpu")
+        eng = serving.step_engine(build_model(cfg, device=device), plan,
+                                  meshes[shape], batch=B, max_len=case["max_len"],
+                                  dtype=torch.float32, device=device)
         params = eng.place_params(case["params"])
         logits, cache = eng.prefill_step(params, case["tokens"], case.get("extras"))
         with axis_rules(eng._rules):             # the local cache init_cache sizes
-            sized = tuple(eng.model.init_cache(B, case["max_len"])["k"].shape)
+            sized = shapes(eng.model.init_cache(B, case["max_len"]))
         res = {"prefill": logits, "prefill_cache": eng.gather_cache(cache),
-               "specs": eng.cache_specs, "local": tuple(cache["k"].shape), "sized": sized,
-               "steps": []}
+               "specs": eng.cache_specs, "local": shapes(cache), "sized": sized,
+               "prefill_conv": own_conv(cache), "steps": []}
         for tokens, cache_index, kv_len in case["steps"]:
             logits, cache = eng.decode_step(params, tokens, cache, cache_index, kv_len)
             res["steps"].append(logits)
         res["cache"] = eng.gather_cache(cache)
+        res["conv"] = own_conv(cache)
         res["greedy"] = eng.greedy_generate(params, case["tokens"], case["max_new"],
                                             case["max_len"])
-        out[case["name"]] = res
+        if case.get("naive_groups"):
+            kept = mamba2.local_groups
+            mamba2.local_groups = lambda H, G, tp, rank: (0, G)
+            try:
+                res["naive_groups"] = eng.prefill_step(params, case["tokens"])[0]
+            finally:
+                mamba2.local_groups = kept
+        out[case["name"]] = cpu(res)
     return out
 
 

@@ -17,3 +17,25 @@ def perturbed(tree, rng):
         else:
             out[k] = np.asarray(v, np.float32)
     return out
+
+
+def perturbed_heads(tree, rng):
+    """``perturbed``, and each Mamba2 head's ``A_log``, ``D`` and
+    ``dt_bias`` drawn apart: a fresh init gives every head the same
+    (zeros, ones, zeros), so a rank that took the wrong heads of them
+    would compute the same numbers and go unseen."""
+    return _heads_apart(perturbed(tree, rng), rng)
+
+
+def _heads_apart(tree, rng):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _heads_apart(v, rng)
+        elif k in ("A_log", "dt_bias"):
+            out[k] = (v + 0.5 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k == "D":
+            out[k] = (v * (1 + 0.5 * rng.standard_normal(v.shape))).astype(np.float32)
+        else:
+            out[k] = v
+    return out

@@ -18,7 +18,12 @@ against autograd through the plain ring; the checkpoint writer's snapshot
 of CUDA leaves (pinned host copies fenced by an event, ahead of an
 in-place update) and a bf16 state through the card; a serving-mesh rank's
 K1 decode partial (g = 8, a key offset, residuals, split-K) and K1
-partials over cache slices merged into the whole call.
+partials over cache slices merged into the whole call; the ssm and hybrid
+serving mesh's kernel rows (K1 at zamba2's hd 112 and g = 1 over a cache
+slice with residuals, K2's split-row forward at a tp 2 rank's prefill and
+decode rows, K3 on a rank's heads and the group they read) and reduced
+mamba2 and zamba2 served by two gloo ranks sharing the card, the kernel
+path against one device's plain path.
 
 Every test here needs the card (``cuda`` marker) and skips without one.
 This file imports no JAX, so on a GPU machine without JAX it runs with::
@@ -42,6 +47,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import attention as t_attn
 from repro_torch.configs.registry import get_config
 from repro_torch.models import build_model
+from repro_torch.models.common import tree_paths
 
 pytestmark = pytest.mark.cuda
 
@@ -2095,3 +2101,148 @@ def test_cuda_traced_temp_is_the_measured_step_peak(cuda_device, policy):
     measured = torch.cuda.max_memory_allocated() - before
     assert tr.argument_bytes == nbytes
     assert abs(tr.temp_bytes - measured) <= 0.10 * measured, (tr.temp_bytes, measured)
+
+
+# ------------------------------------------------- ssm and hybrid on a serving mesh
+
+@pytest.mark.parametrize("offset,kv_len", [(0, (520, 300)), (272, (520, 513)),
+                                           (272, (200, 529))])
+def test_cuda_flash_decode_partial_at_hd112(cuda_device, offset, kv_len):
+    """A zamba2 site's K1 decode partial on a serving-mesh rank (every query
+    head, 32 over 32 KV heads, g = 1, hd 112, over a 272-key slice of a
+    544-position cache): per-slot positions at the slice's key offset,
+    residuals; a slot that sees none of rank 1's keys included.  Against
+    the plain version: o fp32 1e-4, bf16 3e-2; m and l 1e-5."""
+    B, Sq, H, hd, S_l = 2, 1, 32, 112, 272
+    kv = torch.tensor(kv_len, device=cuda_device)
+    q_pos, k_pos = t_attn.flash_positions(kv - 1, Sq, S_l, kv, B, cuda_device, k_offset=offset)
+    g = torch.Generator(device=cuda_device).manual_seed(offset + kv_len[1])
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        q = torch.randn((B, Sq, H, hd), generator=g, device=cuda_device).to(dtype)
+        k, v = (torch.randn((B, S_l, H, hd), generator=g, device=cuda_device).to(dtype)
+                for _ in range(2))
+        kw = dict(causal=True, q_pos=q_pos, k_pos=k_pos, return_residuals=True)
+        out, m, l = flash_ops.flash_attention_fwd(q, k, v, **kw)
+        ref, rm, rl = flash_ref.flash_attention_fwd(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(m, rm, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(l, rl, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [1024, 2])
+@pytest.mark.parametrize("width", [5120, 7168])
+def test_cuda_rmsnorm_split_serving_rows(cuda_device, rows, width):
+    """The gate norm of a tp 2 serving rank (mamba2's d_inner 5120, zamba2's
+    7168; a prefill of 2 x 512 rows and a decode step's 2): each half's two
+    forward passes, the statistics summed by hand, against the plain passes
+    and, concatenated, the whole-row K2 (fp32 1e-5, bf16 2e-2)."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows + width)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        x = (3.0 * torch.randn((rows, width), generator=g, device=cuda_device)).to(dtype)
+        scale = 1 + 0.3 * torch.randn((width,), generator=g, device=cuda_device)
+        xs, ss = [t.contiguous() for t in x.chunk(2, -1)], list(scale.chunk(2))
+        stat = sum(rms_ops.rmsnorm_split_sumsq(h) for h in xs)
+        want_stat = sum(rms_ops.rmsnorm_split_sumsq_reference(h) for h in xs)
+        torch.testing.assert_close(stat, want_stat, atol=1e-3, rtol=1e-5)
+        outs = [rms_ops.rmsnorm_split(h, s, stat, width) for h, s in zip(xs, ss)]
+        for o, h, s in zip(outs, xs, ss):
+            torch.testing.assert_close(o.float(), rms_ops.rmsnorm_split_reference(
+                h, s, stat, width).float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(torch.cat(outs, -1).float(),
+                                   rms_ops.rmsnorm(x, scale, 1e-5).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("H,G,N,rank", [(80, 1, 128, 1), (112, 2, 64, 1), (112, 2, 64, 0)])
+def test_cuda_ssd_on_a_ranks_heads(cuda_device, H, G, N, rank):
+    """K3 on a tp 2 serving rank's heads at prefill (mamba2: 40 of 80 heads,
+    G 1; zamba2: 56 of 112 heads, the one of 2 groups they read,
+    ``mamba2.local_groups``), B2 S512 P64 in bf16 and fp32: against the
+    plain version (1e-3 of its scale, a bf16 y one bf16 step more), and
+    against the whole call's heads, which read the same group."""
+    from repro_torch.models.mamba2 import local_groups
+
+    Bs, S, P = 2, 512, 64
+    h0, h1 = rank * H // 2, (rank + 1) * H // 2
+    g0, g1 = local_groups(H, G, 2, rank)
+    gen = torch.Generator(device=cuda_device).manual_seed(H + rank)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, A, B, C = _ssd_inputs(gen, cuda_device, Bs, S, H, P, G, N, dtype)
+        local = [t[:, :, h0:h1].contiguous() for t in (x, dt)] + [A[h0:h1].contiguous()] + \
+            [t[:, :, g0:g1].contiguous() for t in (B, C)]
+        y, st = ssd_ops.ssd(*local)
+        ry, rs = ssd_ref.ssd_chunked(*local)
+        wy, ws = ssd_ops.ssd(x, dt, A, B, C)
+        torch.cuda.synchronize()
+        rtol_y = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+        for a, b, rtol in ((y.float(), ry.float(), rtol_y), (st, rs, 0.0),
+                           (y.float(), wy[:, :, h0:h1].float(), rtol_y),
+                           (st, ws[:, h0:h1], 0.0)):
+            tol = 1e-3 * max(1.0, float(b.abs().max()))
+            assert bool(((a - b).abs() <= tol + rtol * b.abs()).all()), (dtype, a.shape)
+
+
+def _serve_mesh_case(name, cfg, max_len, seed):
+    """A reduced model's canonical fp32 weights (SSM heads' ``A_log``,
+    ``D`` and ``dt_bias`` drawn apart), prompts and 3 teacher-forced decode
+    steps, as ``_torch_dist.serve_cases`` takes them on (data 1, model 2)."""
+    g = torch.Generator().manual_seed(seed)
+    params = build_model(cfg, device="cpu").init(g)
+    blocks = params["blocks"]
+    blocks["A_log"] += 0.5 * torch.randn(blocks["A_log"].shape, generator=g)
+    blocks["dt_bias"] += 0.5 * torch.randn(blocks["dt_bias"].shape, generator=g)
+    blocks["D"] *= 1 + 0.5 * torch.randn(blocks["D"].shape, generator=g)
+    rng = np.random.default_rng(seed)
+    B, S = 4, 32
+    steps = [(torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1))), S + i,
+              torch.tensor([S + i + 1 - d for d in (0, 1, 0, 2)])) for i in range(3)]
+    return dict(name=name, cfg=cfg, mesh=(1, 2), tp=2, max_len=max_len, max_new=4,
+                params=params, tokens=torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))),
+                extras=None, steps=steps)
+
+
+def test_cuda_ssm_and_hybrid_serve_on_gloo_ranks_sharing_the_card(cuda_device, tmp_path):
+    """Reduced mamba2 (8 SSM heads, G 1) and zamba2 at 6 layers (8 heads in
+    2 groups, 3 sites, a 36-position cache split over the model axis: the
+    sites decode by flash-decode) in fp32 on two gloo ranks sharing the
+    card, tp 2, the kernel path (K3 on each rank's heads and group, K2's
+    split-row gate norm, K1's partials): the prefill's and each decode
+    step's logits and the gathered cache within 1e-3 of their scale of one
+    device's plain path (``impl="ref"``), and the greedy tokens equal."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist_helpers", pathlib.Path(__file__).with_name("_torch_dist.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    cases = [_serve_mesh_case("ssm", get_config("mamba2-2.7b").reduced(), 36, 0),
+             _serve_mesh_case("hybrid", dataclasses.replace(
+                 get_config("zamba2-7b").reduced(), num_layers=6), 36, 1)]
+    got = helpers.run_ranks(2, "serve_cases", {"cases": cases, "device": "cuda",
+                                               "backend": "gloo"}, tmp_path)
+
+    def close(a, b, what):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a.float() - b.float().cpu()).abs().max()) <= 1e-3 * scale, what
+
+    for case in cases:
+        cfg = case["cfg"]
+        eng = serving.step_engine(build_model(cfg, impl="ref", device=cuda_device),
+                                  serving.single_device_plan(cfg), batch=4,
+                                  max_len=case["max_len"], dtype=torch.float32)
+        params = _to(case["params"], cuda_device)
+        logits, cache = eng.prefill_step(params, case["tokens"].to(cuda_device))
+        want = [logits]
+        for tok, index, kv in case["steps"]:
+            logits, cache = eng.decode_step(params, tok.to(cuda_device), cache, index,
+                                            kv.to(cuda_device))
+            want.append(logits)
+        greedy = eng.greedy_generate(params, case["tokens"].to(cuda_device), 4, 36)
+        for res in (r[case["name"]] for r in got):
+            for i, (a, b) in enumerate(zip([res["prefill"]] + res["steps"], want)):
+                close(a, b, f"{case['name']} step {i}")
+            gathered = dict(tree_paths(res["cache"]))
+            for path, leaf in tree_paths(cache):
+                close(gathered[path], leaf, f"{case['name']} {path}")
+            assert res["greedy"].tolist() == greedy.tolist(), case["name"]
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}

@@ -11,8 +11,10 @@
   JAX's cluster clean;
 * ``launch.dryrun.run_cell`` on reduced configs: a train cell (audited), a
   ``--pp 2`` cell (both stages traced), a ``--cp 2`` cell, a dense decode
-  cell; the MoE ep cell's trace stopping at the exchange's host read with
-  GALV093 at ``models/moe.py``; ``main``'s JSON for an error cell.
+  cell; full-size ssm and hybrid serve cells on the mesh engine; the MoE
+  ep cell's trace stopping at the exchange's host read with GALV093 at
+  ``models/moe.py``; ``main``'s JSON for an error cell (the audio family's
+  serve cell, refused on a mesh).
 """
 from __future__ import annotations
 
@@ -216,10 +218,30 @@ def test_run_cell_moe_ep_stops_at_the_host_read(no_world, reduced):
     assert "models/moe.py" in out["stopped_at"]
 
 
+@pytest.mark.parametrize("arch, shape, multi_pod", [
+    ("mamba2-2.7b", "decode_32k", False), ("mamba2-2.7b", "prefill_32k", True),
+    ("zamba2-7b", "decode_32k", False), ("zamba2-7b", "long_500k", True)])
+def test_run_cell_ssm_and_hybrid_serve_cells_on_the_mesh_engine(no_world, arch, shape,
+                                                                multi_pod):
+    """Full-size ssm and hybrid serve cells trace on the mesh engine: the
+    SSD state by heads (K3 on a rank's heads at prefill), the gate norm
+    through K2's split-row passes, zamba2's sites by flash-decode over a
+    sequence-sharded cache (K1 with residuals), long_500k's batch of 1
+    whole on every rank of the 512-rank mesh."""
+    out = dryrun.run_cell(arch, shape, multi_pod=multi_pod, device="meta", verbose=False)
+    assert out["plan"]["default"].startswith("tp16") and "error" not in out
+    kernels = out["kernels"]
+    assert kernels["rmsnorm_split_sumsq"] > 0 and kernels["rmsnorm_split"] > 0
+    assert (kernels.get("ssd", 0) > 0) == (shape == "prefill_32k")
+    assert (kernels.get("flash_attention_fwd", 0) > 0) == (arch == "zamba2-7b")
+    if out["kind"] == "decode":
+        assert out["memory_analysis"]["alias_size_in_bytes"] > 0      # the state, in place
+
+
 def test_main_writes_a_json_for_a_cell_and_an_error(tmp_path, no_world, capsys):
-    rc = dryrun.main(["--arch", "mamba2-2.7b", "--shape", "decode_32k", "--device", "meta",
+    rc = dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k", "--device", "meta",
                       "--skip-unrolled", "--out", str(tmp_path)])
     assert rc == 1
-    res = json.loads((tmp_path / "mamba2-2.7b__decode_32k__pod16x16.json").read_text())
+    res = json.loads((tmp_path / "whisper-tiny__decode_32k__pod16x16.json").read_text())
     assert res["error"].startswith("NotImplementedError") and "Queue 1 item 4" in res["error"]
     assert res["traceback"] and res["plan"]["default"].startswith("tp16")

@@ -303,7 +303,8 @@ def test_dense_engine_paged_route_matches_reference_loop():
 
 def test_step_engine_rejects_a_mesh_and_a_foreign_device(pair):
     plan = serving.single_device_plan(pair["cfg"])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a serving mesh holds the ssm family, on a ProcessMesh alone
+    with pytest.raises(TypeError, match="ProcessMesh"):
         serving.step_engine(pair["tm"], plan, mesh=object(), device="cpu")
     meta = Mamba2LM(pair["cfg"], device="meta")
     with pytest.raises(ValueError, match="step_engine"):

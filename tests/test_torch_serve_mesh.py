@@ -5,9 +5,18 @@
 * ``cache_spec_tree`` equals JAX's, as tuples, for every arch on the
   abstract meshes (data 2, model 4) and (16, 16), at a ``max_len`` and a
   batch that divide and that do not, and without shapes;
-* a serving mesh refuses the ssm, hybrid, moe and audio families and plans
-  with sp, cp > 1, pp > 1, ep > 1, ZeRO-3 or layers of different tp, each
-  naming Queue 1 item 4, before it looks at the mesh;
+* a serving mesh refuses the moe and audio families and plans with sp,
+  cp > 1, pp > 1, ep > 1, ZeRO-3 or layers of different tp (dense, vlm,
+  ssm and hybrid models alike), each naming Queue 1 item 4, before it
+  looks at the mesh;
+* the ssm and hybrid caches on the abstract meshes (data 2, model 4) and
+  (16, 16): ``cache_layout``'s batch split and ``cache_seq`` read off the
+  flat SSM state and the nested ``{"mamba", "attn"}`` cache, each the
+  entry of JAX's ``cache_spec_tree`` at that leaf's batch or seq dim;
+  mamba2's vocab of 50 280 left whole over 16 ranks;
+  ``check_state_layout`` passes the engine's own layouts and raises
+  ``ValueError`` naming the leaf where an SSM state's heads or channels
+  are split otherwise than the layer's params (either way round);
 * the pieces of flash-decode, in one process on the plain version: a
   sequence-sharded cache written slice by slice (an int and a per-slot
   tensor ``cache_index``) is the whole cache's write, and K1's partials
@@ -36,6 +45,7 @@ from repro_torch.models.common import tree_paths
 from repro_torch.parallel import context
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.axes import abstract_mesh
+from repro_torch.runtime import serve
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -109,8 +119,7 @@ def _plan(strategy: LayerStrategy, layers: int = 2, pp: int = 1, axes=("data", "
                          layer_strategies=strategies, default_strategy=strategy)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b", "moonshot-v1-16b-a3b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "whisper-tiny"])
 def test_a_serving_mesh_refuses_the_other_families(arch):
     cfg = get_config(arch).reduced()
     mesh = abstract_mesh((2, 2), ("data", "model"))
@@ -129,11 +138,79 @@ def test_a_serving_mesh_refuses_the_other_families(arch):
     _plan(LayerStrategy(tp=2), second=LayerStrategy(tp=1)),
 ], ids=["sp", "cp2", "pp2", "ep2", "zero3", "mixed-tp"])
 def test_a_serving_mesh_refuses_the_plans_it_does_not_hold(plan):
-    for arch in ("qwen2.5-3b", "internvl2-26b"):
+    for arch in ("qwen2.5-3b", "internvl2-26b", "mamba2-2.7b", "zamba2-7b"):
         model = build_model(get_config(arch).reduced(), device="cpu")
         mesh = abstract_mesh(plan.mesh_shape, plan.mesh_axes)
         with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             serving.step_engine(model, plan, mesh, batch=4, max_len=36, device="cpu")
+
+
+# (mesh, the batches and max_lens: dividing and not)
+_STATE_MESHES = [((2, 4), (4, 3), (36, 34)), ((16, 16), (32, 1), (32768, 524290))]
+
+
+def _serve_plans(shape):
+    axes = ("data", "model")
+    kw = dict(arch="t", shape="t", mesh_axes=axes, mesh_shape=shape)
+    js, ts = JaxStrategy(tp=shape[1], zero=0), LayerStrategy(tp=shape[1], zero=0)
+    return (JaxPlan(**kw, layer_strategies=[js] * 2, default_strategy=js),
+            ExecutionPlan(**kw, layer_strategies=[ts] * 2, default_strategy=ts),
+            jax_abstract_mesh(shape, axes), abstract_mesh(shape, axes))
+
+
+@pytest.mark.parametrize("shape", [m[0] for m in _STATE_MESHES], ids=["2x4", "16x16"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_and_hybrid_cache_layouts_equal_jax(arch, shape):
+    """The flat SSM state and the hybrid's nested cache: the rows' split is
+    JAX's spec at the batch dim of every leaf, ``cache_seq`` JAX's at the
+    attention cache's positions (None for mamba2: no positions), and the
+    engine's own param and cache layouts pass ``check_state_layout``."""
+    jm, tm = _models(arch)
+    jplan, tplan, jmesh, tmesh = _serve_plans(shape)
+    batches, lens = {m[0]: m[1:] for m in _STATE_MESHES}[shape]
+    params = shd.param_spec_tree(tm, tplan, tmesh)
+    for batch in batches:
+        for max_len in lens:
+            want = dict(_jax_paths(jshd.cache_spec_tree(jm, jplan, jmesh, batch, max_len)))
+            specs = shd.cache_spec_tree(tm, tplan, tmesh, batch, max_len)
+            assert {p: tuple(s) for p, s in tree_paths(specs)} == \
+                {p: tuple(s) for p, s in want.items()}
+            state = ("mamba", "ssm") if arch == "zamba2-7b" else ("ssm",)
+            rows = (tuple(want[state]) + (None,) * 2)[1]
+            seq = (tuple(want[("attn", "k")]) + (None,) * 3)[2] if arch == "zamba2-7b" else None
+            assert serve.cache_layout(tm, specs) == (rows, seq), (batch, max_len)
+            serve.check_state_layout(tm, params, specs)
+            assert (rows is None) == (batch % shape[0] != 0)
+            if arch == "zamba2-7b":
+                assert (seq is None) == (max_len % shape[1] != 0)
+    # mamba2's vocab of 50 280 does not split over 16 ranks: its table stays whole
+    vocab_split = tuple(params["embed"]["tok"]) != ()
+    assert vocab_split == (arch == "zamba2-7b" or shape[1] == 4)
+
+
+def _with_leaf(tree: dict, path: tuple, spec) -> dict:
+    out = dict(tree)
+    out[path[0]] = _with_leaf(tree[path[0]], path[1:], spec) if len(path) > 1 else spec
+    return out
+
+
+@pytest.mark.parametrize("arch, leaf, spec", [
+    ("mamba2-2.7b", ("ssm",), (None, "data")),
+    ("mamba2-2.7b", ("conv_x",), (None, "data")),
+    ("mamba2-2.7b", ("conv_B",), (None, "data", None, "model")),
+    ("zamba2-7b", ("mamba", "ssm"), (None, "data")),
+], ids=["ssm-whole", "conv_x-whole", "conv_B-split", "hybrid-ssm-whole"])
+def test_a_mismatched_state_layout_is_refused(arch, leaf, spec):
+    """A cache leaf left whole where the params split its heads or
+    channels, or split where they are whole, is a ``ValueError`` naming
+    the leaf: the layer would write its shard into the wrong layout."""
+    _, tm = _models(arch)
+    _, tplan, _, tmesh = _serve_plans((2, 4))
+    params = shd.param_spec_tree(tm, tplan, tmesh)
+    specs = shd.cache_spec_tree(tm, tplan, tmesh, 4, 36)
+    serve.check_state_layout(tm, params, specs)
+    with pytest.raises(ValueError, match="/".join(leaf)):
+        serve.check_state_layout(tm, params, _with_leaf(specs, leaf, spec))
 
 
 def test_a_serving_mesh_is_a_process_mesh():

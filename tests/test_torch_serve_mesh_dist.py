@@ -2,7 +2,8 @@
 against JAX's single-device ``ServingEngine`` and the port's own, on gloo
 ranks (``tests/_torch_dist.py::serve_cases``): one spawn of 4 CPU ranks
 serves every case, in fp32, on JAX-initialised weights (zero biases and
-unit norms perturbed).
+unit norms perturbed; in the ssm and hybrid cases each SSM head's
+``A_log``, ``D`` and ``dt_bias`` drawn apart too, ``perturbed_heads``).
 
 Cases (B 4): qwen2.5-3b ``reduced()`` (one KV head) under tp 2 on (data 2,
 model 2) and tp 4 on (data 1, model 4), each at a ``max_len`` whose
@@ -12,20 +13,29 @@ sequence-sharded cache) and one where they do not (35 on tp 2, 34 on tp
 K/V projections sharded, the cache gathered to every KV head); a prompt of
 8 in 36 positions on tp 4, whose first decode step finds no visible key on
 ranks 1-3; internvl2-26b ``reduced()`` under tp 2 with seeded patch
-embeddings (``cache_index = Sv + S + i``).
+embeddings (``cache_index = Sv + S + i``); mamba2-2.7b ``reduced()`` (8
+SSM heads in 1 group, ``d_inner`` 256) under tp 2 and tp 4 (the SSD state
+by heads, ``conv_x`` by channels, ``conv_B`` / ``conv_C`` whole); zamba2-7b
+``reduced()`` at 6 layers (3 shared-block sites, 8 SSM heads in 2 groups,
+4 KV heads at hd 32) under tp 2 and tp 4, each at a split (36) and a whole
+(35 / 34) attention cache.
 
 Each case prefills, then takes teacher-forced decode steps with per-slot
 ``kv_len`` that differ (a last step at a per-slot or 0-d tensor
 ``cache_index`` where named).  Held: the logits of every step within 1e-4
 of their scale of JAX's single-device engine (the int steps) and within
-1e-5 of the port's single-device engine; the gathered cache, after the
-prefill and after the last step, within 1e-5 of the single-device cache;
-``greedy_generate``'s tokens (up to 4) the same on every rank and equal
-to the port's single-device engine's (held to JAX's by
-``tests/test_torch_compiled.py``); the engine's ``cache_specs`` and each
-rank's local cache shape (the prefill's, and ``init_cache``'s under the
-engine's rules) as ``cache_spec_tree`` lays them out.  The decode steps
-under tp also hold the vocab-sharded lookup of ``forward_decode``.
+1e-5 of the port's single-device engine; the gathered cache, leaf by leaf,
+after the prefill and after the last step, within 1e-5 of the
+single-device cache; ``conv_B`` / ``conv_C`` bitwise the same on every
+rank of the model axis; ``greedy_generate``'s tokens (up to 4) the same on
+every rank and equal to the port's single-device engine's (held to JAX's
+by ``tests/test_torch_compiled.py``); the engine's ``cache_specs``, leaf by
+leaf, and each rank's local cache shapes (the prefill's, and
+``init_cache``'s under the engine's rules) as ``cache_spec_tree`` lays them
+out.  The decode steps under tp also hold the vocab-sharded lookup of
+``forward_decode``.  zamba2's 2 groups make a group fault visible: on tp 2
+and tp 4, handing every rank all of a layer's B/C groups changes the
+prefill's logits.
 """
 import dataclasses
 
@@ -42,8 +52,9 @@ from repro_torch import serving
 from repro_torch.configs.registry import get_config
 from repro_torch.models import build_model
 from repro_torch.models.common import params_from_jax
+from repro_torch.models.common import tree_map, tree_paths
 from tests._torch_dist import run_ranks
-from tests._torch_params import perturbed
+from tests._torch_params import perturbed, perturbed_heads
 
 B = 4
 TOL_JAX, TOL_PORT = 1e-4, 1e-5
@@ -76,12 +87,42 @@ CASES = [
     ("tp4_seq", "qwen2.5-3b", (1, 4), 4, 32, 36, None, None, (2, 4, 9, 1, 32)),
     ("tp4_whole", "qwen2.5-3b", (1, 4), 4, 32, 34, None, "scalar", (2, 4, 34, 1, 32)),
     ("tp4_short", "qwen2.5-3b", (1, 4), 4, 8, 36, None, None, (2, 4, 9, 1, 32)),
+    ("ssm_tp2", "mamba2-2.7b", (2, 2), 2, 32, 36, None, None, None),
+    ("ssm_tp4", "mamba2-2.7b", (1, 4), 4, 32, 36, None, "scalar", None),
+    ("hybrid_tp2_seq", "zamba2-7b", (2, 2), 2, 32, 36, {"num_layers": 6}, "per_slot", None),
+    ("hybrid_tp2_whole", "zamba2-7b", (2, 2), 2, 32, 35, {"num_layers": 6}, None, None),
+    ("hybrid_tp4_seq", "zamba2-7b", (1, 4), 4, 32, 36, {"num_layers": 6}, None, None),
+    ("hybrid_tp4_whole", "zamba2-7b", (1, 4), 4, 32, 34, {"num_layers": 6}, None, None),
 ]
-SPECS = {"tp2_seq": (None, "data", "model"), "tp2_whole": (None, "data"),
-         "tp2_kv2": (None, "data", "model"), "vlm_tp2": (None, "data", "model"),
-         "tp4_seq": (None, "data", "model"), "tp4_whole": (None, "data"),
-         "tp4_short": (None, "data", "model")}
+_SEQ, _WHOLE = (None, "data", "model"), (None, "data")
+_SSM = {"conv_x": (None, "data", None, "model"), "conv_B": _WHOLE, "conv_C": _WHOLE,
+        "ssm": (None, "data", "model")}
+#: each case's cache_specs, leaf by leaf
+SPECS = {"tp2_seq": {"k": _SEQ, "v": _SEQ}, "tp2_whole": {"k": _WHOLE, "v": _WHOLE},
+         "tp2_kv2": {"k": _SEQ, "v": _SEQ}, "vlm_tp2": {"k": _SEQ, "v": _SEQ},
+         "tp4_seq": {"k": _SEQ, "v": _SEQ}, "tp4_whole": {"k": _WHOLE, "v": _WHOLE},
+         "tp4_short": {"k": _SEQ, "v": _SEQ}, "ssm_tp2": _SSM, "ssm_tp4": _SSM,
+         "hybrid_tp2_seq": {"mamba": _SSM, "attn": {"k": _SEQ, "v": _SEQ}},
+         "hybrid_tp2_whole": {"mamba": _SSM, "attn": {"k": _WHOLE, "v": _WHOLE}},
+         "hybrid_tp4_seq": {"mamba": _SSM, "attn": {"k": _SEQ, "v": _SEQ}},
+         "hybrid_tp4_whole": {"mamba": _SSM, "attn": {"k": _WHOLE, "v": _WHOLE}}}
 KV_SHORT = (0, 1, 0, 2)       # each step's kv_len: its position + 1, less these
+#: the cases that also prefill with every rank handed all of the B/C groups
+NAIVE_GROUPS = ("hybrid_tp2_seq", "hybrid_tp4_seq")
+
+
+def _local_shapes(cfg, specs: dict, mesh: tuple, max_len: int) -> dict:
+    """{leaf path: shape} of a rank's shard of the whole cache (the model's
+    ``abstract_cache`` at B and ``max_len``) as ``specs`` lays it out."""
+    sizes = dict(zip(("data", "model"), mesh))
+    whole = build_model(cfg, device="cpu").abstract_cache(B, max_len)
+    specs = dict(tree_paths(specs))
+    out = {}
+    for path, leaf in tree_paths(whole):
+        spec = tuple(specs[path]) + (None,) * (leaf.dim() - len(specs[path]))
+        out["/".join(path)] = tuple(n // (sizes[ax] if ax else 1)
+                                    for n, ax in zip(leaf.shape, spec))
+    return out
 
 
 def _build(name, arch, mesh, tp, S, max_len, overrides, last):
@@ -89,8 +130,9 @@ def _build(name, arch, mesh, tp, S, max_len, overrides, last):
     if overrides:
         cfg, jcfg = dataclasses.replace(cfg, **overrides), dataclasses.replace(jcfg, **overrides)
     jm = jax_build_model(jcfg)
-    np_params = perturbed(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))),
-                          np.random.default_rng(0))
+    perturb = perturbed_heads if cfg.family in ("ssm", "hybrid") else perturbed
+    np_params = perturb(jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))),
+                        np.random.default_rng(0))
     rng = np.random.default_rng(len(name))
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
     Sv = cfg.vis_tokens if cfg.family == "vlm" else 0
@@ -108,7 +150,7 @@ def _build(name, arch, mesh, tp, S, max_len, overrides, last):
                 tokens=torch.from_numpy(tokens),
                 extras=None if extras is None else {k: torch.from_numpy(v)
                                                     for k, v in extras.items()},
-                steps=[])
+                steps=[], naive_groups=name in NAIVE_GROUPS)
     for j, (tok, pos, kv) in enumerate(steps):
         index = pos
         if j == len(steps) - 1 and last == "per_slot":     # two slots rewrite pos - 1
@@ -127,8 +169,7 @@ def _single_device(case):
                               batch=B, max_len=case["max_len"], dtype=torch.float32,
                               device="cpu")
     logits, cache = eng.prefill_step(case["params"], case["tokens"], case["extras"])
-    out = {"prefill": logits, "prefill_cache": {k: v.clone() for k, v in cache.items()},
-           "steps": []}
+    out = {"prefill": logits, "prefill_cache": tree_map(torch.clone, cache), "steps": []}
     for tokens, index, kv_len in case["steps"]:
         logits, cache = eng.decode_step(case["params"], tokens, cache, index, kv_len)
         out["steps"].append(logits)
@@ -174,23 +215,32 @@ def served(tmp_path_factory):
     return built, ranks
 
 
+def _leaves(tree) -> dict:
+    return {"/".join(path): x for path, x in tree_paths(tree)}
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_mesh_engine_matches_single_device_engines(served, case):
-    name, local = case[0], case[8]
+    name, mesh, max_len, local_k = case[0], case[2], case[5], case[8]
     built, ranks = served
     spec, jm, jcfg, np_params, extras = built[name]
     one = _single_device(spec)
     jax_one = _jax_single_device(spec, jm, jcfg, np_params, extras)
+    local = _local_shapes(spec["cfg"], SPECS[name], mesh, max_len)
+    if local_k is not None:
+        assert local == {"k": local_k, "v": local_k}
     for rank, res in enumerate(r[name] for r in ranks):
         who = f"{name} rank {rank}"
-        assert res["specs"]["k"] == res["specs"]["v"] == SPECS[name], who
+        assert _leaves(res["specs"]) == _leaves(SPECS[name]), who
         assert res["local"] == res["sized"] == local, who
         _close(res["prefill"], one["prefill"], TOL_PORT, f"{who} prefill vs the port")
         _close(res["prefill"], jax_one["prefill"], TOL_JAX, f"{who} prefill vs JAX")
-        for key in ("k", "v"):
-            _close(res["prefill_cache"][key], one["prefill_cache"][key], TOL_PORT,
-                   f"{who} prefill cache {key}")
-            _close(res["cache"][key], one["cache"][key], TOL_PORT, f"{who} last cache {key}")
+        for when, got, want in (("prefill", res["prefill_cache"], one["prefill_cache"]),
+                                ("last", res["cache"], one["cache"])):
+            want = _leaves(want)
+            assert _leaves(got).keys() == want.keys(), who
+            for key, leaf in _leaves(got).items():
+                _close(leaf, want[key], TOL_PORT, f"{who} {when} cache {key}")
         assert len(res["steps"]) == len(spec["steps"]) > 0
         for i, (got, want, jwant) in enumerate(zip(res["steps"], one["steps"],
                                                    jax_one["steps"])):
@@ -199,3 +249,24 @@ def test_mesh_engine_matches_single_device_engines(served, case):
                 _close(got, jwant, TOL_JAX, f"{who} step {i} vs JAX")
         assert torch.equal(res["greedy"], ranks[0][name]["greedy"]), who
         np.testing.assert_array_equal(res["greedy"].numpy(), one["greedy"].numpy(), who)
+        # the whole B/C conv buffers: the same on every rank of the model axis
+        first = ranks[rank - rank % mesh[1]][name]
+        for when in ("prefill_conv", "conv"):
+            assert res[when].keys() == first[when].keys(), who
+            for key, leaf in res[when].items():
+                assert torch.equal(leaf, first[when][key]), f"{who} {when} {key}"
+        assert bool(res["conv"]) == (spec["cfg"].family in ("ssm", "hybrid")), who
+
+
+@pytest.mark.parametrize("name", NAIVE_GROUPS)
+def test_every_group_on_every_rank_changes_the_zamba2_logits(served, name):
+    """zamba2's 2 B/C groups: a rank handed all of them maps its local heads
+    to the wrong groups (as a naive port would), and the prefill's logits
+    move well past the tolerance the engine is held to."""
+    built, ranks = served
+    one = _single_device(built[name][0])
+    for rank, res in enumerate(r[name] for r in ranks):
+        want = np.asarray(one["prefill"])
+        scale = max(1.0, float(np.abs(want).max()))
+        moved = float(np.abs(np.asarray(res["naive_groups"]) - want).max())
+        assert moved > 1e2 * TOL_PORT * scale, (name, rank, moved)
